@@ -1,0 +1,158 @@
+"""Model configuration of the port (its own copy of repro.core.config).
+
+The fields, ``reduced()`` and the registry match the JAX package's, so a
+config built from ``dataclasses.asdict`` of a reference config is the
+same config here.  This slice registers the pure-attention archs it
+serves (``qwen3-8b``, ``llama-7b``); the model runs the ATTN mixer with
+a SwiGLU FFN only.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Dict, List, Tuple
+
+ATTN = "attn"          # causal self attention (GQA, optional qk_norm / window)
+XATTN = "xattn"
+RGLRU = "rglru"
+SSD = "ssd"
+ENC_ATTN = "enc_attn"
+DEC_XATTN = "dec_xattn"
+
+MIXER_KINDS = (ATTN, XATTN, RGLRU, SSD, ENC_ATTN, DEC_XATTN)
+
+FFN_MLP = "mlp"
+FFN_SWIGLU = "swiglu"
+FFN_MOE = "moe"
+FFN_NONE = "none"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                  # 0 -> d_model // num_heads
+    layer_pattern: Tuple[str, ...] = (ATTN,)
+    ffn_kind: str = FFN_SWIGLU
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    window: int = 0                    # 0 = full causal; >0 = sliding window
+    attn_logit_softcap: float = 0.0
+    num_experts: int = 0
+    top_k: int = 0
+    router_aux_loss: float = 0.0
+    moe_capacity: float = 2.0
+    rnn_width: int = 0
+    conv_width: int = 4
+    ssm_state: int = 0
+    ssd_head_dim: int = 64
+    ssd_expand: int = 2
+    ssd_chunk: int = 256
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    encoder_d_model: int = 0
+    frontend: str = "none"
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.rnn_width == 0:
+            object.__setattr__(self, "rnn_width", self.d_model)
+        if self.encoder_d_model == 0:
+            object.__setattr__(self, "encoder_d_model", self.d_model)
+        if self.ffn_kind not in (FFN_MLP, FFN_SWIGLU, FFN_MOE, FFN_NONE):
+            raise ValueError(f"unknown ffn_kind {self.ffn_kind!r}")
+        for k in self.layer_pattern:
+            if k not in MIXER_KINDS:
+                raise ValueError(f"unknown mixer kind {k!r}")
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        """Per-layer mixer kinds, length == num_layers."""
+        p = self.layer_pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def reduced(self, layers: int = 2, d_model: int = 256,
+                experts: int = 4, vocab: int = 512) -> "ModelConfig":
+        """Tiny same-family variant for CPU tests (the reference's rule:
+        heads capped at 4/4, so GQA needs an explicit num_kv_heads)."""
+        ratio = d_model / self.d_model
+        nh = max(2, min(self.num_heads, 4))
+        nkv = max(1, min(self.num_kv_heads, nh))
+        while nh % nkv:
+            nkv -= 1
+        layers = max(layers, len(self.layer_pattern))
+        kw: Dict = dict(
+            name=self.name + "-smoke",
+            num_layers=layers,
+            d_model=d_model,
+            num_heads=nh,
+            num_kv_heads=nkv,
+            head_dim=d_model // nh,
+            d_ff=max(64, int(self.d_ff * ratio)) if self.d_ff else 0,
+            vocab_size=vocab,
+            rnn_width=d_model,
+            window=min(self.window, 64) if self.window else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssd_head_dim=min(self.ssd_head_dim, 32),
+            ssd_chunk=16,
+            num_experts=min(self.num_experts, experts) if self.num_experts else 0,
+            top_k=min(self.top_k, min(self.num_experts, experts)) if self.top_k else 0,
+            moe_capacity=float(max(1, min(self.num_experts, experts))),
+            encoder_layers=min(self.encoder_layers, 2) if self.encoder_layers else 0,
+            encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
+            encoder_d_model=d_model if self.encoder_layers else 0,
+            dtype="float32",
+        )
+        return replace(self, **kw)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """This slice runs pure self-attention layers with a SwiGLU FFN."""
+    if any(k != ATTN for k in cfg.layer_pattern) \
+            or cfg.ffn_kind != FFN_SWIGLU or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: only ATTN layers with a SwiGLU FFN are ported so "
+            f"far (other mixers, MoE and enc-dec are queued in ROADMAP.md)")
+
+
+_ARCHS: Dict[str, ModelConfig] = {}
+_ARCH_MODULES = ["qwen3_8b", "llama_7b"]
+
+
+def register_arch(cfg: ModelConfig) -> ModelConfig:
+    _ARCHS[cfg.name] = cfg
+    return cfg
+
+
+def _ensure_loaded() -> None:
+    if _ARCHS:
+        return
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get_arch(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_ARCHS)}")
+    return _ARCHS[name]
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_ARCHS)

@@ -1,0 +1,638 @@
+"""The FastDecode heterogeneous runtime for the port (§4.1, Fig. 4-5;
+counterpart of repro.core.hetero).
+
+One S-worker (the caller's thread, on the device's current stream) owns
+all weights and computes the S-Part of every layer; ``num_r_workers``
+R-workers (threads) own the per-sequence KV of a contiguous slice of
+each micro-batch and compute the parameter-free R-Part near it.  Per
+layer and token step only activations cross: q, k, v out, o back.  Two
+or more micro-batches are in flight, so while the R-workers attend for
+micro-batch A the S-worker advances micro-batch B.
+
+The hot path is event-driven: every R-worker posts finished work to one
+shared :class:`CompletionSink` and the S-worker advances whichever
+micro-batch completes first (``schedule="ooo"``) or in issue order
+(``"fifo"``).  On the card each R-worker issues its work on a CUDA
+stream of its own.  A dispatch records an event on the S-stream after
+the payload is computed and the worker waits on it before touching the
+payload; the worker keeps the payload alive until its own stream has
+finished with it (it synchronises before posting), so memory made on
+the S-stream is never reused under a running R-Part.  Results travel
+device -> pinned host -> device through the sink: that round trip is the
+protocol of the design (R-workers may be remote), and its cost is
+measured rather than short-cut.
+
+Not in this slice (see ROADMAP.md): int8 storage, chunked prefill, the
+prefix cache, tiering, speculative decoding, fleet management, chaos
+supervision and observability.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from contextlib import nullcontext
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import decompose as D
+from repro_torch.core.config import ModelConfig, check_supported
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.serving import paged_cache as PC
+
+
+# ---------------------------------------------------------------------------
+# params / state layout helpers
+# ---------------------------------------------------------------------------
+def per_layer_params(params, cfg: ModelConfig) -> List[Tuple[str, Any]]:
+    """[(kind, layer_params)] in layer order (views of the stack)."""
+    return list(zip(cfg.pattern, M.per_layer(params, cfg)))
+
+
+def per_layer_state(state, cfg: ModelConfig) -> List[Any]:
+    return M.per_layer(state, cfg)
+
+
+def batch_slice(tree: Dict, lo: int, hi: int) -> Dict:
+    return {k: v[lo:hi] for k, v in tree.items()}
+
+
+def shard_rin(r_in: dict, slices) -> tuple:
+    """Per-worker ``r_in`` shards (row-slice views, no copies)."""
+    return tuple(batch_slice(r_in, lo, hi) for lo, hi in slices)
+
+
+def mask_rows(new: Dict, old: Dict, active) -> Dict:
+    """Row-gated state update: rows with active=False keep their old
+    value."""
+    return {k: torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
+                           n, old[k]) for k, n in new.items()}
+
+
+class CompletionSink:
+    """The single completion channel shared by the R-workers of one
+    engine.
+
+    A worker finishing ``(mb, layer, phase)`` copies its ``r_out`` shard
+    to host memory on its own thread, scatters it into a preallocated
+    per-(step parity, micro-batch, layer, phase) host buffer at its row
+    slice, and posts a small ``(wid, tag, err)`` token to one queue.  The
+    S-worker pops tokens in completion order; ``gather`` turns the
+    assembled buffer into one device tensor.  On the card the buffers
+    are pinned host memory.  They are double-buffered on step parity, and
+    ``epoch`` fences aborted steps: posts of an older epoch are dropped
+    before they touch a buffer.
+    """
+
+    def __init__(self, mb_size: int, device):
+        self.mb_size = int(mb_size)
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
+        self.q: "queue.Queue" = queue.Queue()
+        self.epoch = 0
+        self._lock = threading.Lock()
+        self._bufs: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+
+    def _buffer(self, key, host: Dict[str, torch.Tensor]):
+        # caller (post) holds self._lock; every key always carries the same
+        # payload layout in this slice (no chunked prefill)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = {k: torch.empty((self.mb_size,) + tuple(v.shape[1:]),
+                                  dtype=v.dtype, pin_memory=self.pin)
+                   for k, v in host.items()}
+            self._bufs[key] = buf
+        return buf
+
+    def post(self, wid: int, tag, host: Dict[str, torch.Tensor],
+             lo: int, hi: int) -> None:
+        epoch, parity, mb, li, phase = tag
+        # the epoch check and the buffer write are one critical section
+        # with fence(); only the small host memcpy is under the lock
+        with self._lock:
+            if epoch != self.epoch:
+                return                   # fenced-off straggler
+            buf = self._buffer((parity, mb, li, phase), host)
+            for k, v in host.items():
+                buf[k][lo:hi].copy_(v)
+        self.q.put((wid, tag, None))
+
+    def post_error(self, wid: int, tag, err: BaseException) -> None:
+        with self._lock:
+            if tag[0] != self.epoch:
+                return
+        self.q.put((wid, tag, err))
+
+    def gather(self, tag) -> Dict[str, torch.Tensor]:
+        """The assembled r_out of ``tag`` as device tensors (one copy per
+        leaf on the caller's stream).  The double-buffered host buffer is
+        not rewritten before this copy has run: it is reused two steps
+        later, after every R-worker has waited on work issued behind it."""
+        _, parity, mb, li, phase = tag
+        buf = self._bufs[(parity, mb, li, phase)]
+        return {k: v.to(self.device, non_blocking=True, copy=True)
+                for k, v in buf.items()}
+
+    def fence(self) -> None:
+        """Invalidate all in-flight work: bump the epoch and drain the
+        already-posted completions."""
+        with self._lock:
+            self.epoch += 1
+        while True:
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                return
+
+
+# ---------------------------------------------------------------------------
+# R-worker
+# ---------------------------------------------------------------------------
+class RWorker(threading.Thread):
+    """Owns the R-Part state of batch rows [lo, hi) of every micro-batch,
+    for every layer.
+
+    ``paged=True`` stores attention KV block-granular: per micro-batch one
+    host-side ``PagedAllocator`` (one block table for all the layers) and
+    one device page pool per layer.  ``num_pages`` sizes ONE pool; pools
+    are replicated per (attention layer, micro-batch).  Windowed attention
+    stays dense (its rotated ring cannot be expressed in derived
+    positions).
+    """
+
+    def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
+                 kv_chunk: int = 1024, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 max_pages_per_seq: Optional[int] = None, device=None):
+        super().__init__(daemon=True, name=f"r-worker-{wid}")
+        self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
+        self.kv_chunk = kv_chunk
+        self.paged = paged
+        self.page_size = page_size
+        self.max_pages_per_seq = max_pages_per_seq
+        self.num_pages = num_pages
+        self.device = torch.device("cpu" if device is None else device)
+        # the worker's own CUDA stream; None on the CPU
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._stage: Dict[Tuple, torch.Tensor] = {}   # pinned D2H staging
+        self._cache_len = 0                      # set at first state load
+        self.state: Dict[int, Any] = {}          # layer key -> r_state
+        self.paged_keys: set = set()             # layer keys stored paged
+        self.allocators: Dict[int, PC.PagedAllocator] = {}   # mb -> alloc
+        self._first_paged: Dict[int, Any] = {}   # mb -> min paged key
+        self.inq: "queue.Queue" = queue.Queue()
+        self.busy_time = 0.0
+
+    # -- paged storage helpers ----------------------------------------------
+    def _pageable(self, st) -> bool:
+        return (self.paged and self.cfg.window == 0 and isinstance(st, dict)
+                and "k" in st and "pos" in st)
+
+    def _alloc(self, mb: int) -> PC.PagedAllocator:
+        if mb not in self.allocators:
+            rows = self.hi - self.lo
+            mp = self.max_pages_per_seq or -(-self._cache_len
+                                             // self.page_size)
+            self.allocators[mb] = PC.PagedAllocator(
+                rows, self.num_pages or rows * mp, self.page_size, mp,
+                device=self.device)
+        return self.allocators[mb]
+
+    def _to_pages(self, layer: int, rows: np.ndarray, r_state_rows):
+        mb = layer // self.cfg.num_layers
+        alloc = self._alloc(mb)
+        if layer not in self.paged_keys:
+            hkv, dh = r_state_rows["k"].shape[2:]
+            self.state[layer] = PC.init_page_pool(
+                alloc.num_pages, self.page_size, hkv, dh,
+                dtype=r_state_rows["k"].dtype, device=self.device)
+            self.paged_keys.add(layer)
+            self._first_paged[mb] = None         # recompute lazily
+        self.state[layer] = PC.dense_rows_to_pages(
+            self.state[layer], alloc, rows, r_state_rows)
+
+    def release_rows(self, mb: int, rows) -> None:
+        """Return finished rows' pages to the pool (continuous batching)."""
+        alloc = self.allocators.get(mb)
+        if alloc is not None:
+            for r in rows:
+                alloc.release(int(r))
+
+    def paged_resident_bytes(self) -> float:
+        """Bytes of KV occupying allocated pool pages (all layers)."""
+        total = 0.0
+        for layer in self.paged_keys:
+            alloc = self.allocators[layer // self.cfg.num_layers]
+            total += (alloc.used_pages() * self.page_size
+                      * PC.page_pool_token_bytes(self.state[layer]))
+        return total
+
+    def pool_bytes(self) -> int:
+        """Device bytes of every page pool this worker holds (allocated
+        capacity, scratch pages included)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.paged_keys
+                   for t in self.state[layer].values())
+
+    # -- state loading (S-worker thread, between decode steps) ---------------
+    def load_state(self, layer: int, r_state_slice) -> None:
+        if self._pageable(r_state_slice):
+            self._cache_len = r_state_slice["k"].shape[1]
+            self._to_pages(layer, np.arange(r_state_slice["k"].shape[0]),
+                           r_state_slice)
+            return
+        self.state[layer] = {k: v.clone() for k, v in r_state_slice.items()}
+
+    def write_rows(self, layer: int, rows: np.ndarray, r_state_rows) -> None:
+        """Continuous batching: replace finished rows with fresh prefixes."""
+        if layer in self.paged_keys and self._pageable(r_state_rows):
+            self._to_pages(layer, rows, r_state_rows)
+            return
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        for k, v in r_state_rows.items():
+            self.state[layer][k][idx] = v
+
+    # -- the R-Part ------------------------------------------------------------
+    def _first_paged_key(self, mb: int) -> int:
+        if self._first_paged.get(mb) is None:
+            self._first_paged[mb] = min(
+                k for k in self.paged_keys
+                if k // self.cfg.num_layers == mb)
+        return self._first_paged[mb]
+
+    def _step_paged(self, layer: int, r_in):
+        """One paged decode append+attend.  All of a micro-batch's layers
+        share one allocator and equal lengths, so the table grow — and
+        with it the one device->host sync of the lengths — runs only on
+        the micro-batch's FIRST paged layer each step; the other layers
+        reuse the cached device table."""
+        mb = layer // self.cfg.num_layers
+        alloc = self.allocators[mb]
+        if layer == self._first_paged_key(mb):
+            act = r_in.get("active")
+            alloc.ensure_lengths(r_in["lengths"].cpu().numpy() + 1,
+                                 mask=None if act is None
+                                 else act.cpu().numpy())
+        return PC.r_attention_paged_tables(
+            r_in, self.state[layer], alloc.tables_device(),
+            window=self.cfg.window, softcap=self.cfg.attn_logit_softcap)
+
+    def _to_host(self, r_out: Dict[str, torch.Tensor]):
+        if self.stream is None:
+            return r_out
+        host = {}
+        for k, v in r_out.items():
+            key = (k, tuple(v.shape), v.dtype)
+            buf = self._stage.get(key)
+            if buf is None:
+                buf = self._stage[key] = torch.empty(
+                    v.shape, dtype=v.dtype, pin_memory=True)
+            buf.copy_(v, non_blocking=True)
+            host[k] = buf
+        # the payload (r_in, made on the S-stream) and every tensor of this
+        # item stay referenced until here, so no stream reuses them early
+        self.stream.synchronize()
+        return host
+
+    def run(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            item = self.inq.get()
+            if item is None:
+                return
+            self._run_one(item)
+
+    def _run_one(self, item) -> None:
+        tag, layer, kind, phase, r_in, sink, ready = item
+        try:
+            t0 = time.perf_counter()
+            ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+                   else nullcontext())
+            with ctx:
+                if ready is not None:
+                    self.stream.wait_event(ready)
+                if layer in self.paged_keys:
+                    r_out, new_state = self._step_paged(layer, r_in)
+                else:
+                    r_out, new_state = D.r_dispatch(
+                        kind, phase, r_in, self.state[layer], self.cfg,
+                        self.kv_chunk)
+                self.state[layer] = new_state
+                host = self._to_host(r_out)
+            self.busy_time += time.perf_counter() - t0
+            sink.post(self.wid, tag, host, self.lo, self.hi)
+        except Exception as e:  # surface to the S-worker, don't deadlock
+            sink.post_error(self.wid, tag, e)
+
+    def stop(self) -> None:
+        self.inq.put(None)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined engine
+# ---------------------------------------------------------------------------
+class HeteroPipelineEngine:
+    """S-worker + R-workers, ``num_microbatches`` in flight (Fig. 5b)."""
+
+    def __init__(self, params, cfg: ModelConfig, *, batch: int,
+                 cache_len: int, num_r_workers: int = 2,
+                 num_microbatches: int = 2, kv_chunk: int = 1024,
+                 paged_kv: bool = False, page_size: int = 16,
+                 pages_per_worker: Optional[int] = None,
+                 schedule: str = "ooo", collect_timeout_s: float = 600.0,
+                 device=None):
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {num_microbatches}")
+        if schedule not in ("ooo", "fifo"):
+            raise ValueError(
+                f"schedule must be 'ooo' (advance whichever micro-batch "
+                f"completes first) or 'fifo' (advance in issue order), "
+                f"got {schedule!r}")
+        if collect_timeout_s <= 0:
+            raise ValueError(
+                f"collect_timeout_s must be > 0, got {collect_timeout_s}")
+        if batch < 1 or cache_len < 1:
+            raise ValueError(
+                f"batch ({batch}) and cache_len ({cache_len}) must be >= 1")
+        if batch % num_microbatches != 0:
+            raise ValueError(
+                f"batch ({batch}) must be divisible by num_microbatches "
+                f"({num_microbatches}); round batch up to "
+                f"{-(-batch // num_microbatches) * num_microbatches} or "
+                f"change num_microbatches")
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.params, self.cfg = params, cfg
+        self.batch = batch
+        self.mb_size = batch // num_microbatches
+        self.num_mb = num_microbatches
+        self.cache_len = cache_len
+        self.paged_kv = paged_kv
+        self.page_size = page_size
+        self.layers = per_layer_params(params, cfg)
+        self.num_layers = cfg.num_layers
+        self.schedule = schedule
+        self.collect_timeout_s = float(collect_timeout_s)
+        if num_r_workers < 1:
+            raise ValueError(f"num_r_workers must be >= 1, got {num_r_workers}")
+        if num_r_workers > self.mb_size:
+            raise ValueError(
+                f"num_r_workers ({num_r_workers}) exceeds the micro-batch "
+                f"size ({self.mb_size} = batch {batch} / {num_microbatches} "
+                f"micro-batches) — every R-worker needs at least one row")
+        bounds = np.linspace(0, self.mb_size, num_r_workers + 1).astype(int)
+        self.slices = [(int(bounds[i]), int(bounds[i + 1]))
+                       for i in range(num_r_workers)]
+        self.workers = [
+            RWorker(w, cfg, lo, hi, kv_chunk=kv_chunk, paged=paged_kv,
+                    page_size=page_size, num_pages=pages_per_worker,
+                    max_pages_per_seq=-(-cache_len // page_size),
+                    device=self.device)
+            for w, (lo, hi) in enumerate(self.slices)]
+        for w in self.workers:
+            w.start()
+        # S-side per-layer state (empty for attention), per micro-batch
+        self.s_states: List[List[Any]] = [
+            [{} for _ in range(self.num_layers)] for _ in range(self.num_mb)]
+        self.mb_lengths = [torch.zeros((self.mb_size,), dtype=torch.int32,
+                                       device=self.device)
+                           for _ in range(self.num_mb)]
+        # inactive rows get no KV append and no length bump
+        self.mb_active = [torch.ones((self.mb_size,), dtype=torch.bool,
+                                     device=self.device)
+                          for _ in range(self.num_mb)]
+        self._sink = CompletionSink(self.mb_size, self.device)
+        self._parity = 0
+        self.step_stats: Dict[str, float] = {}
+        self.last_step_stats: Dict[str, float] = {}
+
+    def _lkey(self, mb: int, layer: int) -> int:
+        return mb * self.num_layers + layer
+
+    def set_row_length(self, row: int, length: int) -> None:
+        """Set a global batch row's decode position (admission)."""
+        mb, local = divmod(int(row), self.mb_size)
+        lens = self.mb_lengths[mb].clone()    # in-flight payloads keep
+        lens[local] = int(length)             # the old tensor
+        self.mb_lengths[mb] = lens
+
+    # -- S-side pieces ---------------------------------------------------------
+    def _ctx(self, lengths):
+        return M.Ctx(self.cfg, "decode", lengths[:, None], lengths)
+
+    def _start(self, mb: int, tokens):
+        """embed -> s_pre(0), emitting the per-worker r_in shards."""
+        kind, p = self.layers[0]
+        lengths, active = self.mb_lengths[mb], self.mb_active[mb]
+        h = self.params["embed"][tokens.long()]
+        po, new_s = D.s_pre_stateful(kind, p, h, self.s_states[mb][0],
+                                     self._ctx(lengths))
+        self.s_states[mb][0] = mask_rows(new_s, self.s_states[mb][0], active)
+        r_in = dict(po.r_in)
+        r_in["active"] = active
+        return po.carry, shard_rin(r_in, self.slices)
+
+    def _advance(self, mb: int, li: int, phase: int, carry, r_out):
+        """s_advance(li) fused with s_pre(li+1) (shards out), or with the
+        logits head after the last layer (logits out)."""
+        kind, p = self.layers[li]
+        lengths, active = self.mb_lengths[mb], self.mb_active[mb]
+        ctx = self._ctx(lengths)
+        h = D.s_advance(kind, phase, p, carry, r_out, ctx)
+        if li + 1 >= self.num_layers:
+            return None, M._logits(self.params, self.cfg, h)[:, 0]
+        kind2, p2 = self.layers[li + 1]
+        po, new_s = D.s_pre_stateful(kind2, p2, h, self.s_states[mb][li + 1],
+                                     ctx)
+        self.s_states[mb][li + 1] = mask_rows(
+            new_s, self.s_states[mb][li + 1], active)
+        r_in = dict(po.r_in)
+        r_in["active"] = active
+        return po.carry, shard_rin(r_in, self.slices)
+
+    # -- the pipelined decode step ----------------------------------------------
+    def decode_step(self, tokens_per_mb: Sequence[torch.Tensor]):
+        """One new token for every row of every micro-batch, event-driven:
+        advance whichever micro-batch's R-results land first (``"ooo"``) or
+        in issue order (``"fifo"``).  tokens_per_mb: list of [mb_size, 1]
+        int32.  Returns a list of logits [mb_size, vocab]."""
+        if len(tokens_per_mb) != self.num_mb:
+            raise ValueError(f"{len(tokens_per_mb)} token groups for "
+                             f"{self.num_mb} micro-batches")
+        pc = time.perf_counter
+        stats = {"dispatch_s": 0.0, "collect_s": 0.0, "s_dispatch_s": 0.0,
+                 "r_wait_s": 0.0, "ooo_advances": 0.0}
+        t_step0 = pc()
+        sink = self._sink
+        self._parity ^= 1
+        parity, epoch = self._parity, sink.epoch
+        cuda = self.device.type == "cuda"
+        pending: Dict[Tuple[int, int, int], set] = {}
+        issue_seq: Dict[Tuple[int, int, int], int] = {}
+        fifo: List[Tuple[int, int, int]] = []
+        ready: set = set()
+        carries: List[Any] = [None] * self.num_mb
+        logits_out: List[Any] = [None] * self.num_mb
+        emit_at = [0.0] * self.num_mb
+        active = self.num_mb
+
+        def dispatch(mb: int, li: int, phase: int, shards) -> None:
+            t0 = pc()
+            tag = (epoch, parity, mb, li, phase)
+            pending[(mb, li, phase)] = {w.wid for w in self.workers}
+            issue_seq[(mb, li, phase)] = len(issue_seq)
+            if self.schedule == "fifo":
+                fifo.append((mb, li, phase))
+            # the R-workers' streams wait for the payload's S-side work
+            ev = None
+            if cuda:
+                ev = torch.cuda.Event()
+                ev.record()
+            kind = self.layers[li][0]
+            lkey = self._lkey(mb, li)
+            for w, shard in zip(self.workers, shards):
+                w.inq.put((tag, lkey, kind, phase, shard, sink, ev))
+            stats["dispatch_s"] += pc() - t0
+
+        def advance(mb: int, li: int, phase: int) -> None:
+            nonlocal active
+            me = issue_seq[(mb, li, phase)]
+            if any(issue_seq[t] < me for t in pending):
+                stats["ooo_advances"] += 1.0
+            t0 = pc()
+            r_out = sink.gather((epoch, parity, mb, li, phase))
+            t1 = pc()
+            stats["collect_s"] += t1 - t0
+            carry, out = self._advance(mb, li, phase, carries[mb], r_out)
+            stats["s_dispatch_s"] += pc() - t1
+            if carry is None:
+                logits_out[mb] = out
+                emit_at[mb] = pc() - t_step0
+                active -= 1
+            else:
+                carries[mb] = carry
+                dispatch(mb, li + 1, 0, out)
+
+        for mb in range(self.num_mb):
+            t0 = pc()
+            carries[mb], shards = self._start(mb, tokens_per_mb[mb])
+            stats["s_dispatch_s"] += pc() - t0
+            dispatch(mb, 0, 0, shards)
+
+        try:
+            while active:
+                t0 = pc()
+                try:
+                    wid, tag, err = sink.q.get(timeout=self.collect_timeout_s)
+                except queue.Empty:
+                    raise TimeoutError(
+                        f"decode step timed out after "
+                        f"{self.collect_timeout_s:.1f}s waiting for R-worker "
+                        f"results; outstanding (micro-batch, layer, phase) -> "
+                        f"workers: {sorted((k, sorted(v)) for k, v in pending.items())}"
+                    ) from None
+                stats["r_wait_s"] += pc() - t0
+                t_epoch, t_parity, mb, li, phase = tag
+                if t_epoch != epoch or t_parity != parity:
+                    continue  # fenced-off straggler from an older step
+                if err is not None:
+                    raise RuntimeError(
+                        f"R-worker {wid} failed on micro-batch {mb}, layer "
+                        f"{li} ({self.layers[li][0]}), phase {phase}") from err
+                outstanding = pending.get((mb, li, phase))
+                if outstanding is None or wid not in outstanding:
+                    raise RuntimeError(
+                        f"R-worker {wid} posted an unexpected completion for "
+                        f"micro-batch {mb}, layer {li}, phase {phase}")
+                outstanding.discard(wid)
+                if outstanding:
+                    continue
+                del pending[(mb, li, phase)]
+                if self.schedule == "fifo":
+                    ready.add((mb, li, phase))
+                    while fifo and fifo[0] in ready:
+                        nxt = fifo.pop(0)
+                        ready.discard(nxt)
+                        advance(*nxt)
+                else:
+                    advance(mb, li, phase)
+        except BaseException:
+            # never let the next step consume this step's leftovers
+            sink.fence()
+            raise
+
+        for mb in range(self.num_mb):
+            # inactive rows did not append a token
+            self.mb_lengths[mb] = (self.mb_lengths[mb]
+                                   + self.mb_active[mb].to(torch.int32))
+        stats["step_s"] = pc() - t_step0
+        stats["emit_mean_s"] = sum(emit_at) / self.num_mb
+        self.last_step_stats = stats
+        for k, v in stats.items():
+            self.step_stats[k] = self.step_stats.get(k, 0.0) + v
+        self.step_stats["steps"] = self.step_stats.get("steps", 0.0) + 1.0
+        return logits_out
+
+    # -- bookkeeping -------------------------------------------------------------
+    def worker_busy_times(self) -> List[float]:
+        return [w.busy_time for w in self.workers]
+
+    def worker_for(self, row: int):
+        """Map a global batch row to (worker, micro-batch, local row
+        within the worker's slice)."""
+        mb, local = divmod(int(row), self.mb_size)
+        for w in self.workers:
+            if w.lo <= local < w.hi:
+                return w, mb, local - w.lo
+        raise IndexError(row)
+
+    def release_row(self, row: int) -> None:
+        """A finished sequence frees its KV pages on the owning R-worker
+        (dense slabs are overwritten at the next admission)."""
+        if not self.paged_kv:
+            return
+        w, mb, local = self.worker_for(row)
+        w.release_rows(mb, [local])
+
+    def paged_resident_bytes(self) -> float:
+        return sum(w.paged_resident_bytes() for w in self.workers)
+
+    def close(self) -> None:
+        for w in self.workers:
+            w.stop()
+        for w in self.workers:
+            w.join(timeout=30)
+        stuck = [w.wid for w in self.workers if w.is_alive()]
+        if stuck:
+            raise RuntimeError(f"R-worker(s) {stuck} did not exit within "
+                               f"30s of stop()")
+
+
+# ---------------------------------------------------------------------------
+# single-device colocated reference (the paper's vanilla baseline)
+# ---------------------------------------------------------------------------
+class ColocatedEngine:
+    """R-Part and S-Part both on the S-device — the vanilla baseline and
+    the correctness oracle of the pipelined engine."""
+
+    def __init__(self, params, cfg: ModelConfig, *, batch: int,
+                 cache_len: int, device=None):
+        if batch < 1 or cache_len < 1:
+            raise ValueError(
+                f"batch ({batch}) and cache_len ({cache_len}) must be >= 1")
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.params, self.cfg = params, cfg
+        self.cache_len = cache_len
+        self.state = M.init_decode_state(cfg, batch, cache_len, self.device)
+
+    def decode_step(self, tokens):
+        logits, self.state = M.decode_step(self.params, self.cfg,
+                                           self.state, tokens)
+        return logits

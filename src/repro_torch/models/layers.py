@@ -1,0 +1,148 @@
+"""Layer primitives of the port (PyTorch counterpart of repro.models.layers).
+
+The chunked flash attention here is the oracle every kernel's plain
+version reduces to (``repro_torch.kernels.ref``), exactly as in the JAX
+package.  Layouts are the JAX package's:
+
+  activations  [B, S, D]
+  q            [B, S, Hq, Dh]
+  k/v          [B, S, Hkv, Dh]
+  kv positions are ABSOLUTE token positions; -1 marks an invalid slot.
+  Keys are stored rope-rotated.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """fp32 RMSNorm with a ``(1 + scale)`` gain (scales are zero-init),
+    cast back to x's dtype."""
+    x32 = x.to(F32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """RoPE over INTERLEAVED pairs (x[..., 0::2] against x[..., 1::2]), as
+    the JAX package does — not the half-split ``rotate_half`` form.
+    x [..., S, H, D], positions [..., S]."""
+    d = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=F32,
+                                        device=x.device) / d))
+    ang = positions.to(F32)[..., None] * inv            # [..., S, D/2]
+    ang = ang[..., None, :]                             # [..., S, 1, D/2]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., 0::2].to(F32), x[..., 1::2].to(F32)
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _mask(qpos, kpos, *, causal, window, sink):
+    """qpos [B,Sq], kpos [B,Sk] -> bool [B,Sq,Sk] (True = attend)."""
+    q = qpos[:, :, None]
+    k = kpos[:, None, :]
+    m = k >= 0
+    if causal:
+        m = m & (k <= q)
+    if window > 0:
+        in_win = k > q - window
+        if sink > 0:
+            in_win = in_win | (k < sink)
+        m = m & in_win
+    return m
+
+
+def _flash_chunk_scan(q, qpos, k, v, kpos, *, causal, window, sink, softcap,
+                      scale, kv_chunk):
+    """Online-softmax attention of one q block against all kv chunks.
+    q [B,Sq,Hkv,G,Dh] (grouped), k/v [B,Sk,Hkv,Dh]; fp32 accumulation.
+    Returns [B,Sq,Hkv,G,Dh] fp32."""
+    b, sq, hkv, g, dh = q.shape
+    sk = k.shape[1]
+    nkc = max(1, -(-sk // kv_chunk))
+    q32 = q.to(F32) * scale
+    m_i = torch.full((b, hkv, g, sq), NEG_INF, dtype=F32, device=q.device)
+    l_i = torch.zeros((b, hkv, g, sq), dtype=F32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dh), dtype=F32, device=q.device)
+    for c in range(nkc):
+        # a ragged last chunk is simply shorter: the JAX scan pads it with
+        # kpos = -1, which contributes nothing to the softmax
+        sl = slice(c * kv_chunk, min(sk, (c + 1) * kv_chunk))
+        kj, vj, pj = k[:, sl].to(F32), v[:, sl].to(F32), kpos[:, sl]
+        s = torch.einsum("bqhgd,bshd->bhgqs", q32, kj)
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        msk = _mask(qpos, pj, causal=causal, window=window, sink=sink)
+        s = torch.where(msk[:, None, None, :, :], s,
+                        torch.tensor(NEG_INF, dtype=F32, device=s.device))
+        m_new = torch.maximum(m_i, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_i - m_new)
+        l_i = l_i * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqs,bshd->bhgqd", p, vj)
+        m_i = m_new
+    out = acc / torch.clamp(l_i, min=1e-30)[..., None]
+    # rows with no valid key at all -> zeros
+    out = torch.where((m_i > NEG_INF / 2)[..., None], out,
+                      torch.zeros((), dtype=F32, device=out.device))
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def flash_attention(q, k, v, qpos, kpos, *, causal=True, window=0, sink=0,
+                    softcap=0.0, q_chunk=1024, kv_chunk=1024):
+    """Memory-efficient attention.
+
+    q [B,Sq,Hq,Dh]; k,v [B,Sk,Hkv,Dh]; qpos [B,Sq]; kpos [B,Sk] (-1 invalid).
+    Returns [B,Sq,Hq,Dh] in q.dtype; only (q_chunk, kv_chunk) score blocks
+    are ever materialized."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"num heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, sq, hkv, g, dh)
+    outs = []
+    for lo in range(0, sq, q_chunk):
+        hi = min(sq, lo + q_chunk)
+        outs.append(_flash_chunk_scan(
+            qg[:, lo:hi], qpos[:, lo:hi], k, v, kpos, causal=causal,
+            window=window, sink=sink, softcap=softcap, scale=scale,
+            kv_chunk=kv_chunk))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def naive_attention(q, k, v, qpos, kpos, *, causal=True, window=0, sink=0,
+                    softcap=0.0):
+    """O(Sq*Sk)-memory reference used only in tests."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh).to(F32) / math.sqrt(dh)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.to(F32))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    msk = _mask(qpos, kpos, causal=causal, window=window, sink=sink)
+    s = torch.where(msk[:, None, None, :, :], s,
+                    torch.tensor(NEG_INF, dtype=F32, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(msk[:, None, None, :, :].any(dim=-1, keepdim=True), p,
+                    torch.zeros((), dtype=F32, device=p.device))
+    o = torch.einsum("bhgqs,bshd->bqhgd", p, v.to(F32))
+    return o.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def swiglu(p, x):
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    return (F.silu(g.to(F32)).to(x.dtype) * u) @ p["w_down"]

@@ -1,0 +1,286 @@
+"""The port's model: the ATTN + SwiGLU decoder of repro.models.model.
+
+Public entry points (same layout and semantics as the JAX package):
+
+    init_params(cfg, generator, device)
+    init_decode_state(cfg, batch, cache_len, device)
+    prefill(params, cfg, tokens, prompt_lens, cache_len) -> (last_logits, state)
+    decode_step(params, cfg, state, tokens) -> (logits, state)
+    scatter_rows(state, sub, rows, sub_rows)
+
+Params are a plain dict mirroring the JAX pytree: ``embed``,
+``final_norm``, ``lm_head``, ``stack`` ({"s0": {name: [L, ...]}}) and
+``rem``.  Layers run as a Python loop over the stacked leaves.  Decode
+state lives in preallocated KV slabs that ``prefill``, ``decode_step``
+and ``scatter_rows`` update IN PLACE (the returned state is the same
+tensors), which keeps one copy of the cache instead of one per step.
+
+This is the port's colocated oracle; the S-/R-Part split of each block
+lives in ``repro_torch.core.decompose``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.core.config import ATTN, ModelConfig, check_supported
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+
+
+class Ctx(NamedTuple):
+    cfg: ModelConfig
+    mode: str                    # prefill | decode
+    qpos: torch.Tensor           # [B, Sq] absolute positions of the q tokens
+    lengths: torch.Tensor        # [B] current sequence lengths
+    kv_chunk: int = 1024
+    q_chunk: int = 1024
+
+
+def _is_norm(name: str) -> bool:
+    return name.startswith("ln") or name.endswith("norm")
+
+
+def _block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    shapes = {"ln1": (d,), "wq": (d, hq * hd), "wk": (d, hkv * hd),
+              "wv": (d, hkv * hd), "wo": (hq * hd, d)}
+    if cfg.qk_norm:
+        shapes["q_norm"] = (hd,)
+        shapes["k_norm"] = (hd,)
+    shapes["ln2"] = (d,)
+    shapes.update({"ffn_w_gate": (d, f), "ffn_w_up": (d, f),
+                   "ffn_w_down": (f, d)})
+    return shapes
+
+
+def _normal(gen, shape, scale, dtype, device):
+    x = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random weights with the JAX package's shapes and scales (0.02, and
+    0.02/sqrt(2L) for the output projections) and zero-init norms.  The
+    numbers are torch's, not jax.random's: tests that compare the two
+    packages carry JAX's weights across with ``repro_torch.bridge``.
+    Draws on ``generator``'s device, then moves to ``device``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
+    depth_scale = 0.02 / math.sqrt(2.0 * cfg.num_layers)
+
+    def block(stack_n):
+        out = {}
+        for name, shp in _block_param_shapes(cfg).items():
+            full = ((stack_n,) if stack_n else ()) + shp
+            if _is_norm(name):
+                out[name] = torch.zeros(full, dtype=F32, device=device)
+            else:
+                scale = depth_scale if name in ("wo", "ffn_w_down") else 0.02
+                out[name] = _normal(generator, full, scale, dtype, device)
+        return out
+
+    params: Dict[str, Any] = {
+        "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), 0.02,
+                         dtype, device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=F32, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
+                                    0.02, dtype, device)
+    params["stack"] = {"s0": block(n_full)}
+    params["rem"] = [block(0) for _ in range(rem)]
+    return params
+
+
+def _block_state(cfg: ModelConfig, batch: int, cache_len: int, device):
+    c = min(cache_len, cfg.window) if cfg.window else cache_len
+    hkv, hd, dtype = cfg.num_kv_heads, cfg.head_dim, torch_dtype(cfg.dtype)
+    return {"k": torch.zeros((batch, c, hkv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, c, hkv, hd), dtype=dtype, device=device),
+            "pos": torch.full((batch, c), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      device=None):
+    check_supported(cfg)
+    device = resolve_device(device)
+    n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
+    one = _block_state(cfg, batch, cache_len, device)
+    return {
+        "stack": {"s0": {k: v[None].repeat((n_full,) + (1,) * v.dim())
+                         for k, v in one.items()}},
+        "rem": [_block_state(cfg, batch, cache_len, device)
+                for _ in range(rem)],
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# attention sub-blocks
+# ---------------------------------------------------------------------------
+def _qkv_proj(p, x, cfg: ModelConfig):
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _self_attention(p, x, st, ctx: Ctx):
+    """Self-attention block body (no residual/norm).  Prefill: x is the
+    whole (right-padded) prompt and the last min(S, cache) tokens land in
+    the ring cache.  Decode: x is one token, appended at ``lengths``.
+    ``st`` is updated in place and returned."""
+    cfg = ctx.cfg
+    q, k, v = _qkv_proj(p, x, cfg)
+    win = cfg.window
+    q = L.rope(q, ctx.qpos, cfg.rope_theta)
+    k = L.rope(k, ctx.qpos, cfg.rope_theta)        # keys stored rotated
+    b, s = x.shape[:2]
+    if ctx.mode == "prefill":
+        cache_n = st["k"].shape[1]
+        idx = torch.arange(s, device=x.device)[None, :]
+        kpos = torch.where(idx < ctx.lengths[:, None], ctx.qpos,
+                           torch.full((), -1, dtype=ctx.qpos.dtype,
+                                      device=x.device)).to(torch.int32)
+        out = L.flash_attention(q, k, v, ctx.qpos, kpos, causal=True,
+                                window=win, softcap=cfg.attn_logit_softcap,
+                                q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
+        m = min(s, cache_n)
+        slots = torch.arange(s - m, s, device=x.device) % cache_n
+        st["k"][:, slots] = k[:, s - m:]
+        st["v"][:, slots] = v[:, s - m:]
+        st["pos"][:, slots] = kpos[:, s - m:]
+    elif ctx.mode == "decode":
+        cache_n = st["k"].shape[1]
+        slot = (ctx.lengths % cache_n).long()
+        bidx = torch.arange(b, device=x.device)
+        st["k"][bidx, slot] = k[:, 0]
+        st["v"][bidx, slot] = v[:, 0]
+        st["pos"][bidx, slot] = ctx.lengths.to(torch.int32)
+        out = L.flash_attention(q, st["k"], st["v"], ctx.qpos, st["pos"],
+                                causal=True, window=win,
+                                softcap=cfg.attn_logit_softcap,
+                                kv_chunk=max(cache_n, 1))
+    else:
+        raise NotImplementedError(
+            f"attention mode {ctx.mode!r} is not ported yet (chunked "
+            f"prefill and training are queued in ROADMAP.md)")
+    out = out.reshape(b, s, -1) @ p["wo"]
+    return out, st
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    fp = {k[4:]: v for k, v in p.items() if k.startswith("ffn_")}
+    return L.swiglu(fp, x)
+
+
+def apply_block(kind: str, p, h, st, ctx: Ctx):
+    """Returns (h, st)."""
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    cfg = ctx.cfg
+    hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    mix, st = _self_attention(p, hn, st, ctx)
+    h = h + mix
+    hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + _ffn(p, hn, cfg), st
+
+
+def per_layer(tree, cfg: ModelConfig):
+    """A stacked params or state tree as one entry per layer, in layer
+    order; stacked leaves are indexed (views), so in-place state updates
+    land in ``tree``."""
+    pattern = cfg.layer_pattern
+    period = len(pattern)
+    n_full = cfg.num_layers // period
+    out = []
+    for li in range(cfg.num_layers):
+        per, slot = divmod(li, period)
+        if per < n_full:
+            out.append({k: v[per]
+                        for k, v in tree["stack"][f"s{slot}"].items()})
+        else:
+            out.append(tree["rem"][li - n_full * period])
+    return out
+
+
+def _run_layers(params, h, state, ctx: Ctx):
+    cfg = ctx.cfg
+    for kind, p, st in zip(cfg.pattern, per_layer(params, cfg),
+                           per_layer(state, cfg)):
+        h, _ = apply_block(kind, p, h, st, ctx)
+    return h, state
+
+
+def _embed(params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def _logits(params, cfg: ModelConfig, h):
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    tab = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return (h @ tab).to(F32)
+
+
+def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
+            q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Process right-padded prompts tokens [B,Sp] with prompt_lens [B].
+    Returns (logits at each prompt's last token [B,V], state)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    state = init_decode_state(cfg, b, cache_len, dev)
+    prompt_lens = prompt_lens.to(torch.int32)
+    state["lengths"] = prompt_lens.clone()
+    h = _embed(params, tokens)
+    qpos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    ctx = Ctx(cfg, "prefill", qpos, prompt_lens, kv_chunk, q_chunk)
+    h, state = _run_layers(params, h, state, ctx)
+    # the lm head runs on each prompt's last position only: the JAX
+    # package builds [B, S, V] logits and then picks the same rows, which
+    # gives the same numbers (the head is per position) at 0.6 MB per
+    # prompt token less at V = 151,936
+    last = torch.clamp(prompt_lens.long() - 1, 0, s - 1)
+    h_last = h[torch.arange(b, device=dev), last][:, None]
+    return _logits(params, cfg, h_last)[:, 0], state
+
+
+def scatter_rows(state, sub, rows, sub_rows):
+    """Continuous batching: copy batch rows ``sub_rows`` of ``sub`` into
+    rows ``rows`` of ``state``, in place (stack leaves carry a leading
+    layer dim)."""
+    dev = state["lengths"].device
+    rows = torch.as_tensor(rows, dtype=torch.long, device=dev)
+    sub_rows = torch.as_tensor(sub_rows, dtype=torch.long, device=dev)
+    for c, n in zip(state["stack"]["s0"].values(),
+                    sub["stack"]["s0"].values()):
+        c[:, rows] = n[:, sub_rows]
+    for cs, ns in zip(state["rem"], sub["rem"]):
+        for k in cs:
+            cs[k][rows] = ns[k][sub_rows]
+    state["lengths"][rows] = sub["lengths"][sub_rows]
+    return state
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens, kv_chunk=1024):
+    """One token per sequence.  tokens [B,1] -> (logits [B,V], state)."""
+    h = _embed(params, tokens)
+    lengths = state["lengths"]
+    ctx = Ctx(cfg, "decode", lengths[:, None], lengths, kv_chunk, 1)
+    h, state = _run_layers(params, h, state, ctx)
+    logits = _logits(params, cfg, h)[:, 0]
+    state["lengths"] = lengths + 1
+    return logits, state

@@ -1,0 +1,260 @@
+"""Paged KV storage for the port's R-workers (counterpart of
+repro.serving.paged_cache, without the prefix index and the host tier).
+
+* ``PagedAllocator`` — HOST-side block-table state for one worker's rows
+  of one micro-batch, shared by every attention layer (a sequence's
+  layers always have equal lengths); each layer owns its own page pool,
+  addressed by the shared page ids.
+* device page pools (``init_page_pool``), the decode append
+  (``write_token_paged``) and the admission-time conversion of dense
+  prefill rows into pages (``dense_rows_to_pages``).
+* ``r_attention_paged_tables`` — the parameter-free R-Part op over
+  (pool, tables), through the paged flash-decode kernel.
+
+Layout (shared with kernels/paged_attention.py):
+
+    pool pages  [num_pages + 1, page, Hkv, Dh]   (one pool per attn layer)
+    tables      [rows, max_pages_per_seq] int32   page ids, -1 unmapped
+    lengths     [rows]                            current token count
+
+Pages of a row form a contiguous table prefix and slot k backs absolute
+positions [k*page, (k+1)*page), so positions are derived, not stored.
+
+The one difference from the JAX layout: every pool carries ONE EXTRA
+SCRATCH PAGE at index ``num_pages`` that no table ever maps.  The JAX
+package drops the writes of unmapped rows (released slots still being
+stepped) through an out-of-range index with ``mode="drop"``; torch's
+``index_put_`` has no drop mode — an out-of-range id raises, and a
+clamped id would write into a live page — and filtering the rows on the
+host would cost a device sync per layer.  So dropped writes land on the
+scratch page, which no reader ever sees.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+
+class PagedAllocator:
+    """Host-side block-table allocator for one worker's rows of one
+    micro-batch, shared across that worker's attention layers."""
+
+    def __init__(self, rows: int, num_pages: int, page: int,
+                 max_pages_per_seq: int, device=None):
+        self.rows, self.num_pages, self.page = rows, num_pages, page
+        self.max_pages = max_pages_per_seq
+        self.device = torch.device("cpu" if device is None else device)
+        self.tables = np.full((rows, max_pages_per_seq), -1, np.int32)
+        self.lengths = np.zeros((rows,), np.int64)
+        self.active = np.zeros((rows,), bool)
+        # a row whose decode-time grow once failed is frozen: regrowing
+        # later would map pages over positions whose writes were dropped,
+        # exposing stale KV inside the (pos <= qpos) valid mask
+        self.frozen = np.zeros((rows,), bool)
+        self.free: List[int] = list(range(num_pages))
+        self._dev_tables: Optional[torch.Tensor] = None   # upload cache
+
+    def _take_page(self) -> int:
+        if self.free:
+            return self.free.pop()
+        raise MemoryError("paged KV pool exhausted")
+
+    def _ensure_row(self, row: int, new_len: int) -> bool:
+        need = -(-new_len // self.page)
+        if need > self.max_pages:
+            raise ValueError(
+                f"sequence needs {need} pages > max_pages_per_seq="
+                f"{self.max_pages}")
+        have = int((self.tables[row] >= 0).sum())
+        if need > have:
+            self._dev_tables = None     # before mutating: a mid-loop
+        for slot in range(have, need):  # MemoryError must not leave a
+            self.tables[row, slot] = self._take_page()   # stale table
+        return need > have
+
+    def admit(self, row: int, length: int) -> bool:
+        """Make ``row`` resident with exactly ceil(length/page) pages; a
+        no-op if it already is at that length."""
+        if self.active[row] and self.lengths[row] == length:
+            return False
+        self.release(row)
+        if length > 0:
+            try:
+                self._ensure_row(row, length)
+            except MemoryError:
+                self.release(row)   # don't strand partially grabbed pages
+                raise
+            self.active[row] = True
+            self.lengths[row] = length
+        return True
+
+    def release(self, row: int) -> None:
+        ids = self.tables[row][self.tables[row] >= 0]
+        if len(ids):
+            self._dev_tables = None
+        self.free.extend(int(i) for i in ids)
+        self.tables[row] = -1
+        self.active[row] = False
+        self.frozen[row] = False
+        self.lengths[row] = 0
+
+    def ensure_lengths(self, new_lengths: np.ndarray,
+                       mask: Optional[np.ndarray] = None) -> bool:
+        """Grow active rows to hold ``new_lengths`` tokens, right before a
+        decode append; released rows stay table-less.  ``mask`` limits the
+        update to rows the engine is decoding.  Growth is clamped to the
+        per-sequence capacity and a pool-exhausted grow freezes the row
+        (its further writes are dropped) instead of failing the step;
+        admission bounds make neither reachable under admitted load."""
+        cap = self.max_pages * self.page
+        changed = False
+        rows = self.active & ~self.frozen
+        if mask is not None:
+            rows = rows & np.asarray(mask, bool)
+        for row in np.nonzero(rows)[0]:
+            try:
+                changed |= self._ensure_row(int(row),
+                                            min(int(new_lengths[row]), cap))
+            except MemoryError:
+                self.frozen[row] = True
+            self.lengths[row] = int(new_lengths[row])
+        return changed
+
+    def used_pages(self) -> int:
+        return self.num_pages - len(self.free)
+
+    def available_pages(self) -> int:
+        return len(self.free)
+
+    def mapped_pages(self, row: int) -> int:
+        return int((self.tables[row] >= 0).sum())
+
+    def tables_device(self) -> torch.Tensor:
+        """Device copy of the block table, re-uploaded only after a
+        host-side mutation (a row grows a page every ``page`` steps, not
+        every layer of every step)."""
+        if self._dev_tables is None:
+            self._dev_tables = torch.from_numpy(self.tables.copy()).to(
+                self.device)
+        return self._dev_tables
+
+
+# ---------------------------------------------------------------------------
+# device-side page pools (one per attention layer per worker)
+# ---------------------------------------------------------------------------
+def init_page_pool(num_pages: int, page: int, hkv: int, dh: int,
+                   dtype=torch.float32, device=None) -> Dict:
+    """{k, v} of ``num_pages`` pages plus the scratch page (see the module
+    docstring)."""
+    shape = (num_pages + 1, page, hkv, dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pool_pages(pool: Dict) -> int:
+    """Allocatable pages of a pool (the scratch page excluded)."""
+    return pool["k"].shape[0] - 1
+
+
+def page_pool_token_bytes(pool: Dict) -> float:
+    """Bytes one token-slot occupies in the pool (all arrays)."""
+    per_page = sum(v[0].numel() * v.element_size() for v in pool.values())
+    return per_page / pool["k"].shape[1]
+
+
+def write_token_paged(pool: Dict, tables, lengths, k_new, v_new,
+                      active=None) -> Dict:
+    """Append one token per row at position ``lengths[row]``, IN PLACE.
+    Rows whose target slot is unmapped (released but still stepped), past
+    the table, or with ``active`` False write to the scratch page instead.
+    k_new/v_new [B, Hkv, Dh]."""
+    scratch = pool_pages(pool)
+    page = pool["k"].shape[1]
+    mp = tables.shape[1]
+    lengths = lengths.long()
+    slot = lengths % page
+    pidx = lengths // page
+    ids = torch.gather(tables, 1, torch.clamp(pidx, max=mp - 1)[:, None]
+                       )[:, 0].long()
+    ok = (ids >= 0) & (pidx < mp)
+    if active is not None:
+        ok = ok & active
+    ids = torch.where(ok, ids, torch.full_like(ids, scratch))
+    pool["k"][ids, slot] = k_new.to(pool["k"].dtype)
+    pool["v"][ids, slot] = v_new.to(pool["v"].dtype)
+    return pool
+
+
+def _scatter_pages(pool: Dict, ids: torch.Tensor, k_pages, v_pages) -> Dict:
+    """One in-place scatter per pool array: ids [N]; k/v_pages
+    [N, page, Hkv, Dh] (page-chunked, zero-padded tails)."""
+    pool["k"][ids] = k_pages.to(pool["k"].dtype)
+    pool["v"][ids] = v_pages.to(pool["v"].dtype)
+    return pool
+
+
+def _to_page_chunks(x, page: int):
+    """[S, ...] -> [ceil(S/page), page, ...] with a zero-padded tail."""
+    s = x.shape[0]
+    n = -(-s // page)
+    pad = n * page - s
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.reshape(n, page, *x.shape[1:])
+
+
+def dense_rows_to_pages(pool: Dict, alloc: PagedAllocator,
+                        rows: np.ndarray, r_state_rows: Dict) -> Dict:
+    """Admit dense attention-state rows {k, v, pos} (the prefill payload)
+    into allocated pages.  The dense slab's first L slots hold tokens
+    0..L-1 in order; L comes from the stored positions.  All rows go into
+    ONE scatter per pool array."""
+    from repro_torch.core.decompose import attn_state_lengths
+    lens = attn_state_lengths(r_state_rows).cpu().numpy()
+    pos_max = r_state_rows["pos"].amax(dim=1).cpu().numpy()
+    page = pool["k"].shape[1]
+    ids_all, k_chunks, v_chunks = [], [], []
+    for i, row in enumerate(rows):
+        length = int(lens[i])
+        if length and int(pos_max[i]) + 1 != length:
+            raise ValueError(
+                "paged conversion requires an unrotated dense prefix "
+                "(slot i == token i); rotated ring payloads (windowed "
+                "attention, prompt > cache_len) must stay dense")
+        alloc.admit(int(row), length)
+        if length:
+            n = -(-length // page)
+            ids_all.append(alloc.tables[int(row), :n])
+            k_chunks.append(_to_page_chunks(r_state_rows["k"][i, :length],
+                                            page))
+            v_chunks.append(_to_page_chunks(r_state_rows["v"][i, :length],
+                                            page))
+    if not ids_all:
+        return pool
+    ids = torch.from_numpy(np.concatenate(ids_all).astype(np.int64)).to(
+        pool["k"].device)
+    return _scatter_pages(pool, ids, torch.cat(k_chunks), torch.cat(v_chunks))
+
+
+# ---------------------------------------------------------------------------
+# the parameter-free R-Part op over (pool, tables)
+# ---------------------------------------------------------------------------
+def r_attention_paged_tables(r_in: Dict, pool: Dict, tables, *,
+                             window: int = 0, softcap: float = 0.0,
+                             use_kernel: str = "auto"):
+    """Drop-in for decompose.r_attention with block-table storage: append
+    the new (k, v) at ``lengths`` (in place), then attend through the
+    paged flash-decode kernel.  r_in: q/k/v [B,1,...], lengths [B];
+    returns ({"o": [B,1,Hq,Dh]}, pool)."""
+    lengths = r_in["lengths"]
+    pool = write_token_paged(pool, tables, lengths, r_in["k"][:, 0],
+                             r_in["v"][:, 0], active=r_in.get("active"))
+    o = ops.paged_decode_attention(
+        r_in["q"][:, 0].contiguous(), pool["k"], pool["v"], tables,
+        lengths.to(torch.int32).contiguous(), window=window,
+        softcap=softcap, use_kernel=use_kernel)
+    return {"o": o[:, None]}, pool

@@ -1,0 +1,72 @@
+"""Request lifecycle for the port's serving engine (counterpart of
+repro.serving.request)."""
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.serving.sampler import is_stop_token
+
+
+class Status(enum.Enum):
+    QUEUED = "queued"
+    PREFILLING = "prefilling"    # chunked prefill (not ported yet)
+    RUNNING = "running"
+    DONE = "done"
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                       # [S_p] int32
+    max_new_tokens: int
+    eos_token: Optional[int] = None
+    stop_tokens: Optional[Sequence[int]] = None
+    temperature: float = 0.0                 # 0 = greedy (the only mode)
+    top_k: int = 0
+    top_p: float = 0.0
+    status: Status = Status.QUEUED
+    generated: List[int] = field(default_factory=list)
+    finish_reason: Optional[str] = None      # "stop" | "length"
+    arrive_step: int = 0
+    start_step: int = -1
+    finish_step: int = -1
+    slot: int = -1
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def target_len(self) -> int:
+        return self.prompt_len + self.max_new_tokens
+
+    @property
+    def feed_tokens(self) -> np.ndarray:
+        """The token history a prefill must feed: the prompt plus
+        everything generated so far."""
+        if not self.generated:
+            return np.asarray(self.prompt, np.int32)
+        return np.concatenate([np.asarray(self.prompt, np.int32),
+                               np.asarray(self.generated, np.int32)])
+
+    @property
+    def feed_len(self) -> int:
+        return self.prompt_len + len(self.generated)
+
+    def finish_reason_for(self, last_token: int) -> Optional[str]:
+        """The single reason ``last_token`` (already appended) ends this
+        request, or None; a stop token on the final allowed step reports
+        "stop", not "length"."""
+        if is_stop_token(last_token, self.eos_token,
+                         self.stop_tokens or ()):
+            return "stop"
+        if len(self.generated) >= self.max_new_tokens:
+            return "length"
+        return None
+
+    def is_finished(self, last_token: int) -> bool:
+        return self.finish_reason_for(last_token) is not None

@@ -1,0 +1,205 @@
+"""The port's ServingEngine against the JAX oracle
+``conftest.serve_trace`` on the same weights and the same trace: the
+greedy {rid: tokens} must be equal (hetero paged, hetero dense and
+colocated; OoO and FIFO), the paged R-Part must run on every paged layer
+of every step (counted), and admission must behave like the reference's."""
+import dataclasses
+import sys
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_spec, serve_trace, tiny_cfg
+from repro.models import model as JM
+from repro.serving.engine import ServingEngine as JServingEngine
+from repro.serving.request import Request as JRequest
+from repro_torch import bridge
+from repro_torch.core.config import ModelConfig
+from repro_torch.kernels import paged_attention as TPA
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.request import Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run fastest on one intra-op thread, and the suite's
+    other workers (timing-sensitive chaos tests among them) keep the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def serve_trace_torch(params, cfg, spec, batch=4, cache_len=48,
+                      max_steps=400, **kw):
+    """The port's twin of conftest.serve_trace; returns ({rid: tokens},
+    decode steps run)."""
+    eng = ServingEngine(params, cfg, batch=batch, cache_len=cache_len,
+                        device="cpu", **kw)
+    try:
+        qi = 0
+        order = sorted(range(len(spec)), key=lambda i: spec[i][2])
+        while (qi < len(order) or eng.queue
+               or any(s is not None for s in eng.slots)) \
+                and eng.step_idx < max_steps:
+            while qi < len(order) and spec[order[qi]][2] <= eng.step_idx:
+                i = order[qi]
+                eng.submit(Request(rid=i, prompt=spec[i][0],
+                                   max_new_tokens=spec[i][1]))
+                qi += 1
+            eng.step()
+        return {r.rid: list(r.generated) for r in eng.finished}, eng.step_idx
+    finally:
+        eng.close()
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jc = dataclasses.replace(tiny_cfg("qwen3-8b"), num_kv_heads=2)
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    jp = JM.init_params(jax.random.PRNGKey(0), jc)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    spec = random_spec(np.random.default_rng(1), jc, 8)
+    return jc, tc, jp, tp, spec, serve_trace(jp, jc, spec)
+
+
+PORT_KW = {
+    "hetero-paged-ooo": dict(backend="hetero", paged_kv=True, page_size=4),
+    "hetero-paged-fifo": dict(backend="hetero", paged_kv=True, page_size=4,
+                              schedule="fifo"),
+    "hetero-dense": dict(backend="hetero"),
+    "colocated": dict(backend="colocated"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PORT_KW))
+def test_port_serving_matches_jax_oracle(setup, mode):
+    jc, tc, jp, tp, spec, want = setup
+    kw = PORT_KW[mode]
+    TPA.plain_calls.reset()
+    got, steps = serve_trace_torch(tp, tc, spec, **kw)
+    assert got == want
+    paged = kw.get("paged_kv", False)
+    # counted proof of the path: the paged R-Part ran on every paged
+    # layer of every step, for both micro-batches and both R-workers
+    n = tc.num_layers * 2 * 2 * steps if paged else 0
+    assert TPA.plain_calls.value == n
+
+
+@pytest.mark.parametrize("schedule", ["ooo", "fifo"])
+def test_port_hetero_equals_port_colocated(schedule):
+    cfg = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
+    params = bridge.params_from_numpy(
+        jax.tree.map(np.asarray,
+                     JM.init_params(jax.random.PRNGKey(2),
+                                    tiny_cfg("llama-7b"))), cfg, "cpu")
+    spec = random_spec(np.random.default_rng(3), cfg, 10, p_hi=20,
+                       max_new=7, spread=6)
+    col, _ = serve_trace_torch(params, cfg, spec, batch=4, cache_len=40)
+    het, _ = serve_trace_torch(params, cfg, spec, batch=4, cache_len=40,
+                               backend="hetero", paged_kv=True,
+                               page_size=4, schedule=schedule)
+    assert het == col and len(col) == len(spec)
+
+
+def test_paged_admission_cap_and_errors_like_reference(setup):
+    """Small pools: the page budget holds requests back exactly as the
+    reference engine's does (same slots, same admissions per step), a
+    request over cache_len or over a whole pool is refused at submit."""
+    jc, tc, jp, tp, _, _ = setup
+    # one R-worker: each (worker, micro-batch) pool of 5 pages serves two
+    # rows, and a request needs 3-5 pages over its life
+    kw = dict(batch=4, cache_len=24, backend="hetero", num_r_workers=1,
+              paged_kv=True, page_size=4, pages_per_worker=5)
+    jeng = JServingEngine(jp, jc, **kw)
+    teng = ServingEngine(tp, tc, device="cpu", **kw)
+    try:
+        rng = np.random.default_rng(5)
+        for i in range(6):
+            p = rng.integers(1, jc.vocab_size,
+                             int(rng.integers(3, 12))).astype(np.int32)
+            jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=6))
+            teng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        for name, eng, req in (("jax", jeng, JRequest), ("port", teng,
+                                                         Request)):
+            with pytest.raises(ValueError, match="exceeds cache_len"):
+                eng.submit(req(rid=90, prompt=np.arange(1, 20,
+                                                        dtype=np.int32),
+                               max_new_tokens=6))
+            with pytest.raises(ValueError, match="raise pages_per_worker"):
+                eng.submit(req(rid=91, prompt=np.arange(1, 23,
+                                                        dtype=np.int32),
+                               max_new_tokens=2))
+        while jeng.queue or any(s is not None for s in jeng.slots):
+            jr, tr = jeng.step(), teng.step()
+            assert tr.admitted == jr.admitted, jeng.step_idx
+            assert [getattr(s, "rid", None) for s in teng.slots] == \
+                [getattr(s, "rid", None) for s in jeng.slots]
+        assert {r.rid: r.generated for r in teng.finished} == \
+            {r.rid: r.generated for r in jeng.finished}
+        assert teng.records[0].admitted < 4      # the page budget held back
+    finally:
+        jeng.close()
+        teng.close()
+
+
+def test_not_ported_options_raise():
+    tc = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
+                      prefill_chunk=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
+                      admission="sls")
+    with pytest.raises(TypeError):
+        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
+                      no_such_option=1)
+
+
+def test_serving_engine_refuses_cuda_without_it(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    _, tc, _, tp, _, _ = setup
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(tp, tc, batch=2, cache_len=8, backend="hetero")
+
+
+def test_threads_stress_keeps_tokens_and_counts():
+    """Shared state under thread pressure: 4 R-workers (one row each) with
+    a 1 µs interpreter switch interval must still give the colocated
+    tokens, and the launch counter the R-workers share must count every
+    paged call exactly."""
+    jc = dataclasses.replace(tiny_cfg("qwen3-8b", layers=2), num_kv_heads=2)
+    cfg = ModelConfig(**dataclasses.asdict(jc))
+    params = bridge.params_from_numpy(
+        jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(7), jc)),
+        cfg, "cpu")
+    spec = random_spec(np.random.default_rng(8), cfg, 10, max_new=6,
+                       spread=4)
+    col, _ = serve_trace_torch(params, cfg, spec, batch=8, cache_len=32)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        TPA.plain_calls.reset()
+        het, steps = serve_trace_torch(params, cfg, spec, batch=8,
+                                       cache_len=32, backend="hetero",
+                                       num_r_workers=4, paged_kv=True,
+                                       page_size=4)
+        assert het == col
+        assert TPA.plain_calls.value == cfg.num_layers * 2 * 4 * steps
+        counter = TPA.LaunchCounter()
+        threads = [threading.Thread(
+            target=lambda: [counter.add() for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert counter.value == 16 * 2000
+    finally:
+        sys.setswitchinterval(old)
