@@ -6,20 +6,31 @@
 
 Phases (any failure exits nonzero):
 
-  kernel  builds the port's CUDA sources (src/repro_torch/csrc, into the
-          gitignored build/ directory), holds every kernel against its
-          plain PyTorch version on the card, and times it at the main
-          path's shape and at a bandwidth shape beside its bound, its plain
-          version and a library yardstick.
-  serve   Qwen3-8B at full width, random weights from a seeded generator,
-          served greedily through ServingEngine(backend="hetero",
-          num_r_workers=2, paged_kv=True): every request must finish with
-          the right token count and finite logits, and the kernel launch
-          count must equal layers x micro-batches x workers x decode steps.
-  equiv   the same width at 2 layers in fp32 (TF32 off): the hetero paged
-          engine (through the kernel) and the colocated engine (plain
-          torch) must give the same greedy tokens, a mismatch counting only
-          if the teacher-forced logits also differ beyond tolerance.
+  kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
+              the gitignored build/ directory), holds every kernel (paged
+              flash-decode; dense flash-decode in bf16/fp32 and with int8
+              K/V) against its plain PyTorch version on the card, and times
+              it at the main path's shape and at a bandwidth shape beside
+              its bound, its plain version and a library yardstick; times
+              the int8 page gather of the paged-int8 path.
+  serve       Qwen3-8B at full width, random weights from a seeded
+              generator, served greedily through
+              ServingEngine(backend="hetero", num_r_workers=2,
+              paged_kv=True): every request must finish with the right
+              token count and finite logits, and the paged kernel's launch
+              count must equal layers x micro-batches x workers x decode
+              steps.
+  serve_int8  the same model and trace with quantized_kv=True, paged and
+              then dense: the same checks, on the int8 kernel's count.
+  equiv       the same width at 2 layers in fp32 (TF32 off): the hetero
+              paged engine (through the kernel) and the colocated engine
+              (plain torch) must give the same greedy tokens, a mismatch
+              counting only if the teacher-forced logits also differ
+              beyond tolerance.
+  equiv_int8  the same at 2 layers: hetero paged-int8 == hetero dense-int8
+              (tokens, logits within 1e-4), both through the int8 kernel,
+              and both within 0.5 of the colocated fp logits fed the same
+              tokens (the quantization bound of tests/test_hetero.py).
 
 Earlier lines print one JSON object per phase and one ``kernels`` line;
 the line before the last is the card's name and power limit; the last
@@ -42,8 +53,18 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
-KERNEL_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
-KERNEL_REPLACES = "src/repro/kernels/paged_attention.py:56"
+# every ported kernel: its source and the TPU kernel it replaces
+KERNELS = {
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:56"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:39"),
+    "decode_attention_int8": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/quant_kv.py:44"),
+}
 # kernel vs plain version: |out - want| <= atol + rtol * |want|.  Both
 # accumulate in fp32 and round once to the output dtype, so in bf16 they
 # may differ by one rounding step, at most 2^-7 of |want|; one dropped
@@ -250,6 +271,226 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
             "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
 
 
+# kernels 2 and 3: dense slabs with positions, -1 holes and ring order
+SLAB_S = 300            # no multiple of any tile of the kernels
+SLAB_ROWS = [("prefix", 257, (3, 100, 200)), ("ring", 400, 700),
+             ("prefix", 5, ()), ("empty",)]
+SLAB_LENGTHS = [256, 699, 4, 9]     # row 3 has no valid slot: output 0
+
+
+def _slab_pos(s, layout):
+    """pos [S] int32 of one row: ("prefix", n, holes) holds positions
+    0..n-1 in slots 0..n-1 with -1 at ``holes``; ("ring", lo, hi) holds
+    positions lo..hi-1 at slot pos % S (a wrapped ring); ("empty",) has
+    no valid slot."""
+    import torch
+    pos = torch.full((s,), -1, dtype=torch.int32)
+    if layout[0] == "prefix":
+        pos[:layout[1]] = torch.arange(layout[1], dtype=torch.int32)
+        pos[list(layout[2])] = -1
+    elif layout[0] == "ring":
+        p = torch.arange(layout[1], layout[2], dtype=torch.int32)
+        pos[p.long() % s] = p
+    return pos
+
+
+def slab_checks(dev) -> dict:
+    """Kernels 2 and 3 against their plain versions: G 1 and 4, Dh 64 and
+    128, ragged rows, -1 holes, a ring-ordered row under window + sink,
+    softcap, S = 300, and one row with no valid slot (exactly 0).  For
+    kernel 3 with a bf16 q the plain version runs on q.float(), so the
+    dequantized K/V stay fp32 there as in the kernel."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(3)
+    pos = torch.stack([_slab_pos(SLAB_S, r) for r in SLAB_ROWS]).to(dev)
+    lens = torch.tensor(SLAB_LENGTHS, dtype=torch.int32, device=dev)
+    out = {"decode_attention": [], "decode_attention_int8": []}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        cases = [(g, dh, {}) for g in (1, 4) for dh in (64, 128)]
+        cases += [(4, 128, dict(window=64, sink=4)), (1, 64,
+                                                       dict(softcap=5.0))]
+        for g, dh, attn in cases:
+            hkv = 2
+            q = torch.randn((4, hkv * g, dh), generator=gen).to(dev)
+            k = torch.randn((4, SLAB_S, hkv, dh), generator=gen).to(dev)
+            v = torch.randn((4, SLAB_S, hkv, dh), generator=gen).to(dev)
+            kq, ks = QK.quantize_kv(k)
+            vq, vs = QK.quantize_kv(v)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            name = f"{dtype_name}-G{g}-dh{dh}" + "".join(
+                f"-{a}{b}" for a, b in attn.items())
+            for kernel, got, want in (
+                    ("decode_attention",
+                     DA.decode_attention(q, k, v, pos, lens, **attn),
+                     ref.decode_attention_ref(q, k, v, pos, lens, **attn)),
+                    ("decode_attention_int8",
+                     QK.decode_attention_int8(q, kq, ks, vq, vs, pos, lens,
+                                              **attn),
+                     ref.decode_attention_int8_ref(q.float(), kq, ks, vq,
+                                                   vs, pos, lens, **attn))):
+                torch.cuda.synchronize()
+                err, ok = tol_check(got, want, dtype_name)
+                ok = ok and got.dtype == dtype and bool((got[3] == 0).all())
+                out[kernel].append({"case": name, "max_abs_err": err,
+                                    "atol_rtol": TOL[dtype_name], "ok": ok})
+                if not ok:
+                    raise AssertionError(
+                        f"{kernel} case {name} failed: err {err} (atol, "
+                        f"rtol) {TOL[dtype_name]} (the row with no valid "
+                        f"slot must be exactly 0, dtype {got.dtype})")
+    return {k: {"cases": v, "max_abs_err": max(c["max_abs_err"] for c in v)}
+            for k, v in out.items()}
+
+
+def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
+                copies=1, iters=50) -> dict:
+    """Kernels 2 and 3, their plain versions and the SDPA yardstick at one
+    shape, bf16 q.  Every row holds ``n_valid`` tokens in slots
+    0..n_valid-1 of an S-slot slab (lengths = n_valid - 1); ``copies``
+    distinct slabs are cycled so the working set exceeds the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    pos[:, :n_valid] = torch.arange(n_valid, dtype=torch.int32, device=dev)
+    lens = torch.full((b,), n_valid - 1, dtype=torch.int32, device=dev)
+
+    def heads_first(x):          # [B,S,H,Dh] valid part -> [B,H,n,Dh]
+        return x[:, :n_valid].permute(0, 2, 1, 3).contiguous()
+
+    bufs = []
+    for _ in range(copies):
+        q = torch.randn((b, hq, dh), generator=gen, device=dev).to(bf)
+        k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+        v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+        kq, ks = QK.quantize_kv(k)
+        vq, vs = QK.quantize_kv(v)
+        k, v = k.to(bf), v.to(bf)
+        # the yardsticks read K/V already laid out for SDPA: the bf16 slab
+        # (kernel 2) and the dequantized slab in bf16 (kernel 3); neither
+        # the layout nor the dequantization is in their time
+        bufs.append(dict(
+            q=q, k=k, v=v, kq=kq, ks=ks, vq=vq, vs=vs,
+            kl=heads_first(k), vl=heads_first(v),
+            kd=heads_first(QK.dequantize_kv(kq, ks).to(bf)),
+            vd=heads_first(QK.dequantize_kv(vq, vs).to(bf))))
+        del k, v
+
+    def sdpa(q, kk, vv):
+        return F.scaled_dot_product_attention(q[:, :, None], kk, vv,
+                                              enable_gqa=True)[:, :, 0]
+
+    runs = {
+        "decode_attention": dict(
+            kern=lambda t: DA.decode_attention(t["q"], t["k"], t["v"], pos,
+                                               lens),
+            plain=lambda t: ref.decode_attention_ref(t["q"], t["k"], t["v"],
+                                                     pos, lens),
+            check=lambda t: ref.decode_attention_ref(t["q"], t["k"], t["v"],
+                                                     pos, lens),
+            lib=lambda t: sdpa(t["q"], t["kl"], t["vl"]),
+            kv_bytes_per_tok=2 * hkv * dh * 2),
+        "decode_attention_int8": dict(
+            kern=lambda t: QK.decode_attention_int8(
+                t["q"], t["kq"], t["ks"], t["vq"], t["vs"], pos, lens),
+            plain=lambda t: ref.decode_attention_int8_ref(
+                t["q"], t["kq"], t["ks"], t["vq"], t["vs"], pos, lens),
+            check=lambda t: ref.decode_attention_int8_ref(
+                t["q"].float(), t["kq"], t["ks"], t["vq"], t["vs"], pos,
+                lens),
+            lib=lambda t: sdpa(t["q"], t["kd"], t["vd"]),
+            kv_bytes_per_tok=2 * hkv * (dh + 4)),
+    }
+    def measure(kernel, r):
+        got = r["kern"](bufs[0])
+        err, ok = tol_check(got, r["check"](bufs[0]), "bfloat16")
+        if not ok:
+            raise AssertionError(f"{kernel} at the {name} shape: max err "
+                                 f"{err} against the plain version, "
+                                 f"(atol, rtol) {TOL['bfloat16']}")
+        lib_err = float((got.float() - r["lib"](bufs[0]).float()).abs().max())
+        ms = cuda_time_ms(lambda i: r["kern"](bufs[i % copies]), iters)
+        plain_ms = cuda_time_ms(lambda i: r["plain"](bufs[i % copies]),
+                                max(3, iters // 10), warmup=1)
+        library_ms = cuda_time_ms(lambda i: r["lib"](bufs[i % copies]),
+                                  iters)
+        bytes_moved = (b * n_valid * r["kv_bytes_per_tok"] + b * s * 4
+                       + 2 * b * hq * dh * 2 + b * 4)
+        flops = 4 * b * n_valid * hq * dh
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        return {
+            "shape": name, "B": b, "S": s, "tokens_per_row": n_valid,
+            "Hq": hq, "Hkv": hkv, "Dh": dh, "q_dtype": "bfloat16",
+            "slab_copies": copies, "max_abs_err": err,
+            "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
+
+    return {kernel: measure(kernel, r) for kernel, r in runs.items()}
+
+
+def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
+                  dh=128, page=16, copies=16, iters=200) -> dict:
+    """The paged-int8 path at the serve's per-worker shape: the gather of
+    the four int8 pool arrays into a slab alone, and the whole op (gather
+    + kernel 3), on ``copies`` pools cycled past the L2."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mp = cache_len // page
+    per_row = -(-n_tok // page)
+    n_pages = b * mp + 1
+    bufs = []
+    for _ in range(copies):
+        pool = {}
+        for name in ("k", "v"):
+            x = torch.randn((n_pages, page, hkv, dh), generator=gen,
+                            device=dev)
+            pool[f"{name}_q"], pool[f"{name}_s"] = ops.quantize_kv(x)
+        ids = torch.randperm(b * mp, generator=gen, device=dev)
+        tables = torch.full((b, mp), -1, dtype=torch.int32, device=dev)
+        tables[:, :per_row] = ids[:b * per_row].reshape(b, per_row).to(
+            torch.int32)
+        q = torch.randn((b, hq, dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        bufs.append((q, pool, tables))
+    lens = torch.full((b,), n_tok - 1, dtype=torch.int32, device=dev)
+
+    def gather(i):
+        _, pool, tables = bufs[i % copies]
+        return [ref.paged_gather(pool[n], tables)
+                for n in ("k_q", "k_s", "v_q", "v_s")]
+
+    def op(i):
+        q, pool, tables = bufs[i % copies]
+        return ops.paged_decode_attention_int8(
+            q, pool["k_q"], pool["k_s"], pool["v_q"], pool["v_s"], tables,
+            lens)
+
+    # the gather reads and writes every table entry's page (unmapped
+    # entries read page 0), plus the derived positions
+    slab = b * mp * page
+    bytes_moved = 2 * slab * hkv * (2 * dh + 2 * 4) + 4 * slab * 4
+    ms = cuda_time_ms(gather, iters)
+    return {"shape": "serve-int8", "B": b, "tokens_per_row": n_tok,
+            "cache_len": cache_len, "page": page, "pool_copies": copies,
+            "gather_ms": ms, "gather_bytes": bytes_moved,
+            "gather_bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "op_ms": cuda_time_ms(op, iters)}
+
+
 def phase_kernel(dev) -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -265,10 +506,24 @@ def phase_kernel(dev) -> dict:
                          copies=16, iters=200)
     bw = kernel_timing(dev, "bandwidth", b=64, n_tok=4096, copies=1,
                        iters=20)
+    slab = slab_checks(dev)
+    # kernels 2 and 3 at the int8 serve's per-worker shape (2 rows, the
+    # gathered slab of MP*page = 1024 slots, 512 valid) and at 64 x 4096
+    s_main = slab_timing(dev, "main-path", b=2, s=1024, n_valid=512,
+                         copies=16, iters=200)
+    s_bw = slab_timing(dev, "bandwidth", b=64, s=4096, n_valid=4096,
+                       copies=1, iters=20)
+    kernels = {"paged_decode_attention": {
+        "checks": checks["cases"], "timing": [main, bw],
+        "max_abs_err": max(checks["max_abs_err"], main["max_abs_err"],
+                           bw["max_abs_err"])}}
+    for name in ("decode_attention", "decode_attention_int8"):
+        t = [s_main[name], s_bw[name]]
+        kernels[name] = {"checks": slab[name]["cases"], "timing": t,
+                         "max_abs_err": max([slab[name]["max_abs_err"]]
+                                            + [x["max_abs_err"] for x in t])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
-            "checks": checks, "timing": [main, bw],
-            "max_abs_err": max(checks["max_abs_err"], main["max_abs_err"],
-                               bw["max_abs_err"])}
+            "kernels": kernels, "paged_int8_gather": gather_timing(dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -283,32 +538,60 @@ def _requests(rng, n, p_lo, p_hi, new_lo, new_hi, vocab):
             for i in range(n)]
 
 
-def phase_serve(dev, out: Path) -> dict:
+def serve_model(dev):
+    """Qwen3-8B at full width and depth, bf16, random weights from a
+    seeded generator (shared by the serve phases)."""
     import torch
     from repro_torch.core.config import get_arch
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import ServingEngine
-    cfg = get_arch("qwen3-8b")             # full width and depth
+    from repro_torch.serving.kv_cache import cache_bytes
+    cfg = get_arch("qwen3-8b")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(params))
+    return {"cfg": cfg, "params": params,
+            "init_s": time.perf_counter() - t0,
+            "weight_bytes": cache_bytes(params)}
+
+
+def _counters():
+    """{kernel name: wrapper module} of every ported kernel."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_kv as QK
+    return {"paged_decode_attention": PA, "decode_attention": DA,
+            "decode_attention_int8": QK}
+
+
+def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
+              quantized: bool, profile: str = "", trace: bool = False
+              ) -> dict:
+    """Serve the 12-request trace through ServingEngine(backend="hetero",
+    num_r_workers=2) with the given storage.  Every count is set to 0
+    just before the counted run and read just after it: ``kernel``'s
+    launches must equal layers x micro-batches x workers x decode steps,
+    and no plain version may run.  ``profile`` names a profiled window of
+    3 decode steps afterwards (written to ``out``)."""
+    import torch
+    from repro_torch.serving import kv_cache as KV
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params = model["cfg"], model["params"]
+    counters = _counters()
     batch, n_mb, n_workers = 8, 2, 2
     eng = ServingEngine(params, cfg, backend="hetero", num_r_workers=n_workers,
-                        num_microbatches=n_mb, paged_kv=True, page_size=16,
-                        batch=batch, cache_len=1024, device=dev)
+                        num_microbatches=n_mb, paged_kv=paged,
+                        quantized_kv=quantized, page_size=16, batch=batch,
+                        cache_len=1024, device=dev)
     try:
         reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
                          cfg.vocab_size)
         for r in reqs:
             eng.submit(r)
         torch.cuda.synchronize()
-        PA.launches.reset()
-        PA.plain_calls.reset()
+        for mod in counters.values():
+            mod.launches.reset()
+            mod.plain_calls.reset()
         nonfinite = 0
         peak_resident = 0.0
         while eng.queue or any(s is not None for s in eng.slots):
@@ -317,22 +600,27 @@ def phase_serve(dev, out: Path) -> dict:
             peak_resident = max(peak_resident, eng.paged_resident_bytes())
             if eng.step_idx > 200:
                 raise AssertionError("serve did not drain in 200 steps")
-        launches = PA.launches.value
+        torch.cuda.synchronize()
+        launches = {n: m.launches.value for n, m in counters.items()}
+        plain = {n: m.plain_calls.value for n, m in counters.items()}
         steps = eng.step_idx
+        kv_bytes = sum(KV.cache_bytes(w.state) for w in eng.engine.workers)
         pool_bytes = sum(w.pool_bytes() for w in eng.engine.workers)
         hot = eng.hotpath_stats()
         busy = eng.engine.worker_busy_times()
-        # a separate traced window on the warm engine (not part of the
-        # counted run above): 8 fresh ~512-token rows, 3 decode steps
-        for r in _requests(np.random.default_rng(1), 8, 500, 520, 32, 32,
-                           cfg.vocab_size):
-            r.rid += 100
-            eng.submit(r)
-        eng.step()                      # admission + prefill + one decode
-        trace = _profile_steps(eng, 3, out)
+        done = {r.rid: r for r in eng.finished}
+        prof = None
+        if profile:
+            # a separate window on the warm engine (not part of the
+            # counted run above): 8 fresh ~512-token rows, 3 decode steps
+            for r in _requests(np.random.default_rng(1), 8, 500, 520, 32,
+                               32, cfg.vocab_size):
+                r.rid += 100
+                eng.submit(r)
+            eng.step()                  # admission + prefill + one decode
+            prof = _profile_steps(eng, 3, out, profile, trace)
     finally:
         eng.close()
-    done = {r.rid: r for r in eng.finished}
     if sorted(done) != list(range(len(reqs))):
         raise AssertionError(f"finished {sorted(done)}, submitted "
                              f"{len(reqs)}")
@@ -345,21 +633,23 @@ def phase_serve(dev, out: Path) -> dict:
     if nonfinite:
         raise AssertionError(f"{nonfinite} non-finite logits")
     want = cfg.num_layers * n_mb * n_workers * steps
-    if launches != want or PA.plain_calls.value != 0:
+    if launches[kernel] != want or any(plain.values()):
         raise AssertionError(
-            f"kernel launches {launches} != layers x micro-batches x "
-            f"workers x decode steps = {want} (plain calls "
-            f"{PA.plain_calls.value})")
+            f"{kernel} launches {launches[kernel]} != layers x "
+            f"micro-batches x workers x decode steps = {want} (plain "
+            f"calls {plain})")
     recs = eng.records
     dec = [rec.decode_wall for rec in recs]
     # tokens emitted by decode steps (token 0 of a request comes from its
     # prefill logits, inside prefill_wall)
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
-    return {"phase": "serve", "ok": True, "model": "qwen3-8b",
-            "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": [cfg.num_heads,
+    return {"storage": ("paged-" if paged else "dense-")
+            + ("int8" if quantized else cfg.dtype),
+            "model": "qwen3-8b", "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                               cfg.num_kv_heads],
             "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-            "weight_bytes": weight_bytes, "init_s": init_s,
+            "weight_bytes": model["weight_bytes"], "init_s": model["init_s"],
             "requests": len(reqs), "decode_steps": steps,
             "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
             "page_size": 16, "cache_len": 1024,
@@ -369,17 +659,37 @@ def phase_serve(dev, out: Path) -> dict:
             "decode_step_s_p50": float(np.median(dec)),
             "decode_step_s_max": float(np.max(dec)),
             "prefill_s_total": sum(rec.prefill_wall for rec in recs),
-            "page_pool_bytes": pool_bytes,
+            "kv_bytes": kv_bytes, "page_pool_bytes": pool_bytes,
             "paged_resident_bytes_peak": peak_resident,
-            "kernel_launches": launches,
-            "hotpath": hot, "r_worker_busy_s": busy, "trace": trace}
+            "kernel": kernel, "kernel_launches": launches[kernel],
+            "launches": launches, "plain_calls": plain,
+            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof}
 
 
-def _profile_steps(eng, n_steps: int, out: Path) -> dict:
+def phase_serve(dev, model, out: Path) -> dict:
+    rec = serve_run(dev, model, out, kernel="paged_decode_attention",
+                    paged=True, quantized=False, profile="serve", trace=True)
+    return {"phase": "serve", "ok": True, **rec}
+
+
+def phase_serve_int8(dev, model, out: Path) -> dict:
+    """The same trace on int8 storage: paged (gather + kernel 3) and then
+    dense (kernel 3 over the slab)."""
+    paged = serve_run(dev, model, out, kernel="decode_attention_int8",
+                      paged=True, quantized=True, profile="serve_int8")
+    dense = serve_run(dev, model, out, kernel="decode_attention_int8",
+                      paged=False, quantized=True)
+    return {"phase": "serve_int8", "ok": True, "runs": [paged, dense],
+            "kernel_launches": paged["kernel_launches"]}
+
+
+def _profile_steps(eng, n_steps: int, out: Path, name: str,
+                   trace: bool) -> dict:
     """torch.profiler over ``n_steps`` decode steps: the device's busy
     share of the wall window (union of kernel and copy intervals over all
     streams), device time by kernel, and host time by op.  The full
-    table and the Chrome trace go to ``out``."""
+    table (and, with ``trace``, the Chrome trace) go to ``out`` as
+    ``<name>_profile.txt`` / ``<name>_trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -421,9 +731,10 @@ def _profile_steps(eng, n_steps: int, out: Path) -> dict:
                for e in sorted(ka, key=lambda e: e.self_cpu_time_total,
                                reverse=True)[:10]]
     out.mkdir(parents=True, exist_ok=True)
-    (out / "serve_profile.txt").write_text(ka.table(
+    (out / f"{name}_profile.txt").write_text(ka.table(
         sort_by="self_cpu_time_total", row_limit=60))
-    prof.export_chrome_trace(str(out / "serve_trace.json"))
+    if trace:
+        prof.export_chrome_trace(str(out / f"{name}_trace.json"))
     return {"steps": n_steps, "wall_s": wall_s,
             "device_busy_s": busy_us / 1e6,
             "device_idle_ratio": 1.0 - busy_us / 1e6 / wall_s,
@@ -433,95 +744,131 @@ def _profile_steps(eng, n_steps: int, out: Path) -> dict:
             "top_device": top_dev, "top_host": top_cpu}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 # ---------------------------------------------------------------------------
-# equiv phase: hetero paged (kernel) == colocated (plain torch), fp32
+# equiv phases: fp32 at 2 layers, TF32 off
 # ---------------------------------------------------------------------------
 EQUIV_LOGIT_TOL = 1e-4     # fp32 logits, TF32 off
+QUANT_BOUND = 0.5          # int8 vs fp logits, as tests/test_hetero.py holds
 
 
-def _serve_logged(eng, reqs):
-    """Serve ``reqs`` step by step; returns {rid: (tokens, [logits of
-    each decode step, on the host])}."""
+def _serve_logged(eng, reqs, forced=None):
+    """Serve ``reqs`` step by step.  Returns ({rid: (tokens, [logits of
+    each decode step that sampled a token of it, on the host])}, the
+    token array of every sampling call).  With ``forced`` (such a list
+    from another run of the same requests) the engine is fed those tokens
+    in place of its own argmax, so its logits are teacher-forced."""
     import torch
+    sampled = []
+    logs = {r.rid: [] for r in reqs}
+    own_sample, own_decode = eng._sample_tokens, eng.engine.decode_step
+    in_decode = [False]
+
+    def decode_step(*args):
+        in_decode[0] = True
+        return own_decode(*args)
+
+    def sample(logits):
+        toks = own_sample(logits)
+        if forced is not None:
+            toks = forced[len(sampled)].copy()
+        if in_decode[0]:        # rows hold their requests until sampled
+            in_decode[0] = False
+            lg = logits.float().cpu()
+            for i, r in enumerate(eng.slots):
+                if r is not None:
+                    logs[r.rid].append(lg[i])
+        sampled.append(toks)
+        return toks
+
+    eng._sample_tokens, eng.engine.decode_step = sample, decode_step
     for r in reqs:
         eng.submit(r)
-    logs = {r.rid: [] for r in reqs}
     while eng.queue or any(s is not None for s in eng.slots):
-        rows = {i: r.rid for i, r in enumerate(eng.slots) if r is not None}
         eng.step()
-        lg = eng.last_logits.float().cpu()
-        for i, rid in rows.items():
-            logs[rid].append(lg[i])
         if eng.step_idx > 200:
             raise AssertionError("equiv serve did not drain in 200 steps")
     torch.cuda.synchronize()
-    return {r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished}
+    return ({r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished},
+            sampled)
 
 
-def phase_equiv(dev) -> dict:
+def _compare(got, want, tol):
+    """Greedy tokens and decode logits of two runs of the same requests.
+    A token mismatch is a fault unless the logits that chose it (both
+    histories agree up to it, so they are teacher-forced) are within
+    ``tol``.  Returns (max logit diff, mismatches, near-tie flips, min
+    top-2 margin of ``want``)."""
+    max_diff, mismatches, ties = 0.0, [], []
+    margins = [float(v[0] - v[1]) for _, logs in want.values()
+               for v in (lg.topk(2).values for lg in logs)]
+    for rid, (toks_w, logs_w) in want.items():
+        toks_g, logs_g = got[rid]
+        first = next((i for i, (a, b) in enumerate(zip(toks_g, toks_w))
+                      if a != b), None)
+        # token j comes from decode step j-1 (token 0 from prefill);
+        # after a flip the histories differ and the logits do not compare
+        n = min(len(logs_w), len(logs_g))
+        if first is not None:
+            n = min(n, first)
+        for j in range(n):
+            max_diff = max(max_diff,
+                           float((logs_g[j] - logs_w[j]).abs().max()))
+        if first is not None:
+            j = first
+            lg = logs_w[j - 1] if j >= 1 else None
+            top2 = (float(lg.topk(2).values[0] - lg.topk(2).values[1])
+                    if lg is not None else None)
+            d = (float((logs_g[j - 1] - logs_w[j - 1]).abs().max())
+                 if j >= 1 else None)
+            rec = {"rid": rid, "first_diff": j, "top2_margin": top2,
+                   "logit_diff": d}
+            if d is not None and d <= tol:
+                ties.append(rec)        # a near-tie flipped: not a fault
+            else:
+                mismatches.append(rec)
+    return max_diff, mismatches, ties, min(margins)
+
+
+def _equiv_model(dev, seed):
     import dataclasses
     import torch
     from repro_torch.core.config import get_arch
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.models.model import init_params
-    from repro_torch.serving.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     cfg = dataclasses.replace(get_arch("qwen3-8b"), num_layers=2,
                               dtype="float32")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          device=dev)
-    kw = dict(batch=4, cache_len=256, device=dev)
     spec = dict(n=6, p_lo=17, p_hi=200, new_lo=6, new_hi=10,
                 vocab=cfg.vocab_size)
-    PA.launches.reset()
-    het = ServingEngine(params, cfg, backend="hetero", num_r_workers=2,
-                        num_microbatches=2, paged_kv=True, page_size=16, **kw)
+    return cfg, params, spec
+
+
+def _equiv_serve(dev, cfg, params, spec, forced=None, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    hetero = kw.get("backend") == "hetero"
+    if hetero:
+        kw.update(num_r_workers=2, num_microbatches=2, page_size=16)
+    eng = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev,
+                        **kw)
     try:
-        got = _serve_logged(het, _requests(np.random.default_rng(2), **spec))
+        return _serve_logged(eng, _requests(np.random.default_rng(2),
+                                            **spec), forced)
     finally:
-        het.close()
+        eng.close()
+
+
+def phase_equiv(dev) -> dict:
+    from repro_torch.kernels import paged_attention as PA
+    cfg, params, spec = _equiv_model(dev, 1)
+    PA.launches.reset()
+    got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                          paged_kv=True)
     launches = PA.launches.value
-    col = ServingEngine(params, cfg, backend="colocated", **kw)
-    want = _serve_logged(col, _requests(np.random.default_rng(2), **spec))
-    max_diff, mismatches, ties = 0.0, [], []
-    margins = [float(v[0] - v[1]) for _, logs in want.values()
-               for v in (lg.topk(2).values for lg in logs)]
-    for rid, (toks_c, logs_c) in want.items():
-        toks_h, logs_h = got[rid]
-        n = min(len(logs_c), len(logs_h))
-        for j in range(n):
-            d = float((logs_h[j] - logs_c[j]).abs().max())
-            max_diff = max(max_diff, d)
-        if toks_h != toks_c:
-            j = next(i for i, (a, b) in enumerate(zip(toks_h, toks_c))
-                     if a != b)
-            # token j comes from decode step j-1 (token 0 from prefill);
-            # both histories agree up to j, so those logits are
-            # teacher-forced
-            lg = logs_c[j - 1] if j >= 1 else None
-            top2 = (float(lg.topk(2).values[0] - lg.topk(2).values[1])
-                    if lg is not None else None)
-            d = (float((logs_h[j - 1] - logs_c[j - 1]).abs().max())
-                 if j >= 1 else None)
-            rec = {"rid": rid, "first_diff": j, "top2_margin": top2,
-                   "logit_diff": d}
-            if d is not None and d <= EQUIV_LOGIT_TOL:
-                ties.append(rec)        # a near-tie flipped: not a fault
-            else:
-                mismatches.append(rec)
+    want, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
+    max_diff, mismatches, ties, margin = _compare(got, want, EQUIV_LOGIT_TOL)
     if mismatches or max_diff > EQUIV_LOGIT_TOL or launches == 0:
         raise AssertionError(
             f"hetero-paged != colocated: mismatches {mismatches}, max "
@@ -531,27 +878,83 @@ def phase_equiv(dev) -> dict:
             "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
             "requests": len(want), "tokens_equal": not ties,
             "near_tie_flips": ties, "max_logit_diff": max_diff,
-            "min_top2_margin": min(margins),
+            "min_top2_margin": margin,
             "logit_tol": EQUIV_LOGIT_TOL, "kernel_launches": launches}
 
 
-PHASES = ("kernel", "serve", "equiv")
+def phase_equiv_int8(dev) -> dict:
+    """Hetero paged-int8 (gather + kernel 3) == hetero dense-int8 (kernel
+    3 over the slab), both launching kernel 3, and both within the
+    quantization bound of the colocated fp engine fed the same tokens."""
+    from repro_torch.kernels import quant_kv as QK
+    cfg, params, spec = _equiv_model(dev, 1)
+    runs, launches = {}, {}
+    for name, paged in (("paged-int8", True), ("dense-int8", False)):
+        QK.launches.reset()
+        runs[name] = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                                  paged_kv=paged, quantized_kv=True)
+        launches[name] = QK.launches.value
+    (paged, sampled), (dense, _) = runs["paged-int8"], runs["dense-int8"]
+    max_diff, mismatches, ties, margin = _compare(paged, dense,
+                                                  EQUIV_LOGIT_TOL)
+    if mismatches or ties or max_diff > EQUIV_LOGIT_TOL \
+            or min(launches.values()) == 0:
+        raise AssertionError(
+            f"hetero paged-int8 != dense-int8: mismatches {mismatches}, "
+            f"near-tie flips {ties}, max logit diff {max_diff} (tol "
+            f"{EQUIV_LOGIT_TOL}), kernel-3 launches {launches}")
+    # the fp colocated engine, teacher-forced on the int8 runs' tokens
+    fp, _ = _equiv_serve(dev, cfg, params, spec, forced=sampled,
+                         backend="colocated")
+    quant = {}
+    for name, (run, _) in runs.items():
+        quant[name] = max(float((a - b).abs().max())
+                          for rid, (_, logs) in run.items()
+                          for a, b in zip(logs, fp[rid][1]))
+    if max(quant.values()) > QUANT_BOUND:
+        raise AssertionError(f"int8 logits differ from the fp engine's by "
+                             f"{quant} > {QUANT_BOUND}")
+    return {"phase": "equiv_int8", "ok": True, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+            "requests": len(paged), "tokens_equal": True,
+            "max_logit_diff": max_diff, "min_top2_margin": margin,
+            "logit_tol": EQUIV_LOGIT_TOL, "kernel_launches": launches,
+            "max_logit_diff_vs_fp": quant, "quant_bound": QUANT_BOUND}
 
 
-def kernel_record(results) -> dict:
-    """The ``kernels`` line: every ported kernel, with its time at the
-    main path's shape and its launches in the serve phase's run (null
-    for a phase that did not run)."""
+PHASES = ("kernel", "serve", "serve_int8", "equiv", "equiv_int8")
+
+
+def kernels_line(results) -> list:
+    """The ``kernels`` line: every ported kernel with its time at the
+    main path's shape (null where the kernel phase did not run) and its
+    launches in the counted serve run of its path: the bf16 paged serve
+    for kernel 1, the paged-int8 serve for kernel 3; kernel 2 is on no
+    serve path (as in the JAX package, only ops.decode_attention reaches
+    it), so its count is that of the serve runs, 0 (null where no serve
+    phase ran)."""
     k = results.get("kernel")
-    main = k["timing"][0] if k else {}
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-            "launches": results["serve"]["kernel_launches"]
-            if "serve" in results else None,
-            "max_abs_err": k["max_abs_err"] if k else None,
-            "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
-            "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
-            "library_ms": main.get("library_ms")}
+    serve, serve8 = results.get("serve"), results.get("serve_int8")
+    runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else [])
+    launches = {
+        "paged_decode_attention": serve["kernel_launches"] if serve else None,
+        "decode_attention": sum(r["launches"]["decode_attention"]
+                                for r in runs) if runs else None,
+        "decode_attention_int8": serve8["kernel_launches"] if serve8
+        else None,
+    }
+    line = []
+    for name, (source, replaces) in KERNELS.items():
+        kk = k["kernels"][name] if k else {}
+        main = kk["timing"][0] if kk else {}
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": kk.get("max_abs_err"),
+                     "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
+                     "bound_ms": main.get("bound_ms"),
+                     "bound_by": main.get("bound_by"),
+                     "library_ms": main.get("library_ms")})
+    return line
 
 
 def main(argv=None) -> int:
@@ -559,8 +962,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
-                    help="directory for the serve phase's profiler table "
-                         "and Chrome trace")
+                    help="directory for the serve phases' profiler tables "
+                         "and the bf16 serve's Chrome trace")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -580,13 +983,23 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         results["kernel"] = phase_kernel(dev)
         log(results["kernel"])
-    if "serve" in phases:
-        results["serve"] = phase_serve(dev, args.out)
-        log(results["serve"])
+    if "serve" in phases or "serve_int8" in phases:
+        model = serve_model(dev)
+        if "serve" in phases:
+            results["serve"] = phase_serve(dev, model, args.out)
+            log(results["serve"])
+        if "serve_int8" in phases:
+            results["serve_int8"] = phase_serve_int8(dev, model, args.out)
+            log(results["serve_int8"])
+        del model
+        torch.cuda.empty_cache()
     if "equiv" in phases:
         results["equiv"] = phase_equiv(dev)
         log(results["equiv"])
-    log({"kernels": [kernel_record(results)]})
+    if "equiv_int8" in phases:
+        results["equiv_int8"] = phase_equiv_int8(dev)
+        log(results["equiv_int8"])
+    log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,9 @@ device -> pinned host -> device through the sink: that round trip is the
 protocol of the design (R-workers may be remote), and its cost is
 measured rather than short-cut.
 
-Not in this slice (see ROADMAP.md): int8 storage, chunked prefill, the
-prefix cache, tiering, speculative decoding, fleet management, chaos
-supervision and observability.
+Not in this slice (see ROADMAP.md): chunked prefill, the prefix cache,
+tiering, speculative decoding, fleet management, chaos supervision and
+observability.
 """
 from __future__ import annotations
 
@@ -38,9 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import decompose as D
-from repro_torch.core.config import ModelConfig, check_supported
+from repro_torch.core.config import ATTN, ModelConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.serving import kv_cache as KV
 from repro_torch.serving import paged_cache as PC
 
 
@@ -155,21 +156,28 @@ class RWorker(threading.Thread):
     """Owns the R-Part state of batch rows [lo, hi) of every micro-batch,
     for every layer.
 
+    ``quantized=True`` stores attention KV as int8 + per-(token, head)
+    fp32 scales (paper §5.2): ~3.9x less R-side memory traffic at Dh 128,
+    attention still accumulated in fp32 (kv_cache.r_attention_int8 on
+    dense storage, int8 page pools on paged storage).
+
     ``paged=True`` stores attention KV block-granular: per micro-batch one
     host-side ``PagedAllocator`` (one block table for all the layers) and
     one device page pool per layer.  ``num_pages`` sizes ONE pool; pools
     are replicated per (attention layer, micro-batch).  Windowed attention
     stays dense (its rotated ring cannot be expressed in derived
-    positions).
+    positions).  Composes with ``quantized`` (int8 page pools).
     """
 
     def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
-                 kv_chunk: int = 1024, paged: bool = False,
+                 kv_chunk: int = 1024, quantized: bool = False,
+                 paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_pages_per_seq: Optional[int] = None, device=None):
         super().__init__(daemon=True, name=f"r-worker-{wid}")
         self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
         self.kv_chunk = kv_chunk
+        self.quantized = quantized
         self.paged = paged
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
@@ -189,8 +197,9 @@ class RWorker(threading.Thread):
 
     # -- paged storage helpers ----------------------------------------------
     def _pageable(self, st) -> bool:
+        # a payload from a quantized worker carries k_q instead of k
         return (self.paged and self.cfg.window == 0 and isinstance(st, dict)
-                and "k" in st and "pos" in st)
+                and ("k" in st or "k_q" in st) and "pos" in st)
 
     def _alloc(self, mb: int) -> PC.PagedAllocator:
         if mb not in self.allocators:
@@ -206,10 +215,13 @@ class RWorker(threading.Thread):
         mb = layer // self.cfg.num_layers
         alloc = self._alloc(mb)
         if layer not in self.paged_keys:
-            hkv, dh = r_state_rows["k"].shape[2:]
+            fp = "k" in r_state_rows
+            ref = r_state_rows["k"] if fp else r_state_rows["k_q"]
+            hkv, dh = ref.shape[2:]
             self.state[layer] = PC.init_page_pool(
                 alloc.num_pages, self.page_size, hkv, dh,
-                dtype=r_state_rows["k"].dtype, device=self.device)
+                dtype=ref.dtype if fp else torch.float32,
+                device=self.device, quantized=self.quantized)
             self.paged_keys.add(layer)
             self._first_paged[mb] = None         # recompute lazily
         self.state[layer] = PC.dense_rows_to_pages(
@@ -239,12 +251,26 @@ class RWorker(threading.Thread):
                    for t in self.state[layer].values())
 
     # -- state loading (S-worker thread, between decode steps) ---------------
+    def _coerce_storage(self, st):
+        """(De)quantize an attention payload to this worker's storage
+        format: a quantized worker stores an fp payload as int8 + scales
+        and keeps an int8 payload verbatim; an fp worker dequantizes an
+        int8 payload."""
+        if self.quantized and "k" in st:
+            return KV.quantize_attn_state(st)
+        if not self.quantized and "k_q" in st:
+            return KV.dequantize_attn_state(st)
+        return st
+
     def load_state(self, layer: int, r_state_slice) -> None:
         if self._pageable(r_state_slice):
-            self._cache_len = r_state_slice["k"].shape[1]
-            self._to_pages(layer, np.arange(r_state_slice["k"].shape[0]),
-                           r_state_slice)
+            if "k_q" in r_state_slice and not self.quantized:
+                r_state_slice = KV.dequantize_attn_state(r_state_slice)
+            ref = r_state_slice.get("k", r_state_slice.get("k_q"))
+            self._cache_len = ref.shape[1]
+            self._to_pages(layer, np.arange(ref.shape[0]), r_state_slice)
             return
+        r_state_slice = self._coerce_storage(r_state_slice)
         self.state[layer] = {k: v.clone() for k, v in r_state_slice.items()}
 
     def write_rows(self, layer: int, rows: np.ndarray, r_state_rows) -> None:
@@ -252,6 +278,7 @@ class RWorker(threading.Thread):
         if layer in self.paged_keys and self._pageable(r_state_rows):
             self._to_pages(layer, rows, r_state_rows)
             return
+        r_state_rows = self._coerce_storage(r_state_rows)
         idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         for k, v in r_state_rows.items():
             self.state[layer][k][idx] = v
@@ -318,6 +345,10 @@ class RWorker(threading.Thread):
                     self.stream.wait_event(ready)
                 if layer in self.paged_keys:
                     r_out, new_state = self._step_paged(layer, r_in)
+                elif self.quantized and kind == ATTN:
+                    r_out, new_state = KV.r_attention_int8(
+                        r_in, self.state[layer], window=self.cfg.window,
+                        softcap=self.cfg.attn_logit_softcap)
                 else:
                     r_out, new_state = D.r_dispatch(
                         kind, phase, r_in, self.state[layer], self.cfg,
@@ -342,8 +373,8 @@ class HeteroPipelineEngine:
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  cache_len: int, num_r_workers: int = 2,
                  num_microbatches: int = 2, kv_chunk: int = 1024,
-                 paged_kv: bool = False, page_size: int = 16,
-                 pages_per_worker: Optional[int] = None,
+                 quantized_kv: bool = False, paged_kv: bool = False,
+                 page_size: int = 16, pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  device=None):
         if num_microbatches < 1:
@@ -390,7 +421,8 @@ class HeteroPipelineEngine:
         self.slices = [(int(bounds[i]), int(bounds[i + 1]))
                        for i in range(num_r_workers)]
         self.workers = [
-            RWorker(w, cfg, lo, hi, kv_chunk=kv_chunk, paged=paged_kv,
+            RWorker(w, cfg, lo, hi, kv_chunk=kv_chunk,
+                    quantized=quantized_kv, paged=paged_kv,
                     page_size=page_size, num_pages=pages_per_worker,
                     max_pages_per_seq=-(-cache_len // page_size),
                     device=self.device)

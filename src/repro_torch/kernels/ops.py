@@ -1,14 +1,42 @@
 """Dispatch for the R-Part attention kernels (counterpart of
 ``repro/kernels/ops.py``).
 
-``use_kernel="auto"`` is the only mode: the wrapper launches the Hopper
+``use_kernel="auto"`` is the only mode: each wrapper launches its Hopper
 kernel for a CUDA tensor and runs the plain version for a CPU tensor.
-The JAX package's other ops (dense and int8 flash-decode, the verify
-passes) are not ported yet; see ROADMAP.md.
+So the dense int8 op runs kernel 3 on the card, where ``repro`` runs its
+jnp reference even on the TPU (``kv_cache.r_attention_int8`` defaults to
+``use_kernel="ref"``): same function, another dispatch.  The verify ops
+are not ported yet; see ROADMAP.md.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quant_kv as _qk
+from repro_torch.kernels import ref as _ref
+
+
+def _auto(use_kernel: str) -> None:
+    if use_kernel != "auto":
+        raise ValueError(f"use_kernel must be 'auto', got {use_kernel!r}")
+
+
+def decode_attention(q, k, v, pos, lengths, *, window: int = 0, sink: int = 0,
+                     softcap: float = 0.0, use_kernel: str = "auto"):
+    """Batched decode attention.  q [B,Hq,Dh]; k,v [B,S,Hkv,Dh];
+    pos [B,S] int32; lengths [B] int32 -> [B,Hq,Dh]."""
+    _auto(use_kernel)
+    return _da.decode_attention(q, k, v, pos, lengths, window=window,
+                                sink=sink, softcap=softcap)
+
+
+def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
+                          window: int = 0, sink: int = 0, softcap: float = 0.0,
+                          use_kernel: str = "auto"):
+    _auto(use_kernel)
+    return _qk.decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos,
+                                     lengths, window=window, sink=sink,
+                                     softcap=softcap)
 
 
 def paged_decode_attention(q, pages_k, pages_v, tables, lengths, *,
@@ -16,8 +44,30 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths, *,
                            softcap: float = 0.0, use_kernel: str = "auto"):
     """Block-table decode attention.  q [B,Hq,Dh]; pages_k/v
     [P,page,Hkv,Dh]; tables [B,MP] int32; lengths [B] -> [B,Hq,Dh]."""
-    if use_kernel != "auto":
-        raise ValueError(f"use_kernel must be 'auto', got {use_kernel!r}")
+    _auto(use_kernel)
     return _pa.paged_decode_attention(q, pages_k, pages_v, tables, lengths,
                                       window=window, sink=sink,
                                       softcap=softcap)
+
+
+def paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
+                                *, window: int = 0, sink: int = 0,
+                                softcap: float = 0.0,
+                                use_kernel: str = "auto"):
+    """Int8 pools compose the paged gather with the dense int8 kernel, as
+    ``repro``'s kernel path does: the pages are gathered into a
+    per-sequence slab (with derived positions) and kernel 3 consumes it.
+    On a CPU tensor the chain is exactly
+    ``ref.paged_decode_attention_int8_ref``."""
+    _auto(use_kernel)
+    k_q, pos = _ref.paged_gather(pk_q, tables)
+    k_s, _ = _ref.paged_gather(pk_s, tables)
+    v_q, _ = _ref.paged_gather(pv_q, tables)
+    v_s, _ = _ref.paged_gather(pv_s, tables)
+    return _qk.decode_attention_int8(q, k_q, k_s, v_q, v_s, pos, lengths,
+                                     window=window, sink=sink,
+                                     softcap=softcap)
+
+
+quantize_kv = _qk.quantize_kv
+dequantize_kv = _qk.dequantize_kv

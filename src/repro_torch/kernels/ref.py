@@ -22,6 +22,18 @@ def decode_attention_ref(q, k, v, pos, lengths, *, window: int = 0,
     return o[:, 0]
 
 
+def decode_attention_int8_ref(q, k_q, k_scale, v_q, v_scale, pos, lengths,
+                              *, window: int = 0, sink: int = 0,
+                              softcap: float = 0.0):
+    """Dequantize in fp32 (``quant_kv.dequantize_kv``, written out here so
+    this module imports no kernel wrapper), cast to q.dtype, then
+    ``decode_attention_ref``."""
+    k = (k_q.to(torch.float32) * k_scale[..., None]).to(q.dtype)
+    v = (v_q.to(torch.float32) * v_scale[..., None]).to(q.dtype)
+    return decode_attention_ref(q, k, v, pos, lengths, window=window,
+                                sink=sink, softcap=softcap)
+
+
 def paged_gather(pages, tables):
     """pages [P,page,...]; tables [B,MP] int32 -> ([B, MP*page, ...],
     [B, MP*page] slot-derived positions, -1 on unmapped pages)."""
@@ -48,3 +60,16 @@ def paged_decode_attention_ref(q, pages_k, pages_v, tables, lengths, *,
     return decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype), pos,
                                 lengths, window=window, sink=sink,
                                 softcap=softcap)
+
+
+def paged_decode_attention_int8_ref(q, pk_q, pk_s, pv_q, pv_s, tables,
+                                    lengths, *, window: int = 0,
+                                    sink: int = 0, softcap: float = 0.0):
+    """Int8 page pools: values [P,page,Hkv,Dh] int8 + scales [P,page,Hkv]."""
+    k_q, pos = paged_gather(pk_q, tables)
+    k_s, _ = paged_gather(pk_s, tables)
+    v_q, _ = paged_gather(pv_q, tables)
+    v_s, _ = paged_gather(pv_s, tables)
+    return decode_attention_int8_ref(q, k_q, k_s, v_q, v_s, pos, lengths,
+                                     window=window, sink=sink,
+                                     softcap=softcap)

@@ -9,12 +9,14 @@ baseline) or ``hetero`` (the S-/R-worker pipeline of core.hetero).  With
 ``paged_kv=True`` (hetero only) the R-workers store attention KV
 block-granular: admission allocates only the pages a prompt needs,
 decode grows tables page by page, and a finished sequence's pages are
-freed the step it completes.
+freed the step it completes.  ``quantized_kv=True`` (hetero only)
+stores the R-workers' KV as int8 + per-(token, head) fp32 scales, dense
+or paged (§5.2).
 
 Not in this slice (see ROADMAP.md): the ``sls``/``loadctl`` admission
-schedules, ``from_plan``, sampled decoding, int8 storage, chunked
-prefill, the prefix cache, tiering/preemption, speculative decoding,
-fleet management, chaos supervision and observability.
+schedules, ``from_plan``, sampled decoding, chunked prefill, the prefix
+cache, tiering/preemption, speculative decoding, fleet management, chaos
+supervision and observability.
 """
 from __future__ import annotations
 
@@ -36,10 +38,9 @@ from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import sample
 
 # ServingEngine options of the JAX package that this slice does not port
-_NOT_IN_SLICE = ("quantized_kv", "prefill_chunk", "prefix_cache",
-                 "kv_tiering", "spec_decode", "preempt_after", "fleet",
-                 "chaos", "observability", "target_len", "interval",
-                 "w_lim")
+_NOT_IN_SLICE = ("prefill_chunk", "prefix_cache", "kv_tiering",
+                 "spec_decode", "preempt_after", "fleet", "chaos",
+                 "observability", "target_len", "interval", "w_lim")
 
 
 def _pad_pow2(n: int, lo: int = 1) -> int:
@@ -70,7 +71,8 @@ class ServingEngine:
                  cache_len: int, backend: str = "colocated",
                  admission: str = "greedy", num_r_workers: int = 2,
                  num_microbatches: int = 2, kv_chunk: int = 1024,
-                 paged_kv: bool = False, page_size: int = 16,
+                 quantized_kv: bool = False, paged_kv: bool = False,
+                 page_size: int = 16,
                  pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  device=None, **not_ported):
@@ -117,7 +119,8 @@ class ServingEngine:
                 params, cfg, batch=batch, cache_len=cache_len,
                 num_r_workers=num_r_workers,
                 num_microbatches=num_microbatches, kv_chunk=kv_chunk,
-                paged_kv=paged_kv, page_size=page_size,
+                quantized_kv=quantized_kv, paged_kv=paged_kv,
+                page_size=page_size,
                 pages_per_worker=pages_per_worker, schedule=schedule,
                 collect_timeout_s=collect_timeout_s, device=self.device)
             self.num_mb = num_microbatches

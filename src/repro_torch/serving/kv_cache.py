@@ -1,0 +1,133 @@
+"""KV-cache utilities of the port, including the int8-quantized variant
+(paper §5.2; counterpart of repro.serving.kv_cache).
+
+The model's decode state already *is* the cache (repro_torch.models.model).
+This module adds:
+  * size accounting helpers,
+  * conversion of a bf16/fp32 attention block state into int8 + scales,
+  * the parameter-free quantized R-Part op (decompose-compatible), which
+    quantizes incoming K/V on write and attends through kernel 3.
+
+Not in this slice (see ROADMAP.md): ``r_attention_int8_chunk`` (chunked
+prefill) and ``shared_prefix_bytes_saved`` (prefix cache).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core.config import ATTN, DEC_XATTN, ModelConfig
+from repro_torch.device import torch_dtype
+from repro_torch.kernels import ops
+
+_INT8_KEYS = ("k_q", "k_s", "v_q", "v_s")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def cache_bytes(st) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(st))
+
+
+def quantize_attn_state(st: Dict) -> Dict:
+    """{'k','v','pos',...} (bf16/fp32 caches) -> int8 + per-(token,head)
+    scales."""
+    kq, ks = ops.quantize_kv(st["k"])
+    vq, vs = ops.quantize_kv(st["v"])
+    out = {k: v for k, v in st.items() if k not in ("k", "v")}
+    out.update({"k_q": kq, "k_s": ks, "v_q": vq, "v_s": vs})
+    return out
+
+
+def dequantize_attn_state(st: Dict) -> Dict:
+    out = {k: v for k, v in st.items() if k not in _INT8_KEYS}
+    out["k"] = ops.dequantize_kv(st["k_q"], st["k_s"])
+    out["v"] = ops.dequantize_kv(st["v_q"], st["v_s"])
+    return out
+
+
+def r_attention_int8(r_in: Dict, r_state: Dict, *, window: int,
+                     softcap: float):
+    """Quantized R-Part attention: write the new (k, v) as int8, attend
+    with fp32 accumulation through kernel 3.  Drop-in for
+    decompose.r_attention on an R-worker that stores its cache quantized.
+    r_state {k_q, k_s, v_q, v_s, pos} is updated IN PLACE; with an
+    optional bool ``r_in["active"]`` [B], inactive rows write their stored
+    slot back unchanged (where the JAX package drops the write)."""
+    q, k, v, lengths = r_in["q"], r_in["k"], r_in["v"], r_in["lengths"]
+    cache_n = r_state["k_q"].shape[1]
+    b = q.shape[0]
+    slot = (lengths % cache_n).long()
+    bidx = torch.arange(b, device=q.device)
+    k_new_q, k_new_s = ops.quantize_kv(k[:, 0])
+    v_new_q, v_new_s = ops.quantize_kv(v[:, 0])
+    new = {"k_q": k_new_q, "k_s": k_new_s, "v_q": v_new_q, "v_s": v_new_s,
+           "pos": lengths.to(torch.int32)}
+    act = r_in.get("active")
+    for name, val in new.items():
+        if act is not None:
+            old = r_state[name][bidx, slot]
+            val = torch.where(act.reshape((-1,) + (1,) * (old.dim() - 1)),
+                              val, old)
+        r_state[name][bidx, slot] = val
+    o = ops.decode_attention_int8(
+        q[:, 0].contiguous(), r_state["k_q"], r_state["k_s"],
+        r_state["v_q"], r_state["v_s"], r_state["pos"],
+        lengths.to(torch.int32).contiguous(), window=window,
+        softcap=softcap)
+    return {"o": o[:, None]}, r_state
+
+
+def r_attention_int8_chunk(r_in: Dict, r_state: Dict, *, window: int,
+                           softcap: float, kv_chunk: int = 1024):
+    raise NotImplementedError(
+        "r_attention_int8_chunk (chunked prefill into int8 storage) is not "
+        "ported yet — queued in ROADMAP.md")
+
+
+def _token_slot_bytes(cfg: ModelConfig, quantized: bool) -> int:
+    """Bytes one token-slot of one layer's KV occupies (K + V, plus the
+    int8 path's per-(token, head) fp32 scales)."""
+    per_tok = 2 * cfg.num_kv_heads * cfg.head_dim
+    if quantized:
+        return per_tok * 1 + 2 * cfg.num_kv_heads * 4
+    return per_tok * torch_dtype(cfg.dtype).itemsize
+
+
+def kv_bytes_per_seq(cfg: ModelConfig, cache_len: int,
+                     quantized: bool = False) -> int:
+    n_attn = sum(1 for k in cfg.pattern if k in (ATTN, DEC_XATTN))
+    return n_attn * cache_len * _token_slot_bytes(cfg, quantized)
+
+
+def paged_kv_bytes_per_seq(cfg: ModelConfig, seq_len: int, page: int,
+                           quantized: bool = False,
+                           table_entry_bytes: int = 4) -> int:
+    """Resident bytes a ``seq_len``-token sequence actually occupies under
+    block-granular allocation: page-rounded KV plus its block-table row.
+    Compare with ``kv_bytes_per_seq(cfg, cache_len)``, which every dense
+    row pays regardless of its length."""
+    n_pages = -(-seq_len // page)
+    # only plain self-attention layers are paged (dec_xattn keeps the
+    # dense slab for its static cross-KV)
+    n_attn = sum(1 for k in cfg.pattern if k == ATTN)
+    return n_attn * (n_pages * page * _token_slot_bytes(cfg, quantized)
+                     + n_pages * table_entry_bytes)
+
+
+def shared_prefix_bytes_saved(cfg: ModelConfig, prefix_len: int,
+                              n_sharers: int, page: int,
+                              quantized: bool = False) -> int:
+    raise NotImplementedError(
+        "shared_prefix_bytes_saved belongs to the prefix cache, which is "
+        "not ported yet — queued in ROADMAP.md")

@@ -5,11 +5,12 @@ repro.serving.paged_cache, without the prefix index and the host tier).
   of one micro-batch, shared by every attention layer (a sequence's
   layers always have equal lengths); each layer owns its own page pool,
   addressed by the shared page ids.
-* device page pools (``init_page_pool``), the decode append
-  (``write_token_paged``) and the admission-time conversion of dense
-  prefill rows into pages (``dense_rows_to_pages``).
+* device page pools (``init_page_pool``: fp, or int8 + scales), the
+  decode append (``write_token_paged``) and the admission-time
+  conversion of dense prefill rows into pages (``dense_rows_to_pages``).
 * ``r_attention_paged_tables`` — the parameter-free R-Part op over
-  (pool, tables), through the paged flash-decode kernel.
+  (pool, tables), through the paged flash-decode kernel (fp pools) or
+  the gather + int8 kernel (int8 pools).
 
 Layout (shared with kernels/paged_attention.py):
 
@@ -147,33 +148,47 @@ class PagedAllocator:
 # device-side page pools (one per attention layer per worker)
 # ---------------------------------------------------------------------------
 def init_page_pool(num_pages: int, page: int, hkv: int, dh: int,
-                   dtype=torch.float32, device=None) -> Dict:
-    """{k, v} of ``num_pages`` pages plus the scratch page (see the module
-    docstring)."""
+                   dtype=torch.float32, device=None,
+                   quantized: bool = False) -> Dict:
+    """fp pool: {k, v}; int8 pool (§5.2 composition): {k_q, k_s, v_q, v_s}
+    with one fp32 scale per (token-slot, kv-head).  ``num_pages`` pages
+    plus the scratch page (see the module docstring)."""
     shape = (num_pages + 1, page, hkv, dh)
+    if quantized:
+        return {
+            "k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        }
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _any_pages(pool: Dict) -> torch.Tensor:
+    return pool["k_q"] if "k_q" in pool else pool["k"]
+
+
 def pool_pages(pool: Dict) -> int:
     """Allocatable pages of a pool (the scratch page excluded)."""
-    return pool["k"].shape[0] - 1
+    return _any_pages(pool).shape[0] - 1
 
 
 def page_pool_token_bytes(pool: Dict) -> float:
     """Bytes one token-slot occupies in the pool (all arrays)."""
     per_page = sum(v[0].numel() * v.element_size() for v in pool.values())
-    return per_page / pool["k"].shape[1]
+    return per_page / _any_pages(pool).shape[1]
 
 
 def write_token_paged(pool: Dict, tables, lengths, k_new, v_new,
                       active=None) -> Dict:
-    """Append one token per row at position ``lengths[row]``, IN PLACE.
-    Rows whose target slot is unmapped (released but still stepped), past
-    the table, or with ``active`` False write to the scratch page instead.
+    """Append one token per row at position ``lengths[row]``, IN PLACE
+    (an int8 pool quantizes it first).  Rows whose target slot is
+    unmapped (released but still stepped), past the table, or with
+    ``active`` False write to the scratch page instead.
     k_new/v_new [B, Hkv, Dh]."""
     scratch = pool_pages(pool)
-    page = pool["k"].shape[1]
+    page = _any_pages(pool).shape[1]
     mp = tables.shape[1]
     lengths = lengths.long()
     slot = lengths % page
@@ -184,16 +199,27 @@ def write_token_paged(pool: Dict, tables, lengths, k_new, v_new,
     if active is not None:
         ok = ok & active
     ids = torch.where(ok, ids, torch.full_like(ids, scratch))
-    pool["k"][ids, slot] = k_new.to(pool["k"].dtype)
-    pool["v"][ids, slot] = v_new.to(pool["v"].dtype)
+    if "k_q" in pool:
+        pool["k_q"][ids, slot], pool["k_s"][ids, slot] = ops.quantize_kv(
+            k_new)
+        pool["v_q"][ids, slot], pool["v_s"][ids, slot] = ops.quantize_kv(
+            v_new)
+    else:
+        pool["k"][ids, slot] = k_new.to(pool["k"].dtype)
+        pool["v"][ids, slot] = v_new.to(pool["v"].dtype)
     return pool
 
 
 def _scatter_pages(pool: Dict, ids: torch.Tensor, k_pages, v_pages) -> Dict:
     """One in-place scatter per pool array: ids [N]; k/v_pages
-    [N, page, Hkv, Dh] (page-chunked, zero-padded tails)."""
-    pool["k"][ids] = k_pages.to(pool["k"].dtype)
-    pool["v"][ids] = v_pages.to(pool["v"].dtype)
+    [N, page, Hkv, Dh] (page-chunked, zero-padded tails), quantized first
+    for an int8 pool."""
+    if "k_q" in pool:
+        pool["k_q"][ids], pool["k_s"][ids] = ops.quantize_kv(k_pages)
+        pool["v_q"][ids], pool["v_s"][ids] = ops.quantize_kv(v_pages)
+    else:
+        pool["k"][ids] = k_pages.to(pool["k"].dtype)
+        pool["v"][ids] = v_pages.to(pool["v"].dtype)
     return pool
 
 
@@ -210,14 +236,27 @@ def _to_page_chunks(x, page: int):
 def dense_rows_to_pages(pool: Dict, alloc: PagedAllocator,
                         rows: np.ndarray, r_state_rows: Dict) -> Dict:
     """Admit dense attention-state rows {k, v, pos} (the prefill payload)
-    into allocated pages.  The dense slab's first L slots hold tokens
-    0..L-1 in order; L comes from the stored positions.  All rows go into
-    ONE scatter per pool array."""
+    into allocated pages; an int8 pool quantizes them.  The dense slab's
+    first L slots hold tokens 0..L-1 in order; L comes from the stored
+    positions.  All rows go into ONE scatter per pool array.
+
+    A payload that is ALREADY quantized ({k_q, k_s, v_q, v_s, pos}, the
+    wire format of a quantized worker) is scattered verbatim into an int8
+    pool: no re-quantization."""
     from repro_torch.core.decompose import attn_state_lengths
+    quantized_payload = "k_q" in r_state_rows
+    if quantized_payload and "k_q" not in pool:
+        raise ValueError(
+            "quantized payload into an fp page pool — dequantize first "
+            "(RWorker._coerce_storage)")
     lens = attn_state_lengths(r_state_rows).cpu().numpy()
     pos_max = r_state_rows["pos"].amax(dim=1).cpu().numpy()
-    page = pool["k"].shape[1]
-    ids_all, k_chunks, v_chunks = [], [], []
+    any_pages = _any_pages(pool)
+    page = any_pages.shape[1]
+    names = (("k_q", "k_s", "v_q", "v_s") if quantized_payload
+             else ("k", "v"))
+    ids_all = []
+    chunks: Dict[str, list] = {n: [] for n in names}
     for i, row in enumerate(rows):
         length = int(lens[i])
         if length and int(pos_max[i]) + 1 != length:
@@ -229,15 +268,19 @@ def dense_rows_to_pages(pool: Dict, alloc: PagedAllocator,
         if length:
             n = -(-length // page)
             ids_all.append(alloc.tables[int(row), :n])
-            k_chunks.append(_to_page_chunks(r_state_rows["k"][i, :length],
-                                            page))
-            v_chunks.append(_to_page_chunks(r_state_rows["v"][i, :length],
-                                            page))
+            for name in names:
+                chunks[name].append(
+                    _to_page_chunks(r_state_rows[name][i, :length], page))
     if not ids_all:
         return pool
     ids = torch.from_numpy(np.concatenate(ids_all).astype(np.int64)).to(
-        pool["k"].device)
-    return _scatter_pages(pool, ids, torch.cat(k_chunks), torch.cat(v_chunks))
+        any_pages.device)
+    if quantized_payload:
+        for name in names:
+            pool[name][ids] = torch.cat(chunks[name]).to(pool[name].dtype)
+        return pool
+    return _scatter_pages(pool, ids, torch.cat(chunks["k"]),
+                          torch.cat(chunks["v"]))
 
 
 # ---------------------------------------------------------------------------
@@ -248,13 +291,20 @@ def r_attention_paged_tables(r_in: Dict, pool: Dict, tables, *,
                              use_kernel: str = "auto"):
     """Drop-in for decompose.r_attention with block-table storage: append
     the new (k, v) at ``lengths`` (in place), then attend through the
-    paged flash-decode kernel.  r_in: q/k/v [B,1,...], lengths [B];
-    returns ({"o": [B,1,Hq,Dh]}, pool)."""
+    paged flash-decode kernel (fp pools) or the gather + int8 kernel
+    (int8 pools).  r_in: q/k/v [B,1,...], lengths [B]; returns
+    ({"o": [B,1,Hq,Dh]}, pool)."""
     lengths = r_in["lengths"]
     pool = write_token_paged(pool, tables, lengths, r_in["k"][:, 0],
                              r_in["v"][:, 0], active=r_in.get("active"))
-    o = ops.paged_decode_attention(
-        r_in["q"][:, 0].contiguous(), pool["k"], pool["v"], tables,
-        lengths.to(torch.int32).contiguous(), window=window,
-        softcap=softcap, use_kernel=use_kernel)
+    q = r_in["q"][:, 0].contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    if "k_q" in pool:
+        o = ops.paged_decode_attention_int8(
+            q, pool["k_q"], pool["k_s"], pool["v_q"], pool["v_s"], tables,
+            lens, window=window, softcap=softcap, use_kernel=use_kernel)
+    else:
+        o = ops.paged_decode_attention(
+            q, pool["k"], pool["v"], tables, lens, window=window,
+            softcap=softcap, use_kernel=use_kernel)
     return {"o": o[:, None]}, pool

@@ -85,3 +85,20 @@ def test_params_from_numpy_casts_weights_not_norms():
     assert tp["lm_head"].dtype == torch.bfloat16
     assert tp["stack"]["s0"]["q_norm"].dtype == torch.float32
     assert tp["stack"]["s0"]["ln1"].dtype == torch.float32
+
+
+def test_int8_decode_state_roundtrip_bit_exact():
+    """An int8 attention state (int8 values, fp32 scales, int32 positions)
+    crosses with every leaf's dtype and bits unchanged."""
+    from repro.serving.kv_cache import quantize_attn_state
+    jc = tiny_cfg("llama-7b")
+    jp = JM.init_params(jax.random.PRNGKey(6), jc)
+    toks = np.random.default_rng(1).integers(1, jc.vocab_size, (2, 5))
+    _, st = JM.prefill(jp, jc, jnp.asarray(toks, jnp.int32),
+                       jnp.asarray([5, 2], jnp.int32), 8)
+    layer = jax.tree.map(lambda x: x[0], st["stack"]["s0"])
+    np_state = _to_np(quantize_attn_state(layer))
+    ts = bridge.state_from_numpy(np_state, "cpu")
+    assert ts["k_q"].dtype == torch.int8 and ts["k_s"].dtype == torch.float32
+    assert ts["pos"].dtype == torch.int32
+    _assert_bit_equal(np_state, bridge.state_to_numpy(ts))

@@ -5,15 +5,38 @@ the JAX-importing conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_kernels_cuda.py
+
+Tolerances, |out - want| <= atol + rtol * |want|: fp32 1e-5 absolute;
+bf16 1e-4 + 2^-7 * |want|.  Kernel and plain version both accumulate in
+fp32 and round once to bf16, so they may differ by one rounding step (at
+most 2^-7 of |want|); one dropped key among 512 moves an output by
+~2e-3, far beyond the absolute part.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as TDA
 from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import quant_kv as TQK
 from repro_torch.kernels import ref as TREF
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-4, 2.0 ** -7)}
+
+
+def _assert_within(out, want, dtype):
+    atol, rtol = TOL[dtype]
+    d = (out.float() - want.float()).abs()
+    bound = atol + rtol * want.float().abs()
+    assert bool(out.float().isfinite().all())
+    assert bool((d <= bound).all()), float((d - bound).max())
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Hopper kernels have no CPU "
+                    "mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
 
 
 def _case(rng, *, g, page, hkv=2, dh=128, b=4, mp=6):
@@ -39,9 +62,7 @@ def _case(rng, *, g, page, hkv=2, dh=128, b=4, mp=6):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_on_card_matches_plain(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Hopper kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    _needs_card()
     rng = np.random.default_rng(5)
     dt = getattr(torch, dtype)
     for g in (1, 2, 4):
@@ -56,6 +77,73 @@ def test_kernel_on_card_matches_plain(dtype):
             assert TPA.launches.value == before + 1
             want = TREF.paged_decode_attention_ref(q, pk, pv, tables,
                                                    lengths)
-            torch.testing.assert_close(out.float(), want.float(),
-                                       atol=TOL[dtype], rtol=0)
+            _assert_within(out, want, dtype)
             assert torch.all(out[3] == 0)
+
+
+def _slab_case(rng, *, g, dh, hkv=2, s=300):
+    """Four rows over an S=300 slab (no multiple of any tile): in-order
+    positions with -1 holes, a ring-ordered cache, a short row, and one
+    row with no valid slot (its output must be exactly 0)."""
+    pos = np.full((4, s), -1, np.int32)
+    pos[0, :257] = np.arange(257)
+    pos[0, [3, 100, 200]] = -1
+    ring = np.arange(400, 700)
+    pos[1, ring % s] = ring
+    pos[2, :5] = np.arange(5)
+    lengths = np.array([256, 699, 4, 9], np.int32)
+    q = rng.standard_normal((4, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((4, s, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((4, s, hkv, dh)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, pos, lengths)]
+
+
+SLAB_KW = [{}, dict(window=64, sink=4), dict(softcap=5.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_kernel_on_card_matches_plain(dtype):
+    _needs_card()
+    rng = np.random.default_rng(6)
+    dt = getattr(torch, dtype)
+    for g in (1, 4, 8):
+        for dh in (64, 128):
+            for kw in SLAB_KW:
+                q, k, v, pos, lengths = _slab_case(rng, g=g, dh=dh)
+                q, k, v = q.to(dt), k.to(dt), v.to(dt)
+                before = TDA.launches.value
+                out = TDA.decode_attention(q, k, v, pos, lengths, **kw)
+                torch.cuda.synchronize()
+                assert TDA.launches.value == before + 1
+                want = TREF.decode_attention_ref(q, k, v, pos, lengths, **kw)
+                _assert_within(out, want, dtype)
+                assert torch.all(out[3] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_on_card_matches_plain(dtype):
+    """Kernel 3 dequantizes in fp32; for a bf16 q its plain version runs
+    on q.float(), so the dequantized K/V stay fp32 there too, and the
+    kernel's bf16 output is held to the bf16 bound."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    dt = getattr(torch, dtype)
+    for g in (1, 4, 8):
+        for dh in (64, 128):
+            for kw in SLAB_KW:
+                q, k, v, pos, lengths = _slab_case(rng, g=g, dh=dh)
+                kq, ks = TQK.quantize_kv(k)
+                vq, vs = TQK.quantize_kv(v)
+                q = q.to(dt)
+                before = TQK.launches.value
+                out = TQK.decode_attention_int8(q, kq, ks, vq, vs, pos,
+                                                lengths, **kw)
+                torch.cuda.synchronize()
+                assert TQK.launches.value == before + 1
+                assert out.dtype == dt
+                want = TREF.decode_attention_int8_ref(
+                    q.float(), kq, ks, vq, vs, pos, lengths, **kw)
+                _assert_within(out, want, dtype)
+                assert torch.all(out[3] == 0)
