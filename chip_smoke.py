@@ -9,10 +9,12 @@ Phases (any failure exits nonzero):
   kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
               the gitignored build/ directory), holds every kernel (paged
               flash-decode; dense flash-decode in bf16/fp32 and with int8
-              K/V) against its plain PyTorch version on the card, and times
-              it at the main path's shape and at a bandwidth shape beside
-              its bound, its plain version and a library yardstick; times
-              the int8 page gather of the paged-int8 path.
+              K/V; the paged multi-token verify, whose T = 1 must equal
+              paged flash-decode bitwise) against its plain PyTorch
+              version on the card, and times it at the main path's shape
+              and at a bandwidth shape beside its bound, its plain version
+              and a library yardstick; times the int8 page gather of the
+              paged-int8 path.
   serve       Qwen3-8B at full width, random weights from a seeded
               generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
@@ -22,6 +24,11 @@ Phases (any failure exits nonzero):
               steps.
   serve_int8  the same model and trace with quantized_kv=True, paged and
               then dense: the same checks, on the int8 kernel's count.
+  serve_spec  the same model and trace with spec_decode=SpecConfig(k=3)
+              (self-speculation): the same checks, with the verify
+              kernel's launches equal to layers x workers x verify works
+              run and no paged flash-decode launch; acceptance and the
+              share of requests equal to the spec-off serve's reported.
   equiv       the same width at 2 layers in fp32 (TF32 off): the hetero
               paged engine (through the kernel) and the colocated engine
               (plain torch) must give the same greedy tokens, a mismatch
@@ -31,6 +38,11 @@ Phases (any failure exits nonzero):
               (tokens, logits within 1e-4), both through the int8 kernel,
               and both within 0.5 of the colocated fp logits fed the same
               tokens (the quantization bound of tests/test_hetero.py).
+  equiv_spec  the same at 2 layers: hetero paged (through the verify
+              kernel) and hetero dense (no kernel) with
+              spec_decode=SpecConfig(k=3) must give the colocated spec-off
+              engine's greedy tokens, a flip counting only if the logits
+              that chose it differ beyond tolerance.
 
 Earlier lines print one JSON object per phase and one ``kernels`` line;
 the line before the last is the card's name and power limit; the last
@@ -64,6 +76,9 @@ KERNELS = {
     "decode_attention_int8": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/quant_kv.py:44"),
+    "paged_verify_attention": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:174"),
 }
 # kernel vs plain version: |out - want| <= atol + rtol * |want|.  Both
 # accumulate in fp32 and round once to the output dtype, so in bf16 they
@@ -195,11 +210,97 @@ def kernel_checks(dev) -> dict:
     return {"cases": results, "max_abs_err": worst}
 
 
+def verify_checks(dev) -> dict:
+    """Kernel 4 against its plain version: T 1, 2 and 4 candidate tokens,
+    G 1 and 4, page 4 and 16, Dh 64 and 128, bf16 and fp32, with ragged
+    rows, a -1 hole, a shared page and an all-unmapped row (no valid key:
+    exactly 0); window + sink and softcap cases; and T = 1 against kernel
+    1 on the same inputs, which must be bitwise equal (one template, the
+    same instantiation)."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(5)
+    cases = []
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for t in (1, 2, 4):
+            for g in (1, 4):
+                for page in (4, 16):
+                    for dh in (64, 128):
+                        hkv = 8 // g
+                        cases.append(dict(
+                            name=f"{dtype_name}-T{t}-G{g}-page{page}-dh{dh}",
+                            dtype=dtype, t=t,
+                            kw=dict(b=5, hq=hkv * g, hkv=hkv, dh=dh,
+                                    page=page, mp=-(-84 // page),
+                                    lengths=[37, 5, 0, 63, 20],
+                                    unmapped_row=2, hole=(3, 1),
+                                    share=(0, 4)),
+                            attn=dict()))
+        for t in (1, 4):
+            cases.append(dict(
+                name=f"{dtype_name}-T{t}-window-sink", dtype=dtype, t=t,
+                kw=dict(b=3, hq=8, hkv=2, dh=128, page=16, mp=8,
+                        lengths=[100, 17, 64], unmapped_row=None),
+                attn=dict(window=24, sink=4)))
+            cases.append(dict(
+                name=f"{dtype_name}-T{t}-softcap-dh64", dtype=dtype, t=t,
+                kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=18,
+                        lengths=[50, 3, 61], unmapped_row=None),
+                attn=dict(softcap=5.0)))
+    worst = 0.0
+    results = []
+    t1_equal = []
+    for c in cases:
+        t = c["t"]
+        kw = dict(c["kw"])
+        # the pages hold the last candidate: position base + t - 1
+        kw["lengths"] = [n + t - 1 for n in kw["lengths"]]
+        _, pk, pv, tables, lens = _paged_case(gen, dtype=c["dtype"], dev=dev,
+                                              **kw)
+        base = (lens - (t - 1)).contiguous()
+        q = torch.randn((kw["b"], t, kw["hq"], kw["dh"]),
+                        generator=gen).to(c["dtype"]).to(dev)
+        out = PA.paged_verify_attention(q, pk, pv, tables, base, **c["attn"])
+        torch.cuda.synchronize()
+        want = ref.paged_verify_attention_ref(q, pk, pv, tables, base,
+                                              **c["attn"])
+        dtype_name = str(c["dtype"]).split(".")[-1]
+        err, ok = tol_check(out, want, dtype_name)
+        un = kw.get("unmapped_row")
+        if un is not None:
+            ok = ok and bool((out[un] == 0).all())
+        rec = {"case": c["name"], "max_abs_err": err,
+               "atol_rtol": TOL[dtype_name], "ok": ok}
+        if t == 1:
+            dec = PA.paged_decode_attention(q[:, 0].contiguous(), pk, pv,
+                                            tables, base, **c["attn"])
+            torch.cuda.synchronize()
+            rec["equal_to_kernel_1"] = bool(torch.equal(out[:, 0], dec))
+            t1_equal.append(rec["equal_to_kernel_1"])
+            ok = ok and rec["equal_to_kernel_1"]
+            rec["ok"] = ok
+        results.append(rec)
+        if not ok:
+            raise AssertionError(
+                f"verify kernel case {c['name']} failed: err {err} (atol, "
+                f"rtol) {TOL[dtype_name]} (unmapped row must be exactly 0; "
+                f"T = 1 must equal kernel 1 bitwise)")
+        worst = max(worst, err)
+    return {"cases": results, "max_abs_err": worst,
+            "t1_bitwise_equal_to_kernel_1": all(t1_equal)}
+
+
 def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
-                  cache_len=None, copies=1, iters=50) -> dict:
-    """Kernel, plain version and SDPA yardstick at one shape, bf16.  Every
-    row holds ``n_tok`` valid tokens (lengths = n_tok - 1); ``copies``
-    distinct pools are cycled so the working set exceeds the 50 MB L2."""
+                  cache_len=None, copies=1, iters=50, t=None) -> dict:
+    """Kernel 1 (``t`` None) or kernel 4 (``t`` candidate tokens), its
+    plain version and the SDPA yardstick at one shape, bf16.  Every row
+    holds ``n_tok`` valid tokens: kernel 1's query sits at n_tok - 1;
+    kernel 4's base is n_tok - t, so its last candidate sits at n_tok - 1.
+    Kernel 4's tables are cut to the power of two of the used pages, as
+    the verify R-Part cuts them.  ``copies`` distinct pools are cycled so
+    the working set exceeds the 50 MB L2."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as PA
@@ -208,40 +309,62 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
     mp = -(-(cache_len or n_tok) // page)
     per_row = -(-n_tok // page)
     n_pages = b * mp + 1
+    nq = t or 1
+    qshape = (b, t, hq, dh) if t else (b, hq, dh)
+    lens_val = n_tok - nq
     bufs = []
     for _ in range(copies):
         pk = torch.randn((n_pages, page, hkv, dh), generator=gen,
                          device=dev).to(torch.bfloat16)
         pv = torch.randn((n_pages, page, hkv, dh), generator=gen,
                          device=dev).to(torch.bfloat16)
-        q = torch.randn((b, hq, dh), generator=gen,
+        q = torch.randn(qshape, generator=gen,
                         device=dev).to(torch.bfloat16)
         ids = torch.randperm(b * mp, generator=gen, device=dev)
         tables = torch.full((b, mp), -1, dtype=torch.int32, device=dev)
         tables[:, :per_row] = ids[:b * per_row].reshape(b, per_row).to(
             torch.int32)
-        lens = torch.full((b,), n_tok - 1, dtype=torch.int32, device=dev)
+        if t:
+            used = 1
+            while used < per_row:
+                used *= 2
+            tables = tables[:, :min(used, mp)].contiguous()
+        lens = torch.full((b,), lens_val, dtype=torch.int32, device=dev)
         # the library yardstick reads the already-gathered K/V (the gather
-        # is excluded from its time); all n_tok positions are valid
+        # is excluded from its time); all n_tok positions are valid for
+        # the last query, query i of kernel 4 sees base + i + 1
         kg, _ = ref.paged_gather(pk, tables[:, :per_row])
         vg, _ = ref.paged_gather(pv, tables[:, :per_row])
         kg = kg[:, :n_tok].permute(0, 2, 1, 3).contiguous()
         vg = vg[:, :n_tok].permute(0, 2, 1, 3).contiguous()
         bufs.append((q, pk, pv, tables, lens, kg, vg))
+    mask = None
+    if t:
+        qp = lens_val + torch.arange(t, device=dev)
+        mask = (torch.arange(n_tok, device=dev)[None, :]
+                <= qp[:, None])[None, None].expand(b, 1, t, n_tok)
 
     def kern(i):
         q, pk, pv, tables, lens = bufs[i % copies][:5]
+        if t:
+            return PA.paged_verify_attention(q, pk, pv, tables, lens)
         return PA.paged_decode_attention(q, pk, pv, tables, lens)
 
     def plain(i):
         q, pk, pv, tables, lens = bufs[i % copies][:5]
+        if t:
+            return ref.paged_verify_attention_ref(q, pk, pv, tables, lens)
         return ref.paged_decode_attention_ref(q, pk, pv, tables, lens)
 
     def lib(i):
         q, kg, vg = bufs[i % copies][0], bufs[i % copies][5], \
             bufs[i % copies][6]
+        if t:
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg, vg, attn_mask=mask,
+                enable_gqa=True).transpose(1, 2)
         return F.scaled_dot_product_attention(q[:, :, None], kg, vg,
-                                              enable_gqa=True)
+                                              enable_gqa=True)[:, :, 0]
 
     q, pk, pv, tables, lens, kg, vg = bufs[0]
     got = kern(0)
@@ -250,23 +373,26 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
         raise AssertionError(f"kernel at the {name} shape: max err {err} "
                              f"against the plain version, (atol, rtol) "
                              f"{TOL['bfloat16']}")
-    lib_err = float((got.float() - lib(0)[:, :, 0].float()).abs().max())
+    lib_err = float((got.float() - lib(0).float()).abs().max())
     ms = cuda_time_ms(kern, iters)
     plain_ms = cuda_time_ms(plain, max(3, iters // 10), warmup=1)
     library_ms = cuda_time_ms(lib, iters)
     elt = 2
     kv_bytes = 2 * b * n_tok * hkv * dh * elt
-    io_bytes = 2 * b * hq * dh * elt + tables.numel() * 4 + b * 4
+    io_bytes = 2 * b * nq * hq * dh * elt + tables.numel() * 4 + b * 4
     bytes_moved = kv_bytes + io_bytes
-    flops = 4 * b * n_tok * hq * dh
+    # query i attends lens + i + 1 positions
+    flops = 4 * b * hq * dh * sum(lens_val + i + 1 for i in range(nq))
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    return {"shape": name, "B": b, "tokens_per_row": n_tok, "Hq": hq,
-            "Hkv": hkv, "Dh": dh, "page": page, "dtype": "bfloat16",
+    return {"shape": name, "B": b, "T": nq, "tokens_per_row": n_tok,
+            "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page,
+            "table_pages": tables.shape[1], "dtype": "bfloat16",
             "pool_copies": copies, "max_abs_err": err,
             "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
-            "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
+            "bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
 
@@ -506,6 +632,13 @@ def phase_kernel(dev) -> dict:
                          copies=16, iters=200)
     bw = kernel_timing(dev, "bandwidth", b=64, n_tok=4096, copies=1,
                        iters=20)
+    vchecks = verify_checks(dev)
+    # kernel 4 at the spec serve's per-worker verify call (2 rows, the
+    # last of 4 candidates at position 511) and at 64 x 4096
+    v_main = kernel_timing(dev, "main-path", b=2, n_tok=512, cache_len=1024,
+                           copies=16, iters=200, t=4)
+    v_bw = kernel_timing(dev, "bandwidth", b=64, n_tok=4096, copies=1,
+                         iters=20, t=4)
     slab = slab_checks(dev)
     # kernels 2 and 3 at the int8 serve's per-worker shape (2 rows, the
     # gathered slab of MP*page = 1024 slots, 512 valid) and at 64 x 4096
@@ -522,6 +655,12 @@ def phase_kernel(dev) -> dict:
         kernels[name] = {"checks": slab[name]["cases"], "timing": t,
                          "max_abs_err": max([slab[name]["max_abs_err"]]
                                             + [x["max_abs_err"] for x in t])}
+    kernels["paged_verify_attention"] = {
+        "checks": vchecks["cases"], "timing": [v_main, v_bw],
+        "t1_bitwise_equal_to_kernel_1":
+            vchecks["t1_bitwise_equal_to_kernel_1"],
+        "max_abs_err": max(vchecks["max_abs_err"], v_main["max_abs_err"],
+                           v_bw["max_abs_err"])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
             "kernels": kernels, "paged_int8_gather": gather_timing(dev)}
 
@@ -556,54 +695,78 @@ def serve_model(dev):
 
 
 def _counters():
-    """{kernel name: wrapper module} of every ported kernel."""
+    """{kernel name: (launch counter, plain-call counter)} of every ported
+    kernel."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quant_kv as QK
-    return {"paged_decode_attention": PA, "decode_attention": DA,
-            "decode_attention_int8": QK}
+    return {"paged_decode_attention": (PA.launches, PA.plain_calls),
+            "decode_attention": (DA.launches, DA.plain_calls),
+            "decode_attention_int8": (QK.launches, QK.plain_calls),
+            "paged_verify_attention": (PA.verify_launches,
+                                       PA.verify_plain_calls)}
+
+
+def _reset_counters() -> None:
+    for launched, plain in _counters().values():
+        launched.reset()
+        plain.reset()
 
 
 def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
-              quantized: bool, profile: str = "", trace: bool = False
-              ) -> dict:
+              quantized: bool, spec_k: int = 0, profile: str = "",
+              trace: bool = False) -> dict:
     """Serve the 12-request trace through ServingEngine(backend="hetero",
-    num_r_workers=2) with the given storage.  Every count is set to 0
+    num_r_workers=2) with the given storage, speculative decoding with
+    ``spec_k`` drafts per row when nonzero.  Every count is set to 0
     just before the counted run and read just after it: ``kernel``'s
-    launches must equal layers x micro-batches x workers x decode steps,
-    and no plain version may run.  ``profile`` names a profiled window of
-    3 decode steps afterwards (written to ``out``)."""
+    launches must equal layers x workers x (micro-batches x decode steps,
+    or the verify works run with spec decoding), no other kernel of the
+    paged path may run (kernel 1 never runs in a spec serve), and no
+    plain version may run.  ``profile`` names a profiled window of 3
+    steps afterwards (written to ``out``)."""
     import torch
     from repro_torch.serving import kv_cache as KV
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.engine import ServingEngine, SpecConfig
     cfg, params = model["cfg"], model["params"]
     counters = _counters()
     batch, n_mb, n_workers = 8, 2, 2
     eng = ServingEngine(params, cfg, backend="hetero", num_r_workers=n_workers,
                         num_microbatches=n_mb, paged_kv=paged,
                         quantized_kv=quantized, page_size=16, batch=batch,
-                        cache_len=1024, device=dev)
+                        cache_len=1024, device=dev,
+                        spec_decode=SpecConfig(k=spec_k) if spec_k else None)
     try:
         reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
                          cfg.vocab_size)
         for r in reqs:
             eng.submit(r)
         torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches.reset()
-            mod.plain_calls.reset()
+        _reset_counters()
         nonfinite = 0
         peak_resident = 0.0
+        verify_works = row_verifies = 0
+        seen = eng.engine.prefill_results
         while eng.queue or any(s is not None for s in eng.slots):
             eng.step()
-            nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
+            if spec_k:
+                # a step with no live row runs no verify (the list stays)
+                if eng.engine.prefill_results is not seen:
+                    seen = eng.engine.prefill_results
+                    for wk in seen:
+                        verify_works += 1
+                        row_verifies += len(wk.rows)
+                        nonfinite += int((~torch.isfinite(wk.logits)).sum())
+            else:
+                nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
             peak_resident = max(peak_resident, eng.paged_resident_bytes())
             if eng.step_idx > 200:
                 raise AssertionError("serve did not drain in 200 steps")
         torch.cuda.synchronize()
-        launches = {n: m.launches.value for n, m in counters.items()}
-        plain = {n: m.plain_calls.value for n, m in counters.items()}
+        launches = {n: c[0].value for n, c in counters.items()}
+        plain = {n: c[1].value for n, c in counters.items()}
         steps = eng.step_idx
+        spec_stats = dict(eng.spec_stats)
         kv_bytes = sum(KV.cache_bytes(w.state) for w in eng.engine.workers)
         pool_bytes = sum(w.pool_bytes() for w in eng.engine.workers)
         hot = eng.hotpath_stats()
@@ -632,38 +795,54 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
                 f"wanted {r.max_new_tokens}")
     if nonfinite:
         raise AssertionError(f"{nonfinite} non-finite logits")
-    want = cfg.num_layers * n_mb * n_workers * steps
-    if launches[kernel] != want or any(plain.values()):
+    calls = verify_works if spec_k else n_mb * steps
+    want = cfg.num_layers * n_workers * calls
+    others = {n: v for n, v in launches.items()
+              if n != kernel and n.startswith("paged_") and paged}
+    if launches[kernel] != want or any(plain.values()) \
+            or any(others.values()):
         raise AssertionError(
-            f"{kernel} launches {launches[kernel]} != layers x "
-            f"micro-batches x workers x decode steps = {want} (plain "
-            f"calls {plain})")
+            f"{kernel} launches {launches[kernel]} != layers x workers x "
+            f"{'verify works' if spec_k else 'micro-batches x decode steps'}"
+            f" = {want} (other paged kernels {others}, plain calls "
+            f"{plain})")
     recs = eng.records
     dec = [rec.decode_wall for rec in recs]
-    # tokens emitted by decode steps (token 0 of a request comes from its
-    # prefill logits, inside prefill_wall)
+    # tokens emitted by decode (or verify) steps (token 0 of a request
+    # comes from its prefill logits, inside prefill_wall)
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
-    return {"storage": ("paged-" if paged else "dense-")
-            + ("int8" if quantized else cfg.dtype),
-            "model": "qwen3-8b", "layers": cfg.num_layers,
-            "d_model": cfg.d_model, "heads": [cfg.num_heads,
-                                              cfg.num_kv_heads],
-            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-            "weight_bytes": model["weight_bytes"], "init_s": model["init_s"],
-            "requests": len(reqs), "decode_steps": steps,
-            "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
-            "page_size": 16, "cache_len": 1024,
-            "prompt_tokens": sum(r.prompt_len for r in reqs),
-            "decode_tokens": dec_tokens,
-            "decode_tokens_per_s": dec_tokens / sum(dec),
-            "decode_step_s_p50": float(np.median(dec)),
-            "decode_step_s_max": float(np.max(dec)),
-            "prefill_s_total": sum(rec.prefill_wall for rec in recs),
-            "kv_bytes": kv_bytes, "page_pool_bytes": pool_bytes,
-            "paged_resident_bytes_peak": peak_resident,
-            "kernel": kernel, "kernel_launches": launches[kernel],
-            "launches": launches, "plain_calls": plain,
-            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof}
+    rec = {"storage": ("paged-" if paged else "dense-")
+           + ("int8" if quantized else cfg.dtype),
+           "model": "qwen3-8b", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "weight_bytes": model["weight_bytes"], "init_s": model["init_s"],
+           "requests": len(reqs), "decode_steps": steps,
+           "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
+           "page_size": 16, "cache_len": 1024,
+           "prompt_tokens": sum(r.prompt_len for r in reqs),
+           "decode_tokens": dec_tokens,
+           "decode_tokens_per_s": dec_tokens / sum(dec),
+           "decode_step_s_p50": float(np.median(dec)),
+           "decode_step_s_max": float(np.max(dec)),
+           "prefill_s_total": sum(rec.prefill_wall for rec in recs),
+           "kv_bytes": kv_bytes, "page_pool_bytes": pool_bytes,
+           "paged_resident_bytes_peak": peak_resident,
+           "kernel": kernel, "kernel_launches": launches[kernel],
+           "launches": launches, "plain_calls": plain,
+           "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
+           "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
+    if spec_k:
+        rec.update({
+            "spec_k": spec_k, "spec_stats": spec_stats,
+            "verify_works": verify_works, "row_verifies": row_verifies,
+            "acceptance_rate": spec_stats["accepted_tokens"]
+            / max(1, spec_stats["drafted_tokens"]),
+            "accepted_per_verify_step": spec_stats["accepted_tokens"]
+            / max(1, spec_stats["steps"]),
+            "tokens_per_row_verify": dec_tokens / max(1, row_verifies)})
+    return rec
 
 
 def phase_serve(dev, model, out: Path) -> dict:
@@ -681,6 +860,30 @@ def phase_serve_int8(dev, model, out: Path) -> dict:
                       paged=False, quantized=True)
     return {"phase": "serve_int8", "ok": True, "runs": [paged, dense],
             "kernel_launches": paged["kernel_launches"]}
+
+
+def phase_serve_spec(dev, model, out: Path, spec_off=None) -> dict:
+    """The same trace through spec_decode=SpecConfig(k=3), self-
+    speculation: every verify through kernel 4, none through kernel 1.
+    In bf16 the verify logits (a C-token product) and the drafter's (a
+    one-token product) sum in different orders, so near-ties may flip:
+    equality with the spec-off serve's tokens is reported, not
+    required."""
+    rec = serve_run(dev, model, out, kernel="paged_verify_attention",
+                    paged=True, quantized=False, spec_k=3,
+                    profile="serve_spec")
+    if spec_off is not None:
+        same = [rid for rid, toks in rec["tokens"].items()
+                if spec_off["tokens"][rid] == toks]
+        rec["requests_equal_to_spec_off"] = len(same) / len(rec["tokens"])
+        # where each request's tokens first part from the spec-off serve's
+        rec["first_diff_vs_spec_off"] = {
+            rid: next((i for i, (a, b) in enumerate(
+                zip(toks, spec_off["tokens"][rid])) if a != b), None)
+            for rid, toks in rec["tokens"].items()}
+        rec["tokens_per_s_ratio_to_spec_off"] = (
+            rec["decode_tokens_per_s"] / spec_off["decode_tokens_per_s"])
+    return {"phase": "serve_spec", "ok": True, **rec}
 
 
 def _profile_steps(eng, n_steps: int, out: Path, name: str,
@@ -781,12 +984,39 @@ def _serve_logged(eng, reqs, forced=None):
         return toks
 
     eng._sample_tokens, eng.engine.decode_step = sample, decode_step
-    for r in reqs:
-        eng.submit(r)
-    while eng.queue or any(s is not None for s in eng.slots):
-        eng.step()
-        if eng.step_idx > 200:
-            raise AssertionError("equiv serve did not drain in 200 steps")
+    # a spec step chooses its tokens in sampler.spec_accept, one call per
+    # live row in _spec_rows order: the logits row that chose committed
+    # token i of a call is logits[i]
+    from repro_torch.serving import engine as E
+    own_accept = E.spec_accept
+    if eng.spec is not None:
+        if forced is not None:
+            raise ValueError("teacher forcing is not wired for spec steps")
+        own_rows, live, calls = eng._spec_rows, [], [0]
+
+        def spec_rows():
+            live[:] = own_rows()
+            calls[0] = 0
+            return list(live)
+
+        def accept(logits, draft, **kw):
+            toks, acc = own_accept(logits, draft, **kw)
+            rid = live[calls[0]][1].rid
+            calls[0] += 1
+            lg = logits.float().cpu()
+            logs[rid].extend(lg[i] for i in range(len(toks)))
+            return toks, acc
+        eng._spec_rows, E.spec_accept = spec_rows, accept
+    try:
+        for r in reqs:
+            eng.submit(r)
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            if eng.step_idx > 200:
+                raise AssertionError("equiv serve did not drain in 200 "
+                                     "steps")
+    finally:
+        E.spec_accept = own_accept
     torch.cuda.synchronize()
     return ({r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished},
             sampled)
@@ -846,7 +1076,8 @@ def _equiv_model(dev, seed):
     return cfg, params, spec
 
 
-def _equiv_serve(dev, cfg, params, spec, forced=None, **kw):
+def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None, **kw):
+    """``stats`` (a dict), when given, receives the engine's spec_stats."""
     from repro_torch.serving.engine import ServingEngine
     hetero = kw.get("backend") == "hetero"
     if hetero:
@@ -858,6 +1089,8 @@ def _equiv_serve(dev, cfg, params, spec, forced=None, **kw):
                                             **spec), forced)
     finally:
         eng.close()
+        if stats is not None:
+            stats.update(eng.spec_stats)
 
 
 def phase_equiv(dev) -> dict:
@@ -922,26 +1155,70 @@ def phase_equiv_int8(dev) -> dict:
             "max_logit_diff_vs_fp": quant, "quant_bound": QUANT_BOUND}
 
 
-PHASES = ("kernel", "serve", "serve_int8", "equiv", "equiv_int8")
+def phase_equiv_spec(dev) -> dict:
+    """Speculative decoding (self-speculation, k = 3) at 2 layers, fp32,
+    TF32 off: hetero paged (every verify through kernel 4) and hetero
+    dense (plain torch, no kernel at all) must each give the colocated
+    spec-off engine's greedy tokens, a flip counting only if the
+    teacher-forced logits that chose it differ beyond tolerance."""
+    from repro_torch.serving.engine import SpecConfig
+    cfg, params, spec = _equiv_model(dev, 1)
+    want, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
+    runs = {}
+    for name, paged in (("paged", True), ("dense", False)):
+        _reset_counters()
+        stats = {}
+        got, _ = _equiv_serve(dev, cfg, params, spec, stats=stats,
+                              backend="hetero", paged_kv=paged,
+                              spec_decode=SpecConfig(k=3))
+        launches = {n: c[0].value for n, c in _counters().items()}
+        max_diff, mismatches, ties, margin = _compare(got, want,
+                                                      EQUIV_LOGIT_TOL)
+        want_kernels = ({"paged_verify_attention"} if paged else set())
+        launched = {n for n, v in launches.items() if v}
+        if mismatches or max_diff > EQUIV_LOGIT_TOL \
+                or launched != want_kernels:
+            raise AssertionError(
+                f"spec hetero-{name} != colocated spec-off: mismatches "
+                f"{mismatches}, max logit diff {max_diff} (tol "
+                f"{EQUIV_LOGIT_TOL}), kernel launches {launches} (want "
+                f"only {sorted(want_kernels)})")
+        runs[name] = {"tokens_equal": not ties, "near_tie_flips": ties,
+                      "max_logit_diff": max_diff, "min_top2_margin": margin,
+                      "kernel_launches": launches, "spec_stats": stats,
+                      "acceptance_rate": stats["accepted_tokens"]
+                      / max(1, stats["drafted_tokens"])}
+    return {"phase": "equiv_spec", "ok": True, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+            "spec_k": 3, "requests": len(want),
+            "logit_tol": EQUIV_LOGIT_TOL, "runs": runs}
+
+
+PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "equiv",
+          "equiv_int8", "equiv_spec")
 
 
 def kernels_line(results) -> list:
     """The ``kernels`` line: every ported kernel with its time at the
     main path's shape (null where the kernel phase did not run) and its
     launches in the counted serve run of its path: the bf16 paged serve
-    for kernel 1, the paged-int8 serve for kernel 3; kernel 2 is on no
+    for kernel 1, the paged-int8 serve for kernel 3, the spec serve for
+    kernel 4; kernel 2 is on no
     serve path (as in the JAX package, only ops.decode_attention reaches
     it), so its count is that of the serve runs, 0 (null where no serve
     phase ran)."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
-    runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else [])
+    spec = results.get("serve_spec")
+    runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else []) \
+        + ([spec] if spec else [])
     launches = {
         "paged_decode_attention": serve["kernel_launches"] if serve else None,
         "decode_attention": sum(r["launches"]["decode_attention"]
                                 for r in runs) if runs else None,
         "decode_attention_int8": serve8["kernel_launches"] if serve8
         else None,
+        "paged_verify_attention": spec["kernel_launches"] if spec else None,
     }
     line = []
     for name, (source, replaces) in KERNELS.items():
@@ -983,7 +1260,7 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         results["kernel"] = phase_kernel(dev)
         log(results["kernel"])
-    if "serve" in phases or "serve_int8" in phases:
+    if {"serve", "serve_int8", "serve_spec"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:
             results["serve"] = phase_serve(dev, model, args.out)
@@ -991,6 +1268,10 @@ def main(argv=None) -> int:
         if "serve_int8" in phases:
             results["serve_int8"] = phase_serve_int8(dev, model, args.out)
             log(results["serve_int8"])
+        if "serve_spec" in phases:
+            results["serve_spec"] = phase_serve_spec(
+                dev, model, args.out, results.get("serve"))
+            log(results["serve_spec"])
         del model
         torch.cuda.empty_cache()
     if "equiv" in phases:
@@ -999,6 +1280,9 @@ def main(argv=None) -> int:
     if "equiv_int8" in phases:
         results["equiv_int8"] = phase_equiv_int8(dev)
         log(results["equiv_int8"])
+    if "equiv_spec" in phases:
+        results["equiv_spec"] = phase_equiv_spec(dev)
+        log(results["equiv_spec"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

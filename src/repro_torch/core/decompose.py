@@ -9,8 +9,10 @@ attend over the cache).  Only activations cross the boundary (q, k, v
 
     model.apply_block(kind, p, h, st, ctx) == run_decomposed(kind, p, h, st, ctx)
 
-is held by tests/test_torch_model.py.  Decode mode only: prefill runs as
-a batched forward on the S-worker.
+is held by tests/test_torch_model.py.  Decode mode, plus the chunk mode
+that carries a speculative-decode verify step (C candidate tokens per
+row) through the same S/R split; prefill runs as a batched forward on
+the S-worker.
 """
 from __future__ import annotations
 
@@ -71,6 +73,39 @@ def r_attention(r_in: Dict[str, torch.Tensor], r_state, *, window: int,
     return {"o": o}, r_state
 
 
+def r_attention_chunk(r_in: Dict[str, torch.Tensor], r_state, *,
+                      window: int, softcap: float, kv_chunk: int = 1024):
+    """Chunk R-Part: append C tokens per row and attend them against
+    [old cache + chunk] (write-then-attend semantics, equal to
+    whole-prompt prefill up to float association).
+
+    r_in: q [B,C,Hq,Dh], k, v [B,C,Hkv,Dh] (rope'd), lengths [B] (tokens
+    already cached per row: the KV offset), valid [B,C] bool (False for
+    padding and rows not fed: they write nothing and their output is
+    discarded).  Old entries at positions >= the row's offset (a
+    previous occupant's, or rejected speculative tokens) are masked out;
+    ring discipline keeps only the last min(C_valid, cache_n) chunk
+    tokens.  r_state {k, v, pos} is updated in place."""
+    q, k, v = r_in["q"], r_in["k"], r_in["v"]
+    base, valid = r_in["lengths"], r_in["valid"]
+    cache_n = r_state["k"].shape[1]
+    c = q.shape[1]
+    qpos = (base[:, None].to(torch.int32)
+            + torch.arange(c, dtype=torch.int32, device=q.device)[None, :])
+    slots, old_pos, kpos_new = L.chunk_ring_plan(
+        r_state["pos"], base, valid, qpos, cache_n)
+    kcat = torch.cat([r_state["k"], k.to(r_state["k"].dtype)], dim=1)
+    vcat = torch.cat([r_state["v"], v.to(r_state["v"].dtype)], dim=1)
+    pcat = torch.cat([old_pos, kpos_new], dim=1)
+    o = L.flash_attention(q, kcat, vcat, qpos, pcat, causal=True,
+                          window=window, softcap=softcap,
+                          kv_chunk=max(kcat.shape[1], kv_chunk))
+    L.scatter_rows_drop(r_state["k"], slots, k)
+    L.scatter_rows_drop(r_state["v"], slots, v)
+    L.scatter_rows_drop(r_state["pos"], slots, qpos)
+    return {"o": o}, r_state
+
+
 class PhaseOut(NamedTuple):
     carry: Any                 # S-side residual
     r_in: Optional[Dict]       # payload for the R-worker (None if finished)
@@ -94,6 +129,18 @@ def s_pre_stateful(kind: str, p, h, s_state, ctx: Ctx):
     return s_pre(kind, p, h, ctx), s_state
 
 
+def s_pre_chunk_stateful(kind: str, p, h, s_state, ctx: Ctx, valid):
+    """Chunk-mode s_pre_stateful: h is [B, C, D], ``valid`` [B, C] marks
+    real tokens; the payload carries ``valid`` so the R-Part gates its
+    writes.  ``ctx.qpos`` holds the chunk's absolute positions (base +
+    offset) and ``ctx.lengths`` the per-row KV offsets.  ATTN keeps no
+    S-side state.  Returns (PhaseOut, s_state)."""
+    out = s_pre(kind, p, h, ctx)
+    r_in = dict(out.r_in)
+    r_in["valid"] = valid
+    return PhaseOut(out.carry, r_in), s_state
+
+
 def _finish(p, h, cfg: ModelConfig):
     if cfg.ffn_kind == "none" or "ln2" not in p:
         return h
@@ -108,6 +155,22 @@ def s_advance(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
     b, s = o.shape[:2]
     mix = o.reshape(b, s, -1) @ p["wo"]
     return _finish(p, carry["h"] + mix, ctx.cfg)
+
+
+def s_advance_chunk(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
+    """Chunk-mode s_advance: per-position R results [B, C, ...] to the
+    block output [B, C, D]; the attention math is already
+    sequence-general."""
+    return s_advance(kind, phase, p, carry, r_out, ctx)
+
+
+def r_dispatch_chunk(kind: str, phase: int, r_in, r_state,
+                     cfg: ModelConfig, kv_chunk: int = 1024):
+    """Chunk-work counterpart of :func:`r_dispatch` (dense storage)."""
+    _attn_only(kind)
+    return r_attention_chunk(r_in, r_state, window=cfg.window,
+                             softcap=cfg.attn_logit_softcap,
+                             kv_chunk=kv_chunk)
 
 
 def r_dispatch(kind: str, phase: int, r_in, r_state, cfg: ModelConfig,

@@ -22,16 +22,27 @@ device -> pinned host -> device through the sink: that round trip is the
 protocol of the design (R-workers may be remote), and its cost is
 measured rather than short-cut.
 
-Not in this slice (see ROADMAP.md): chunked prefill, the prefix cache,
-tiering, speculative decoding, fleet management, chaos supervision and
-observability.
+Chunk work (``queue_prefill_chunk``) rides the same machinery: a queued
+work item runs inside the next ``decode_step`` as a virtual micro-batch
+``num_mb + i``, through the same tags, sink and event loop; its payloads
+carry a ``valid`` mask [rows, C].  In this slice the only chunk work is
+the speculative-decode verify step (``verify=True``): C candidate
+tokens per row, scored in one pipelined pass (``decode_step(None)`` runs
+a chunk-only step); paged storage runs it through the multi-token verify
+kernel, dense storage through ``decompose.r_dispatch_chunk``.
+
+Not in this slice (see ROADMAP.md): chunked prefill (plain prompt
+chunks), the prefix cache, tiering, fleet management, chaos supervision
+and observability.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+from collections import deque
 from contextlib import nullcontext
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,7 +110,8 @@ class CompletionSink:
 
     def _buffer(self, key, host: Dict[str, torch.Tensor]):
         # caller (post) holds self._lock; every key always carries the same
-        # payload layout in this slice (no chunked prefill)
+        # payload layout in this slice: [rows, 1, ...] for a decode
+        # micro-batch, [rows, k+1, ...] for a verify work's virtual one
         buf = self._bufs.get(key)
         if buf is None:
             buf = {k: torch.empty((self.mb_size,) + tuple(v.shape[1:]),
@@ -192,6 +204,8 @@ class RWorker(threading.Thread):
         self.paged_keys: set = set()             # layer keys stored paged
         self.allocators: Dict[int, PC.PagedAllocator] = {}   # mb -> alloc
         self._first_paged: Dict[int, Any] = {}   # mb -> min paged key
+        # ("v", mb) -> the verify step's tables, cut to the used pages
+        self._chunk_tables: Dict[Tuple, torch.Tensor] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
 
@@ -308,6 +322,31 @@ class RWorker(threading.Thread):
             r_in, self.state[layer], alloc.tables_device(),
             window=self.cfg.window, softcap=self.cfg.attn_logit_softcap)
 
+    def _step_paged_verify(self, layer: int, r_in):
+        """Speculative-decode verify append+attend on paged storage: on the
+        micro-batch's first paged layer, grow the shared block tables for
+        the C candidate tokens (one device->host sync of the payload's
+        lengths and mask) and cut them to the power of two of the used
+        pages (a row's pages are a contiguous table prefix, so later
+        columns are unmapped: the sweep then costs O(longest row), not
+        O(capacity), at the price of log2(max_pages) table widths); every
+        paged layer then writes and attends through the multi-token
+        verify kernel."""
+        mb = layer // self.cfg.num_layers
+        alloc = self.allocators[mb]
+        if layer == self._first_paged_key(mb):
+            alloc.append_chunk(r_in["lengths"].cpu().numpy(),
+                               r_in["valid"].cpu().numpy().sum(axis=1))
+            used = int((alloc.tables >= 0).sum(axis=1).max())
+            k = 1
+            while k < used:
+                k *= 2
+            self._chunk_tables[("v", mb)] = alloc.tables_device()[
+                :, :min(k, alloc.max_pages)].contiguous()
+        return PC.r_attention_paged_verify(
+            r_in, self.state[layer], self._chunk_tables[("v", mb)],
+            window=self.cfg.window, softcap=self.cfg.attn_logit_softcap)
+
     def _to_host(self, r_out: Dict[str, torch.Tensor]):
         if self.stream is None:
             return r_out
@@ -343,8 +382,22 @@ class RWorker(threading.Thread):
             with ctx:
                 if ready is not None:
                     self.stream.wait_event(ready)
-                if layer in self.paged_keys:
+                # a chunk payload (in this slice: a verify work) carries
+                # its validity mask
+                is_chunk = "valid" in r_in
+                if layer in self.paged_keys and is_chunk:
+                    r_out, new_state = self._step_paged_verify(layer, r_in)
+                elif layer in self.paged_keys:
                     r_out, new_state = self._step_paged(layer, r_in)
+                elif is_chunk and self.quantized and kind == ATTN:
+                    r_out, new_state = KV.r_attention_int8_chunk(
+                        r_in, self.state[layer], window=self.cfg.window,
+                        softcap=self.cfg.attn_logit_softcap,
+                        kv_chunk=self.kv_chunk)
+                elif is_chunk:
+                    r_out, new_state = D.r_dispatch_chunk(
+                        kind, phase, r_in, self.state[layer], self.cfg,
+                        self.kv_chunk)
                 elif self.quantized and kind == ATTN:
                     r_out, new_state = KV.r_attention_int8(
                         r_in, self.state[layer], window=self.cfg.window,
@@ -367,6 +420,29 @@ class RWorker(threading.Thread):
 # ---------------------------------------------------------------------------
 # the pipelined engine
 # ---------------------------------------------------------------------------
+@dataclass
+class _PrefillChunk:
+    """One queued chunk of work for micro-batch ``mb``.
+
+    Full-micro-batch tensors (rows not fed carry valid=False everywhere:
+    they write nothing, their compute is discarded), so the chunk rides
+    the same per-layer S-steps and CompletionSink tags as a decode
+    micro-batch: it IS a decode step with a sequence dimension.  ``vmb``
+    is the virtual micro-batch id routing its completions (>= num_mb,
+    assigned per decode_step).  ``verify`` marks speculative-decode
+    scoring, the only chunk work of this slice: the last layer returns
+    every position's logits [mb_size, C, V]."""
+    mb: int
+    tokens: torch.Tensor         # [mb_size, C] int32
+    base: torch.Tensor           # [mb_size] int32: per-row KV offset
+    valid: torch.Tensor          # [mb_size, C] bool
+    rows: np.ndarray             # local rows being fed
+    new_lens: np.ndarray         # base + count per entry of rows
+    logits: Any = None           # set once the last layer lands
+    vmb: int = -1
+    verify: bool = False
+
+
 class HeteroPipelineEngine:
     """S-worker + R-workers, ``num_microbatches`` in flight (Fig. 5b)."""
 
@@ -441,6 +517,10 @@ class HeteroPipelineEngine:
                           for _ in range(self.num_mb)]
         self._sink = CompletionSink(self.mb_size, self.device)
         self._parity = 0
+        # queued chunk works run inside the next decode_step and land in
+        # prefill_results after it
+        self._prefill_inbox: deque = deque()
+        self.prefill_results: List[_PrefillChunk] = []
         self.step_stats: Dict[str, float] = {}
         self.last_step_stats: Dict[str, float] = {}
 
@@ -453,6 +533,76 @@ class HeteroPipelineEngine:
         lens = self.mb_lengths[mb].clone()    # in-flight payloads keep
         lens[local] = int(length)             # the old tensor
         self.mb_lengths[mb] = lens
+
+    def set_row_active(self, row: int, flag: bool) -> None:
+        """Gate a global batch row's decode participation (False while its
+        slot is released).  Replaces the tensor: in-flight payloads keep
+        the old one."""
+        mb, local = divmod(int(row), self.mb_size)
+        act = self.mb_active[mb].clone()
+        act[local] = bool(flag)
+        self.mb_active[mb] = act
+
+    def queue_prefill_chunk(self, mb: int, rows, tokens, bases, counts,
+                            verify: bool = False) -> _PrefillChunk:
+        """Queue one chunk for local ``rows`` of micro-batch ``mb``:
+        ``tokens`` [n, C] right-padded, ``bases`` [n] per-row KV offsets,
+        ``counts`` [n] valid tokens (<= C).  The chunk runs INSIDE the
+        next decode_step, pipelined through the same per-layer tags as
+        the decode micro-batches, and the work item (with its logits)
+        appears in ``prefill_results`` after that step.  ``verify=True``
+        is speculative-decode scoring, the only chunk work of this
+        slice."""
+        if not verify:
+            raise NotImplementedError(
+                "chunked prefill (plain prompt chunks) is not ported yet — "
+                "queued in ROADMAP.md")
+        rows = np.asarray(rows, np.int64)
+        tokens = np.asarray(tokens, np.int32)
+        n, c = tokens.shape
+        if n != len(rows):
+            raise ValueError(f"{len(rows)} rows vs {n} token rows")
+        tok = np.zeros((self.mb_size, c), np.int32)
+        val = np.zeros((self.mb_size, c), bool)
+        base = self.mb_lengths[mb].cpu().numpy().astype(np.int32)
+        for i, r in enumerate(rows):
+            r = int(r)
+            tok[r] = tokens[i]
+            base[r] = int(bases[i])
+            val[r, :int(counts[i])] = True
+        dev = self.device
+        work = _PrefillChunk(
+            mb=int(mb), tokens=torch.from_numpy(tok).to(dev),
+            base=torch.from_numpy(base).to(dev),
+            valid=torch.from_numpy(val).to(dev), rows=rows,
+            new_lens=np.asarray(bases, np.int64)
+            + np.asarray(counts, np.int64), verify=bool(verify))
+        self._prefill_inbox.append(work)
+        return work
+
+    def truncate_rows(self, rows, new_lens) -> None:
+        """Roll global batch rows back to ``new_lens`` tokens: the
+        speculative-decode rejection path (a verify step appended C
+        candidates, the accept walk committed a prefix).  Paged storage
+        returns the pages of only-rejected positions
+        (``PagedAllocator.truncate``); dense storage only lowers
+        ``mb_lengths``: stale ring entries past the new length sit
+        outside every chunk read mask (pos >= base) and the next verify
+        step writes over them.  Must run between decode steps."""
+        by_mb: Dict[int, List[Tuple[int, int]]] = {}
+        for row, nl in zip(rows, new_lens):
+            mb, local = divmod(int(row), self.mb_size)
+            by_mb.setdefault(mb, []).append((local, int(nl)))
+            if self.paged_kv:
+                w, _, wlocal = self.worker_for(int(row))
+                alloc = w.allocators.get(mb)
+                if alloc is not None:
+                    alloc.truncate(wlocal, int(nl))
+        for mb, pairs in by_mb.items():
+            lens = self.mb_lengths[mb].clone()    # in-flight payloads keep
+            for local, nl in pairs:               # the old tensor
+                lens[local] = nl
+            self.mb_lengths[mb] = lens
 
     # -- S-side pieces ---------------------------------------------------------
     def _ctx(self, lengths):
@@ -488,13 +638,51 @@ class HeteroPipelineEngine:
         r_in["active"] = active
         return po.carry, shard_rin(r_in, self.slices)
 
+    def _chunk_ctx(self, base, c: int):
+        qpos = (base[:, None]
+                + torch.arange(c, dtype=torch.int32,
+                               device=base.device)[None, :])
+        return M.Ctx(self.cfg, "chunk", qpos, base)
+
+    def _chunk_start(self, wk: _PrefillChunk):
+        """embed -> s_pre_chunk(0) of a chunk work, shards out."""
+        kind, p = self.layers[0]
+        h = self.params["embed"][wk.tokens.long()]
+        po, new_s = D.s_pre_chunk_stateful(
+            kind, p, h, self.s_states[wk.mb][0],
+            self._chunk_ctx(wk.base, wk.tokens.shape[1]), wk.valid)
+        self.s_states[wk.mb][0] = new_s
+        return po.carry, shard_rin(po.r_in, self.slices)
+
+    def _chunk_advance(self, wk: _PrefillChunk, li: int, phase: int, carry,
+                       r_out):
+        """s_advance_chunk(li) fused with s_pre_chunk(li+1) (shards out),
+        or with the logits head after the last layer: a verify work's
+        logits at every position, [mb_size, C, V]."""
+        kind, p = self.layers[li]
+        ctx = self._chunk_ctx(wk.base, wk.tokens.shape[1])
+        h = D.s_advance_chunk(kind, phase, p, carry, r_out, ctx)
+        if li + 1 >= self.num_layers:
+            return None, M._logits(self.params, self.cfg, h)
+        kind2, p2 = self.layers[li + 1]
+        po, new_s = D.s_pre_chunk_stateful(
+            kind2, p2, h, self.s_states[wk.mb][li + 1], ctx, wk.valid)
+        self.s_states[wk.mb][li + 1] = new_s
+        return po.carry, shard_rin(po.r_in, self.slices)
+
     # -- the pipelined decode step ----------------------------------------------
-    def decode_step(self, tokens_per_mb: Sequence[torch.Tensor]):
+    def decode_step(self, tokens_per_mb: Optional[Sequence[torch.Tensor]]):
         """One new token for every row of every micro-batch, event-driven:
         advance whichever micro-batch's R-results land first (``"ooo"``) or
         in issue order (``"fifo"``).  tokens_per_mb: list of [mb_size, 1]
-        int32.  Returns a list of logits [mb_size, vocab]."""
-        if len(tokens_per_mb) != self.num_mb:
+        int32, or None for a CHUNK-ONLY step (the speculative-decode
+        verify: the queued works run, no decode micro-batch starts and no
+        decode length moves).  Queued chunk works ride the step as virtual
+        micro-batches ``num_mb + i``, exempt from FIFO pinning (they have
+        no emission order to keep).  Returns a list of logits
+        [mb_size, vocab] (of None when chunk-only)."""
+        run_decode = tokens_per_mb is not None
+        if run_decode and len(tokens_per_mb) != self.num_mb:
             raise ValueError(f"{len(tokens_per_mb)} token groups for "
                              f"{self.num_mb} micro-batches")
         pc = time.perf_counter
@@ -512,14 +700,24 @@ class HeteroPipelineEngine:
         carries: List[Any] = [None] * self.num_mb
         logits_out: List[Any] = [None] * self.num_mb
         emit_at = [0.0] * self.num_mb
-        active = self.num_mb
+        works: List[_PrefillChunk] = []
+        while self._prefill_inbox:
+            wk = self._prefill_inbox.popleft()
+            wk.vmb = self.num_mb + len(works)
+            works.append(wk)
+        self.prefill_results = []
+        chunk_carries: Dict[int, Any] = {}
+        active = (self.num_mb if run_decode else 0) + len(works)
 
         def dispatch(mb: int, li: int, phase: int, shards) -> None:
             t0 = pc()
             tag = (epoch, parity, mb, li, phase)
             pending[(mb, li, phase)] = {w.wid for w in self.workers}
             issue_seq[(mb, li, phase)] = len(issue_seq)
-            if self.schedule == "fifo":
+            real_mb = mb
+            if mb >= self.num_mb:
+                real_mb = works[mb - self.num_mb].mb
+            elif self.schedule == "fifo":
                 fifo.append((mb, li, phase))
             # the R-workers' streams wait for the payload's S-side work
             ev = None
@@ -527,7 +725,7 @@ class HeteroPipelineEngine:
                 ev = torch.cuda.Event()
                 ev.record()
             kind = self.layers[li][0]
-            lkey = self._lkey(mb, li)
+            lkey = self._lkey(real_mb, li)
             for w, shard in zip(self.workers, shards):
                 w.inq.put((tag, lkey, kind, phase, shard, sink, ev))
             stats["dispatch_s"] += pc() - t0
@@ -551,11 +749,33 @@ class HeteroPipelineEngine:
                 carries[mb] = carry
                 dispatch(mb, li + 1, 0, out)
 
-        for mb in range(self.num_mb):
+        def advance_chunk(vmb: int, li: int, phase: int) -> None:
+            nonlocal active
+            wk = works[vmb - self.num_mb]
+            t0 = pc()
+            r_out = sink.gather((epoch, parity, vmb, li, phase))
+            t1 = pc()
+            stats["collect_s"] += t1 - t0
+            carry, out = self._chunk_advance(wk, li, phase,
+                                             chunk_carries[vmb], r_out)
+            stats["s_dispatch_s"] += pc() - t1
+            if carry is None:
+                wk.logits = out
+                active -= 1
+            else:
+                chunk_carries[vmb] = carry
+                dispatch(vmb, li + 1, 0, out)
+
+        for mb in range(self.num_mb if run_decode else 0):
             t0 = pc()
             carries[mb], shards = self._start(mb, tokens_per_mb[mb])
             stats["s_dispatch_s"] += pc() - t0
             dispatch(mb, 0, 0, shards)
+        for wk in works:
+            t0 = pc()
+            chunk_carries[wk.vmb], shards = self._chunk_start(wk)
+            stats["s_dispatch_s"] += pc() - t0
+            dispatch(wk.vmb, 0, 0, shards)
 
         try:
             while active:
@@ -586,7 +806,9 @@ class HeteroPipelineEngine:
                 if outstanding:
                     continue
                 del pending[(mb, li, phase)]
-                if self.schedule == "fifo":
+                if mb >= self.num_mb:
+                    advance_chunk(mb, li, phase)
+                elif self.schedule == "fifo":
                     ready.add((mb, li, phase))
                     while fifo and fifo[0] in ready:
                         nxt = fifo.pop(0)
@@ -599,10 +821,20 @@ class HeteroPipelineEngine:
             sink.fence()
             raise
 
-        for mb in range(self.num_mb):
+        for mb in range(self.num_mb if run_decode else 0):
             # inactive rows did not append a token
             self.mb_lengths[mb] = (self.mb_lengths[mb]
                                    + self.mb_active[mb].to(torch.int32))
+        for wk in works:
+            # chunk progress lands AFTER the event loop: mb_lengths feeds
+            # every in-flight S-step, so it stays frozen while the step runs
+            if len(wk.rows):
+                lens = self.mb_lengths[wk.mb].clone()
+                lens[torch.from_numpy(wk.rows).to(lens.device)] = \
+                    torch.from_numpy(wk.new_lens.astype(np.int32)).to(
+                        lens.device)
+                self.mb_lengths[wk.mb] = lens
+            self.prefill_results.append(wk)
         stats["step_s"] = pc() - t_step0
         stats["emit_mean_s"] = sum(emit_at) / self.num_mb
         self.last_step_stats = stats

@@ -6,7 +6,9 @@ kernel for a CUDA tensor and runs the plain version for a CPU tensor.
 So the dense int8 op runs kernel 3 on the card, where ``repro`` runs its
 jnp reference even on the TPU (``kv_cache.r_attention_int8`` defaults to
 ``use_kernel="ref"``): same function, another dispatch.  The verify ops
-are not ported yet; see ROADMAP.md.
+follow ``repro``'s split: the paged fp verify has its kernel (kernel 4),
+the dense verify is plain torch on both devices (jnp in ``repro``).  The
+int8 verify ops are not ported yet; see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -67,6 +69,31 @@ def paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
     return _qk.decode_attention_int8(q, k_q, k_s, v_q, v_s, pos, lengths,
                                      window=window, sink=sink,
                                      softcap=softcap)
+
+
+def verify_attention(q, k, v, pos, lengths, *, window: int = 0,
+                     sink: int = 0, softcap: float = 0.0,
+                     kv_chunk: int = 1024, use_kernel: str = "auto"):
+    """Dense multi-token verify.  q [B,T,Hq,Dh]; k,v [B,S,Hkv,Dh];
+    pos [B,S] int32; lengths [B] int32 base -> [B,T,Hq,Dh].  Plain torch
+    on every device, as ``repro``'s is jnp on every backend: the
+    bandwidth win is the single sweep, not a kernel."""
+    _auto(use_kernel)
+    return _ref.verify_attention_ref(q, k, v, pos, lengths, window=window,
+                                     sink=sink, softcap=softcap,
+                                     kv_chunk=kv_chunk)
+
+
+def paged_verify_attention(q, pages_k, pages_v, tables, lengths, *,
+                           window: int = 0, sink: int = 0,
+                           softcap: float = 0.0, use_kernel: str = "auto"):
+    """Block-table multi-token verify (kernel 4).  q [B,T,Hq,Dh]; pages_k/v
+    [P,page,Hkv,Dh]; tables [B,MP] int32; lengths [B] base ->
+    [B,T,Hq,Dh]."""
+    _auto(use_kernel)
+    return _pa.paged_verify_attention(q, pages_k, pages_v, tables, lengths,
+                                      window=window, sink=sink,
+                                      softcap=softcap)
 
 
 quantize_kv = _qk.quantize_kv

@@ -1,16 +1,24 @@
-"""Hopper paged flash-decode: the wrapper of ``csrc/paged_attention.cu``.
+"""Hopper paged flash-decode and speculative-decode verify: the wrappers
+of ``csrc/paged_attention.cu``.
 
-Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
-(``_kernel`` / ``paged_decode_attention``): one query token per row
-against a block-table KV page pool.  The kernel is bound by HBM bytes
-(the K/V pages it reads); its first version runs one CTA per (row,
-kv-head), and split-K across CTAs, cp.async/TMA page pipelining and
-several pages per tile are left to a later PR.
+Replace the Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
+
+* ``paged_decode_attention`` (kernel 1, ``_kernel``): one query token per
+  row against a block-table KV page pool;
+* ``paged_verify_attention`` (kernel 4, ``_verify_kernel``): T candidate
+  tokens per row against the same pool in one sweep, query t of row b at
+  position ``lengths[b] + t``.
+
+Both run one CUDA template (one CTA per (row, kv-head, group of query
+rows)), bound by HBM bytes (the K/V pages they read); split-K across
+CTAs, cp.async/TMA page pipelining and several pages per tile are left to
+a later PR.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
-fallback.  ``launches`` counts kernel launches and ``plain_calls`` CPU
-calls of the plain version, so a run can show which path it took.
+fallback.  ``launches`` / ``verify_launches`` count kernel launches and
+``plain_calls`` / ``verify_plain_calls`` CPU calls of the plain
+versions, so a run can show which path it took.
 """
 from __future__ import annotations
 
@@ -41,27 +49,33 @@ class LaunchCounter:
             self.value = 0
 
 
-launches = LaunchCounter()      # kernel launches on CUDA tensors
-plain_calls = LaunchCounter()   # plain-version calls on CPU tensors
+launches = LaunchCounter()      # kernel 1 launches on CUDA tensors
+plain_calls = LaunchCounter()   # kernel 1 plain-version calls (CPU)
+verify_launches = LaunchCounter()     # kernel 4 launches on CUDA tensors
+verify_plain_calls = LaunchCounter()  # kernel 4 plain-version calls (CPU)
 
 
-_fn = {}    # "fn" -> the C entry point, declared once
+_fn = {}    # C entry point name -> the declared function
 
 
-def _kernel_fn():
-    """The C entry point of csrc/paged_attention.cu (built on first use)."""
-    if "fn" not in _fn:
+def _kernel_fn(name: str = "repro_paged_decode_attention"):
+    """A C entry point of csrc/paged_attention.cu (built on first use):
+    the decode entry takes (pointers x6, b, hq, hkv, dh, page, mp,
+    num_pages, window, sink, softcap, scale, dtype, stream); the verify
+    entry takes T after b."""
+    if name not in _fn:
         from repro_torch.kernels import build
-        fn = build.load("paged_attention").repro_paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn = getattr(build.load("paged_attention"), name)
+        n_int = 10 if name == "repro_paged_verify_attention" else 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn["fn"] = fn
-    return _fn["fn"]
+        _fn[name] = fn
+    return _fn[name]
 
 
-def _check(q, pages_k, pages_v, tables, lengths):
+def _check(q, pages_k, pages_v, tables, lengths, q_dims: int = 3):
     dev = q.device
     for name, t in (("pages_k", pages_k), ("pages_v", pages_v),
                     ("tables", tables), ("lengths", lengths)):
@@ -74,11 +88,12 @@ def _check(q, pages_k, pages_v, tables, lengths):
                         f"equal q dtype {q.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    if q.dim() != 3 or pages_k.dim() != 4 or tables.dim() != 2 \
+    if q.dim() != q_dims or pages_k.dim() != 4 or tables.dim() != 2 \
             or lengths.dim() != 1:
-        raise ValueError("expected q [B,Hq,Dh], pages [P,page,Hkv,Dh], "
-                         "tables [B,MP], lengths [B]")
-    b, hq, dh = q.shape
+        raise ValueError(f"expected q [B,{'T,' if q_dims == 4 else ''}"
+                         f"Hq,Dh], pages [P,page,Hkv,Dh], tables [B,MP], "
+                         f"lengths [B]")
+    b, hq, dh = q.shape[0], q.shape[-2], q.shape[-1]
     _, page, hkv, dh2 = pages_k.shape
     if pages_v.shape != pages_k.shape or dh2 != dh:
         raise ValueError(f"pool shapes {tuple(pages_k.shape)} / "
@@ -132,4 +147,39 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths, *,
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"(cudaError {err})")
     launches.add()
+    return out
+
+
+def paged_verify_attention(q, pages_k, pages_v, tables, lengths, *,
+                           window: int = 0, sink: int = 0,
+                           softcap: float = 0.0):
+    """q [B,T,Hq,Dh]; pages_k/v [P,page,Hkv,Dh]; tables [B,MP] int32 (-1 =
+    unmapped; MP is taken from the tables given, which may be cut to the
+    used pages); lengths [B] int32 = tokens before the verify step (query
+    t attends positions <= lengths[b] + t).  Returns o [B,T,Hq,Dh] in
+    q.dtype."""
+    if q.device.type == "cpu":
+        verify_plain_calls.add()
+        return ref.paged_verify_attention_ref(
+            q, pages_k, pages_v, tables, lengths, window=window, sink=sink,
+            softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, pages_k, pages_v, tables, lengths, q_dims=4)
+    fn = _kernel_fn("repro_paged_verify_attention")
+    b, t, hq, dh = q.shape
+    n_pages, page, hkv, _ = pages_k.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, t, hq, hkv, dh, page, tables.shape[1], n_pages,
+            int(window), int(sink), float(softcap), 1.0 / math.sqrt(dh),
+            _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"paged_verify_attention kernel launch failed "
+                           f"(cudaError {err})")
+    verify_launches.add()
     return out

@@ -73,3 +73,35 @@ def paged_decode_attention_int8_ref(q, pk_q, pk_s, pv_q, pv_s, tables,
     return decode_attention_int8_ref(q, k_q, k_s, v_q, v_s, pos, lengths,
                                      window=window, sink=sink,
                                      softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# speculative-decode verify: T candidate queries per row in one sweep.
+# Query t of row b sits at absolute position lengths[b] + t (``lengths`` is
+# the row's token count BEFORE the verify step, the base the candidates
+# were written at), so decode's ``pos <= lengths`` becomes
+# ``pos <= lengths + t`` per query.  T == 1 is the decode plain version.
+# ---------------------------------------------------------------------------
+def verify_attention_ref(q, k, v, pos, lengths, *, window: int = 0,
+                         sink: int = 0, softcap: float = 0.0,
+                         kv_chunk: int = 1024):
+    """q [B,T,Hq,Dh]; k,v [B,S,Hkv,Dh]; pos [B,S]; lengths [B]
+    -> [B,T,Hq,Dh]."""
+    t = q.shape[1]
+    qpos = (lengths[:, None].to(torch.int32)
+            + torch.arange(t, dtype=torch.int32, device=q.device)[None, :])
+    return L.flash_attention(q, k, v, qpos, pos, causal=True, window=window,
+                             sink=sink, softcap=softcap,
+                             kv_chunk=max(k.shape[1], kv_chunk))
+
+
+def paged_verify_attention_ref(q, pages_k, pages_v, tables, lengths, *,
+                               window: int = 0, sink: int = 0,
+                               softcap: float = 0.0, kv_chunk: int = 1024):
+    """q [B,T,Hq,Dh]; pages_k/v [P,page,Hkv,Dh]; tables [B,MP];
+    lengths [B] -> [B,T,Hq,Dh]."""
+    k, pos = paged_gather(pages_k, tables)
+    v, _ = paged_gather(pages_v, tables)
+    return verify_attention_ref(q, k.to(q.dtype), v.to(q.dtype), pos,
+                                lengths, window=window, sink=sink,
+                                softcap=softcap, kv_chunk=kv_chunk)

@@ -30,6 +30,62 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.to(F32))).to(x.dtype)
 
 
+def chunk_ring_plan(old_pos, base, valid, qpos, cache_n: int):
+    """The chunk write/mask derivation shared by every dense chunk-attention
+    path (the model's chunk mode and the R-Part's ``r_attention_chunk``).
+
+    old_pos [B,Sk] stored positions, base [B] per-row KV offsets,
+    valid [B,C] real-token mask, qpos [B,C] absolute chunk positions,
+    cache_n the ring size.  Returns:
+
+      slots      [B,C]  ring slots to write the chunk at, ``cache_n`` for
+                        a dropped write.  Ring discipline keeps only the
+                        last min(C_valid, cache_n) chunk tokens, so no two
+                        kept tokens of a row share a slot.
+      old_pos_m  [B,Sk] stored positions with entries >= the row's offset
+                        masked to -1 (stale data of a previous occupant,
+                        or rejected speculative tokens, is not attended).
+      kpos_new   [B,C]  chunk key positions (-1 where invalid).
+    """
+    cnt = valid.sum(dim=1)
+    wvalid = valid & (qpos >= (base + cnt - cache_n)[:, None])
+    slots = torch.where(wvalid, qpos % cache_n,
+                        torch.full_like(qpos, cache_n))
+    old_pos_m = torch.where(old_pos < base[:, None], old_pos,
+                            torch.full_like(old_pos, -1))
+    kpos_new = torch.where(valid, qpos, torch.full_like(qpos, -1))
+    return slots, old_pos_m, kpos_new
+
+
+def scatter_rows_drop(dst, slots, vals) -> None:
+    """``dst[b, slots[b, c]] = vals[b, c]`` in place, dropping entries whose
+    slot equals ``dst.shape[1]`` (out of range): the JAX package's
+    ``.at[...].set(mode="drop")``, which torch's ``index_put_`` lacks.
+
+    No host sync: a dropped entry is redirected to a write that happens
+    anyway, with the same value — the row's first kept entry, or, in a
+    row that keeps none, slot 0 written with its own current value — so
+    duplicate indices always carry equal values and the result does not
+    depend on the order of the writes.  Kept entries must have distinct
+    slots per row (``chunk_ring_plan`` guarantees it).
+    dst [B,N,...]; slots [B,C] int; vals [B,C,...]."""
+    b, n = dst.shape[:2]
+    slots = slots.long()
+    keep = slots < n
+    first = keep.to(torch.int8).argmax(dim=1)                  # [B]
+    has = keep.any(dim=1)
+    bidx = torch.arange(b, device=dst.device)
+    rep_slot = torch.where(has, slots[bidx, first],
+                           torch.zeros_like(first))
+    rep_val = torch.where(
+        has.reshape((b,) + (1,) * (vals.dim() - 2)),
+        vals[bidx, first].to(dst.dtype), dst[bidx, 0])
+    slot_w = torch.where(keep, slots, rep_slot[:, None])
+    val_w = torch.where(keep.reshape(keep.shape + (1,) * (vals.dim() - 2)),
+                        vals.to(dst.dtype), rep_val[:, None])
+    dst[bidx[:, None].expand_as(slot_w), slot_w] = val_w
+
+
 def rope(x, positions, theta: float):
     """RoPE over INTERLEAVED pairs (x[..., 0::2] against x[..., 1::2]), as
     the JAX package does — not the half-split ``rotate_half`` form.

@@ -5,15 +5,17 @@ Public entry points (same layout and semantics as the JAX package):
     init_params(cfg, generator, device)
     init_decode_state(cfg, batch, cache_len, device)
     prefill(params, cfg, tokens, prompt_lens, cache_len) -> (last_logits, state)
+    prefill_chunk(params, cfg, state, tokens, chunk_pos) -> (last_logits, state)
     decode_step(params, cfg, state, tokens) -> (logits, state)
     scatter_rows(state, sub, rows, sub_rows)
 
 Params are a plain dict mirroring the JAX pytree: ``embed``,
 ``final_norm``, ``lm_head``, ``stack`` ({"s0": {name: [L, ...]}}) and
 ``rem``.  Layers run as a Python loop over the stacked leaves.  Decode
-state lives in preallocated KV slabs that ``prefill``, ``decode_step``
-and ``scatter_rows`` update IN PLACE (the returned state is the same
-tensors), which keeps one copy of the cache instead of one per step.
+state lives in preallocated KV slabs that ``prefill``, ``prefill_chunk``,
+``decode_step`` and ``scatter_rows`` update IN PLACE (the returned state
+is the same tensors), which keeps one copy of the cache instead of one
+per step.
 
 This is the port's colocated oracle; the S-/R-Part split of each block
 lives in ``repro_torch.core.decompose``.
@@ -34,7 +36,7 @@ F32 = torch.float32
 
 class Ctx(NamedTuple):
     cfg: ModelConfig
-    mode: str                    # prefill | decode
+    mode: str                    # prefill | chunk | decode
     qpos: torch.Tensor           # [B, Sq] absolute positions of the q tokens
     lengths: torch.Tensor        # [B] current sequence lengths
     kv_chunk: int = 1024
@@ -142,8 +144,10 @@ def _qkv_proj(p, x, cfg: ModelConfig):
 def _self_attention(p, x, st, ctx: Ctx):
     """Self-attention block body (no residual/norm).  Prefill: x is the
     whole (right-padded) prompt and the last min(S, cache) tokens land in
-    the ring cache.  Decode: x is one token, appended at ``lengths``.
-    ``st`` is updated in place and returned."""
+    the ring cache.  Chunk: x is C tokens at positions ``qpos`` (-1 for
+    padding), appended at the row's offset ``lengths`` and attended
+    against [old cache + chunk].  Decode: x is one token, appended at
+    ``lengths``.  ``st`` is updated in place and returned."""
     cfg = ctx.cfg
     q, k, v = _qkv_proj(p, x, cfg)
     win = cfg.window
@@ -175,10 +179,28 @@ def _self_attention(p, x, st, ctx: Ctx):
                                 causal=True, window=win,
                                 softcap=cfg.attn_logit_softcap,
                                 kv_chunk=max(cache_n, 1))
+    elif ctx.mode == "chunk":
+        # old entries at positions the chunk covers (a previous occupant's,
+        # or rejected speculative tokens) are masked by pos >= base;
+        # intra-chunk causality comes from the positions
+        cache_n = st["k"].shape[1]
+        qpos = ctx.qpos
+        slots, old_pos, kpos_new = L.chunk_ring_plan(
+            st["pos"], ctx.lengths, qpos >= 0, qpos, cache_n)
+        kcat = torch.cat([st["k"], k.to(st["k"].dtype)], dim=1)
+        vcat = torch.cat([st["v"], v.to(st["v"].dtype)], dim=1)
+        pcat = torch.cat([old_pos, kpos_new], dim=1)
+        out = L.flash_attention(q, kcat, vcat, qpos, pcat, causal=True,
+                                window=win, softcap=cfg.attn_logit_softcap,
+                                q_chunk=ctx.q_chunk,
+                                kv_chunk=max(kcat.shape[1], 1))
+        L.scatter_rows_drop(st["k"], slots, k)
+        L.scatter_rows_drop(st["v"], slots, v)
+        L.scatter_rows_drop(st["pos"], slots, qpos.to(torch.int32))
     else:
         raise NotImplementedError(
-            f"attention mode {ctx.mode!r} is not ported yet (chunked "
-            f"prefill and training are queued in ROADMAP.md)")
+            f"attention mode {ctx.mode!r} is not ported yet (training is "
+            f"queued in ROADMAP.md)")
     out = out.reshape(b, s, -1) @ p["wo"]
     return out, st
 
@@ -255,6 +277,33 @@ def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
     # prompt token less at V = 151,936
     last = torch.clamp(prompt_lens.long() - 1, 0, s - 1)
     h_last = h[torch.arange(b, device=dev), last][:, None]
+    return _logits(params, cfg, h_last)[:, 0], state
+
+
+def prefill_chunk(params, cfg: ModelConfig, state, tokens, chunk_pos,
+                  kv_chunk: int = 1024):
+    """Append a chunk of tokens to an EXISTING decode state, in place (KV
+    offset = the row's current length), and return each row's logits at
+    its last valid chunk position.
+
+    tokens [B, C] (right-padded); chunk_pos [B, C] absolute positions,
+    -1 marking padding and rows not being fed: such positions write no
+    KV, and a row with none is untouched.  A fed row's first valid
+    position must equal its current length.  Returns (last_logits [B, V],
+    state) with ``lengths`` advanced by each row's valid count; chaining
+    chunks reproduces ``prefill`` up to float association.  The lm head
+    runs on each row's last valid position only (as in ``prefill``)."""
+    b, c = tokens.shape
+    chunk_pos = chunk_pos.to(torch.int32)
+    valid = chunk_pos >= 0
+    base = state["lengths"].to(torch.int32)
+    ctx = Ctx(cfg, "chunk", chunk_pos, base, kv_chunk, c)
+    h = _embed(params, tokens)
+    h, state = _run_layers(params, h, state, ctx)
+    cnt = valid.sum(dim=1).to(torch.int32)
+    last = torch.clamp(cnt.long() - 1, 0, c - 1)
+    h_last = h[torch.arange(b, device=h.device), last][:, None]
+    state["lengths"] = base + cnt
     return _logits(params, cfg, h_last)[:, 0], state
 
 

@@ -11,36 +11,39 @@ block-granular: admission allocates only the pages a prompt needs,
 decode grows tables page by page, and a finished sequence's pages are
 freed the step it completes.  ``quantized_kv=True`` (hetero only)
 stores the R-workers' KV as int8 + per-(token, head) fp32 scales, dense
-or paged (§5.2).
+or paged (§5.2).  ``spec_decode=SpecConfig(k)`` (hetero, greedy) drafts k
+tokens per row on an S-resident drafter and verifies all k+1 candidates
+in one pipelined chunk-only step.
 
 Not in this slice (see ROADMAP.md): the ``sls``/``loadctl`` admission
-schedules, ``from_plan``, sampled decoding, chunked prefill, the prefix
-cache, tiering/preemption, speculative decoding, fleet management, chaos
-supervision and observability.
+schedules, ``from_plan``, sampled decoding (and sampled speculative
+acceptance), speculative decoding on int8 storage, chunked prefill, the
+prefix cache, tiering/preemption, fleet management, chaos supervision
+and observability.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import decompose as D
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ATTN, ModelConfig, check_supported
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
                                      batch_slice, per_layer_state)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.request import Request, Status
-from repro_torch.serving.sampler import sample
+from repro_torch.serving.sampler import sample, spec_accept
 
 # ServingEngine options of the JAX package that this slice does not port
 _NOT_IN_SLICE = ("prefill_chunk", "prefix_cache", "kv_tiering",
-                 "spec_decode", "preempt_after", "fleet", "chaos",
-                 "observability", "target_len", "interval", "w_lim")
+                 "preempt_after", "fleet", "chaos", "observability",
+                 "target_len", "interval", "w_lim")
 
 
 def _pad_pow2(n: int, lo: int = 1) -> int:
@@ -66,6 +69,27 @@ class StepRecord:
         return self.prefill_wall + self.decode_wall
 
 
+@dataclass
+class SpecConfig:
+    """Speculative decoding through the hetero pipeline.
+
+    Each serving step drafts ``k`` tokens per row GREEDILY on an
+    S-resident drafter (a plain dense-state model, no R-worker round
+    trips), then verifies all k+1 candidates (the pending token plus the
+    drafts) in ONE pipelined step as a verify chunk: the R-Part sweeps
+    each row's cached KV once for the whole candidate block instead of
+    once per token.  The accepted prefix commits through the greedy
+    accept walk (``sampler.spec_accept``, bit-exact with spec-off greedy
+    decoding) and the rejected tail's KV is rolled back
+    (``HeteroPipelineEngine.truncate_rows``).
+
+    ``draft_cfg``/``draft_params`` select the drafter model; both None
+    means SELF-speculation (the target drafts for itself)."""
+    k: int = 4
+    draft_cfg: Optional[ModelConfig] = None
+    draft_params: Any = None
+
+
 class ServingEngine:
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  cache_len: int, backend: str = "colocated",
@@ -75,6 +99,7 @@ class ServingEngine:
                  page_size: int = 16,
                  pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
+                 spec_decode: Optional[SpecConfig] = None,
                  device=None, **not_ported):
         unknown = set(not_ported) - set(_NOT_IN_SLICE)
         if unknown:
@@ -91,6 +116,31 @@ class ServingEngine:
         if backend not in ("colocated", "hetero"):
             raise ValueError(
                 f"backend must be 'colocated' or 'hetero', got {backend!r}")
+        if spec_decode is not None:
+            if backend != "hetero":
+                raise ValueError(
+                    "spec_decode requires backend='hetero' — the verify "
+                    "step rides the pipelined chunk machinery")
+            if spec_decode.k < 1:
+                raise ValueError(
+                    f"spec_decode.k must be >= 1, got {spec_decode.k}")
+            if any(kk != ATTN for kk in cfg.layer_pattern) \
+                    or cfg.window > 0:
+                raise ValueError(
+                    "spec_decode requires a pure self-attention arch "
+                    "with window=0: rejected-KV rollback is positional "
+                    "truncation, which windowed attention does not "
+                    "support")
+            if (spec_decode.draft_cfg is None) \
+                    != (spec_decode.draft_params is None):
+                raise ValueError(
+                    "spec_decode needs BOTH draft_cfg and draft_params "
+                    "(or neither, for self-speculation)")
+            if quantized_kv:
+                raise NotImplementedError(
+                    "spec_decode with quantized_kv=True is not ported yet "
+                    "(the int8 chunk and verify ops) — queued in "
+                    "ROADMAP.md")
         if batch < 1 or cache_len < 1:
             raise ValueError(
                 f"batch ({batch}) and cache_len ({cache_len}) must be >= 1")
@@ -106,13 +156,19 @@ class ServingEngine:
         self.backend = backend
         self.paged_kv = paged_kv and backend == "hetero"
         self.admission = admission
+        self.spec = spec_decode
+        # spec decode's verify steps ARE chunk work: freed rows are
+        # gated decode-inactive, as the JAX engine does with chunks on
+        self._uses_chunks = self.spec is not None
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * batch
         self.step_idx = 0
         self.records: List[StepRecord] = []
         self.finished: List[Request] = []
         self._last_tok = np.zeros((batch,), np.int32)
-        # the logits [batch, vocab] of the last decode step (for checks)
+        # the logits [batch, vocab] of the last decode step (for checks;
+        # None after a speculative step, whose logits are those of the
+        # verify works, engine.prefill_results)
         self.last_logits: Optional[torch.Tensor] = None
         if backend == "hetero":
             self.engine = HeteroPipelineEngine(
@@ -133,6 +189,23 @@ class ServingEngine:
                                           device=self.device)
             self.num_mb = 1
             self.mb_size = batch
+
+        # speculative decoding: the S-resident drafter, a plain dense-state
+        # model run with the single-device functions.  Capacity cache_len
+        # + k, so drafting near capacity never wraps the ring.  A row is
+        # dirty when its token history changed outside the commit path
+        # (admission) and is re-fed feed_tokens[:-1] before its next draft.
+        self._spec_dirty: set = set()
+        self.spec_stats = {"drafted_tokens": 0, "accepted_tokens": 0,
+                           "steps": 0}
+        if self.spec is not None:
+            self._spec_cfg = self.spec.draft_cfg or cfg
+            check_supported(self._spec_cfg)
+            self._spec_params = (params if self.spec.draft_params is None
+                                 else self.spec.draft_params)
+            self._spec_cache = cache_len + self.spec.k
+            self._spec_state = M.init_decode_state(
+                self._spec_cfg, batch, self._spec_cache, self.device)
 
     def _hetero_init_empty(self, mb: int) -> None:
         state = M.init_decode_state(self.cfg, self.mb_size, self.cache_len,
@@ -155,6 +228,10 @@ class ServingEngine:
     def _length_cap_reason(self) -> Optional[str]:
         """Why prompt + max_new_tokens must fit cache_len here, or None
         when the dense ring may legally wrap."""
+        if self.spec is not None:
+            return ("speculative decoding rolls rejected tokens back "
+                    "by positional KV truncation, which a wrapped ring "
+                    "would corrupt")
         if self.paged_kv and self._paged_pool_min() is not None:
             return "the paged path would drop tokens past capacity"
         return None
@@ -248,6 +325,10 @@ class ServingEngine:
         self.finished.append(r)
         self.slots[row] = None
         self._retire_row(row)
+        if self._uses_chunks:
+            # a freed slot stops decoding (no KV append, no length bump)
+            # until readmission
+            self.engine.set_row_active(row, False)
 
     def _retire_row(self, row: int) -> None:
         if self.paged_kv:
@@ -287,6 +368,13 @@ class ServingEngine:
                 self._finish_row(rows[i], r, reason)
             else:
                 self.slots[rows[i]] = r
+                if self._uses_chunks:
+                    # a slot freed by a finished sequence was marked
+                    # inactive: this readmission re-activates it
+                    self.engine.set_row_active(rows[i], True)
+                if self.spec is not None:
+                    # the drafter has no KV for this fresh history yet
+                    self._spec_dirty.add(rows[i])
 
     def _hetero_scatter(self, rows: np.ndarray, sub, sub_rows: np.ndarray):
         eng = self.engine
@@ -310,6 +398,182 @@ class ServingEngine:
             eng.set_row_length(int(row), int(lens[gi]))
 
     # ------------------------------------------------------------------ #
+    # speculative decoding: each serving step drafts up to k tokens per
+    # RUNNING row on the S-resident drafter, scores all k+1 candidates in
+    # ONE pipelined verify chunk (their KV appended on the R-workers by
+    # the verify op), commits the accepted prefix and truncates the
+    # rejected tail's KV.  The drafter's own KV never holds a rejected
+    # token where it is read: see _spec_draft.
+    # ------------------------------------------------------------------ #
+    def _spec_rows(self) -> List[Tuple[int, Request]]:
+        return [(i, r) for i, r in enumerate(self.slots)
+                if r is not None and r.status is Status.RUNNING]
+
+    def _spec_sync_rows(self, live) -> None:
+        """Re-feed dirty rows' WRITTEN history (feed_tokens[:-1], the chain
+        the R-workers hold) through the drafter, so its KV agrees with the
+        target's before drafting resumes."""
+        rows = [row for row, _ in live if row in self._spec_dirty]
+        if not rows:
+            return
+        lens = [self.slots[row].feed_len - 1 for row in rows]
+        n_pad = _pad_pow2(len(rows))
+        s_pad = _pad_pow2(max(lens), 8)
+        toks = np.zeros((n_pad, s_pad), np.int32)
+        plens = np.zeros((n_pad,), np.int32)
+        for i, (row, ln) in enumerate(zip(rows, lens)):
+            toks[i, :ln] = self.slots[row].feed_tokens[:ln]
+            plens[i] = ln
+        _, sub = M.prefill(self._spec_params, self._spec_cfg,
+                           torch.from_numpy(toks).to(self.device),
+                           torch.from_numpy(plens).to(self.device),
+                           self._spec_cache)
+        self._spec_state = M.scatter_rows(self._spec_state, sub,
+                                          np.asarray(rows),
+                                          np.arange(len(rows)))
+        self._spec_dirty.difference_update(rows)
+
+    def _spec_draft(self, live):
+        """Greedy-draft up to k tokens per live row on the drafter.
+
+        ``M.decode_step`` writes the drafter's KV IN PLACE (the JAX engine
+        drafts on a throwaway copy, free under immutability; a copy here
+        would move the whole drafter cache every step).  So drafting keeps
+        the state and restores only ``lengths``: draft j of a row of length
+        L sits at position L+j, in a cache of cache_len + k slots that
+        never wraps.  Until the commit (or the next draft) writes position
+        L+j again, that entry is masked by causality: every later query of
+        the row sits at a position below L+j or writes L+j first, and the
+        commit's chunk attention masks stored positions >= its base.  Per-
+        row draft length is capped so the committed chain never exceeds
+        prompt + max_new_tokens (<= cache_len)."""
+        k = self.spec.k
+        k_row = {row: max(0, min(k, r.max_new_tokens
+                                 - len(r.generated) - 1))
+                 for row, r in live}
+        drafts: Dict[int, List[int]] = {row: [] for row, _ in live}
+        kmax = max(k_row.values())
+        if kmax == 0:
+            return drafts
+        state = self._spec_state
+        lengths = state["lengths"]
+        cur = torch.from_numpy(self._last_tok[:, None].copy()).to(
+            self.device)
+        outs = []
+        for _ in range(kmax):
+            logits, state = M.decode_step(self._spec_params, self._spec_cfg,
+                                          state, cur)
+            cur = sample(logits)[:, None]
+            outs.append(cur)
+        state["lengths"] = lengths
+        nxt = torch.cat(outs, dim=1).cpu().numpy()
+        for row, _ in live:
+            drafts[row] = [int(t) for t in nxt[row, :k_row[row]]]
+        return drafts
+
+    def _spec_queue_verify(self, live, drafts) -> None:
+        """Queue one verify chunk per micro-batch with live rows:
+        candidates [pending token, draft_1..draft_kr] appended at the
+        row's current KV length, in a chunk of the FIXED width k+1."""
+        per_mb: Dict[int, List[int]] = {}
+        for row, _r in live:
+            per_mb.setdefault(row // self.mb_size, []).append(row)
+        c = self.spec.k + 1
+        for mb, rows in per_mb.items():
+            toks = np.zeros((len(rows), c), np.int32)
+            bases, counts, locs = [], [], []
+            for i, row in enumerate(rows):
+                cand = [int(self._last_tok[row])] + drafts[row]
+                toks[i, :len(cand)] = cand
+                locs.append(row % self.mb_size)
+                bases.append(self.slots[row].feed_len - 1)
+                counts.append(len(cand))
+            self.engine.queue_prefill_chunk(mb, locs, toks, bases,
+                                            counts, verify=True)
+
+    def _spec_verify(self, live, drafts) -> List:
+        """Run the queued verify chunks in one chunk-only pipelined step;
+        returns the verify works (their logits [mb_size, k+1, V])."""
+        if live:
+            self._spec_queue_verify(live, drafts)
+        self.engine.decode_step(None)
+        return [wk for wk in self.engine.prefill_results if wk.verify]
+
+    def _spec_commit_drafter(self, feeds: Dict[int, List[int]]) -> None:
+        """Advance the drafter through each surviving row's committed
+        tokens with one batched ragged ``prefill_chunk`` (rows with
+        chunk_pos -1 are untouched), fixed width k+1."""
+        c = self.spec.k + 1
+        toks = np.zeros((self.batch, c), np.int32)
+        pos = np.full((self.batch, c), -1, np.int32)
+        base = self._spec_state["lengths"].cpu().numpy()
+        for row, feed in feeds.items():
+            toks[row, :len(feed)] = feed
+            pos[row, :len(feed)] = int(base[row]) + np.arange(len(feed))
+        _, self._spec_state = M.prefill_chunk(
+            self._spec_params, self._spec_cfg, self._spec_state,
+            torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(pos).to(self.device))
+
+    def _spec_step(self) -> int:
+        """One speculative serving step: sync -> draft -> verify ->
+        accept/commit -> truncate.  Returns tokens committed batch-wide
+        (bit-exact with non-speculative greedy decoding)."""
+        live = self._spec_rows()
+        if not live and not self.engine._prefill_inbox:
+            return 0
+        drafts: Dict[int, List[int]] = {}
+        if live:
+            self._spec_sync_rows(live)
+            drafts = self._spec_draft(live)
+        vworks = self._spec_verify(live, drafts)
+        lg_of: Dict[int, torch.Tensor] = {}
+        for wk in vworks:
+            for local in wk.rows:
+                row = wk.mb * self.mb_size + int(local)
+                cnt = len(drafts.get(row, ())) + 1
+                lg_of[row] = wk.logits[int(local), :cnt]
+        emitted = 0
+        trunc_rows: List[int] = []
+        trunc_lens: List[int] = []
+        finish: List[Tuple[int, Request, str]] = []
+        feeds: Dict[int, List[int]] = {}
+        for row, r in live:
+            d = drafts[row]
+            base = r.feed_len - 1              # KV length before verify
+            toks, acc = spec_accept(lg_of[row], d,
+                                    temperature=r.temperature)
+            self.spec_stats["drafted_tokens"] += len(d)
+            self.spec_stats["accepted_tokens"] += acc
+            c0 = int(self._last_tok[row])
+            m, reason, walked = 0, None, []
+            for t in toks:
+                r.generated.append(t)
+                walked.append(t)
+                m += 1
+                emitted += 1
+                reason = r.finish_reason_for(t)
+                if reason is not None:
+                    break                      # stop token outranks cap
+            # the committed chain's KV = feed_tokens[:-1]: positions
+            # base..base+m-1 hold [c0, accepted drafts]; the rest goes
+            trunc_rows.append(row)
+            trunc_lens.append(base + m)
+            if reason is not None:
+                finish.append((row, r, reason))
+            else:
+                self._last_tok[row] = walked[-1]
+                feeds[row] = [c0] + walked[:-1]
+        if trunc_rows:
+            self.engine.truncate_rows(trunc_rows, trunc_lens)
+        for row, r, reason in finish:
+            self._finish_row(row, r, reason)
+        if feeds:
+            self._spec_commit_drafter(feeds)
+        self.spec_stats["steps"] += 1
+        return emitted
+
+    # ------------------------------------------------------------------ #
     def step(self) -> StepRecord:
         pc = time.perf_counter
         t0 = pc()
@@ -320,6 +584,13 @@ class ServingEngine:
         prefill_wall = pc() - t0
 
         t0 = pc()
+        if self.spec is not None:
+            # speculative decoding replaces decode + sample wholesale:
+            # draft on the S-resident drafter, score the candidates in one
+            # chunk-only pipelined step, commit the accepted prefix
+            self._spec_step()
+            self.last_logits = None
+            return self._record(n, prefill_wall, pc() - t0)
         toks = torch.from_numpy(self._last_tok[:, None].copy()).to(
             self.device)
         if self.backend == "hetero":
@@ -342,9 +613,13 @@ class ServingEngine:
             reason = r.finish_reason_for(tok)
             if reason is not None:
                 self._finish_row(i, r, reason)
+        return self._record(n, prefill_wall, decode_wall)
+
+    def _record(self, admitted: int, prefill_wall: float,
+                decode_wall: float) -> StepRecord:
         rec = StepRecord(self.step_idx, prefill_wall, decode_wall,
                          sum(r is not None for r in self.slots),
-                         self.resident_len(), n)
+                         self.resident_len(), admitted)
         self.records.append(rec)
         self.step_idx += 1
         return rec

@@ -11,6 +11,9 @@ repro.serving.paged_cache, without the prefix index and the host tier).
 * ``r_attention_paged_tables`` — the parameter-free R-Part op over
   (pool, tables), through the paged flash-decode kernel (fp pools) or
   the gather + int8 kernel (int8 pools).
+* ``r_attention_paged_verify`` — the speculative-decode verify R-Part:
+  write the C candidates' K/V, then score them in one pool sweep through
+  the multi-token verify kernel (fp pools).
 
 Layout (shared with kernels/paged_attention.py):
 
@@ -124,6 +127,57 @@ class PagedAllocator:
                 self.frozen[row] = True
             self.lengths[row] = int(new_lengths[row])
         return changed
+
+    def append_chunk(self, base: np.ndarray, counts: np.ndarray) -> bool:
+        """Chunk growth (a speculative-decode verify step): rows with
+        counts[row] > 0 receive ``counts[row]`` tokens at offset
+        ``base[row]``.  A row starting from offset 0 is (re-)admitted
+        fresh: a previous occupant's pages are released first.  Rows with
+        counts == 0 are untouched.  Pool exhaustion freezes the row as
+        decode-time growth does."""
+        cap = self.max_pages * self.page
+        changed = False
+        for row in np.nonzero(np.asarray(counts) > 0)[0]:
+            row = int(row)
+            b0, cnt = int(base[row]), int(counts[row])
+            if b0 == 0:
+                self.release(row)
+                changed = True
+            self.active[row] = True
+            if self.frozen[row]:
+                self.lengths[row] = b0 + cnt
+                continue
+            try:
+                changed |= self._ensure_row(row, min(b0 + cnt, cap))
+            except MemoryError:
+                self.frozen[row] = True
+            self.lengths[row] = b0 + cnt
+        return changed
+
+    def truncate(self, row: int, new_len: int) -> int:
+        """Roll ``row`` back to ``new_len`` tokens (the speculative-decode
+        rejection path): table slots >= ceil(new_len/page) return to the
+        free list, so admission capacity is not leaked to tokens that were
+        never emitted.  The kept partial page needs no wipe: positions >=
+        new_len fall outside every reader's mask, and the next verify
+        step writes from ``new_len`` on before it attends.  Frozen rows
+        only adjust ``lengths``.  Returns the number of slots dropped."""
+        new_len = max(0, int(new_len))
+        if not self.active[row] or new_len >= int(self.lengths[row]):
+            return 0
+        if self.frozen[row]:
+            self.lengths[row] = new_len
+            return 0
+        keep = -(-new_len // self.page)
+        slots = [s for s in range(keep, self.max_pages)
+                 if self.tables[row, s] >= 0]
+        if slots:
+            self._dev_tables = None
+        for s in slots:
+            self.free.append(int(self.tables[row, s]))
+            self.tables[row, s] = -1
+        self.lengths[row] = new_len
+        return len(slots)
 
     def used_pages(self) -> int:
         return self.num_pages - len(self.free)
@@ -308,3 +362,44 @@ def r_attention_paged_tables(r_in: Dict, pool: Dict, tables, *,
             q, pool["k"], pool["v"], tables, lens, window=window,
             softcap=softcap, use_kernel=use_kernel)
     return {"o": o[:, None]}, pool
+
+
+def r_attention_paged_verify(r_in: Dict, pool: Dict, tables, *,
+                             window: int = 0, softcap: float = 0.0,
+                             use_kernel: str = "auto"):
+    """Speculative-decode verify R-Part over block tables: write the C
+    candidate tokens' (k, v) into their mapped pages (in place; see
+    ``PagedAllocator.append_chunk``), then score every candidate against
+    the whole cache in ONE pool sweep through the multi-token verify
+    kernel: the single KV pass that amortizes FastDecode's per-token
+    R-side cost (C)-fold.  Writes that are not valid, unmapped or past
+    the table go to the scratch page.
+
+    r_in: q/k/v [B,C,...], lengths [B] (base = tokens before this step),
+    valid [B,C] (all True on verified rows, all False on bystanders).
+    ``tables`` may be cut to the used pages.  Returns ({"o": [B,C,Hq,Dh]},
+    pool).  fp pools only: int8 verify is not ported (ROADMAP.md)."""
+    if "k_q" in pool:
+        raise NotImplementedError(
+            "speculative decoding on int8 page pools is not ported yet — "
+            "queued in ROADMAP.md")
+    q = r_in["q"]
+    base, valid = r_in["lengths"], r_in["valid"]
+    scratch = pool_pages(pool)
+    page = pool["k"].shape[1]
+    mp = tables.shape[1]
+    c = q.shape[1]
+    qpos = (base[:, None].long()
+            + torch.arange(c, device=q.device)[None, :])
+    pidx = qpos // page
+    ids = torch.gather(tables, 1, torch.clamp(pidx, max=mp - 1)).long()
+    ok = valid & (ids >= 0) & (pidx < mp)
+    ids = torch.where(ok, ids, torch.full_like(ids, scratch))
+    slot = qpos % page
+    pool["k"][ids, slot] = r_in["k"].to(pool["k"].dtype)
+    pool["v"][ids, slot] = r_in["v"].to(pool["v"].dtype)
+    o = ops.paged_verify_attention(
+        q.contiguous(), pool["k"], pool["v"], tables,
+        base.to(torch.int32).contiguous(), window=window, softcap=softcap,
+        use_kernel=use_kernel)
+    return {"o": o}, pool

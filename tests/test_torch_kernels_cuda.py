@@ -147,3 +147,39 @@ def test_int8_kernel_on_card_matches_plain(dtype):
                     q.float(), kq, ks, vq, vs, pos, lengths, **kw)
                 _assert_within(out, want, dtype)
                 assert torch.all(out[3] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_verify_kernel_on_card_matches_plain(dtype):
+    """Kernel 4: T candidate tokens per row, query t at lengths + t, over
+    the same ragged/hole/shared/unmapped tables as kernel 1 (the pages
+    hold the last candidate), with window + sink and softcap; T = 1 must
+    equal kernel 1 bitwise (one template, the same instantiation)."""
+    _needs_card()
+    rng = np.random.default_rng(8)
+    dt = getattr(torch, dtype)
+    for t in (1, 2, 4):
+        for g in (1, 4):
+            for page in (4, 16):
+                for kw in ({}, dict(window=6, sink=2), dict(softcap=3.0)):
+                    _, pk, pv, tables, lengths = (
+                        torch.from_numpy(a).cuda()
+                        for a in _case(rng, g=g, page=page))
+                    base = torch.clamp(lengths - (t - 1), min=0)
+                    q = torch.from_numpy(rng.standard_normal(
+                        (4, t, 2 * g, 128)).astype(np.float32)).cuda()
+                    q, pk, pv = q.to(dt), pk.to(dt), pv.to(dt)
+                    before = TPA.verify_launches.value
+                    out = TPA.paged_verify_attention(q, pk, pv, tables, base,
+                                                     **kw)
+                    torch.cuda.synchronize()
+                    assert TPA.verify_launches.value == before + 1
+                    want = TREF.paged_verify_attention_ref(
+                        q, pk, pv, tables, base, **kw)
+                    _assert_within(out, want, dtype)
+                    assert torch.all(out[3] == 0)
+                    if t == 1:
+                        dec = TPA.paged_decode_attention(
+                            q[:, 0].contiguous(), pk, pv, tables, base, **kw)
+                        assert torch.equal(out[:, 0], dec)

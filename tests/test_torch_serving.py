@@ -238,11 +238,17 @@ def test_paged_admission_cap_and_errors_like_reference(setup):
 
 
 def test_not_ported_options_raise():
+    from repro_torch.serving.engine import SpecConfig
     tc = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
-    for opt in ("prefill_chunk", "prefix_cache", "spec_decode"):
+    for opt in ("prefill_chunk", "prefix_cache"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                           **{opt: 4})
+    # speculative decoding is ported, but not on int8 storage
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
+                      backend="hetero", num_r_workers=1, quantized_kv=True,
+                      spec_decode=SpecConfig(k=2))
     # int8 storage is ported: the option is taken, with the rest still
     # refused beside it
     with pytest.raises(NotImplementedError, match="prefill_chunk"):
