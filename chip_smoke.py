@@ -3,18 +3,27 @@
 
     python3 chip_smoke.py                    # every phase, as a user would run it
     python3 chip_smoke.py --phases kernel    # only some phases
+    python3 chip_smoke.py --phases kernel --v1-source OLD.cu
+                         # adds the compare phase: a first-version
+                         # csrc/paged_attention.cu against this tree's
 
 Phases (any failure exits nonzero):
 
   kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
-              the gitignored build/ directory), holds every kernel (paged
-              flash-decode; dense flash-decode in bf16/fp32 and with int8
-              K/V; the paged multi-token verify, whose T = 1 must equal
-              paged flash-decode bitwise) against its plain PyTorch
-              version on the card, and times it at the main path's shape
-              and at a bandwidth shape beside its bound, its plain version
-              and a library yardstick; times the int8 page gather of the
-              paged-int8 path.
+              the gitignored build/ directory; no bf16 Dh 128 paged
+              attention instantiation may spill), holds every kernel
+              (paged flash-decode; dense flash-decode in bf16/fp32 and
+              with int8 K/V; the paged multi-token verify, whose T = 1
+              must equal paged flash-decode bitwise) against its plain
+              PyTorch version on the card, the paged kernels also on long
+              rows that span many splits (each repeated bitwise), and
+              times it at the main path's shape and at a bandwidth shape
+              beside its bound, its plain version and a library
+              yardstick, with the split plan it used; times the int8 page
+              gather of the paged-int8 path.
+  compare     (only with --v1-source) the first version of kernels 1 and
+              4 against this tree's, timed in turns v1, v2, v2, v1 at both
+              shapes with SDPA between, and a sweep of split plans.
   serve       Qwen3-8B at full width, random weights from a seeded
               generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
@@ -53,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -125,6 +135,40 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, calls: int, reps: int = 10, strict: bool = True):
+    """Device time of one call without the host in the way: ``calls``
+    calls (fn(0) .. fn(calls-1)) captured in one CUDA graph, replayed
+    ``reps`` times between CUDA events.  A library call that cannot be
+    captured gives None unless ``strict``."""
+    import torch
+    if not strict:
+        try:
+            return graph_time_ms(fn, calls, reps)
+        except RuntimeError as e:
+            print(f"graph capture failed: {e}", file=sys.stderr, flush=True)
+            return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -157,6 +201,10 @@ def _paged_case(gen, *, b, hq, hkv, dh, page, mp, lengths, dtype, dev,
 
 
 def kernel_checks(dev) -> dict:
+    """Kernel 1 against its plain version: G 1 and 4, page 4 and 16, bf16
+    and fp32, ragged rows, a -1 hole, a shared page and an all-unmapped
+    row (exactly 0); window + sink and softcap cases; and the long
+    multi-split cases of ``long_cases``, each repeated bitwise."""
     import torch
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
@@ -186,6 +234,7 @@ def kernel_checks(dev) -> dict:
             kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=16,
                     lengths=[50, 3, 61]),
             attn=dict(softcap=5.0)))
+        cases += long_cases(dtype_name, t=1)
     worst = 0.0
     results = []
     for c in cases:
@@ -200,23 +249,73 @@ def kernel_checks(dev) -> dict:
         un = c["kw"].get("unmapped_row")
         if un is not None:
             ok = ok and bool((out[un] == 0).all())
-        results.append({"case": c["name"], "max_abs_err": err,
-                        "atol_rtol": TOL[dtype_name], "ok": ok})
+        rec = {"case": c["name"], "max_abs_err": err,
+               "atol_rtol": TOL[dtype_name],
+               "split_plan": PA.kernel_plan(q, pk, tables)}
+        if c.get("long"):
+            again = PA.paged_decode_attention(q, pk, pv, tables, lens,
+                                              **c["attn"])
+            torch.cuda.synchronize()
+            rec["bitwise_repeat"] = bool(torch.equal(out, again))
+            ok = ok and rec["bitwise_repeat"]
+        rec["ok"] = ok
+        results.append(rec)
         if not ok:
             raise AssertionError(f"kernel case {c['name']} failed: err {err} "
                                  f"(atol, rtol) {TOL[dtype_name]} (unmapped "
-                                 f"row must be exactly 0)")
+                                 f"row must be exactly 0; a long case must "
+                                 f"repeat bitwise): {rec}")
         worst = max(worst, err)
     return {"cases": results, "max_abs_err": worst}
+
+
+def long_cases(dtype_name, *, t) -> list:
+    """Cases whose rows span many splits of the kernels' split plan: 4096
+    table positions, lengths from 0 to 4095 (the pages hold the last
+    candidate of a T-token verify), an all-unmapped row (exactly 0), a -1
+    hole and a shared page, G 1 and 4, page 4 and 16; and window + sink
+    at long lengths, which leaves the middle splits empty (plus Dh 64 for
+    the verify).  Each must also repeat bitwise on a second launch."""
+    import torch
+    dtype = getattr(torch, dtype_name)
+    # the verify's base: its pages hold up to base + t - 1 <= 4095
+    lengths = [1000, 17, 0, 513, 4095 - (t - 1), 300]
+    cases = []
+    for g in (1, 4):
+        for page in ((4, 16) if t == 1 else (16,)):
+            hkv = 8 // g
+            cases.append(dict(
+                name=f"{dtype_name}-T{t}-long-G{g}-page{page}", dtype=dtype,
+                t=t, long=True,
+                kw=dict(b=6, hq=hkv * g, hkv=hkv, dh=128, page=page,
+                        mp=4096 // page, lengths=lengths, unmapped_row=5,
+                        hole=(3, 2), share=(0, 4)),
+                attn=dict()))
+    cases.append(dict(
+        name=f"{dtype_name}-T{t}-long-window-sink", dtype=dtype, t=t,
+        long=True,
+        kw=dict(b=3, hq=8, hkv=2, dh=128, page=16, mp=256,
+                lengths=[3000, 1500, 40], unmapped_row=None),
+        attn=dict(window=256, sink=16)))
+    if t > 1:
+        cases.append(dict(
+            name=f"{dtype_name}-T{t}-long-dh64-softcap", dtype=dtype, t=t,
+            long=True,
+            kw=dict(b=6, hq=16, hkv=4, dh=64, page=16, mp=256,
+                    lengths=lengths, unmapped_row=5, hole=(3, 2),
+                    share=(0, 4)),
+            attn=dict(softcap=5.0)))
+    return cases
 
 
 def verify_checks(dev) -> dict:
     """Kernel 4 against its plain version: T 1, 2 and 4 candidate tokens,
     G 1 and 4, page 4 and 16, Dh 64 and 128, bf16 and fp32, with ragged
     rows, a -1 hole, a shared page and an all-unmapped row (no valid key:
-    exactly 0); window + sink and softcap cases; and T = 1 against kernel
-    1 on the same inputs, which must be bitwise equal (one template, the
-    same instantiation)."""
+    exactly 0); window + sink and softcap cases; the long multi-split
+    cases of ``long_cases`` at T 1 and 4, each repeated bitwise; and T = 1
+    against kernel 1 on the same inputs, which must be bitwise equal (one
+    template, the same instantiation and split plan)."""
     import torch
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
@@ -249,6 +348,7 @@ def verify_checks(dev) -> dict:
                 kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=18,
                         lengths=[50, 3, 61], unmapped_row=None),
                 attn=dict(softcap=5.0)))
+            cases += long_cases(dtype_name, t=t)
     worst = 0.0
     results = []
     t1_equal = []
@@ -272,7 +372,15 @@ def verify_checks(dev) -> dict:
         if un is not None:
             ok = ok and bool((out[un] == 0).all())
         rec = {"case": c["name"], "max_abs_err": err,
-               "atol_rtol": TOL[dtype_name], "ok": ok}
+               "atol_rtol": TOL[dtype_name], "ok": ok,
+               "split_plan": PA.kernel_plan(q, pk, tables, t)}
+        if c.get("long"):
+            again = PA.paged_verify_attention(q, pk, pv, tables, base,
+                                              **c["attn"])
+            torch.cuda.synchronize()
+            rec["bitwise_repeat"] = bool(torch.equal(out, again))
+            ok = ok and rec["bitwise_repeat"]
+            rec["ok"] = ok
         if t == 1:
             dec = PA.paged_decode_attention(q[:, 0].contiguous(), pk, pv,
                                             tables, base, **c["attn"])
@@ -286,24 +394,19 @@ def verify_checks(dev) -> dict:
             raise AssertionError(
                 f"verify kernel case {c['name']} failed: err {err} (atol, "
                 f"rtol) {TOL[dtype_name]} (unmapped row must be exactly 0; "
-                f"T = 1 must equal kernel 1 bitwise)")
+                f"T = 1 must equal kernel 1 bitwise; a long case must "
+                f"repeat bitwise): {rec}")
         worst = max(worst, err)
     return {"cases": results, "max_abs_err": worst,
             "t1_bitwise_equal_to_kernel_1": all(t1_equal)}
 
 
-def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
-                  cache_len=None, copies=1, iters=50, t=None) -> dict:
-    """Kernel 1 (``t`` None) or kernel 4 (``t`` candidate tokens), its
-    plain version and the SDPA yardstick at one shape, bf16.  Every row
-    holds ``n_tok`` valid tokens: kernel 1's query sits at n_tok - 1;
-    kernel 4's base is n_tok - t, so its last candidate sits at n_tok - 1.
-    Kernel 4's tables are cut to the power of two of the used pages, as
-    the verify R-Part cuts them.  ``copies`` distinct pools are cycled so
-    the working set exceeds the 50 MB L2."""
+def _timing_case(dev, *, b, n_tok, hq, hkv, dh, page, cache_len, copies,
+                 t):
+    """The inputs of ``kernel_timing``: ``copies`` pools, tables, q and
+    lengths (bf16), the K/V already laid out per head for SDPA, and
+    kernel 4's SDPA mask."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(1)
     mp = -(-(cache_len or n_tok) // page)
@@ -343,6 +446,36 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
         qp = lens_val + torch.arange(t, device=dev)
         mask = (torch.arange(n_tok, device=dev)[None, :]
                 <= qp[:, None])[None, None].expand(b, 1, t, n_tok)
+    return bufs, mask, lens_val
+
+
+def _sdpa(q, kg, vg, mask, t):
+    import torch.nn.functional as F
+    if t:
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kg, vg, attn_mask=mask,
+            enable_gqa=True).transpose(1, 2)
+    return F.scaled_dot_product_attention(q[:, :, None], kg, vg,
+                                          enable_gqa=True)[:, :, 0]
+
+
+def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
+                  cache_len=None, copies=1, iters=50, t=None) -> dict:
+    """Kernel 1 (``t`` None) or kernel 4 (``t`` candidate tokens), its
+    plain version and the SDPA yardstick at one shape, bf16.  Every row
+    holds ``n_tok`` valid tokens: kernel 1's query sits at n_tok - 1;
+    kernel 4's base is n_tok - t, so its last candidate sits at n_tok - 1.
+    Kernel 4's tables are cut to the power of two of the used pages, as
+    the verify R-Part cuts them.  ``copies`` distinct pools are cycled so
+    the working set exceeds the 50 MB L2.  Records the split plan the
+    kernel used, its CTAs and the CTAs that fit on one SM."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+    bufs, mask, lens_val = _timing_case(
+        dev, b=b, n_tok=n_tok, hq=hq, hkv=hkv, dh=dh, page=page,
+        cache_len=cache_len, copies=copies, t=t)
+    nq = t or 1
 
     def kern(i):
         q, pk, pv, tables, lens = bufs[i % copies][:5]
@@ -359,12 +492,7 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
     def lib(i):
         q, kg, vg = bufs[i % copies][0], bufs[i % copies][5], \
             bufs[i % copies][6]
-        if t:
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), kg, vg, attn_mask=mask,
-                enable_gqa=True).transpose(1, 2)
-        return F.scaled_dot_product_attention(q[:, :, None], kg, vg,
-                                              enable_gqa=True)[:, :, 0]
+        return _sdpa(q, kg, vg, mask, t)
 
     q, pk, pv, tables, lens, kg, vg = bufs[0]
     got = kern(0)
@@ -377,6 +505,12 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
     ms = cuda_time_ms(kern, iters)
     plain_ms = cuda_time_ms(plain, max(3, iters // 10), warmup=1)
     library_ms = cuda_time_ms(lib, iters)
+    # the same calls replayed from a CUDA graph: device time alone
+    device_ms = graph_time_ms(kern, copies * max(1, 16 // copies))
+    library_device_ms = graph_time_ms(lib, copies * max(1, 16 // copies),
+                                      strict=False)
+    pps, n_splits = PA.kernel_plan(q, pk, tables, nq)
+    groups = PA.row_groups(nq, hq // hkv)
     elt = 2
     kv_bytes = 2 * b * n_tok * hkv * dh * elt
     io_bytes = 2 * b * nq * hq * dh * elt + tables.numel() * 4 + b * 4
@@ -391,6 +525,12 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
             "pool_copies": copies, "max_abs_err": err,
             "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "split_plan": {"pages_per_split": pps, "num_splits": n_splits},
+            "ctas": n_splits * hkv * b * groups,
+            "ctas_per_sm": PA.ctas_per_sm(nq, hq, hkv, dh, torch.bfloat16,
+                                          pps),
+            "merge_launches_per_call": int(n_splits > 1),
             "bytes": bytes_moved, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -617,13 +757,60 @@ def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
             "op_ms": cuda_time_ms(op, iters)}
 
 
+_PTXAS_FN = re.compile(
+    r"(paged_attn_kernel|merge_splits)I(13__nv_bfloat16|f)Li(\d+)E"
+    r"(?:Li(\d+)ELb(\d)ELb(\d)E)?")
+
+
+def ptxas_summary(text: str) -> list:
+    """Registers, static shared memory and spills of every instantiation
+    of csrc/paged_attention.cu, from nvcc's ``-Xptxas -v`` report."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = _PTXAS_FN.search(m.group(1))
+            cur = None
+            if k:
+                name, elt, dh, gt, multi, mma = k.groups()
+                cur = {"kernel": name,
+                       "dtype": "bfloat16" if "bfloat16" in elt
+                       else "float32", "Dh": int(dh)}
+                if gt:
+                    cur.update(rows_per_cta=int(gt),
+                               entry="verify" if multi == "1" else "decode",
+                               engine="tensor cores" if mma == "1"
+                               else "CUDA cores")
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
 def phase_kernel(dev) -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build()
     build_s = time.perf_counter() - t0
-    for stem, text in build.report().items():
+    report = build.report()
+    for stem, text in report.items():
         print(f"ptxas report of {stem}:\n{text}", flush=True)
+    ptxas = ptxas_summary(report["paged_attention"])
+    spills = [r for r in ptxas if r["dtype"] == "bfloat16" and r["Dh"] == 128
+              and r.get("spill_stores", 0) + r.get("spill_loads", 0)]
+    if spills or not ptxas:
+        raise AssertionError(f"paged attention: bf16 Dh 128 instantiations "
+                             f"spill (or no report): {spills}")
     checks = kernel_checks(dev)
     # main path: one R-worker call = 2 rows of a micro-batch (batch 8, two
     # micro-batches, two workers) over ~512 tokens, pool sized for
@@ -662,7 +849,139 @@ def phase_kernel(dev) -> dict:
         "max_abs_err": max(vchecks["max_abs_err"], v_main["max_abs_err"],
                            v_bw["max_abs_err"])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
+            "paged_attention_ptxas": ptxas,
             "kernels": kernels, "paged_int8_gather": gather_timing(dev)}
+
+
+def _v1_fns(v1_source: Path) -> dict:
+    """Build a first-version csrc/paged_attention.cu (its own C ABI: no
+    split plan, no scratch) with the port's nvcc flags into build/v1/ and
+    declare its two entry points."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = ROOT / "build" / "v1"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libpaged_attention_v1.so"
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                          str(v1_source)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {v1_source}:\n{res.stdout}"
+                           f"{res.stderr}")
+    cdll = ctypes.CDLL(str(lib))
+    fns = {}
+    for name, n_int in (("repro_paged_decode_attention", 9),
+                        ("repro_paged_verify_attention", 10)):
+        fn = getattr(cdll, name)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def phase_compare(dev, v1_source: Path) -> dict:
+    """The first version of kernels 1 and 4 (``v1_source``, built here)
+    against this tree's (v2) in one process on one card, timed in turns
+    v1, v2, v2, v1 at the main path's shape and the bandwidth shape, with
+    the SDPA yardstick timed between them; both versions are held to the
+    plain version first.  Then v2 at the main shape under other split
+    plans (pages per split), the data for the plan's rule."""
+    import math
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+    v1 = _v1_fns(v1_source)
+    shapes = [("main-path", dict(b=2, n_tok=512, cache_len=1024, copies=16),
+               200),
+              ("bandwidth", dict(b=64, n_tok=4096, cache_len=None, copies=1),
+               20)]
+    rows = []
+    for kernel, t in (("paged_decode_attention", None),
+                      ("paged_verify_attention", 4)):
+        for shape, kw, iters in shapes:
+            bufs, mask, _ = _timing_case(dev, hq=32, hkv=8, dh=128,
+                                         page=16, t=t, **kw)
+            copies = kw["copies"]
+
+            def run_v1(i):
+                q, pk, pv, tables, lens = bufs[i % copies][:5]
+                out = torch.empty_like(q)
+                shape_args = [q.shape[0], t] if t else [q.shape[0]]
+                err = v1["repro_paged_verify_attention" if t else
+                         "repro_paged_decode_attention"](
+                    q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                    tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    *shape_args, 32, 8, 128, 16, tables.shape[1],
+                    pk.shape[0], 0, 0, 0.0, 1.0 / math.sqrt(128), 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"v1 launch failed ({err})")
+                return out
+
+            def run_v2(i):
+                q, pk, pv, tables, lens = bufs[i % copies][:5]
+                if t:
+                    return PA.paged_verify_attention(q, pk, pv, tables, lens)
+                return PA.paged_decode_attention(q, pk, pv, tables, lens)
+
+            def run_lib(i):
+                q, kg, vg = (bufs[i % copies][j] for j in (0, 5, 6))
+                return _sdpa(q, kg, vg, mask, t)
+
+            q, pk, pv, tables, lens = bufs[0][:5]
+            want = (ref.paged_verify_attention_ref if t else
+                    ref.paged_decode_attention_ref)(q, pk, pv, tables, lens)
+            errs = {}
+            for ver, fn in (("v1", run_v1), ("v2", run_v2)):
+                got = fn(0)
+                torch.cuda.synchronize()
+                errs[ver], ok = tol_check(got, want, "bfloat16")
+                if not ok:
+                    raise AssertionError(f"{ver} {kernel} at {shape}: max "
+                                         f"err {errs[ver]}")
+            turns, dev_turns = [], []
+            order = (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
+                     ("v2", run_v2), ("v1", run_v1))
+            for ver, fn in order:
+                turns.append((ver, cuda_time_ms(fn, iters)))
+            for ver, fn in order:
+                dev_turns.append((ver, graph_time_ms(fn, 16,
+                                                     strict=ver != "sdpa")))
+            rows.append({"kernel": kernel, "shape": shape, "T": t or 1,
+                         "turns_ms": turns, "device_turns_ms": dev_turns,
+                         "max_abs_err": errs,
+                         "split_plan": PA.kernel_plan(q, pk, tables,
+                                                      t or 1)})
+            del bufs
+            torch.cuda.empty_cache()
+    sweep = []
+    for kernel, t in (("paged_decode_attention", None),
+                      ("paged_verify_attention", 4)):
+        bufs, _, _ = _timing_case(dev, b=2, n_tok=512, hq=32, hkv=8, dh=128,
+                                  page=16, cache_len=1024, copies=16, t=t)
+        q, pk, pv, tables, lens = bufs[0][:5]
+        mp = tables.shape[1]
+        own = PA.kernel_plan
+        try:
+            for pps in (1, 2, 4, 8, 16, 32, 64):
+                if pps > mp:
+                    continue
+                plan = (pps, -(-mp // pps))
+                PA.kernel_plan = lambda *a, _p=plan: _p
+                fn = (lambda i: PA.paged_verify_attention(
+                    *bufs[i % 16][:5])) if t else (
+                    lambda i: PA.paged_decode_attention(*bufs[i % 16][:5]))
+                sweep.append({"kernel": kernel, "table_pages": mp,
+                              "pages_per_split": pps,
+                              "num_splits": plan[1],
+                              "ms": cuda_time_ms(fn, 200),
+                              "device_ms": graph_time_ms(fn, 16)})
+        finally:
+            PA.kernel_plan = own
+        del bufs
+    return {"phase": "compare", "ok": True, "v1_source": str(v1_source),
+            "rows": rows, "split_sweep_main_path": sweep}
 
 
 # ---------------------------------------------------------------------------
@@ -708,9 +1027,11 @@ def _counters():
 
 
 def _reset_counters() -> None:
+    from repro_torch.kernels import paged_attention as PA
     for launched, plain in _counters().values():
         launched.reset()
         plain.reset()
+    PA.merge_launches.reset()
 
 
 def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
@@ -726,6 +1047,7 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
     plain version may run.  ``profile`` names a profiled window of 3
     steps afterwards (written to ``out``)."""
     import torch
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.serving import kv_cache as KV
     from repro_torch.serving.engine import ServingEngine, SpecConfig
     cfg, params = model["cfg"], model["params"]
@@ -765,6 +1087,7 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
         torch.cuda.synchronize()
         launches = {n: c[0].value for n, c in counters.items()}
         plain = {n: c[1].value for n, c in counters.items()}
+        merges = PA.merge_launches.value
         steps = eng.step_idx
         spec_stats = dict(eng.spec_stats)
         kv_bytes = sum(KV.cache_bytes(w.state) for w in eng.engine.workers)
@@ -831,6 +1154,7 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
            "paged_resident_bytes_peak": peak_resident,
            "kernel": kernel, "kernel_launches": launches[kernel],
            "launches": launches, "plain_calls": plain,
+           "paged_merge_launches": merges,
            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
            "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
     if spec_k:
@@ -933,6 +1257,13 @@ def _profile_steps(eng, n_steps: int, out: Path, name: str,
                 "cpu_self_ms": e.self_cpu_time_total / 1e3}
                for e in sorted(ka, key=lambda e: e.self_cpu_time_total,
                                reverse=True)[:10]]
+    # the paged attention kernels and their merge kernel, by name
+    paged = {}
+    for e in ka:
+        for name in ("paged_attn_kernel", "merge_splits"):
+            if name in e.key and dev(e) > 0:
+                c, ms = paged.get(name, (0, 0.0))
+                paged[name] = (c + e.count, ms + dev(e) / 1e3)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{name}_profile.txt").write_text(ka.table(
         sort_by="self_cpu_time_total", row_limit=60))
@@ -944,6 +1275,9 @@ def _profile_steps(eng, n_steps: int, out: Path, name: str,
             "memcpy_device_s": memcpy_us / 1e6,
             "kernel_launches_host": sum(e.count for e in ka
                                         if e.key == "cudaLaunchKernel"),
+            "paged_attention_device": {
+                name: {"count": c, "device_ms": ms}
+                for name, (c, ms) in paged.items()},
             "top_device": top_dev, "top_host": top_cpu}
 
 
@@ -1241,6 +1575,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for the serve phases' profiler tables "
                          "and the bf16 serve's Chrome trace")
+    ap.add_argument("--v1-source", type=Path, default=None,
+                    help="a first-version csrc/paged_attention.cu: adds the "
+                         "compare phase (v1 against this tree, in turns)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1260,6 +1597,8 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         results["kernel"] = phase_kernel(dev)
         log(results["kernel"])
+    if args.v1_source is not None:
+        log(phase_compare(dev, args.v1_source.resolve()))
     if {"serve", "serve_int8", "serve_spec"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:

@@ -194,7 +194,7 @@ class RWorker(threading.Thread):
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
         self.num_pages = num_pages
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         # the worker's own CUDA stream; None on the CPU
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)

@@ -9,20 +9,25 @@ Replace the Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
   tokens per row against the same pool in one sweep, query t of row b at
   position ``lengths[b] + t``.
 
-Both run one CUDA template (one CTA per (row, kv-head, group of query
-rows)), bound by HBM bytes (the K/V pages they read); split-K across
-CTAs, cp.async/TMA page pipelining and several pages per tile are left to
-a later PR.
+Both run one CUDA template, bound by HBM bytes (the K/V pages they read):
+split-K over the page list (``split_plan`` chooses the split from shapes
+alone, so no host sync), a cp.async ring of K/V tiles in shared memory,
+scores per tile (CUDA cores for kernel 1 and fp32, tensor cores for the
+bf16 verify), and, with more than one split, a merge kernel launched by
+the same C call.  The source note of ``csrc/paged_attention.cu`` has the
+design.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
-fallback.  ``launches`` / ``verify_launches`` count kernel launches and
-``plain_calls`` / ``verify_plain_calls`` CPU calls of the plain
-versions, so a run can show which path it took.
+fallback.  ``launches`` / ``verify_launches`` count kernel launches (one
+per wrapper call), ``merge_launches`` the merge kernels those calls
+added, and ``plain_calls`` / ``verify_plain_calls`` CPU calls of the
+plain versions, so a run can show which path it took.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -53,6 +58,62 @@ launches = LaunchCounter()      # kernel 1 launches on CUDA tensors
 plain_calls = LaunchCounter()   # kernel 1 plain-version calls (CPU)
 verify_launches = LaunchCounter()     # kernel 4 launches on CUDA tensors
 verify_plain_calls = LaunchCounter()  # kernel 4 plain-version calls (CPU)
+merge_launches = LaunchCounter()  # merge kernels launched by those calls
+
+
+# ---------------------------------------------------------------------------
+# the split plan (flash-decoding): from shapes only, never from lengths,
+# which live on the card, so it needs no host sync
+# ---------------------------------------------------------------------------
+MAX_ROWS_DECODE = 8       # query rows per CTA, as csrc/paged_attention.cu
+MAX_ROWS_VERIFY = 16
+SPLIT_CTAS_PER_SM = 2     # aim: this many CTAs of a split grid per SM
+SPLIT_MIN_TOKENS = 64     # a split reads at least two 32-row ring tiles
+MAX_SPLIT_PAGES = 2048    # table entries one CTA stages (kMaxSplitPages)
+
+
+def row_groups(t: int, g: int) -> int:
+    """CTAs per (row, kv-head) along the query rows: T*G rows, at most 8
+    per CTA for a decode (T = 1) and 16 for a verify."""
+    cap = MAX_ROWS_DECODE if t == 1 else MAX_ROWS_VERIFY
+    return -(-t * g // cap)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, hkv: int, groups: int, mp: int, page: int,
+               sm_count: int):
+    """(pages_per_split, num_splits) for a grid of b*hkv*groups CTAs over
+    ``mp`` table pages of ``page`` slots.  One split where that grid
+    already fills the SMs; otherwise enough splits to put about
+    ``SPLIT_CTAS_PER_SM`` CTAs on every SM, each split at least
+    ``SPLIT_MIN_TOKENS`` positions long.  Split s owns table pages
+    [s*pages_per_split, (s+1)*pages_per_split): every page once, and no
+    split lies wholly past the table."""
+    ctas = b * hkv * groups
+    pps = mp
+    if ctas < sm_count:
+        want = -(-SPLIT_CTAS_PER_SM * sm_count // ctas)
+        pps = max(-(-mp // want), -(-SPLIT_MIN_TOKENS // page))
+    pps = max(1, min(pps, mp, MAX_SPLIT_PAGES))
+    return pps, -(-mp // pps)
+
+
+_SM_COUNT = {}      # CUDA device -> multiprocessor count
+
+
+def sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def kernel_plan(q, pages_k, tables, t: int = 1):
+    """The split plan a call with these tensors launches (shapes only)."""
+    b, hq = q.shape[0], q.shape[-2]
+    hkv, page = pages_k.shape[2], pages_k.shape[1]
+    return split_plan(b, hkv, row_groups(t, hq // hkv), tables.shape[1],
+                      page, sm_count(q.device))
 
 
 _fn = {}    # C entry point name -> the declared function
@@ -61,26 +122,43 @@ _fn = {}    # C entry point name -> the declared function
 def _kernel_fn(name: str = "repro_paged_decode_attention"):
     """A C entry point of csrc/paged_attention.cu (built on first use):
     the decode entry takes (pointers x6, b, hq, hkv, dh, page, mp,
-    num_pages, window, sink, softcap, scale, dtype, stream); the verify
-    entry takes T after b."""
+    num_pages, window, sink, softcap, scale, dtype, pages_per_split,
+    num_splits, scratch, stream); the verify entry takes T after b;
+    ``repro_paged_attention_ctas_per_sm`` takes (T, hq, hkv, dh, dtype,
+    pages_per_split, int* out)."""
     if name not in _fn:
         from repro_torch.kernels import build
         fn = getattr(build.load("paged_attention"), name)
-        n_int = 10 if name == "repro_paged_verify_attention" else 9
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+        if name == "repro_paged_attention_ctas_per_sm":
+            fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        else:
+            n_int = 10 if name == "repro_paged_verify_attention" else 9
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
+                           + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _fn[name] = fn
     return _fn[name]
 
 
+def ctas_per_sm(t: int, hq: int, hkv: int, dh: int, dtype,
+                pages_per_split: int) -> int:
+    """CTAs of the instantiation such a call launches that fit on one SM
+    (the CUDA occupancy calculator on the built kernel)."""
+    out = ctypes.c_int(0)
+    err = _kernel_fn("repro_paged_attention_ctas_per_sm")(
+        t, hq, hkv, dh, _DTYPES[dtype], pages_per_split, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed (cudaError {err})")
+    return out.value
+
+
 def _check(q, pages_k, pages_v, tables, lengths, q_dims: int = 3):
     dev = q.device
-    for name, t in (("pages_k", pages_k), ("pages_v", pages_v),
-                    ("tables", tables), ("lengths", lengths)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if not (pages_k.device == dev and pages_v.device == dev
+            and tables.device == dev and lengths.device == dev):
+        raise ValueError(f"pool/tables/lengths on {pages_k.device}/"
+                         f"{tables.device}/{lengths.device}, q on {dev}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype} not supported (bf16 or fp32)")
     if pages_k.dtype != q.dtype or pages_v.dtype != q.dtype:
@@ -88,33 +166,32 @@ def _check(q, pages_k, pages_v, tables, lengths, q_dims: int = 3):
                         f"equal q dtype {q.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    if q.dim() != q_dims or pages_k.dim() != 4 or tables.dim() != 2 \
+    qs, ps, ts = q.shape, pages_k.shape, tables.shape
+    if len(qs) != q_dims or len(ps) != 4 or len(ts) != 2 \
             or lengths.dim() != 1:
         raise ValueError(f"expected q [B,{'T,' if q_dims == 4 else ''}"
                          f"Hq,Dh], pages [P,page,Hkv,Dh], tables [B,MP], "
                          f"lengths [B]")
-    b, hq, dh = q.shape[0], q.shape[-2], q.shape[-1]
-    _, page, hkv, dh2 = pages_k.shape
-    if pages_v.shape != pages_k.shape or dh2 != dh:
-        raise ValueError(f"pool shapes {tuple(pages_k.shape)} / "
-                         f"{tuple(pages_v.shape)} do not match q {tuple(q.shape)}")
-    if tables.shape[0] != b or lengths.shape[0] != b:
+    if pages_v.shape != ps or ps[3] != qs[-1]:
+        raise ValueError(f"pool shapes {tuple(ps)} / "
+                         f"{tuple(pages_v.shape)} do not match q {tuple(qs)}")
+    if ts[0] != qs[0] or lengths.shape[0] != qs[0]:
         raise ValueError("tables/lengths batch differs from q")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if dh not in (64, 128):
-        raise ValueError(f"head_dim {dh} not supported by the kernel "
+    if qs[-2] % ps[2]:
+        raise ValueError(f"Hq={qs[-2]} is not a multiple of Hkv={ps[2]}")
+    if qs[-1] not in (64, 128):
+        raise ValueError(f"head_dim {qs[-1]} not supported by the kernel "
                          f"(64 or 128)")
-    for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v),
-                    ("tables", tables), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    # q and the pool are read with 8/16-byte vector loads; tables and
+    if not (q.is_contiguous() and pages_k.is_contiguous()
+            and pages_v.is_contiguous() and tables.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("q, pages_k, pages_v, tables and lengths must be "
+                         "contiguous")
+    # q and the pool are read with 16-byte vector loads; tables and
     # lengths with scalar loads (a worker's row slice of lengths may start
     # at any int32)
-    for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    if (q.data_ptr() | pages_k.data_ptr() | pages_v.data_ptr()) % 16:
+        raise ValueError("q, pages_k and pages_v must be 16-byte aligned")
 
 
 def paged_decode_attention(q, pages_k, pages_v, tables, lengths, *,
@@ -131,21 +208,8 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, pages_k, pages_v, tables, lengths)
-    fn = _kernel_fn()
-    b, hq, dh = q.shape
-    n_pages, page, hkv, _ = pages_k.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, hkv, dh, page, tables.shape[1], n_pages,
-            int(window), int(sink), float(softcap), 1.0 / math.sqrt(dh),
-            _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed "
-                           f"(cudaError {err})")
+    out = _launch(_kernel_fn(), q, pages_k, pages_v, tables, lengths,
+                  window, sink, softcap, t=1)
     launches.add()
     return out
 
@@ -166,20 +230,44 @@ def paged_verify_attention(q, pages_k, pages_v, tables, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, pages_k, pages_v, tables, lengths, q_dims=4)
-    fn = _kernel_fn("repro_paged_verify_attention")
-    b, t, hq, dh = q.shape
-    n_pages, page, hkv, _ = pages_k.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, t, hq, hkv, dh, page, tables.shape[1], n_pages,
-            int(window), int(sink), float(softcap), 1.0 / math.sqrt(dh),
-            _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_verify_attention kernel launch failed "
-                           f"(cudaError {err})")
+    out = _launch(_kernel_fn("repro_paged_verify_attention"), q, pages_k,
+                  pages_v, tables, lengths, window, sink, softcap,
+                  t=q.shape[1])
     verify_launches.add()
+    return out
+
+
+def _launch(fn, q, pages_k, pages_v, tables, lengths, window, sink,
+            softcap, *, t: int):
+    """One C call: the attention kernel and, with more than one split,
+    the merge kernel, on the current stream; raises on a nonzero
+    cudaError.  Scratch for the splits' partials (fp32 m, l and acc[Dh]
+    per split and query row) comes from the caching allocator."""
+    b, hq, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    n_pages, page, hkv, _ = pages_k.shape
+    dev = q.device
+    pps, n_splits = kernel_plan(q, pages_k, tables, t)
+    out = torch.empty_like(q)
+    scratch = (torch.empty(n_splits * b * t * hq * (dh + 2),
+                           dtype=torch.float32, device=dev)
+               if n_splits > 1 else None)
+    args = (q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            *((b, t) if q.dim() == 4 else (b,)),    # verify: T after b
+            hq, hkv, dh, page, tables.shape[1], n_pages, int(window),
+            int(sink), float(softcap), 1.0 / math.sqrt(dh),
+            _DTYPES[q.dtype], pps, n_splits,
+            None if scratch is None else scratch.data_ptr())
+    # the launch goes to the current stream of q's device (a worker's own
+    # stream), with that device current
+    if torch.cuda.current_device() == dev.index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed "
+                           f"(cudaError {err})")
+    if n_splits > 1:
+        merge_launches.add()
     return out

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -51,7 +52,7 @@ class PagedAllocator:
                  max_pages_per_seq: int, device=None):
         self.rows, self.num_pages, self.page = rows, num_pages, page
         self.max_pages = max_pages_per_seq
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.tables = np.full((rows, max_pages_per_seq), -1, np.int32)
         self.lengths = np.zeros((rows,), np.int64)
         self.active = np.zeros((rows,), bool)
@@ -206,7 +207,9 @@ def init_page_pool(num_pages: int, page: int, hkv: int, dh: int,
                    quantized: bool = False) -> Dict:
     """fp pool: {k, v}; int8 pool (§5.2 composition): {k_q, k_s, v_q, v_s}
     with one fp32 scale per (token-slot, kv-head).  ``num_pages`` pages
-    plus the scratch page (see the module docstring)."""
+    plus the scratch page (see the module docstring).  ``device`` None
+    is the card (``resolve_device``)."""
+    device = resolve_device(device)
     shape = (num_pages + 1, page, hkv, dh)
     if quantized:
         return {

@@ -298,7 +298,8 @@ def test_int8_chunk_and_prefix_helpers_wait_for_their_slices():
 def _pools(rng, n_pages=6, page=4, hkv=2, dh=8):
     """The same int8 pool contents for JAX (no scratch page) and the port
     (one scratch page, index n_pages)."""
-    tpool = TPC.init_page_pool(n_pages, page, hkv, dh, quantized=True)
+    tpool = TPC.init_page_pool(n_pages, page, hkv, dh, quantized=True,
+                               device="cpu")
     for name, x in (("k", rng.standard_normal((n_pages, page, hkv, dh))),
                     ("v", rng.standard_normal((n_pages, page, hkv, dh)))):
         qv, sv = TQK.quantize_kv(torch.from_numpy(x.astype(np.float32)))
@@ -310,7 +311,7 @@ def _pools(rng, n_pages=6, page=4, hkv=2, dh=8):
 
 def test_int8_page_pool_layout_matches_jax():
     jpool = JPC.init_page_pool(5, 4, 2, 8, quantized=True)
-    tpool = TPC.init_page_pool(5, 4, 2, 8, quantized=True)
+    tpool = TPC.init_page_pool(5, 4, 2, 8, quantized=True, device="cpu")
     assert sorted(tpool) == sorted(jpool)
     for name in jpool:
         assert tuple(tpool[name].shape) == (6,) + tuple(jpool[name].shape[1:])
@@ -358,12 +359,13 @@ def test_int8_dense_rows_to_pages_matches_jax(payload):
         jrows = {k: _j(v) for k, v in st.items()}
         trows = {k: _t(v) for k, v in st.items()}
     ja = JPC.PagedAllocator(rows, 8, page, 3)
-    ta = TPC.PagedAllocator(rows, 8, page, 3)
+    ta = TPC.PagedAllocator(rows, 8, page, 3, device="cpu")
     jpool = JPC.dense_rows_to_pages(
         JPC.init_page_pool(8, page, hkv, dh, quantized=True), ja,
         np.arange(rows), jrows)
     tpool = TPC.dense_rows_to_pages(
-        TPC.init_page_pool(8, page, hkv, dh, quantized=True), ta,
+        TPC.init_page_pool(8, page, hkv, dh, quantized=True, device="cpu"),
+        ta,
         np.arange(rows), trows)
     np.testing.assert_array_equal(ta.tables, ja.tables)
     for name in jpool:
@@ -371,8 +373,10 @@ def test_int8_dense_rows_to_pages_matches_jax(payload):
                                       np.asarray(jpool[name]))
     if payload == "int8":
         with pytest.raises(ValueError, match="fp page pool"):
-            TPC.dense_rows_to_pages(TPC.init_page_pool(8, page, hkv, dh),
-                                    TPC.PagedAllocator(rows, 8, page, 3),
+            TPC.dense_rows_to_pages(TPC.init_page_pool(8, page, hkv, dh,
+                                                       device="cpu"),
+                                    TPC.PagedAllocator(rows, 8, page, 3,
+                                                       device="cpu"),
                                     np.arange(rows), trows)
 
 

@@ -183,3 +183,63 @@ def test_verify_kernel_on_card_matches_plain(dtype):
                         dec = TPA.paged_decode_attention(
                             q[:, 0].contiguous(), pk, pv, tables, base, **kw)
                         assert torch.equal(out[:, 0], dec)
+
+
+def _long_case(rng, *, t, g, page, hkv=2, dh=128, window=0):
+    """Rows spanning many splits of the split plan: 4096 table positions,
+    lengths 0 to 4095 (the pages hold the verify's last candidate), an
+    all-unmapped row (exactly 0), a -1 hole and a shared page."""
+    base = np.array([1000, 17, 0, 513, 4096 - t, 300], np.int32)
+    mp = 4096 // page
+    need = [-(-(int(n) + t) // page) for n in base]
+    n_pages = sum(need) + 1
+    perm = rng.permutation(n_pages).astype(np.int32)
+    tables = np.full((6, mp), -1, np.int32)
+    cur = 0
+    for r in range(5):                           # row 5: all unmapped
+        tables[r, :need[r]] = perm[cur:cur + need[r]]
+        cur += need[r]
+    tables[3, 2] = -1
+    tables[4, 0] = tables[0, 0]
+    q = rng.standard_normal((6, t, hkv * g, dh)).astype(np.float32)
+    pk = rng.standard_normal((n_pages, page, hkv, dh)).astype(np.float32)
+    pv = rng.standard_normal((n_pages, page, hkv, dh)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, pk, pv, tables, base)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_multi_split_kernels_on_card(dtype):
+    """Kernels 1 and 4 where the split plan cuts every row's table into
+    many splits (empty ones past short rows, and between the sink and
+    the window): within the tolerance of the plain version, exactly 0
+    for the unmapped row, bitwise equal on a second launch (the merge
+    sums in split order, no atomics), and kernel 4 at T = 1 bitwise equal
+    to kernel 1 (the same instantiation and plan)."""
+    _needs_card()
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    for t in (1, 4):
+        for g in (1, 4):
+            for page in (4, 16):
+                for kw in ({}, dict(window=256, sink=16), dict(softcap=5.0)):
+                    q, pk, pv, tables, base = _long_case(rng, t=t, g=g,
+                                                         page=page)
+                    q, pk, pv = q.to(dt), pk.to(dt), pv.to(dt)
+                    assert TPA.kernel_plan(q, pk, tables, t)[1] > 1
+                    merges = TPA.merge_launches.value
+                    out = TPA.paged_verify_attention(q, pk, pv, tables, base,
+                                                     **kw)
+                    again = TPA.paged_verify_attention(q, pk, pv, tables,
+                                                       base, **kw)
+                    torch.cuda.synchronize()
+                    assert TPA.merge_launches.value == merges + 2
+                    want = TREF.paged_verify_attention_ref(
+                        q, pk, pv, tables, base, **kw)
+                    _assert_within(out, want, dtype)
+                    assert torch.all(out[5] == 0)
+                    assert torch.equal(out, again)
+                    if t == 1:
+                        dec = TPA.paged_decode_attention(
+                            q[:, 0].contiguous(), pk, pv, tables, base, **kw)
+                        assert torch.equal(out[:, 0], dec)

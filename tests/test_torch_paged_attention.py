@@ -135,7 +135,7 @@ def test_write_token_paged_matches_jax_and_drops_unmapped_rows():
                                  jnp.asarray(tables), jnp.asarray(lengths),
                                  jnp.asarray(k_new), jnp.asarray(v_new),
                                  active=jnp.asarray(active))
-    pool = TPC.init_page_pool(n_pages, page, hkv, dh)
+    pool = TPC.init_page_pool(n_pages, page, hkv, dh, device="cpu")
     pool["k"][:n_pages] = torch.from_numpy(pk)
     pool["v"][:n_pages] = torch.from_numpy(pv)
     got = TPC.write_token_paged(pool, torch.from_numpy(tables),
@@ -160,12 +160,13 @@ def test_dense_rows_to_pages_and_allocator_match_jax():
     pos = np.where(np.arange(cache)[None] < lens[:, None],
                    np.arange(cache)[None], -1).astype(np.int32)
     ja = JPC.PagedAllocator(rows, 8, page, 3)
-    ta = TPC.PagedAllocator(rows, 8, page, 3)
+    ta = TPC.PagedAllocator(rows, 8, page, 3, device="cpu")
     jpool = JPC.dense_rows_to_pages(
         JPC.init_page_pool(8, page, hkv, dh), ja, np.arange(rows),
         {"k": jnp.asarray(k), "v": jnp.asarray(v), "pos": jnp.asarray(pos)})
     tpool = TPC.dense_rows_to_pages(
-        TPC.init_page_pool(8, page, hkv, dh), ta, np.arange(rows),
+        TPC.init_page_pool(8, page, hkv, dh, device="cpu"), ta,
+        np.arange(rows),
         {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
          "pos": torch.from_numpy(pos)})
     np.testing.assert_array_equal(ta.tables, ja.tables)
@@ -189,3 +190,29 @@ def test_dense_rows_to_pages_and_allocator_match_jax():
     assert dev.dtype == torch.int32 and dev is ta.tables_device()
     ta.release(2)                                # a host mutation
     assert ta.tables_device() is not dev
+
+
+@pytest.mark.parametrize("make", ["PagedAllocator", "init_page_pool",
+                                  "RWorker"])
+def test_constructors_default_to_the_card_and_raise_without_it(
+        make, monkeypatch):
+    """With no device given, the allocator, the page pool and the
+    R-worker resolve it as every entry point of the port does: the card,
+    and a raise where there is none (never a quiet CPU run)."""
+    import dataclasses
+    from conftest import tiny_cfg
+    from repro_torch.core import hetero as THET
+    from repro_torch.core.config import ModelConfig
+    cfg = ModelConfig(**dataclasses.asdict(tiny_cfg("qwen3-8b")))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = {
+        "PagedAllocator": lambda **kw: TPC.PagedAllocator(2, 8, 4, 3, **kw),
+        "init_page_pool": lambda **kw: TPC.init_page_pool(8, 4, 2, 16, **kw),
+        "RWorker": lambda **kw: THET.RWorker(0, cfg, 0, 2, paged=True,
+                                             **kw),
+    }[make]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    obj = build(device="cpu")
+    dev = obj["k"].device if isinstance(obj, dict) else obj.device
+    assert dev == torch.device("cpu")

@@ -308,7 +308,7 @@ def test_r_attention_paged_verify_matches_jax(page):
     b, c, hkv, dh, n_pages = 3, 4, 2, 16, 12
     base = np.array([2 * page + 1, page - 2, 0], np.int32)
     counts = [4, 4, 0]
-    alloc = TPC.PagedAllocator(b, n_pages, page, 6)
+    alloc = TPC.PagedAllocator(b, n_pages, page, 6, device="cpu")
     jalloc = JPC.PagedAllocator(b, n_pages, page, 6)
     for r in range(2):
         alloc.admit(r, int(base[r]))
@@ -343,7 +343,7 @@ def test_r_attention_paged_verify_matches_jax(page):
 
 
 def test_r_attention_paged_verify_refuses_int8_pools():
-    pool = TPC.init_page_pool(4, 4, 2, 16, quantized=True)
+    pool = TPC.init_page_pool(4, 4, 2, 16, quantized=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TPC.r_attention_paged_verify({}, pool, torch.zeros((1, 1)))
 
@@ -355,7 +355,7 @@ def test_allocator_append_chunk_and_truncate_match_jax():
     count after every operation."""
     rng = np.random.default_rng(16)
     rows, page, mp, n_pages = 4, 4, 8, 14
-    t = TPC.PagedAllocator(rows, n_pages, page, mp)
+    t = TPC.PagedAllocator(rows, n_pages, page, mp, device="cpu")
     j = JPC.PagedAllocator(rows, n_pages, page, mp)
     for step in range(60):
         op = rng.integers(0, 5)
