@@ -6,24 +6,31 @@
     python3 chip_smoke.py --phases kernel --v1-source OLD.cu
                          # adds the compare phase: a first-version
                          # csrc/paged_attention.cu against this tree's
+    python3 chip_smoke.py --phases kernel --v1-dense-source OLD.cu
+                         # adds compare_dense: a first-version
+                         # csrc/decode_attention.cu against this tree's
 
 Phases (any failure exits nonzero):
 
   kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
-              the gitignored build/ directory; no bf16 Dh 128 paged
-              attention instantiation may spill), holds every kernel
-              (paged flash-decode; dense flash-decode in bf16/fp32 and
-              with int8 K/V; the paged multi-token verify, whose T = 1
-              must equal paged flash-decode bitwise) against its plain
-              PyTorch version on the card, the paged kernels also on long
-              rows that span many splits (each repeated bitwise), and
-              times it at the main path's shape and at a bandwidth shape
-              beside its bound, its plain version and a library
-              yardstick, with the split plan it used; times the int8 page
-              gather of the paged-int8 path.
+              the gitignored build/ directory; no bf16-q Dh 128
+              instantiation of either source may spill), holds every
+              kernel (paged flash-decode; dense flash-decode in bf16/fp32
+              and with int8 K/V, the latter also through its paged
+              entry; the paged multi-token verify, whose T = 1 must equal
+              paged flash-decode bitwise) against its plain PyTorch
+              version on the card, every kernel also on long rows that
+              span many splits (each repeated bitwise), and times it at
+              the main path's shape and at a bandwidth shape beside its
+              bound, its plain version and a library yardstick, in a host
+              loop and replayed from a CUDA graph, with the split plan it
+              used; times the one-call paged-int8 op against the gather +
+              kernel 3 chain it replaced.
   compare     (only with --v1-source) the first version of kernels 1 and
               4 against this tree's, timed in turns v1, v2, v2, v1 at both
               shapes with SDPA between, and a sweep of split plans.
+  compare_dense (only with --v1-dense-source) the same for kernels 2 and
+              3: an older csrc/decode_attention.cu against this tree's.
   serve       Qwen3-8B at full width, random weights from a seeded
               generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
@@ -32,7 +39,9 @@ Phases (any failure exits nonzero):
               count must equal layers x micro-batches x workers x decode
               steps.
   serve_int8  the same model and trace with quantized_kv=True, paged and
-              then dense: the same checks, on the int8 kernel's count.
+              then dense: the same checks, on the int8 kernel's count; the
+              paged run must take kernel 3's paged entry every time and
+              gather no page.
   serve_spec  the same model and trace with spec_decode=SpecConfig(k=3)
               (self-speculation): the same checks, with the verify
               kernel's launches equal to layers x workers x verify works
@@ -560,69 +569,173 @@ def _slab_pos(s, layout):
     return pos
 
 
+# long slabs that span many splits of the kernels' split plan: holes every
+# 97 slots, a full ring under window + sink, a short row (its later splits
+# hold no valid slot), a row with no valid slot (exactly 0), a full row
+# and a half-wrapped ring
+LONG_SLAB_S = 4096
+LONG_SLAB_ROWS = [("prefix", 3000, tuple(range(5, 3000, 97))),
+                  ("ring", 5000, 9096), ("prefix", 17, ()), ("empty",),
+                  ("prefix", 4096, ()), ("ring", 3000, 6000)]
+LONG_SLAB_LENGTHS = [2999, 9095, 16, 5, 4095, 5999]
+
+
+def _check_case(kernel, name, dtype_name, got, want, *, empty_row,
+                again=None, plan=None):
+    """One kernel case against its plain version: the tolerance, the
+    output dtype, the row with no valid key exactly 0 and, when
+    ``again`` (a second launch) is given, a bitwise repeat."""
+    import torch
+    torch.cuda.synchronize()
+    err, ok = tol_check(got, want, dtype_name)
+    ok = ok and got.dtype == getattr(torch, dtype_name) \
+        and bool((got[empty_row] == 0).all())
+    rec = {"case": name, "max_abs_err": err, "atol_rtol": TOL[dtype_name]}
+    if plan is not None:
+        rec["split_plan"] = plan
+    if again is not None:
+        rec["bitwise_repeat"] = bool(torch.equal(got, again))
+        ok = ok and rec["bitwise_repeat"]
+    rec["ok"] = ok
+    if not ok:
+        raise AssertionError(
+            f"{kernel} case {name} failed: err {err} (atol, rtol) "
+            f"{TOL[dtype_name]} (the row with no valid key must be exactly "
+            f"0, dtype {got.dtype}; a long case must repeat bitwise): {rec}")
+    return rec
+
+
 def slab_checks(dev) -> dict:
     """Kernels 2 and 3 against their plain versions: G 1 and 4, Dh 64 and
     128, ragged rows, -1 holes, a ring-ordered row under window + sink,
-    softcap, S = 300, and one row with no valid slot (exactly 0).  For
-    kernel 3 with a bf16 q the plain version runs on q.float(), so the
-    dequantized K/V stay fp32 there as in the kernel."""
+    softcap, S = 300, and one row with no valid slot (exactly 0); then
+    long slabs (S = 4096, ``LONG_SLAB_ROWS``) over many splits, with
+    window + sink (the middle splits of a ring empty), softcap and Dh 64,
+    each repeated bitwise.  For kernel 3 with a bf16 q the plain version
+    runs on q.float(), so the dequantized K/V stay fp32 there as in the
+    kernel."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import quant_kv as QK
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(3)
-    pos = torch.stack([_slab_pos(SLAB_S, r) for r in SLAB_ROWS]).to(dev)
-    lens = torch.tensor(SLAB_LENGTHS, dtype=torch.int32, device=dev)
     out = {"decode_attention": [], "decode_attention_int8": []}
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        cases = [(g, dh, {}) for g in (1, 4) for dh in (64, 128)]
-        cases += [(4, 128, dict(window=64, sink=4)), (1, 64,
-                                                       dict(softcap=5.0))]
-        for g, dh, attn in cases:
-            hkv = 2
-            q = torch.randn((4, hkv * g, dh), generator=gen).to(dev)
-            k = torch.randn((4, SLAB_S, hkv, dh), generator=gen).to(dev)
-            v = torch.randn((4, SLAB_S, hkv, dh), generator=gen).to(dev)
-            kq, ks = QK.quantize_kv(k)
-            vq, vs = QK.quantize_kv(v)
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            name = f"{dtype_name}-G{g}-dh{dh}" + "".join(
-                f"-{a}{b}" for a, b in attn.items())
-            for kernel, got, want in (
-                    ("decode_attention",
-                     DA.decode_attention(q, k, v, pos, lens, **attn),
-                     ref.decode_attention_ref(q, k, v, pos, lens, **attn)),
-                    ("decode_attention_int8",
-                     QK.decode_attention_int8(q, kq, ks, vq, vs, pos, lens,
-                                              **attn),
-                     ref.decode_attention_int8_ref(q.float(), kq, ks, vq,
-                                                   vs, pos, lens, **attn))):
-                torch.cuda.synchronize()
-                err, ok = tol_check(got, want, dtype_name)
-                ok = ok and got.dtype == dtype and bool((got[3] == 0).all())
-                out[kernel].append({"case": name, "max_abs_err": err,
-                                    "atol_rtol": TOL[dtype_name], "ok": ok})
-                if not ok:
-                    raise AssertionError(
-                        f"{kernel} case {name} failed: err {err} (atol, "
-                        f"rtol) {TOL[dtype_name]} (the row with no valid "
-                        f"slot must be exactly 0, dtype {got.dtype})")
+    for long in (False, True):
+        s = LONG_SLAB_S if long else SLAB_S
+        rows = LONG_SLAB_ROWS if long else SLAB_ROWS
+        pos = torch.stack([_slab_pos(s, r) for r in rows]).to(dev)
+        lens = torch.tensor(LONG_SLAB_LENGTHS if long else SLAB_LENGTHS,
+                            dtype=torch.int32, device=dev)
+        empty = rows.index(("empty",))
+        b = len(rows)
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            if long:
+                cases = [(g, 128, a) for g in (1, 4)
+                         for a in ({}, dict(window=256, sink=16),
+                                   dict(softcap=5.0))]
+                cases.append((8, 64, dict(window=256, sink=16)))
+            else:
+                cases = [(g, dh, {}) for g in (1, 4) for dh in (64, 128)]
+                cases += [(4, 128, dict(window=64, sink=4)),
+                          (1, 64, dict(softcap=5.0))]
+            for g, dh, attn in cases:
+                hkv = 2
+                q = torch.randn((b, hkv * g, dh), generator=gen).to(dev)
+                k = torch.randn((b, s, hkv, dh), generator=gen).to(dev)
+                v = torch.randn((b, s, hkv, dh), generator=gen).to(dev)
+                kq, ks = QK.quantize_kv(k)
+                vq, vs = QK.quantize_kv(v)
+                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+                name = f"{dtype_name}-{'long-' if long else ''}G{g}-dh{dh}" \
+                    + "".join(f"-{a}{b}" for a, b in attn.items())
+                plan = DA.kernel_plan(q, k)
+
+                def k2():
+                    return DA.decode_attention(q, k, v, pos, lens, **attn)
+
+                def k3():
+                    return QK.decode_attention_int8(q, kq, ks, vq, vs, pos,
+                                                    lens, **attn)
+                out["decode_attention"].append(_check_case(
+                    "decode_attention", name, dtype_name, k2(),
+                    ref.decode_attention_ref(q, k, v, pos, lens, **attn),
+                    empty_row=empty, again=k2() if long else None,
+                    plan=plan))
+                out["decode_attention_int8"].append(_check_case(
+                    "decode_attention_int8", name, dtype_name, k3(),
+                    ref.decode_attention_int8_ref(q.float(), kq, ks, vq, vs,
+                                                  pos, lens, **attn),
+                    empty_row=empty, again=k3() if long else None,
+                    plan=plan))
+                del k, v, kq, vq
     return {k: {"cases": v, "max_abs_err": max(c["max_abs_err"] for c in v)}
             for k, v in out.items()}
 
 
-def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
-                copies=1, iters=50) -> dict:
-    """Kernels 2 and 3, their plain versions and the SDPA yardstick at one
-    shape, bf16 q.  Every row holds ``n_valid`` tokens in slots
-    0..n_valid-1 of an S-slot slab (lengths = n_valid - 1); ``copies``
-    distinct slabs are cycled so the working set exceeds the 50 MB L2."""
+def paged_int8_checks(dev) -> dict:
+    """Kernel 3's paged addressing against ``ref.paged_decode_attention_
+    int8_ref`` (the gather chain, on q.float() for a bf16 q) on the tables
+    kernel 1's cases use: G 1 and 4, page 4 and 16, ragged rows, a -1
+    hole, a shared page and an all-unmapped row (exactly 0); window +
+    sink and softcap; and the long multi-split tables of ``long_cases``
+    (4096 positions, empty splits past short rows and between sink and
+    window), each repeated bitwise.  bf16 and fp32 q."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import quant_kv as QK
     from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(6)
+    cases = []
+    for g in (1, 4):
+        for page in (4, 16):
+            hkv = 8 // g
+            cases.append(dict(
+                name=f"G{g}-page{page}",
+                kw=dict(b=5, hq=hkv * g, hkv=hkv, dh=128, page=page,
+                        mp=-(-80 // page), lengths=[37, 5, 0, 63, 20],
+                        unmapped_row=2, hole=(3, 1), share=(0, 4)),
+                attn=dict()))
+    cases.append(dict(name="window-sink", kw=dict(
+        b=3, hq=8, hkv=2, dh=128, page=16, mp=8, lengths=[100, 17, 64]),
+        attn=dict(window=24, sink=4)))
+    cases.append(dict(name="softcap-dh64", kw=dict(
+        b=3, hq=12, hkv=4, dh=64, page=4, mp=16, lengths=[50, 3, 61]),
+        attn=dict(softcap=5.0)))
+    cases += [dict(c, name=c["name"].split("-T1-")[1])
+              for c in long_cases("float32", t=1)]
+    results = []
+    for dtype_name in ("bfloat16", "float32"):
+        for c in cases:
+            q, pk, pv, tables, lens = _paged_case(
+                gen, dtype=torch.float32, dev=dev, **c["kw"])
+            pkq, pks = QK.quantize_kv(pk)
+            pvq, pvs = QK.quantize_kv(pv)
+            q = q.to(getattr(torch, dtype_name))
+            args = (q, pkq, pks, pvq, pvs, tables, lens)
+            got = QK.paged_decode_attention_int8(*args, **c["attn"])
+            again = (QK.paged_decode_attention_int8(*args, **c["attn"])
+                     if c.get("long") else None)
+            want = ref.paged_decode_attention_int8_ref(
+                q.float(), *args[1:], **c["attn"])
+            un = c["kw"].get("unmapped_row")
+            rec = _check_case("paged_decode_attention_int8",
+                              f"{dtype_name}-{c['name']}", dtype_name, got,
+                              want, empty_row=un if un is not None else [],
+                              again=again,
+                              plan=QK.paged_plan(q, pkq, tables))
+            results.append(rec)
+    return {"cases": results,
+            "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
+def _slab_inputs(dev, *, b, s, n_valid, hq, hkv, dh, copies):
+    """``copies`` bf16 slabs (and their int8 quantization) whose rows hold
+    ``n_valid`` tokens in slots 0..n_valid-1 (lengths = n_valid - 1), the
+    SDPA yardsticks' K/V already laid out per head (bf16, and the
+    dequantized int8 in bf16; neither the layout nor the dequantization
+    is in their time), pos and lengths."""
+    import torch
+    from repro_torch.kernels import quant_kv as QK
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(2)
     pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
@@ -640,21 +753,28 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
         kq, ks = QK.quantize_kv(k)
         vq, vs = QK.quantize_kv(v)
         k, v = k.to(bf), v.to(bf)
-        # the yardsticks read K/V already laid out for SDPA: the bf16 slab
-        # (kernel 2) and the dequantized slab in bf16 (kernel 3); neither
-        # the layout nor the dequantization is in their time
         bufs.append(dict(
             q=q, k=k, v=v, kq=kq, ks=ks, vq=vq, vs=vs,
             kl=heads_first(k), vl=heads_first(v),
             kd=heads_first(QK.dequantize_kv(kq, ks).to(bf)),
             vd=heads_first(QK.dequantize_kv(vq, vs).to(bf))))
         del k, v
+    return bufs, pos, lens
 
-    def sdpa(q, kk, vv):
-        return F.scaled_dot_product_attention(q[:, :, None], kk, vv,
-                                              enable_gqa=True)[:, :, 0]
 
-    runs = {
+def _sdpa_decode(q, kk, vv):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q[:, :, None], kk, vv,
+                                          enable_gqa=True)[:, :, 0]
+
+
+def _slab_runs(pos, lens):
+    """Kernels 2 and 3 on a buffer of ``_slab_inputs``: the kernel, its
+    plain version, the reference it is checked against, SDPA."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    return {
         "decode_attention": dict(
             kern=lambda t: DA.decode_attention(t["q"], t["k"], t["v"], pos,
                                                lens),
@@ -662,8 +782,7 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
                                                      pos, lens),
             check=lambda t: ref.decode_attention_ref(t["q"], t["k"], t["v"],
                                                      pos, lens),
-            lib=lambda t: sdpa(t["q"], t["kl"], t["vl"]),
-            kv_bytes_per_tok=2 * hkv * dh * 2),
+            lib=lambda t: _sdpa_decode(t["q"], t["kl"], t["vl"])),
         "decode_attention_int8": dict(
             kern=lambda t: QK.decode_attention_int8(
                 t["q"], t["kq"], t["ks"], t["vq"], t["vs"], pos, lens),
@@ -672,9 +791,24 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
             check=lambda t: ref.decode_attention_int8_ref(
                 t["q"].float(), t["kq"], t["ks"], t["vq"], t["vs"], pos,
                 lens),
-            lib=lambda t: sdpa(t["q"], t["kd"], t["vd"]),
-            kv_bytes_per_tok=2 * hkv * (dh + 4)),
-    }
+            lib=lambda t: _sdpa_decode(t["q"], t["kd"], t["vd"]))}
+
+
+def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
+                copies=1, iters=50) -> dict:
+    """Kernels 2 and 3, their plain versions and the SDPA yardstick at one
+    shape, bf16 q: host-loop ms from CUDA events, device ms from the same
+    calls replayed from a CUDA graph, the split plan, CTAs and merge
+    launches per call.  ``copies`` distinct slabs are cycled so the
+    working set exceeds the 50 MB L2."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_attention as PA
+    bufs, pos, lens = _slab_inputs(dev, b=b, s=s, n_valid=n_valid, hq=hq,
+                                   hkv=hkv, dh=dh, copies=copies)
+    kv_bytes_per_tok = {"decode_attention": 2 * hkv * dh * 2,
+                        "decode_attention_int8": 2 * hkv * (dh + 4)}
+    calls = copies * max(1, 16 // copies)
+
     def measure(kernel, r):
         got = r["kern"](bufs[0])
         err, ok = tol_check(got, r["check"](bufs[0]), "bfloat16")
@@ -683,12 +817,16 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
                                  f"{err} against the plain version, "
                                  f"(atol, rtol) {TOL['bfloat16']}")
         lib_err = float((got.float() - r["lib"](bufs[0]).float()).abs().max())
-        ms = cuda_time_ms(lambda i: r["kern"](bufs[i % copies]), iters)
+        kern = lambda i: r["kern"](bufs[i % copies])      # noqa: E731
+        lib = lambda i: r["lib"](bufs[i % copies])        # noqa: E731
+        ms = cuda_time_ms(kern, iters)
         plain_ms = cuda_time_ms(lambda i: r["plain"](bufs[i % copies]),
                                 max(3, iters // 10), warmup=1)
-        library_ms = cuda_time_ms(lambda i: r["lib"](bufs[i % copies]),
-                                  iters)
-        bytes_moved = (b * n_valid * r["kv_bytes_per_tok"] + b * s * 4
+        library_ms = cuda_time_ms(lib, iters)
+        device_ms = graph_time_ms(kern, calls)
+        library_device_ms = graph_time_ms(lib, calls, strict=False)
+        sps, n_splits = DA.kernel_plan(bufs[0]["q"], bufs[0]["k"])
+        bytes_moved = (b * n_valid * kv_bytes_per_tok[kernel] + b * s * 4
                        + 2 * b * hq * dh * 2 + b * 4)
         flops = 4 * b * n_valid * hq * dh
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -699,20 +837,29 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
             "slab_copies": copies, "max_abs_err": err,
             "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "split_plan": {"slots_per_split": sps, "num_splits": n_splits},
+            "ctas": n_splits * hkv * b * PA.row_groups(1, hq // hkv),
+            "merge_launches_per_call": int(n_splits > 1),
             "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9}
+            "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9,
+            "achieved_GBps_device": bytes_moved / (device_ms * 1e-3) / 1e9}
 
-    return {kernel: measure(kernel, r) for kernel, r in runs.items()}
+    return {kernel: measure(kernel, r)
+            for kernel, r in _slab_runs(pos, lens).items()}
 
 
 def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
                   dh=128, page=16, copies=16, iters=200) -> dict:
-    """The paged-int8 path at the serve's per-worker shape: the gather of
-    the four int8 pool arrays into a slab alone, and the whole op (gather
-    + kernel 3), on ``copies`` pools cycled past the L2."""
+    """The paged-int8 op at the serve's per-worker shape on ``copies``
+    pools cycled past the L2: the one-call op (kernel 3's paged entry)
+    against the chain it replaced (the gather of the four int8 pool
+    arrays into a slab, then kernel 3 on the slab), and kernel 3 alone on
+    the gathered slab; host-loop ms and CUDA-graph device ms of each."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_kv as QK
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(4)
     mp = cache_len // page
@@ -731,40 +878,71 @@ def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
             torch.int32)
         q = torch.randn((b, hq, dh), generator=gen,
                         device=dev).to(torch.bfloat16)
-        bufs.append((q, pool, tables))
+        slab = [ref.paged_gather(pool[n], tables)
+                for n in ("k_q", "k_s", "v_q", "v_s")]
+        bufs.append((q, pool, tables, slab))
     lens = torch.full((b,), n_tok - 1, dtype=torch.int32, device=dev)
 
     def gather(i):
-        _, pool, tables = bufs[i % copies]
+        _, pool, tables, _ = bufs[i % copies]
         return [ref.paged_gather(pool[n], tables)
                 for n in ("k_q", "k_s", "v_q", "v_s")]
 
+    def chain(i):
+        q = bufs[i % copies][0]
+        (kq, pos), (ks, _), (vq, _), (vs, _) = gather(i)
+        return QK.decode_attention_int8(q, kq, ks, vq, vs, pos, lens)
+
+    def slab_kernel(i):
+        q, _, _, slab = bufs[i % copies]
+        (kq, pos), (ks, _), (vq, _), (vs, _) = slab
+        return QK.decode_attention_int8(q, kq, ks, vq, vs, pos, lens)
+
     def op(i):
-        q, pool, tables = bufs[i % copies]
+        q, pool, tables, _ = bufs[i % copies]
         return ops.paged_decode_attention_int8(
             q, pool["k_q"], pool["k_s"], pool["v_q"], pool["v_s"], tables,
             lens)
 
+    err, ok = tol_check(op(0), chain(0), "bfloat16")
+    if not ok:
+        raise AssertionError(f"the paged-int8 op differs from gather + "
+                             f"kernel 3 by {err}")
     # the gather reads and writes every table entry's page (unmapped
     # entries read page 0), plus the derived positions
     slab = b * mp * page
-    bytes_moved = 2 * slab * hkv * (2 * dh + 2 * 4) + 4 * slab * 4
-    ms = cuda_time_ms(gather, iters)
-    return {"shape": "serve-int8", "B": b, "tokens_per_row": n_tok,
-            "cache_len": cache_len, "page": page, "pool_copies": copies,
-            "gather_ms": ms, "gather_bytes": bytes_moved,
-            "gather_bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "op_ms": cuda_time_ms(op, iters)}
+    gather_bytes = 2 * slab * hkv * (2 * dh + 2 * 4) + 4 * slab * 4
+    # the op reads the valid rows' int8 K/V and scales once
+    op_bytes = (2 * b * n_tok * hkv * (dh + 4) + tables.numel() * 4
+                + 2 * b * hq * dh * 2 + b * 4)
+    calls = 16
+    q, pool, tables, _ = bufs[0]
+    rec = {"shape": "serve-int8", "B": b, "tokens_per_row": n_tok,
+           "cache_len": cache_len, "page": page, "pool_copies": copies,
+           "max_abs_err_vs_chain": err,
+           "split_plan": QK.paged_plan(q, pool["k_q"], tables),
+           "gather_bytes": gather_bytes,
+           "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+           "op_bytes": op_bytes,
+           "op_bound_ms": op_bytes / HBM_BYTES_PER_S * 1e3}
+    for key, fn in (("gather", gather), ("chain", chain),
+                    ("slab_kernel", slab_kernel), ("op", op)):
+        rec[f"{key}_ms"] = cuda_time_ms(fn, iters)
+        rec[f"{key}_device_ms"] = graph_time_ms(fn, calls)
+    rec["op_device_over_slab_kernel"] = (rec["op_device_ms"]
+                                         / rec["slab_kernel_device_ms"])
+    return rec
 
 
 _PTXAS_FN = re.compile(
-    r"(paged_attn_kernel|merge_splits)I(13__nv_bfloat16|f)Li(\d+)E"
-    r"(?:Li(\d+)ELb(\d)ELb(\d)E)?")
+    r"(paged_attn_kernel|merge_splits|dense_attn_kernel|dense_merge)"
+    r"I(13__nv_bfloat16|f)(13__nv_bfloat16|S1_|f|a)?Li(\d+)E"
+    r"(?:Li(\d+)ELb(\d)E(?:Lb(\d)E)?)?")
 
 
 def ptxas_summary(text: str) -> list:
     """Registers, static shared memory and spills of every instantiation
-    of csrc/paged_attention.cu, from nvcc's ``-Xptxas -v`` report."""
+    of a csrc source, from nvcc's ``-Xptxas -v`` report."""
     rows, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -772,14 +950,23 @@ def ptxas_summary(text: str) -> list:
             k = _PTXAS_FN.search(m.group(1))
             cur = None
             if k:
-                name, elt, dh, gt, multi, mma = k.groups()
-                cur = {"kernel": name,
-                       "dtype": "bfloat16" if "bfloat16" in elt
-                       else "float32", "Dh": int(dh)}
-                if gt:
+                name, elt, kv, dh, gt, flag1, flag2 = k.groups()
+                dtype = "bfloat16" if "bfloat16" in elt else "float32"
+                cur = {"kernel": name, "dtype": dtype, "Dh": int(dh)}
+                if name.startswith("dense"):
+                    if kv is not None:
+                        cur["kv_dtype"] = {"a": "int8", "f": "float32"}.get(
+                            kv, "bfloat16")
+                    if gt:
+                        cur.update(rows_per_cta=int(gt),
+                                   entry="paged" if flag1 == "1" else "slab",
+                                   engine="tensor cores"
+                                   if cur.get("kv_dtype") == "int8"
+                                   and dtype == "bfloat16" else "CUDA cores")
+                elif gt:
                     cur.update(rows_per_cta=int(gt),
-                               entry="verify" if multi == "1" else "decode",
-                               engine="tensor cores" if mma == "1"
+                               entry="verify" if flag1 == "1" else "decode",
+                               engine="tensor cores" if flag2 == "1"
                                else "CUDA cores")
                 rows.append(cur)
             continue
@@ -805,12 +992,16 @@ def phase_kernel(dev) -> dict:
     report = build.report()
     for stem, text in report.items():
         print(f"ptxas report of {stem}:\n{text}", flush=True)
-    ptxas = ptxas_summary(report["paged_attention"])
-    spills = [r for r in ptxas if r["dtype"] == "bfloat16" and r["Dh"] == 128
+    ptxas = {stem: ptxas_summary(report[stem])
+             for stem in ("paged_attention", "decode_attention")}
+    # no bf16-q Dh 128 instantiation may spill (decode_attention's: bf16
+    # and int8 K/V)
+    spills = [r for rows in ptxas.values() for r in rows
+              if r["dtype"] == "bfloat16" and r["Dh"] == 128
               and r.get("spill_stores", 0) + r.get("spill_loads", 0)]
-    if spills or not ptxas:
-        raise AssertionError(f"paged attention: bf16 Dh 128 instantiations "
-                             f"spill (or no report): {spills}")
+    if spills or not all(ptxas.values()):
+        raise AssertionError(f"bf16 Dh 128 instantiations spill (or no "
+                             f"report): {spills}")
     checks = kernel_checks(dev)
     # main path: one R-worker call = 2 rows of a micro-batch (batch 8, two
     # micro-batches, two workers) over ~512 tokens, pool sized for
@@ -827,8 +1018,9 @@ def phase_kernel(dev) -> dict:
     v_bw = kernel_timing(dev, "bandwidth", b=64, n_tok=4096, copies=1,
                          iters=20, t=4)
     slab = slab_checks(dev)
+    pchecks = paged_int8_checks(dev)
     # kernels 2 and 3 at the int8 serve's per-worker shape (2 rows, the
-    # gathered slab of MP*page = 1024 slots, 512 valid) and at 64 x 4096
+    # dense slab of cache_len = 1024 slots, 512 valid) and at 64 x 4096
     s_main = slab_timing(dev, "main-path", b=2, s=1024, n_valid=512,
                          copies=16, iters=200)
     s_bw = slab_timing(dev, "bandwidth", b=64, s=4096, n_valid=4096,
@@ -842,6 +1034,10 @@ def phase_kernel(dev) -> dict:
         kernels[name] = {"checks": slab[name]["cases"], "timing": t,
                          "max_abs_err": max([slab[name]["max_abs_err"]]
                                             + [x["max_abs_err"] for x in t])}
+    kernels["decode_attention_int8"]["paged_checks"] = pchecks["cases"]
+    kernels["decode_attention_int8"]["max_abs_err"] = max(
+        kernels["decode_attention_int8"]["max_abs_err"],
+        pchecks["max_abs_err"])
     kernels["paged_verify_attention"] = {
         "checks": vchecks["cases"], "timing": [v_main, v_bw],
         "t1_bitwise_equal_to_kernel_1":
@@ -849,19 +1045,20 @@ def phase_kernel(dev) -> dict:
         "max_abs_err": max(vchecks["max_abs_err"], v_main["max_abs_err"],
                            v_bw["max_abs_err"])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
-            "paged_attention_ptxas": ptxas,
-            "kernels": kernels, "paged_int8_gather": gather_timing(dev)}
+            "ptxas": ptxas, "kernels": kernels,
+            "paged_int8_op": gather_timing(dev)}
 
 
-def _v1_fns(v1_source: Path) -> dict:
-    """Build a first-version csrc/paged_attention.cu (its own C ABI: no
-    split plan, no scratch) with the port's nvcc flags into build/v1/ and
-    declare its two entry points."""
+def _v1_fns(v1_source: Path, entries: dict) -> dict:
+    """Build an older csrc source (its own C ABI: no split plan, no
+    scratch) with the port's nvcc flags into build/v1/ and declare its
+    entry points, ``entries`` = {name: (pointers, ints)}: each takes the
+    pointers, the ints, softcap, scale, the dtype and the stream."""
     import ctypes
     from repro_torch.kernels import build
     out = ROOT / "build" / "v1"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libpaged_attention_v1.so"
+    lib = out / f"lib{v1_source.stem}_v1.so"
     res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                           str(v1_source)], capture_output=True, text=True)
     if res.returncode != 0:
@@ -869,15 +1066,81 @@ def _v1_fns(v1_source: Path) -> dict:
                            f"{res.stderr}")
     cdll = ctypes.CDLL(str(lib))
     fns = {}
-    for name, n_int in (("repro_paged_decode_attention", 9),
-                        ("repro_paged_verify_attention", 10)):
+    for name, (n_ptrs, n_int) in entries.items():
         fn = getattr(cdll, name)
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_int
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def _in_turns(fns, iters):
+    """Host-loop ms and CUDA-graph device ms of each (name, fn) in
+    ``fns``, timed in that order (an ABBA order puts each version on
+    both sides of the others)."""
+    turns = [(ver, cuda_time_ms(fn, iters)) for ver, fn in fns]
+    dev_turns = [(ver, graph_time_ms(fn, 16, strict=ver != "sdpa"))
+                 for ver, fn in fns]
+    return turns, dev_turns
+
+
+def phase_compare_dense(dev, v1_source: Path) -> dict:
+    """The first version of kernels 2 and 3 (``v1_source``, PR 14's
+    csrc/decode_attention.cu, built here) against this tree's (v2) in one
+    process on one card, timed in turns v1, v2, SDPA, v2, v1 at the
+    dense-int8 serve's per-worker shape and at 64 x 4096, host loop and
+    device time; both versions are held to the plain version first."""
+    import math
+    import torch
+    v1 = _v1_fns(v1_source, {"repro_decode_attention": (6, 7),
+                             "repro_decode_attention_int8": (8, 7)})
+    shapes = [("main-path", dict(b=2, s=1024, n_valid=512, copies=16), 200),
+              ("bandwidth", dict(b=64, s=4096, n_valid=4096, copies=1), 20)]
+    rows = []
+    for shape, kw, iters in shapes:
+        bufs, pos, lens = _slab_inputs(dev, hq=32, hkv=8, dh=128, **kw)
+        copies = kw["copies"]
+        runs = _slab_runs(pos, lens)
+        for kernel, r in runs.items():
+            int8 = kernel == "decode_attention_int8"
+
+            def run_v1(i, int8=int8):
+                t = bufs[i % copies]
+                out = torch.empty_like(t["q"])
+                ptrs = ((t["q"], t["kq"], t["ks"], t["vq"], t["vs"]) if int8
+                        else (t["q"], t["k"], t["v"]))
+                err = v1["repro_decode_attention_int8" if int8 else
+                         "repro_decode_attention"](
+                    *(x.data_ptr() for x in ptrs), pos.data_ptr(),
+                    lens.data_ptr(), out.data_ptr(), t["q"].shape[0],
+                    pos.shape[1], 32, 8, 128, 0, 0, 0.0,
+                    1.0 / math.sqrt(128), 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"v1 launch failed ({err})")
+                return out
+
+            run_v2 = (lambda i, r=r: r["kern"](bufs[i % copies]))
+            run_lib = (lambda i, r=r: r["lib"](bufs[i % copies]))
+            want = r["check"](bufs[0])
+            errs = {}
+            for ver, fn in (("v1", run_v1), ("v2", run_v2)):
+                errs[ver], ok = tol_check(fn(0), want, "bfloat16")
+                if not ok:
+                    raise AssertionError(f"{ver} {kernel} at {shape}: max "
+                                         f"err {errs[ver]}")
+            turns, dev_turns = _in_turns(
+                (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
+                 ("v2", run_v2), ("v1", run_v1)), iters)
+            rows.append({"kernel": kernel, "shape": shape,
+                         "turns_ms": turns, "device_turns_ms": dev_turns,
+                         "max_abs_err": errs})
+        del bufs
+        torch.cuda.empty_cache()
+    return {"phase": "compare_dense", "ok": True,
+            "v1_source": str(v1_source), "rows": rows}
 
 
 def phase_compare(dev, v1_source: Path) -> dict:
@@ -891,7 +1154,8 @@ def phase_compare(dev, v1_source: Path) -> dict:
     import torch
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
-    v1 = _v1_fns(v1_source)
+    v1 = _v1_fns(v1_source, {"repro_paged_decode_attention": (6, 9),
+                             "repro_paged_verify_attention": (6, 10)})
     shapes = [("main-path", dict(b=2, n_tok=512, cache_len=1024, copies=16),
                200),
               ("bandwidth", dict(b=64, n_tok=4096, cache_len=None, copies=1),
@@ -940,14 +1204,9 @@ def phase_compare(dev, v1_source: Path) -> dict:
                 if not ok:
                     raise AssertionError(f"{ver} {kernel} at {shape}: max "
                                          f"err {errs[ver]}")
-            turns, dev_turns = [], []
-            order = (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
-                     ("v2", run_v2), ("v1", run_v1))
-            for ver, fn in order:
-                turns.append((ver, cuda_time_ms(fn, iters)))
-            for ver, fn in order:
-                dev_turns.append((ver, graph_time_ms(fn, 16,
-                                                     strict=ver != "sdpa")))
+            turns, dev_turns = _in_turns(
+                (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
+                 ("v2", run_v2), ("v1", run_v1)), iters)
             rows.append({"kernel": kernel, "shape": shape, "T": t or 1,
                          "turns_ms": turns, "device_turns_ms": dev_turns,
                          "max_abs_err": errs,
@@ -1027,11 +1286,34 @@ def _counters():
 
 
 def _reset_counters() -> None:
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_kv as QK
     for launched, plain in _counters().values():
         launched.reset()
         plain.reset()
-    PA.merge_launches.reset()
+    for c in (PA.merge_launches, DA.merge_launches, QK.paged_launches):
+        c.reset()
+
+
+class _GatherCount:
+    """Counts calls of ``kernels.ref.paged_gather`` while active: the
+    int8 pages' gather, which the paged-int8 op no longer runs on the
+    card."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.calls, self._own = 0, ref.paged_gather
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._own(*a, **kw)
+        ref.paged_gather = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        ref.paged_gather = self._own
 
 
 def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
@@ -1047,7 +1329,9 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
     plain version may run.  ``profile`` names a profiled window of 3
     steps afterwards (written to ``out``)."""
     import torch
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_kv as QK
     from repro_torch.serving import kv_cache as KV
     from repro_torch.serving.engine import ServingEngine, SpecConfig
     cfg, params = model["cfg"], model["params"]
@@ -1069,25 +1353,29 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
         peak_resident = 0.0
         verify_works = row_verifies = 0
         seen = eng.engine.prefill_results
-        while eng.queue or any(s is not None for s in eng.slots):
-            eng.step()
-            if spec_k:
-                # a step with no live row runs no verify (the list stays)
-                if eng.engine.prefill_results is not seen:
-                    seen = eng.engine.prefill_results
-                    for wk in seen:
-                        verify_works += 1
-                        row_verifies += len(wk.rows)
-                        nonfinite += int((~torch.isfinite(wk.logits)).sum())
-            else:
-                nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
-            peak_resident = max(peak_resident, eng.paged_resident_bytes())
-            if eng.step_idx > 200:
-                raise AssertionError("serve did not drain in 200 steps")
-        torch.cuda.synchronize()
+        with _GatherCount() as gathers:
+            while eng.queue or any(s is not None for s in eng.slots):
+                eng.step()
+                if spec_k:
+                    # a step with no live row runs no verify (the list stays)
+                    if eng.engine.prefill_results is not seen:
+                        seen = eng.engine.prefill_results
+                        for wk in seen:
+                            verify_works += 1
+                            row_verifies += len(wk.rows)
+                            nonfinite += int(
+                                (~torch.isfinite(wk.logits)).sum())
+                else:
+                    nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
+                peak_resident = max(peak_resident, eng.paged_resident_bytes())
+                if eng.step_idx > 200:
+                    raise AssertionError("serve did not drain in 200 steps")
+            torch.cuda.synchronize()
         launches = {n: c[0].value for n, c in counters.items()}
         plain = {n: c[1].value for n, c in counters.items()}
         merges = PA.merge_launches.value
+        dense_merges = DA.merge_launches.value
+        paged_int8 = QK.paged_launches.value
         steps = eng.step_idx
         spec_stats = dict(eng.spec_stats)
         kv_bytes = sum(KV.cache_bytes(w.state) for w in eng.engine.workers)
@@ -1122,13 +1410,17 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
     want = cfg.num_layers * n_workers * calls
     others = {n: v for n, v in launches.items()
               if n != kernel and n.startswith("paged_") and paged}
+    # the paged int8 op is one call of kernel 3's paged entry, no gather
+    want_paged = want if paged and quantized else 0
     if launches[kernel] != want or any(plain.values()) \
-            or any(others.values()):
+            or any(others.values()) or paged_int8 != want_paged \
+            or gathers.calls:
         raise AssertionError(
             f"{kernel} launches {launches[kernel]} != layers x workers x "
             f"{'verify works' if spec_k else 'micro-batches x decode steps'}"
             f" = {want} (other paged kernels {others}, plain calls "
-            f"{plain})")
+            f"{plain}; kernel 3's paged launches {paged_int8}, want "
+            f"{want_paged}; page gathers {gathers.calls}, want 0)")
     recs = eng.records
     dec = [rec.decode_wall for rec in recs]
     # tokens emitted by decode (or verify) steps (token 0 of a request
@@ -1155,6 +1447,8 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
            "kernel": kernel, "kernel_launches": launches[kernel],
            "launches": launches, "plain_calls": plain,
            "paged_merge_launches": merges,
+           "dense_merge_launches": dense_merges,
+           "int8_paged_launches": paged_int8, "page_gathers": gathers.calls,
            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
            "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
     if spec_k:
@@ -1176,8 +1470,8 @@ def phase_serve(dev, model, out: Path) -> dict:
 
 
 def phase_serve_int8(dev, model, out: Path) -> dict:
-    """The same trace on int8 storage: paged (gather + kernel 3) and then
-    dense (kernel 3 over the slab)."""
+    """The same trace on int8 storage: paged (kernel 3's paged entry over
+    the pools, no gather) and then dense (kernel 3 over the slab)."""
     paged = serve_run(dev, model, out, kernel="decode_attention_int8",
                       paged=True, quantized=True, profile="serve_int8")
     dense = serve_run(dev, model, out, kernel="decode_attention_int8",
@@ -1257,13 +1551,14 @@ def _profile_steps(eng, n_steps: int, out: Path, name: str,
                 "cpu_self_ms": e.self_cpu_time_total / 1e3}
                for e in sorted(ka, key=lambda e: e.self_cpu_time_total,
                                reverse=True)[:10]]
-    # the paged attention kernels and their merge kernel, by name
-    paged = {}
+    # the attention kernels and their merge kernels, by name
+    attn = {}
     for e in ka:
-        for name in ("paged_attn_kernel", "merge_splits"):
-            if name in e.key and dev(e) > 0:
-                c, ms = paged.get(name, (0, 0.0))
-                paged[name] = (c + e.count, ms + dev(e) / 1e3)
+        for kname in ("paged_attn_kernel", "merge_splits",
+                      "dense_attn_kernel", "dense_merge"):
+            if kname in e.key and dev(e) > 0:
+                c, ms = attn.get(kname, (0, 0.0))
+                attn[kname] = (c + e.count, ms + dev(e) / 1e3)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{name}_profile.txt").write_text(ka.table(
         sort_by="self_cpu_time_total", row_limit=60))
@@ -1275,9 +1570,9 @@ def _profile_steps(eng, n_steps: int, out: Path, name: str,
             "memcpy_device_s": memcpy_us / 1e6,
             "kernel_launches_host": sum(e.count for e in ka
                                         if e.key == "cudaLaunchKernel"),
-            "paged_attention_device": {
-                name: {"count": c, "device_ms": ms}
-                for name, (c, ms) in paged.items()},
+            "attention_device": {
+                kname: {"count": c, "device_ms": ms}
+                for kname, (c, ms) in attn.items()},
             "top_device": top_dev, "top_host": top_cpu}
 
 
@@ -1565,6 +1860,10 @@ def kernels_line(results) -> list:
                      "bound_ms": main.get("bound_ms"),
                      "bound_by": main.get("bound_by"),
                      "library_ms": main.get("library_ms")})
+    # kernel 3's launches in the paged-int8 serve went through its paged
+    # entry (ops.paged_decode_attention_int8, no gather)
+    line[2]["paged_launches"] = (serve8["runs"][0]["int8_paged_launches"]
+                                 if serve8 else None)
     return line
 
 
@@ -1575,6 +1874,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for the serve phases' profiler tables "
                          "and the bf16 serve's Chrome trace")
+    ap.add_argument("--v1-dense-source", type=Path, default=None,
+                    help="a first-version csrc/decode_attention.cu: adds the "
+                         "compare_dense phase (v1 kernels 2 and 3 against "
+                         "this tree, in turns)")
     ap.add_argument("--v1-source", type=Path, default=None,
                     help="a first-version csrc/paged_attention.cu: adds the "
                          "compare phase (v1 against this tree, in turns)")
@@ -1599,6 +1902,8 @@ def main(argv=None) -> int:
         log(results["kernel"])
     if args.v1_source is not None:
         log(phase_compare(dev, args.v1_source.resolve()))
+    if args.v1_dense_source is not None:
+        log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
     if {"serve", "serve_int8", "serve_spec"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:

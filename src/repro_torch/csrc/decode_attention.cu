@@ -1,339 +1,1109 @@
 // Dense-slab flash-decode for Hopper (sm_90a): the R-Part attention of one
-// decode step over a per-row KV slab, with bf16/fp32 or int8 storage.
+// decode step over a per-row KV slab, with bf16/fp32 or int8 storage, and
+// the same int8 kernel reading a block-table page pool in place.  One
+// template, three C entry points:
 //
-// Replaces two Pallas TPU kernels that compute the same function:
-//   * src/repro/kernels/decode_attention.py (_kernel, wrapped by
-//     decode_attention): K/V in the query's dtype;
-//   * src/repro/kernels/quant_kv.py (_kernel, wrapped by
-//     decode_attention_int8): int8 K/V with one fp32 scale per
-//     (token, kv-head), dequantized in fp32 (never rounded to bf16 first).
-// One query token per row, q [B,Hq,Dh] grouped into [B,Hkv,G,Dh]; the slab
-// k/v [B,S,Hkv,Dh] holds absolute positions in pos [B,S] (-1 = empty slot;
+// * repro_decode_attention (kernel 2) replaces the Pallas TPU kernel
+//   src/repro/kernels/decode_attention.py:39 (_kernel, wrapped by
+//   decode_attention): K/V in the query's dtype.
+// * repro_decode_attention_int8 (kernel 3) replaces
+//   src/repro/kernels/quant_kv.py:44 (_kernel, wrapped by
+//   decode_attention_int8): int8 K/V with one fp32 scale per (token,
+//   kv-head), dequantized exactly (never rounded below the products'
+//   precision).
+// * repro_paged_decode_attention_int8 computes the function of
+//   src/repro/kernels/ops.py:78 (paged_decode_attention_int8: gather the
+//   int8 pages into a slab, then kernel 3) without the gather: kernel 3's
+//   template reads int8 pools pk_q/pv_q [P,page,Hkv,Dh] and fp32 scales
+//   pk_s/pv_s [P,page,Hkv] through tables [B,MP] (int32, -1 unmapped), slot
+//   j of table entry i being position i*page+j, as
+//   csrc/paged_attention.cu does.
+//
+// One query token per row, q [B,Hq,Dh] grouped into [B,Hkv,G,Dh].  The slab
+// k/v [B,S,Hkv,Dh] holds absolute positions in pos [B,S] (-1 = empty;
 // windowed caches are stored in ring order, so validity comes from pos and
 // never from the slot index).  A slot is valid when pos >= 0, pos <=
 // lengths[b] and, with window > 0, inside the window or the sink.  Scale
-// 1/sqrt(Dh), then the optional tanh softcap, fp32 online softmax from
-// -1e30; a row with no valid slot writes exactly 0.  The output has q's
-// dtype.  No padding of S is needed: the loop runs to S with a bounds
-// check where the TPU pads with pos = -1.
+// 1/sqrt(Dh), the optional tanh softcap, fp32 online softmax from -1e30; a
+// row with no valid slot writes exactly 0; the output has q's dtype.  The
+// int8 scales fold into the products: s = k_s * (q . k_q) and acc += (p *
+// v_s) * v_q, equal to dequantizing first up to fp32 rounding.
 //
-// Bound: HBM bytes.  Each valid K/V row is read once (2*Hkv*Dh*elt bytes
-// per token, plus 2*Hkv*4 bytes of scales for int8) against 4*Hq*Dh flops
-// per token, far below the card's flop/byte balance.  int8 storage reads
-// ~3.9x fewer bytes than bf16 at Dh 128.
+// What bounds it: HBM bytes.  Each valid K/V row is read once per (row,
+// kv-head): 2*Hkv*Dh*elt bytes per token (bf16 512 B per kv-head pair at Dh
+// 128; int8 264 B with its scales), against 4*Hq*Dh flops per token, far
+// below the card's flop/byte balance.  The first version (one CTA per (row,
+// kv-head, <= 8 or 4 query heads), no split, plain loads) was bound by
+// latency at the serve's shape (2 rows x 8 kv-heads = 16 CTAs on 132 SMs)
+// and by issue at 64 x 4096 (kernel 2 1.8 TB/s; kernel 3 0.8 TB/s: fp32
+// FMAs on dequantized values, 228 registers, 2 CTAs per SM).
 //
-// Design (simple first version, as csrc/paged_attention.cu): one CTA per
-// (row, kv-head, group of up to kMaxGroup query heads) loops over the row's
-// slots itself, since Hopper blocks run in no order and cannot carry the
-// softmax state across a sequential grid axis as the TPU does.  Every lane
-// makes one 16-byte load per K/V row: a token's row is covered by
-// L = Dh*elt/16 lanes (8 lanes for an int8 row of Dh 128, 16 for bf16, 32
-// for fp32), so a warp covers 32/L tokens per iteration (4 for int8 Dh 128)
-// instead of giving each lane a 4-byte piece of a single token.  Each group
-// of L lanes keeps its own online-softmax state in registers; the groups of
-// a warp merge with shuffles and the warps through shared memory at the
-// end.  Invalid slots are not loaded.  The int8 scales are folded into the
-// products: s = k_s * (q . k_q) and acc += (p * v_s) * v_q, which equals
-// dequantizing first up to fp32 rounding.  Left for a later PR: split-K
-// across CTAs, cp.async/TMA pipelining, and a paged-int8 kernel that reads
-// the pages in place instead of the gathered slab.
+// Design (second version; the split, ring and merge follow
+// csrc/paged_attention.cu):
+// * Split-K over the slots (flash-decoding).  The grid is (splits, Hkv, B x
+//   head groups); a CTA owns slots [split*sps, (split+1)*sps) of one row and
+//   kv-head for up to 8 query heads.  The plan comes from the wrapper
+//   (kernels/decode_attention.py::slab_plan: paged_attention.split_plan
+//   with slots counted as pages of one; shapes only, no host sync): one
+//   split when the grid fills the SMs, else splits of >= 64 slots for about
+//   2 CTAs per SM (the dense-int8 serve's per-worker call, 2 rows x 8
+//   kv-heads over 1024 slots: 16 splits of 64).  The paged entry takes
+//   kernel 1's plan over the table.  With one split the CTA writes the
+//   output; else fp32 (m, l, acc[Dh]) partials go to the wrapper's scratch
+//   and dense_merge (launched by the same C call as a programmatic
+//   dependent launch) combines them in split order: no atomics, bitwise
+//   reproducible; an empty partial (m = -1e30, l = 0) weighs 0.
+// * Validity before any K/V byte moves.  A slab CTA reads its split's pos
+//   entries once (plain 4-byte loads: a worker's row slice of pos is not
+//   16-byte aligned) and stages one validity bit per slot in shared memory
+//   (a warp ballot per 32 slots: 512 B for 4096 slots, where the ints
+//   would take 16 KB and cost a CTA per SM); a CTA with no valid slot
+//   writes an empty partial and exits (the unused tail of a slab, the gap
+//   between sink and window of a ring).  A paged CTA stages its split's table
+//   entries and walks only the sink part and the window part of its split
+//   up to lengths[b]; unmapped (-1) and out-of-pool entries are never read.
+// * A cp.async ring of K/V tiles in shared memory (3 stages of 32 rows in
+//   bf16 and for int8 with an fp32 q, 2 in fp32; 3 stages of 64 rows on the
+//   tensor-core path, 4 CTAs per SM): 16-byte copies of the valid rows
+//   only, zero-fill (src-size 0) for the others, rows padded by 16 B (or,
+//   on the tensor-core path at Dh 128, chunks XOR-swizzled by row) so the
+//   8 rows a quarter warp reads fall on distinct banks; the int8 scales
+//   come with their tile as 4-byte copies (they are not 16-byte aligned),
+//   and each row's validity flag is written beside them.
+// * Scores per tile, each warp owning its token rows with its own online
+//   softmax, the 4 warps merged through shared memory at the end.
+//   - Kernel 2 and every fp32-q instantiation: CUDA cores (FmaEngine, as
+//     kernel 1's): 32-row tiles, 8 rows per warp, 4 lanes per row.
+//   - Kernel 3 with bf16 q: tensor cores (MmaEngine), 64-row tiles, 16 rows
+//     per warp.  int8 values convert exactly to bf16 (|x| <= 127), so QK^T
+//     on mma.sync m16n8k16 (bf16 in, fp32 accumulate) with k_s applied in
+//     fp32 after the product equals fp32 dequantization up to summation
+//     order.  The token rows are the M of the product and the query heads
+//     its N: the serve's G = 4 heads fill half an n8 tile, where as M they
+//     would fill a quarter of m16.  Fragments are loaded by hand from the
+//     int8 tiles (ldmatrix moves 16-bit elements only), with the head
+//     dimension permuted so each lane reads 16-byte pieces (a dot product
+//     sums in any order), and converted with the 2^23 float trick (prmt +
+//     fsub, no I2F).  The score fragment (tokens x heads) is transposed to
+//     the B operand of PV with movmatrix; p * v_s (fp32) is split into bf16
+//     hi + lo, and O^T = V^T P^T runs as two m16n8k16 products per 16
+//     dimensions, so PV keeps about 16 bits of p.
+//
+// Left for later: TMA bulk copies with mbarriers in place of cp.async,
+// persistent CTAs walking several (row, kv-head, split) items, a
+// single-launch merge, wgmma (needs 64 rows on one side: a decode has <= 8
+// query heads per kv-head), tensor cores for kernel 2.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
 #include <type_traits>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr float kNegInf = -1e30f;  // NEG_INF of the reference
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 8;             // query heads per CTA
+constexpr int kMaxSplitIdx = 8192;      // pos / table entries a CTA stages
+constexpr float kNegInf = -1e30f;       // NEG_INF of the reference
+constexpr float kEmpty = kNegInf * 0.5f;   // m at or below: no valid key
 
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// one 16-byte load of a K/V row -> kN floats
-template <typename T>
-struct Load16;
-
-template <>
-struct Load16<float> {
-  static constexpr int kN = 4;
-  __device__ static void run(const float* p, float* out) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-
-template <>
-struct Load16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void run(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Load16<int8_t> {
-  static constexpr int kN = 16;
-  __device__ static void run(const int8_t* p, float* out) {
-    const int4 raw = __ldg(reinterpret_cast<const int4*>(p));
-    const char4* c = reinterpret_cast<const char4*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[4 * i] = static_cast<float>(c[i].x);
-      out[4 * i + 1] = static_cast<float>(c[i].y);
-      out[4 * i + 2] = static_cast<float>(c[i].z);
-      out[4 * i + 3] = static_cast<float>(c[i].w);
-    }
-  }
-};
-
-// query heads per CTA: int8 lanes hold 16 K/V elements, so 4 heads keep q
-// and the accumulators (2*4*16 floats) in registers without spilling
-template <typename TKV>
-constexpr int max_group() {
-  return std::is_same<TKV, int8_t>::value ? 4 : 8;
-}
-
-struct Args {
+struct Params {
   const void* q;
-  const void* k;
+  const void* k;            // slab [B,S,Hkv,Dh] or pool [P,page,Hkv,Dh]
   const void* v;
-  const float* k_s;   // int8 only, else nullptr
+  const float* k_s;         // int8: [B,S,Hkv] or [P,page,Hkv]; else null
   const float* v_s;
-  const int* pos;
+  const int* pos;           // slab only
+  const int* tables;        // paged only
   const int* lengths;
   void* out;
-  int b, s_len, hq, hkv, window, sink;
+  float* part;              // [S][rows] m, [S][rows] l, [S][rows][Dh] acc
+  int s_len;                // slab slots S
+  int hq, hkv, g;
+  int page, page_shift, mp, num_pages;   // paged only
+  int window, sink;
+  int per_split;            // slots (slab) or table pages (paged) per split
+  int num_splits, rows_total;
   float softcap, scale;
 };
 
-template <typename TQ, typename TKV, int DH, int GT>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-              const TKV* __restrict__ v, const float* __restrict__ k_s,
-              const float* __restrict__ v_s, const int* __restrict__ pos,
-              const int* __restrict__ lengths, TQ* __restrict__ out,
-              int s_len, int hq, int hkv, int window, int sink,
-              float softcap, float scale) {
-  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
-  constexpr int E = Load16<TKV>::kN;      // elements per lane
-  constexpr int L = DH / E;               // lanes per token
-  constexpr int TPW = 32 / L;             // tokens per warp iteration
-  static_assert(L >= 1 && L <= 32 && 32 % L == 0, "unsupported head_dim");
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int g = hq / hkv;
-  const int g0 = blockIdx.z * GT;
-  const int ng = min(GT, g - g0);         // live heads of this CTA
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane / L;               // this lane's token in the warp
-  const int d0 = (lane % L) * E;          // this lane's first head dim
+// ---------------------------------------------------------------------------
+// the ring: [stage][K,V][TILE rows][Dh*elt + 16 B], then (int8) the tiles'
+// scales [stage][K,V][TILE] and every tile row's validity [stage][TILE].
+// SWZ (rows of 8 16-byte chunks) drops the 16-byte padding and stores
+// chunk c of row r at chunk c ^ (r & 7) instead: the same distinct banks
+// for the tensor-core engine's reads, in 11% less shared memory.
+// ---------------------------------------------------------------------------
+template <typename TKV, int DH, int TILE, int STAGES, bool SWZ = false>
+struct Ring {
+  static constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  static constexpr int kRowBytes = DH * (int)sizeof(TKV);
+  static constexpr int kStride = SWZ ? kRowBytes : kRowBytes + 16;
+  static constexpr int kChunks = kRowBytes / 16;
+  static_assert(!SWZ || kChunks == 8, "the swizzle spans 8 chunks");
+  static constexpr int kStages = STAGES;
+  static constexpr int kTile = TILE;
+  static constexpr int kRowsBytes = kStages * 2 * TILE * kStride;
+  static constexpr int kScaleBytes = kInt8 ? kStages * 2 * TILE * 4 : 0;
+  static constexpr int kBytes = kRowsBytes + kScaleBytes + kStages * TILE * 4;
+  __device__ static unsigned char* row(unsigned char* base, int stage,
+                                       int kv, int r) {
+    return base + ((stage * 2 + kv) * TILE + r) * kStride;
+  }
+  // byte ``byte`` of row r (contiguous within each 16-byte chunk)
+  __device__ static unsigned char* at(unsigned char* base, int stage, int kv,
+                                      int r, int byte) {
+    const int off = SWZ ? ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15))
+                        : byte;
+    return row(base, stage, kv, r) + off;
+  }
+  __device__ static float* scales(unsigned char* base, int stage, int kv) {
+    return reinterpret_cast<float*>(base + kRowsBytes)
+        + (stage * 2 + kv) * TILE;
+  }
+  __device__ static int* ok(unsigned char* base, int stage) {
+    return reinterpret_cast<int*>(base + kRowsBytes + kScaleBytes)
+        + stage * TILE;
+  }
+};
 
-  // q slice of every live head, pre-scaled, in registers
-  float qr[GT][E];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// byte i of w (an int8) as an exact float: 2^23 + (x + 128) - (2^23 + 128)
+__device__ __forceinline__ float i8_at(uint32_t biased, int sel) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, sel))
+         - 8388736.f;
+}
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* o) {
+  const uint32_t u = w ^ 0x80808080u;
+  o[0] = i8_at(u, 0x7650);
+  o[1] = i8_at(u, 0x7651);
+  o[2] = i8_at(u, 0x7652);
+  o[3] = i8_at(u, 0x7653);
+}
+
+// N consecutive elements of T in shared memory as floats
+template <typename T, int N> struct Vec;
+template <> struct Vec<__nv_bfloat16, 8> {
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int j = 0; j < GT; ++j) {
-    if (j < ng) {
-      const TQ* qp = q + ((size_t)b * hq + (size_t)h * g + g0 + j) * DH
-                     + d0;
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[j][e] = to_float(qp[e]) * scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[j][e] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
     }
   }
-
-  float m[GT], l[GT], acc[GT][E];
-#pragma unroll
-  for (int j = 0; j < GT; ++j) {
-    m[j] = kNegInf;
-    l[j] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
+};
+template <> struct Vec<__nv_bfloat16, 4> {
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 c = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
   }
-
-  const int qpos = lengths[b];
-  const int* prow = pos + (size_t)b * s_len;
-  const size_t tok_stride = (size_t)hkv * DH;
-  const size_t row0 = (size_t)b * s_len;
-  const TKV* kb = k + row0 * tok_stride + (size_t)h * DH + d0;
-  const TKV* vb = v + row0 * tok_stride + (size_t)h * DH + d0;
-
-  // the loop bound is warp-uniform, so every lane reaches the shuffles
-  for (int base = warp * TPW; base < s_len; base += kWarps * TPW) {
-    const int t = base + sub;
-    bool valid = false;
-    if (t < s_len) {
-      const int p = __ldg(prow + t);
-      valid = p >= 0 && p <= qpos;
-      if (window > 0) valid = valid && (p > qpos - window || p < sink);
-    }
-    float kr[E], vr[E];
-    float ks = 1.f, vs = 1.f;
-    if (valid) {
-      Load16<TKV>::run(kb + (size_t)t * tok_stride, kr);
-      Load16<TKV>::run(vb + (size_t)t * tok_stride, vr);
-      if constexpr (kInt8) {
-        ks = __ldg(k_s + (row0 + t) * hkv + h);
-        vs = __ldg(v_s + (row0 + t) * hkv + h);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) kr[e] = vr[e] = 0.f;
-    }
-    float sc[GT];
-#pragma unroll
-    for (int j = 0; j < GT; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += qr[j][e] * kr[e];
-#pragma unroll
-      for (int o = L / 2; o > 0; o >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      sc[j] = s * ks;
-    }
-    if (valid) {
-#pragma unroll
-      for (int j = 0; j < GT; ++j) {
-        float s = sc[j];
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const float m_new = fmaxf(m[j], s);
-        const float corr = expf(m[j] - m_new);
-        const float p = expf(s - m_new);
-        const float pv = p * vs;
-        l[j] = l[j] * corr + p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[j][e] = acc[j][e] * corr + pv * vr[e];
-        m[j] = m_new;
-      }
-    }
+};
+template <> struct Vec<__nv_bfloat16, 2> {
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    o[0] = a.x; o[1] = a.y;
   }
-
-  // merge the token groups of each warp (lanes holding the same dims)
-#pragma unroll
-  for (int o = L; o < 32; o <<= 1) {
-#pragma unroll
-    for (int j = 0; j < GT; ++j) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[j], o);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[j], o);
-      const float mx = fmaxf(m[j], m2);
-      const float c1 = expf(m[j] - mx), c2 = expf(m2 - mx);
-      l[j] = l[j] * c1 + l2 * c2;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float a2 = __shfl_xor_sync(0xffffffffu, acc[j][e], o);
-        acc[j][e] = acc[j][e] * c1 + a2 * c2;
-      }
-      m[j] = mx;
-    }
+};
+template <> struct Vec<float, 4> {
+  __device__ static void load(const float* p, float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
   }
-
-  // merge the warps' states through shared memory
-  __shared__ float s_m[kWarps][GT];
-  __shared__ float s_l[kWarps][GT];
-  __shared__ float s_acc[kWarps][GT][DH];
-  if (lane < L) {
-#pragma unroll
-    for (int j = 0; j < GT; ++j) {
-      if (lane == 0) {
-        s_m[warp][j] = m[j];
-        s_l[warp][j] = l[j];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) s_acc[warp][j][d0 + e] = acc[j][e];
-    }
+};
+template <> struct Vec<float, 2> {
+  __device__ static void load(const float* p, float* o) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x; o[1] = v.y;
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ng * DH; idx += kWarps * 32) {
+};
+template <> struct Vec<int8_t, 16> {
+  __device__ static void load(const int8_t* p, float* o) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    i8x4_to_f32(v.x, o);
+    i8x4_to_f32(v.y, o + 4);
+    i8x4_to_f32(v.z, o + 8);
+    i8x4_to_f32(v.w, o + 12);
+  }
+};
+template <> struct Vec<int8_t, 4> {
+  __device__ static void load(const int8_t* p, float* o) {
+    i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), o);
+  }
+};
+template <> struct Vec<int8_t, 2> {
+  __device__ static void load(const int8_t* p, float* o) {
+    float f[4];
+    i8x4_to_f32(*reinterpret_cast<const uint16_t*>(p), f);
+    o[0] = f[0]; o[1] = f[1];
+  }
+};
+
+// output row of CTA query row j: head h*g + r0 + j of row b
+__device__ __forceinline__ int out_row(const Params& p, int b, int h,
+                                       int r) {
+  return b * p.hq + h * p.g + r;
+}
+
+// one query row's result: the output (one split) or the split's partial
+template <typename TQ>
+__device__ __forceinline__ void emit(const Params& p, int split, int orow,
+                                     int d, int dh, float m, float l,
+                                     float acc) {
+  if (p.num_splits == 1) {
+    store1(static_cast<TQ*>(p.out) + (size_t)orow * dh + d,
+           m > kEmpty ? acc / fmaxf(l, 1e-30f) : 0.f);
+    return;
+  }
+  const size_t s_rows = (size_t)p.num_splits * p.rows_total;
+  const size_t i = (size_t)split * p.rows_total + orow;
+  if (m > kEmpty) p.part[2 * s_rows + i * dh + d] = acc;   // else unread
+  if (d == 0) {
+    p.part[i] = m;
+    p.part[s_rows + i] = l;
+  }
+}
+
+// the 4 warps' states (m, l [kWarps][GT], acc [kWarps][GT][DH] in shared
+// memory) merged into one query row's result
+template <typename TQ, int DH, int GT>
+__device__ void merge_warps(const Params& p, const float (*sm)[GT],
+                            const float (*sl)[GT], const float* s_acc,
+                            int split, int b, int h, int r0, int nr) {
+  for (int idx = threadIdx.x; idx < nr * DH; idx += kThreads) {
     const int j = idx / DH, d = idx % DH;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][j]);
-    float lsum = 0.f, o = 0.f;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][j]);
+    float ls = 0.f, o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(s_m[w][j] - mx);
-      lsum += s_l[w][j] * c;
-      o += s_acc[w][j][d] * c;
+      if (sm[w][j] > kEmpty) {
+        const float cw = expf(sm[w][j] - mx);
+        ls += sl[w][j] * cw;
+        o += s_acc[(w * GT + j) * DH + d] * cw;
+      }
     }
-    // no valid slot at all -> zeros, never NaN
-    const float res = mx > kNegInf * 0.5f ? o / fmaxf(lsum, 1e-30f) : 0.f;
-    store(out + ((size_t)b * hq + (size_t)h * g + g0 + j) * DH + d, res);
+    emit<TQ>(p, split, out_row(p, b, h, r0 + j), d, DH, mx, ls, o);
   }
 }
 
+// ---------------------------------------------------------------------------
+// CUDA-core engine: kernel 2 and every fp32-q instantiation (kernel 1's
+// FmaEngine on a validity flag per row and, for int8, the tile's scales).
+// Warp w owns token rows 8w..8w+7 of every 32-row tile; lane 8c + t scores
+// row t against the 16-byte chunks c, c+4, ... for every query row (q
+// pre-scaled in fp32 in shared memory); max and sum over the warp's 8 rows
+// take 3 + 3 shuffles per query row and tile.  p (times v_s for int8) goes
+// to the warp's shared buffer; in PV lane i owns Dh columns [i*DH/32,
+// (i+1)*DH/32) of every query row.
+// ---------------------------------------------------------------------------
 template <typename TQ, typename TKV, int DH, int GT>
-void launch_gt(const Args& a, dim3 grid, cudaStream_t stream) {
-  decode_kernel<TQ, TKV, DH, GT><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
-      static_cast<const TKV*>(a.v), a.k_s, a.v_s, a.pos, a.lengths,
-      static_cast<TQ*>(a.out), a.s_len, a.hq, a.hkv, a.window, a.sink,
-      a.softcap, a.scale);
+struct FmaEngine {
+  using R = Ring<TKV, DH, 32, sizeof(TKV) == 4 ? 2 : 3>;
+  static constexpr int EPC = 16 / (int)sizeof(TKV);  // elements per chunk
+  static constexpr int CPQ = R::kChunks / 4;         // chunks per lane
+  static constexpr int CPL = DH / 32;                // PV columns per lane
+  static constexpr int kMinBlocks = sizeof(TKV) == 4 ? 2 : 3;
+  struct Shared {
+    float q[GT][DH];              // pre-scaled q rows
+    float pw[kWarps][8][GT];      // each warp's p (x v_s) of this tile
+    float m[kWarps][GT], l[kWarps][GT];
+  };
+
+  Shared& sh;
+  const int warp, lane, c, t;
+  float m[GT], l[GT];
+  float acc[GT][CPL];
+
+  __device__ FmaEngine(Shared& s, const Params& p, int b, int h, int r0,
+                       int nr)
+      : sh(s), warp(threadIdx.x / 32), lane(threadIdx.x % 32),
+        c(lane / 8), t(lane % 8) {
+    const TQ* q = static_cast<const TQ*>(p.q);
+    for (int idx = threadIdx.x; idx < GT * DH; idx += kThreads) {
+      const int j = idx / DH, d = idx % DH;
+      sh.q[j][d] = j < nr
+          ? to_float(q[(size_t)out_row(p, b, h, r0 + j) * DH + d]) * p.scale
+          : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      m[j] = kNegInf;
+      l[j] = 0.f;
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) acc[j][e] = 0.f;
+    }
+  }
+
+  __device__ void tile(const Params& p, unsigned char* ring, int stage) {
+    const int tok = 8 * warp + t;
+    const bool ok = R::ok(ring, stage)[tok] != 0;
+    float ks = 1.f, vs = 1.f;
+    if constexpr (R::kInt8) {
+      ks = R::scales(ring, stage, 0)[tok];
+      vs = R::scales(ring, stage, 1)[tok];
+    }
+    const unsigned char* krow = R::row(ring, stage, 0, tok);
+    float s[GT];
+#pragma unroll
+    for (int j = 0; j < GT; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPQ; ++i) {
+      const int ch = c + 4 * i;
+      float kf[EPC];
+      Vec<TKV, EPC>::load(reinterpret_cast<const TKV*>(krow + ch * 16), kf);
+#pragma unroll
+      for (int j = 0; j < GT; ++j) {
+        const float4* qv = reinterpret_cast<const float4*>(&sh.q[j][ch * EPC]);
+#pragma unroll
+        for (int e = 0; e < EPC / 4; ++e) {
+          const float4 qq = qv[e];
+          s[j] += qq.x * kf[4 * e] + qq.y * kf[4 * e + 1]
+                + qq.z * kf[4 * e + 2] + qq.w * kf[4 * e + 3];
+        }
+      }
+    }
+    bool moved = false;
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      // lanes t, t+8, t+16, t+24 hold the 4 parts of token t's score
+      float sc = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 8);
+      sc += __shfl_xor_sync(0xffffffffu, sc, 16);
+      sc *= ks;
+      if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
+      sc = ok ? sc : kNegInf;
+      float mt = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float m_new = fmaxf(m[j], mt);
+      const float pr = ok ? expf(sc - m_new) : 0.f;
+      float lt = pr + __shfl_xor_sync(0xffffffffu, pr, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+      s[j] = expf(m[j] - m_new);          // now the row's correction
+      moved |= s[j] != 1.f;
+      l[j] = l[j] * s[j] + lt;
+      m[j] = m_new;
+      if (c == 0) sh.pw[warp][t][j] = pr * vs;
+    }
+    __syncwarp();
+    // m, l and so the corrections are the same in every lane: the branch
+    // is warp-uniform (x 1.0 is exact, so skipping it changes no bit)
+    if (moved) {
+#pragma unroll
+      for (int j = 0; j < GT; ++j)
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) acc[j][e] *= s[j];
+    }
+    const unsigned char* vrow = R::row(ring, stage, 1, 8 * warp);
+#pragma unroll
+    for (int tk = 0; tk < 8; ++tk) {
+      float v[CPL];
+      Vec<TKV, CPL>::load(reinterpret_cast<const TKV*>(vrow + tk * R::kStride)
+                              + CPL * lane, v);
+      float pj[GT];
+      if constexpr (GT % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < GT; j += 4) {
+          const float4 pp = *reinterpret_cast<const float4*>(
+              &sh.pw[warp][tk][j]);
+          pj[j] = pp.x; pj[j + 1] = pp.y; pj[j + 2] = pp.z; pj[j + 3] = pp.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < GT; ++j) pj[j] = sh.pw[warp][tk][j];
+      }
+#pragma unroll
+      for (int j = 0; j < GT; ++j)
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) acc[j][e] += pj[j] * v[e];
+    }
+  }
+
+  // merge the 4 warps' states (the ring is free: it holds their acc now)
+  __device__ void finish(const Params& p, unsigned char* ring, int split,
+                         int b, int h, int r0, int nr) {
+    float* s_acc = reinterpret_cast<float*>(ring);    // [warp][row][DH]
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < GT; ++j) {
+        sh.m[warp][j] = m[j];
+        sh.l[warp][j] = l[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GT; ++j)
+#pragma unroll
+      for (int e = 0; e < CPL; ++e)
+        s_acc[(warp * GT + j) * DH + CPL * lane + e] = acc[j][e];
+    __syncthreads();
+    merge_warps<TQ, DH, GT>(p, sh.m, sh.l, s_acc, split, b, h, r0, nr);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// tensor-core engine: int8 K/V with bf16 q (kernel 3 on the serve path).
+// Warp w owns token rows 16w..16w+15 of every 64-row tile; lane = 4*gi + ti.
+//   QK^T: S^T[tok][head] = K[tok][:] . q[head][:], mma m16n8k16 with the
+//   16 token rows as M, the 8 query heads as N and Dh in KS = Dh/16 steps.
+//   Logical k 2ti+{0,1} (A regs 0,1) and 2ti+8+{0,1} (regs 2,3) of step kk
+//   are physical dims ti*Dh/4 + 4kk + {0,1,2,3}: a lane reads Dh/4
+//   contiguous bytes of rows gi and gi+8 (one or two 16-byte loads).
+//   C: c[e] = (tok gi, head 2ti+e), c[2+e] = (tok gi+8, head 2ti+e).
+//   PV: O^T[dim][head] = V^T P^T, M = 16 dims, K = the 16 tokens, N = heads.
+//   The M row gi of dim tile mt is physical dim gi*Dh/8 + 2mt, row gi+8 the
+//   next one, so a lane reads Dh/8 contiguous bytes of tokens 2ti, 2ti+1,
+//   2ti+8, 2ti+9.  B = P'^T comes from the score fragment by movmatrix.trans
+//   of its two 8x8 halves (tokens 0-7 and 8-15), in bf16 hi and lo terms.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DH>
+struct MmaEngine {
+  using R = Ring<int8_t, DH, 64, 3, DH == 128>;
+  static constexpr int GT = kMaxRows;     // the N of the products
+  static constexpr int KS = DH / 16;      // k-steps of QK^T
+  static constexpr int MT = DH / 16;      // dim tiles of PV
+  static constexpr int KB = DH / 4;       // K bytes per lane and row
+  static constexpr int VB = DH / 8;       // V bytes per lane and token
+  static constexpr int kMinBlocks = 4;
+  struct Shared {
+    float m[kWarps][GT], l[kWarps][GT];
+  };
+
+  Shared& sh;
+  const int warp, lane, gi, ti;
+  uint32_t qb[KS][2];      // B fragments of the 8 query heads (unscaled)
+  float acc[MT][4];        // O^T: dims (gi, gi+8 of tile mt) x heads 2ti+e
+  float m[2], l[2];        // heads 2ti, 2ti+1
+
+  __device__ MmaEngine(Shared& s, const Params& p, int b, int h, int r0,
+                       int nr)
+      : sh(s), warp(threadIdx.x / 32), lane(threadIdx.x % 32),
+        gi(lane / 4), ti(lane % 4) {
+    // q rows need no alignment beyond their element (a worker's slice)
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q)
+        + (size_t)out_row(p, b, h, r0 + min(gi, nr - 1)) * DH + ti * KB;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t w[2] = {0u, 0u};
+      if (gi < nr) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          __nv_bfloat162 v;
+          v.x = q[4 * kk + 2 * i];
+          v.y = q[4 * kk + 2 * i + 1];
+          w[i] = *reinterpret_cast<const uint32_t*>(&v);
+        }
+      }
+      qb[kk][0] = w[0];
+      qb[kk][1] = w[1];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m[e] = kNegInf;
+      l[e] = 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  }
+
+  // N bytes of row r from byte byte0 (N/16 chunks, or 8 bytes) as words
+  template <int N>
+  __device__ static void words(unsigned char* ring, int stage, int kv, int r,
+                               int byte0, uint32_t* w) {
+    if constexpr (N >= 16) {
+#pragma unroll
+      for (int j = 0; j < N / 16; ++j) {
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            R::at(ring, stage, kv, r, byte0 + 16 * j));
+        w[4 * j] = a.x; w[4 * j + 1] = a.y;
+        w[4 * j + 2] = a.z; w[4 * j + 3] = a.w;
+      }
+    } else {
+      static_assert(N == 8, "8 bytes or whole chunks");
+      const uint2 a = *reinterpret_cast<const uint2*>(
+          R::at(ring, stage, kv, r, byte0));
+      w[0] = a.x; w[1] = a.y;
+    }
+  }
+
+  __device__ void tile(const Params& p, unsigned char* ring, int stage) {
+    const int tok0 = 16 * warp;
+    // ---- S^T = K q^T on the tensor cores
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      uint32_t w0[KS], w8[KS];
+      words<KB>(ring, stage, 0, tok0 + gi, ti * KB, w0);
+      words<KB>(ring, stage, 0, tok0 + gi + 8, ti * KB, w8);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        float f0[4], f8[4];
+        i8x4_to_f32(w0[kk], f0);
+        i8x4_to_f32(w8[kk], f8);
+        const uint32_t a[4] = {pack_bf16(f0[0], f0[1]),
+                               pack_bf16(f8[0], f8[1]),
+                               pack_bf16(f0[2], f0[3]),
+                               pack_bf16(f8[2], f8[3])};
+        mma_16816(c, a, qb[kk][0], qb[kk][1]);
+      }
+    }
+    // ---- online softmax per head column over the warp's 16 rows
+    const int* okf = R::ok(ring, stage);
+    const float* ksc = R::scales(ring, stage, 0);
+    const float* vsc = R::scales(ring, stage, 1);
+    const bool ok[2] = {okf[tok0 + gi] != 0, okf[tok0 + gi + 8] != 0};
+    const float kscale[2] = {ksc[tok0 + gi] * p.scale,
+                             ksc[tok0 + gi + 8] * p.scale};
+    float pr[4], corr[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float sc = c[2 * hh + e] * kscale[hh];
+        if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
+        s[hh] = ok[hh] ? sc : kNegInf;
+      }
+      float mt = fmaxf(s[0], s[1]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+      const float m_new = fmaxf(m[e], mt);
+      pr[e] = ok[0] ? expf(s[0] - m_new) : 0.f;
+      pr[2 + e] = ok[1] ? expf(s[1] - m_new) : 0.f;
+      float lt = pr[e] + pr[2 + e];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 8);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 16);
+      corr[e] = expf(m[e] - m_new);
+      l[e] = l[e] * corr[e] + lt;
+      m[e] = m_new;
+    }
+    // rescale only when some head's max moved (x 1.0 is exact)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][e] *= corr[e % 2];
+      }
+    }
+    // ---- P' = p * v_s as B of PV: bf16 hi + lo, transposed by movmatrix
+    uint32_t bh[2], bl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float vs = vsc[tok0 + gi + 8 * hh];
+      const float x0 = pr[2 * hh] * vs, x1 = pr[2 * hh + 1] * vs;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      bh[hh] = movmatrix_trans(*reinterpret_cast<const uint32_t*>(&hi));
+      bl[hh] = movmatrix_trans(pack_bf16(x0 - hf.x, x1 - hf.y));
+    }
+    // ---- O^T += V^T P'^T: tokens 2ti, 2ti+1, 2ti+8, 2ti+9 of the warp
+    uint32_t vw[4][VB / 4];
+    const int vt[4] = {2 * ti, 2 * ti + 1, 2 * ti + 8, 2 * ti + 9};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      words<VB>(ring, stage, 1, tok0 + vt[r], gi * VB, vw[r]);
+#pragma unroll
+    for (int wi = 0; wi < VB / 4; ++wi) {
+      float f[4][4];            // [token][byte]: dims 4wi .. 4wi+3
+#pragma unroll
+      for (int r = 0; r < 4; ++r) i8x4_to_f32(vw[r][wi], f[r]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {          // dim tile mt = 2wi + u
+        const uint32_t a[4] = {pack_bf16(f[0][2 * u], f[1][2 * u]),
+                               pack_bf16(f[0][2 * u + 1], f[1][2 * u + 1]),
+                               pack_bf16(f[2][2 * u], f[3][2 * u]),
+                               pack_bf16(f[2][2 * u + 1], f[3][2 * u + 1])};
+        mma_16816(acc[2 * wi + u], a, bh[0], bh[1]);
+        mma_16816(acc[2 * wi + u], a, bl[0], bl[1]);
+      }
+    }
+  }
+
+  // merge the 4 warps' states (the ring is free: it holds their acc now)
+  __device__ void finish(const Params& p, unsigned char* ring, int split,
+                         int b, int h, int r0, int nr) {
+    float* s_acc = reinterpret_cast<float*>(ring);    // [warp][head][DH]
+    if (gi == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sh.m[warp][2 * ti + e] = m[e];
+        sh.l[warp][2 * ti + e] = l[e];
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int head = 2 * ti + e % 2;
+        const int dim = gi * VB + 2 * mt + e / 2;
+        s_acc[(warp * GT + head) * DH + dim] = acc[mt][e];
+      }
+    }
+    __syncthreads();
+    merge_warps<__nv_bfloat16, DH, GT>(p, sh.m, sh.l, s_acc, split, b, h,
+                                       r0, nr);
+  }
+};
+
+template <typename TQ, typename TKV, int DH, int GT>
+struct EngineOf {
+  using type = FmaEngine<TQ, TKV, DH, GT>;
+};
+template <int DH>
+struct EngineOf<__nv_bfloat16, int8_t, DH, kMaxRows> {
+  using type = MmaEngine<DH>;
+};
+
+// ---------------------------------------------------------------------------
+// addressing: which slot (slab) or position (paged) each tile row holds
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool sees(const Params& p, int pos, int qpos) {
+  return pos >= 0 && pos <= qpos
+      && (p.window <= 0 || pos > qpos - p.window || pos < p.sink);
+}
+
+// Slab: the split's slots [lo, hi), cut into tiles from lo; s_idx holds
+// their validity, one bit per slot.
+struct SlabSpan {
+  int lo, hi, n;
+  __device__ bool row(const Params& p, const int* s_idx, int b, int h,
+                      int qpos, int tile_rows, int k, int r,
+                      size_t& off) const {
+    const int slot = lo + k * tile_rows + r, i = slot - lo;
+    if (slot >= hi || !((static_cast<unsigned>(s_idx[i >> 5]) >> (i & 31))
+                        & 1u))
+      return false;
+    off = ((size_t)b * p.s_len + slot) * p.hkv + h;
+    return true;
+  }
+};
+
+// Paged: the positions a CTA reads, [a1, e1) (the part of its split inside
+// the sink) then [a2, e2) (inside the window, up to lengths[b]), each cut
+// into tiles from its start; s_idx holds the split's table entries.
+struct PagedSpan {
+  int a1, e1, a2, e2, n1, n, first;
+  __device__ bool row(const Params& p, const int* s_idx, int b, int h,
+                      int qpos, int tile_rows, int k, int r,
+                      size_t& off) const {
+    const int pos = k < n1 ? a1 + k * tile_rows + r
+                           : a2 + (k - n1) * tile_rows + r;
+    if (pos >= (k < n1 ? e1 : e2)) return false;
+    const int pg = p.page_shift >= 0 ? pos >> p.page_shift : pos / p.page;
+    const int sl = p.page_shift >= 0 ? pos & (p.page - 1) : pos % p.page;
+    const int pid = s_idx[pg - first];
+    // unmapped (-1) entries are never loaded; an id outside the pool would
+    // be a caller bug and is masked too, not read
+    if (pid < 0 || pid >= p.num_pages) return false;
+    off = ((size_t)pid * p.page + sl) * p.hkv + h;
+    return true;
+  }
+};
+
+__device__ __forceinline__ PagedSpan paged_span(const Params& p, int split,
+                                                int base, int tile_rows) {
+  const int last = min(base, p.mp * p.page - 1);
+  const int lo = split * p.per_split * p.page;
+  const int hi = min(min((split + 1) * p.per_split, p.mp) * p.page,
+                     last + 1);
+  PagedSpan s;
+  s.first = split * p.per_split;
+  s.a1 = lo;
+  if (p.window <= 0) {
+    s.e1 = max(hi, lo);
+    s.a2 = s.e2 = 0;
+  } else {
+    s.e1 = max(lo, min(hi, p.sink));
+    s.a2 = max(max(lo, base - p.window + 1), s.e1);
+    s.e2 = max(hi, s.a2);
+  }
+  s.n1 = (s.e1 - s.a1 + tile_rows - 1) / tile_rows;
+  s.n = s.n1 + (s.e2 - s.a2 + tile_rows - 1) / tile_rows;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// the kernel: split range, pos or table staging, the ring, an engine
+// ---------------------------------------------------------------------------
+template <typename TQ, typename TKV, int DH, int GT, bool PAGED>
+__global__ void __launch_bounds__(kThreads,
+                                  EngineOf<TQ, TKV, DH, GT>::type::kMinBlocks)
+dense_attn_kernel(const Params p) {
+  using E = typename EngineOf<TQ, TKV, DH, GT>::type;
+  using R = typename E::R;
+  constexpr int TILE = R::kTile;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ __align__(16) typename E::Shared sh;
+  int* s_idx = reinterpret_cast<int*>(ring + R::kBytes);
+
+  const int split = blockIdx.x, h = blockIdx.y;
+  const int groups = (p.g + GT - 1) / GT;
+  const int b = blockIdx.z / groups;
+  const int r0 = (blockIdx.z % groups) * GT;
+  const int nr = min(GT, p.g - r0);               // live query heads
+  // the merge kernel (if any) may launch now and wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // q and the split's pos or table entries do not depend on lengths:
+  // their loads go out with the lengths load, not after it
+  E eng(sh, p, b, h, r0, nr);
+  using Span = typename std::conditional<PAGED, PagedSpan, SlabSpan>::type;
+  Span span;
+  bool any;
+  int qpos;
+  if constexpr (PAGED) {
+    const int first = split * p.per_split;
+    const int* tbl = p.tables + (size_t)b * p.mp + first;
+    for (int i = threadIdx.x; i < min(p.per_split, p.mp - first);
+         i += kThreads)
+      s_idx[i] = tbl[i];
+    qpos = p.lengths[b];
+    span = paged_span(p, split, qpos, TILE);
+    any = span.n > 0;
+    __syncthreads();
+  } else {
+    span.lo = split * p.per_split;
+    span.hi = min(span.lo + p.per_split, p.s_len);
+    span.n = (span.hi - span.lo + TILE - 1) / TILE;
+    const int* prow = p.pos + (size_t)b * p.s_len + span.lo;
+    qpos = p.lengths[b];
+    // one validity bit per slot (a ballot per warp and 32 slots), so a
+    // split of 4096 slots stages 512 B and leaves room for 4 CTAs per SM
+    bool mine = false;
+    const int n_slots = span.hi - span.lo;
+    for (int base = 0; base < n_slots; base += kThreads) {
+      const int i = base + threadIdx.x;
+      const bool ok = i < n_slots && sees(p, prow[i], qpos);
+      const unsigned bits = __ballot_sync(0xffffffffu, ok);
+      if (threadIdx.x % 32 == 0)
+        s_idx[base / 32 + threadIdx.x / 32] = static_cast<int>(bits);
+      mine |= ok;
+    }
+    any = __syncthreads_or(mine) != 0;
+  }
+  if (!any) {          // nothing of this split is visible
+    for (int idx = threadIdx.x; idx < nr * DH; idx += kThreads)
+      emit<TQ>(p, split, out_row(p, b, h, r0 + idx / DH), idx % DH, DH,
+               kNegInf, 0.f, 0.f);
+    return;
+  }
+
+  const unsigned char* gk = static_cast<const unsigned char*>(p.k);
+  const unsigned char* gv = static_cast<const unsigned char*>(p.v);
+  constexpr int TPR = kThreads / TILE;        // threads per tile row
+  static_assert(kThreads % TILE == 0 && R::kChunks % TPR == 0, "loader");
+  auto load_tile = [&](int k) {
+    const int stage = k % R::kStages;
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
+    size_t off = 0;
+    const bool ok = span.row(p, s_idx, b, h, qpos, TILE, k, r, off);
+    const size_t byte0 = off * R::kRowBytes;
+    const unsigned char* ksrc = ok ? gk + byte0 : gk;
+    const unsigned char* vsrc = ok ? gv + byte0 : gv;
+
+    // each copy instruction of a warp reads TPR*16 contiguous bytes of
+    // 32/TPR rows
+#pragma unroll
+    for (int j = 0; j < R::kChunks / TPR; ++j) {
+      const int byte = (part + TPR * j) * 16;
+      cp_async16(R::at(ring, stage, 0, r, byte), ksrc + (ok ? byte : 0),
+                 ok);
+      cp_async16(R::at(ring, stage, 1, r, byte), vsrc + (ok ? byte : 0),
+                 ok);
+    }
+    if (part == 0) {
+      if constexpr (R::kInt8) {
+        cp_async4(R::scales(ring, stage, 0) + r, ok ? p.k_s + off : p.k_s,
+                  ok);
+        cp_async4(R::scales(ring, stage, 1) + r, ok ? p.v_s + off : p.v_s,
+                  ok);
+      }
+      R::ok(ring, stage)[r] = ok;
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < R::kStages - 1; ++k) {
+    if (k < span.n) load_tile(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < span.n; ++k) {
+    cp_async_wait<R::kStages - 2>();
+    __syncthreads();          // tile k landed; tile k-1's stage is free
+    if (k + R::kStages - 1 < span.n) load_tile(k + R::kStages - 1);
+    cp_async_commit();
+    eng.tile(p, ring, k % R::kStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  eng.finish(p, ring, split, b, h, r0, nr);
+}
+
+// combine the splits' partials of one output row, in split order
+template <typename TQ, int DH>
+__global__ void __launch_bounds__(DH)
+dense_merge(const float* __restrict__ part, TQ* __restrict__ out,
+            int rows_total, int num_splits) {
+  // launched early (programmatic dependent launch): wait until the
+  // attention grid has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int row = blockIdx.x, d = threadIdx.x;
+  const size_t s_rows = (size_t)num_splits * rows_total;
+  const float* pm = part;
+  const float* pl = part + s_rows;
+  const float* pa = part + 2 * s_rows;
+  float mx = kNegInf;
+  for (int s = 0; s < num_splits; ++s)
+    mx = fmaxf(mx, pm[(size_t)s * rows_total + row]);
+  float ls = 0.f, o = 0.f;
+  for (int s = 0; s < num_splits; ++s) {
+    const size_t i = (size_t)s * rows_total + row;
+    const float ms = pm[i];
+    if (ms > kEmpty) {        // an empty partial weighs 0, acc unread
+      const float w = expf(ms - mx);
+      ls += pl[i] * w;
+      o += pa[i * DH + d] * w;
+    }
+  }
+  store1(out + (size_t)row * DH + d,
+         mx > kEmpty ? o / fmaxf(ls, 1e-30f) : 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+using KernelFn = void (*)(Params);
+
+// the instantiation for g query heads per kv-head: the smallest width in
+// {1,2,4,8} that holds them (FmaEngine), or 8 (MmaEngine); grid.z covers
+// the rest in groups of 8, as the wrappers' row_groups(1, g)
+template <typename TQ, typename TKV, int DH, bool PAGED>
+KernelFn choose(int g, int* gt) {
+  constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
+                        && std::is_same<TKV, int8_t>::value;
+  if constexpr (kMma) {
+    *gt = 8;
+    return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED>;
+  } else {
+    *gt = g > 4 ? 8 : g > 2 ? 4 : g > 1 ? 2 : 1;
+    if (g > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED>;
+    if (g > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, PAGED>;
+    if (g > 1) return &dense_attn_kernel<TQ, TKV, DH, 2, PAGED>;
+    return &dense_attn_kernel<TQ, TKV, DH, 1, PAGED>;
+  }
 }
 
 template <typename TQ, typename TKV, int DH>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int kMaxG = max_group<TKV>();
-  const int g = a.hq / a.hkv;
-  dim3 grid(a.b, a.hkv, (g + kMaxG - 1) / kMaxG);
-  if (g == 1) {
-    launch_gt<TQ, TKV, DH, 1>(a, grid, stream);
-  } else if (g == 2) {
-    launch_gt<TQ, TKV, DH, 2>(a, grid, stream);
-  } else if (g <= 4 || kMaxG == 4) {
-    launch_gt<TQ, TKV, DH, 4>(a, grid, stream);
-  } else {
-    if constexpr (kMaxG >= 8) launch_gt<TQ, TKV, DH, 8>(a, grid, stream);
+constexpr int ring_bytes() {
+  constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
+                        && std::is_same<TKV, int8_t>::value;
+  return EngineOf<TQ, TKV, DH, kMma ? 8 : 1>::type::R::kBytes;
+}
+
+// every instantiation may take its ring + the largest staged index as
+// dynamic shared memory (above the default 48 KB), once per device
+template <typename TQ, typename TKV, int DH, bool PAGED>
+cudaError_t allow_smem_one() {
+  const int bytes = ring_bytes<TQ, TKV, DH>() + kMaxSplitIdx * 4;
+  for (int g : {1, 2, 4, 8}) {
+    int gt;
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(choose<TQ, TKV, DH, PAGED>(g, &gt)),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 template <typename TQ, typename TKV>
-cudaError_t launch_dh(const Args& a, int dh, cudaStream_t stream) {
-  if (dh == 128) return launch<TQ, TKV, 128>(a, stream);
-  if (dh == 64) return launch<TQ, TKV, 64>(a, stream);
-  return cudaErrorInvalidValue;
+cudaError_t allow_smem_kv() {
+  cudaError_t r = allow_smem_one<TQ, TKV, 64, false>();
+  if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 128, false>();
+  if constexpr (std::is_same<TKV, int8_t>::value) {
+    if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 64, true>();
+    if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 128, true>();
+  }
+  return r;
 }
 
-bool bad_shape(int b, int s_len, int hq, int hkv) {
-  return b <= 0 || s_len < 0 || hkv <= 0 || hq <= 0 || hq % hkv != 0;
+cudaError_t allow_smem() {
+  static std::once_flag once[64];
+  static cudaError_t err[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    cudaError_t r = allow_smem_kv<float, float>();
+    if (r == cudaSuccess) r = allow_smem_kv<__nv_bfloat16, __nv_bfloat16>();
+    if (r == cudaSuccess) r = allow_smem_kv<float, int8_t>();
+    if (r == cudaSuccess) r = allow_smem_kv<__nv_bfloat16, int8_t>();
+    err[dev] = r;
+  });
+  return err[dev];
+}
+
+template <typename TQ, typename TKV, int DH, bool PAGED>
+cudaError_t launch_dh(Params p, int b, cudaStream_t stream) {
+  int gt;
+  const KernelFn fn = choose<TQ, TKV, DH, PAGED>(p.g, &gt);
+  const dim3 grid(p.num_splits, p.hkv, b * ((p.g + gt - 1) / gt));
+  // staged: the split's table entries (paged) or a validity bit per
+  // slot, in words of 128 slots (slab)
+  const int smem = ring_bytes<TQ, TKV, DH>()
+      + (PAGED ? p.per_split * 4 : (p.per_split + kThreads - 1) / kThreads
+                                   * kThreads / 8);
+  fn<<<grid, kThreads, smem, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.num_splits == 1) return e;
+  // programmatic dependent launch: the merge's launch overlaps the
+  // attention grid, and griddepcontrol.wait orders its reads
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.rows_total);
+  cfg.blockDim = dim3(DH);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dense_merge<TQ, DH>, (const float*)p.part,
+                            static_cast<TQ*>(p.out), p.rows_total,
+                            p.num_splits);
+}
+
+template <typename TQ, typename TKV, bool PAGED>
+int launch_kv(const Params& p, int b, int dh, cudaStream_t s) {
+  if (dh == 128) return (int)launch_dh<TQ, TKV, 128, PAGED>(p, b, s);
+  if (dh == 64) return (int)launch_dh<TQ, TKV, 64, PAGED>(p, b, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// shapes and the split plan: per_split entries per split over n_idx slots
+// (slab) or table pages (paged), every split non-empty
+bool bad_plan(int b, int hq, int hkv, int n_idx, int per_split,
+              int num_splits, const void* scratch) {
+  return b <= 0 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || n_idx <= 0
+      || per_split <= 0 || per_split > kMaxSplitIdx || num_splits <= 0
+      || (long long)num_splits * per_split < n_idx
+      || (long long)(num_splits - 1) * per_split >= n_idx
+      || (num_splits > 1 && scratch == nullptr);
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* k_s, const void* v_s, const void* lengths,
+                   void* out, int b, int hq, int hkv, int window, int sink,
+                   float softcap, float scale, int per_split,
+                   int num_splits, void* scratch) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.k_s = static_cast<const float*>(k_s);
+  p.v_s = static_cast<const float*>(v_s);
+  p.lengths = static_cast<const int*>(lengths);
+  p.out = out;
+  p.part = static_cast<float*>(scratch);
+  p.hq = hq;
+  p.hkv = hkv;
+  p.g = hq / hkv;
+  p.window = window;
+  p.sink = sink;
+  p.per_split = per_split;
+  p.num_splits = num_splits;
+  p.rows_total = b * hq;
+  p.softcap = softcap;
+  p.scale = scale;
+  p.page_shift = -1;
+  return p;
 }
 
 }  // namespace
 
+// Every entry: slots_per_split / pages_per_split and num_splits are the
+// wrapper's split plan (num_splits * per_split >= S or MP, every split
+// non-empty, per_split <= 8192); scratch holds num_splits * B*Hq * (Dh + 2)
+// floats and may be null with one split.  Each returns a cudaError_t (0 =
+// success); anything the kernel does not take returns
+// cudaErrorInvalidValue, though the Python wrappers check it all first.
+
 // Kernel 2.  dtype (of q, k, v and the output): 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = success); anything the kernel does not take
-// returns cudaErrorInvalidValue, though the Python wrapper checks it all
-// before calling.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos,
     const void* lengths, void* out, int b, int s_len, int hq, int hkv,
     int dh, int window, int sink, float softcap, float scale, int dtype,
-    void* stream) {
-  if (bad_shape(b, s_len, hq, hkv)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos),
-               static_cast<const int*>(lengths), out, b, s_len, hq, hkv,
-               window, sink, softcap, scale};
+    int slots_per_split, int num_splits, void* scratch, void* stream) {
+  if (bad_plan(b, hq, hkv, s_len, slots_per_split, num_splits, scratch))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  Params p = make_params(q, k, v, nullptr, nullptr, lengths, out, b, hq,
+                         hkv, window, sink, softcap, scale, slots_per_split,
+                         num_splits, scratch);
+  p.pos = static_cast<const int*>(pos);
+  p.s_len = s_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_dh<float, float>(a, dh, s);
+  if (dtype == 0) return launch_kv<float, float, false>(p, b, dh, s);
   if (dtype == 1)
-    return (int)launch_dh<__nv_bfloat16, __nv_bfloat16>(a, dh, s);
+    return launch_kv<__nv_bfloat16, __nv_bfloat16, false>(p, b, dh, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -343,14 +1113,48 @@ extern "C" int repro_decode_attention_int8(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* pos, const void* lengths, void* out,
     int b, int s_len, int hq, int hkv, int dh, int window, int sink,
-    float softcap, float scale, int q_dtype, void* stream) {
-  if (bad_shape(b, s_len, hq, hkv)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k_q, v_q, static_cast<const float*>(k_s),
-               static_cast<const float*>(v_s), static_cast<const int*>(pos),
-               static_cast<const int*>(lengths), out, b, s_len, hq, hkv,
-               window, sink, softcap, scale};
+    float softcap, float scale, int q_dtype, int slots_per_split,
+    int num_splits, void* scratch, void* stream) {
+  if (bad_plan(b, hq, hkv, s_len, slots_per_split, num_splits, scratch))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  Params p = make_params(q, k_q, v_q, k_s, v_s, lengths, out, b, hq, hkv,
+                         window, sink, softcap, scale, slots_per_split,
+                         num_splits, scratch);
+  p.pos = static_cast<const int*>(pos);
+  p.s_len = s_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0) return (int)launch_dh<float, int8_t>(a, dh, s);
-  if (q_dtype == 1) return (int)launch_dh<__nv_bfloat16, int8_t>(a, dh, s);
+  if (q_dtype == 0) return launch_kv<float, int8_t, false>(p, b, dh, s);
+  if (q_dtype == 1)
+    return launch_kv<__nv_bfloat16, int8_t, false>(p, b, dh, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 3, paged addressing.  pk_q/pv_q int8 [P,page,Hkv,Dh], pk_s/pv_s
+// float32 [P,page,Hkv], tables [B,MP] int32 (-1 = unmapped).
+extern "C" int repro_paged_decode_attention_int8(
+    const void* q, const void* pk_q, const void* pk_s, const void* pv_q,
+    const void* pv_s, const void* tables, const void* lengths, void* out,
+    int b, int hq, int hkv, int dh, int page, int mp, int num_pages,
+    int window, int sink, float softcap, float scale, int q_dtype,
+    int pages_per_split, int num_splits, void* scratch, void* stream) {
+  if (page <= 0
+      || bad_plan(b, hq, hkv, mp, pages_per_split, num_splits, scratch))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  Params p = make_params(q, pk_q, pv_q, pk_s, pv_s, lengths, out, b, hq,
+                         hkv, window, sink, softcap, scale, pages_per_split,
+                         num_splits, scratch);
+  p.tables = static_cast<const int*>(tables);
+  p.page = page;
+  for (int sh = 0; sh < 31; ++sh)
+    if ((1 << sh) == page) p.page_shift = sh;
+  p.mp = mp;
+  p.num_pages = num_pages;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0) return launch_kv<float, int8_t, true>(p, b, dh, s);
+  if (q_dtype == 1) return launch_kv<__nv_bfloat16, int8_t, true>(p, b, dh, s);
   return (int)cudaErrorInvalidValue;
 }

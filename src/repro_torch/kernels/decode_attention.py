@@ -1,17 +1,22 @@
 """Hopper dense flash-decode: the wrapper of kernel 2 in
-``csrc/decode_attention.cu``.
+``csrc/decode_attention.cu``, and the launch code it shares with kernel
+3's wrappers (``kernels/quant_kv.py``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``_kernel`` / ``decode_attention``): one query token per row against a
 dense KV slab whose slots carry absolute positions (``pos``, -1 empty,
 ring order for windowed caches).  The same CUDA source carries the int8
-variant (``kernels/quant_kv.py``); both are bound by HBM bytes, and the
-source's header describes the design.
+variant over a slab and over a page pool.  All are bound by HBM bytes:
+split-K over the slots (``slab_plan`` chooses the split from shapes
+alone, so no host sync), a cp.async ring of K/V tiles, scores per tile,
+and, with more than one split, a merge kernel launched by the same C
+call.  The source's header has the design.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
-fallback.  ``launches`` counts kernel launches and ``plain_calls`` CPU
-calls of the plain version.
+fallback.  ``launches`` counts kernel launches, ``plain_calls`` CPU
+calls of the plain version, and ``merge_launches`` the merge kernels
+that calls of this source's entries (kernels 2 and 3) added.
 """
 from __future__ import annotations
 
@@ -20,32 +25,90 @@ import math
 
 import torch
 
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import LaunchCounter
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # what configs/ needs; Dh 256 (recurrentgemma) is not ported
 HEAD_DIMS = (64, 128)
+MAX_SPLIT_SLOTS = 8192    # pos or table entries one CTA stages (kMaxSplitIdx)
 
 launches = LaunchCounter()      # kernel launches on CUDA tensors
 plain_calls = LaunchCounter()   # plain-version calls on CPU tensors
+merge_launches = LaunchCounter()  # merges added by kernels 2 and 3's calls
 
+# C entry point -> (pointers before the output, ints between the output
+# and softcap): each then takes softcap, scale, dtype, per_split,
+# num_splits, scratch and the stream
+_ENTRIES = {"repro_decode_attention": (5, 7),
+            "repro_decode_attention_int8": (7, 7),
+            "repro_paged_decode_attention_int8": (7, 9)}
 _fns = {}   # C entry point name -> the declared ctypes function
 
 
-def _kernel_fn(name: str, n_ptrs: int):
-    """A C entry point of csrc/decode_attention.cu (built on first use):
-    ``n_ptrs`` pointers, then b, s, hq, hkv, dh, window, sink, softcap,
-    scale, dtype and the stream."""
+def _kernel_fn(name: str):
+    """A C entry point of csrc/decode_attention.cu, built on first use."""
     if name not in _fns:
         from repro_torch.kernels import build
         fn = getattr(build.load("decode_attention"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+        n_ptrs, n_int = _ENTRIES[name]
+        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
+                       + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+# ---------------------------------------------------------------------------
+# the split plan over a slab: slots counted as pages of one, shapes only
+# ---------------------------------------------------------------------------
+def slab_plan(b: int, hkv: int, g: int, s_len: int, sm_count: int):
+    """(slots_per_split, num_splits) of a dense call: one split when the
+    b*hkv*row_groups CTAs (up to 8 query heads each, as kernel 1's
+    decode) fill the SMs, else splits of >= 64 slots for about 2 CTAs per
+    SM (``paged_attention.capped_split_plan`` over pages of one slot), at
+    most ``MAX_SPLIT_SLOTS`` slots each."""
+    return _pa.capped_split_plan(b, hkv, _pa.row_groups(1, g), s_len, 1,
+                                 sm_count, MAX_SPLIT_SLOTS)
+
+
+def kernel_plan(q, k):
+    """The split plan a dense call with these tensors launches."""
+    b, hq, _ = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    return slab_plan(b, hkv, hq // hkv, s_len, _pa.sm_count(q.device))
+
+
+def launch(name: str, q, ptrs, ints, plan, *, window, sink, softcap):
+    """One C call: the attention kernel and, with more than one split,
+    the merge kernel, on the current stream of q's device; raises on a
+    nonzero cudaError.  ``ptrs`` are the inputs' pointers, ``ints`` the
+    shape arguments before window and sink.  Scratch for the splits'
+    partials (fp32 m, l and acc[Dh] per split and query row) comes from
+    the caching allocator."""
+    b, hq, dh = q.shape
+    per_split, n_splits = plan
+    dev = q.device
+    out = torch.empty_like(q)
+    scratch = (torch.empty(n_splits * b * hq * (dh + 2), dtype=torch.float32,
+                           device=dev) if n_splits > 1 else None)
+    args = (*ptrs, out.data_ptr(), *ints, int(window), int(sink),
+            float(softcap), 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
+            per_split, n_splits,
+            None if scratch is None else scratch.data_ptr())
+    fn = _kernel_fn(name)
+    if torch.cuda.current_device() == dev.index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+    if n_splits > 1:
+        merge_launches.add()
+    return out
 
 
 def _check(q, k, v, pos, lengths, *, kv_dtype, scales=()):
@@ -74,6 +137,8 @@ def _check(q, k, v, pos, lengths, *, kv_dtype, scales=()):
     if v.shape != k.shape or dh2 != dh or k.shape[0] != b:
         raise ValueError(f"k/v shapes {tuple(k.shape)} / {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    if s_len == 0:
+        raise ValueError("the slab has no slot (S = 0)")
     if pos.shape != (b, s_len) or lengths.shape != (b,):
         raise ValueError(f"pos {tuple(pos.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match [B,S]=[{b},"
@@ -88,8 +153,8 @@ def _check(q, k, v, pos, lengths, *, kv_dtype, scales=()):
     for name, t in [("q", q)] + named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # k and v are read with 16-byte vector loads; q, pos, lengths and the
-    # scales with scalar loads (a worker's row slice may start anywhere)
+    # k and v are copied in 16-byte pieces; q, pos, lengths and the scales
+    # with element loads (a worker's row slice may start anywhere)
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -107,18 +172,12 @@ def decode_attention(q, k, v, pos, lengths, *, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, pos, lengths, kv_dtype=q.dtype)
-    fn = _kernel_fn("repro_decode_attention", 6)
     b, hq, dh = q.shape
     _, s_len, hkv, _ = k.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, s_len, hq, hkv, dh,
-                 int(window), int(sink), float(softcap), 1.0 / math.sqrt(dh),
-                 _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed "
-                           f"(cudaError {err})")
+    out = launch("repro_decode_attention", q,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                  lengths.data_ptr()), (b, s_len, hq, hkv, dh),
+                 kernel_plan(q, k), window=window, sink=sink,
+                 softcap=softcap)
     launches.add()
     return out

@@ -5,7 +5,9 @@
 kernel for a CUDA tensor and runs the plain version for a CPU tensor.
 So the dense int8 op runs kernel 3 on the card, where ``repro`` runs its
 jnp reference even on the TPU (``kv_cache.r_attention_int8`` defaults to
-``use_kernel="ref"``): same function, another dispatch.  The verify ops
+``use_kernel="ref"``), and the paged int8 op runs kernel 3's paged entry
+where ``repro`` gathers and then runs its int8 kernel: same functions,
+another dispatch.  The verify ops
 follow ``repro``'s split: the paged fp verify has its kernel (kernel 4),
 the dense verify is plain torch on both devices (jnp in ``repro``).  The
 int8 verify ops are not ported yet; see ROADMAP.md.
@@ -56,19 +58,16 @@ def paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
                                 *, window: int = 0, sink: int = 0,
                                 softcap: float = 0.0,
                                 use_kernel: str = "auto"):
-    """Int8 pools compose the paged gather with the dense int8 kernel, as
-    ``repro``'s kernel path does: the pages are gathered into a
-    per-sequence slab (with derived positions) and kernel 3 consumes it.
-    On a CPU tensor the chain is exactly
-    ``ref.paged_decode_attention_int8_ref``."""
+    """Block-table decode attention over int8 pools: ``repro``'s kernel
+    path gathers the pages into a per-sequence slab and runs the int8
+    kernel on it; on the card the port runs kernel 3's paged entry, which
+    reads the pages and scales through the table in one C call (no
+    gather).  On a CPU tensor it is exactly
+    ``ref.paged_decode_attention_int8_ref`` (the gather chain)."""
     _auto(use_kernel)
-    k_q, pos = _ref.paged_gather(pk_q, tables)
-    k_s, _ = _ref.paged_gather(pk_s, tables)
-    v_q, _ = _ref.paged_gather(pv_q, tables)
-    v_s, _ = _ref.paged_gather(pv_s, tables)
-    return _qk.decode_attention_int8(q, k_q, k_s, v_q, v_s, pos, lengths,
-                                     window=window, sink=sink,
-                                     softcap=softcap)
+    return _qk.paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables,
+                                           lengths, window=window,
+                                           sink=sink, softcap=softcap)
 
 
 def verify_attention(q, k, v, pos, lengths, *, window: int = 0,

@@ -89,12 +89,22 @@ def split_plan(b: int, hkv: int, groups: int, mp: int, page: int,
     ``SPLIT_MIN_TOKENS`` positions long.  Split s owns table pages
     [s*pages_per_split, (s+1)*pages_per_split): every page once, and no
     split lies wholly past the table."""
+    return capped_split_plan(b, hkv, groups, mp, page, sm_count,
+                             MAX_SPLIT_PAGES)
+
+
+@functools.lru_cache(maxsize=None)
+def capped_split_plan(b: int, hkv: int, groups: int, mp: int, page: int,
+                      sm_count: int, max_split: int):
+    """``split_plan`` with at most ``max_split`` pages per split (the
+    entries one CTA stages); the dense kernels count slab slots as pages
+    of one (``decode_attention.slab_plan``)."""
     ctas = b * hkv * groups
     pps = mp
     if ctas < sm_count:
         want = -(-SPLIT_CTAS_PER_SM * sm_count // ctas)
         pps = max(-(-mp // want), -(-SPLIT_MIN_TOKENS // page))
-    pps = max(1, min(pps, mp, MAX_SPLIT_PAGES))
+    pps = max(1, min(pps, mp, max_split))
     return pps, -(-mp // pps)
 
 

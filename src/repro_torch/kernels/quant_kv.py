@@ -1,30 +1,35 @@
 """Int8-quantized KV (paper §5.2): the quantization helpers and the
-wrapper of kernel 3 in ``csrc/decode_attention.cu``.
+wrappers of kernel 3 in ``csrc/decode_attention.cu``, over a dense slab
+and over a block-table page pool.
 
 KV is stored as int8 with one fp32 scale per (token, kv-head), symmetric
 amax/127 — the quantization the paper suggests to cut R-worker memory
 traffic (2·(Dh·1 B + 4 B) per token and kv-head against 2·Dh·2 B in bf16,
 ~3.9x fewer bytes at Dh 128).  The kernel replaces the Pallas TPU kernel
 ``repro/kernels/quant_kv.py`` (``_kernel`` / ``decode_attention_int8``):
-it dequantizes in fp32 and otherwise computes what kernel 2
-(``kernels/decode_attention.py``) does.
+it dequantizes exactly and otherwise computes what kernel 2
+(``kernels/decode_attention.py``) does.  ``paged_decode_attention_int8``
+computes ``repro/kernels/ops.py``'s function of the same name (gather the
+int8 pages into a slab, then kernel 3) as one call of kernel 3's paged
+entry, which reads the pages and scales through the block table.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
-fallback.  ``launches`` counts kernel launches and ``plain_calls`` CPU
-calls of the plain version.
+fallback.  ``launches`` counts kernel launches of both addressings,
+``paged_launches`` those of the paged one, and ``plain_calls`` CPU calls
+of the plain versions.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import LaunchCounter
 
-launches = LaunchCounter()      # kernel launches on CUDA tensors
+launches = LaunchCounter()      # kernel launches on CUDA tensors (both)
+paged_launches = LaunchCounter()  # of those, the paged addressing's
 plain_calls = LaunchCounter()   # plain-version calls on CPU tensors
 
 
@@ -55,7 +60,7 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
     """q [B,Hq,Dh] bf16/fp32; k_q, v_q int8 [B,S,Hkv,Dh]; k_scale,
     v_scale fp32 [B,S,Hkv]; pos [B,S] int32; lengths [B] int32.  Returns
     o [B,Hq,Dh] in q.dtype.  The plain version rounds the dequantized K/V
-    to q.dtype (as the JAX reference does); the kernel keeps them fp32
+    to q.dtype (as the JAX reference does); the kernel keeps them exact
     (as the TPU kernel does), so in bf16 the two differ by that rounding."""
     if q.device.type == "cpu":
         plain_calls.add()
@@ -66,19 +71,100 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
         raise ValueError(f"no kernel for device {q.device}")
     _da._check(q, k_q, v_q, pos, lengths, kv_dtype=torch.int8,
                scales=(k_scale, v_scale))
-    fn = _da._kernel_fn("repro_decode_attention_int8", 8)
     b, hq, dh = q.shape
     _, s_len, hkv, _ = k_q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
-                 v_q.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, s_len, hq, hkv, dh,
-                 int(window), int(sink), float(softcap), 1.0 / math.sqrt(dh),
-                 _da._DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention_int8 kernel launch failed "
-                           f"(cudaError {err})")
+    out = _da.launch(
+        "repro_decode_attention_int8", q,
+        (q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+         v_scale.data_ptr(), pos.data_ptr(), lengths.data_ptr()),
+        (b, s_len, hq, hkv, dh), _da.kernel_plan(q, k_q), window=window,
+        sink=sink, softcap=softcap)
     launches.add()
     return out
+
+
+def _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths):
+    """Raise on what the paged int8 entry does not take: q [B,Hq,Dh]
+    fp32 or bf16; pk_q/pv_q int8 [P,page,Hkv,Dh] and pk_s/pv_s fp32
+    [P,page,Hkv], contiguous, the int8 pools 16-byte aligned; tables
+    [B,MP] and lengths [B] int32."""
+    dev = q.device
+    named = [("pk_q", pk_q), ("pk_s", pk_s), ("pv_q", pv_q), ("pv_s", pv_s),
+             ("tables", tables), ("lengths", lengths)]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _da._DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not supported (bf16 or fp32)")
+    if pk_q.dtype != torch.int8 or pv_q.dtype != torch.int8:
+        raise TypeError(f"pool dtype {pk_q.dtype}/{pv_q.dtype} must be int8")
+    if pk_s.dtype != torch.float32 or pv_s.dtype != torch.float32:
+        raise TypeError("pool scales must be float32")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("tables and lengths must be int32")
+    if q.dim() != 3 or pk_q.dim() != 4 or tables.dim() != 2 \
+            or lengths.dim() != 1:
+        raise ValueError("expected q [B,Hq,Dh], pools [P,page,Hkv,Dh], "
+                         "tables [B,MP], lengths [B]")
+    b, hq, dh = q.shape
+    n_pages, page, hkv, dh2 = pk_q.shape
+    if pv_q.shape != pk_q.shape or dh2 != dh:
+        raise ValueError(f"pool shapes {tuple(pk_q.shape)} / "
+                         f"{tuple(pv_q.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if pk_s.shape != (n_pages, page, hkv) or pv_s.shape != pk_s.shape:
+        raise ValueError(f"scales {tuple(pk_s.shape)} / {tuple(pv_s.shape)}"
+                         f" must be [P,page,Hkv]=[{n_pages},{page},{hkv}]")
+    if tables.shape[0] != b or lengths.shape != (b,) or tables.shape[1] == 0:
+        raise ValueError(f"tables {tuple(tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match B={b}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if dh not in _da.HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not supported by the kernel "
+                         f"{_da.HEAD_DIMS}")
+    for name, t in [("q", q)] + named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # the int8 pools are copied in 16-byte pieces; the scales in 4-byte
+    # ones; q, tables and lengths with element loads
+    for name, t in (("pk_q", pk_q), ("pv_q", pv_q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
+                                *, window: int = 0, sink: int = 0,
+                                softcap: float = 0.0):
+    """q [B,Hq,Dh] bf16/fp32; pk_q, pv_q int8 [P,page,Hkv,Dh]; pk_s, pv_s
+    fp32 [P,page,Hkv]; tables [B,MP] int32 (-1 = unmapped); lengths [B]
+    int32.  Returns o [B,Hq,Dh] in q.dtype.  On the card, one C call of
+    kernel 3's paged entry (plus its merge where split) with kernel 1's
+    split plan over the table; on the CPU the gather chain
+    ``ref.paged_decode_attention_int8_ref``."""
+    if q.device.type == "cpu":
+        plain_calls.add()
+        return ref.paged_decode_attention_int8_ref(
+            q, pk_q, pk_s, pv_q, pv_s, tables, lengths, window=window,
+            sink=sink, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths)
+    out = _da.launch(
+        "repro_paged_decode_attention_int8", q,
+        (q.data_ptr(), pk_q.data_ptr(), pk_s.data_ptr(), pv_q.data_ptr(),
+         pv_s.data_ptr(), tables.data_ptr(), lengths.data_ptr()),
+        (q.shape[0], q.shape[1], pk_q.shape[2], q.shape[2], pk_q.shape[1],
+         tables.shape[1], pk_q.shape[0]), paged_plan(q, pk_q, tables),
+        window=window, sink=sink, softcap=softcap)
+    launches.add()
+    paged_launches.add()
+    return out
+
+
+def paged_plan(q, pk_q, tables):
+    """The split plan of the paged entry: kernel 1's over the table."""
+    b, hq, _ = q.shape
+    page, hkv = pk_q.shape[1], pk_q.shape[2]
+    return _pa.split_plan(b, hkv, _pa.row_groups(1, hq // hkv),
+                          tables.shape[1], page, _pa.sm_count(q.device))

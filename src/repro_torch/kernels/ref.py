@@ -110,52 +110,104 @@ def paged_verify_attention_ref(q, pages_k, pages_v, tables, lengths, *,
 
 
 # ---------------------------------------------------------------------------
-# split-K (flash-decoding) model of csrc/paged_attention.cu: split s owns
-# table pages [s*pps, (s+1)*pps); each split yields a partial (m, l, acc)
-# with the kernel's masking (a masked score has p = 0, so a split with no
-# valid key for a query carries m = NEG_INF, l = 0, acc = 0), and the merge
-# combines the partials in split order, an empty partial (m <= NEG_INF/2)
-# weighing 0 whatever its l and acc hold.  Tests hold it against the JAX
-# reference and the unsplit plain versions above; no serving path runs it.
+# split-K (flash-decoding) model of csrc/paged_attention.cu and
+# csrc/decode_attention.cu: split s owns table pages [s*pps, (s+1)*pps) of a
+# pool, or slots [s*sps, (s+1)*sps) of a slab; each split yields a partial
+# (m, l, acc) with the kernel's masking (a masked score has p = 0, so a
+# split with no valid key for a query carries m = NEG_INF, l = 0, acc = 0),
+# and the merge combines the partials in split order, an empty partial (m <=
+# NEG_INF/2) weighing 0 whatever its l and acc hold.  Int8 storage folds the
+# scales into the products as the kernel does: s = k_s * (q . k_q) and acc
+# += (p * v_s) * v_q.  Tests hold it against the JAX reference and the
+# unsplit plain versions above; no serving path runs it.
 # ---------------------------------------------------------------------------
+def _split_partial(qg, qpos, k, v, kpos, *, window, sink, softcap,
+                   k_s=None, v_s=None):
+    """One split's partial.  qg [B,T,Hkv,G,Dh] fp32 (scaled); qpos [B,T];
+    k, v [B,n,Hkv,Dh] (storage values); kpos [B,n] (-1 = empty); k_s, v_s
+    [B,n,Hkv] fp32 or None -> m, l [B,T,Hq] and acc [B,T,Hq,Dh] fp32."""
+    b, t, hkv, g, dh = qg.shape
+    f32 = torch.float32
+    s = torch.einsum("bthgd,bshd->bthgs", qg, k.to(f32))
+    if k_s is not None:
+        s = s * k_s.permute(0, 2, 1)[:, None, :, None, :]
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    msk = L._mask(qpos, kpos, causal=True, window=window,
+                  sink=sink)[:, :, None, None, :]         # [B,T,1,1,n]
+    s = torch.where(msk, s, torch.tensor(L.NEG_INF, dtype=f32))
+    m = s.amax(dim=-1)
+    p = torch.where(msk, torch.exp(s - m[..., None]),
+                    torch.zeros((), dtype=f32))
+    l = p.sum(dim=-1)
+    if v_s is not None:
+        p = p * v_s.permute(0, 2, 1)[:, None, :, None, :]
+    acc = torch.einsum("bthgs,bshd->bthgd", p, v.to(f32))
+    return (m.reshape(b, t, hkv * g), l.reshape(b, t, hkv * g),
+            acc.reshape(b, t, hkv * g, dh))
+
+
+def _scaled_q(q, hkv):
+    b, t, hq, dh = q.shape
+    return q.to(torch.float32).reshape(b, t, hkv, hq // hkv, dh) \
+        / math.sqrt(dh)
+
+
 def paged_split_partials_ref(q, pages_k, pages_v, tables, lengths, *,
                              pages_per_split: int, window: int = 0,
-                             sink: int = 0, softcap: float = 0.0):
+                             sink: int = 0, softcap: float = 0.0,
+                             k_scale=None, v_scale=None):
     """q [B,T,Hq,Dh] (query t at position lengths[b] + t) -> fp32
     (m [S,B,T,Hq], l [S,B,T,Hq], acc [S,B,T,Hq,Dh]), acc not normalized,
-    S = ceil(MP / pages_per_split)."""
-    b, t, hq, dh = q.shape
+    S = ceil(MP / pages_per_split).  Int8 pools pass their scales
+    [P,page,Hkv] as ``k_scale`` / ``v_scale``."""
+    t = q.shape[1]
     mp, page, hkv = tables.shape[1], pages_k.shape[1], pages_k.shape[2]
-    g = hq // hkv
-    f32 = torch.float32
-    qg = q.to(f32).reshape(b, t, hkv, g, dh) / math.sqrt(dh)
+    qg = _scaled_q(q, hkv)
     qpos = (lengths[:, None].to(torch.int32)
             + torch.arange(t, dtype=torch.int32, device=q.device)[None, :])
-    ms, ls, accs = [], [], []
+    parts = []
     for lo in range(0, mp, pages_per_split):
         tb = tables[:, lo:lo + pages_per_split]
         k, kpos = paged_gather(pages_k, tb)
         v, _ = paged_gather(pages_v, tb)
         kpos = torch.where(kpos >= 0, kpos + lo * page, kpos)
-        s = torch.einsum("bthgd,bshd->bthgs", qg, k.to(f32))
-        if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
-        msk = L._mask(qpos, kpos, causal=True, window=window,
-                      sink=sink)[:, :, None, None, :]     # [B,T,1,1,S]
-        s = torch.where(msk, s, torch.tensor(L.NEG_INF, dtype=f32))
-        m = s.amax(dim=-1)
-        p = torch.where(msk, torch.exp(s - m[..., None]),
-                        torch.zeros((), dtype=f32))
-        ms.append(m.reshape(b, t, hq))
-        ls.append(p.sum(dim=-1).reshape(b, t, hq))
-        accs.append(torch.einsum("bthgs,bshd->bthgd", p,
-                                 v.to(f32)).reshape(b, t, hq, dh))
-    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        scales = {}
+        if k_scale is not None:
+            scales = dict(k_s=paged_gather(k_scale, tb)[0],
+                          v_s=paged_gather(v_scale, tb)[0])
+        parts.append(_split_partial(qg, qpos, k, v, kpos, window=window,
+                                    sink=sink, softcap=softcap, **scales))
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def slab_split_partials_ref(q, k, v, pos, lengths, *, slots_per_split: int,
+                            window: int = 0, sink: int = 0,
+                            softcap: float = 0.0, k_scale=None,
+                            v_scale=None):
+    """The dense kernels' split: q [B,Hq,Dh] (one query at lengths[b]);
+    k, v [B,S,Hkv,Dh] with pos [B,S] (validity from pos, never from the
+    slot index) -> fp32 (m [n,B,Hq], l [n,B,Hq], acc [n,B,Hq,Dh]), n =
+    ceil(S / slots_per_split).  Int8 slabs pass their scales [B,S,Hkv]."""
+    qg = _scaled_q(q[:, None], k.shape[2])
+    qpos = lengths[:, None].to(torch.int32)
+    parts = []
+    for lo in range(0, k.shape[1], slots_per_split):
+        sl = slice(lo, lo + slots_per_split)
+        scales = {}
+        if k_scale is not None:
+            scales = dict(k_s=k_scale[:, sl], v_s=v_scale[:, sl])
+        m, l, acc = _split_partial(qg, qpos, k[:, sl], v[:, sl], pos[:, sl],
+                                   window=window, sink=sink,
+                                   softcap=softcap, **scales)
+        parts.append((m[:, 0], l[:, 0], acc[:, 0]))
+    return tuple(torch.stack(x) for x in zip(*parts))
 
 
 def merge_split_partials_ref(m, l, acc):
-    """Partials of ``paged_split_partials_ref`` -> [B,T,Hq,Dh] fp32; a
-    query whose every partial is empty gives exactly 0."""
+    """Partials of a split model ([S, ...] m, l and [S, ..., Dh] acc) ->
+    [..., Dh] fp32; a query whose every partial is empty gives exactly
+    0."""
     mx = m.amax(dim=0)
     live = m > L.NEG_INF / 2
     w = torch.where(live, torch.exp(m - mx), torch.zeros((), dtype=m.dtype))
@@ -169,12 +221,25 @@ def merge_split_partials_ref(m, l, acc):
 
 def paged_split_attention_ref(q, pages_k, pages_v, tables, lengths, *,
                               pages_per_split: int, window: int = 0,
-                              sink: int = 0, softcap: float = 0.0):
-    """The split model end to end: q [B,Hq,Dh] (decode) or [B,T,Hq,Dh]
-    (verify) -> the same shape in q.dtype."""
+                              sink: int = 0, softcap: float = 0.0,
+                              k_scale=None, v_scale=None):
+    """The paged split model end to end: q [B,Hq,Dh] (decode) or
+    [B,T,Hq,Dh] (verify) -> the same shape in q.dtype."""
     q4 = q[:, None] if q.dim() == 3 else q
     out = merge_split_partials_ref(*paged_split_partials_ref(
         q4, pages_k, pages_v, tables, lengths,
         pages_per_split=pages_per_split, window=window, sink=sink,
-        softcap=softcap))
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale))
     return (out[:, 0] if q.dim() == 3 else out).to(q.dtype)
+
+
+def slab_split_attention_ref(q, k, v, pos, lengths, *, slots_per_split: int,
+                             window: int = 0, sink: int = 0,
+                             softcap: float = 0.0, k_scale=None,
+                             v_scale=None):
+    """The slab split model end to end: q [B,Hq,Dh] -> [B,Hq,Dh] in
+    q.dtype."""
+    return merge_split_partials_ref(*slab_split_partials_ref(
+        q, k, v, pos, lengths, slots_per_split=slots_per_split,
+        window=window, sink=sink, softcap=softcap, k_scale=k_scale,
+        v_scale=v_scale)).to(q.dtype)

@@ -243,3 +243,97 @@ def test_long_multi_split_kernels_on_card(dtype):
                         dec = TPA.paged_decode_attention(
                             q[:, 0].contiguous(), pk, pv, tables, base, **kw)
                         assert torch.equal(out[:, 0], dec)
+
+
+def _long_slab_case(rng, *, g, dh, hkv=2, s=4096):
+    """Six rows over a 4096-slot slab that the split plan cuts into many
+    splits: holes every 97 slots, a full ring (positions 5000..9095 at
+    slot pos % S), a short row (its later splits hold no valid slot), a
+    row with no valid slot (exactly 0), a full row and a half-wrapped
+    ring."""
+    pos = np.full((6, s), -1, np.int32)
+    pos[0, :3000] = np.arange(3000)
+    pos[0, 5:3000:97] = -1
+    for r, (lo, hi) in ((1, (5000, 9096)), (5, (3000, 6000))):
+        ring = np.arange(lo, hi)
+        pos[r, ring % s] = ring
+    pos[2, :17] = np.arange(17)
+    pos[4] = np.arange(s)
+    lengths = np.array([2999, 9095, 16, 5, 4095, 5999], np.int32)
+    q = rng.standard_normal((6, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((6, s, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((6, s, hkv, dh)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, pos, lengths)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_multi_split_dense_kernels_on_card(dtype):
+    """Kernels 2 and 3 where the slab plan cuts every row into many
+    splits (empty ones past the short row and between the sink and the
+    window of a ring): within the tolerance of the plain version, exactly
+    0 for the row with no valid slot, bitwise equal on a second launch
+    (the merge sums in split order, no atomics)."""
+    _needs_card()
+    rng = np.random.default_rng(10)
+    dt = getattr(torch, dtype)
+    for g, dh in ((1, 128), (4, 128), (8, 64)):
+        for kw in ({}, dict(window=256, sink=16), dict(softcap=5.0)):
+            q, k, v, pos, lengths = _long_slab_case(rng, g=g, dh=dh)
+            kq, ks = TQK.quantize_kv(k)
+            vq, vs = TQK.quantize_kv(v)
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
+            assert TDA.kernel_plan(q, k)[1] > 1
+            merges = TDA.merge_launches.value
+            out = TDA.decode_attention(q, k, v, pos, lengths, **kw)
+            again = TDA.decode_attention(q, k, v, pos, lengths, **kw)
+            out8 = TQK.decode_attention_int8(q, kq, ks, vq, vs, pos,
+                                             lengths, **kw)
+            again8 = TQK.decode_attention_int8(q, kq, ks, vq, vs, pos,
+                                               lengths, **kw)
+            torch.cuda.synchronize()
+            assert TDA.merge_launches.value == merges + 4
+            _assert_within(out, TREF.decode_attention_ref(
+                q, k, v, pos, lengths, **kw), dtype)
+            _assert_within(out8, TREF.decode_attention_int8_ref(
+                q.float(), kq, ks, vq, vs, pos, lengths, **kw), dtype)
+            for o, a in ((out, again), (out8, again8)):
+                assert torch.all(o[3] == 0)
+                assert torch.equal(o, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_int8_entry_on_card_matches_plain(dtype):
+    """Kernel 3's paged addressing (one C call, no gather) against the
+    gather chain on the ragged/hole/shared/unmapped tables of kernel 1's
+    cases and on long multi-split tables, with window + sink and softcap,
+    each repeated bitwise; counted in ``launches`` and ``paged_launches``
+    alike."""
+    _needs_card()
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, dtype)
+    cases = [(_case(rng, g=g, page=page), 3) for g in (1, 4)
+             for page in (4, 16)]
+    cases += [(_long_case(rng, t=1, g=g, page=page), 5) for g in (1, 4)
+              for page in (4, 16)]
+    for args, empty in cases:
+        q, pk, pv, tables, lengths = (torch.as_tensor(a).cuda() for a in args)
+        q = q.reshape(q.shape[0], -1, q.shape[-1]).to(dt)
+        pkq, pks = TQK.quantize_kv(pk)
+        pvq, pvs = TQK.quantize_kv(pv)
+        for kw in ({}, dict(window=6, sink=2), dict(softcap=3.0)):
+            before = (TQK.launches.value, TQK.paged_launches.value)
+            out = TQK.paged_decode_attention_int8(q, pkq, pks, pvq, pvs,
+                                                  tables, lengths, **kw)
+            again = TQK.paged_decode_attention_int8(q, pkq, pks, pvq, pvs,
+                                                    tables, lengths, **kw)
+            torch.cuda.synchronize()
+            assert (TQK.launches.value, TQK.paged_launches.value) == (
+                before[0] + 2, before[1] + 2)
+            want = TREF.paged_decode_attention_int8_ref(
+                q.float(), pkq, pks, pvq, pvs, tables, lengths, **kw)
+            _assert_within(out, want, dtype)
+            assert out.dtype == dt
+            assert torch.all(out[empty] == 0)
+            assert torch.equal(out, again)
