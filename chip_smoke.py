@@ -34,10 +34,13 @@ Phases (any failure exits nonzero):
   serve       Qwen3-8B at full width, random weights from a seeded
               generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
-              paged_kv=True): every request must finish with the right
-              token count and finite logits, and the paged kernel's launch
-              count must equal layers x micro-batches x workers x decode
-              steps.
+              paged_kv=True), in turns eager, graphs, eager (the step
+              callables op by op, then replayed from their CUDA graphs):
+              every request must finish with the right token count and
+              finite logits, and the paged kernel's launch count must
+              equal layers x micro-batches x workers x decode steps (on
+              the graph path the counts come from replays); each turn
+              has a profiled window (host launches, device idle).
   serve_int8  the same model and trace with quantized_kv=True, paged and
               then dense: the same checks, on the int8 kernel's count; the
               paged run must take kernel 3's paged entry every time and
@@ -46,12 +49,23 @@ Phases (any failure exits nonzero):
               (self-speculation): the same checks, with the verify
               kernel's launches equal to layers x workers x verify works
               run and no paged flash-decode launch; acceptance and the
-              share of requests equal to the spec-off serve's reported.
+              share of requests equal to the spec-off serve's reported,
+              and the bf16 divergence triaged: both serves again with
+              every logits row logged, and at each request's first
+              differing token the max logit difference and the top-2
+              margin (teacher-forced: the histories agree before it).
   equiv       the same width at 2 layers in fp32 (TF32 off): the hetero
               paged engine (through the kernel) and the colocated engine
               (plain torch) must give the same greedy tokens, a mismatch
               counting only if the teacher-forced logits also differ
-              beyond tolerance.
+              beyond tolerance; the hetero engine's graph tokens must
+              equal its eager tokens (logits within tolerance).  So in
+              equiv_int8 and equiv_spec.
+
+The serve and equiv phases run the hetero engine's CUDA graphs
+(``repro_torch.core.graphs``) unless a run says eager; the serve
+records give the captures made, their seconds and the graph pools'
+bytes.
   equiv_int8  the same at 2 layers: hetero paged-int8 == hetero dense-int8
               (tokens, logits within 1e-4), both through the int8 kernel,
               and both within 0.5 of the colocated fp logits fed the same
@@ -70,6 +84,7 @@ checkout of the repo, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -1262,13 +1277,16 @@ def serve_model(dev):
     from repro_torch.core.config import get_arch
     from repro_torch.models.model import init_params
     from repro_torch.serving.kv_cache import cache_bytes
+    from repro_torch.kernels import build
     cfg = get_arch("qwen3-8b")
     t0 = time.perf_counter()
+    build.build()       # so that no serve's first step pays for nvcc
+    t1 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
-    return {"cfg": cfg, "params": params,
-            "init_s": time.perf_counter() - t0,
+    return {"cfg": cfg, "params": params, "build_s": t1 - t0,
+            "init_s": time.perf_counter() - t1,
             "weight_bytes": cache_bytes(params)}
 
 
@@ -1316,19 +1334,55 @@ class _GatherCount:
         ref.paged_gather = self._own
 
 
+def graph_memory(eng) -> dict:
+    """The engine's CUDA graphs: how many, the bytes of their pools
+    (segments of the caching allocator tagged with a pool of the engine:
+    the S-worker's and each R-worker's) and of their static output
+    buffers."""
+    import torch
+    het = eng.engine
+    gs = list(het._s_graphs.values()) + [
+        g for w in het.workers for g in w._graphs.values()]
+    gs += [g for g in (getattr(eng, "_draft_graph", None),
+                       getattr(eng, "_commit_graph", None)) if g is not None]
+    pools = {tuple(p.handle) for p in [het._s_pool]
+             + [w._pool for w in het.workers] if p.handle is not None}
+    segs = torch.cuda.memory_snapshot()
+    pool_bytes = (sum(s["total_size"] for s in segs
+                      if tuple(s.get("segment_pool_id", ())) in pools)
+                  if segs and "segment_pool_id" in segs[0] else None)
+    return {"graphs": len(gs),
+            "graphs_s": len(het._s_graphs),
+            "graphs_r": [len(w._graphs) for w in het.workers],
+            "graph_pool_bytes": pool_bytes,
+            "graph_static_bytes": sum(g.static_bytes() for g in gs)}
+
+
 def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
               quantized: bool, spec_k: int = 0, profile: str = "",
-              trace: bool = False) -> dict:
+              trace: bool = False, eager: bool = False) -> dict:
     """Serve the 12-request trace through ServingEngine(backend="hetero",
     num_r_workers=2) with the given storage, speculative decoding with
-    ``spec_k`` drafts per row when nonzero.  Every count is set to 0
-    just before the counted run and read just after it: ``kernel``'s
+    ``spec_k`` drafts per row when nonzero: through the CUDA graphs of
+    the step callables, or op by op with ``eager``.  Every count is set
+    to 0 just before the counted run and read just after it: ``kernel``'s
     launches must equal layers x workers x (micro-batches x decode steps,
     or the verify works run with spec decoding), no other kernel of the
     paged path may run (kernel 1 never runs in a spec serve), and no
-    plain version may run.  ``profile`` names a profiled window of 3
-    steps afterwards (written to ``out``)."""
+    plain version may run; on the graph path the counts come from
+    replays.  ``profile`` names a profiled window of 3 steps afterwards
+    (written to ``out``)."""
+    from repro_torch.core import graphs
+    with (graphs.eager() if eager else contextlib.nullcontext()):
+        return _serve_run(dev, model, out, kernel=kernel, paged=paged,
+                          quantized=quantized, spec_k=spec_k,
+                          profile=profile, trace=trace, eager=eager)
+
+
+def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
+               profile, trace, eager) -> dict:
     import torch
+    from repro_torch.core import graphs
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quant_kv as QK
@@ -1349,13 +1403,18 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
             eng.submit(r)
         torch.cuda.synchronize()
         _reset_counters()
+        graphs.captures.reset()
         nonfinite = 0
         peak_resident = 0.0
         verify_works = row_verifies = 0
+        step_tokens = []        # decode (or verify) tokens of each step
         seen = eng.engine.prefill_results
         with _GatherCount() as gathers:
             while eng.queue or any(s is not None for s in eng.slots):
-                eng.step()
+                n0 = sum(len(r.generated) for r in reqs)
+                rec_ = eng.step()
+                step_tokens.append(sum(len(r.generated) for r in reqs)
+                                   - n0 - rec_.admitted)
                 if spec_k:
                     # a step with no live row runs no verify (the list stays)
                     if eng.engine.prefill_results is not seen:
@@ -1371,6 +1430,9 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
                 if eng.step_idx > 200:
                     raise AssertionError("serve did not drain in 200 steps")
             torch.cuda.synchronize()
+        capture = {"capture_count": graphs.captures.capture_count,
+                   "capture_s": graphs.captures.capture_s}
+        mem = graph_memory(eng)
         launches = {n: c[0].value for n, c in counters.items()}
         plain = {n: c[1].value for n, c in counters.items()}
         merges = PA.merge_launches.value
@@ -1428,17 +1490,23 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
     rec = {"storage": ("paged-" if paged else "dense-")
            + ("int8" if quantized else cfg.dtype),
+           "mode": "eager" if eager else "graphs",
            "model": "qwen3-8b", "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
            "weight_bytes": model["weight_bytes"], "init_s": model["init_s"],
+           "build_s": model["build_s"],
            "requests": len(reqs), "decode_steps": steps,
            "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
            "page_size": 16, "cache_len": 1024,
            "prompt_tokens": sum(r.prompt_len for r in reqs),
            "decode_tokens": dec_tokens,
            "decode_tokens_per_s": dec_tokens / sum(dec),
+           # the first step captures the graphs (and, eager, warms up)
+           "decode_tokens_per_s_after_first_step":
+               sum(step_tokens[1:]) / sum(dec[1:]),
+           "first_step_s": dec[0],
            "decode_step_s_p50": float(np.median(dec)),
            "decode_step_s_max": float(np.max(dec)),
            "prefill_s_total": sum(rec.prefill_wall for rec in recs),
@@ -1450,6 +1518,7 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
            "dense_merge_launches": dense_merges,
            "int8_paged_launches": paged_int8, "page_gathers": gathers.calls,
            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
+           **capture, **mem,
            "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
     if spec_k:
         rec.update({
@@ -1463,9 +1532,34 @@ def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
     return rec
 
 
+SUMMARY_KEYS = ("mode", "decode_tokens_per_s",
+                "decode_tokens_per_s_after_first_step", "first_step_s",
+                "decode_step_s_p50", "decode_step_s_max", "hotpath",
+                "r_worker_busy_s", "capture_count", "capture_s",
+                "kernel_launches")
+
+
 def phase_serve(dev, model, out: Path) -> dict:
-    rec = serve_run(dev, model, out, kernel="paged_decode_attention",
-                    paged=True, quantized=False, profile="serve", trace=True)
+    """The paged bf16 serve in turns, eager, graphs, eager (the same
+    engine settings and trace; the graph run is the phase's record, the
+    eager runs sit beside it with their profiled windows)."""
+    kw = dict(kernel="paged_decode_attention", paged=True, quantized=False)
+    eager1 = serve_run(dev, model, out, profile="serve_eager1", eager=True,
+                       **kw)
+    rec = serve_run(dev, model, out, profile="serve", trace=True, **kw)
+    eager2 = serve_run(dev, model, out, profile="serve_eager2", eager=True,
+                       **kw)
+    turns = []
+    for r in (eager1, rec, eager2):
+        t = {k: r[k] for k in SUMMARY_KEYS}
+        t["window"] = {k: r["trace"][k] for k in (
+            "wall_s", "device_idle_ratio", "host_launches",
+            "kernel_launches_host", "graph_launches_host", "runtime_calls")}
+        turns.append(t)
+    rec["turns"] = turns
+    # bf16 replays run the eager path's kernels in its order: reported
+    rec["tokens_equal_to_eager"] = (rec["tokens"] == eager1["tokens"]
+                                    == eager2["tokens"])
     return {"phase": "serve", "ok": True, **rec}
 
 
@@ -1490,6 +1584,7 @@ def phase_serve_spec(dev, model, out: Path, spec_off=None) -> dict:
     rec = serve_run(dev, model, out, kernel="paged_verify_attention",
                     paged=True, quantized=False, spec_k=3,
                     profile="serve_spec")
+    rec["triage"] = spec_triage(dev, model, rec, spec_off)
     if spec_off is not None:
         same = [rid for rid, toks in rec["tokens"].items()
                 if spec_off["tokens"][rid] == toks]
@@ -1502,6 +1597,51 @@ def phase_serve_spec(dev, model, out: Path, spec_off=None) -> dict:
         rec["tokens_per_s_ratio_to_spec_off"] = (
             rec["decode_tokens_per_s"] / spec_off["decode_tokens_per_s"])
     return {"phase": "serve_spec", "ok": True, **rec}
+
+
+def spec_triage(dev, model, spec_rec, off_rec) -> dict:
+    """The bf16 spec-on/spec-off divergence, teacher-forced: the spec-off
+    and spec-on engines (graphs) serve the counted trace again, every
+    logits row that chose a token logged.  Where a request's tokens first
+    differ, both histories agree before that token, so the two rows that
+    chose it were fed the same tokens: their max difference and the
+    spec-off row's top-2 margin say whether a near-tie flipped (margin
+    below the difference) or the computations part (a fault).  Beside
+    them, the largest difference on tokens before any divergence: how far
+    a C-token verify and a one-token decode part in bf16."""
+    from repro_torch.serving.engine import ServingEngine, SpecConfig
+    cfg, params = model["cfg"], model["params"]
+    logs = {}
+    for name, spec in (("off", None), ("spec", SpecConfig(k=3))):
+        eng = ServingEngine(params, cfg, backend="hetero", num_r_workers=2,
+                            num_microbatches=2, paged_kv=True, page_size=16,
+                            batch=8, cache_len=1024, device=dev,
+                            spec_decode=spec)
+        try:
+            logs[name], _ = _serve_logged(eng, _requests(
+                np.random.default_rng(0), 12, 17, 600, 16, 32,
+                cfg.vocab_size))
+        finally:
+            eng.close()
+    before, parted, same_logits, _ = _compare(logs["spec"], logs["off"],
+                                              0.0)
+    parted += same_logits
+    flips = sum(1 for r in parted if r["logit_diff"] is not None
+                and r["top2_margin"] < r["logit_diff"])
+    same_as_counted = (
+        {rid: t for rid, (t, _) in logs["spec"].items()}
+        == spec_rec["tokens"]
+        and (off_rec is None or {rid: t for rid, (t, _)
+                                 in logs["off"].items()}
+             == off_rec["tokens"]))
+    return {"diverging_requests": len(parted), "requests": len(logs["off"]),
+            "first_diffs": sorted(parted, key=lambda r: r["rid"]),
+            "max_logit_diff_before_divergence": before,
+            "max_logit_diff_at_first_diff": max(
+                (r["logit_diff"] for r in parted
+                 if r["logit_diff"] is not None), default=None),
+            "near_tie_flips": flips,
+            "tokens_equal_to_counted_runs": same_as_counted}
 
 
 def _profile_steps(eng, n_steps: int, out: Path, name: str,
@@ -1564,10 +1704,18 @@ def _profile_steps(eng, n_steps: int, out: Path, name: str,
         sort_by="self_cpu_time_total", row_limit=60))
     if trace:
         prof.export_chrome_trace(str(out / f"{name}_trace.json"))
+    # CUDA runtime calls by name; a host launch is a kernel launch or a
+    # graph launch (a replay is one call however many kernels it holds)
+    runtime = {e.key: e.count for e in ka if e.key.startswith("cuda")}
+    launch_names = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cudaGraphLaunch")
     return {"steps": n_steps, "wall_s": wall_s,
             "device_busy_s": busy_us / 1e6,
             "device_idle_ratio": 1.0 - busy_us / 1e6 / wall_s,
             "memcpy_device_s": memcpy_us / 1e6,
+            "host_launches": sum(runtime.get(n, 0) for n in launch_names),
+            "graph_launches_host": runtime.get("cudaGraphLaunch", 0),
+            "runtime_calls": runtime,
             "kernel_launches_host": sum(e.count for e in ka
                                         if e.key == "cudaLaunchKernel"),
             "attention_device": {
@@ -1596,7 +1744,10 @@ def _serve_logged(eng, reqs, forced=None):
     in_decode = [False]
 
     def decode_step(*args):
-        in_decode[0] = True
+        # a chunk-only step (a spec verify) samples nothing: its logits
+        # are logged at the accept walk, and the next sampling call may
+        # be an admission's prefill
+        in_decode[0] = args[0] is not None
         return own_decode(*args)
 
     def sample(logits):
@@ -1705,8 +1856,12 @@ def _equiv_model(dev, seed):
     return cfg, params, spec
 
 
-def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None, **kw):
-    """``stats`` (a dict), when given, receives the engine's spec_stats."""
+def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None,
+                 eager=False, **kw):
+    """``stats`` (a dict), when given, receives the engine's spec_stats;
+    ``eager`` runs the step callables op by op instead of replaying their
+    graphs."""
+    from repro_torch.core import graphs
     from repro_torch.serving.engine import ServingEngine
     hetero = kw.get("backend") == "hetero"
     if hetero:
@@ -1714,12 +1869,26 @@ def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None, **kw):
     eng = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev,
                         **kw)
     try:
-        return _serve_logged(eng, _requests(np.random.default_rng(2),
-                                            **spec), forced)
+        with (graphs.eager() if eager else contextlib.nullcontext()):
+            return _serve_logged(eng, _requests(np.random.default_rng(2),
+                                                **spec), forced)
     finally:
         eng.close()
         if stats is not None:
             stats.update(eng.spec_stats)
+
+
+def _graphs_equal_eager(name, got, eager) -> float:
+    """Graph tokens must equal eager tokens, every logit within
+    EQUIV_LOGIT_TOL (fp32: the replays run the eager path's kernels).
+    Returns the max logit difference."""
+    max_diff, mismatches, ties, _ = _compare(got, eager, EQUIV_LOGIT_TOL)
+    if mismatches or ties or max_diff > EQUIV_LOGIT_TOL:
+        raise AssertionError(
+            f"{name}: graphs != eager: mismatches {mismatches}, near-tie "
+            f"flips {ties}, max logit diff {max_diff} (tol "
+            f"{EQUIV_LOGIT_TOL})")
+    return max_diff
 
 
 def phase_equiv(dev) -> dict:
@@ -1729,6 +1898,9 @@ def phase_equiv(dev) -> dict:
     got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
                           paged_kv=True)
     launches = PA.launches.value
+    eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                            backend="hetero", paged_kv=True)
+    vs_eager = _graphs_equal_eager("hetero-paged", got, eager)
     want, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
     max_diff, mismatches, ties, margin = _compare(got, want, EQUIV_LOGIT_TOL)
     if mismatches or max_diff > EQUIV_LOGIT_TOL or launches == 0:
@@ -1740,7 +1912,8 @@ def phase_equiv(dev) -> dict:
             "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
             "requests": len(want), "tokens_equal": not ties,
             "near_tie_flips": ties, "max_logit_diff": max_diff,
-            "min_top2_margin": margin,
+            "min_top2_margin": margin, "graphs_equal_eager": True,
+            "max_logit_diff_vs_eager": vs_eager,
             "logit_tol": EQUIV_LOGIT_TOL, "kernel_launches": launches}
 
 
@@ -1751,11 +1924,16 @@ def phase_equiv_int8(dev) -> dict:
     from repro_torch.kernels import quant_kv as QK
     cfg, params, spec = _equiv_model(dev, 1)
     runs, launches = {}, {}
+    vs_eager = {}
     for name, paged in (("paged-int8", True), ("dense-int8", False)):
         QK.launches.reset()
         runs[name] = _equiv_serve(dev, cfg, params, spec, backend="hetero",
                                   paged_kv=paged, quantized_kv=True)
         launches[name] = QK.launches.value
+        eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                                backend="hetero", paged_kv=paged,
+                                quantized_kv=True)
+        vs_eager[name] = _graphs_equal_eager(name, runs[name][0], eager)
     (paged, sampled), (dense, _) = runs["paged-int8"], runs["dense-int8"]
     max_diff, mismatches, ties, margin = _compare(paged, dense,
                                                   EQUIV_LOGIT_TOL)
@@ -1781,7 +1959,8 @@ def phase_equiv_int8(dev) -> dict:
             "requests": len(paged), "tokens_equal": True,
             "max_logit_diff": max_diff, "min_top2_margin": margin,
             "logit_tol": EQUIV_LOGIT_TOL, "kernel_launches": launches,
-            "max_logit_diff_vs_fp": quant, "quant_bound": QUANT_BOUND}
+            "max_logit_diff_vs_fp": quant, "quant_bound": QUANT_BOUND,
+            "graphs_equal_eager": True, "max_logit_diff_vs_eager": vs_eager}
 
 
 def phase_equiv_spec(dev) -> dict:
@@ -1801,6 +1980,10 @@ def phase_equiv_spec(dev) -> dict:
                               backend="hetero", paged_kv=paged,
                               spec_decode=SpecConfig(k=3))
         launches = {n: c[0].value for n, c in _counters().items()}
+        eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                                backend="hetero", paged_kv=paged,
+                                spec_decode=SpecConfig(k=3))
+        vs_eager = _graphs_equal_eager(f"spec {name}", got, eager)
         max_diff, mismatches, ties, margin = _compare(got, want,
                                                       EQUIV_LOGIT_TOL)
         want_kernels = ({"paged_verify_attention"} if paged else set())
@@ -1815,6 +1998,8 @@ def phase_equiv_spec(dev) -> dict:
         runs[name] = {"tokens_equal": not ties, "near_tie_flips": ties,
                       "max_logit_diff": max_diff, "min_top2_margin": margin,
                       "kernel_launches": launches, "spec_stats": stats,
+                      "graphs_equal_eager": True,
+                      "max_logit_diff_vs_eager": vs_eager,
                       "acceptance_rate": stats["accepted_tokens"]
                       / max(1, stats["drafted_tokens"])}
     return {"phase": "equiv_spec", "ok": True, "layers": cfg.num_layers,

@@ -131,7 +131,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 _ARCHS: Dict[str, ModelConfig] = {}
-_ARCH_MODULES = ["qwen3_8b", "llama_7b"]
+_ARCH_MODULES = ["qwen3_8b", "llama_7b", "granite_3_8b"]
 
 
 def register_arch(cfg: ModelConfig) -> ModelConfig:

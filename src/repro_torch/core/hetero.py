@@ -22,6 +22,17 @@ device -> pinned host -> device through the sink: that round trip is the
 protocol of the design (R-workers may be remote), and its cost is
 measured rather than short-cut.
 
+Each fixed-shape step callable is a CUDA graph on the card
+(``core/graphs.StepGraph``, the role ``jax.jit`` plays in repro): the
+S-side start, the fused ``s_advance(li) -> s_pre(li+1)`` transitions and
+the logits head per micro-batch, and each R-worker's R-Part per
+(micro-batch, layer) (and per table width for a paged verify).  Graphs
+are captured on first use and replayed over static buffers: the
+gathered r_out lands in a transition's own input, payload shards are
+row views of its outputs, and the block tables live in one fixed device
+buffer per allocator.  Host work (table growth, the D2H copy and the
+synchronise before posting) stays outside the graphs.
+
 Chunk work (``queue_prefill_chunk``) rides the same machinery: a queued
 work item runs inside the next ``decode_step`` as a virtual micro-batch
 ``num_mb + i``, through the same tags, sink and event loop; its payloads
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import decompose as D
+from repro_torch.core import graphs
 from repro_torch.core.config import ATTN, ModelConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -92,11 +104,11 @@ class CompletionSink:
     to host memory on its own thread, scatters it into a preallocated
     per-(step parity, micro-batch, layer, phase) host buffer at its row
     slice, and posts a small ``(wid, tag, err)`` token to one queue.  The
-    S-worker pops tokens in completion order; ``gather`` turns the
-    assembled buffer into one device tensor.  On the card the buffers
-    are pinned host memory.  They are double-buffered on step parity, and
-    ``epoch`` fences aborted steps: posts of an older epoch are dropped
-    before they touch a buffer.
+    S-worker pops tokens in completion order; ``gather`` copies the
+    assembled buffer into the consuming graph's r_out input.  On the card
+    the buffers are pinned host memory.  They are double-buffered on step
+    parity, and ``epoch`` fences aborted steps: posts of an older epoch
+    are dropped before they touch a buffer.
     """
 
     def __init__(self, mb_size: int, device):
@@ -139,15 +151,22 @@ class CompletionSink:
                 return
         self.q.put((wid, tag, err))
 
-    def gather(self, tag) -> Dict[str, torch.Tensor]:
-        """The assembled r_out of ``tag`` as device tensors (one copy per
-        leaf on the caller's stream).  The double-buffered host buffer is
-        not rewritten before this copy has run: it is reused two steps
-        later, after every R-worker has waited on work issued behind it."""
+    def gather(self, tag, into: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """Copy the assembled r_out of ``tag`` into ``into`` (a graph's
+        static r_out inputs; one copy per leaf on the caller's stream, and
+        a new device tensor for a leaf ``into`` lacks).  The
+        double-buffered host buffer is not rewritten before this copy has
+        run: it is reused two steps later, after every R-worker has waited
+        on work issued behind it."""
         _, parity, mb, li, phase = tag
         buf = self._bufs[(parity, mb, li, phase)]
-        return {k: v.to(self.device, non_blocking=True, copy=True)
-                for k, v in buf.items()}
+        for k, v in buf.items():
+            if k in into:
+                into[k].copy_(v, non_blocking=True)
+            else:
+                into[k] = v.to(self.device, non_blocking=True, copy=True)
+        return into
 
     def fence(self) -> None:
         """Invalidate all in-flight work: bump the epoch and drain the
@@ -199,13 +218,18 @@ class RWorker(threading.Thread):
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._stage: Dict[Tuple, torch.Tensor] = {}   # pinned D2H staging
+        # the R-Part graphs, keyed by ("d", layer) for a decode and
+        # ("v", layer, table width) for a verify, in one pool on the
+        # worker's stream
+        self._pool = graphs.GraphPool(self.device, self.stream)
+        self._graphs: Dict[Tuple, graphs.StepGraph] = {}
         self._cache_len = 0                      # set at first state load
         self.state: Dict[int, Any] = {}          # layer key -> r_state
         self.paged_keys: set = set()             # layer keys stored paged
         self.allocators: Dict[int, PC.PagedAllocator] = {}   # mb -> alloc
         self._first_paged: Dict[int, Any] = {}   # mb -> min paged key
-        # ("v", mb) -> the verify step's tables, cut to the used pages
-        self._chunk_tables: Dict[Tuple, torch.Tensor] = {}
+        # mb -> the verify step's table width (a power of two of pages)
+        self._verify_width: Dict[int, int] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
 
@@ -277,6 +301,9 @@ class RWorker(threading.Thread):
         return st
 
     def load_state(self, layer: int, r_state_slice) -> None:
+        # a graph of this layer read the buffers this load replaces
+        self._graphs = {k: g for k, g in self._graphs.items()
+                        if k[1] != layer}
         if self._pageable(r_state_slice):
             if "k_q" in r_state_slice and not self.quantized:
                 r_state_slice = KV.dequantize_attn_state(r_state_slice)
@@ -305,12 +332,13 @@ class RWorker(threading.Thread):
                 if k // self.cfg.num_layers == mb)
         return self._first_paged[mb]
 
-    def _step_paged(self, layer: int, r_in):
-        """One paged decode append+attend.  All of a micro-batch's layers
-        share one allocator and equal lengths, so the table grow — and
-        with it the one device->host sync of the lengths — runs only on
-        the micro-batch's FIRST paged layer each step; the other layers
-        reuse the cached device table."""
+    def _grow_paged(self, layer: int, r_in) -> None:
+        """Host side of a paged decode, outside the graph.  All of a
+        micro-batch's layers share one allocator and equal lengths, so the
+        table grow — and with it the one device->host sync of the lengths
+        — runs only on the micro-batch's FIRST paged layer each step; the
+        table upload (``tables_device``, a copy into the fixed device
+        buffer on this worker's stream) only after a host mutation."""
         mb = layer // self.cfg.num_layers
         alloc = self.allocators[mb]
         if layer == self._first_paged_key(mb):
@@ -318,20 +346,17 @@ class RWorker(threading.Thread):
             alloc.ensure_lengths(r_in["lengths"].cpu().numpy() + 1,
                                  mask=None if act is None
                                  else act.cpu().numpy())
-        return PC.r_attention_paged_tables(
-            r_in, self.state[layer], alloc.tables_device(),
-            window=self.cfg.window, softcap=self.cfg.attn_logit_softcap)
+        alloc.tables_device()
 
-    def _step_paged_verify(self, layer: int, r_in):
-        """Speculative-decode verify append+attend on paged storage: on the
-        micro-batch's first paged layer, grow the shared block tables for
-        the C candidate tokens (one device->host sync of the payload's
-        lengths and mask) and cut them to the power of two of the used
-        pages (a row's pages are a contiguous table prefix, so later
-        columns are unmapped: the sweep then costs O(longest row), not
-        O(capacity), at the price of log2(max_pages) table widths); every
-        paged layer then writes and attends through the multi-token
-        verify kernel."""
+    def _grow_paged_verify(self, layer: int, r_in) -> int:
+        """Host side of a speculative-decode verify on paged storage: on
+        the micro-batch's first paged layer, grow the shared block tables
+        for the C candidate tokens (one device->host sync of the payload's
+        lengths and mask) and choose the power of two of the used pages as
+        the table width the verify kernel sweeps (a row's pages are a
+        contiguous table prefix, so later columns are unmapped: the sweep
+        then costs O(longest row), not O(capacity), at the price of one
+        graph per width).  Returns that width."""
         mb = layer // self.cfg.num_layers
         alloc = self.allocators[mb]
         if layer == self._first_paged_key(mb):
@@ -341,11 +366,47 @@ class RWorker(threading.Thread):
             k = 1
             while k < used:
                 k *= 2
-            self._chunk_tables[("v", mb)] = alloc.tables_device()[
-                :, :min(k, alloc.max_pages)].contiguous()
-        return PC.r_attention_paged_verify(
-            r_in, self.state[layer], self._chunk_tables[("v", mb)],
-            window=self.cfg.window, softcap=self.cfg.attn_logit_softcap)
+            self._verify_width[mb] = min(k, alloc.max_pages)
+        alloc.tables_device()
+        return self._verify_width[mb]
+
+    def _r_body(self, key, kind: str, phase: int):
+        """The R-Part of ``key`` as a graph body over its payload: the
+        storage's append + attend, KV updated in place."""
+        layer = key[1]
+        st, cfg = self.state[layer], self.cfg
+        win, cap = cfg.window, cfg.attn_logit_softcap
+        if layer in self.paged_keys:
+            tables = self.allocators[layer // cfg.num_layers].tables_device()
+            if key[0] == "v":
+                width = key[2]
+
+                def body(r_in):
+                    return PC.r_attention_paged_verify(
+                        r_in, st, tables[:, :width].contiguous(),
+                        window=win, softcap=cap)[0]
+            else:
+                def body(r_in):
+                    return PC.r_attention_paged_tables(
+                        r_in, st, tables, window=win, softcap=cap)[0]
+        elif key[0] == "v" and self.quantized and kind == ATTN:
+            def body(r_in):
+                return KV.r_attention_int8_chunk(
+                    r_in, st, window=win, softcap=cap,
+                    kv_chunk=self.kv_chunk)[0]
+        elif key[0] == "v":
+            def body(r_in):
+                return D.r_dispatch_chunk(kind, phase, r_in, st, cfg,
+                                          self.kv_chunk)[0]
+        elif self.quantized and kind == ATTN:
+            def body(r_in):
+                return KV.r_attention_int8(r_in, st, window=win,
+                                           softcap=cap)[0]
+        else:
+            def body(r_in):
+                return D.r_dispatch(kind, phase, r_in, st, cfg,
+                                    self.kv_chunk)[0]
+        return body
 
     def _to_host(self, r_out: Dict[str, torch.Tensor]):
         if self.stream is None:
@@ -384,30 +445,21 @@ class RWorker(threading.Thread):
                     self.stream.wait_event(ready)
                 # a chunk payload (in this slice: a verify work) carries
                 # its validity mask
-                is_chunk = "valid" in r_in
-                if layer in self.paged_keys and is_chunk:
-                    r_out, new_state = self._step_paged_verify(layer, r_in)
-                elif layer in self.paged_keys:
-                    r_out, new_state = self._step_paged(layer, r_in)
-                elif is_chunk and self.quantized and kind == ATTN:
-                    r_out, new_state = KV.r_attention_int8_chunk(
-                        r_in, self.state[layer], window=self.cfg.window,
-                        softcap=self.cfg.attn_logit_softcap,
-                        kv_chunk=self.kv_chunk)
-                elif is_chunk:
-                    r_out, new_state = D.r_dispatch_chunk(
-                        kind, phase, r_in, self.state[layer], self.cfg,
-                        self.kv_chunk)
-                elif self.quantized and kind == ATTN:
-                    r_out, new_state = KV.r_attention_int8(
-                        r_in, self.state[layer], window=self.cfg.window,
-                        softcap=self.cfg.attn_logit_softcap)
+                if "valid" in r_in:
+                    key = ("v", layer)
+                    if layer in self.paged_keys:
+                        key += (self._grow_paged_verify(layer, r_in),)
                 else:
-                    r_out, new_state = D.r_dispatch(
-                        kind, phase, r_in, self.state[layer], self.cfg,
-                        self.kv_chunk)
-                self.state[layer] = new_state
-                host = self._to_host(r_out)
+                    key = ("d", layer)
+                    if layer in self.paged_keys:
+                        self._grow_paged(layer, r_in)
+                g = self._graphs.get(key)
+                if g is None:
+                    g = self._graphs[key] = graphs.StepGraph(
+                        self._r_body(key, kind, phase), r_in, self._pool)
+                else:
+                    g.feed(r_in)
+                host = self._to_host(g())
             self.busy_time += time.perf_counter() - t0
             sink.post(self.wid, tag, host, self.lo, self.hi)
         except Exception as e:  # surface to the S-worker, don't deadlock
@@ -515,6 +567,15 @@ class HeteroPipelineEngine:
         self.mb_active = [torch.ones((self.mb_size,), dtype=torch.bool,
                                      device=self.device)
                           for _ in range(self.num_mb)]
+        # the S-side graphs (layer transitions of decode and of verify
+        # chunks), in one pool: they all replay on the S-stream.  Each
+        # micro-batch's lengths and active mask are static inputs shared
+        # by its decode graphs, refreshed by copy as each step starts
+        self._s_pool = graphs.GraphPool(self.device)
+        self._s_graphs: Dict[Tuple, graphs.StepGraph] = {}
+        self._mb_in = [{"lengths": torch.zeros_like(self.mb_lengths[mb]),
+                        "active": torch.ones_like(self.mb_active[mb])}
+                       for mb in range(self.num_mb)]
         self._sink = CompletionSink(self.mb_size, self.device)
         self._parity = 0
         # queued chunk works run inside the next decode_step and land in
@@ -604,39 +665,93 @@ class HeteroPipelineEngine:
                 lens[local] = nl
             self.mb_lengths[mb] = lens
 
-    # -- S-side pieces ---------------------------------------------------------
+    # -- S-side pieces (each a StepGraph: repro's jitted callables) ----------
+    # A graph's outputs are the carry ``h`` and the payload (q, k, v), or
+    # the logits after the last layer; its inputs are the previous
+    # transition's ``h`` (that graph's output buffer: no copy), the
+    # gathered r_out, and the micro-batch's lengths and mask (decode) or
+    # base and validity (chunk).  Payload shards are row views of the
+    # outputs, so an R-worker's graph reads them in place.
     def _ctx(self, lengths):
         return M.Ctx(self.cfg, "decode", lengths[:, None], lengths)
 
-    def _start(self, mb: int, tokens):
-        """embed -> s_pre(0), emitting the per-worker r_in shards."""
-        kind, p = self.layers[0]
-        lengths, active = self.mb_lengths[mb], self.mb_active[mb]
-        h = self.params["embed"][tokens.long()]
-        po, new_s = D.s_pre_stateful(kind, p, h, self.s_states[mb][0],
-                                     self._ctx(lengths))
-        self.s_states[mb][0] = mask_rows(new_s, self.s_states[mb][0], active)
-        r_in = dict(po.r_in)
-        r_in["active"] = active
-        return po.carry, shard_rin(r_in, self.slices)
+    def _s_graph(self, key, make_body, inputs) -> graphs.StepGraph:
+        g = self._s_graphs.get(key)
+        if g is None:
+            g = self._s_graphs[key] = graphs.StepGraph(make_body(), inputs,
+                                                       self._s_pool)
+        return g
 
-    def _advance(self, mb: int, li: int, phase: int, carry, r_out):
+    def _s_out(self, out, statics) -> Tuple[Dict, tuple]:
+        """(carry, per-worker r_in shards) of a transition's outputs."""
+        r_in = {k: v for k, v in out.items() if k != "h"}
+        r_in.update(statics)
+        return {"h": out["h"]}, shard_rin(r_in, self.slices)
+
+    def _pre(self, kind, p, h, s_state, ctx, gate=None, valid=None):
+        """s_pre(li) inside a graph body: S-side state written in place
+        (row-gated by ``gate`` in decode), payload without its statics."""
+        if valid is None:
+            po, new_s = D.s_pre_stateful(kind, p, h, s_state, ctx)
+            new_s = mask_rows(new_s, s_state, gate)
+        else:
+            po, new_s = D.s_pre_chunk_stateful(kind, p, h, s_state, ctx,
+                                               valid)
+        for k, v in new_s.items():
+            s_state[k].copy_(v)
+        out = {k: v for k, v in po.r_in.items()
+               if k not in ("lengths", "valid")}
+        out["h"] = po.carry["h"]
+        return out
+
+    def _start(self, mb: int, tokens):
+        """embed -> s_pre(0), emitting the per-worker r_in shards; also
+        refreshes the micro-batch's static lengths and mask."""
+        def make():
+            kind, p = self.layers[0]
+            s_state = self.s_states[mb][0]
+
+            def body(ins):
+                h = self.params["embed"][ins["tokens"].long()]
+                return self._pre(kind, p, h, s_state,
+                                 self._ctx(ins["lengths"]), ins["active"])
+            return body
+        statics = self._mb_in[mb]
+        g = self._s_graph(("start", mb), make, statics)
+        g.feed({"tokens": tokens, "lengths": self.mb_lengths[mb],
+                "active": self.mb_active[mb]})
+        return self._s_out(g(), statics)
+
+    def _advance_graph(self, mb: int, li: int, phase: int, carry):
+        def make():
+            kind, p = self.layers[li]
+            last = li + 1 >= self.num_layers
+            kind2, p2 = self.layers[min(li + 1, self.num_layers - 1)]
+            s2 = self.s_states[mb][min(li + 1, self.num_layers - 1)]
+
+            def body(ins):
+                ctx = self._ctx(ins["lengths"])
+                h = D.s_advance(kind, phase, p, {"h": ins["h"]},
+                                {"o": ins["o"]}, ctx)
+                if last:
+                    return {"logits": M._logits(self.params, self.cfg,
+                                                h)[:, 0]}
+                return self._pre(kind2, p2, h, s2, ctx, ins["active"])
+            return body
+        return self._s_graph(("step", mb, li, phase), make,
+                             dict(self._mb_in[mb], h=carry["h"]))
+
+    def _advance(self, mb: int, li: int, phase: int, carry, r_out=None):
         """s_advance(li) fused with s_pre(li+1) (shards out), or with the
-        logits head after the last layer (logits out)."""
-        kind, p = self.layers[li]
-        lengths, active = self.mb_lengths[mb], self.mb_active[mb]
-        ctx = self._ctx(lengths)
-        h = D.s_advance(kind, phase, p, carry, r_out, ctx)
+        logits head after the last layer (logits out: the graph's buffer,
+        valid until the micro-batch's next step).  ``r_out`` None: the
+        step already gathered it into the graph's inputs."""
+        g = self._advance_graph(mb, li, phase, carry)
+        g.feed(dict(r_out or {}, h=carry["h"]))
+        out = g()
         if li + 1 >= self.num_layers:
-            return None, M._logits(self.params, self.cfg, h)[:, 0]
-        kind2, p2 = self.layers[li + 1]
-        po, new_s = D.s_pre_stateful(kind2, p2, h, self.s_states[mb][li + 1],
-                                     ctx)
-        self.s_states[mb][li + 1] = mask_rows(
-            new_s, self.s_states[mb][li + 1], active)
-        r_in = dict(po.r_in)
-        r_in["active"] = active
-        return po.carry, shard_rin(r_in, self.slices)
+            return None, out["logits"]
+        return self._s_out(out, self._mb_in[mb])
 
     def _chunk_ctx(self, base, c: int):
         qpos = (base[:, None]
@@ -645,30 +760,64 @@ class HeteroPipelineEngine:
         return M.Ctx(self.cfg, "chunk", qpos, base)
 
     def _chunk_start(self, wk: _PrefillChunk):
-        """embed -> s_pre_chunk(0) of a chunk work, shards out."""
-        kind, p = self.layers[0]
-        h = self.params["embed"][wk.tokens.long()]
-        po, new_s = D.s_pre_chunk_stateful(
-            kind, p, h, self.s_states[wk.mb][0],
-            self._chunk_ctx(wk.base, wk.tokens.shape[1]), wk.valid)
-        self.s_states[wk.mb][0] = new_s
-        return po.carry, shard_rin(po.r_in, self.slices)
+        """embed -> s_pre_chunk(0) of a chunk work, shards out.  The
+        work's tokens, base and validity become the micro-batch's static
+        chunk inputs (one work per micro-batch and step)."""
+        c = wk.tokens.shape[1]
 
-    def _chunk_advance(self, wk: _PrefillChunk, li: int, phase: int, carry,
-                       r_out):
+        def make():
+            kind, p = self.layers[0]
+            s_state = self.s_states[wk.mb][0]
+
+            def body(ins):
+                h = self.params["embed"][ins["tokens"].long()]
+                return self._pre(kind, p, h, s_state,
+                                 self._chunk_ctx(ins["base"], c),
+                                 valid=ins["valid"])
+            return body
+        g = self._s_graph(("chunk_start", wk.mb, c), make, {})
+        g.feed({"tokens": wk.tokens, "base": wk.base, "valid": wk.valid})
+        return self._s_out(g(), self._chunk_statics(wk))
+
+    def _chunk_statics(self, wk: _PrefillChunk):
+        ins = self._s_graphs[("chunk_start", wk.mb,
+                              wk.tokens.shape[1])].inputs
+        return {"lengths": ins["base"], "valid": ins["valid"]}
+
+    def _chunk_advance_graph(self, wk: _PrefillChunk, li: int, phase: int,
+                             carry):
+        c = wk.tokens.shape[1]
+        st = self._chunk_statics(wk)
+
+        def make():
+            kind, p = self.layers[li]
+            last = li + 1 >= self.num_layers
+            kind2, p2 = self.layers[min(li + 1, self.num_layers - 1)]
+            s2 = self.s_states[wk.mb][min(li + 1, self.num_layers - 1)]
+
+            def body(ins):
+                ctx = self._chunk_ctx(ins["lengths"], c)
+                h = D.s_advance_chunk(kind, phase, p, {"h": ins["h"]},
+                                      {"o": ins["o"]}, ctx)
+                if last:
+                    return {"logits": M._logits(self.params, self.cfg, h)}
+                return self._pre(kind2, p2, h, s2, ctx, valid=ins["valid"])
+            return body
+        return self._s_graph(("chunk_step", wk.mb, li, phase, c), make,
+                             dict(st, h=carry["h"]))
+
+    def _chunk_advance(self, wk: _PrefillChunk, li: int, phase: int, carry):
         """s_advance_chunk(li) fused with s_pre_chunk(li+1) (shards out),
         or with the logits head after the last layer: a verify work's
-        logits at every position, [mb_size, C, V]."""
-        kind, p = self.layers[li]
-        ctx = self._chunk_ctx(wk.base, wk.tokens.shape[1])
-        h = D.s_advance_chunk(kind, phase, p, carry, r_out, ctx)
+        logits at every position, [mb_size, C, V], copied out of the
+        graph's buffer (the work outlives the step).  The step has
+        gathered r_out into the graph's inputs."""
+        g = self._chunk_advance_graph(wk, li, phase, carry)
+        g.feed({"h": carry["h"]})
+        out = g()
         if li + 1 >= self.num_layers:
-            return None, M._logits(self.params, self.cfg, h)
-        kind2, p2 = self.layers[li + 1]
-        po, new_s = D.s_pre_chunk_stateful(
-            kind2, p2, h, self.s_states[wk.mb][li + 1], ctx, wk.valid)
-        self.s_states[wk.mb][li + 1] = new_s
-        return po.carry, shard_rin(po.r_in, self.slices)
+            return None, out["logits"].clone()
+        return self._s_out(out, self._chunk_statics(wk))
 
     # -- the pipelined decode step ----------------------------------------------
     def decode_step(self, tokens_per_mb: Optional[Sequence[torch.Tensor]]):
@@ -705,6 +854,11 @@ class HeteroPipelineEngine:
             wk = self._prefill_inbox.popleft()
             wk.vmb = self.num_mb + len(works)
             works.append(wk)
+        if len({wk.mb for wk in works}) != len(works):
+            # a work's tokens, base and mask are its micro-batch's static
+            # chunk inputs for the whole step
+            raise ValueError("at most one chunk work per micro-batch and "
+                             "step")
         self.prefill_results = []
         chunk_carries: Dict[int, Any] = {}
         active = (self.num_mb if run_decode else 0) + len(works)
@@ -736,10 +890,12 @@ class HeteroPipelineEngine:
             if any(issue_seq[t] < me for t in pending):
                 stats["ooo_advances"] += 1.0
             t0 = pc()
-            r_out = sink.gather((epoch, parity, mb, li, phase))
+            sink.gather((epoch, parity, mb, li, phase),
+                        self._advance_graph(mb, li, phase,
+                                            carries[mb]).inputs)
             t1 = pc()
             stats["collect_s"] += t1 - t0
-            carry, out = self._advance(mb, li, phase, carries[mb], r_out)
+            carry, out = self._advance(mb, li, phase, carries[mb])
             stats["s_dispatch_s"] += pc() - t1
             if carry is None:
                 logits_out[mb] = out
@@ -753,11 +909,13 @@ class HeteroPipelineEngine:
             nonlocal active
             wk = works[vmb - self.num_mb]
             t0 = pc()
-            r_out = sink.gather((epoch, parity, vmb, li, phase))
+            sink.gather((epoch, parity, vmb, li, phase),
+                        self._chunk_advance_graph(wk, li, phase,
+                                                  chunk_carries[vmb]).inputs)
             t1 = pc()
             stats["collect_s"] += t1 - t0
             carry, out = self._chunk_advance(wk, li, phase,
-                                             chunk_carries[vmb], r_out)
+                                             chunk_carries[vmb])
             stats["s_dispatch_s"] += pc() - t1
             if carry is None:
                 wk.logits = out

@@ -12,11 +12,16 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; ``"cuda"`` without an index names the
+    current card (an R-worker thread calls ``torch.cuda.set_device`` with
+    it, which wants an index)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -26,6 +26,7 @@ plain versions, so a run can show which path it took.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -38,20 +39,43 @@ from repro_torch.kernels import ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_tally = threading.local()
+
+
 class LaunchCounter:
-    """A thread-safe count (R-worker threads launch concurrently)."""
+    """A thread-safe count (R-worker threads launch concurrently).
+
+    Inside ``tally()`` a thread's adds go to that thread's tally instead
+    (a CUDA-graph capture records launches it does not make)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.value = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        counts = getattr(_tally, "counts", None)
+        if counts is not None:
+            counts[self] = counts.get(self, 0) + n
+            return
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect this thread's counter adds in a {counter: n} dict, applied
+    to no counter; other threads count as usual."""
+    prev = getattr(_tally, "counts", None)
+    counts: dict = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
 
 
 launches = LaunchCounter()      # kernel 1 launches on CUDA tensors

@@ -138,8 +138,9 @@ def _flash_chunk_scan(q, qpos, k, v, kpos, *, causal, window, sink, softcap,
         if softcap > 0.0:
             s = softcap * torch.tanh(s / softcap)
         msk = _mask(qpos, pj, causal=causal, window=window, sink=sink)
-        s = torch.where(msk[:, None, None, :, :], s,
-                        torch.tensor(NEG_INF, dtype=F32, device=s.device))
+        # a Python scalar, not a device tensor made from one (a host copy
+        # that a CUDA-graph capture refuses)
+        s = torch.where(msk[:, None, None, :, :], s, NEG_INF)
         m_new = torch.maximum(m_i, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_i - m_new)
@@ -189,8 +190,7 @@ def naive_attention(q, k, v, qpos, kpos, *, causal=True, window=0, sink=0,
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     msk = _mask(qpos, kpos, causal=causal, window=window, sink=sink)
-    s = torch.where(msk[:, None, None, :, :], s,
-                    torch.tensor(NEG_INF, dtype=F32, device=s.device))
+    s = torch.where(msk[:, None, None, :, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(msk[:, None, None, :, :].any(dim=-1, keepdim=True), p,
                     torch.zeros((), dtype=F32, device=p.device))

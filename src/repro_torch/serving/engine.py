@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import decompose as D
+from repro_torch.core import graphs
 from repro_torch.core.config import ATTN, ModelConfig, check_supported
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
                                      batch_slice, per_layer_state)
@@ -206,6 +207,8 @@ class ServingEngine:
             self._spec_cache = cache_len + self.spec.k
             self._spec_state = M.init_decode_state(
                 self._spec_cfg, batch, self._spec_cache, self.device)
+            self._draft_graph: Optional[graphs.StepGraph] = None
+            self._commit_graph: Optional[graphs.StepGraph] = None
 
     def _hetero_init_empty(self, mb: int) -> None:
         state = M.init_decode_state(self.cfg, self.mb_size, self.cache_len,
@@ -439,14 +442,20 @@ class ServingEngine:
         ``M.decode_step`` writes the drafter's KV IN PLACE (the JAX engine
         drafts on a throwaway copy, free under immutability; a copy here
         would move the whole drafter cache every step).  So drafting keeps
-        the state and restores only ``lengths``: draft j of a row of length
-        L sits at position L+j, in a cache of cache_len + k slots that
-        never wraps.  Until the commit (or the next draft) writes position
-        L+j again, that entry is masked by causality: every later query of
-        the row sits at a position below L+j or writes L+j first, and the
-        commit's chunk attention masks stored positions >= its base.  Per-
-        row draft length is capped so the committed chain never exceeds
-        prompt + max_new_tokens (<= cache_len)."""
+        the state and leaves its ``lengths`` as they were: draft j of a row
+        of length L sits at position L+j, in a cache of cache_len + k slots
+        that never wraps.  Until the commit (or the next draft) writes
+        position L+j again, that entry is masked by causality: every later
+        query of the row sits at a position below L+j or writes L+j first,
+        and the commit's chunk attention masks stored positions >= its
+        base.  Per-row draft length is capped so the committed chain never
+        exceeds prompt + max_new_tokens (<= cache_len).
+
+        One drafter decode step (with its argmax) is a graph over the
+        static inputs ``cur``, ``lengths`` (a copy: the state's own stay),
+        ``j`` and ``drafts``; it is replayed up to k times, each replay
+        writing its token into column j of ``drafts`` and feeding it back
+        as ``cur``."""
         k = self.spec.k
         k_row = {row: max(0, min(k, r.max_new_tokens
                                  - len(r.generated) - 1))
@@ -455,21 +464,41 @@ class ServingEngine:
         kmax = max(k_row.values())
         if kmax == 0:
             return drafts
-        state = self._spec_state
-        lengths = state["lengths"]
-        cur = torch.from_numpy(self._last_tok[:, None].copy()).to(
-            self.device)
-        outs = []
+        g = self._draft_graph
+        if g is None:
+            g = self._draft_graph = graphs.StepGraph(
+                self._draft_body(), {
+                    "j": torch.zeros((1,), dtype=torch.long,
+                                     device=self.device),
+                    "drafts": torch.zeros((self.batch, k),
+                                          dtype=torch.int32,
+                                          device=self.device)},
+                self.engine._s_pool)
+        g.feed({"cur": torch.from_numpy(self._last_tok[:, None].copy()),
+                "lengths": self._spec_state["lengths"]})
+        g.inputs["j"].zero_()
         for _ in range(kmax):
-            logits, state = M.decode_step(self._spec_params, self._spec_cfg,
-                                          state, cur)
-            cur = sample(logits)[:, None]
-            outs.append(cur)
-        state["lengths"] = lengths
-        nxt = torch.cat(outs, dim=1).cpu().numpy()
+            g()
+        nxt = g.inputs["drafts"][:, :kmax].cpu().numpy()
         for row, _ in live:
             drafts[row] = [int(t) for t in nxt[row, :k_row[row]]]
         return drafts
+
+    def _draft_body(self):
+        params, cfg, state = self._spec_params, self._spec_cfg, \
+            self._spec_state
+
+        def body(ins):
+            st = {"stack": state["stack"], "rem": state["rem"],
+                  "lengths": ins["lengths"]}
+            logits, st = M.decode_step(params, cfg, st, ins["cur"])
+            nxt = sample(logits)[:, None]
+            ins["cur"].copy_(nxt)
+            ins["lengths"].copy_(st["lengths"])
+            ins["drafts"].index_copy_(1, ins["j"], nxt)
+            ins["j"].add_(1)
+            return {}
+        return body
 
     def _spec_queue_verify(self, live, drafts) -> None:
         """Queue one verify chunk per micro-batch with live rows:
@@ -501,19 +530,40 @@ class ServingEngine:
 
     def _spec_commit_drafter(self, feeds: Dict[int, List[int]]) -> None:
         """Advance the drafter through each surviving row's committed
-        tokens with one batched ragged ``prefill_chunk`` (rows with
-        chunk_pos -1 are untouched), fixed width k+1."""
+        tokens with one batched ragged ``prefill_chunk`` (rows fed no
+        token are untouched), fixed width k+1: a graph over the static
+        inputs ``tokens`` [batch, k+1] and ``counts`` [batch]; the chunk
+        positions come from the drafter's lengths on the device."""
         c = self.spec.k + 1
         toks = np.zeros((self.batch, c), np.int32)
-        pos = np.full((self.batch, c), -1, np.int32)
-        base = self._spec_state["lengths"].cpu().numpy()
+        counts = np.zeros((self.batch,), np.int32)
         for row, feed in feeds.items():
             toks[row, :len(feed)] = feed
-            pos[row, :len(feed)] = int(base[row]) + np.arange(len(feed))
-        _, self._spec_state = M.prefill_chunk(
-            self._spec_params, self._spec_cfg, self._spec_state,
-            torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(pos).to(self.device))
+            counts[row] = len(feed)
+        if self._commit_graph is None:
+            self._commit_graph = graphs.StepGraph(
+                self._commit_body(c), {}, self.engine._s_pool)
+        self._commit_graph.feed({"tokens": torch.from_numpy(toks),
+                                 "counts": torch.from_numpy(counts)})
+        self._commit_graph()
+
+    def _commit_body(self, c: int):
+        """The drafter's ``lengths`` tensor is itself the static buffer:
+        the commit writes the new lengths into it in place."""
+        params, cfg, state = self._spec_params, self._spec_cfg, \
+            self._spec_state
+
+        def body(ins):
+            lengths = state["lengths"]
+            off = torch.arange(c, dtype=torch.int32, device=lengths.device)
+            pos = torch.where(off[None, :] < ins["counts"][:, None],
+                              lengths[:, None] + off[None, :], -1)
+            st = {"stack": state["stack"], "rem": state["rem"],
+                  "lengths": lengths}
+            _, st = M.prefill_chunk(params, cfg, st, ins["tokens"], pos)
+            lengths.copy_(st["lengths"])
+            return {}
+        return body
 
     def _spec_step(self) -> int:
         """One speculative serving step: sync -> draft -> verify ->

@@ -61,7 +61,10 @@ class PagedAllocator:
         # exposing stale KV inside the (pos <= qpos) valid mask
         self.frozen = np.zeros((rows,), bool)
         self.free: List[int] = list(range(num_pages))
-        self._dev_tables: Optional[torch.Tensor] = None   # upload cache
+        # the device copy of ``tables``: one fixed buffer (graphs read it
+        # in place), refreshed by copy after a host mutation
+        self._dev_tables: Optional[torch.Tensor] = None
+        self._dirty = True
 
     def _take_page(self) -> int:
         if self.free:
@@ -76,7 +79,7 @@ class PagedAllocator:
                 f"{self.max_pages}")
         have = int((self.tables[row] >= 0).sum())
         if need > have:
-            self._dev_tables = None     # before mutating: a mid-loop
+            self._dirty = True          # before mutating: a mid-loop
         for slot in range(have, need):  # MemoryError must not leave a
             self.tables[row, slot] = self._take_page()   # stale table
         return need > have
@@ -100,7 +103,7 @@ class PagedAllocator:
     def release(self, row: int) -> None:
         ids = self.tables[row][self.tables[row] >= 0]
         if len(ids):
-            self._dev_tables = None
+            self._dirty = True
         self.free.extend(int(i) for i in ids)
         self.tables[row] = -1
         self.active[row] = False
@@ -173,7 +176,7 @@ class PagedAllocator:
         slots = [s for s in range(keep, self.max_pages)
                  if self.tables[row, s] >= 0]
         if slots:
-            self._dev_tables = None
+            self._dirty = True
         for s in slots:
             self.free.append(int(self.tables[row, s]))
             self.tables[row, s] = -1
@@ -190,12 +193,17 @@ class PagedAllocator:
         return int((self.tables[row] >= 0).sum())
 
     def tables_device(self) -> torch.Tensor:
-        """Device copy of the block table, re-uploaded only after a
-        host-side mutation (a row grows a page every ``page`` steps, not
-        every layer of every step)."""
+        """The block table on the device: one fixed [rows, max_pages]
+        buffer, updated in place (a copy on the current stream) only
+        after a host-side mutation — a row grows a page every ``page``
+        steps, not every layer of every step — so a graph that reads it
+        stays valid."""
         if self._dev_tables is None:
             self._dev_tables = torch.from_numpy(self.tables.copy()).to(
                 self.device)
+        elif self._dirty:
+            self._dev_tables.copy_(torch.from_numpy(self.tables))
+        self._dirty = False
         return self._dev_tables
 
 

@@ -1,0 +1,129 @@
+"""The port's step graphs on the card: a captured S-side transition and a
+captured R-Part per storage (paged fp, paged int8, dense fp, dense int8)
+replayed against the same callable run eagerly (``graphs.eager()``) on
+the same inputs.  Marked ``cuda``: they skip without a CUDA device.  This
+file imports no JAX, so it runs on the card without the JAX-importing
+conftest:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
+        tests/test_torch_graphs_cuda.py
+
+fp32 with TF32 off; a replay launches the eager call's kernels in its
+order, so outputs and KV agree within 1e-5 absolute (exact in practice).
+"""
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graphs
+from repro_torch.core.config import get_arch
+from repro_torch.core.hetero import CompletionSink, HeteroPipelineEngine, \
+    RWorker
+from repro_torch.models import model as M
+
+TOL = 1e-5
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _cfg():
+    # Dh 64, GQA 4/2, fp32: shapes the kernels take
+    return dataclasses.replace(
+        get_arch("qwen3-8b").reduced(layers=2, d_model=256, vocab=512),
+        num_kv_heads=2)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_s_transitions_replay_equals_eager():
+    _needs_card()
+    cfg, dev = _cfg(), torch.device("cuda")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    eng = HeteroPipelineEngine(params, cfg, batch=4, cache_len=32,
+                               device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    try:
+        for _ in range(3):          # capture, then replays
+            toks = torch.randint(1, cfg.vocab_size, (2, 1), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            eng.mb_lengths[0] = torch.randint(0, 20, (2,), generator=gen,
+                                              device=dev, dtype=torch.int32)
+            o = torch.randn((2, 1, cfg.num_heads, cfg.head_dim),
+                            generator=gen, device=dev)
+            runs = []
+            for ctx in (contextlib.nullcontext(), graphs.eager()):
+                with ctx:
+                    carry, shards = eng._start(0, toks)
+                    got = [carry["h"].clone()] + [
+                        v.clone() for s in shards for v in s.values()]
+                    nxt, shards2 = eng._advance(0, 0, 0, carry, {"o": o})
+                    got += [nxt["h"].clone()] + [
+                        v.clone() for s in shards2 for v in s.values()]
+                    _, logits = eng._advance(0, 1, 0, nxt, {"o": o})
+                    runs.append(got + [logits.clone()])
+            torch.cuda.synchronize()
+            for a, b in zip(*runs):
+                _close(a, b)
+        assert all(g._graph is not None for g in eng._s_graphs.values())
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["paged", "paged-int8", "dense",
+                                     "dense-int8"])
+def test_r_part_replay_equals_eager(storage):
+    _needs_card()
+    cfg, dev = _cfg(), torch.device("cuda")
+    paged, quant = storage.startswith("paged"), storage.endswith("int8")
+    hq, hkv, dh, cache = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 32
+    rng = np.random.default_rng(2)
+    lens = np.array([5, 9], np.int32)
+    pos = np.where(np.arange(cache)[None] < lens[:, None],
+                   np.arange(cache)[None], -1).astype(np.int32)
+    st = {"k": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "v": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "pos": pos}
+    workers = []
+    for _ in range(2):          # one replays, one runs eagerly
+        w = RWorker(0, cfg, 0, 2, quantized=quant, paged=paged, page_size=4,
+                    device=dev)
+        w.load_state(0, {k: torch.from_numpy(v.copy()).to(dev)
+                         for k, v in st.items()})
+        workers.append(w)
+    sink = CompletionSink(2, dev)
+    outs = ([], [])
+    for step in range(3):
+        r_in = {k: torch.from_numpy(rng.standard_normal(
+                    (2, 1, h, dh)).astype(np.float32)).to(dev)
+                for k, h in (("q", hq), ("k", hkv), ("v", hkv))}
+        r_in["lengths"] = torch.from_numpy(lens + step).to(dev)
+        r_in["active"] = torch.ones((2,), dtype=torch.bool, device=dev)
+        for w, out, ctx in zip(workers, outs, (contextlib.nullcontext(),
+                                               graphs.eager())):
+            ready = torch.cuda.Event()
+            ready.record()
+            with ctx:
+                w._run_one(((0, 0, 0, 0, 0), 0, "attn", 0, r_in, sink,
+                            ready))
+            _, _, err = sink.q.get_nowait()
+            assert err is None, err
+            out.append(sink._bufs[(0, 0, 0, 0)]["o"].clone())
+    for a, b in zip(*outs):
+        _close(a, b)
+    assert workers[0]._graphs[("d", 0)]._graph is not None
+    assert workers[1]._graphs[("d", 0)]._graph is None
+    for k, v in workers[0].state[0].items():
+        _close(v.float(), workers[1].state[0][k].float())

@@ -38,6 +38,9 @@ CONFIGS = {
     # reduced() caps heads at 4/4, so GQA needs explicit kv heads
     "qwen3-8b-gqa2": lambda: dataclasses.replace(tiny_cfg("qwen3-8b"),
                                                  num_kv_heads=2),
+    # tied embeddings: the logits multiply by embed.T, no lm_head
+    "granite-3-8b": lambda: dataclasses.replace(tiny_cfg("granite-3-8b"),
+                                                num_kv_heads=2),
 }
 
 
@@ -123,6 +126,19 @@ def test_run_decomposed_equals_apply_block(name):
         assert torch.equal(st_a[key], st_b[key])
         _close(st_b[key], jnew[key])
     _close(hb, jh)
+
+
+def test_tied_embedding_logits_match_jax():
+    """granite-3-8b ties its embeddings: the params carry no lm_head
+    across the bridge, and the port's logits (h @ embed.T) equal
+    repro.models.model._logits."""
+    jc, tc, jp, tp = _setup("granite-3-8b")
+    assert jc.tie_embeddings and tc.tie_embeddings
+    assert "lm_head" not in jp and "lm_head" not in tp
+    h = np.random.default_rng(3).standard_normal(
+        (2, 3, jc.d_model)).astype(np.float32)
+    _close(TM._logits(tp, tc, torch.from_numpy(h)),
+           JM._logits(jp, h=jnp.asarray(h), cfg=jc))
 
 
 def test_r_attention_active_gate_keeps_inactive_rows():

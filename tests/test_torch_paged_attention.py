@@ -188,8 +188,12 @@ def test_dense_rows_to_pages_and_allocator_match_jax():
         JPC.page_pool_token_bytes(jpool)
     dev = ta.tables_device()
     assert dev.dtype == torch.int32 and dev is ta.tables_device()
+    before = dev.clone()
     ta.release(2)                                # a host mutation
-    assert ta.tables_device() is not dev
+    # one fixed buffer (CUDA graphs read it in place), refreshed by copy
+    assert ta.tables_device() is dev
+    np.testing.assert_array_equal(dev.numpy(), ta.tables)
+    assert not torch.equal(dev, before)
 
 
 @pytest.mark.parametrize("make", ["PagedAllocator", "init_page_pool",

@@ -1,7 +1,8 @@
 """The port's ServingEngine against the JAX oracle
 ``conftest.serve_trace`` on the same weights and the same trace: the
 greedy {rid: tokens} must be equal (hetero paged, hetero dense, hetero
-int8 dense and paged, and colocated; OoO and FIFO), the paged and int8
+int8 dense and paged, and colocated; OoO and FIFO; reduced qwen3-8b and,
+with tied embeddings, granite-3-8b), the paged and int8
 R-Parts must run on every layer of every step (counted), int8 logits
 must follow the JAX engine's teacher-forced, and admission must behave
 like the reference's."""
@@ -114,6 +115,27 @@ def test_port_serving_matches_jax_oracle(setup, jax_int8_traces, mode):
     n = tc.num_layers * 2 * 2 * steps
     assert TPA.plain_calls.value == (n if paged and not int8 else 0)
     assert TQK.plain_calls.value == (n if int8 else 0)
+
+
+@pytest.fixture(scope="module")
+def granite_setup():
+    """Reduced granite-3-8b: tied embeddings, so every logit the engines
+    sample from comes through embed.T (no lm_head in either package)."""
+    jc = dataclasses.replace(tiny_cfg("granite-3-8b"), num_kv_heads=2)
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    jp = JM.init_params(jax.random.PRNGKey(4), jc)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    spec = random_spec(np.random.default_rng(6), jc, 8)
+    return tc, tp, spec, serve_trace(jp, jc, spec)
+
+
+@pytest.mark.parametrize("mode", ["colocated", "hetero-dense",
+                                  "hetero-paged-ooo"])
+def test_granite_serving_matches_jax_oracle(granite_setup, mode):
+    tc, tp, spec, want = granite_setup
+    assert tc.tie_embeddings and "lm_head" not in tp
+    got, _ = serve_trace_torch(tp, tc, spec, **PORT_KW[mode])
+    assert got == want and len(want) == len(spec)
 
 
 def _teacher_forced_logits(eng, reqs, forced=None):
@@ -268,6 +290,19 @@ def test_serving_engine_refuses_cuda_without_it(setup):
     _, tc, _, tp, _, _ = setup
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(tp, tc, batch=2, cache_len=8, backend="hetero")
+
+
+def test_default_device_names_the_current_card(monkeypatch):
+    """Entry points resolve "cuda" (and no device) to an indexed device:
+    each R-worker thread passes it to torch.cuda.set_device, which refuses
+    a device without an index."""
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    for dev in (None, "cuda", torch.device("cuda")):
+        assert resolve_device(dev) == torch.device("cuda", 3)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_threads_stress_keeps_tokens_and_counts():
