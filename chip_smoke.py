@@ -17,8 +17,10 @@ Phases (any failure exits nonzero):
               instantiation of either source may spill), holds every
               kernel (paged flash-decode; dense flash-decode in bf16/fp32
               and with int8 K/V, the latter also through its paged
-              entry; the paged multi-token verify, whose T = 1 must equal
-              paged flash-decode bitwise) against its plain PyTorch
+              entry and its multi-token paged entry, the int8 verify,
+              whose T = 1 must equal the paged entry bitwise; the paged
+              multi-token verify, whose T = 1 must equal paged
+              flash-decode bitwise) against its plain PyTorch
               version on the card, every kernel also on long rows that
               span many splits (each repeated bitwise), and times it at
               the main path's shape and at a bandwidth shape beside its
@@ -54,6 +56,18 @@ Phases (any failure exits nonzero):
               every logits row logged, and at each request's first
               differing token the max logit difference and the top-2
               margin (teacher-forced: the histories agree before it).
+  serve_chunked
+              the same model and trace with prefill_chunk=128, paged bf16
+              and paged int8: prompts stream in one chunk per step while
+              the other rows decode; the same checks (the decode kernel's
+              count), every request finished, and beside each run the
+              monolithic serve of the same storage: the steps that ran a
+              prefill chunk against the steps that admitted.
+  serve_spec_int8
+              the same with spec_decode=SpecConfig(k=3) and
+              quantized_kv=True, paged (the multi-token int8 entry's
+              launches = layers x workers x verify works, no gather) and
+              dense (the int8 chunk R-Part, no kernel).
   equiv       the same width at 2 layers in fp32 (TF32 off): the hetero
               paged engine (through the kernel) and the colocated engine
               (plain torch) must give the same greedy tokens, a mismatch
@@ -61,11 +75,6 @@ Phases (any failure exits nonzero):
               beyond tolerance; the hetero engine's graph tokens must
               equal its eager tokens (logits within tolerance).  So in
               equiv_int8 and equiv_spec.
-
-The serve and equiv phases run the hetero engine's CUDA graphs
-(``repro_torch.core.graphs``) unless a run says eager; the serve
-records give the captures made, their seconds and the graph pools'
-bytes.
   equiv_int8  the same at 2 layers: hetero paged-int8 == hetero dense-int8
               (tokens, logits within 1e-4), both through the int8 kernel,
               and both within 0.5 of the colocated fp logits fed the same
@@ -75,6 +84,20 @@ bytes.
               spec_decode=SpecConfig(k=3) must give the colocated spec-off
               engine's greedy tokens, a flip counting only if the logits
               that chose it differ beyond tolerance.
+  equiv_chunk the same at 2 layers with prefill_chunk=5: dense and paged
+              (pages of 4 and 16), OoO and FIFO, == colocated monolithic;
+              int8 chunked runs within 0.5 of the fp logits; the int8
+              bytes the chunk writers store bit-identical to a monolithic
+              load's; prefill chunks sharing steps with verify works
+              (spec k = 2) == colocated spec-off.
+  equiv_spec_int8
+              spec k = 3 on int8 storage, paged (through the multi-token
+              int8 entry) and dense == spec-off int8 of the same storage.
+
+The serve and equiv phases run the hetero engine's CUDA graphs
+(``repro_torch.core.graphs``) unless a run says eager; the serve
+records give the captures made, their seconds and the graph pools'
+bytes.
 
 Earlier lines print one JSON object per phase and one ``kernels`` line;
 the line before the last is the card's name and power limit; the last
@@ -113,6 +136,11 @@ KERNELS = {
     "paged_verify_attention": (
         "src/repro_torch/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:174"),
+    # kernel 3's multi-token paged entry (the paged int8 verify): a
+    # port-side entry of kernel 3, computing src/repro/kernels/ops.py:152
+    "verify_int8": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/quant_kv.py:44"),
 }
 # kernel vs plain version: |out - want| <= atol + rtol * |want|.  Both
 # accumulate in fp32 and round once to the output dtype, so in bf16 they
@@ -949,6 +977,188 @@ def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
     return rec
 
 
+def verify_int8_checks(dev) -> dict:
+    """Kernel 3's multi-token paged entry (the int8 verify) against
+    ``ref.paged_verify_attention_int8_ref`` (the gather chain, on q.float()
+    for a bf16 q: the kernel keeps the dequantized K/V in fp32): bf16 and
+    fp32 q; GQA 4 and 8; page 4 and 16; T 1, 2, 4 and 8 candidate tokens;
+    ragged rows, a -1 hole, a shared page and an all-unmapped row (no
+    valid key: exactly 0); window + sink and softcap; the long multi-split
+    tables of ``long_cases``, each repeated bitwise; and T = 1 against
+    the decode entry on the same inputs, which must be bitwise equal (the
+    same instantiation and split plan)."""
+    import torch
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(7)
+    cases = []
+    for t in (1, 2, 4, 8):
+        for g in (4, 8):
+            for page in (4, 16):
+                cases.append(dict(
+                    name=f"T{t}-G{g}-page{page}", t=t,
+                    kw=dict(b=5, hq=2 * g, hkv=2, dh=128, page=page,
+                            mp=-(-84 // page), lengths=[37, 5, 0, 63, 20],
+                            unmapped_row=2, hole=(3, 1), share=(0, 4)),
+                    attn=dict()))
+    for t in (1, 4):
+        cases.append(dict(
+            name=f"T{t}-window-sink", t=t,
+            kw=dict(b=3, hq=8, hkv=2, dh=128, page=16, mp=8,
+                    lengths=[100, 17, 64], unmapped_row=None),
+            attn=dict(window=24, sink=4)))
+        cases.append(dict(
+            name=f"T{t}-softcap-dh64", t=t,
+            kw=dict(b=3, hq=16, hkv=4, dh=64, page=4, mp=18,
+                    lengths=[50, 3, 61], unmapped_row=None),
+            attn=dict(softcap=5.0)))
+        cases += [dict(c, name=c["name"].split("-", 1)[1])
+                  for c in long_cases("float32", t=t)]
+    results, t1_equal = [], []
+    for dtype_name in ("bfloat16", "float32"):
+        for c in cases:
+            t = c["t"]
+            kw = dict(c["kw"])
+            # the pages hold the last candidate: position base + t - 1
+            kw["lengths"] = [n + t - 1 for n in kw["lengths"]]
+            _, pk, pv, tables, lens = _paged_case(
+                gen, dtype=torch.float32, dev=dev, **kw)
+            base = (lens - (t - 1)).contiguous()
+            q = torch.randn((kw["b"], t, kw["hq"], kw["dh"]),
+                            generator=gen).to(dev).to(getattr(torch,
+                                                              dtype_name))
+            pkq, pks = QK.quantize_kv(pk)
+            pvq, pvs = QK.quantize_kv(pv)
+            args = (q, pkq, pks, pvq, pvs, tables, base)
+            got = QK.paged_verify_attention_int8(*args, **c["attn"])
+            again = (QK.paged_verify_attention_int8(*args, **c["attn"])
+                     if c.get("long") else None)
+            want = ref.paged_verify_attention_int8_ref(q.float(), *args[1:],
+                                                       **c["attn"])
+            un = kw.get("unmapped_row")
+            rec = _check_case("verify_int8", f"{dtype_name}-{c['name']}",
+                              dtype_name, got, want,
+                              empty_row=un if un is not None else [],
+                              again=again, plan=QK.paged_plan(q, pkq, tables))
+            if t == 1:
+                dec = QK.paged_decode_attention_int8(q[:, 0].contiguous(),
+                                                     *args[1:], **c["attn"])
+                torch.cuda.synchronize()
+                rec["equal_to_decode_entry"] = bool(torch.equal(got[:, 0],
+                                                                dec))
+                t1_equal.append(rec["equal_to_decode_entry"])
+                if not rec["equal_to_decode_entry"]:
+                    raise AssertionError(f"verify_int8 at T = 1 differs from "
+                                         f"the decode entry: {rec}")
+            results.append(rec)
+    return {"cases": results,
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "t1_bitwise_equal_to_decode_entry": all(t1_equal)}
+
+
+def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
+                       page=16, cache_len=None, copies=1,
+                       iters=50) -> dict:
+    """Kernel 3's multi-token paged entry, its plain version and the SDPA
+    yardstick at one shape, bf16 q, int8 pools: every row holds ``n_tok``
+    valid tokens, the verify's base is n_tok - t (its last candidate at
+    n_tok - 1), the tables cut to the power of two of the used pages as
+    the verify R-Part cuts them; ``copies`` pools cycled past the L2.
+    SDPA reads K/V dequantized to bf16 and laid out per head, with a
+    boolean mask (neither the dequantization nor the layout is timed)."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    mp = -(-(cache_len or n_tok) // page)
+    per_row = -(-n_tok // page)
+    used = 1
+    while used < per_row:
+        used *= 2
+    n_pages = b * mp + 1
+    lens_val = n_tok - t
+    lens = torch.full((b,), lens_val, dtype=torch.int32, device=dev)
+    bufs = []
+    for _ in range(copies):
+        pool = []
+        for _kv in range(2):
+            x = torch.randn((n_pages, page, hkv, dh), generator=gen,
+                            device=dev)
+            pool += list(QK.quantize_kv(x))
+            del x
+        q = torch.randn((b, t, hq, dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ids = torch.randperm(b * mp, generator=gen, device=dev)
+        tables = torch.full((b, mp), -1, dtype=torch.int32, device=dev)
+        tables[:, :per_row] = ids[:b * per_row].reshape(b, per_row).to(
+            torch.int32)
+        tables = tables[:, :min(used, mp)].contiguous()
+        deq = []
+        for vq, vs in ((pool[0], pool[1]), (pool[2], pool[3])):
+            g, _ = ref.paged_gather(QK.dequantize_kv(vq, vs), tables)
+            deq.append(g[:, :n_tok].permute(0, 2, 1, 3).contiguous().to(
+                torch.bfloat16))
+        bufs.append((q, *pool, tables, deq[0], deq[1]))
+    qp = lens_val + torch.arange(t, device=dev)
+    mask = (torch.arange(n_tok, device=dev)[None, :]
+            <= qp[:, None])[None, None].expand(b, 1, t, n_tok)
+
+    def kern(i):
+        q, kq, ks, vq, vs, tables = bufs[i % copies][:6]
+        return QK.paged_verify_attention_int8(q, kq, ks, vq, vs, tables,
+                                              lens)
+
+    def plain(i):
+        q, kq, ks, vq, vs, tables = bufs[i % copies][:6]
+        return ref.paged_verify_attention_int8_ref(q, kq, ks, vq, vs, tables,
+                                                   lens)
+
+    def lib(i):
+        q, kd, vd = bufs[i % copies][0], bufs[i % copies][6], \
+            bufs[i % copies][7]
+        return _sdpa(q, kd, vd, mask, t)
+
+    q, kq, ks, vq, vs, tables = bufs[0][:6]
+    got = kern(0)
+    err, ok = tol_check(got, ref.paged_verify_attention_int8_ref(
+        q.float(), kq, ks, vq, vs, tables, lens), "bfloat16")
+    if not ok:
+        raise AssertionError(f"verify_int8 at the {name} shape: max err "
+                             f"{err} against the plain version, (atol, rtol)"
+                             f" {TOL['bfloat16']}")
+    lib_err = float((got.float() - lib(0).float()).abs().max())
+    ms = cuda_time_ms(kern, iters)
+    plain_ms = cuda_time_ms(plain, max(3, iters // 10), warmup=1)
+    library_ms = cuda_time_ms(lib, iters)
+    calls = copies * max(1, 16 // copies)
+    device_ms = graph_time_ms(kern, calls)
+    library_device_ms = graph_time_ms(lib, calls, strict=False)
+    pps, n_splits = QK.paged_plan(q, kq, tables)
+    # the valid rows' int8 K/V and scales once, q and o, tables, lengths
+    bytes_moved = (2 * b * n_tok * hkv * (dh + 4) + 2 * b * t * hq * dh * 2
+                   + tables.numel() * 4 + b * 4)
+    flops = 4 * b * hq * dh * sum(lens_val + i + 1 for i in range(t))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"shape": name, "B": b, "T": t, "tokens_per_row": n_tok,
+            "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page,
+            "table_pages": tables.shape[1], "q_dtype": "bfloat16",
+            "kv_dtype": "int8", "pool_copies": copies, "max_abs_err": err,
+            "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "split_plan": {"pages_per_split": pps, "num_splits": n_splits},
+            "ctas": n_splits * hkv * b * QK.verify_row_groups(
+                t, hq // hkv, torch.bfloat16),
+            "merge_launches_per_call": int(n_splits > 1),
+            "bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "achieved_GBps": bytes_moved / (ms * 1e-3) / 1e9,
+            "achieved_GBps_device": bytes_moved / (device_ms * 1e-3) / 1e9}
+
+
 _PTXAS_FN = re.compile(
     r"(paged_attn_kernel|merge_splits|dense_attn_kernel|dense_merge)"
     r"I(13__nv_bfloat16|f)(13__nv_bfloat16|S1_|f|a)?Li(\d+)E"
@@ -974,7 +1184,8 @@ def ptxas_summary(text: str) -> list:
                             kv, "bfloat16")
                     if gt:
                         cur.update(rows_per_cta=int(gt),
-                                   entry="paged" if flag1 == "1" else "slab",
+                                   entry="paged-multi-token" if flag2 == "1"
+                                   else "paged" if flag1 == "1" else "slab",
                                    engine="tensor cores"
                                    if cur.get("kv_dtype") == "int8"
                                    and dtype == "bfloat16" else "CUDA cores")
@@ -1040,6 +1251,14 @@ def phase_kernel(dev) -> dict:
                          copies=16, iters=200)
     s_bw = slab_timing(dev, "bandwidth", b=64, s=4096, n_valid=4096,
                        copies=1, iters=20)
+    v8checks = verify_int8_checks(dev)
+    # kernel 3's multi-token entry at the int8 spec serve's per-worker
+    # verify call (2 rows, the last of 4 candidates at position 511) and
+    # at 64 x 4096
+    v8_main = verify_int8_timing(dev, "main-path", b=2, n_tok=512,
+                                 cache_len=1024, copies=16, iters=200)
+    v8_bw = verify_int8_timing(dev, "bandwidth", b=64, n_tok=4096,
+                               copies=1, iters=20)
     kernels = {"paged_decode_attention": {
         "checks": checks["cases"], "timing": [main, bw],
         "max_abs_err": max(checks["max_abs_err"], main["max_abs_err"],
@@ -1059,6 +1278,14 @@ def phase_kernel(dev) -> dict:
             vchecks["t1_bitwise_equal_to_kernel_1"],
         "max_abs_err": max(vchecks["max_abs_err"], v_main["max_abs_err"],
                            v_bw["max_abs_err"])}
+    kernels["verify_int8"] = {
+        "checks": v8checks["cases"], "timing": [v8_main, v8_bw],
+        "t1_bitwise_equal_to_decode_entry":
+            v8checks["t1_bitwise_equal_to_decode_entry"],
+        "ptxas": [r for r in ptxas["decode_attention"]
+                  if r.get("entry") == "paged-multi-token"],
+        "max_abs_err": max(v8checks["max_abs_err"], v8_main["max_abs_err"],
+                           v8_bw["max_abs_err"])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
             "ptxas": ptxas, "kernels": kernels,
             "paged_int8_op": gather_timing(dev)}
@@ -1300,7 +1527,8 @@ def _counters():
             "decode_attention": (DA.launches, DA.plain_calls),
             "decode_attention_int8": (QK.launches, QK.plain_calls),
             "paged_verify_attention": (PA.verify_launches,
-                                       PA.verify_plain_calls)}
+                                       PA.verify_plain_calls),
+            "verify_int8": (QK.verify_launches, QK.verify_plain_calls)}
 
 
 def _reset_counters() -> None:
@@ -1354,33 +1582,41 @@ def graph_memory(eng) -> dict:
     return {"graphs": len(gs),
             "graphs_s": len(het._s_graphs),
             "graphs_r": [len(w._graphs) for w in het.workers],
+            # a prefill chunk's: its S-side start and transitions, its
+            # R-Parts per (layer, C, table width)
+            "graphs_chunk_s": sum(1 for k in het._s_graphs
+                                  if k[0].startswith("chunk") and not k[2]),
+            "graphs_chunk_r": [sum(1 for k in w._graphs if k[0] == "c")
+                               for w in het.workers],
             "graph_pool_bytes": pool_bytes,
             "graph_static_bytes": sum(g.static_bytes() for g in gs)}
 
 
-def serve_run(dev, model, out: Path, *, kernel: str, paged: bool,
-              quantized: bool, spec_k: int = 0, profile: str = "",
-              trace: bool = False, eager: bool = False) -> dict:
+def serve_run(dev, model, out: Path, *, kernel, paged: bool,
+              quantized: bool, spec_k: int = 0, prefill_chunk: int = 0,
+              profile: str = "", trace: bool = False,
+              eager: bool = False) -> dict:
     """Serve the 12-request trace through ServingEngine(backend="hetero",
     num_r_workers=2) with the given storage, speculative decoding with
-    ``spec_k`` drafts per row when nonzero: through the CUDA graphs of
-    the step callables, or op by op with ``eager``.  Every count is set
-    to 0 just before the counted run and read just after it: ``kernel``'s
-    launches must equal layers x workers x (micro-batches x decode steps,
-    or the verify works run with spec decoding), no other kernel of the
-    paged path may run (kernel 1 never runs in a spec serve), and no
-    plain version may run; on the graph path the counts come from
-    replays.  ``profile`` names a profiled window of 3 steps afterwards
-    (written to ``out``)."""
+    ``spec_k`` drafts per row when nonzero, chunked prefill with
+    ``prefill_chunk`` tokens per chunk when nonzero: through the CUDA
+    graphs of the step callables, or op by op with ``eager``.  Every
+    count is set to 0 just before the counted run and read just after it:
+    ``kernel``'s launches must equal layers x workers x (micro-batches x
+    decode steps, or the verify works run with spec decoding), no other
+    kernel may run (``kernel`` None: none at all), and no plain version
+    may run; on the graph path the counts come from replays.  ``profile``
+    names a profiled window of 3 steps afterwards (written to ``out``)."""
     from repro_torch.core import graphs
     with (graphs.eager() if eager else contextlib.nullcontext()):
         return _serve_run(dev, model, out, kernel=kernel, paged=paged,
                           quantized=quantized, spec_k=spec_k,
-                          profile=profile, trace=trace, eager=eager)
+                          prefill_chunk=prefill_chunk, profile=profile,
+                          trace=trace, eager=eager)
 
 
 def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
-               profile, trace, eager) -> dict:
+               prefill_chunk, profile, trace, eager) -> dict:
     import torch
     from repro_torch.core import graphs
     from repro_torch.kernels import decode_attention as DA
@@ -1395,6 +1631,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                         num_microbatches=n_mb, paged_kv=paged,
                         quantized_kv=quantized, page_size=16, batch=batch,
                         cache_len=1024, device=dev,
+                        prefill_chunk=prefill_chunk,
                         spec_decode=SpecConfig(k=spec_k) if spec_k else None)
     try:
         reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
@@ -1406,25 +1643,38 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         graphs.captures.reset()
         nonfinite = 0
         peak_resident = 0.0
-        verify_works = row_verifies = 0
+        verify_works = row_verifies = prefill_works = 0
         step_tokens = []        # decode (or verify) tokens of each step
+        # steps that admitted (monolithic) or ran a prefill chunk
+        prefill_steps = []
+        step_capture = []       # capture seconds inside each step
         seen = eng.engine.prefill_results
         with _GatherCount() as gathers:
             while eng.queue or any(s is not None for s in eng.slots):
                 n0 = sum(len(r.generated) for r in reqs)
+                first0 = sum(not r.generated for r in reqs)
+                cap0 = graphs.captures.capture_s
                 rec_ = eng.step()
+                step_capture.append(graphs.captures.capture_s - cap0)
+                # a request's token 0 comes from its prefill's logits
+                first = first0 - sum(not r.generated for r in reqs)
                 step_tokens.append(sum(len(r.generated) for r in reqs)
-                                   - n0 - rec_.admitted)
-                if spec_k:
-                    # a step with no live row runs no verify (the list stays)
-                    if eng.engine.prefill_results is not seen:
-                        seen = eng.engine.prefill_results
-                        for wk in seen:
+                                   - n0 - first)
+                fills = 0
+                # a step with no live row or chunk runs no chunk work (the
+                # list stays)
+                if eng.engine.prefill_results is not seen:
+                    seen = eng.engine.prefill_results
+                    for wk in seen:
+                        if wk.verify:
                             verify_works += 1
                             row_verifies += len(wk.rows)
-                            nonfinite += int(
-                                (~torch.isfinite(wk.logits)).sum())
-                else:
+                        else:
+                            fills += 1
+                        nonfinite += int((~torch.isfinite(wk.logits)).sum())
+                prefill_works += fills
+                prefill_steps.append(bool(fills or rec_.admitted))
+                if not spec_k:
                     nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
                 peak_resident = max(peak_resident, eng.paged_resident_bytes())
                 if eng.step_idx > 200:
@@ -1470,27 +1720,31 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         raise AssertionError(f"{nonfinite} non-finite logits")
     calls = verify_works if spec_k else n_mb * steps
     want = cfg.num_layers * n_workers * calls
-    others = {n: v for n, v in launches.items()
-              if n != kernel and n.startswith("paged_") and paged}
-    # the paged int8 op is one call of kernel 3's paged entry, no gather
-    want_paged = want if paged and quantized else 0
-    if launches[kernel] != want or any(plain.values()) \
+    others = {n: v for n, v in launches.items() if n != kernel}
+    # the paged int8 decode is one call of kernel 3's paged entry, no
+    # gather (the int8 verify: one call of its multi-token entry)
+    want_paged = want if paged and quantized and not spec_k else 0
+    got = launches[kernel] if kernel else 0
+    if got != (want if kernel else 0) or any(plain.values()) \
             or any(others.values()) or paged_int8 != want_paged \
-            or gathers.calls:
+            or gathers.calls or (prefill_chunk and not prefill_works):
         raise AssertionError(
-            f"{kernel} launches {launches[kernel]} != layers x workers x "
+            f"{kernel} launches {got} != layers x workers x "
             f"{'verify works' if spec_k else 'micro-batches x decode steps'}"
-            f" = {want} (other paged kernels {others}, plain calls "
+            f" = {want} (other kernels {others}, plain calls "
             f"{plain}; kernel 3's paged launches {paged_int8}, want "
-            f"{want_paged}; page gathers {gathers.calls}, want 0)")
+            f"{want_paged}; page gathers {gathers.calls}, want 0; prefill "
+            f"works {prefill_works} at prefill_chunk {prefill_chunk})")
     recs = eng.records
     dec = [rec.decode_wall for rec in recs]
+    wall = [rec.wall for rec in recs]
     # tokens emitted by decode (or verify) steps (token 0 of a request
     # comes from its prefill logits, inside prefill_wall)
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
     rec = {"storage": ("paged-" if paged else "dense-")
            + ("int8" if quantized else cfg.dtype),
            "mode": "eager" if eager else "graphs",
+           "prefill_chunk": prefill_chunk,
            "model": "qwen3-8b", "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
@@ -1509,10 +1763,29 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "first_step_s": dec[0],
            "decode_step_s_p50": float(np.median(dec)),
            "decode_step_s_max": float(np.max(dec)),
+           # whole steps (prefill + decode wall): all, and those that
+           # admitted (monolithic) or ran a prefill chunk
+           "step_wall_s_p50": float(np.median(wall)),
+           "step_wall_s_max": float(np.max(wall)),
+           "prefill_steps": int(sum(prefill_steps)),
+           "prefill_step_wall_s_max": max(
+               (w for w, f in zip(wall, prefill_steps) if f), default=None),
+           "prefill_step_wall_s_max_after_first_step": max(
+               (w for w, f in zip(wall[1:], prefill_steps[1:]) if f),
+               default=None),
+           # the same without the steps that captured graphs (a chunk
+           # R-Part's new table width is captured mid-serve)
+           "prefill_step_wall_s_max_without_captures": max(
+               (w for w, f, c in zip(wall, prefill_steps, step_capture)
+                if f and c == 0.0), default=None),
+           "steps_with_captures": int(sum(c > 0.0 for c in step_capture)),
+           "capture_s_after_first_step": sum(step_capture[1:]),
+           "prefill_works": prefill_works,
            "prefill_s_total": sum(rec.prefill_wall for rec in recs),
+           "decode_s_total": sum(dec),
            "kv_bytes": kv_bytes, "page_pool_bytes": pool_bytes,
            "paged_resident_bytes_peak": peak_resident,
-           "kernel": kernel, "kernel_launches": launches[kernel],
+           "kernel": kernel, "kernel_launches": got,
            "launches": launches, "plain_calls": plain,
            "paged_merge_launches": merges,
            "dense_merge_launches": dense_merges,
@@ -1597,6 +1870,71 @@ def phase_serve_spec(dev, model, out: Path, spec_off=None) -> dict:
         rec["tokens_per_s_ratio_to_spec_off"] = (
             rec["decode_tokens_per_s"] / spec_off["decode_tokens_per_s"])
     return {"phase": "serve_spec", "ok": True, **rec}
+
+
+CHUNK = 128          # serve_chunked's prefill_chunk
+COMPARE_KEYS = ("decode_tokens_per_s", "decode_tokens_per_s_after_first_step",
+                "decode_step_s_p50", "decode_step_s_max", "step_wall_s_p50",
+                "step_wall_s_max", "prefill_step_wall_s_max",
+                "prefill_step_wall_s_max_after_first_step",
+                "prefill_step_wall_s_max_without_captures",
+                "steps_with_captures", "capture_s_after_first_step",
+                "prefill_s_total", "decode_s_total")
+
+
+def phase_serve_chunked(dev, model, out: Path, mono=None) -> dict:
+    """The same trace with prefill_chunk=128 on graphs: paged bf16 (decode
+    rows through kernel 1) and paged int8 (kernel 3's paged entry); each
+    admitted prompt streams in one 128-token chunk per step inside the
+    pipelined step (the chunk R-Parts are plain torch, as in the JAX
+    package) while the other rows decode.  ``mono`` (the monolithic
+    serves of this call, paged bf16 and paged int8) sit beside each run:
+    the steps that ran a prefill chunk against the steps that admitted."""
+    runs = []
+    for quantized, kernel, prof in (
+            (False, "paged_decode_attention", "serve_chunked"),
+            (True, "decode_attention_int8", "serve_chunked_int8")):
+        runs.append(serve_run(dev, model, out, kernel=kernel, paged=True,
+                              quantized=quantized, prefill_chunk=CHUNK,
+                              profile=prof))
+    for r, m in zip(runs, mono or (None, None)):
+        if m is not None:
+            r["vs_monolithic"] = {k: [r[k], m[k]] for k in COMPARE_KEYS}
+            r["tokens_equal_to_monolithic"] = r["tokens"] == m["tokens"]
+    return {"phase": "serve_chunked", "ok": True, "runs": runs,
+            "kernel_launches": runs[0]["kernel_launches"]}
+
+
+def phase_serve_spec_int8(dev, model, out: Path, spec_off=None,
+                          spec_bf16=None) -> dict:
+    """The same trace with spec_decode=SpecConfig(k=3) and quantized_kv=
+    True, paged (every verify through kernel 3's multi-token entry,
+    reading the int8 pools in place: no gather; no decode kernel) and
+    dense (the int8 chunk R-Part, plain torch: no kernel at all).  Beside
+    each run: the spec-off int8 serve of the same storage (``spec_off``:
+    tokens equal, reported, not required, as in bf16) and the bf16 spec
+    serve (``spec_bf16``: tokens/s)."""
+    paged = serve_run(dev, model, out, kernel="verify_int8", paged=True,
+                      quantized=True, spec_k=3, profile="serve_spec_int8")
+    dense = serve_run(dev, model, out, kernel=None, paged=False,
+                      quantized=True, spec_k=3)
+    for r, off in zip((paged, dense), spec_off or (None, None)):
+        if off is None:
+            continue
+        same = [rid for rid, toks in r["tokens"].items()
+                if off["tokens"][rid] == toks]
+        r["requests_equal_to_spec_off"] = len(same) / len(r["tokens"])
+        r["first_diff_vs_spec_off"] = {
+            rid: next((i for i, (a, b) in enumerate(
+                zip(toks, off["tokens"][rid])) if a != b), None)
+            for rid, toks in r["tokens"].items()}
+        r["tokens_per_s_ratio_to_spec_off"] = (
+            r["decode_tokens_per_s"] / off["decode_tokens_per_s"])
+    if spec_bf16 is not None:
+        paged["tokens_per_s_ratio_to_bf16_spec"] = (
+            paged["decode_tokens_per_s"] / spec_bf16["decode_tokens_per_s"])
+    return {"phase": "serve_spec_int8", "ok": True, "runs": [paged, dense],
+            "kernel_launches": paged["kernel_launches"]}
 
 
 def spec_triage(dev, model, spec_rec, off_rec) -> dict:
@@ -1731,17 +2069,48 @@ EQUIV_LOGIT_TOL = 1e-4     # fp32 logits, TF32 off
 QUANT_BOUND = 0.5          # int8 vs fp logits, as tests/test_hetero.py holds
 
 
-def _serve_logged(eng, reqs, forced=None):
+def _serve_logged(eng, reqs, forced=None, on_step=None):
     """Serve ``reqs`` step by step.  Returns ({rid: (tokens, [logits of
     each decode step that sampled a token of it, on the host])}, the
-    token array of every sampling call).  With ``forced`` (such a list
-    from another run of the same requests) the engine is fed those tokens
-    in place of its own argmax, so its logits are teacher-forced."""
+    token array of every sampling call).  With ``forced`` the engine is
+    fed other tokens in place of its own argmax, so its logits are
+    teacher-forced: a list of such token arrays from another run of the
+    same engine, call by call, or a dict {rid: tokens} from any run of
+    the same requests (the rows of each sampling call are looked up: the
+    RUNNING rows of a decode step, the requests a monolithic admission
+    places, the rows a prefill chunk completes).  ``on_step(eng)`` runs
+    after every step."""
     import torch
+    from repro_torch.serving.request import Status
     sampled = []
     logs = {r.rid: [] for r in reqs}
     own_sample, own_decode = eng._sample_tokens, eng.engine.decode_step
+    own_place = eng._place_monolithic
     in_decode = [False]
+    placing = []
+
+    def place(reqs_, rows):
+        placing[:] = reqs_
+        try:
+            return own_place(reqs_, rows)
+        finally:
+            placing[:] = []
+
+    def rows_of(logits):
+        """(logits row, request) of each token this sampling call makes."""
+        if in_decode[0]:
+            return [(i, r) for i, r in enumerate(eng.slots)
+                    if r is not None and r.status is Status.RUNNING]
+        if placing:
+            return list(enumerate(placing))
+        wk = next(w for w in eng.engine.prefill_results
+                  if w.logits is logits)
+        out = []
+        for local in wk.rows:
+            r = eng.slots[wk.mb * eng.mb_size + int(local)]
+            if r is not None and r.status is Status.PREFILLING:
+                out.append((int(local), r))
+        return out
 
     def decode_step(*args):
         # a chunk-only step (a spec verify) samples nothing: its logits
@@ -1752,18 +2121,24 @@ def _serve_logged(eng, reqs, forced=None):
 
     def sample(logits):
         toks = own_sample(logits)
-        if forced is not None:
+        if isinstance(forced, dict):
+            toks = toks.copy()
+            for i, r in rows_of(logits):
+                toks[i] = forced[r.rid][len(r.generated)]
+        elif forced is not None:
             toks = forced[len(sampled)].copy()
         if in_decode[0]:        # rows hold their requests until sampled
-            in_decode[0] = False
             lg = logits.float().cpu()
             for i, r in enumerate(eng.slots):
-                if r is not None:
+                # a PREFILLING row samples nothing from a decode step
+                if r is not None and r.status is Status.RUNNING:
                     logs[r.rid].append(lg[i])
+            in_decode[0] = False
         sampled.append(toks)
         return toks
 
     eng._sample_tokens, eng.engine.decode_step = sample, decode_step
+    eng._place_monolithic = place
     # a spec step chooses its tokens in sampler.spec_accept, one call per
     # live row in _spec_rows order: the logits row that chose committed
     # token i of a call is logits[i]
@@ -1792,6 +2167,8 @@ def _serve_logged(eng, reqs, forced=None):
             eng.submit(r)
         while eng.queue or any(s is not None for s in eng.slots):
             eng.step()
+            if on_step is not None:
+                on_step(eng)
             if eng.step_idx > 200:
                 raise AssertionError("equiv serve did not drain in 200 "
                                      "steps")
@@ -1857,21 +2234,24 @@ def _equiv_model(dev, seed):
 
 
 def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None,
-                 eager=False, **kw):
+                 eager=False, on_step=None, **kw):
     """``stats`` (a dict), when given, receives the engine's spec_stats;
     ``eager`` runs the step callables op by op instead of replaying their
-    graphs."""
+    graphs; ``on_step(eng)`` runs after every step.  Hetero engines have
+    2 R-workers, 2 micro-batches and pages of 16 unless ``kw`` says
+    otherwise."""
     from repro_torch.core import graphs
     from repro_torch.serving.engine import ServingEngine
     hetero = kw.get("backend") == "hetero"
     if hetero:
-        kw.update(num_r_workers=2, num_microbatches=2, page_size=16)
+        kw = dict(dict(num_r_workers=2, num_microbatches=2, page_size=16),
+                  **kw)
     eng = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev,
                         **kw)
     try:
         with (graphs.eager() if eager else contextlib.nullcontext()):
             return _serve_logged(eng, _requests(np.random.default_rng(2),
-                                                **spec), forced)
+                                                **spec), forced, on_step)
     finally:
         eng.close()
         if stats is not None:
@@ -2008,8 +2388,237 @@ def phase_equiv_spec(dev) -> dict:
             "logit_tol": EQUIV_LOGIT_TOL, "runs": runs}
 
 
-PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "equiv",
-          "equiv_int8", "equiv_spec")
+def _int8_storage_check(dev, cfg, params) -> dict:
+    """The int8 K/V and scales that the chunk R-Parts write chunk by chunk
+    (5 tokens a chunk, dense slab and paged pool with pages of 16) against
+    those a monolithic load writes (``kv_cache.quantize_attn_state``, as
+    ``RWorker.write_rows`` stores an admitted prefill, and
+    ``paged_cache.dense_rows_to_pages``), on the same fp32 K/V: every
+    layer's of the model's prefill of four prompts of 17-200 tokens.  They
+    must be bit-identical (quantization per (token, head), whatever the
+    chunking).  In a serve the K/V themselves differ past layer 0: chunk
+    attention reads the earlier chunks' dequantized keys, a monolithic
+    prefill fp ones (as in the JAX package)."""
+    import torch
+    from repro_torch.core.config import ATTN
+    from repro_torch.core.decompose import split_block_state
+    from repro_torch.core.hetero import per_layer_state
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import prefill
+    from repro_torch.serving import kv_cache as KV
+    from repro_torch.serving import paged_cache as PC
+    rng = np.random.default_rng(5)
+    plens = [17, 200, 64, 131]
+    n, cache, c, page = len(plens), 256, 5, 16
+    toks = np.zeros((n, cache), np.int32)
+    for i, ln in enumerate(plens):
+        toks[i, :ln] = rng.integers(1, cfg.vocab_size, ln)
+    _, state = prefill(params, cfg, torch.from_numpy(toks).to(dev),
+                       torch.tensor(plens, dtype=torch.int32, device=dev),
+                       cache)
+    names = ("k_q", "k_s", "v_q", "v_s")
+    compared = 0
+    for li, layer in enumerate(per_layer_state(state, cfg)):
+        st, _ = split_block_state(ATTN, layer)
+        hkv, dh = st["k"].shape[2:]
+        mono = KV.quantize_attn_state(st)
+        slab = {"k_q": torch.zeros_like(mono["k_q"]),
+                "k_s": torch.zeros_like(mono["k_s"]),
+                "v_q": torch.zeros_like(mono["v_q"]),
+                "v_s": torch.zeros_like(mono["v_s"]),
+                "pos": torch.full_like(mono["pos"], -1)}
+        mp = cache // page
+        pools, allocs = [], []
+        for _ in range(2):
+            allocs.append(PC.PagedAllocator(n, n * mp, page, mp,
+                                            device=dev))
+            pools.append(PC.init_page_pool(n * mp, page, hkv, dh,
+                                           quantized=True, device=dev))
+        PC.dense_rows_to_pages(pools[0], allocs[0], np.arange(n), st)
+        lens = torch.tensor(plens, device=dev)
+        for c0 in range(0, max(plens), c):
+            off = torch.arange(c0, c0 + c, device=dev)
+            r_in = {"q": torch.zeros((n, c, cfg.num_heads, dh), device=dev),
+                    "k": st["k"][:, c0:c0 + c], "v": st["v"][:, c0:c0 + c],
+                    "lengths": torch.full((n,), c0, dtype=torch.int32,
+                                          device=dev),
+                    "valid": off[None, :] < lens[:, None]}
+            KV.r_attention_int8_chunk(r_in, slab, window=0, softcap=0.0)
+            counts = r_in["valid"].sum(dim=1).cpu().numpy()
+            allocs[1].append_chunk(np.full(n, c0), counts)
+            PC.r_attention_paged_chunk(r_in, pools[1],
+                                       allocs[1].tables_device())
+        ok = mono["pos"] >= 0
+        if not torch.equal(slab["pos"], mono["pos"]):
+            raise AssertionError(f"layer {li}: chunked slab positions differ")
+        for name in names:
+            if not torch.equal(slab[name][ok], mono[name][ok]):
+                raise AssertionError(f"layer {li}: the dense chunk writer's "
+                                     f"{name} differs from the monolithic "
+                                     f"load's")
+            got = ref.paged_gather(pools[1][name],
+                                   allocs[1].tables_device())[0]
+            want = ref.paged_gather(pools[0][name],
+                                    allocs[0].tables_device())[0]
+            for i, ln in enumerate(plens):
+                if not torch.equal(got[i, :ln], want[i, :ln]):
+                    raise AssertionError(
+                        f"layer {li} row {i}: the paged chunk writer's "
+                        f"{name} differs from the monolithic load's")
+        compared += int(ok.sum())
+    return {"layers": cfg.num_layers, "prompt_tokens": plens, "chunk": c,
+            "page": page, "token_slots_compared_per_storage": compared,
+            "bit_identical": True}
+
+
+def phase_equiv_chunk(dev) -> dict:
+    """Chunked prefill at 2 layers, fp32, TF32 off: hetero
+    prefill_chunk=5 on dense storage and on paged storage with pages of 4
+    and 16, OoO and FIFO, must give the colocated monolithic engine's
+    greedy tokens (a flip counting only if the teacher-forced logits that
+    chose it differ beyond tolerance), the paged OoO run at pages of 16
+    also its eager run's; int8 chunked runs (dense, paged) stay within
+    the quantization bound of the colocated fp engine fed their tokens,
+    and the chunk writers store the int8 bytes a monolithic load stores
+    (``_int8_storage_check``); and prefill chunks sharing chunk-only steps
+    with verify works (paged, prefill_chunk=5, spec k = 2) give the
+    colocated spec-off tokens."""
+    from repro_torch.serving.engine import SpecConfig
+    cfg, params, spec = _equiv_model(dev, 1)
+    want, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
+    runs = {}
+    for name, storage in (("dense", {}),
+                          ("paged4", dict(paged_kv=True, page_size=4)),
+                          ("paged16", dict(paged_kv=True, page_size=16))):
+        for schedule in ("ooo", "fifo"):
+            _reset_counters()
+            got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                                  prefill_chunk=5, schedule=schedule,
+                                  **storage)
+            launches = {n: c[0].value for n, c in _counters().items()}
+            max_diff, mismatches, ties, margin = _compare(got, want,
+                                                          EQUIV_LOGIT_TOL)
+            want_kernels = ({"paged_decode_attention"} if storage
+                            else set())
+            launched = {n for n, v in launches.items() if v}
+            if mismatches or max_diff > EQUIV_LOGIT_TOL \
+                    or launched != want_kernels:
+                raise AssertionError(
+                    f"chunked hetero-{name}-{schedule} != colocated: "
+                    f"mismatches {mismatches}, max logit diff {max_diff} "
+                    f"(tol {EQUIV_LOGIT_TOL}), kernel launches {launches}")
+            rec = {"tokens_equal": not ties, "near_tie_flips": ties,
+                   "max_logit_diff": max_diff, "min_top2_margin": margin,
+                   "kernel_launches": launches}
+            if name == "paged16" and schedule == "ooo":
+                eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                                        backend="hetero", prefill_chunk=5,
+                                        **storage)
+                rec["max_logit_diff_vs_eager"] = _graphs_equal_eager(
+                    "chunked paged16", got, eager)
+            runs[f"{name}-{schedule}"] = rec
+    # int8: within the quantization bound of fp, teacher-forced
+    int8 = {}
+    for name, paged in (("dense-int8", False), ("paged-int8", True)):
+        got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                              prefill_chunk=5, quantized_kv=True,
+                              paged_kv=paged)
+        fp, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated",
+                             forced={rid: t for rid, (t, _) in got.items()})
+        quant = max(float((a - b).abs().max())
+                    for rid, (_, logs) in got.items()
+                    for a, b in zip(logs, fp[rid][1]))
+        if quant > QUANT_BOUND:
+            raise AssertionError(f"chunked {name} logits differ from the fp "
+                                 f"engine's by {quant} > {QUANT_BOUND}")
+        same = sum(t == want[rid][0] for rid, (t, _) in got.items())
+        int8[name] = {"max_logit_diff_vs_fp": quant,
+                      "requests_equal_to_fp": same / len(got)}
+    storage = _int8_storage_check(dev, cfg, params)
+    # prefill chunks and verify works sharing chunk-only steps
+    shared = [0]
+
+    def count_shared(eng):
+        works = eng.engine.prefill_results
+        fills = {wk.mb for wk in works if not wk.verify}
+        shared[0] += bool(fills & {wk.mb for wk in works if wk.verify})
+    got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                          paged_kv=True, prefill_chunk=5,
+                          spec_decode=SpecConfig(k=2), on_step=count_shared)
+    max_diff, mismatches, ties, margin = _compare(got, want, EQUIV_LOGIT_TOL)
+    if mismatches or max_diff > EQUIV_LOGIT_TOL or not shared[0]:
+        raise AssertionError(
+            f"spec k=2 + chunked paged != colocated spec-off: mismatches "
+            f"{mismatches}, max logit diff {max_diff}, steps sharing a "
+            f"micro-batch {shared[0]}")
+    runs["spec2-chunked-paged16"] = {
+        "tokens_equal": not ties, "near_tie_flips": ties,
+        "max_logit_diff": max_diff, "min_top2_margin": margin,
+        "steps_sharing_a_micro_batch": shared[0]}
+    return {"phase": "equiv_chunk", "ok": True, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+            "prefill_chunk": 5, "requests": len(want),
+            "logit_tol": EQUIV_LOGIT_TOL, "runs": runs, "int8": int8,
+            "quant_bound": QUANT_BOUND, "int8_storage": storage}
+
+
+def phase_equiv_spec_int8(dev) -> dict:
+    """Speculative decoding on int8 storage (self-speculation, k = 3) at
+    2 layers, fp32, TF32 off: hetero paged-int8 (every verify through
+    kernel 3's multi-token entry) and dense-int8 (the int8 chunk R-Part,
+    no kernel) must each give the spec-off int8 engine's greedy tokens of
+    the same storage, a flip counting only if the teacher-forced logits
+    that chose it differ beyond tolerance; the paged run's graphs also its
+    eager run's.  The tolerance is the int8 bound, not fp32's: the verify
+    computes K/V in products of C tokens where a decode computes them one
+    token at a time, and a last-bit difference that crosses a rounding
+    boundary of the quantization moves a stored value by one int8 step
+    (and the dense chunk R-Part, as the JAX package's, attends the
+    candidates' own K/V in fp where a decode reads them back
+    quantized)."""
+    from repro_torch.serving.engine import SpecConfig
+    cfg, params, spec = _equiv_model(dev, 1)
+    runs = {}
+    for name, paged in (("paged-int8", True), ("dense-int8", False)):
+        want, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                               paged_kv=paged, quantized_kv=True)
+        _reset_counters()
+        stats = {}
+        got, _ = _equiv_serve(dev, cfg, params, spec, stats=stats,
+                              backend="hetero", paged_kv=paged,
+                              quantized_kv=True, spec_decode=SpecConfig(k=3))
+        launches = {n: c[0].value for n, c in _counters().items()}
+        tol = QUANT_BOUND
+        max_diff, mismatches, ties, margin = _compare(got, want, tol)
+        want_kernels = {"verify_int8"} if paged else set()
+        launched = {n for n, v in launches.items() if v}
+        if mismatches or max_diff > tol or launched != want_kernels:
+            raise AssertionError(
+                f"spec {name} != spec-off {name}: mismatches {mismatches}, "
+                f"max logit diff {max_diff} (tol {tol}), kernel "
+                f"launches {launches} (want only {sorted(want_kernels)})")
+        rec = {"logit_tol": tol, "tokens_equal": not ties,
+               "near_tie_flips": ties,
+               "max_logit_diff": max_diff, "min_top2_margin": margin,
+               "kernel_launches": launches, "spec_stats": stats,
+               "acceptance_rate": stats["accepted_tokens"]
+               / max(1, stats["drafted_tokens"])}
+        if paged:
+            eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                                    backend="hetero", paged_kv=True,
+                                    quantized_kv=True,
+                                    spec_decode=SpecConfig(k=3))
+            rec["max_logit_diff_vs_eager"] = _graphs_equal_eager(
+                f"spec {name}", got, eager)
+        runs[name] = rec
+    return {"phase": "equiv_spec_int8", "ok": True, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+            "spec_k": 3, "requests": spec["n"], "runs": runs}
+
+
+PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
+          "serve_spec_int8", "equiv", "equiv_int8", "equiv_spec",
+          "equiv_chunk", "equiv_spec_int8")
 
 
 def kernels_line(results) -> list:
@@ -2017,15 +2626,18 @@ def kernels_line(results) -> list:
     main path's shape (null where the kernel phase did not run) and its
     launches in the counted serve run of its path: the bf16 paged serve
     for kernel 1, the paged-int8 serve for kernel 3, the spec serve for
-    kernel 4; kernel 2 is on no
+    kernel 4, the paged int8 spec serve for kernel 3's multi-token entry
+    (``verify_int8``); kernel 2 is on no
     serve path (as in the JAX package, only ops.decode_attention reaches
     it), so its count is that of the serve runs, 0 (null where no serve
     phase ran)."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
-    spec = results.get("serve_spec")
+    spec, spec8 = results.get("serve_spec"), results.get("serve_spec_int8")
+    chunked = results.get("serve_chunked")
     runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else []) \
-        + ([spec] if spec else [])
+        + ([spec] if spec else []) + (spec8["runs"] if spec8 else []) \
+        + (chunked["runs"] if chunked else [])
     launches = {
         "paged_decode_attention": serve["kernel_launches"] if serve else None,
         "decode_attention": sum(r["launches"]["decode_attention"]
@@ -2033,6 +2645,7 @@ def kernels_line(results) -> list:
         "decode_attention_int8": serve8["kernel_launches"] if serve8
         else None,
         "paged_verify_attention": spec["kernel_launches"] if spec else None,
+        "verify_int8": spec8["kernel_launches"] if spec8 else None,
     }
     line = []
     for name, (source, replaces) in KERNELS.items():
@@ -2089,7 +2702,8 @@ def main(argv=None) -> int:
         log(phase_compare(dev, args.v1_source.resolve()))
     if args.v1_dense_source is not None:
         log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
-    if {"serve", "serve_int8", "serve_spec"} & set(phases):
+    if {"serve", "serve_int8", "serve_spec", "serve_chunked",
+            "serve_spec_int8"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:
             results["serve"] = phase_serve(dev, model, args.out)
@@ -2101,6 +2715,16 @@ def main(argv=None) -> int:
             results["serve_spec"] = phase_serve_spec(
                 dev, model, args.out, results.get("serve"))
             log(results["serve_spec"])
+        int8_runs = (results["serve_int8"]["runs"]
+                     if "serve_int8" in results else (None, None))
+        if "serve_chunked" in phases:
+            results["serve_chunked"] = phase_serve_chunked(
+                dev, model, args.out, (results.get("serve"), int8_runs[0]))
+            log(results["serve_chunked"])
+        if "serve_spec_int8" in phases:
+            results["serve_spec_int8"] = phase_serve_spec_int8(
+                dev, model, args.out, int8_runs, results.get("serve_spec"))
+            log(results["serve_spec_int8"])
         del model
         torch.cuda.empty_cache()
     if "equiv" in phases:
@@ -2112,6 +2736,12 @@ def main(argv=None) -> int:
     if "equiv_spec" in phases:
         results["equiv_spec"] = phase_equiv_spec(dev)
         log(results["equiv_spec"])
+    if "equiv_chunk" in phases:
+        results["equiv_chunk"] = phase_equiv_chunk(dev)
+        log(results["equiv_chunk"])
+    if "equiv_spec_int8" in phases:
+        results["equiv_spec_int8"] = phase_equiv_spec_int8(dev)
+        log(results["equiv_spec_int8"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -36,15 +36,20 @@ synchronise before posting) stays outside the graphs.
 Chunk work (``queue_prefill_chunk``) rides the same machinery: a queued
 work item runs inside the next ``decode_step`` as a virtual micro-batch
 ``num_mb + i``, through the same tags, sink and event loop; its payloads
-carry a ``valid`` mask [rows, C].  In this slice the only chunk work is
-the speculative-decode verify step (``verify=True``): C candidate
-tokens per row, scored in one pipelined pass (``decode_step(None)`` runs
-a chunk-only step); paged storage runs it through the multi-token verify
-kernel, dense storage through ``decompose.r_dispatch_chunk``.
+carry a ``valid`` mask [rows, C].  A plain chunk is chunked prefill: C
+prompt tokens per row streamed to the R-workers layer by layer while the
+other rows decode, the last layer returning each row's logits at its
+last valid position.  A verify work (``verify=True``, its payloads
+marked ``verify``) is the speculative-decode scoring step: C candidate
+tokens per row, every position's logits back (``decode_step(None)`` runs
+a chunk-only step).  Paged storage runs a prefill chunk through
+``paged_cache.r_attention_paged_chunk`` and a verify through the
+multi-token verify kernels; dense storage runs both through
+``decompose.r_dispatch_chunk`` (``kv_cache.r_attention_int8_chunk`` on
+int8 storage).
 
-Not in this slice (see ROADMAP.md): chunked prefill (plain prompt
-chunks), the prefix cache, tiering, fleet management, chaos supervision
-and observability.
+Not in this slice (see ROADMAP.md): the prefix cache, tiering, fleet
+management, chaos supervision and observability.
 """
 from __future__ import annotations
 
@@ -121,11 +126,17 @@ class CompletionSink:
         self._bufs: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 
     def _buffer(self, key, host: Dict[str, torch.Tensor]):
-        # caller (post) holds self._lock; every key always carries the same
-        # payload layout in this slice: [rows, 1, ...] for a decode
-        # micro-batch, [rows, k+1, ...] for a verify work's virtual one
+        # caller (post) holds self._lock.  A key's payload layout may change
+        # between the steps that share its parity: a virtual micro-batch
+        # carries [rows, prefill_chunk, ...] for a prefill work in one step
+        # and [rows, k+1, ...] for a verify work two steps later, so a
+        # buffer of another layout is replaced (every worker of one step
+        # posts the same layout; the old buffer's last gather ran two steps
+        # ago)
         buf = self._bufs.get(key)
-        if buf is None:
+        if buf is None or any(
+                k not in buf or buf[k].shape[1:] != v.shape[1:]
+                or buf[k].dtype != v.dtype for k, v in host.items()):
             buf = {k: torch.empty((self.mb_size,) + tuple(v.shape[1:]),
                                   dtype=v.dtype, pin_memory=self.pin)
                    for k, v in host.items()}
@@ -218,9 +229,10 @@ class RWorker(threading.Thread):
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._stage: Dict[Tuple, torch.Tensor] = {}   # pinned D2H staging
-        # the R-Part graphs, keyed by ("d", layer) for a decode and
-        # ("v", layer, table width) for a verify, in one pool on the
-        # worker's stream
+        # the R-Part graphs, keyed by ("d", layer) for a decode, and by
+        # ("c", layer, C[, table width]) for a prefill chunk and ("v",
+        # layer, C[, table width]) for a verify (the width on paged
+        # storage), in one pool on the worker's stream
         self._pool = graphs.GraphPool(self.device, self.stream)
         self._graphs: Dict[Tuple, graphs.StepGraph] = {}
         self._cache_len = 0                      # set at first state load
@@ -228,8 +240,10 @@ class RWorker(threading.Thread):
         self.paged_keys: set = set()             # layer keys stored paged
         self.allocators: Dict[int, PC.PagedAllocator] = {}   # mb -> alloc
         self._first_paged: Dict[int, Any] = {}   # mb -> min paged key
-        # mb -> the verify step's table width (a power of two of pages)
-        self._verify_width: Dict[int, int] = {}
+        # (mb, "c" or "v") -> the table width (a power of two of pages) of
+        # this step's prefill chunk or verify work: one step may carry both
+        # for one micro-batch, on disjoint rows, each with its own width
+        self._chunk_width: Dict[Tuple[int, str], int] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
 
@@ -348,15 +362,19 @@ class RWorker(threading.Thread):
                                  else act.cpu().numpy())
         alloc.tables_device()
 
-    def _grow_paged_verify(self, layer: int, r_in) -> int:
-        """Host side of a speculative-decode verify on paged storage: on
-        the micro-batch's first paged layer, grow the shared block tables
-        for the C candidate tokens (one device->host sync of the payload's
-        lengths and mask) and choose the power of two of the used pages as
-        the table width the verify kernel sweeps (a row's pages are a
-        contiguous table prefix, so later columns are unmapped: the sweep
-        then costs O(longest row), not O(capacity), at the price of one
-        graph per width).  Returns that width."""
+    def _grow_paged_chunk(self, layer: int, r_in, mode: str) -> int:
+        """Host side of a chunk work on paged storage, a prefill chunk
+        (``mode`` "c", repro's ``_step_paged_chunk``) or a speculative-
+        decode verify ("v", ``_step_paged_verify``): on the micro-batch's
+        first paged layer, grow the shared block tables for the chunk's
+        tokens (one device->host sync of the payload's lengths and mask; a
+        row starting at offset 0 is re-admitted fresh) and choose the power
+        of two of the used pages as the table width the R-Part sweeps (a
+        row's pages are a contiguous table prefix, so later columns are
+        unmapped: the sweep then costs O(longest row), not O(capacity), at
+        the price of one graph per width).  The width is kept per (mb,
+        mode): a step may carry a prefill chunk and a verify work of one
+        micro-batch.  Returns that width."""
         mb = layer // self.cfg.num_layers
         alloc = self.allocators[mb]
         if layer == self._first_paged_key(mb):
@@ -366,9 +384,9 @@ class RWorker(threading.Thread):
             k = 1
             while k < used:
                 k *= 2
-            self._verify_width[mb] = min(k, alloc.max_pages)
+            self._chunk_width[(mb, mode)] = min(k, alloc.max_pages)
         alloc.tables_device()
-        return self._verify_width[mb]
+        return self._chunk_width[(mb, mode)]
 
     def _r_body(self, key, kind: str, phase: int):
         """The R-Part of ``key`` as a graph body over its payload: the
@@ -379,22 +397,29 @@ class RWorker(threading.Thread):
         if layer in self.paged_keys:
             tables = self.allocators[layer // cfg.num_layers].tables_device()
             if key[0] == "v":
-                width = key[2]
+                width = key[3]
 
                 def body(r_in):
                     return PC.r_attention_paged_verify(
                         r_in, st, tables[:, :width].contiguous(),
                         window=win, softcap=cap)[0]
+            elif key[0] == "c":
+                width = key[3]
+
+                def body(r_in):
+                    return PC.r_attention_paged_chunk(
+                        r_in, st, tables[:, :width].contiguous(),
+                        window=win, softcap=cap, kv_chunk=self.kv_chunk)[0]
             else:
                 def body(r_in):
                     return PC.r_attention_paged_tables(
                         r_in, st, tables, window=win, softcap=cap)[0]
-        elif key[0] == "v" and self.quantized and kind == ATTN:
+        elif key[0] != "d" and self.quantized and kind == ATTN:
             def body(r_in):
                 return KV.r_attention_int8_chunk(
                     r_in, st, window=win, softcap=cap,
                     kv_chunk=self.kv_chunk)[0]
-        elif key[0] == "v":
+        elif key[0] != "d":
             def body(r_in):
                 return D.r_dispatch_chunk(kind, phase, r_in, st, cfg,
                                           self.kv_chunk)[0]
@@ -443,12 +468,15 @@ class RWorker(threading.Thread):
             with ctx:
                 if ready is not None:
                     self.stream.wait_event(ready)
-                # a chunk payload (in this slice: a verify work) carries
-                # its validity mask
+                # a chunk payload carries its validity mask; a verify
+                # payload also the ``verify`` marker (as in repro), which
+                # routes it to the verify R-Part
                 if "valid" in r_in:
-                    key = ("v", layer)
+                    mode = "v" if "verify" in r_in else "c"
+                    r_in = {k: v for k, v in r_in.items() if k != "verify"}
+                    key = (mode, layer, r_in["valid"].shape[1])
                     if layer in self.paged_keys:
-                        key += (self._grow_paged_verify(layer, r_in),)
+                        key += (self._grow_paged_chunk(layer, r_in, mode),)
                 else:
                     key = ("d", layer)
                     if layer in self.paged_keys:
@@ -481,9 +509,10 @@ class _PrefillChunk:
     the same per-layer S-steps and CompletionSink tags as a decode
     micro-batch: it IS a decode step with a sequence dimension.  ``vmb``
     is the virtual micro-batch id routing its completions (>= num_mb,
-    assigned per decode_step).  ``verify`` marks speculative-decode
-    scoring, the only chunk work of this slice: the last layer returns
-    every position's logits [mb_size, C, V]."""
+    assigned per decode_step).  A plain work is a chunked-prefill chunk:
+    the last layer returns each row's logits at its last valid position,
+    [mb_size, V].  ``verify`` marks speculative-decode scoring: the last
+    layer returns every position's logits [mb_size, C, V]."""
     mb: int
     tokens: torch.Tensor         # [mb_size, C] int32
     base: torch.Tensor           # [mb_size] int32: per-row KV offset
@@ -607,17 +636,16 @@ class HeteroPipelineEngine:
     def queue_prefill_chunk(self, mb: int, rows, tokens, bases, counts,
                             verify: bool = False) -> _PrefillChunk:
         """Queue one chunk for local ``rows`` of micro-batch ``mb``:
-        ``tokens`` [n, C] right-padded, ``bases`` [n] per-row KV offsets,
-        ``counts`` [n] valid tokens (<= C).  The chunk runs INSIDE the
+        ``tokens`` [n, C] right-padded, ``bases`` [n] per-row KV offsets
+        (tokens already prefilled), ``counts`` [n] valid tokens (<= C; the
+        tail chunk of a prompt is shorter).  The chunk runs INSIDE the
         next decode_step, pipelined through the same per-layer tags as
-        the decode micro-batches, and the work item (with its logits)
+        the decode micro-batches, its KV streamed to the owning R-workers
+        layer by layer, and the work item (with its logits: per row at
+        the last valid position, or every position with ``verify``)
         appears in ``prefill_results`` after that step.  ``verify=True``
-        is speculative-decode scoring, the only chunk work of this
-        slice."""
-        if not verify:
-            raise NotImplementedError(
-                "chunked prefill (plain prompt chunks) is not ported yet — "
-                "queued in ROADMAP.md")
+        is speculative-decode scoring.  A step takes at most one work per
+        (micro-batch, verify)."""
         rows = np.asarray(rows, np.int64)
         tokens = np.asarray(tokens, np.int32)
         n, c = tokens.shape
@@ -640,6 +668,22 @@ class HeteroPipelineEngine:
             + np.asarray(counts, np.int64), verify=bool(verify))
         self._prefill_inbox.append(work)
         return work
+
+    def begin_prefill_rows(self, rows) -> None:
+        """Prepare global batch rows for chunked prefill: mark them
+        decode-inactive and zero their lengths.  The attention-only archs
+        of the port need no state reset: chunk appends are write-then-
+        attend, and a previous occupant's stale entries are masked by
+        position.  Must run between decode steps."""
+        by_mb: Dict[int, List[int]] = {}
+        for row in rows:
+            mb, local = divmod(int(row), self.mb_size)
+            by_mb.setdefault(mb, []).append(local)
+            self.set_row_active(int(row), False)
+        for mb, locs in by_mb.items():
+            lens = self.mb_lengths[mb].clone()    # in-flight payloads keep
+            lens[locs] = 0                        # the old tensor
+            self.mb_lengths[mb] = lens
 
     def truncate_rows(self, rows, new_lens) -> None:
         """Roll global batch rows back to ``new_lens`` tokens: the
@@ -761,8 +805,9 @@ class HeteroPipelineEngine:
 
     def _chunk_start(self, wk: _PrefillChunk):
         """embed -> s_pre_chunk(0) of a chunk work, shards out.  The
-        work's tokens, base and validity become the micro-batch's static
-        chunk inputs (one work per micro-batch and step)."""
+        work's tokens, base and validity become the static chunk inputs
+        of its (micro-batch, verify, C): a prefill chunk and a verify work
+        of one micro-batch in one step each have their own."""
         c = wk.tokens.shape[1]
 
         def make():
@@ -775,18 +820,18 @@ class HeteroPipelineEngine:
                                  self._chunk_ctx(ins["base"], c),
                                  valid=ins["valid"])
             return body
-        g = self._s_graph(("chunk_start", wk.mb, c), make, {})
+        g = self._s_graph(("chunk_start", wk.mb, wk.verify, c), make, {})
         g.feed({"tokens": wk.tokens, "base": wk.base, "valid": wk.valid})
         return self._s_out(g(), self._chunk_statics(wk))
 
     def _chunk_statics(self, wk: _PrefillChunk):
-        ins = self._s_graphs[("chunk_start", wk.mb,
+        ins = self._s_graphs[("chunk_start", wk.mb, wk.verify,
                               wk.tokens.shape[1])].inputs
         return {"lengths": ins["base"], "valid": ins["valid"]}
 
     def _chunk_advance_graph(self, wk: _PrefillChunk, li: int, phase: int,
                              carry):
-        c = wk.tokens.shape[1]
+        c, verify = wk.tokens.shape[1], wk.verify
         st = self._chunk_statics(wk)
 
         def make():
@@ -799,19 +844,30 @@ class HeteroPipelineEngine:
                 ctx = self._chunk_ctx(ins["lengths"], c)
                 h = D.s_advance_chunk(kind, phase, p, {"h": ins["h"]},
                                       {"o": ins["o"]}, ctx)
-                if last:
+                if last and verify:
                     return {"logits": M._logits(self.params, self.cfg, h)}
+                if last:
+                    # each row's last valid position (a row fed nothing
+                    # gives position 0's, which the caller ignores)
+                    cnt = ins["valid"].sum(dim=1)
+                    idx = torch.clamp(cnt - 1, 0, c - 1)
+                    rows = torch.arange(h.shape[0], device=h.device)
+                    hsel = h[rows, idx][:, None]
+                    return {"logits": M._logits(self.params, self.cfg,
+                                                hsel)[:, 0]}
                 return self._pre(kind2, p2, h, s2, ctx, valid=ins["valid"])
             return body
-        return self._s_graph(("chunk_step", wk.mb, li, phase, c), make,
-                             dict(st, h=carry["h"]))
+        return self._s_graph(("chunk_step", wk.mb, verify, li, phase, c),
+                             make, dict(st, h=carry["h"]))
 
     def _chunk_advance(self, wk: _PrefillChunk, li: int, phase: int, carry):
         """s_advance_chunk(li) fused with s_pre_chunk(li+1) (shards out),
         or with the logits head after the last layer: a verify work's
-        logits at every position, [mb_size, C, V], copied out of the
-        graph's buffer (the work outlives the step).  The step has
-        gathered r_out into the graph's inputs."""
+        logits at every position, [mb_size, C, V], or a prefill chunk's at
+        each row's last valid position, [mb_size, V] (repro's
+        ``_chunk_step_fn`` "final"), copied out of the graph's buffer (the
+        work outlives the step).  The step has gathered r_out into the
+        graph's inputs."""
         g = self._chunk_advance_graph(wk, li, phase, carry)
         g.feed({"h": carry["h"]})
         out = g()
@@ -835,8 +891,12 @@ class HeteroPipelineEngine:
             raise ValueError(f"{len(tokens_per_mb)} token groups for "
                              f"{self.num_mb} micro-batches")
         pc = time.perf_counter
+        # prefill_s: the S-side time of chunk work that delayed no decode
+        # micro-batch, and the event-loop waits that served only chunk
+        # work (repro's accounting; the serving layer moves it from the
+        # decode wall to the prefill wall)
         stats = {"dispatch_s": 0.0, "collect_s": 0.0, "s_dispatch_s": 0.0,
-                 "r_wait_s": 0.0, "ooo_advances": 0.0}
+                 "r_wait_s": 0.0, "ooo_advances": 0.0, "prefill_s": 0.0}
         t_step0 = pc()
         sink = self._sink
         self._parity ^= 1
@@ -854,11 +914,11 @@ class HeteroPipelineEngine:
             wk = self._prefill_inbox.popleft()
             wk.vmb = self.num_mb + len(works)
             works.append(wk)
-        if len({wk.mb for wk in works}) != len(works):
-            # a work's tokens, base and mask are its micro-batch's static
-            # chunk inputs for the whole step
-            raise ValueError("at most one chunk work per micro-batch and "
-                             "step")
+        if len({(wk.mb, wk.verify) for wk in works}) != len(works):
+            # a work's tokens, base and mask are the static chunk inputs of
+            # its (micro-batch, verify) for the whole step
+            raise ValueError("at most one prefill chunk and one verify work "
+                             "per micro-batch and step")
         self.prefill_results = []
         chunk_carries: Dict[int, Any] = {}
         active = (self.num_mb if run_decode else 0) + len(works)
@@ -878,6 +938,9 @@ class HeteroPipelineEngine:
             if cuda:
                 ev = torch.cuda.Event()
                 ev.record()
+            if mb >= self.num_mb and works[mb - self.num_mb].verify:
+                # the marker routes the shards to the verify R-Part
+                shards = tuple(dict(sh, verify=True) for sh in shards)
             kind = self.layers[li][0]
             lkey = self._lkey(real_mb, li)
             for w, shard in zip(self.workers, shards):
@@ -908,6 +971,11 @@ class HeteroPipelineEngine:
         def advance_chunk(vmb: int, li: int, phase: int) -> None:
             nonlocal active
             wk = works[vmb - self.num_mb]
+            # a chunk advance is prefill time only if nothing else waited
+            # for the S-worker: chunk compute that holds a completed decode
+            # micro-batch back is decode latency
+            free_ride = (sink.q.empty()
+                         or all(lg is not None for lg in logits_out))
             t0 = pc()
             sink.gather((epoch, parity, vmb, li, phase),
                         self._chunk_advance_graph(wk, li, phase,
@@ -917,6 +985,8 @@ class HeteroPipelineEngine:
             carry, out = self._chunk_advance(wk, li, phase,
                                              chunk_carries[vmb])
             stats["s_dispatch_s"] += pc() - t1
+            if free_ride:
+                stats["prefill_s"] += pc() - t0
             if carry is None:
                 wk.logits = out
                 active -= 1
@@ -933,6 +1003,7 @@ class HeteroPipelineEngine:
             t0 = pc()
             chunk_carries[wk.vmb], shards = self._chunk_start(wk)
             stats["s_dispatch_s"] += pc() - t0
+            stats["prefill_s"] += pc() - t0
             dispatch(wk.vmb, 0, 0, shards)
 
         try:
@@ -947,7 +1018,12 @@ class HeteroPipelineEngine:
                         f"results; outstanding (micro-batch, layer, phase) -> "
                         f"workers: {sorted((k, sorted(v)) for k, v in pending.items())}"
                     ) from None
-                stats["r_wait_s"] += pc() - t0
+                wait = pc() - t0
+                stats["r_wait_s"] += wait
+                if works and all(lg is not None for lg in logits_out):
+                    # every decode micro-batch has emitted: this wait
+                    # served only chunk work
+                    stats["prefill_s"] += wait
                 t_epoch, t_parity, mb, li, phase = tag
                 if t_epoch != epoch or t_parity != parity:
                     continue  # fenced-off straggler from an older step

@@ -18,6 +18,12 @@
 //   pk_s/pv_s [P,page,Hkv] through tables [B,MP] (int32, -1 unmapped), slot
 //   j of table entry i being position i*page+j, as
 //   csrc/paged_attention.cu does.
+// * repro_paged_verify_attention_int8 is the multi-token instance of that
+//   paged entry: it computes src/repro/kernels/ops.py:152
+//   (paged_verify_attention_int8: gather the int8 pages into a slab, then
+//   the multi-token int8 reference) for T candidate tokens per row, q
+//   [B,T,Hq,Dh], query t of row b at position lengths[b] + t, as kernel 4
+//   (csrc/paged_attention.cu) is the multi-token instance of kernel 1.
 //
 // One query token per row, q [B,Hq,Dh] grouped into [B,Hkv,G,Dh].  The slab
 // k/v [B,S,Hkv,Dh] holds absolute positions in pos [B,S] (-1 = empty;
@@ -88,6 +94,18 @@
 //     the B operand of PV with movmatrix; p * v_s (fp32) is split into bf16
 //     hi + lo, and O^T = V^T P^T runs as two m16n8k16 products per 16
 //     dimensions, so PV keeps about 16 bits of p.
+// * The multi-token entry (MULTI) folds the T queries of a row into the
+//   query rows of a kv-head: row r = t*G + head, T*G rows per (row,
+//   kv-head), cut into CTAs of up to 16 rows (bf16 q: the N of the
+//   tensor-core products is two n8 tiles, so Qwen3-8B's verify at k = 3,
+//   T*G = 16, reads each page once per kv-head) or 8 (fp32 q, CUDA cores).
+//   Each tile row carries its position in place of its validity flag, and
+//   query row r sees it when it is mapped, <= lengths[b] + r/G and inside
+//   the window or the sink; the split walks positions up to lengths[b] +
+//   T - 1, the window anchored at lengths[b] (the first query's).  The
+//   split plan (shapes only) and the merge kernel are the decode entry's,
+//   over B*T*Hq output rows.  T = 1 launches the decode instantiation with
+//   the decode plan, so it is bitwise the decode entry.
 //
 // Left for later: TMA bulk copies with mbarriers in place of cp.async,
 // persistent CTAs walking several (row, kv-head, split) items, a
@@ -121,6 +139,7 @@ struct Params {
   void* out;
   float* part;              // [S][rows] m, [S][rows] l, [S][rows][Dh] acc
   int s_len;                // slab slots S
+  int t_count;              // query tokens per row (> 1: multi-token entry)
   int hq, hkv, g;
   int page, page_shift, mp, num_pages;   // paged only
   int window, sink;
@@ -276,10 +295,17 @@ template <> struct Vec<int8_t, 2> {
   }
 };
 
-// output row of CTA query row j: head h*g + r0 + j of row b
+// output row of query row r of kv-head h: token r / g, head h*g + r % g of
+// row b (a decode has r < g)
 __device__ __forceinline__ int out_row(const Params& p, int b, int h,
                                        int r) {
-  return b * p.hq + h * p.g + r;
+  return (b * p.t_count + r / p.g) * p.hq + h * p.g + r % p.g;
+}
+
+// whether a query at qpos sees the key at pos (-1: empty or unmapped)
+__device__ __forceinline__ bool sees(const Params& p, int pos, int qpos) {
+  return pos >= 0 && pos <= qpos
+      && (p.window <= 0 || pos > qpos - p.window || pos < p.sink);
 }
 
 // one query row's result: the output (one split) or the split's partial
@@ -333,9 +359,10 @@ __device__ void merge_warps(const Params& p, const float (*sm)[GT],
 // pre-scaled in fp32 in shared memory); max and sum over the warp's 8 rows
 // take 3 + 3 shuffles per query row and tile.  p (times v_s for int8) goes
 // to the warp's shared buffer; in PV lane i owns Dh columns [i*DH/32,
-// (i+1)*DH/32) of every query row.
+// (i+1)*DH/32) of every query row.  With MULTI each tile row's flag is its
+// position and each query row masks it at its own position (``qp``).
 // ---------------------------------------------------------------------------
-template <typename TQ, typename TKV, int DH, int GT>
+template <typename TQ, typename TKV, int DH, int GT, bool MULTI>
 struct FmaEngine {
   using R = Ring<TKV, DH, 32, sizeof(TKV) == 4 ? 2 : 3>;
   static constexpr int EPC = 16 / (int)sizeof(TKV);  // elements per chunk
@@ -351,6 +378,7 @@ struct FmaEngine {
   Shared& sh;
   const int warp, lane, c, t;
   float m[GT], l[GT];
+  int qp[GT];               // MULTI: each query row's position (-1: dead)
   float acc[GT][CPL];
 
   __device__ FmaEngine(Shared& s, const Params& p, int b, int h, int r0,
@@ -373,9 +401,16 @@ struct FmaEngine {
     }
   }
 
+  // each query row's position, once the row's length is known
+  __device__ void set_base(const Params& p, int base, int r0, int nr) {
+#pragma unroll
+    for (int j = 0; j < GT; ++j) qp[j] = j < nr ? base + (r0 + j) / p.g : -1;
+  }
+
   __device__ void tile(const Params& p, unsigned char* ring, int stage) {
     const int tok = 8 * warp + t;
-    const bool ok = R::ok(ring, stage)[tok] != 0;
+    const int flag = R::ok(ring, stage)[tok];
+    const bool ok = MULTI ? flag >= 0 : flag != 0;
     float ks = 1.f, vs = 1.f;
     if constexpr (R::kInt8) {
       ks = R::scales(ring, stage, 0)[tok];
@@ -409,12 +444,14 @@ struct FmaEngine {
       sc += __shfl_xor_sync(0xffffffffu, sc, 16);
       sc *= ks;
       if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
-      sc = ok ? sc : kNegInf;
+      // a decode query's limit and window are the span's own
+      const bool ok_j = MULTI ? ok && sees(p, flag, qp[j]) : ok;
+      sc = ok_j ? sc : kNegInf;
       float mt = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
       const float m_new = fmaxf(m[j], mt);
-      const float pr = ok ? expf(sc - m_new) : 0.f;
+      const float pr = ok_j ? expf(sc - m_new) : 0.f;
       float lt = pr + __shfl_xor_sync(0xffffffffu, pr, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       lt += __shfl_xor_sync(0xffffffffu, lt, 4);
@@ -513,55 +550,72 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DH>
+template <int DH, int NT, bool MULTI>
 struct MmaEngine {
   using R = Ring<int8_t, DH, 64, 3, DH == 128>;
-  static constexpr int GT = kMaxRows;     // the N of the products
+  static constexpr int GT = 8 * NT;       // query rows: NT n8 tiles
   static constexpr int KS = DH / 16;      // k-steps of QK^T
   static constexpr int MT = DH / 16;      // dim tiles of PV
   static constexpr int KB = DH / 4;       // K bytes per lane and row
   static constexpr int VB = DH / 8;       // V bytes per lane and token
-  static constexpr int kMinBlocks = 4;
+  static constexpr int kMinBlocks = NT == 1 ? 4 : 2;
   struct Shared {
     float m[kWarps][GT], l[kWarps][GT];
   };
 
   Shared& sh;
   const int warp, lane, gi, ti;
-  uint32_t qb[KS][2];      // B fragments of the 8 query heads (unscaled)
-  float acc[MT][4];        // O^T: dims (gi, gi+8 of tile mt) x heads 2ti+e
-  float m[2], l[2];        // heads 2ti, 2ti+1
+  uint32_t qb[KS][NT][2];  // B fragments of the query rows (unscaled)
+  float acc[MT][NT][4];    // O^T: dims (gi, gi+8 of tile mt) x rows 8nt+2ti+e
+  float m[NT][2], l[NT][2];    // rows 8nt + 2ti + e
+  int qp[NT][2];           // MULTI: those rows' positions (-1: dead row)
 
   __device__ MmaEngine(Shared& s, const Params& p, int b, int h, int r0,
                        int nr)
       : sh(s), warp(threadIdx.x / 32), lane(threadIdx.x % 32),
         gi(lane / 4), ti(lane % 4) {
     // q rows need no alignment beyond their element (a worker's slice)
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q)
-        + (size_t)out_row(p, b, h, r0 + min(gi, nr - 1)) * DH + ti * KB;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t w[2] = {0u, 0u};
-      if (gi < nr) {
+    for (int nt = 0; nt < NT; ++nt) {
+      const int j = 8 * nt + gi;
+      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q)
+          + (size_t)out_row(p, b, h, r0 + min(j, nr - 1)) * DH + ti * KB;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          __nv_bfloat162 v;
-          v.x = q[4 * kk + 2 * i];
-          v.y = q[4 * kk + 2 * i + 1];
-          w[i] = *reinterpret_cast<const uint32_t*>(&v);
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t w[2] = {0u, 0u};
+        if (j < nr) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            __nv_bfloat162 v;
+            v.x = q[4 * kk + 2 * i];
+            v.y = q[4 * kk + 2 * i + 1];
+            w[i] = *reinterpret_cast<const uint32_t*>(&v);
+          }
         }
+        qb[kk][nt][0] = w[0];
+        qb[kk][nt][1] = w[1];
       }
-      qb[kk][0] = w[0];
-      qb[kk][1] = w[1];
-    }
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      m[e] = kNegInf;
-      l[e] = 0.f;
-    }
+      for (int e = 0; e < 2; ++e) {
+        m[nt][e] = kNegInf;
+        l[nt][e] = 0.f;
+      }
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+      for (int mt = 0; mt < MT; ++mt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3]
+            = 0.f;
+    }
+  }
+
+  // each query row's position, once the row's length is known
+  __device__ void set_base(const Params& p, int base, int r0, int nr) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * nt + 2 * ti + e;
+        qp[nt][e] = j < nr ? base + (r0 + j) / p.g : -1;
+      }
   }
 
   // N bytes of row r from byte byte0 (N/16 chunks, or 8 bytes) as words
@@ -586,8 +640,11 @@ struct MmaEngine {
 
   __device__ void tile(const Params& p, unsigned char* ring, int stage) {
     const int tok0 = 16 * warp;
-    // ---- S^T = K q^T on the tensor cores
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    // ---- S^T = K q^T on the tensor cores (one A fragment, NT products)
+    float c[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3]
+        = 0.f;
     {
       uint32_t w0[KS], w8[KS];
       words<KB>(ring, stage, 0, tok0 + gi, ti * KB, w0);
@@ -601,59 +658,78 @@ struct MmaEngine {
                                pack_bf16(f8[0], f8[1]),
                                pack_bf16(f0[2], f0[3]),
                                pack_bf16(f8[2], f8[3])};
-        mma_16816(c, a, qb[kk][0], qb[kk][1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_16816(c[nt], a, qb[kk][nt][0], qb[kk][nt][1]);
       }
     }
-    // ---- online softmax per head column over the warp's 16 rows
+    // ---- online softmax per query-row column over the warp's 16 rows
     const int* okf = R::ok(ring, stage);
     const float* ksc = R::scales(ring, stage, 0);
     const float* vsc = R::scales(ring, stage, 1);
-    const bool ok[2] = {okf[tok0 + gi] != 0, okf[tok0 + gi + 8] != 0};
+    const int flag[2] = {okf[tok0 + gi], okf[tok0 + gi + 8]};
+    const bool ok[2] = {MULTI ? flag[0] >= 0 : flag[0] != 0,
+                        MULTI ? flag[1] >= 0 : flag[1] != 0};
     const float kscale[2] = {ksc[tok0 + gi] * p.scale,
                              ksc[tok0 + gi + 8] * p.scale};
-    float pr[4], corr[2];
+    float pr[NT][4], corr[NT][2];
+    bool moved = false;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s[2];
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float sc = c[2 * hh + e] * kscale[hh];
-        if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
-        s[hh] = ok[hh] ? sc : kNegInf;
+      for (int e = 0; e < 2; ++e) {
+        float s[2];
+        bool v[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // a decode query's limit and window are the span's own
+          v[hh] = MULTI ? ok[hh] && sees(p, flag[hh], qp[nt][e]) : ok[hh];
+          float sc = c[nt][2 * hh + e] * kscale[hh];
+          if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
+          s[hh] = v[hh] ? sc : kNegInf;
+        }
+        float mt = fmaxf(s[0], s[1]);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+        const float m_new = fmaxf(m[nt][e], mt);
+        pr[nt][e] = v[0] ? expf(s[0] - m_new) : 0.f;
+        pr[nt][2 + e] = v[1] ? expf(s[1] - m_new) : 0.f;
+        float lt = pr[nt][e] + pr[nt][2 + e];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 8);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 16);
+        corr[nt][e] = expf(m[nt][e] - m_new);
+        moved |= corr[nt][e] != 1.f;
+        l[nt][e] = l[nt][e] * corr[nt][e] + lt;
+        m[nt][e] = m_new;
       }
-      float mt = fmaxf(s[0], s[1]);
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
-      const float m_new = fmaxf(m[e], mt);
-      pr[e] = ok[0] ? expf(s[0] - m_new) : 0.f;
-      pr[2 + e] = ok[1] ? expf(s[1] - m_new) : 0.f;
-      float lt = pr[e] + pr[2 + e];
-      lt += __shfl_xor_sync(0xffffffffu, lt, 4);
-      lt += __shfl_xor_sync(0xffffffffu, lt, 8);
-      lt += __shfl_xor_sync(0xffffffffu, lt, 16);
-      corr[e] = expf(m[e] - m_new);
-      l[e] = l[e] * corr[e] + lt;
-      m[e] = m_new;
     }
-    // rescale only when some head's max moved (x 1.0 is exact)
-    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+    // rescale only when some row's max moved (x 1.0 is exact)
+    if (__any_sync(0xffffffffu, moved)) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][e] *= corr[e % 2];
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= corr[nt][e % 2];
+        }
       }
     }
     // ---- P' = p * v_s as B of PV: bf16 hi + lo, transposed by movmatrix
-    uint32_t bh[2], bl[2];
+    uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float vs = vsc[tok0 + gi + 8 * hh];
-      const float x0 = pr[2 * hh] * vs, x1 = pr[2 * hh + 1] * vs;
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      const float2 hf = __bfloat1622float2(hi);
-      bh[hh] = movmatrix_trans(*reinterpret_cast<const uint32_t*>(&hi));
-      bl[hh] = movmatrix_trans(pack_bf16(x0 - hf.x, x1 - hf.y));
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float vs = vsc[tok0 + gi + 8 * hh];
+        const float x0 = pr[nt][2 * hh] * vs, x1 = pr[nt][2 * hh + 1] * vs;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        bh[nt][hh] =
+            movmatrix_trans(*reinterpret_cast<const uint32_t*>(&hi));
+        bl[nt][hh] = movmatrix_trans(pack_bf16(x0 - hf.x, x1 - hf.y));
+      }
     }
     // ---- O^T += V^T P'^T: tokens 2ti, 2ti+1, 2ti+8, 2ti+9 of the warp
     uint32_t vw[4][VB / 4];
@@ -672,8 +748,11 @@ struct MmaEngine {
                                pack_bf16(f[0][2 * u + 1], f[1][2 * u + 1]),
                                pack_bf16(f[2][2 * u], f[3][2 * u]),
                                pack_bf16(f[2][2 * u + 1], f[3][2 * u + 1])};
-        mma_16816(acc[2 * wi + u], a, bh[0], bh[1]);
-        mma_16816(acc[2 * wi + u], a, bl[0], bl[1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_16816(acc[2 * wi + u][nt], a, bh[nt][0], bh[nt][1]);
+          mma_16816(acc[2 * wi + u][nt], a, bl[nt][0], bl[nt][1]);
+        }
       }
     }
   }
@@ -681,21 +760,27 @@ struct MmaEngine {
   // merge the 4 warps' states (the ring is free: it holds their acc now)
   __device__ void finish(const Params& p, unsigned char* ring, int split,
                          int b, int h, int r0, int nr) {
-    float* s_acc = reinterpret_cast<float*>(ring);    // [warp][head][DH]
+    float* s_acc = reinterpret_cast<float*>(ring);    // [warp][row][DH]
+    static_assert(kWarps * GT * DH * 4 <= R::kRowsBytes, "s_acc in the ring");
     if (gi == 0) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sh.m[warp][2 * ti + e] = m[e];
-        sh.l[warp][2 * ti + e] = l[e];
-      }
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sh.m[warp][8 * nt + 2 * ti + e] = m[nt][e];
+          sh.l[warp][8 * nt + 2 * ti + e] = l[nt][e];
+        }
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int head = 2 * ti + e % 2;
-        const int dim = gi * VB + 2 * mt + e / 2;
-        s_acc[(warp * GT + head) * DH + dim] = acc[mt][e];
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 8 * nt + 2 * ti + e % 2;
+          const int dim = gi * VB + 2 * mt + e / 2;
+          s_acc[(warp * GT + row) * DH + dim] = acc[mt][nt][e];
+        }
       }
     }
     __syncthreads();
@@ -704,47 +789,50 @@ struct MmaEngine {
   }
 };
 
-template <typename TQ, typename TKV, int DH, int GT>
+// the engine of an instantiation: tensor cores for int8 K/V with a bf16 q
+// (8 query rows per CTA, or 16 for the multi-token entry), CUDA cores else
+template <typename TQ, typename TKV, int DH, int GT, bool MULTI>
 struct EngineOf {
-  using type = FmaEngine<TQ, TKV, DH, GT>;
+  using type = FmaEngine<TQ, TKV, DH, GT, MULTI>;
 };
-template <int DH>
-struct EngineOf<__nv_bfloat16, int8_t, DH, kMaxRows> {
-  using type = MmaEngine<DH>;
+template <int DH, bool MULTI>
+struct EngineOf<__nv_bfloat16, int8_t, DH, 8, MULTI> {
+  using type = MmaEngine<DH, 1, MULTI>;
+};
+template <int DH, bool MULTI>
+struct EngineOf<__nv_bfloat16, int8_t, DH, 16, MULTI> {
+  using type = MmaEngine<DH, 2, MULTI>;
 };
 
 // ---------------------------------------------------------------------------
 // addressing: which slot (slab) or position (paged) each tile row holds
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ bool sees(const Params& p, int pos, int qpos) {
-  return pos >= 0 && pos <= qpos
-      && (p.window <= 0 || pos > qpos - p.window || pos < p.sink);
-}
-
 // Slab: the split's slots [lo, hi), cut into tiles from lo; s_idx holds
 // their validity, one bit per slot.
 struct SlabSpan {
   int lo, hi, n;
   __device__ bool row(const Params& p, const int* s_idx, int b, int h,
                       int qpos, int tile_rows, int k, int r,
-                      size_t& off) const {
+                      size_t& off, int& at) const {
     const int slot = lo + k * tile_rows + r, i = slot - lo;
     if (slot >= hi || !((static_cast<unsigned>(s_idx[i >> 5]) >> (i & 31))
                         & 1u))
       return false;
     off = ((size_t)b * p.s_len + slot) * p.hkv + h;
+    at = slot;
     return true;
   }
 };
 
 // Paged: the positions a CTA reads, [a1, e1) (the part of its split inside
-// the sink) then [a2, e2) (inside the window, up to lengths[b]), each cut
-// into tiles from its start; s_idx holds the split's table entries.
+// the sink) then [a2, e2) (inside the window, up to the last query's
+// position), each cut into tiles from its start; s_idx holds the split's
+// table entries.
 struct PagedSpan {
   int a1, e1, a2, e2, n1, n, first;
   __device__ bool row(const Params& p, const int* s_idx, int b, int h,
                       int qpos, int tile_rows, int k, int r,
-                      size_t& off) const {
+                      size_t& off, int& at) const {
     const int pos = k < n1 ? a1 + k * tile_rows + r
                            : a2 + (k - n1) * tile_rows + r;
     if (pos >= (k < n1 ? e1 : e2)) return false;
@@ -755,13 +843,17 @@ struct PagedSpan {
     // be a caller bug and is masked too, not read
     if (pid < 0 || pid >= p.num_pages) return false;
     off = ((size_t)pid * p.page + sl) * p.hkv + h;
+    at = pos;
     return true;
   }
 };
 
+// the window is anchored at ``base`` (the first query), the split cut at
+// ``last`` (the last query's position)
 __device__ __forceinline__ PagedSpan paged_span(const Params& p, int split,
-                                                int base, int tile_rows) {
-  const int last = min(base, p.mp * p.page - 1);
+                                                int base, int last,
+                                                int tile_rows) {
+  last = min(last, p.mp * p.page - 1);
   const int lo = split * p.per_split * p.page;
   const int hi = min(min((split + 1) * p.per_split, p.mp) * p.page,
                      last + 1);
@@ -784,11 +876,12 @@ __device__ __forceinline__ PagedSpan paged_span(const Params& p, int split,
 // ---------------------------------------------------------------------------
 // the kernel: split range, pos or table staging, the ring, an engine
 // ---------------------------------------------------------------------------
-template <typename TQ, typename TKV, int DH, int GT, bool PAGED>
-__global__ void __launch_bounds__(kThreads,
-                                  EngineOf<TQ, TKV, DH, GT>::type::kMinBlocks)
+template <typename TQ, typename TKV, int DH, int GT, bool PAGED, bool MULTI>
+__global__ void __launch_bounds__(
+    kThreads, EngineOf<TQ, TKV, DH, GT, MULTI>::type::kMinBlocks)
 dense_attn_kernel(const Params p) {
-  using E = typename EngineOf<TQ, TKV, DH, GT>::type;
+  static_assert(PAGED || !MULTI, "the multi-token entry is paged");
+  using E = typename EngineOf<TQ, TKV, DH, GT, MULTI>::type;
   using R = typename E::R;
   constexpr int TILE = R::kTile;
   extern __shared__ __align__(16) unsigned char ring[];
@@ -796,10 +889,11 @@ dense_attn_kernel(const Params p) {
   int* s_idx = reinterpret_cast<int*>(ring + R::kBytes);
 
   const int split = blockIdx.x, h = blockIdx.y;
-  const int groups = (p.g + GT - 1) / GT;
+  const int rows = p.t_count * p.g;               // query rows per kv-head
+  const int groups = (rows + GT - 1) / GT;
   const int b = blockIdx.z / groups;
   const int r0 = (blockIdx.z % groups) * GT;
-  const int nr = min(GT, p.g - r0);               // live query heads
+  const int nr = min(GT, rows - r0);              // live query rows
   // the merge kernel (if any) may launch now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   // q and the split's pos or table entries do not depend on lengths:
@@ -816,8 +910,9 @@ dense_attn_kernel(const Params p) {
          i += kThreads)
       s_idx[i] = tbl[i];
     qpos = p.lengths[b];
-    span = paged_span(p, split, qpos, TILE);
+    span = paged_span(p, split, qpos, qpos + p.t_count - 1, TILE);
     any = span.n > 0;
+    if constexpr (MULTI) eng.set_base(p, qpos, r0, nr);
     __syncthreads();
   } else {
     span.lo = split * p.per_split;
@@ -854,7 +949,8 @@ dense_attn_kernel(const Params p) {
     const int stage = k % R::kStages;
     const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
     size_t off = 0;
-    const bool ok = span.row(p, s_idx, b, h, qpos, TILE, k, r, off);
+    int at = -1;
+    const bool ok = span.row(p, s_idx, b, h, qpos, TILE, k, r, off, at);
     const size_t byte0 = off * R::kRowBytes;
     const unsigned char* ksrc = ok ? gk + byte0 : gk;
     const unsigned char* vsrc = ok ? gv + byte0 : gv;
@@ -876,7 +972,8 @@ dense_attn_kernel(const Params p) {
         cp_async4(R::scales(ring, stage, 1) + r, ok ? p.v_s + off : p.v_s,
                   ok);
       }
-      R::ok(ring, stage)[r] = ok;
+      // MULTI: the row's position, which each query row masks itself
+      R::ok(ring, stage)[r] = MULTI ? (ok ? at : -1) : ok;
     }
   };
 
@@ -932,30 +1029,50 @@ dense_merge(const float* __restrict__ part, TQ* __restrict__ out,
 // ---------------------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
-// the instantiation for g query heads per kv-head: the smallest width in
-// {1,2,4,8} that holds them (FmaEngine), or 8 (MmaEngine); grid.z covers
-// the rest in groups of 8, as the wrappers' row_groups(1, g)
+// the instantiation for t_count query tokens and g query heads per
+// kv-head.  A decode (t_count = 1): the smallest width in {1,2,4,8} that
+// holds the g heads (FmaEngine), or 8 (MmaEngine); grid.z covers the rest
+// in groups of 8, as the wrappers' row_groups(1, g).  The multi-token
+// entry (paged only): the t_count*g rows in CTAs of 8 or 16 (MmaEngine)
+// or of 2, 4 or 8 (FmaEngine), as the wrapper's verify_row_groups.
 template <typename TQ, typename TKV, int DH, bool PAGED>
-KernelFn choose(int g, int* gt) {
+KernelFn choose(int t_count, int g, int* gt) {
   constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
                         && std::is_same<TKV, int8_t>::value;
+  if constexpr (PAGED) {
+    if (t_count > 1) {
+      const int rows = t_count * g;
+      if constexpr (kMma) {
+        *gt = rows > 8 ? 16 : 8;
+        if (rows > 8) return &dense_attn_kernel<TQ, TKV, DH, 16, true, true>;
+        return &dense_attn_kernel<TQ, TKV, DH, 8, true, true>;
+      } else {
+        *gt = rows > 4 ? 8 : rows > 2 ? 4 : 2;
+        if (rows > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, true, true>;
+        if (rows > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, true, true>;
+        return &dense_attn_kernel<TQ, TKV, DH, 2, true, true>;
+      }
+    }
+  }
   if constexpr (kMma) {
     *gt = 8;
-    return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED>;
+    return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED, false>;
   } else {
     *gt = g > 4 ? 8 : g > 2 ? 4 : g > 1 ? 2 : 1;
-    if (g > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED>;
-    if (g > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, PAGED>;
-    if (g > 1) return &dense_attn_kernel<TQ, TKV, DH, 2, PAGED>;
-    return &dense_attn_kernel<TQ, TKV, DH, 1, PAGED>;
+    if (g > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED, false>;
+    if (g > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, PAGED, false>;
+    if (g > 1) return &dense_attn_kernel<TQ, TKV, DH, 2, PAGED, false>;
+    return &dense_attn_kernel<TQ, TKV, DH, 1, PAGED, false>;
   }
 }
 
+// the ring of every instantiation of (TQ, TKV, DH): the engines' rings do
+// not depend on the rows per CTA or on MULTI
 template <typename TQ, typename TKV, int DH>
 constexpr int ring_bytes() {
   constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
                         && std::is_same<TKV, int8_t>::value;
-  return EngineOf<TQ, TKV, DH, kMma ? 8 : 1>::type::R::kBytes;
+  return EngineOf<TQ, TKV, DH, kMma ? 8 : 1, false>::type::R::kBytes;
 }
 
 // every instantiation may take its ring + the largest staged index as
@@ -963,12 +1080,17 @@ constexpr int ring_bytes() {
 template <typename TQ, typename TKV, int DH, bool PAGED>
 cudaError_t allow_smem_one() {
   const int bytes = ring_bytes<TQ, TKV, DH>() + kMaxSplitIdx * 4;
-  for (int g : {1, 2, 4, 8}) {
-    int gt;
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(choose<TQ, TKV, DH, PAGED>(g, &gt)),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
+  // t_count 2 reaches every multi-token instantiation: rows 2, 4, 8, 16
+  for (int t_count : {1, 2}) {
+    if (!PAGED && t_count > 1) continue;
+    for (int g : {1, 2, 4, 8}) {
+      int gt;
+      const cudaError_t e = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(
+              choose<TQ, TKV, DH, PAGED>(t_count, g, &gt)),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+    }
   }
   return cudaSuccess;
 }
@@ -1004,8 +1126,9 @@ cudaError_t allow_smem() {
 template <typename TQ, typename TKV, int DH, bool PAGED>
 cudaError_t launch_dh(Params p, int b, cudaStream_t stream) {
   int gt;
-  const KernelFn fn = choose<TQ, TKV, DH, PAGED>(p.g, &gt);
-  const dim3 grid(p.num_splits, p.hkv, b * ((p.g + gt - 1) / gt));
+  const KernelFn fn = choose<TQ, TKV, DH, PAGED>(p.t_count, p.g, &gt);
+  const dim3 grid(p.num_splits, p.hkv,
+                  b * ((p.t_count * p.g + gt - 1) / gt));
   // staged: the split's table entries (paged) or a validity bit per
   // slot, in words of 128 slots (slab)
   const int smem = ring_bytes<TQ, TKV, DH>()
@@ -1069,6 +1192,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.sink = sink;
   p.per_split = per_split;
   p.num_splits = num_splits;
+  p.t_count = 1;
   p.rows_total = b * hq;
   p.softcap = softcap;
   p.scale = scale;
@@ -1080,8 +1204,9 @@ Params make_params(const void* q, const void* k, const void* v,
 
 // Every entry: slots_per_split / pages_per_split and num_splits are the
 // wrapper's split plan (num_splits * per_split >= S or MP, every split
-// non-empty, per_split <= 8192); scratch holds num_splits * B*Hq * (Dh + 2)
-// floats and may be null with one split.  Each returns a cudaError_t (0 =
+// non-empty, per_split <= 8192); scratch holds num_splits * B*T*Hq * (Dh +
+// 2) floats (T = 1 but in the multi-token entry) and may be null with one
+// split.  Each returns a cudaError_t (0 =
 // success); anything the kernel does not take returns
 // cudaErrorInvalidValue, though the Python wrappers check it all first.
 
@@ -1131,15 +1256,17 @@ extern "C" int repro_decode_attention_int8(
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 3, paged addressing.  pk_q/pv_q int8 [P,page,Hkv,Dh], pk_s/pv_s
-// float32 [P,page,Hkv], tables [B,MP] int32 (-1 = unmapped).
-extern "C" int repro_paged_decode_attention_int8(
-    const void* q, const void* pk_q, const void* pk_s, const void* pv_q,
-    const void* pv_s, const void* tables, const void* lengths, void* out,
-    int b, int hq, int hkv, int dh, int page, int mp, int num_pages,
-    int window, int sink, float softcap, float scale, int q_dtype,
-    int pages_per_split, int num_splits, void* scratch, void* stream) {
-  if (page <= 0
+namespace {
+
+// kernel 3's paged addressing for t_count query tokens per row
+int paged_int8(const void* q, const void* pk_q, const void* pk_s,
+               const void* pv_q, const void* pv_s, const void* tables,
+               const void* lengths, void* out, int b, int t_count, int hq,
+               int hkv, int dh, int page, int mp, int num_pages, int window,
+               int sink, float softcap, float scale, int q_dtype,
+               int pages_per_split, int num_splits, void* scratch,
+               void* stream) {
+  if (page <= 0 || t_count <= 0
       || bad_plan(b, hq, hkv, mp, pages_per_split, num_splits, scratch))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = allow_smem();
@@ -1147,6 +1274,8 @@ extern "C" int repro_paged_decode_attention_int8(
   Params p = make_params(q, pk_q, pv_q, pk_s, pv_s, lengths, out, b, hq,
                          hkv, window, sink, softcap, scale, pages_per_split,
                          num_splits, scratch);
+  p.t_count = t_count;
+  p.rows_total = b * t_count * hq;
   p.tables = static_cast<const int*>(tables);
   p.page = page;
   for (int sh = 0; sh < 31; ++sh)
@@ -1157,4 +1286,36 @@ extern "C" int repro_paged_decode_attention_int8(
   if (q_dtype == 0) return launch_kv<float, int8_t, true>(p, b, dh, s);
   if (q_dtype == 1) return launch_kv<__nv_bfloat16, int8_t, true>(p, b, dh, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Kernel 3, paged addressing.  pk_q/pv_q int8 [P,page,Hkv,Dh], pk_s/pv_s
+// float32 [P,page,Hkv], tables [B,MP] int32 (-1 = unmapped).
+extern "C" int repro_paged_decode_attention_int8(
+    const void* q, const void* pk_q, const void* pk_s, const void* pv_q,
+    const void* pv_s, const void* tables, const void* lengths, void* out,
+    int b, int hq, int hkv, int dh, int page, int mp, int num_pages,
+    int window, int sink, float softcap, float scale, int q_dtype,
+    int pages_per_split, int num_splits, void* scratch, void* stream) {
+  return paged_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths, out, b, 1,
+                    hq, hkv, dh, page, mp, num_pages, window, sink, softcap,
+                    scale, q_dtype, pages_per_split, num_splits, scratch,
+                    stream);
+}
+
+// Kernel 3's multi-token paged entry (the int8 verify): q and out
+// [B,T,Hq,Dh], lengths [B] = tokens before the verify step (query t sees
+// positions <= lengths[b] + t).  T = 1 is the decode entry above.
+extern "C" int repro_paged_verify_attention_int8(
+    const void* q, const void* pk_q, const void* pk_s, const void* pv_q,
+    const void* pv_s, const void* tables, const void* lengths, void* out,
+    int b, int t_count, int hq, int hkv, int dh, int page, int mp,
+    int num_pages, int window, int sink, float softcap, float scale,
+    int q_dtype, int pages_per_split, int num_splits, void* scratch,
+    void* stream) {
+  return paged_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths, out, b,
+                    t_count, hq, hkv, dh, page, mp, num_pages, window, sink,
+                    softcap, scale, q_dtype, pages_per_split, num_splits,
+                    scratch, stream);
 }

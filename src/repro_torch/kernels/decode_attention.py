@@ -43,7 +43,8 @@ merge_launches = LaunchCounter()  # merges added by kernels 2 and 3's calls
 # num_splits, scratch and the stream
 _ENTRIES = {"repro_decode_attention": (5, 7),
             "repro_decode_attention_int8": (7, 7),
-            "repro_paged_decode_attention_int8": (7, 9)}
+            "repro_paged_decode_attention_int8": (7, 9),
+            "repro_paged_verify_attention_int8": (7, 10)}
 _fns = {}   # C entry point name -> the declared ctypes function
 
 
@@ -87,13 +88,15 @@ def launch(name: str, q, ptrs, ints, plan, *, window, sink, softcap):
     nonzero cudaError.  ``ptrs`` are the inputs' pointers, ``ints`` the
     shape arguments before window and sink.  Scratch for the splits'
     partials (fp32 m, l and acc[Dh] per split and query row) comes from
-    the caching allocator."""
-    b, hq, dh = q.shape
+    the caching allocator; q is [B,Hq,Dh], or [B,T,Hq,Dh] for the
+    multi-token entry."""
+    dh = q.shape[-1]
     per_split, n_splits = plan
     dev = q.device
     out = torch.empty_like(q)
-    scratch = (torch.empty(n_splits * b * hq * (dh + 2), dtype=torch.float32,
-                           device=dev) if n_splits > 1 else None)
+    scratch = (torch.empty(n_splits * q.numel() // dh * (dh + 2),
+                           dtype=torch.float32, device=dev)
+               if n_splits > 1 else None)
     args = (*ptrs, out.data_ptr(), *ints, int(window), int(sink),
             float(softcap), 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
             per_split, n_splits,

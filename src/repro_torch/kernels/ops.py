@@ -9,8 +9,10 @@ jnp reference even on the TPU (``kv_cache.r_attention_int8`` defaults to
 where ``repro`` gathers and then runs its int8 kernel: same functions,
 another dispatch.  The verify ops
 follow ``repro``'s split: the paged fp verify has its kernel (kernel 4),
-the dense verify is plain torch on both devices (jnp in ``repro``).  The
-int8 verify ops are not ported yet; see ROADMAP.md.
+the dense verify is plain torch on both devices (jnp in ``repro``).  So is
+the dense int8 verify.  The paged int8 verify, jnp in ``repro`` (it
+gathers the int8 pages into a slab), runs kernel 3's multi-token paged
+entry on the card, reading the pools in place.
 """
 from __future__ import annotations
 
@@ -93,6 +95,34 @@ def paged_verify_attention(q, pages_k, pages_v, tables, lengths, *,
     return _pa.paged_verify_attention(q, pages_k, pages_v, tables, lengths,
                                       window=window, sink=sink,
                                       softcap=softcap)
+
+
+def verify_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
+                          window: int = 0, sink: int = 0, softcap: float = 0.0,
+                          kv_chunk: int = 1024, use_kernel: str = "auto"):
+    """Dense multi-token verify over int8 K/V [B,S,Hkv,Dh] with fp32
+    scales [B,S,Hkv].  Plain torch on every device, as ``repro``'s is jnp
+    on every backend; on no serve path (the dense int8 verify R-Part is
+    ``kv_cache.r_attention_int8_chunk``)."""
+    _auto(use_kernel)
+    return _ref.verify_attention_int8_ref(
+        q, k_q, k_scale, v_q, v_scale, pos, lengths, window=window,
+        sink=sink, softcap=softcap, kv_chunk=kv_chunk)
+
+
+def paged_verify_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
+                                *, window: int = 0, sink: int = 0,
+                                softcap: float = 0.0,
+                                use_kernel: str = "auto"):
+    """Block-table multi-token verify over int8 pools: ``repro`` gathers
+    the pages into a slab and runs the dense int8 verify reference; on the
+    card the port runs kernel 3's multi-token paged entry (one C call, no
+    gather).  On a CPU tensor it is exactly
+    ``ref.paged_verify_attention_int8_ref`` (the gather chain)."""
+    _auto(use_kernel)
+    return _qk.paged_verify_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables,
+                                           lengths, window=window,
+                                           sink=sink, softcap=softcap)
 
 
 quantize_kv = _qk.quantize_kv

@@ -12,12 +12,17 @@ it dequantizes exactly and otherwise computes what kernel 2
 computes ``repro/kernels/ops.py``'s function of the same name (gather the
 int8 pages into a slab, then kernel 3) as one call of kernel 3's paged
 entry, which reads the pages and scales through the block table.
+``paged_verify_attention_int8`` computes ``repro/kernels/ops.py``'s
+function of the same name (the int8 pages gathered into a slab, then the
+multi-token int8 reference) for T candidate tokens per row in one call of
+that entry's multi-token instance, as kernel 4 is kernel 1's.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
-fallback.  ``launches`` counts kernel launches of both addressings,
-``paged_launches`` those of the paged one, and ``plain_calls`` CPU calls
-of the plain versions.
+fallback.  ``launches`` counts the decode entries' kernel launches (both
+addressings), ``paged_launches`` those of the paged one, and
+``plain_calls`` CPU calls of their plain versions; ``verify_launches`` and
+``verify_plain_calls`` count the multi-token entry's.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from repro_torch.kernels.paged_attention import LaunchCounter
 launches = LaunchCounter()      # kernel launches on CUDA tensors (both)
 paged_launches = LaunchCounter()  # of those, the paged addressing's
 plain_calls = LaunchCounter()   # plain-version calls on CPU tensors
+verify_launches = LaunchCounter()     # multi-token entry, CUDA tensors
+verify_plain_calls = LaunchCounter()  # its plain version, CPU tensors
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +90,12 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
     return out
 
 
-def _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths):
-    """Raise on what the paged int8 entry does not take: q [B,Hq,Dh]
-    fp32 or bf16; pk_q/pv_q int8 [P,page,Hkv,Dh] and pk_s/pv_s fp32
-    [P,page,Hkv], contiguous, the int8 pools 16-byte aligned; tables
-    [B,MP] and lengths [B] int32."""
+def _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
+                 q_dims: int = 3):
+    """Raise on what the paged int8 entries do not take: q [B,Hq,Dh]
+    (``q_dims`` 4: [B,T,Hq,Dh]) fp32 or bf16; pk_q/pv_q int8
+    [P,page,Hkv,Dh] and pk_s/pv_s fp32 [P,page,Hkv], contiguous, the int8
+    pools 16-byte aligned; tables [B,MP] and lengths [B] int32."""
     dev = q.device
     named = [("pk_q", pk_q), ("pk_s", pk_s), ("pv_q", pv_q), ("pv_s", pv_s),
              ("tables", tables), ("lengths", lengths)]
@@ -102,11 +110,14 @@ def _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths):
         raise TypeError("pool scales must be float32")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    if q.dim() != 3 or pk_q.dim() != 4 or tables.dim() != 2 \
+    if q.dim() != q_dims or pk_q.dim() != 4 or tables.dim() != 2 \
             or lengths.dim() != 1:
-        raise ValueError("expected q [B,Hq,Dh], pools [P,page,Hkv,Dh], "
-                         "tables [B,MP], lengths [B]")
-    b, hq, dh = q.shape
+        raise ValueError(f"expected q [B,{'T,' if q_dims == 4 else ''}"
+                         f"Hq,Dh], pools [P,page,Hkv,Dh], tables [B,MP], "
+                         f"lengths [B]")
+    b, hq, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    if q_dims == 4 and q.shape[1] == 0:
+        raise ValueError("q has no query token (T = 0)")
     n_pages, page, hkv, dh2 = pk_q.shape
     if pv_q.shape != pk_q.shape or dh2 != dh:
         raise ValueError(f"pool shapes {tuple(pk_q.shape)} / "
@@ -162,9 +173,57 @@ def paged_decode_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
     return out
 
 
+def paged_verify_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
+                                *, window: int = 0, sink: int = 0,
+                                softcap: float = 0.0):
+    """q [B,T,Hq,Dh] bf16/fp32; pools and scales as
+    ``paged_decode_attention_int8``; tables [B,MP] int32 (-1 = unmapped;
+    MP is taken from the tables given, which may be cut to the used
+    pages); lengths [B] int32 = tokens before the verify step (query t
+    attends positions <= lengths[b] + t).  Returns o [B,T,Hq,Dh] in
+    q.dtype.  On the card, one C call of kernel 3's multi-token paged
+    entry (plus its merge where split), reading the pools in place; T = 1
+    launches the decode entry's instantiation with its plan, so it equals
+    ``paged_decode_attention_int8`` bit for bit.  On the CPU the gather
+    chain ``ref.paged_verify_attention_int8_ref``."""
+    if q.device.type == "cpu":
+        verify_plain_calls.add()
+        return ref.paged_verify_attention_int8_ref(
+            q, pk_q, pk_s, pv_q, pv_s, tables, lengths, window=window,
+            sink=sink, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_paged(q, pk_q, pk_s, pv_q, pv_s, tables, lengths, q_dims=4)
+    b, t, hq, dh = q.shape
+    out = _da.launch(
+        "repro_paged_verify_attention_int8", q,
+        (q.data_ptr(), pk_q.data_ptr(), pk_s.data_ptr(), pv_q.data_ptr(),
+         pv_s.data_ptr(), tables.data_ptr(), lengths.data_ptr()),
+        (b, t, hq, pk_q.shape[2], dh, pk_q.shape[1], tables.shape[1],
+         pk_q.shape[0]), paged_plan(q, pk_q, tables),
+        window=window, sink=sink, softcap=softcap)
+    verify_launches.add()
+    return out
+
+
+def verify_row_groups(t: int, g: int, dtype) -> int:
+    """CTAs per (row, kv-head) along the T*G query rows of a paged int8
+    call, as the C side chooses them: a decode (T = 1) as kernel 1's
+    (``paged_attention.row_groups``); the multi-token entry 16 rows per
+    CTA with a bf16 q (two n8 tiles of the tensor-core products), 8 with
+    an fp32 q."""
+    if t == 1:
+        return _pa.row_groups(1, g)
+    cap = 16 if dtype == torch.bfloat16 else 8
+    return -(-t * g // cap)
+
+
 def paged_plan(q, pk_q, tables):
-    """The split plan of the paged entry: kernel 1's over the table."""
-    b, hq, _ = q.shape
+    """The split plan of the paged entries: kernel 1's over the table,
+    for the CTAs of q's query rows (q [B,Hq,Dh], or [B,T,Hq,Dh] for the
+    multi-token entry: T = 1 takes the decode plan)."""
+    b, hq = q.shape[0], q.shape[-2]
+    t = q.shape[1] if q.dim() == 4 else 1
     page, hkv = pk_q.shape[1], pk_q.shape[2]
-    return _pa.split_plan(b, hkv, _pa.row_groups(1, hq // hkv),
+    return _pa.split_plan(b, hkv, verify_row_groups(t, hq // hkv, q.dtype),
                           tables.shape[1], page, _pa.sm_count(q.device))

@@ -109,9 +109,40 @@ def paged_verify_attention_ref(q, pages_k, pages_v, tables, lengths, *,
                                 softcap=softcap, kv_chunk=kv_chunk)
 
 
+def verify_attention_int8_ref(q, k_q, k_scale, v_q, v_scale, pos, lengths,
+                              *, window: int = 0, sink: int = 0,
+                              softcap: float = 0.0, kv_chunk: int = 1024):
+    """``verify_attention_ref`` over int8 K/V [B,S,Hkv,Dh] with fp32
+    scales [B,S,Hkv], dequantized in fp32 and cast to q.dtype first (as
+    ``decode_attention_int8_ref``)."""
+    k = (k_q.to(torch.float32) * k_scale[..., None]).to(q.dtype)
+    v = (v_q.to(torch.float32) * v_scale[..., None]).to(q.dtype)
+    return verify_attention_ref(q, k, v, pos, lengths, window=window,
+                                sink=sink, softcap=softcap,
+                                kv_chunk=kv_chunk)
+
+
+def paged_verify_attention_int8_ref(q, pk_q, pk_s, pv_q, pv_s, tables,
+                                    lengths, *, window: int = 0,
+                                    sink: int = 0, softcap: float = 0.0,
+                                    kv_chunk: int = 1024):
+    """Int8 page pools (values [P,page,Hkv,Dh] int8 + scales
+    [P,page,Hkv]) gathered into a per-row slab, then
+    ``verify_attention_int8_ref``: the plain version of kernel 3's
+    multi-token paged entry."""
+    k_q, pos = paged_gather(pk_q, tables)
+    k_s, _ = paged_gather(pk_s, tables)
+    v_q, _ = paged_gather(pv_q, tables)
+    v_s, _ = paged_gather(pv_s, tables)
+    return verify_attention_int8_ref(q, k_q, k_s, v_q, v_s, pos, lengths,
+                                     window=window, sink=sink,
+                                     softcap=softcap, kv_chunk=kv_chunk)
+
+
 # ---------------------------------------------------------------------------
 # split-K (flash-decoding) model of csrc/paged_attention.cu and
-# csrc/decode_attention.cu: split s owns table pages [s*pps, (s+1)*pps) of a
+# csrc/decode_attention.cu (T query tokens per row for kernel 4 and kernel
+# 3's multi-token entry): split s owns table pages [s*pps, (s+1)*pps) of a
 # pool, or slots [s*sps, (s+1)*sps) of a slab; each split yields a partial
 # (m, l, acc) with the kernel's masking (a masked score has p = 0, so a
 # split with no valid key for a query carries m = NEG_INF, l = 0, acc = 0),

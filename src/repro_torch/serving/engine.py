@@ -13,13 +13,16 @@ freed the step it completes.  ``quantized_kv=True`` (hetero only)
 stores the R-workers' KV as int8 + per-(token, head) fp32 scales, dense
 or paged (§5.2).  ``spec_decode=SpecConfig(k)`` (hetero, greedy) drafts k
 tokens per row on an S-resident drafter and verifies all k+1 candidates
-in one pipelined chunk-only step.
+in one pipelined chunk-only step, on any storage.  ``prefill_chunk=C``
+(hetero) admits a prompt as PREFILLING and streams it in C-token chunks,
+one per step, inside the pipelined decode step while the other rows
+decode; the step its last chunk lands, its first token is sampled from
+that chunk's logits and the row joins the decode batch.
 
 Not in this slice (see ROADMAP.md): the ``sls``/``loadctl`` admission
 schedules, ``from_plan``, sampled decoding (and sampled speculative
-acceptance), speculative decoding on int8 storage, chunked prefill, the
-prefix cache, tiering/preemption, fleet management, chaos supervision
-and observability.
+acceptance), the prefix cache, tiering/preemption, fleet management,
+chaos supervision and observability.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import torch
 
 from repro_torch.core import decompose as D
 from repro_torch.core import graphs
-from repro_torch.core.config import ATTN, ModelConfig, check_supported
+from repro_torch.core.config import (ATTN, DEC_XATTN, XATTN, ModelConfig,
+                                     check_supported)
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
                                      batch_slice, per_layer_state)
 from repro_torch.device import resolve_device
@@ -42,7 +46,7 @@ from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import sample, spec_accept
 
 # ServingEngine options of the JAX package that this slice does not port
-_NOT_IN_SLICE = ("prefill_chunk", "prefix_cache", "kv_tiering",
+_NOT_IN_SLICE = ("prefix_cache", "kv_tiering",
                  "preempt_after", "fleet", "chaos", "observability",
                  "target_len", "interval", "w_lim")
 
@@ -56,8 +60,11 @@ def _pad_pow2(n: int, lo: int = 1) -> int:
 
 @dataclass
 class StepRecord:
-    """Per-step accounting: ``prefill_wall`` is admission + prefill,
-    ``decode_wall`` the decode step and its sampling."""
+    """Per-step accounting: ``prefill_wall`` is admission + prefill (with
+    chunked prefill: queueing the chunks, the chunk work inside the
+    pipelined step that held no decode micro-batch back, and the landing
+    of the chunks' results), ``decode_wall`` the decode step and its
+    sampling."""
     step: int
     prefill_wall: float
     decode_wall: float
@@ -101,7 +108,7 @@ class ServingEngine:
                  pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  spec_decode: Optional[SpecConfig] = None,
-                 device=None, **not_ported):
+                 prefill_chunk: int = 0, device=None, **not_ported):
         unknown = set(not_ported) - set(_NOT_IN_SLICE)
         if unknown:
             raise TypeError(f"unexpected keyword argument(s) "
@@ -137,11 +144,21 @@ class ServingEngine:
                 raise ValueError(
                     "spec_decode needs BOTH draft_cfg and draft_params "
                     "(or neither, for self-speculation)")
-            if quantized_kv:
-                raise NotImplementedError(
-                    "spec_decode with quantized_kv=True is not ported yet "
-                    "(the int8 chunk and verify ops) — queued in "
-                    "ROADMAP.md")
+        if prefill_chunk:
+            if backend != "hetero":
+                raise ValueError(
+                    "prefill_chunk requires backend='hetero' — the "
+                    "colocated engine keeps the monolithic prefill "
+                    "(it IS the A/B baseline)")
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1 (0 disables), got "
+                    f"{prefill_chunk}")
+            if cfg.is_encdec or DEC_XATTN in cfg.layer_pattern \
+                    or XATTN in cfg.layer_pattern:
+                raise ValueError(
+                    "chunked prefill does not support cross-attention "
+                    "archs (enc-dec / vision) — use prefill_chunk=0")
         if batch < 1 or cache_len < 1:
             raise ValueError(
                 f"batch ({batch}) and cache_len ({cache_len}) must be >= 1")
@@ -158,9 +175,10 @@ class ServingEngine:
         self.paged_kv = paged_kv and backend == "hetero"
         self.admission = admission
         self.spec = spec_decode
-        # spec decode's verify steps ARE chunk work: freed rows are
-        # gated decode-inactive, as the JAX engine does with chunks on
-        self._uses_chunks = self.spec is not None
+        self.prefill_chunk = int(prefill_chunk)
+        # chunked prefill and spec decode's verify steps are chunk work:
+        # prefilling and freed rows are gated decode-inactive
+        self._uses_chunks = bool(prefill_chunk) or self.spec is not None
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * batch
         self.step_idx = 0
@@ -235,6 +253,10 @@ class ServingEngine:
             return ("speculative decoding rolls rejected tokens back "
                     "by positional KV truncation, which a wrapped ring "
                     "would corrupt")
+        if self.prefill_chunk and self.cfg.window == 0:
+            # chunked prefill streams KV incrementally and relies on the
+            # ring never wrapping (windowed archs wrap by design)
+            return "required with prefill_chunk > 0"
         if self.paged_kv and self._paged_pool_min() is not None:
             return "the paged path would drop tokens past capacity"
         return None
@@ -263,6 +285,13 @@ class ServingEngine:
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
+
+    @property
+    def prefill_queue(self) -> List[Request]:
+        """Sequences mid-chunked-prefill (PREFILLING, slot-resident,
+        advancing one chunk per step), in row order."""
+        return [r for r in self.slots
+                if r is not None and r.status is Status.PREFILLING]
 
     def resident_len(self) -> int:
         return sum(r.prompt_len + len(r.generated)
@@ -337,6 +366,13 @@ class ServingEngine:
         if self.paged_kv:
             self.engine.release_row(row)
 
+    def _place(self, reqs: List[Request]) -> None:
+        rows = self._free_slots()[:len(reqs)]
+        if self.prefill_chunk:
+            self._place_chunked(reqs, rows)
+        else:
+            self._place_monolithic(reqs, rows)
+
     def _place_monolithic(self, reqs: List[Request],
                           rows: List[int]) -> None:
         max_p = max(r.feed_len for r in reqs)
@@ -378,6 +414,78 @@ class ServingEngine:
                 if self.spec is not None:
                     # the drafter has no KV for this fresh history yet
                     self._spec_dirty.add(rows[i])
+
+    # ------------------------------------------------------------------ #
+    # chunked prefill: an admitted prompt is PREFILLING and streams in
+    # ``prefill_chunk``-token chunks, one per step, queued as chunk work of
+    # the pipelined decode step (its KV goes to the owning R-worker layer
+    # by layer).  It turns RUNNING the step its last chunk lands (token 0
+    # sampled from that chunk's last-valid logits): decode for the rest of
+    # the batch never stalls on a prompt.
+    # ------------------------------------------------------------------ #
+    def _place_chunked(self, reqs: List[Request], rows: List[int]) -> None:
+        for row, r in zip(rows, reqs):
+            r.status = Status.PREFILLING
+            r.slot = row
+            r.start_step = self.step_idx
+            r.prefill_pos = 0
+            self.slots[row] = r
+        self.engine.begin_prefill_rows(rows)
+
+    def _queue_prefill_chunks(self) -> None:
+        """Queue one chunk per prefilling sequence (one work per
+        micro-batch) for the coming step."""
+        per_mb: Dict[int, List[int]] = {}
+        for row, r in enumerate(self.slots):
+            if r is not None and r.status is Status.PREFILLING:
+                per_mb.setdefault(row // self.mb_size, []).append(row)
+        c = self.prefill_chunk
+        for mb, rows in per_mb.items():
+            toks = np.zeros((len(rows), c), np.int32)
+            bases, counts, locs = [], [], []
+            for i, row in enumerate(rows):
+                r = self.slots[row]
+                base = r.prefill_pos
+                cnt = min(c, r.feed_len - base)
+                toks[i, :cnt] = r.feed_tokens[base:base + cnt]
+                locs.append(row % self.mb_size)
+                bases.append(base)
+                counts.append(cnt)
+            self.engine.queue_prefill_chunk(mb, locs, toks, bases, counts)
+
+    def _process_prefill_results(self) -> None:
+        """Advance prefill progress from the chunks that landed in the step
+        just run; a sequence whose last chunk arrived samples token 0 from
+        its logits and joins the decode batch."""
+        for wk in self.engine.prefill_results:
+            if wk.verify:
+                continue          # a verify work: _spec_step's
+            sampled = None
+            for i, local in enumerate(wk.rows):
+                row = wk.mb * self.mb_size + int(local)
+                r = self.slots[row]
+                if r is None or r.status is not Status.PREFILLING:
+                    continue
+                r.prefill_pos = int(wk.new_lens[i])
+                if r.prefill_pos < r.feed_len:
+                    continue
+                # the last chunk's last-token logits ARE the first
+                # generation step (as the monolithic placement's)
+                if sampled is None:
+                    sampled = self._sample_tokens(wk.logits)
+                tok0 = int(sampled[int(local)])
+                r.status = Status.RUNNING
+                r.generated.append(tok0)
+                self._last_tok[row] = tok0
+                reason = r.finish_reason_for(tok0)
+                if reason is not None:
+                    self._finish_row(row, r, reason)
+                else:
+                    self.engine.set_row_active(row, True)
+                    if self.spec is not None:
+                        # streamed straight to the R-workers: the drafter
+                        # never saw this history
+                        self._spec_dirty.add(row)
 
     def _hetero_scatter(self, rows: np.ndarray, sub, sub_rows: np.ndarray):
         eng = self.engine
@@ -630,17 +738,23 @@ class ServingEngine:
         n = self._admit_count()
         if n > 0:
             reqs = [self.queue.popleft() for _ in range(n)]
-            self._place_monolithic(reqs, self._free_slots()[:n])
+            self._place(reqs)
+        if self._uses_chunks:
+            self._queue_prefill_chunks()
         prefill_wall = pc() - t0
 
         t0 = pc()
         if self.spec is not None:
             # speculative decoding replaces decode + sample wholesale:
             # draft on the S-resident drafter, score the candidates in one
-            # chunk-only pipelined step, commit the accepted prefix
+            # chunk-only pipelined step (queued prefill chunks ride it and
+            # count as decode time here, as in the JAX engine), commit the
+            # accepted prefix
             self._spec_step()
             self.last_logits = None
-            return self._record(n, prefill_wall, pc() - t0)
+            decode_wall = pc() - t0
+            prefill_wall += self._land_prefill_chunks()
+            return self._record(n, prefill_wall, decode_wall)
         toks = torch.from_numpy(self._last_tok[:, None].copy()).to(
             self.device)
         if self.backend == "hetero":
@@ -653,17 +767,35 @@ class ServingEngine:
         self.last_logits = logits
         new_tok = self._sample_tokens(logits)
         decode_wall = pc() - t0
+        if self.backend == "hetero":
+            # chunk work inside the pipelined step (S-side chunk time that
+            # held no decode micro-batch back, and waits that served only
+            # chunk work) is prefill time, not decode time
+            chunk_s = self.engine.last_step_stats.get("prefill_s", 0.0)
+            decode_wall -= min(chunk_s, decode_wall)
+            prefill_wall += chunk_s
 
         for i, r in enumerate(self.slots):
             if r is None or r.status is not Status.RUNNING:
-                continue
+                continue            # PREFILLING rows own no decode token
             tok = int(new_tok[i])
             r.generated.append(tok)
             self._last_tok[i] = tok
             reason = r.finish_reason_for(tok)
             if reason is not None:
                 self._finish_row(i, r, reason)
+        prefill_wall += self._land_prefill_chunks()
         return self._record(n, prefill_wall, decode_wall)
+
+    def _land_prefill_chunks(self) -> float:
+        """After the token loop (a sequence whose last chunk landed this
+        step decodes its first real token NEXT step: this step's logits
+        for its row predate the transition), the seconds it took."""
+        if not self._uses_chunks:
+            return 0.0
+        t0 = time.perf_counter()
+        self._process_prefill_results()
+        return time.perf_counter() - t0
 
     def _record(self, admitted: int, prefill_wall: float,
                 decode_wall: float) -> StepRecord:

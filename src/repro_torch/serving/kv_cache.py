@@ -5,11 +5,13 @@ The model's decode state already *is* the cache (repro_torch.models.model).
 This module adds:
   * size accounting helpers,
   * conversion of a bf16/fp32 attention block state into int8 + scales,
-  * the parameter-free quantized R-Part op (decompose-compatible), which
-    quantizes incoming K/V on write and attends through kernel 3.
+  * the parameter-free quantized R-Part ops (decompose-compatible), which
+    quantize incoming K/V on write: the decode op attends through kernel 3,
+    the chunk op (chunked prefill and the dense int8 verify) through the
+    plain flash attention, as in the JAX package.
 
-Not in this slice (see ROADMAP.md): ``r_attention_int8_chunk`` (chunked
-prefill) and ``shared_prefix_bytes_saved`` (prefix cache).
+Not in this slice (see ROADMAP.md): ``shared_prefix_bytes_saved`` (prefix
+cache).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core.config import ATTN, DEC_XATTN, ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 _INT8_KEYS = ("k_q", "k_s", "v_q", "v_s")
 
@@ -90,9 +93,40 @@ def r_attention_int8(r_in: Dict, r_state: Dict, *, window: int,
 
 def r_attention_int8_chunk(r_in: Dict, r_state: Dict, *, window: int,
                            softcap: float, kv_chunk: int = 1024):
-    raise NotImplementedError(
-        "r_attention_int8_chunk (chunked prefill into int8 storage) is not "
-        "ported yet — queued in ROADMAP.md")
+    """Chunk counterpart of :func:`r_attention_int8`: quantize and append C
+    tokens per row (the per-(token, head) scales a whole-prompt load
+    produces, so the stored bytes are bit-identical to it), and attend the
+    chunk queries against [dequantized old cache + fp chunk] through the
+    plain flash attention (as the JAX package does; cross-chunk attention
+    reads dequantized keys where a whole-prompt prefill attended fp ones).
+
+    r_in: q/k/v [B,C,...], lengths [B] (KV offset), valid [B,C].  Old
+    entries at positions >= the row's offset are masked; ring discipline
+    keeps the last min(C_valid, cache_n) chunk tokens (``chunk_ring_plan``).
+    r_state {k_q, k_s, v_q, v_s, pos} is updated IN PLACE, after the
+    attention has read it."""
+    q, k, v = r_in["q"], r_in["k"], r_in["v"]
+    base, valid = r_in["lengths"], r_in["valid"]
+    cache_n = r_state["k_q"].shape[1]
+    c = q.shape[1]
+    qpos = (base[:, None].to(torch.int32)
+            + torch.arange(c, dtype=torch.int32, device=q.device)[None, :])
+    slots, old_pos, kpos_new = L.chunk_ring_plan(
+        r_state["pos"], base, valid, qpos, cache_n)
+    old_k = ops.dequantize_kv(r_state["k_q"], r_state["k_s"])
+    old_v = ops.dequantize_kv(r_state["v_q"], r_state["v_s"])
+    kcat = torch.cat([old_k, k.to(old_k.dtype)], dim=1)
+    vcat = torch.cat([old_v, v.to(old_v.dtype)], dim=1)
+    pcat = torch.cat([old_pos, kpos_new], dim=1)
+    o = L.flash_attention(q, kcat, vcat, qpos, pcat, causal=True,
+                          window=window, softcap=softcap,
+                          kv_chunk=max(kcat.shape[1], kv_chunk))
+    k_q, k_s = ops.quantize_kv(k)
+    v_q, v_s = ops.quantize_kv(v)
+    for name, val in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q),
+                      ("v_s", v_s), ("pos", qpos)):
+        L.scatter_rows_drop(r_state[name], slots, val)
+    return {"o": o}, r_state
 
 
 def _token_slot_bytes(cfg: ModelConfig, quantized: bool) -> int:

@@ -11,9 +11,14 @@ repro.serving.paged_cache, without the prefix index and the host tier).
 * ``r_attention_paged_tables`` — the parameter-free R-Part op over
   (pool, tables), through the paged flash-decode kernel (fp pools) or
   the gather + int8 kernel (int8 pools).
+* ``r_attention_paged_chunk`` — the chunked-prefill R-Part: write the
+  chunk's K/V into its pages, then attend the chunk's queries against the
+  gathered cache through the plain flash attention (fp or int8 pools), as
+  the JAX package does.
 * ``r_attention_paged_verify`` — the speculative-decode verify R-Part:
   write the C candidates' K/V, then score them in one pool sweep through
-  the multi-token verify kernel (fp pools).
+  the multi-token verify kernel (kernel 4 on fp pools, kernel 3's
+  multi-token entry on int8 pools).
 
 Layout (shared with kernels/paged_attention.py):
 
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 
 class PagedAllocator:
@@ -375,6 +381,73 @@ def r_attention_paged_tables(r_in: Dict, pool: Dict, tables, *,
     return {"o": o[:, None]}, pool
 
 
+def _write_chunk(r_in: Dict, pool: Dict, tables):
+    """Write C tokens per row (r_in k/v [B,C,Hkv,Dh] at positions
+    lengths[b] + c) into their mapped pages, IN PLACE; an int8 pool
+    quantizes them per (token, head) first.  Writes that are not valid,
+    unmapped or past the table go to the scratch page.  Returns the
+    query positions [B,C] (int64)."""
+    base, valid = r_in["lengths"], r_in["valid"]
+    scratch = pool_pages(pool)
+    page = _any_pages(pool).shape[1]
+    mp = tables.shape[1]
+    c = valid.shape[1]
+    qpos = (base[:, None].long()
+            + torch.arange(c, device=base.device)[None, :])
+    pidx = qpos // page
+    ids = torch.gather(tables, 1, torch.clamp(pidx, max=mp - 1)).long()
+    ok = valid & (ids >= 0) & (pidx < mp)
+    ids = torch.where(ok, ids, torch.full_like(ids, scratch))
+    slot = qpos % page
+    if "k_q" in pool:
+        pool["k_q"][ids, slot], pool["k_s"][ids, slot] = ops.quantize_kv(
+            r_in["k"])
+        pool["v_q"][ids, slot], pool["v_s"][ids, slot] = ops.quantize_kv(
+            r_in["v"])
+    else:
+        pool["k"][ids, slot] = r_in["k"].to(pool["k"].dtype)
+        pool["v"][ids, slot] = r_in["v"].to(pool["v"].dtype)
+    return qpos
+
+
+def r_attention_paged_chunk(r_in: Dict, pool: Dict, tables, *,
+                            window: int = 0, softcap: float = 0.0,
+                            kv_chunk: int = 1024):
+    """Chunked-prefill R-Part over block tables: write the chunk's (k, v)
+    into the mapped pages (already grown, see
+    ``PagedAllocator.append_chunk``) at derived positions, then attend the
+    chunk queries against the gathered cache: write-then-attend, so
+    intra-chunk causality falls out of the position mask.  An int8 pool
+    quantizes the chunk per (token, head), exactly as a whole-prompt load
+    would, and the gathered view is dequantized.  The view is bounded by
+    the table width given (the caller cuts it to the used pages).  Plain
+    torch (``L.flash_attention``), as the JAX package's op is jnp.
+
+    r_in: q/k/v [B,C,...], lengths [B] (KV offset), valid [B,C].  Returns
+    ({"o": [B,C,Hq,Dh]}, pool)."""
+    q, base, valid = r_in["q"], r_in["lengths"], r_in["valid"]
+    qpos = _write_chunk(r_in, pool, tables)
+    page = _any_pages(pool).shape[1]
+    b, mp = tables.shape
+    safe = torch.clamp(tables, min=0).long()
+    if "k_q" in pool:
+        kd = ops.dequantize_kv(pool["k_q"][safe], pool["k_s"][safe])
+        vd = ops.dequantize_kv(pool["v_q"][safe], pool["v_s"][safe])
+    else:
+        kd, vd = pool["k"][safe], pool["v"][safe]   # [B, MP, page, H, Dh]
+    kd = kd.reshape(b, mp * page, *kd.shape[3:])
+    vd = vd.reshape(b, mp * page, *vd.shape[3:])
+    new_len = base.long() + valid.sum(dim=1)
+    derived = torch.arange(mp * page, device=q.device)[None, :]
+    mapped = (tables >= 0).repeat_interleave(page, dim=1)
+    kpos = torch.where(mapped & (derived < new_len[:, None]), derived,
+                       torch.full_like(derived, -1))
+    o = L.flash_attention(q, kd, vd, qpos, kpos, causal=True, window=window,
+                          softcap=softcap,
+                          kv_chunk=max(kd.shape[1], kv_chunk))
+    return {"o": o}, pool
+
+
 def r_attention_paged_verify(r_in: Dict, pool: Dict, tables, *,
                              window: int = 0, softcap: float = 0.0,
                              use_kernel: str = "auto"):
@@ -388,29 +461,19 @@ def r_attention_paged_verify(r_in: Dict, pool: Dict, tables, *,
 
     r_in: q/k/v [B,C,...], lengths [B] (base = tokens before this step),
     valid [B,C] (all True on verified rows, all False on bystanders).
-    ``tables`` may be cut to the used pages.  Returns ({"o": [B,C,Hq,Dh]},
-    pool).  fp pools only: int8 verify is not ported (ROADMAP.md)."""
+    ``tables`` may be cut to the used pages.  An int8 pool quantizes the
+    candidates into their pages and scores them through kernel 3's
+    multi-token paged entry (``ops.paged_verify_attention_int8``), an fp
+    pool through kernel 4.  Returns ({"o": [B,C,Hq,Dh]}, pool)."""
+    _write_chunk(r_in, pool, tables)
+    q = r_in["q"].contiguous()
+    base = r_in["lengths"].to(torch.int32).contiguous()
     if "k_q" in pool:
-        raise NotImplementedError(
-            "speculative decoding on int8 page pools is not ported yet — "
-            "queued in ROADMAP.md")
-    q = r_in["q"]
-    base, valid = r_in["lengths"], r_in["valid"]
-    scratch = pool_pages(pool)
-    page = pool["k"].shape[1]
-    mp = tables.shape[1]
-    c = q.shape[1]
-    qpos = (base[:, None].long()
-            + torch.arange(c, device=q.device)[None, :])
-    pidx = qpos // page
-    ids = torch.gather(tables, 1, torch.clamp(pidx, max=mp - 1)).long()
-    ok = valid & (ids >= 0) & (pidx < mp)
-    ids = torch.where(ok, ids, torch.full_like(ids, scratch))
-    slot = qpos % page
-    pool["k"][ids, slot] = r_in["k"].to(pool["k"].dtype)
-    pool["v"][ids, slot] = r_in["v"].to(pool["v"].dtype)
-    o = ops.paged_verify_attention(
-        q.contiguous(), pool["k"], pool["v"], tables,
-        base.to(torch.int32).contiguous(), window=window, softcap=softcap,
-        use_kernel=use_kernel)
+        o = ops.paged_verify_attention_int8(
+            q, pool["k_q"], pool["k_s"], pool["v_q"], pool["v_s"], tables,
+            base, window=window, softcap=softcap, use_kernel=use_kernel)
+    else:
+        o = ops.paged_verify_attention(
+            q, pool["k"], pool["v"], tables, base, window=window,
+            softcap=softcap, use_kernel=use_kernel)
     return {"o": o}, pool

@@ -13,7 +13,7 @@ from repro_torch.serving.sampler import is_stop_token
 
 class Status(enum.Enum):
     QUEUED = "queued"
-    PREFILLING = "prefilling"    # chunked prefill (not ported yet)
+    PREFILLING = "prefilling"    # admitted; prompt streaming in chunk-wise
     RUNNING = "running"
     DONE = "done"
 
@@ -35,6 +35,8 @@ class Request:
     start_step: int = -1
     finish_step: int = -1
     slot: int = -1
+    prefill_pos: int = 0                     # prompt tokens prefilled so far
+                                             # (chunked prefill progress)
 
     @property
     def prompt_len(self) -> int:

@@ -1,7 +1,9 @@
-"""The port's step graphs on the card: a captured S-side transition and a
-captured R-Part per storage (paged fp, paged int8, dense fp, dense int8)
-replayed against the same callable run eagerly (``graphs.eager()``) on
-the same inputs.  Marked ``cuda``: they skip without a CUDA device.  This
+"""The port's step graphs on the card: a captured S-side transition, a
+captured R-Part per storage (paged fp, paged int8, dense fp, dense int8),
+and a chunk work's captured pieces (its S-side start and transitions, and
+its R-Part per storage: a prefill chunk's and a verify's) replayed
+against the same callable run eagerly (``graphs.eager()``) on the same
+inputs.  Marked ``cuda``: they skip without a CUDA device.  This
 file imports no JAX, so it runs on the card without the JAX-importing
 conftest:
 
@@ -127,3 +129,111 @@ def test_r_part_replay_equals_eager(storage):
     assert workers[1]._graphs[("d", 0)]._graph is None
     for k, v in workers[0].state[0].items():
         _close(v.float(), workers[1].state[0][k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["c", "v"], ids=["prefill", "verify"])
+@pytest.mark.parametrize("storage", ["paged", "paged-int8", "dense",
+                                     "dense-int8"])
+def test_chunk_r_part_replay_equals_eager(storage, mode):
+    """A chunk work's R-Part, a prefill chunk (no marker) or a verify
+    (``verify`` marker), replayed against eager over three chunks of 3
+    tokens per row (one row fed 2, then nothing): outputs and KV."""
+    _needs_card()
+    cfg, dev = _cfg(), torch.device("cuda")
+    paged, quant = storage.startswith("paged"), storage.endswith("int8")
+    hq, hkv, dh, cache, c = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                             32, 3)
+    rng = np.random.default_rng(4)
+    lens = np.array([5, 9], np.int32)
+    pos = np.where(np.arange(cache)[None] < lens[:, None],
+                   np.arange(cache)[None], -1).astype(np.int32)
+    st = {"k": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "v": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "pos": pos}
+    workers = []
+    for _ in range(2):          # one replays, one runs eagerly
+        w = RWorker(0, cfg, 0, 2, quantized=quant, paged=paged, page_size=4,
+                    device=dev)
+        w.load_state(0, {k: torch.from_numpy(v.copy()).to(dev)
+                         for k, v in st.items()})
+        workers.append(w)
+    sink = CompletionSink(2, dev)
+    outs = ([], [])
+    base = lens.copy()
+    for step, counts in enumerate(([3, 3], [3, 2], [3, 0])):
+        valid = np.arange(c)[None] < np.array(counts)[:, None]
+        r_in = {k: torch.from_numpy(rng.standard_normal(
+                    (2, c, h, dh)).astype(np.float32)).to(dev)
+                for k, h in (("q", hq), ("k", hkv), ("v", hkv))}
+        r_in["lengths"] = torch.from_numpy(base.copy()).to(dev)
+        r_in["valid"] = torch.from_numpy(valid).to(dev)
+        if mode == "v":
+            r_in["verify"] = True
+        for w, out, ctx in zip(workers, outs, (contextlib.nullcontext(),
+                                               graphs.eager())):
+            ready = torch.cuda.Event()
+            ready.record()
+            with ctx:
+                w._run_one(((0, step % 2, 2, 0, 0), 0, "attn", 0, dict(r_in),
+                            sink, ready))
+            _, _, err = sink.q.get_nowait()
+            assert err is None, err
+            got = sink._bufs[(step % 2, 2, 0, 0)]["o"].clone()
+            out.append(torch.where(r_in["valid"].cpu()[..., None, None], got,
+                                   torch.zeros((), dtype=got.dtype)))
+        base += np.array(counts, np.int32)
+    for a, b in zip(*outs):
+        _close(a, b)
+    keys = [k for k in workers[0]._graphs if k[0] == mode]
+    assert keys and all(workers[0]._graphs[k]._graph is not None
+                        for k in keys)
+    assert all(g._graph is None for g in workers[1]._graphs.values())
+    for k, v in workers[0].state[0].items():
+        _close(v.float(), workers[1].state[0][k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verify", [False, True], ids=["prefill", "verify"])
+def test_chunk_s_transitions_replay_equals_eager(verify):
+    """A chunk work's S-side start, fused transition and logits head (a
+    prefill chunk's at each row's last valid position, a verify's at
+    every position) replayed against eager on the same inputs."""
+    _needs_card()
+    cfg, dev = _cfg(), torch.device("cuda")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    eng = HeteroPipelineEngine(params, cfg, batch=4, cache_len=32,
+                               device=dev)
+    rng = np.random.default_rng(5)
+    try:
+        for _ in range(3):          # capture, then replays
+            toks = rng.integers(1, cfg.vocab_size, (2, 4)).astype(np.int32)
+            wk = eng.queue_prefill_chunk(
+                0, [0, 1], toks, rng.integers(0, 20, 2),
+                rng.integers(1, 5, 2), verify=verify)
+            eng._prefill_inbox.clear()
+            o = torch.from_numpy(rng.standard_normal(
+                (2, 4, cfg.num_heads, cfg.head_dim)).astype(
+                    np.float32)).to(dev)
+            runs = []
+            for ctx in (contextlib.nullcontext(), graphs.eager()):
+                with ctx:
+                    carry, shards = eng._chunk_start(wk)
+                    got = [carry["h"].clone()] + [
+                        v.clone() for s in shards for v in s.values()]
+                    eng._chunk_advance_graph(wk, 0, 0, carry).feed({"o": o})
+                    nxt, shards2 = eng._chunk_advance(wk, 0, 0, carry)
+                    got += [nxt["h"].clone()] + [
+                        v.clone() for s in shards2 for v in s.values()]
+                    eng._chunk_advance_graph(wk, 1, 0, nxt).feed({"o": o})
+                    _, logits = eng._chunk_advance(wk, 1, 0, nxt)
+                    runs.append(got + [logits])
+            torch.cuda.synchronize()
+            for a, b in zip(*runs):
+                _close(a, b)
+            assert runs[0][-1].shape == ((2, 4, cfg.vocab_size) if verify
+                                         else (2, cfg.vocab_size))
+        assert all(g._graph is not None for g in eng._s_graphs.values())
+    finally:
+        eng.close()

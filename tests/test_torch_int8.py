@@ -2,8 +2,9 @@
 package on the same numpy inputs: ``quantize_kv`` bit-identical; the
 plain versions of kernels 2 and 3 within 1e-5 of ``repro.kernels.ref``
 and within 3e-5 (the JAX package's own bound, tests/test_kernels.py) of
-the Pallas kernels in interpret mode; ``r_attention_int8`` and the int8
-page pools with exactly equal storage and outputs within 1e-5.  fp32
+the Pallas kernels in interpret mode; ``r_attention_int8``, the int8
+chunk R-Part and the int8 page pools with exactly equal storage and
+outputs within 1e-5.  fp32
 unless stated.  The Hopper kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py)."""
 import dataclasses
@@ -285,11 +286,39 @@ def test_r_attention_int8_matches_jax_and_keeps_inactive_rows(opt):
 
 
 def test_int8_chunk_and_prefix_helpers_wait_for_their_slices():
+    """The prefix cache's byte helper still waits for its slice; the int8
+    chunk R-Part (chunked prefill and the dense int8 verify) is ported:
+    against the JAX package on rows that append mid-slab, over stale
+    entries past their offset, from offset 0, not at all, and past the
+    ring's end (the chunk wraps): int8 values, scales and positions
+    exactly equal, outputs within 1e-5 on the valid positions."""
     tc = ModelConfig(**dataclasses.asdict(tiny_cfg("qwen3-8b")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TKV.r_attention_int8_chunk({}, {}, window=0, softcap=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TKV.shared_prefix_bytes_saved(tc, 32, 2, 16, quantized=True)
+    rng = np.random.default_rng(8)
+    b, c, hkv, g, dh = 4, 4, 2, 2, 8
+    st = TKV.quantize_attn_state({k: _t(v) for k, v in
+                                  _int8_state(rng, b, 12, hkv, dh).items()})
+    valid = np.zeros((b, c), bool)
+    for r, n in enumerate([4, 3, 2, 0]):
+        valid[r, :n] = True
+    r_in = {"q": rng.standard_normal((b, c, hkv * g, dh)).astype(np.float32),
+            "k": rng.standard_normal((b, c, hkv, dh)).astype(np.float32),
+            "v": rng.standard_normal((b, c, hkv, dh)).astype(np.float32),
+            "lengths": np.array([5, 8, 0, 12], np.int32), "valid": valid}
+    r_in["valid"][3] = True                   # row 3: the chunk wraps
+    jout, jst = JKV.r_attention_int8_chunk(
+        {k: _j(v) for k, v in r_in.items()},
+        {k: _j(v.numpy()) for k, v in st.items()}, window=0, softcap=0.0)
+    tout, tst = TKV.r_attention_int8_chunk(
+        {k: _t(v) for k, v in r_in.items()}, st, window=0, softcap=0.0)
+    assert tst is st                                # updated in place
+    for name in jst:
+        np.testing.assert_array_equal(tst[name].numpy(),
+                                      np.asarray(jst[name]))
+    live = r_in["valid"]
+    np.testing.assert_allclose(tout["o"].numpy()[live],
+                               np.asarray(jout["o"])[live], atol=TOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -337,3 +337,54 @@ def test_paged_int8_entry_on_card_matches_plain(dtype):
             assert out.dtype == dt
             assert torch.all(out[empty] == 0)
             assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_verify_entry_on_card_matches_plain(dtype):
+    """Kernel 3's multi-token paged entry (the int8 verify): T = 1, 2, 4
+    and 8 candidate tokens, G 1 and 4, pages of 4 and 16, over the
+    ragged/hole/shared/unmapped tables of kernel 1's cases (the pages hold
+    the last candidate) and the long multi-split tables, with window +
+    sink and softcap, against ``ref.paged_verify_attention_int8_ref`` on
+    q.float() (the kernel keeps the dequantized K/V in fp32), each
+    repeated bitwise and counted in ``verify_launches``; at T = 1 bitwise
+    equal to the decode entry (the same instantiation and plan)."""
+    _needs_card()
+    rng = np.random.default_rng(12)
+    dt = getattr(torch, dtype)
+    cases = []
+    for t in (1, 2, 4, 8):
+        for g in (1, 4):
+            for page in (4, 16):
+                _, pk, pv, tables, lengths = (
+                    torch.from_numpy(a).cuda()
+                    for a in _case(rng, g=g, page=page))
+                q = torch.from_numpy(rng.standard_normal(
+                    (4, t, 2 * g, 128)).astype(np.float32)).cuda()
+                cases.append((t, (q, pk, pv, tables,
+                                  torch.clamp(lengths - (t - 1), min=0)), 3))
+    cases += [(t, _long_case(rng, t=t, g=g, page=16), 5) for t in (1, 4)
+              for g in (1, 4)]
+    for t, (q, pk, pv, tables, base), empty in cases:
+        q = q.to(dt)
+        pkq, pks = TQK.quantize_kv(pk)
+        pvq, pvs = TQK.quantize_kv(pv)
+        args = (q, pkq, pks, pvq, pvs, tables, base)
+        for kw in ({}, dict(window=6, sink=2), dict(softcap=3.0)):
+            before = TQK.verify_launches.value
+            out = TQK.paged_verify_attention_int8(*args, **kw)
+            again = TQK.paged_verify_attention_int8(*args, **kw)
+            torch.cuda.synchronize()
+            assert TQK.verify_launches.value == before + 2
+            want = TREF.paged_verify_attention_int8_ref(q.float(), *args[1:],
+                                                        **kw)
+            _assert_within(out, want, dtype)
+            assert out.dtype == dt and out.shape == q.shape
+            assert torch.all(out[empty] == 0)
+            assert torch.equal(out, again)
+            if t == 1:
+                dec = TQK.paged_decode_attention_int8(
+                    q[:, 0].contiguous(), *args[1:], **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(out[:, 0], dec)

@@ -260,22 +260,19 @@ def test_paged_admission_cap_and_errors_like_reference(setup):
 
 
 def test_not_ported_options_raise():
-    from repro_torch.serving.engine import SpecConfig
     tc = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
-    for opt in ("prefill_chunk", "prefix_cache"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                          **{opt: 4})
-    # speculative decoding is ported, but not on int8 storage
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      backend="hetero", num_r_workers=1, quantized_kv=True,
-                      spec_decode=SpecConfig(k=2))
-    # int8 storage is ported: the option is taken, with the rest still
-    # refused beside it
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
+                      prefix_cache=4)
+    # int8 storage, chunked prefill and speculative decoding are ported
+    # (tests/test_torch_prefill_chunked.py): they are taken, with the
+    # rest still refused beside them
+    with pytest.raises(NotImplementedError, match="prefix_cache"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      quantized_kv=True, prefill_chunk=4)
+                      quantized_kv=True, prefix_cache=True)
+    with pytest.raises(NotImplementedError, match="prefix_cache"):
+        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
+                      backend="hetero", prefill_chunk=4, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       admission="sls")

@@ -2,10 +2,12 @@
 package (the port's twin of
 test_equiv_matrix.py::test_spec_decode_greedy_matches_colocated): greedy
 tokens equal to the colocated spec-off oracle ``conftest.serve_trace``
-for paged and dense storage, OoO and FIFO, with self-speculation and
-with a separate (rejecting) drafter; ``spec_stats`` equal to the JAX
-spec engine's on the same trace and weights; the verify R-Part counted
-on every layer of every verify work; and the in-place drafter holding,
+for paged and dense storage, and to the JAX spec engine's on int8 and
+paged-int8 storage (whose tokens need not be the fp oracle's), OoO and
+FIFO, with self-speculation and with a separate (rejecting) drafter;
+``spec_stats`` equal to the JAX spec engine's on the same trace, weights
+and storage; the verify R-Part counted on every layer of every verify
+work; and the in-place drafter holding,
 after a draft, exactly the state a fresh prefill of the committed tokens
 gives.  Tokens and counts compare exactly; logits within 1e-5 (fp32)."""
 import dataclasses
@@ -23,6 +25,7 @@ from repro.serving.request import Request as JRequest
 from repro_torch import bridge
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import quant_kv as TQK
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import ServingEngine, SpecConfig
 from repro_torch.serving.request import Request
@@ -98,40 +101,71 @@ def jax_spec_stats(setup):
     return dict(eng.spec_stats)
 
 
-STORAGE = {"paged": dict(paged_kv=True, page_size=4), "dense": {}}
+STORAGE = {"paged": dict(paged_kv=True, page_size=4), "dense": {},
+           "int8": dict(quantized_kv=True),
+           "paged-int8": dict(paged_kv=True, page_size=4, quantized_kv=True)}
+
+
+@pytest.fixture(scope="module")
+def jax_int8_spec(setup):
+    """The JAX spec engine with the separate drafter on an int8 storage:
+    (tokens, spec_stats), made on first use per storage."""
+    s, runs = setup, {}
+
+    def run(storage):
+        if storage not in runs:
+            eng = JServingEngine(
+                s["jp"], s["jc"], batch=4, cache_len=48, backend="hetero",
+                spec_decode=JSpecConfig(k=3, draft_cfg=s["jdc"],
+                                        draft_params=s["jdp"]),
+                **STORAGE[storage])
+            got, _ = _serve(eng, s["spec"], JRequest)
+            runs[storage] = (got, dict(eng.spec_stats))
+        return runs[storage]
+    return run
 
 
 @pytest.mark.parametrize("drafter", ["self", "separate"])
 @pytest.mark.parametrize("schedule", ["ooo", "fifo"])
 @pytest.mark.parametrize("storage", sorted(STORAGE))
 def test_port_spec_serve_matches_colocated_oracle(setup, jax_spec_stats,
-                                                  storage, schedule,
-                                                  drafter):
+                                                  jax_int8_spec, storage,
+                                                  schedule, drafter):
     s = setup
     draft = {} if drafter == "self" else dict(draft_cfg=s["tdc"],
                                               draft_params=s["tdp"])
+    int8 = "quantized_kv" in STORAGE[storage]
+    want, want_stats = (jax_int8_spec(storage) if int8
+                        else (s["oracle"], jax_spec_stats))
     eng = ServingEngine(s["tp"], s["tc"], batch=4, cache_len=48,
                         backend="hetero", schedule=schedule, device="cpu",
                         spec_decode=SpecConfig(k=3, **draft),
                         **STORAGE[storage])
-    TPA.plain_calls.reset()
-    TPA.verify_plain_calls.reset()
+    for counter in (TPA.plain_calls, TPA.verify_plain_calls,
+                    TQK.plain_calls, TQK.verify_plain_calls):
+        counter.reset()
     got, works = _serve(eng, s["spec"], Request)
-    assert got == s["oracle"]
+    assert got == want
     st = eng.spec_stats
     if drafter == "separate":
-        assert st == jax_spec_stats
+        assert st == want_stats
         # the rollback path really ran
         assert st["accepted_tokens"] < st["drafted_tokens"]
+    elif int8:
+        # the drafter keeps an fp cache, the target reads int8 K/V: their
+        # argmaxes may part, so self-speculation may reject too
+        assert 0 < st["accepted_tokens"] <= st["drafted_tokens"]
     else:
         assert st["accepted_tokens"] == st["drafted_tokens"] > 0
     # every layer of every verify work, on both R-workers, went through
-    # the verify R-Part (its plain version on the CPU); decode never ran
-    paged = storage == "paged"
+    # the paged verify R-Part (the plain version of kernel 4, or of kernel
+    # 3's multi-token entry, on the CPU); decode never ran
+    paged = "paged_kv" in STORAGE[storage]
     assert works > 0
-    assert TPA.verify_plain_calls.value == \
-        (s["tc"].num_layers * 2 * works if paged else 0)
-    assert TPA.plain_calls.value == 0
+    calls = s["tc"].num_layers * 2 * works if paged else 0
+    assert TPA.verify_plain_calls.value == (0 if int8 else calls)
+    assert TQK.verify_plain_calls.value == (calls if int8 else 0)
+    assert TPA.plain_calls.value == TQK.plain_calls.value == 0
 
 
 def test_drafter_after_draft_equals_fresh_prefill(setup):
@@ -211,8 +245,17 @@ def test_spec_refusals_like_reference(setup):
             eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=9))
         done = eng.run(max_steps=40)
         assert [len(r.generated) for r in done] == [8]
-        # verify works are the only chunk work ported so far
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.engine.queue_prefill_chunk(0, [0], [[1]], [1], [1])
+        # a plain (prefill) chunk is chunk work too: from offset 0 it runs
+        # in a chunk-only step and returns the row's last-valid logits,
+        # those of a whole-prompt prefill
+        wk = eng.engine.queue_prefill_chunk(0, [0], [[5, 7, 2]], [0], [2])
+        assert not wk.verify
+        eng.engine.decode_step(None)
+        assert eng.engine.prefill_results == [wk]
+        want, _ = TM.prefill(tp, tc, torch.tensor([[5, 7]], dtype=torch.int32),
+                             torch.tensor([2], dtype=torch.int32), 16)
+        assert wk.logits.shape == (1, tc.vocab_size)
+        np.testing.assert_allclose(wk.logits.numpy(), want.numpy(), atol=TOL,
+                                   rtol=0)
     finally:
         eng.close()

@@ -3,7 +3,8 @@ package: kernel 4's plain versions (paged and dense) against
 repro.kernels.ref AND the Pallas ``_verify_kernel`` in interpret mode,
 over the kernel phase's case grid of chip_smoke.py; T = 1 against the
 decode plain version; the chunk pieces (``chunk_ring_plan``,
-``model.prefill_chunk``, ``r_attention_chunk``, the paged verify R-Part),
+``model.prefill_chunk``, ``r_attention_chunk``, the paged verify R-Part
+on fp and int8 pools),
 the allocator's ``append_chunk``/``truncate`` and the greedy
 ``spec_accept``.  fp32 on the CPU; tolerance 1e-5 absolute (the same
 fp32 online softmax in both packages, summed in another order), and
@@ -343,9 +344,47 @@ def test_r_attention_paged_verify_matches_jax(page):
 
 
 def test_r_attention_paged_verify_refuses_int8_pools():
-    pool = TPC.init_page_pool(4, 4, 2, 16, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPC.r_attention_paged_verify({}, pool, torch.zeros((1, 1)))
+    """The paged verify R-Part on int8 pools, once refused, against the
+    JAX package's: the candidates quantized into their pages (int8 values
+    and scales exactly equal, the port's scratch page aside), then scored
+    through the int8 multi-token op, its plain version on the CPU
+    (counted), within 1e-5 on the verified rows."""
+    from repro_torch.kernels import quant_kv as TQK
+    rng = np.random.default_rng(31)
+    page, b, c, hkv, dh, n_pages = 4, 3, 4, 2, 16, 12
+    base = np.array([2 * page + 1, page - 2, 0], np.int32)
+    counts = [4, 4, 0]
+    alloc = TPC.PagedAllocator(b, n_pages, page, 6, device="cpu")
+    jalloc = JPC.PagedAllocator(b, n_pages, page, 6)
+    for r in range(2):
+        alloc.admit(r, int(base[r]))
+        jalloc.admit(r, int(base[r]))
+    alloc.append_chunk(base, np.asarray(counts))
+    jalloc.append_chunk(base, np.asarray(counts))
+    np.testing.assert_array_equal(alloc.tables, jalloc.tables)
+    used = int((alloc.tables >= 0).sum(axis=1).max())
+    tables = alloc.tables[:, :1 << (used - 1).bit_length()].copy()
+    pool = TPC.init_page_pool(n_pages, page, hkv, dh, quantized=True,
+                              device="cpu")
+    for name in ("k", "v"):
+        x = rng.standard_normal((n_pages, page, hkv, dh)).astype(np.float32)
+        pool[f"{name}_q"][:n_pages], pool[f"{name}_s"][:n_pages] = \
+            TQK.quantize_kv(_t(x))
+    jpool = {k: jnp.asarray(v[:n_pages].numpy()) for k, v in pool.items()}
+    r_in = _chunk_r_in(rng, b=b, c=c, hq=4, hkv=hkv, dh=dh, base=base,
+                       counts=counts)
+    jo, jpool = JPC.r_attention_paged_verify(
+        jax.tree.map(jnp.asarray, r_in), jpool, jnp.asarray(tables))
+    TQK.verify_plain_calls.reset()
+    to, pool = TPC.r_attention_paged_verify(
+        {k: _t(v) for k, v in r_in.items()}, pool, _t(tables))
+    assert TQK.verify_plain_calls.value == 1
+    live = r_in["valid"]
+    np.testing.assert_allclose(to["o"].numpy()[live],
+                               np.asarray(jo["o"])[live], atol=TOL, rtol=0)
+    for k in ("k_q", "k_s", "v_q", "v_s"):
+        np.testing.assert_array_equal(pool[k][:n_pages].numpy(),
+                                      np.asarray(jpool[k]))
 
 
 def test_allocator_append_chunk_and_truncate_match_jax():
