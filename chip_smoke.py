@@ -67,7 +67,8 @@ Phases (any failure exits nonzero):
               the same with spec_decode=SpecConfig(k=3) and
               quantized_kv=True, paged (the multi-token int8 entry's
               launches = layers x workers x verify works, no gather) and
-              dense (the int8 chunk R-Part, no kernel).
+              dense (the int8 chunk R-Part, no kernel), each with its
+              divergence from spec-off int8 triaged as serve_spec's.
   equiv       the same width at 2 layers in fp32 (TF32 off): the hetero
               paged engine (through the kernel) and the colocated engine
               (plain torch) must give the same greedy tokens, a mismatch
@@ -93,6 +94,31 @@ Phases (any failure exits nonzero):
   equiv_spec_int8
               spec k = 3 on int8 storage, paged (through the multi-token
               int8 entry) and dense == spec-off int8 of the same storage.
+  serve_sampled
+              the 12-request trace with every odd request sampled
+              (temperature 0.8, top-k 50, top-p 0.95), paged bf16: twice
+              with one seed (tokens identical), once with another, then
+              with spec k = 3 (rejection sampling); every sampled token
+              inside the support of target_probs of the row that chose it.
+  serve_prefix
+              prefix_cache=True: 12 requests sharing one 512-token prefix
+              (request 0 first, the rest a step later), beside the same
+              trace without the cache: hits, shared pages, peak resident
+              KV, prefill wall, captures; the shared pages' bytes (a
+              device-side digest) unchanged by the serve; tokens against
+              the cache-off serve, triaged teacher-forced.
+  serve_tier  kv_tiering=TierConfig(), preempt_after=2 and a pool cut so
+              admission stalls, paged bf16 then paged int8, beside an
+              uninterrupted serve with a large pool: preemptions, pages
+              swapped out and restored, host bytes, the measured copy
+              seconds beside the simulated ones; every restored page bit
+              for bit its swapped-out bytes; tokens triaged.
+  equiv_prefix
+              at 2 layers, fp32 (bf16 where named): prefix-on == prefix-
+              off == colocated (graphs and eager); parked-and-restored ==
+              uninterrupted (bf16, int8); preempt() mid-decode ==
+              uninterrupted; sampled hetero == sampled colocated (one
+              seed).
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -1595,7 +1621,7 @@ def graph_memory(eng) -> dict:
 def serve_run(dev, model, out: Path, *, kernel, paged: bool,
               quantized: bool, spec_k: int = 0, prefill_chunk: int = 0,
               profile: str = "", trace: bool = False,
-              eager: bool = False) -> dict:
+              eager: bool = False, **run_kw) -> dict:
     """Serve the 12-request trace through ServingEngine(backend="hetero",
     num_r_workers=2) with the given storage, speculative decoding with
     ``spec_k`` drafts per row when nonzero, chunked prefill with
@@ -1606,17 +1632,100 @@ def serve_run(dev, model, out: Path, *, kernel, paged: bool,
     decode steps, or the verify works run with spec decoding), no other
     kernel may run (``kernel`` None: none at all), and no plain version
     may run; on the graph path the counts come from replays.  ``profile``
-    names a profiled window of 3 steps afterwards (written to ``out``)."""
+    names a profiled window of 3 steps afterwards (written to ``out``).
+
+    ``run_kw``: ``reqs`` (another trace), ``arrive`` ({rid: step}: submit
+    before that step, default 0), ``engine_kw`` (more ServingEngine
+    options: seed, prefix_cache, kv_tiering, preempt_after,
+    pages_per_worker), ``rows`` (a dict that receives the logits row that
+    chose every token, keyed (rid, token index)), ``check_support``
+    (every token a sampled request commits must have probability > 0
+    under ``sampler.target_probs`` of the row that chose it), ``on_step``
+    (called with the engine after every step) and ``max_steps``."""
     from repro_torch.core import graphs
     with (graphs.eager() if eager else contextlib.nullcontext()):
         return _serve_run(dev, model, out, kernel=kernel, paged=paged,
                           quantized=quantized, spec_k=spec_k,
                           prefill_chunk=prefill_chunk, profile=profile,
-                          trace=trace, eager=eager)
+                          trace=trace, eager=eager, **run_kw)
+
+
+class _TokenLog:
+    """While active, sees every token the engine commits, with the logits
+    row that chose it: the engine's ``_sample_tokens`` (prefill and decode
+    rows, each named by its request) and the accept walk of a spec step
+    (``sampler.spec_accept`` as the engine module calls it, one call per
+    live row in ``_spec_rows`` order; committed token i of a call comes
+    from logits row i).  ``rows`` (a dict) receives each row on the host,
+    keyed (rid, token index); with ``support`` a sampled request's token
+    must have probability > 0 under ``target_probs`` of its row (checked
+    on the device; ``support_checked`` / ``support_violations``)."""
+
+    def __init__(self, eng, rows=None, support=False):
+        self.eng, self.rows, self.support = eng, rows, support
+        self.support_checked = self.support_violations = 0
+
+    def _note(self, r, j, row, tok):
+        if self.rows is not None:
+            self.rows[(r.rid, j)] = row.float().cpu()
+        if self.support and r.temperature > 0.0:
+            from repro_torch.serving.sampler import target_probs
+            p = target_probs(row[None], r.temperature, r.top_k, r.top_p)
+            self.support_checked += 1
+            self.support_violations += int(float(p[0, tok]) <= 0.0)
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+        eng = self.eng
+        own_sample, self._own_accept = eng._sample_tokens, E.spec_accept
+        own_rows, live, calls = eng._spec_rows, [], [0]
+
+        def sample(logits, reqs):
+            toks = own_sample(logits, reqs)
+            for i, r in enumerate(reqs):
+                if r is not None:
+                    self._note(r, len(r.generated), logits[i], int(toks[i]))
+            return toks
+
+        def spec_rows():
+            live[:] = own_rows()
+            calls[0] = 0
+            return list(live)
+
+        def accept(logits, draft, *a, **kw):
+            toks, acc = self._own_accept(logits, draft, *a, **kw)
+            r = live[calls[0]][1]
+            calls[0] += 1
+            for i, t in enumerate(toks):
+                self._note(r, len(r.generated) + i, logits[i], int(t))
+            return toks, acc
+        eng._sample_tokens, eng._spec_rows = sample, spec_rows
+        E.spec_accept = accept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as E
+        E.spec_accept = self._own_accept
+        for name in ("_sample_tokens", "_spec_rows"):
+            self.eng.__dict__.pop(name, None)
+
+
+def _referenced_bytes(eng) -> float:
+    """KV bytes of the pool pages some row maps, over every paged layer
+    (``paged_resident_bytes`` adds the refcount-zero cached and parked
+    pages, which hold KV until the ladder reclaims them)."""
+    from repro_torch.serving import paged_cache as PC
+    if eng.backend != "hetero":
+        return 0.0
+    return sum(w.allocators[lk // w.cfg.num_layers].used_pages()
+               * w.page_size * PC.page_pool_token_bytes(w.state[lk])
+               for w in eng.engine.workers for lk in w.paged_keys)
 
 
 def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
-               prefill_chunk, profile, trace, eager) -> dict:
+               prefill_chunk, profile, trace, eager, reqs=None, arrive=None,
+               engine_kw=None, rows=None, check_support=False,
+               on_step=None, max_steps=200) -> dict:
     import torch
     from repro_torch.core import graphs
     from repro_torch.kernels import decode_attention as DA
@@ -1632,25 +1741,34 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                         quantized_kv=quantized, page_size=16, batch=batch,
                         cache_len=1024, device=dev,
                         prefill_chunk=prefill_chunk,
-                        spec_decode=SpecConfig(k=spec_k) if spec_k else None)
+                        spec_decode=SpecConfig(k=spec_k) if spec_k else None,
+                        **(engine_kw or {}))
+    arrive = arrive or {}
     try:
-        reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
-                         cfg.vocab_size)
-        for r in reqs:
-            eng.submit(r)
+        if reqs is None:
+            reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
+                             cfg.vocab_size)
+        pending = sorted(reqs, key=lambda r: arrive.get(r.rid, 0))
+        while pending and arrive.get(pending[0].rid, 0) <= 0:
+            eng.submit(pending.pop(0))
         torch.cuda.synchronize()
         _reset_counters()
         graphs.captures.reset()
         nonfinite = 0
-        peak_resident = 0.0
+        peak_resident = peak_referenced = 0.0
         verify_works = row_verifies = prefill_works = 0
         step_tokens = []        # decode (or verify) tokens of each step
         # steps that admitted (monolithic) or ran a prefill chunk
         prefill_steps = []
         step_capture = []       # capture seconds inside each step
         seen = eng.engine.prefill_results
-        with _GatherCount() as gathers:
-            while eng.queue or any(s is not None for s in eng.slots):
+        with _GatherCount() as gathers, \
+                _TokenLog(eng, rows, check_support) as toklog:
+            while pending or eng.queue \
+                    or any(s is not None for s in eng.slots):
+                while pending and arrive.get(pending[0].rid, 0) \
+                        <= eng.step_idx:
+                    eng.submit(pending.pop(0))
                 n0 = sum(len(r.generated) for r in reqs)
                 first0 = sum(not r.generated for r in reqs)
                 cap0 = graphs.captures.capture_s
@@ -1677,8 +1795,13 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                 if not spec_k:
                     nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
                 peak_resident = max(peak_resident, eng.paged_resident_bytes())
-                if eng.step_idx > 200:
-                    raise AssertionError("serve did not drain in 200 steps")
+                peak_referenced = max(peak_referenced,
+                                      _referenced_bytes(eng))
+                if on_step is not None:
+                    on_step(eng)
+                if eng.step_idx > max_steps:
+                    raise AssertionError(f"serve did not drain in "
+                                         f"{max_steps} steps")
             torch.cuda.synchronize()
         capture = {"capture_count": graphs.captures.capture_count,
                    "capture_s": graphs.captures.capture_s}
@@ -1695,6 +1818,9 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         hot = eng.hotpath_stats()
         busy = eng.engine.worker_busy_times()
         done = {r.rid: r for r in eng.finished}
+        prefix_stats = (dict(eng.prefix_cache_stats()) if eng.prefix_cache
+                        else None)
+        tier_stats = dict(eng.tiering_stats()) or None
         prof = None
         if profile:
             # a separate window on the warm engine (not part of the
@@ -1785,6 +1911,8 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "decode_s_total": sum(dec),
            "kv_bytes": kv_bytes, "page_pool_bytes": pool_bytes,
            "paged_resident_bytes_peak": peak_resident,
+           # pages some row maps (cached and parked pages left out)
+           "paged_referenced_bytes_peak": peak_referenced,
            "kernel": kernel, "kernel_launches": got,
            "launches": launches, "plain_calls": plain,
            "paged_merge_launches": merges,
@@ -1793,6 +1921,13 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
            **capture, **mem,
            "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
+    if prefix_stats is not None:
+        rec["prefix_cache"] = prefix_stats
+    if tier_stats is not None:
+        rec["tiering"] = tier_stats
+    if check_support:
+        rec["support_checked"] = toklog.support_checked
+        rec["support_violations"] = toklog.support_violations
     if spec_k:
         rec.update({
             "spec_k": spec_k, "spec_stats": spec_stats,
@@ -1912,8 +2047,10 @@ def phase_serve_spec_int8(dev, model, out: Path, spec_off=None,
     reading the int8 pools in place: no gather; no decode kernel) and
     dense (the int8 chunk R-Part, plain torch: no kernel at all).  Beside
     each run: the spec-off int8 serve of the same storage (``spec_off``:
-    tokens equal, reported, not required, as in bf16) and the bf16 spec
-    serve (``spec_bf16``: tokens/s)."""
+    tokens equal, reported, not required, as in bf16), the bf16 spec
+    serve (``spec_bf16``: tokens/s), and the divergence from spec-off int8
+    triaged teacher-forced (``spec_triage``: first differing token, top-2
+    margin, max logit difference)."""
     paged = serve_run(dev, model, out, kernel="verify_int8", paged=True,
                       quantized=True, spec_k=3, profile="serve_spec_int8")
     dense = serve_run(dev, model, out, kernel=None, paged=False,
@@ -1933,26 +2070,38 @@ def phase_serve_spec_int8(dev, model, out: Path, spec_off=None,
     if spec_bf16 is not None:
         paged["tokens_per_s_ratio_to_bf16_spec"] = (
             paged["decode_tokens_per_s"] / spec_bf16["decode_tokens_per_s"])
+    # the int8 spec-on/spec-off divergence at full depth, triaged
+    # teacher-forced as the bf16 one is (serve_spec)
+    for r, off, is_paged in zip((paged, dense), spec_off or (None, None),
+                                (True, False)):
+        r["triage"] = spec_triage(dev, model, r, off, quantized=True,
+                                  paged=is_paged)
     return {"phase": "serve_spec_int8", "ok": True, "runs": [paged, dense],
             "kernel_launches": paged["kernel_launches"]}
 
 
-def spec_triage(dev, model, spec_rec, off_rec) -> dict:
-    """The bf16 spec-on/spec-off divergence, teacher-forced: the spec-off
-    and spec-on engines (graphs) serve the counted trace again, every
-    logits row that chose a token logged.  Where a request's tokens first
+def spec_triage(dev, model, spec_rec, off_rec, quantized=False,
+                paged=True) -> dict:
+    """The spec-on/spec-off divergence of one storage (bf16 paged by
+    default; ``quantized``: int8, paged or dense), teacher-forced: the
+    spec-off and spec-on engines (graphs) serve the counted trace again,
+    every logits row that chose a token logged.  Where a request's tokens first
     differ, both histories agree before that token, so the two rows that
     chose it were fed the same tokens: their max difference and the
     spec-off row's top-2 margin say whether a near-tie flipped (margin
     below the difference) or the computations part (a fault).  Beside
     them, the largest difference on tokens before any divergence: how far
-    a C-token verify and a one-token decode part in bf16."""
+    a C-token verify and a one-token decode part in bf16.  The port
+    functions compared: the verify path (``_chunk_*`` transitions and the
+    verify R-Part) against the decode path (``_advance`` and the decode
+    R-Part), both of the port, named in ``functions``."""
     from repro_torch.serving.engine import ServingEngine, SpecConfig
     cfg, params = model["cfg"], model["params"]
     logs = {}
     for name, spec in (("off", None), ("spec", SpecConfig(k=3))):
         eng = ServingEngine(params, cfg, backend="hetero", num_r_workers=2,
-                            num_microbatches=2, paged_kv=True, page_size=16,
+                            num_microbatches=2, paged_kv=paged,
+                            quantized_kv=quantized, page_size=16,
                             batch=8, cache_len=1024, device=dev,
                             spec_decode=spec)
         try:
@@ -1972,7 +2121,21 @@ def spec_triage(dev, model, spec_rec, off_rec) -> dict:
         and (off_rec is None or {rid: t for rid, (t, _)
                                  in logs["off"].items()}
              == off_rec["tokens"]))
-    return {"diverging_requests": len(parted), "requests": len(logs["off"]),
+    verify = ("kernel 3 multi-token paged entry (paged_cache."
+              "r_attention_paged_verify)" if quantized and paged
+              else "kv_cache.r_attention_int8_chunk" if quantized
+              else "kernel 4 (paged_cache.r_attention_paged_verify)")
+    decode = ("kernel 3 paged entry (paged_cache.r_attention_paged_tables)"
+              if quantized and paged else "kernel 3 (kv_cache."
+              "r_attention_int8)" if quantized
+              else "kernel 1 (paged_cache.r_attention_paged_tables)")
+    return {"storage": ("paged-" if paged else "dense-")
+            + ("int8" if quantized else cfg.dtype),
+            "functions": {"spec_on": "HeteroPipelineEngine._chunk_start/"
+                          "_chunk_advance + " + verify,
+                          "spec_off": "HeteroPipelineEngine._start/_advance "
+                          "+ " + decode},
+            "diverging_requests": len(parted), "requests": len(logs["off"]),
             "first_diffs": sorted(parted, key=lambda r: r["rid"]),
             "max_logit_diff_before_divergence": before,
             "max_logit_diff_at_first_diff": max(
@@ -2069,48 +2232,26 @@ EQUIV_LOGIT_TOL = 1e-4     # fp32 logits, TF32 off
 QUANT_BOUND = 0.5          # int8 vs fp logits, as tests/test_hetero.py holds
 
 
-def _serve_logged(eng, reqs, forced=None, on_step=None):
+def _serve_logged(eng, reqs, forced=None, on_step=None, arrive=None,
+                  rows=None):
     """Serve ``reqs`` step by step.  Returns ({rid: (tokens, [logits of
     each decode step that sampled a token of it, on the host])}, the
     token array of every sampling call).  With ``forced`` the engine is
-    fed other tokens in place of its own argmax, so its logits are
+    fed other tokens in place of its own choice, so its logits are
     teacher-forced: a list of such token arrays from another run of the
     same engine, call by call, or a dict {rid: tokens} from any run of
-    the same requests (the rows of each sampling call are looked up: the
-    RUNNING rows of a decode step, the requests a monolithic admission
-    places, the rows a prefill chunk completes).  ``on_step(eng)`` runs
-    after every step."""
+    the same requests (each sampling call names the request of each of
+    its rows).  ``arrive`` ({rid: step}) submits a request before that
+    step (default 0); ``rows`` (a dict), when given, receives the logits
+    row that chose every token, prefill and decode alike, keyed (rid,
+    token index; ``_TokenLog``).  ``on_step(eng)`` runs after every
+    step."""
     import torch
-    from repro_torch.serving.request import Status
+    toklog = _TokenLog(eng, rows).__enter__()
     sampled = []
     logs = {r.rid: [] for r in reqs}
     own_sample, own_decode = eng._sample_tokens, eng.engine.decode_step
-    own_place = eng._place_monolithic
     in_decode = [False]
-    placing = []
-
-    def place(reqs_, rows):
-        placing[:] = reqs_
-        try:
-            return own_place(reqs_, rows)
-        finally:
-            placing[:] = []
-
-    def rows_of(logits):
-        """(logits row, request) of each token this sampling call makes."""
-        if in_decode[0]:
-            return [(i, r) for i, r in enumerate(eng.slots)
-                    if r is not None and r.status is Status.RUNNING]
-        if placing:
-            return list(enumerate(placing))
-        wk = next(w for w in eng.engine.prefill_results
-                  if w.logits is logits)
-        out = []
-        for local in wk.rows:
-            r = eng.slots[wk.mb * eng.mb_size + int(local)]
-            if r is not None and r.status is Status.PREFILLING:
-                out.append((int(local), r))
-        return out
 
     def decode_step(*args):
         # a chunk-only step (a spec verify) samples nothing: its logits
@@ -2119,26 +2260,25 @@ def _serve_logged(eng, reqs, forced=None, on_step=None):
         in_decode[0] = args[0] is not None
         return own_decode(*args)
 
-    def sample(logits):
-        toks = own_sample(logits)
+    def sample(logits, reqs_):
+        toks = own_sample(logits, reqs_)
         if isinstance(forced, dict):
             toks = toks.copy()
-            for i, r in rows_of(logits):
-                toks[i] = forced[r.rid][len(r.generated)]
+            for i, r in enumerate(reqs_):
+                if r is not None:
+                    toks[i] = forced[r.rid][len(r.generated)]
         elif forced is not None:
             toks = forced[len(sampled)].copy()
-        if in_decode[0]:        # rows hold their requests until sampled
+        if in_decode[0]:        # the RUNNING rows of a decode step
             lg = logits.float().cpu()
-            for i, r in enumerate(eng.slots):
-                # a PREFILLING row samples nothing from a decode step
-                if r is not None and r.status is Status.RUNNING:
+            for i, r in enumerate(reqs_):
+                if r is not None:
                     logs[r.rid].append(lg[i])
-            in_decode[0] = False
+        in_decode[0] = False
         sampled.append(toks)
         return toks
 
     eng._sample_tokens, eng.engine.decode_step = sample, decode_step
-    eng._place_monolithic = place
     # a spec step chooses its tokens in sampler.spec_accept, one call per
     # live row in _spec_rows order: the logits row that chose committed
     # token i of a call is logits[i]
@@ -2154,26 +2294,30 @@ def _serve_logged(eng, reqs, forced=None, on_step=None):
             calls[0] = 0
             return list(live)
 
-        def accept(logits, draft, **kw):
-            toks, acc = own_accept(logits, draft, **kw)
-            rid = live[calls[0]][1].rid
+        def accept(logits, draft, *a, **kw):
+            toks, acc = own_accept(logits, draft, *a, **kw)
+            r = live[calls[0]][1]
             calls[0] += 1
             lg = logits.float().cpu()
-            logs[rid].extend(lg[i] for i in range(len(toks)))
+            logs[r.rid].extend(lg[i] for i in range(len(toks)))
             return toks, acc
         eng._spec_rows, E.spec_accept = spec_rows, accept
+    arrive = arrive or {}
+    pending = sorted(reqs, key=lambda r: arrive.get(r.rid, 0))
     try:
-        for r in reqs:
-            eng.submit(r)
-        while eng.queue or any(s is not None for s in eng.slots):
+        while pending or eng.queue \
+                or any(s is not None for s in eng.slots):
+            while pending and arrive.get(pending[0].rid, 0) <= eng.step_idx:
+                eng.submit(pending.pop(0))
             eng.step()
             if on_step is not None:
                 on_step(eng)
-            if eng.step_idx > 200:
-                raise AssertionError("equiv serve did not drain in 200 "
+            if eng.step_idx > 400:
+                raise AssertionError("equiv serve did not drain in 400 "
                                      "steps")
     finally:
         E.spec_accept = own_accept
+        toklog.__exit__(None, None, None)
     torch.cuda.synchronize()
     return ({r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished},
             sampled)
@@ -2234,12 +2378,15 @@ def _equiv_model(dev, seed):
 
 
 def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None,
-                 eager=False, on_step=None, **kw):
+                 eager=False, on_step=None, reqs=None, arrive=None,
+                 rows=None, **kw):
     """``stats`` (a dict), when given, receives the engine's spec_stats;
     ``eager`` runs the step callables op by op instead of replaying their
-    graphs; ``on_step(eng)`` runs after every step.  Hetero engines have
-    2 R-workers, 2 micro-batches and pages of 16 unless ``kw`` says
-    otherwise."""
+    graphs; ``on_step(eng)`` runs after every step; ``reqs`` (made anew
+    for each serve: a function of no argument) replaces the trace of
+    ``spec``, ``arrive`` and ``rows`` go to ``_serve_logged``.  Hetero
+    engines have 2 R-workers, 2 micro-batches and pages of 16 unless
+    ``kw`` says otherwise."""
     from repro_torch.core import graphs
     from repro_torch.serving.engine import ServingEngine
     hetero = kw.get("backend") == "hetero"
@@ -2250,8 +2397,10 @@ def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None,
                         **kw)
     try:
         with (graphs.eager() if eager else contextlib.nullcontext()):
-            return _serve_logged(eng, _requests(np.random.default_rng(2),
-                                                **spec), forced, on_step)
+            return _serve_logged(
+                eng, reqs() if reqs is not None else _requests(
+                    np.random.default_rng(2), **spec), forced, on_step,
+                arrive, rows)
     finally:
         eng.close()
         if stats is not None:
@@ -2616,9 +2765,528 @@ def phase_equiv_spec_int8(dev) -> dict:
             "spec_k": 3, "requests": spec["n"], "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# sampled decoding, the prefix cache, tiering and preemption
+# ---------------------------------------------------------------------------
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def _sampled(reqs):
+    """Every odd request of a trace samples (``SAMPLING``); the even ones
+    stay greedy."""
+    for r in reqs:
+        if r.rid % 2:
+            r.temperature, r.top_k, r.top_p = (SAMPLING["temperature"],
+                                               SAMPLING["top_k"],
+                                               SAMPLING["top_p"])
+    return reqs
+
+
+def _compare_rows(got, want, rows_g, rows_w, tol):
+    """Tokens of two runs of the same requests with the logits row that
+    chose every token (``rows``: (rid, token index) -> row, prefill,
+    resume and decode alike).  A token mismatch is a fault unless the
+    rows that chose it (both histories agree up to it: teacher-forced)
+    are within ``tol``.  Returns (max row difference before any
+    divergence, mismatches, near-tie flips, min top-2 margin of
+    ``want``'s rows)."""
+    max_diff, mismatches, ties, margins = 0.0, [], [], []
+    for rid, toks_w in want.items():
+        toks_g = got[rid]
+        first = next((i for i, (a, b) in enumerate(zip(toks_g, toks_w))
+                      if a != b), None)
+        n = len(toks_w) if first is None else first
+        for j in range(n):
+            a, b = rows_g.get((rid, j)), rows_w.get((rid, j))
+            if a is None or b is None:
+                continue
+            max_diff = max(max_diff, float((a - b).abs().max()))
+            top = b.topk(2).values
+            margins.append(float(top[0] - top[1]))
+        if first is None:
+            continue
+        a, b = rows_g.get((rid, first)), rows_w.get((rid, first))
+        top = b.topk(2).values if b is not None else None
+        rec = {"rid": rid, "first_diff": first,
+               "top2_margin": None if top is None
+               else float(top[0] - top[1]),
+               "logit_diff": None if a is None or b is None
+               else float((a - b).abs().max())}
+        if rec["logit_diff"] is not None and rec["logit_diff"] <= tol:
+            ties.append(rec)
+        else:
+            mismatches.append(rec)
+    return max_diff, mismatches, ties, min(margins, default=None)
+
+
+def _triage(got, want, rows_g, rows_w) -> dict:
+    """The ROADMAP §3 rule on two bf16 full-depth runs of one trace: at
+    each request's first differing token (teacher-forced: the histories
+    agree before it) the max logit difference of the rows that chose it
+    and the top-2 margin of ``want``'s row, beside the largest difference
+    on tokens before any divergence (how far the two paths part on
+    agreeing tokens).  A flip whose difference is within that is a
+    near-tie flip of bf16 rounding."""
+    before, parted, _, margin = _compare_rows(got, want, rows_g, rows_w,
+                                              -1.0)
+    flips = [r for r in parted if r["logit_diff"] is not None
+             and r["logit_diff"] <= before]
+    return {"requests": len(want),
+            "requests_equal": sum(got[rid] == t for rid, t in want.items()),
+            "first_diffs": sorted(parted, key=lambda r: r["rid"]),
+            "max_logit_diff_before_divergence": before,
+            "min_top2_margin": margin,
+            "near_tie_flips": len(flips),
+            "not_near_tie": [r["rid"] for r in parted if r not in flips]}
+
+
+def phase_serve_sampled(dev, model, out: Path, greedy=None) -> dict:
+    """The 12-request trace with every odd request sampled (temperature
+    0.8, top-k 50, top-p 0.95; the even ones greedy), paged bf16 on
+    graphs: twice with seed 0 (tokens identical) and once with seed 1,
+    then with spec_decode=SpecConfig(k=3) (rejection sampling against the
+    greedy self-drafter).  Every sampled token must lie in the support of
+    ``target_probs`` of the logits row that chose it; the greedy rows are
+    compared with the greedy serve's (``greedy``), reported."""
+    def reqs():
+        return _sampled(_requests(np.random.default_rng(0), 12, 17, 600,
+                                  16, 32, model["cfg"].vocab_size))
+    kw = dict(kernel="paged_decode_attention", paged=True, quantized=False,
+              check_support=True)
+    runs = [serve_run(dev, model, out, reqs=reqs(), engine_kw=dict(seed=s),
+                      **kw) for s in (0, 0, 1)]
+    spec = serve_run(dev, model, out, reqs=reqs(), engine_kw=dict(seed=0),
+                     **dict(kw, kernel="paged_verify_attention", spec_k=3))
+    same = runs[0]["tokens"] == runs[1]["tokens"]
+    sampled = [rid for rid in runs[0]["tokens"] if rid % 2]
+    other = sum(runs[0]["tokens"][rid] != runs[2]["tokens"][rid]
+                for rid in sampled)
+    bad = {i: r["support_violations"] for i, r in
+           enumerate(runs + [spec]) if r["support_violations"]}
+    if not same or bad or not other \
+            or not all(r["support_checked"] for r in runs + [spec]):
+        raise AssertionError(
+            f"sampled serve: same-seed runs equal {same}; sampled requests "
+            f"that differ under another seed {other}; tokens outside the "
+            f"target support {bad}")
+    rec = {"phase": "serve_sampled", "ok": True, "sampling": SAMPLING,
+           "sampled_requests": len(sampled), "seeds": [0, 0, 1],
+           "same_seed_tokens_equal": same,
+           "sampled_requests_differing_under_seed_1": other,
+           "support_checked": [r["support_checked"] for r in runs + [spec]],
+           "support_violations": 0,
+           "runs": [{k: r[k] for k in SUMMARY_KEYS} for r in runs],
+           "spec": {k: spec[k] for k in SUMMARY_KEYS + (
+               "acceptance_rate", "tokens_per_row_verify", "spec_stats")},
+           "kernel_launches": runs[0]["kernel_launches"]}
+    if greedy is not None:
+        rec["greedy_rows_equal_to_greedy_serve"] = sum(
+            runs[0]["tokens"][rid] == greedy["tokens"][rid]
+            for rid in runs[0]["tokens"] if rid % 2 == 0)
+    return rec
+
+
+def _prefix_requests(vocab, n=12, prefix=512):
+    """``n`` requests sharing one ``prefix``-token prefix, each with a
+    distinct 17-88-token suffix and 16-32 new tokens; request 0 arrives
+    at step 0, the rest one step later."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, vocab, prefix).astype(np.int32)
+    reqs = [Request(rid=i, prompt=np.concatenate(
+                [shared, rng.integers(1, vocab, int(rng.integers(17, 89)))
+                 .astype(np.int32)]),
+                    max_new_tokens=int(rng.integers(16, 33)))
+            for i in range(n)]
+    return reqs, {r.rid: int(r.rid > 0) for r in reqs}, shared
+
+
+def _pages_digest(w, mb: int, ids) -> list:
+    """A device-side digest of pages ``ids`` in every paged layer pool of
+    worker ``w``'s micro-batch ``mb``: per pool array the sum and a
+    position-weighted sum of its bytes, folded over the arrays (int64;
+    one copy of two numbers to the host)."""
+    import torch
+    idx = torch.as_tensor(list(ids), dtype=torch.long, device=w.device)
+    acc = None
+    for lk in sorted(k for k in w.paged_keys
+                     if k // w.cfg.num_layers == mb):
+        for name in sorted(w.state[lk]):
+            b = w.state[lk][name].index_select(0, idx).contiguous().view(
+                torch.uint8).reshape(-1).to(torch.int64)
+            wts = torch.arange(1, b.numel() + 1, device=b.device) % 65521
+            d = torch.stack([b.sum(), (b * wts).sum()])
+            acc = d if acc is None else acc * 31 + d
+    return [int(x) for x in acc.tolist()]
+
+
+class _SharedPages:
+    """The ``on_step`` hook of serve_prefix: after the first step, the
+    prefix pages of request 0 (its row's first ``n_pages`` table slots)
+    and their digest; after every later step, while the prefix index
+    still maps the prefix's chain to those pages, their digest again, and
+    the most pages shared by > 1 row at once (every pool).  The serve
+    must leave the shared pages' bytes unchanged."""
+
+    def __init__(self, shared, page):
+        from repro_torch.serving.paged_cache import _block_digest
+        self.n_pages = len(shared) // page
+        self.chain, d = [], b""
+        for i in range(self.n_pages):
+            d = _block_digest(d, shared[i * page:(i + 1) * page])
+            self.chain.append(d)
+        self.before = self.after = None
+        self.checks = 0
+        self.max_refcount = self.peak_shared_pages = 0
+
+    def __call__(self, eng):
+        self.peak_shared_pages = max(
+            self.peak_shared_pages,
+            eng.engine.prefix_cache_stats()["shared_pages"])
+        if self.before is None:
+            r = next(r for r in eng.slots if r is not None and r.rid == 0)
+            self.w, self.mb, local = eng.engine.worker_for(r.slot)
+            self.alloc = self.w.allocators[self.mb]
+            self.ids = [int(p) for p in
+                        self.alloc.tables[local][:self.n_pages]]
+            self.before = _pages_digest(self.w, self.mb, self.ids)
+            return
+        entries = self.alloc.prefix.entries
+        if [entries.get(d) for d in self.chain] == self.ids:
+            self.after = _pages_digest(self.w, self.mb, self.ids)
+            self.checks += 1
+            self.max_refcount = max(self.max_refcount, int(
+                self.alloc.refcount[self.ids].max()))
+
+
+def phase_serve_prefix(dev, model, out: Path) -> dict:
+    """The same model with prefix_cache=True: 12 requests share one
+    512-token prefix (distinct 17-88-token suffixes; request 0 at step 0,
+    the rest a step later).  A hit adopts the cached pages and prefills
+    only its suffix, as one pow2-padded chunk.  Beside it the same trace
+    with the cache off (peak resident KV, prefill wall, tokens/s).  The
+    shared pages' bytes (a device-side digest) are unchanged by the
+    serve; tokens are compared with the prefix-off run, a mismatch
+    triaged teacher-forced (``_triage``)."""
+    cfg = model["cfg"]
+    reqs, arrive, shared = _prefix_requests(cfg.vocab_size)
+    hook = _SharedPages(shared, 16)
+    rows_on, rows_off = {}, {}
+    kw = dict(kernel="paged_decode_attention", paged=True, quantized=False,
+              arrive=arrive)
+    on = serve_run(dev, model, out, reqs=reqs, rows=rows_on, on_step=hook,
+                   engine_kw=dict(prefix_cache=True), **kw)
+    off = serve_run(dev, model, out, reqs=_prefix_requests(
+        cfg.vocab_size)[0], rows=rows_off, **kw)
+    st = on["prefix_cache"]
+    if hook.before is None or hook.after != hook.before or not hook.checks \
+            or st["hits_count"] < 1 or hook.max_refcount < 2:
+        raise AssertionError(
+            f"serve_prefix: shared-page digest before {hook.before}, after "
+            f"{hook.after} ({hook.checks} checks, max refcount "
+            f"{hook.max_refcount}); prefix stats {st}")
+    triage = _triage(on["tokens"], off["tokens"], rows_on, rows_off)
+    keys = COMPARE_KEYS + ("paged_resident_bytes_peak",
+                           "paged_referenced_bytes_peak", "capture_count",
+                           "capture_s", "kernel_launches", "prefill_works",
+                           "graphs_chunk_r")
+    return {"phase": "serve_prefix", "ok": True, "requests": len(reqs),
+            "prefix_tokens": len(shared),
+            "prompt_tokens": on["prompt_tokens"], "prefix_cache": st,
+            "shared_pages_digest": {"before": hook.before,
+                                    "after": hook.after,
+                                    "checks": hook.checks,
+                                    "max_refcount": hook.max_refcount,
+                                    "pages": hook.n_pages},
+            "peak_shared_pages": hook.peak_shared_pages,
+            "vs_prefix_off": {k: [on[k], off[k]] for k in keys},
+            "resident_bytes_ratio": on["paged_resident_bytes_peak"]
+            / off["paged_resident_bytes_peak"],
+            "referenced_bytes_ratio": on["paged_referenced_bytes_peak"]
+            / off["paged_referenced_bytes_peak"],
+            "triage_vs_prefix_off": triage,
+            "kernel_launches": on["kernel_launches"], "on": on, "off": off}
+
+
+class _RestoreCheck:
+    """While active, every restore the engine writes into a pool
+    (``paged_cache.restore_pool_pages``, as hetero calls it) is read back
+    on the same stream and held against its host payload bit for bit,
+    per layer and array; the payload equals the swapped-out device bytes
+    (the tier verified its checksum when the entry streamed back).  The
+    read-back runs inside the engine's timed restore: its seconds
+    (``check_s``) are reported beside ``restore_copy_s``."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serving import paged_cache as PC
+        self._own = own = PC.restore_pool_pages
+        self.page_layers = self.mismatches = 0
+        self.bytes = 0
+        self.check_s = 0.0
+
+        def restore(pool, restores, layer_idx):
+            out = own(pool, restores, layer_idx)
+            t0 = time.perf_counter()
+            for entry, dst in restores:
+                if layer_idx not in entry.payload:
+                    continue
+                self.page_layers += 1
+                for name, arr in pool.items():
+                    got = arr[dst].to("cpu")
+                    want = entry.payload[layer_idx][name]
+                    self.bytes += want.numel() * want.element_size()
+                    self.mismatches += int(not torch.equal(got, want))
+            self.check_s += time.perf_counter() - t0
+            return out
+        PC.restore_pool_pages = restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import paged_cache as PC
+        PC.restore_pool_pages = self._own
+
+
+TIER_PAGES = 64        # pages per (worker, micro-batch) pool in serve_tier
+
+
+def phase_serve_tier(dev, model, out: Path) -> dict:
+    """KV tiering with preemption at full width: kv_tiering=TierConfig(),
+    preempt_after=2, pages_per_worker cut to ``TIER_PAGES`` (a row may
+    need 40) so admission stalls, paged bf16 and then paged int8, each
+    beside an uninterrupted serve of the same storage with the default
+    (large) pool.  Finished and preempted rows park; the eviction ladder
+    swaps parked pages out to host memory (D2H on the owning worker's
+    stream) and a readmission's probe restores them (H2D).  Every
+    restored page must equal its swapped-out bytes bit for bit
+    (``_RestoreCheck``), with preemptions >= 1 and restores >= 1; tokens
+    are compared with the uninterrupted serve, a mismatch triaged
+    teacher-forced (``_triage``)."""
+    from repro_torch.serving.paged_cache import TierConfig
+    runs = {}
+    for name, quantized, kernel in (
+            ("paged-bf16", False, "paged_decode_attention"),
+            ("paged-int8", True, "decode_attention_int8")):
+        rows_t, rows_u = {}, {}
+        kw = dict(kernel=kernel, paged=True, quantized=quantized)
+        with _RestoreCheck() as chk:
+            tier = serve_run(dev, model, out, rows=rows_t, max_steps=400,
+                             engine_kw=dict(kv_tiering=TierConfig(),
+                                            preempt_after=2,
+                                            pages_per_worker=TIER_PAGES),
+                             **kw)
+        plain = serve_run(dev, model, out, rows=rows_u, **kw)
+        ts = tier["tiering"]
+        if ts["preemptions_count"] < 1 or ts["restore_count"] < 1 \
+                or chk.mismatches or chk.page_layers < 1 \
+                or ts["corrupt_count"]:
+            raise AssertionError(
+                f"serve_tier {name}: tiering {ts}; restored page layers "
+                f"checked {chk.page_layers}, mismatching {chk.mismatches}")
+        runs[name] = {
+            "tiering": ts, "restored_page_layers_checked": chk.page_layers,
+            "restored_bytes_checked": chk.bytes,
+            "restore_check_s": chk.check_s,
+            "restored_bytes_equal_swapped_out": True,
+            "pages_per_worker": TIER_PAGES,
+            "vs_uninterrupted": {k: [tier[k], plain[k]] for k in
+                                 COMPARE_KEYS + ("decode_steps",
+                                                 "paged_resident_bytes_peak",
+                                                 "kernel_launches")},
+            "triage_vs_uninterrupted": _triage(tier["tokens"],
+                                               plain["tokens"], rows_t,
+                                               rows_u),
+            "tier": tier, "uninterrupted": plain}
+    return {"phase": "serve_tier", "ok": True, "runs": runs,
+            "kernel_launches": runs["paged-bf16"]["tier"]["kernel_launches"]}
+
+
+def _equiv_prefix_requests(vocab):
+    """Six requests at equiv scale: five share a 40-token prefix (2.5
+    pages of 16: an adopted partial tail page is CoW-cloned), one of them
+    twice (the later copy adopts the whole prompt), one is unrelated;
+    arrivals spread over steps 0-3."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(4)
+    shared = rng.integers(1, vocab, 40).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(1, vocab, int(n))
+                               .astype(np.int32)])
+               for n in rng.integers(5, 31, 4)]
+    prompts.insert(3, rng.integers(1, vocab, 23).astype(np.int32))
+    prompts.append(prompts[0].copy())
+    news = rng.integers(6, 11, len(prompts))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=int(m))
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    return reqs, dict(zip(range(6), (0, 1, 1, 2, 3, 3)))
+
+
+def phase_equiv_prefix(dev) -> dict:
+    """The slice's equivalences at 2 layers, fp32, TF32 off (bf16 where
+    named):
+
+    * prefix cache: hetero paged (one R-worker, so two rows share a pool)
+      with prefix_cache=True == prefix-off == colocated, tokens exact and
+      every logits row within 1e-4, on graphs and eager;
+    * parked and restored == uninterrupted: kv_tiering, preempt_after=2,
+      a pool of 10 pages of 16 (stalls, preemptions, swap-outs,
+      restores), fp pools (fp32, within 1e-4) and int8 pools (held to the
+      int8 bound, as equiv_spec_int8: a resumed token is recomputed
+      through a chunk, whose K/V may round one int8 step apart); bf16
+      pools reported with the triage of ``_triage`` (the recomputed
+      tokens run other GEMM shapes, which round apart in bf16);
+    * ``preempt()`` of a running request mid-decode == uninterrupted
+      (fp32, paged with tiering; within 1e-4);
+    * sampled hetero == sampled colocated for one seed (tokens exact).
+    A flip counts only if the teacher-forced rows differ beyond the
+    tolerance (``_compare_rows``)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.model import init_params
+    cfg, params, spec = _equiv_model(dev, 1)
+    out = {}
+
+    def reqs():
+        return _equiv_prefix_requests(cfg.vocab_size)[0]
+    arrive = _equiv_prefix_requests(cfg.vocab_size)[1]
+
+    def check(name, got, want, rows_g, rows_w, tol, extra=""):
+        max_diff, mismatches, ties, margin = _compare_rows(
+            {rid: t for rid, (t, _) in got.items()},
+            {rid: t for rid, (t, _) in want.items()}, rows_g, rows_w, tol)
+        if mismatches or max_diff > tol:
+            raise AssertionError(
+                f"{name}: mismatches {mismatches}, max logit diff "
+                f"{max_diff} (tol {tol}) {extra}")
+        return {"tokens_equal": not ties, "near_tie_flips": ties,
+                "max_logit_diff": max_diff, "min_top2_margin": margin,
+                "logit_tol": tol}
+
+    # 1. prefix cache on/off/colocated, graphs and eager
+    rows = {k: {} for k in ("col", "off", "on", "on_eager")}
+    shared = [0]
+
+    def count_shared(eng):
+        shared[0] = max(shared[0], eng.prefix_cache_stats()["shared_pages"])
+    col, _ = _equiv_serve(dev, cfg, params, spec, reqs=reqs, arrive=arrive,
+                          rows=rows["col"], backend="colocated")
+    hkw = dict(backend="hetero", paged_kv=True, num_r_workers=1,
+               reqs=reqs, arrive=arrive)
+    off, _ = _equiv_serve(dev, cfg, params, spec, rows=rows["off"], **hkw)
+    _reset_counters()
+    stats = {}
+
+    def note(eng):
+        count_shared(eng)
+        stats.update(eng.prefix_cache_stats())
+    on, _ = _equiv_serve(dev, cfg, params, spec, rows=rows["on"],
+                         prefix_cache=True, on_step=note, **hkw)
+    launches = {n: c[0].value for n, c in _counters().items()}
+    on_eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                               rows=rows["on_eager"], prefix_cache=True,
+                               **hkw)
+    out["prefix_on_vs_colocated"] = check(
+        "prefix-on != colocated", on, col, rows["on"], rows["col"],
+        EQUIV_LOGIT_TOL)
+    out["prefix_off_vs_colocated"] = check(
+        "prefix-off != colocated", off, col, rows["off"], rows["col"],
+        EQUIV_LOGIT_TOL)
+    out["prefix_on_vs_off"] = check(
+        "prefix-on != prefix-off", on, off, rows["on"], rows["off"],
+        EQUIV_LOGIT_TOL)
+    out["prefix_on_graphs_vs_eager"] = check(
+        "prefix-on graphs != eager", on, on_eager, rows["on"],
+        rows["on_eager"], EQUIV_LOGIT_TOL)
+    if stats.get("hits_count", 0) < 2 or shared[0] < 1 \
+            or {n for n, v in launches.items() if v} \
+            != {"paged_decode_attention"}:
+        raise AssertionError(f"prefix-on: stats {stats}, max shared pages "
+                             f"{shared[0]}, kernel launches {launches}")
+    out["prefix_cache"] = dict(stats, max_shared_pages=shared[0],
+                               kernel_launches=launches)
+
+    # 2. parked and restored == uninterrupted: fp pools (fp32) and int8
+    # pools held to their bounds; bf16 pools reported, triaged
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = init_params(bcfg, torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    tspec = dict(spec, p_lo=40, p_hi=90, new_lo=20, new_hi=30)
+    for name, c, p, q, tol in (("fp32", cfg, params, False,
+                                EQUIV_LOGIT_TOL),
+                               ("int8", cfg, params, True, QUANT_BOUND),
+                               ("bf16", bcfg, bparams, False, None)):
+        rows_u, rows_t, tstats = {}, {}, {}
+        base = dict(backend="hetero", paged_kv=True, num_r_workers=1,
+                    quantized_kv=q)
+        want, _ = _equiv_serve(dev, c, p, tspec, rows=rows_u, **base)
+        got, _ = _equiv_serve(
+            dev, c, p, tspec, rows=rows_t, kv_tiering=True, preempt_after=2,
+            pages_per_worker=10,
+            on_step=lambda eng: tstats.update(eng.tiering_stats()), **base)
+        if tstats.get("preemptions_count", 0) < 1 \
+                or tstats.get("restore_count", 0) < 1:
+            raise AssertionError(f"parked-and-restored {name}: no "
+                                 f"preemption or restore: {tstats}")
+        if tol is None:
+            # a resumed row recomputes its last token (and whatever of its
+            # chain was not restorable) through a chunk or a prefill: other
+            # GEMM shapes than the decode steps that wrote it, which round
+            # apart in bf16 (as the bf16 spec divergence)
+            rec = _triage({rid: t for rid, (t, _) in got.items()},
+                          {rid: t for rid, (t, _) in want.items()},
+                          rows_t, rows_u)
+        else:
+            rec = check(f"parked-and-restored {name} != uninterrupted",
+                        got, want, rows_t, rows_u, tol,
+                        extra=f"tiering {tstats}")
+        out[f"parked_and_restored_{name}"] = dict(rec, tiering=tstats)
+
+    # 3. preempt() mid-decode (fp32, paged with tiering)
+    preempted = []
+
+    def preempt_once(eng):
+        if preempted or eng.step_idx < 3:
+            return
+        r = next((r for r in eng.slots if r is not None
+                  and len(r.generated) >= 2), None)
+        if r is not None and eng.preempt(r.rid):
+            preempted.append(r.rid)
+    rows_p = {}
+    got, _ = _equiv_serve(dev, cfg, params, spec, rows=rows_p,
+                          backend="hetero", paged_kv=True, kv_tiering=True,
+                          on_step=preempt_once)
+    rows_c = {}
+    want, _ = _equiv_serve(dev, cfg, params, spec, rows=rows_c,
+                           backend="colocated")
+    if not preempted:
+        raise AssertionError("preempt(): no running request to preempt")
+    out["preempt_mid_decode"] = dict(check(
+        "preempt() != uninterrupted", got, want, rows_p, rows_c,
+        EQUIV_LOGIT_TOL), preempted=preempted)
+
+    # 4. sampled hetero == sampled colocated, one seed
+    def sreqs():
+        return _sampled(_requests(np.random.default_rng(2), **spec))
+    sh, _ = _equiv_serve(dev, cfg, params, spec, reqs=sreqs, seed=5,
+                         backend="hetero", paged_kv=True)
+    sc, _ = _equiv_serve(dev, cfg, params, spec, reqs=sreqs, seed=5,
+                         backend="colocated")
+    sh_t = {rid: t for rid, (t, _) in sh.items()}
+    sc_t = {rid: t for rid, (t, _) in sc.items()}
+    if sh_t != sc_t:
+        raise AssertionError(f"sampled hetero {sh_t} != sampled colocated "
+                             f"{sc_t} (seed 5)")
+    out["sampled_hetero_vs_colocated"] = {"tokens_equal": True, "seed": 5,
+                                          "sampling": SAMPLING,
+                                          "requests": len(sh_t)}
+    return {"phase": "equiv_prefix", "ok": True, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+            **out}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
-          "serve_spec_int8", "equiv", "equiv_int8", "equiv_spec",
-          "equiv_chunk", "equiv_spec_int8")
+          "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
+          "equiv", "equiv_int8", "equiv_spec", "equiv_chunk",
+          "equiv_spec_int8", "equiv_prefix")
 
 
 def kernels_line(results) -> list:
@@ -2703,7 +3371,8 @@ def main(argv=None) -> int:
     if args.v1_dense_source is not None:
         log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
     if {"serve", "serve_int8", "serve_spec", "serve_chunked",
-            "serve_spec_int8"} & set(phases):
+            "serve_spec_int8", "serve_sampled", "serve_prefix",
+            "serve_tier"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:
             results["serve"] = phase_serve(dev, model, args.out)
@@ -2725,6 +3394,17 @@ def main(argv=None) -> int:
             results["serve_spec_int8"] = phase_serve_spec_int8(
                 dev, model, args.out, int8_runs, results.get("serve_spec"))
             log(results["serve_spec_int8"])
+        if "serve_sampled" in phases:
+            results["serve_sampled"] = phase_serve_sampled(
+                dev, model, args.out, results.get("serve"))
+            log(results["serve_sampled"])
+        if "serve_prefix" in phases:
+            results["serve_prefix"] = phase_serve_prefix(dev, model,
+                                                         args.out)
+            log(results["serve_prefix"])
+        if "serve_tier" in phases:
+            results["serve_tier"] = phase_serve_tier(dev, model, args.out)
+            log(results["serve_tier"])
         del model
         torch.cuda.empty_cache()
     if "equiv" in phases:
@@ -2742,6 +3422,9 @@ def main(argv=None) -> int:
     if "equiv_spec_int8" in phases:
         results["equiv_spec_int8"] = phase_equiv_spec_int8(dev)
         log(results["equiv_spec_int8"])
+    if "equiv_prefix" in phases:
+        results["equiv_prefix"] = phase_equiv_prefix(dev)
+        log(results["equiv_prefix"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

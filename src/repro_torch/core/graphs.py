@@ -22,10 +22,17 @@ the eager path.
 Kernel counters (``kernels.paged_attention.LaunchCounter``) stay true:
 a capture tallies the launches it records without applying them, and
 every replay applies that tally.
+
+Python's cyclic garbage collector is held off while any thread captures
+(:func:`_no_gc`): a collection runs in whatever thread allocates, and
+collecting an old engine's graphs there calls ``cudaGraphExecDestroy``,
+which a capturing thread may not call (the capture is invalidated).
+Engines also drop their graphs when they close.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Optional
@@ -73,6 +80,29 @@ class CaptureStats:
 
 
 captures = CaptureStats()
+
+_gc_lock = threading.Lock()
+_gc_holders = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Hold the cyclic GC off while the body runs, in every thread: the
+    first holder disables it, the last restores what it found."""
+    global _gc_holders, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holders == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holders += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holders -= 1
+            if _gc_holders == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 class GraphPool:
@@ -156,7 +186,7 @@ class StepGraph:
         cur = torch.cuda.current_stream(self.pool.device)
         if side != cur:
             side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _no_gc():
             self._run()                 # the warm-up is this call's work
             graph = torch.cuda.CUDAGraph()
             with tally() as counts:

@@ -48,8 +48,21 @@ multi-token verify kernels; dense storage runs both through
 ``decompose.r_dispatch_chunk`` (``kv_cache.r_attention_int8_chunk`` on
 int8 storage).
 
-Not in this slice (see ROADMAP.md): the prefix cache, tiering, fleet
-management, chaos supervision and observability.
+Shared-prefix KV reuse and tiering (paged storage): each (worker,
+micro-batch) allocator counts references per page, so one resident page
+can back the prompt prefix of many rows (``probe_prefix`` /
+``adopt_prefix`` / ``register_prefix``), and a write landing in a shared
+page first clones it: the allocator hands the step's (src, dst) pairs
+out once, and the worker copies them into every paged layer's pool on
+its own stream, after the host grow and before the replay.  With a
+``kv_tier`` a finished or preempted row parks its pages (``park_row``),
+the eviction ladder swaps parked pages out to host memory, and a probe
+restores them; every page copy runs on the owning worker's stream, and
+the pools are written in place (the R-Part graphs baked their
+addresses).
+
+Not in this slice (see ROADMAP.md): fleet management, chaos supervision
+and observability.
 """
 from __future__ import annotations
 
@@ -209,13 +222,18 @@ class RWorker(threading.Thread):
     are replicated per (attention layer, micro-batch).  Windowed attention
     stays dense (its rotated ring cannot be expressed in derived
     positions).  Composes with ``quantized`` (int8 page pools).
+    ``prefix_cache`` makes the allocators refcounted copy-on-write with a
+    prefix index; ``kv_tier`` (the engine-global ``paged_cache.HostTier``)
+    adds park / swap-out / restore and implies the prefix index.
     """
 
     def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
                  kv_chunk: int = 1024, quantized: bool = False,
                  paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 max_pages_per_seq: Optional[int] = None, device=None):
+                 max_pages_per_seq: Optional[int] = None,
+                 prefix_cache: bool = False, kv_tier: Any = None,
+                 device=None):
         super().__init__(daemon=True, name=f"r-worker-{wid}")
         self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
         self.kv_chunk = kv_chunk
@@ -224,6 +242,8 @@ class RWorker(threading.Thread):
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
         self.num_pages = num_pages
+        self.kv_tier = kv_tier
+        self.prefix_cache = prefix_cache or kv_tier is not None
         self.device = resolve_device(device)
         # the worker's own CUDA stream; None on the CPU
         self.stream = (torch.cuda.Stream(self.device)
@@ -244,6 +264,10 @@ class RWorker(threading.Thread):
         # this step's prefill chunk or verify work: one step may carry both
         # for one micro-batch, on disjoint rows, each with its own width
         self._chunk_width: Dict[Tuple[int, str], int] = {}
+        # (mb, "d" | "c" | "v") -> this step's CoW (src, dst) pairs, taken
+        # from the allocator on the micro-batch's first paged layer and
+        # applied to every paged layer's pool
+        self._step_clones: Dict[Tuple[int, str], list] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
 
@@ -258,9 +282,18 @@ class RWorker(threading.Thread):
             rows = self.hi - self.lo
             mp = self.max_pages_per_seq or -(-self._cache_len
                                              // self.page_size)
-            self.allocators[mb] = PC.PagedAllocator(
+            alloc = PC.PagedAllocator(
                 rows, self.num_pages or rows * mp, self.page_size, mp,
+                prefix_cache=self.prefix_cache, tier=self.kv_tier,
                 device=self.device)
+            # a swap-out reads this micro-batch's layer pools, on this
+            # worker's stream
+            alloc.pool_reader = lambda mb=mb: {
+                lk % self.cfg.num_layers: self.state[lk]
+                for lk in self.paged_keys
+                if lk // self.cfg.num_layers == mb}
+            alloc.stream = self.stream
+            self.allocators[mb] = alloc
         return self.allocators[mb]
 
     def _to_pages(self, layer: int, rows: np.ndarray, r_state_rows):
@@ -287,11 +320,14 @@ class RWorker(threading.Thread):
                 alloc.release(int(r))
 
     def paged_resident_bytes(self) -> float:
-        """Bytes of KV occupying allocated pool pages (all layers)."""
+        """Bytes of KV occupying pool pages (all layers): row-referenced
+        pages plus refcount-zero cached and parked pages, which hold live
+        KV until the ladder reclaims them."""
         total = 0.0
         for layer in self.paged_keys:
             alloc = self.allocators[layer // self.cfg.num_layers]
-            total += (alloc.used_pages() * self.page_size
+            total += ((alloc.used_pages() + alloc.cached_pages()
+                       + alloc.parked_pages()) * self.page_size
                       * PC.page_pool_token_bytes(self.state[layer]))
         return total
 
@@ -346,13 +382,22 @@ class RWorker(threading.Thread):
                 if k // self.cfg.num_layers == mb)
         return self._first_paged[mb]
 
+    def _apply_clones(self, layer: int, mb: int, mode: str) -> None:
+        """Copy this step's CoW pairs of (mb, mode) into ``layer``'s pool,
+        in place, on the current (this worker's) stream: before the
+        replay that writes the fresh pages."""
+        clones = self._step_clones.get((mb, mode))
+        if clones:
+            PC.clone_pool_pages(self.state[layer], clones)
+
     def _grow_paged(self, layer: int, r_in) -> None:
         """Host side of a paged decode, outside the graph.  All of a
         micro-batch's layers share one allocator and equal lengths, so the
         table grow — and with it the one device->host sync of the lengths
-        — runs only on the micro-batch's FIRST paged layer each step; the
-        table upload (``tables_device``, a copy into the fixed device
-        buffer on this worker's stream) only after a host mutation."""
+        — runs only on the micro-batch's FIRST paged layer each step (its
+        CoW clones are taken there and applied to every layer); the table
+        upload (``tables_device``, a copy into the fixed device buffer on
+        this worker's stream) only after a host mutation."""
         mb = layer // self.cfg.num_layers
         alloc = self.allocators[mb]
         if layer == self._first_paged_key(mb):
@@ -360,6 +405,8 @@ class RWorker(threading.Thread):
             alloc.ensure_lengths(r_in["lengths"].cpu().numpy() + 1,
                                  mask=None if act is None
                                  else act.cpu().numpy())
+            self._step_clones[(mb, "d")] = alloc.take_clones()
+        self._apply_clones(layer, mb, "d")
         alloc.tables_device()
 
     def _grow_paged_chunk(self, layer: int, r_in, mode: str) -> int:
@@ -380,11 +427,13 @@ class RWorker(threading.Thread):
         if layer == self._first_paged_key(mb):
             alloc.append_chunk(r_in["lengths"].cpu().numpy(),
                                r_in["valid"].cpu().numpy().sum(axis=1))
+            self._step_clones[(mb, mode)] = alloc.take_clones()
             used = int((alloc.tables >= 0).sum(axis=1).max())
             k = 1
             while k < used:
                 k *= 2
             self._chunk_width[(mb, mode)] = min(k, alloc.max_pages)
+        self._apply_clones(layer, mb, mode)
         alloc.tables_device()
         return self._chunk_width[(mb, mode)]
 
@@ -533,6 +582,7 @@ class HeteroPipelineEngine:
                  quantized_kv: bool = False, paged_kv: bool = False,
                  page_size: int = 16, pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
+                 prefix_cache: bool = False, kv_tier: Any = None,
                  device=None):
         if num_microbatches < 1:
             raise ValueError(
@@ -563,6 +613,11 @@ class HeteroPipelineEngine:
         self.cache_len = cache_len
         self.paged_kv = paged_kv
         self.page_size = page_size
+        # the engine-global host tier every (worker, micro-batch) allocator
+        # swaps to; it implies the prefix index (its key space)
+        self.kv_tier = kv_tier if paged_kv else None
+        self.prefix_cache = (prefix_cache or self.kv_tier is not None) \
+            and paged_kv
         self.layers = per_layer_params(params, cfg)
         self.num_layers = cfg.num_layers
         self.schedule = schedule
@@ -582,6 +637,7 @@ class HeteroPipelineEngine:
                     quantized=quantized_kv, paged=paged_kv,
                     page_size=page_size, num_pages=pages_per_worker,
                     max_pages_per_seq=-(-cache_len // page_size),
+                    prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
                     device=self.device)
             for w, (lo, hi) in enumerate(self.slices)]
         for w in self.workers:
@@ -1101,6 +1157,99 @@ class HeteroPipelineEngine:
     def paged_resident_bytes(self) -> float:
         return sum(w.paged_resident_bytes() for w in self.workers)
 
+    # -- shared-prefix KV reuse and tiering -------------------------------------
+    def _row_allocator(self, row: int):
+        w, mb, local = self.worker_for(row)
+        return w.allocators.get(mb), local
+
+    def probe_prefix(self, row: int, prompt_tokens, restore: bool = False):
+        """Longest cached prefix of ``prompt_tokens`` in the allocator that
+        owns global batch row ``row`` (a cached prefix is only adoptable by
+        rows of the same (worker, micro-batch) pool).  Returns (page_ids,
+        cached_token_count).
+
+        With ``restore=True`` (tiering) index misses consult the host tier;
+        restored page bytes are written into the owning worker's layer
+        pools right here, on that worker's stream (which then finishes
+        them, so the host sources may go): this runs on the engine thread
+        between steps, so nothing reads a restored page before its KV
+        lands."""
+        w, mb, _ = self.worker_for(row)
+        alloc = w.allocators.get(mb)
+        if alloc is None or alloc.prefix is None:
+            return [], 0
+        lkeys = [k for k in w.paged_keys if k // self.num_layers == mb]
+        ids, cached = alloc.probe_prefix(
+            prompt_tokens, restore=restore and bool(lkeys))
+        restores = alloc.take_restores()
+        if restores:
+            t0 = time.perf_counter()
+            with PC.on_stream(w.stream):
+                for lk in lkeys:
+                    PC.restore_pool_pages(w.state[lk], restores,
+                                          lk % self.num_layers)
+            if w.stream is not None:
+                w.stream.synchronize()
+            alloc.copy_stats["restore_copy_s"] += time.perf_counter() - t0
+        return ids, cached
+
+    def hold_prefix(self, row: int, page_ids) -> None:
+        """Keep a probed prefix that ``row`` will adopt off its pool's
+        eviction ladder until :meth:`release_prefix_holds`
+        (``PagedAllocator.hold``)."""
+        alloc, _ = self._row_allocator(row)
+        if alloc is not None:
+            alloc.hold(page_ids)
+
+    def release_prefix_holds(self) -> None:
+        for w in self.workers:
+            for alloc in w.allocators.values():
+                alloc.release_holds()
+
+    def park_row(self, row: int, tokens) -> bool:
+        """Park-on-finish/preempt: index global batch row ``row``'s written
+        chain (``tokens``) and keep its pages parked (swappable to the host
+        tier) instead of freed: the tiering replacement for
+        :meth:`release_row`.  Falls back to a plain release (inside the
+        allocator) when the row is frozen, clamped, or there is no prefix
+        index."""
+        if not self.paged_kv:
+            return False
+        alloc, local = self._row_allocator(row)
+        if alloc is None:
+            return False
+        return alloc.park_row(local, tokens)
+
+    def adopt_prefix(self, row: int, page_ids, length: int) -> None:
+        """Map a probed prefix into ``row``'s block table (refcount++; no
+        KV moves) so only positions >= ``length`` need prefilling."""
+        alloc, local = self._row_allocator(row)
+        alloc.adopt_prefix(local, page_ids, length)
+
+    def register_prefix(self, row: int, prompt_tokens) -> int:
+        """Index ``row``'s pages under its prompt's block-hash chain so
+        later admissions can share them."""
+        alloc, local = self._row_allocator(row)
+        if alloc is None or alloc.prefix is None:
+            return 0
+        return alloc.register_prefix(local, prompt_tokens)
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        """Allocator-level sharing counters summed over every (worker,
+        micro-batch) pool: pages shared by > 1 row, refcount-zero cached
+        and parked pages, free pages (and swapped-out pages with a tier)."""
+        out = {"shared_pages": 0, "cached_pages": 0, "free_pages": 0,
+               "parked_pages": 0}
+        for w in self.workers:
+            for a in w.allocators.values():
+                out["shared_pages"] += a.shared_pages()
+                out["cached_pages"] += a.cached_pages()
+                out["free_pages"] += a.free_pages()
+                out["parked_pages"] += a.parked_pages()
+        if self.kv_tier is not None:
+            out["swapped_pages"] = self.kv_tier.swapped_pages()
+        return out
+
     def close(self) -> None:
         for w in self.workers:
             w.stop()
@@ -1110,6 +1259,12 @@ class HeteroPipelineEngine:
         if stuck:
             raise RuntimeError(f"R-worker(s) {stuck} did not exit within "
                                f"30s of stop()")
+        # free the graphs here, on the closing thread: left to the cyclic
+        # GC (their bodies close over the workers), they could be
+        # destroyed inside a later engine's capture
+        for w in self.workers:
+            w._graphs.clear()
+        self._s_graphs.clear()
 
 
 # ---------------------------------------------------------------------------

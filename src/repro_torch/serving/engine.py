@@ -11,18 +11,34 @@ block-granular: admission allocates only the pages a prompt needs,
 decode grows tables page by page, and a finished sequence's pages are
 freed the step it completes.  ``quantized_kv=True`` (hetero only)
 stores the R-workers' KV as int8 + per-(token, head) fp32 scales, dense
-or paged (§5.2).  ``spec_decode=SpecConfig(k)`` (hetero, greedy) drafts k
-tokens per row on an S-resident drafter and verifies all k+1 candidates
-in one pipelined chunk-only step, on any storage.  ``prefill_chunk=C``
-(hetero) admits a prompt as PREFILLING and streams it in C-token chunks,
-one per step, inside the pipelined decode step while the other rows
-decode; the step its last chunk lands, its first token is sampled from
-that chunk's logits and the row joins the decode batch.
+or paged (§5.2).  ``spec_decode=SpecConfig(k)`` (hetero) drafts k tokens
+per row on an S-resident drafter and verifies all k+1 candidates in one
+pipelined chunk-only step, on any storage.  ``prefill_chunk=C`` (hetero)
+admits a prompt as PREFILLING and streams it in C-token chunks, one per
+step, inside the pipelined decode step while the other rows decode; the
+step its last chunk lands, its first token is sampled from that chunk's
+logits and the row joins the decode batch.
+
+Sampling: a request with ``temperature > 0`` draws its tokens (with its
+``top_k`` / ``top_p``) from one engine-owned ``torch.Generator`` seeded
+by ``seed``; greedy rows ride one batch argmax.  Sampling runs eagerly
+after the logits head, never inside a captured graph.
+
+``prefix_cache=True`` (hetero + paged, pure self-attention) shares
+prompt prefixes across requests: refcounted copy-on-write pages and a
+per-(worker, micro-batch) prefix index; a queued request takes the free
+slot whose pool caches the longest prefix of its prompt, the page budget
+credits adopted pages, and a hit prefills only the uncached suffix
+through the chunk machinery.  ``kv_tiering`` (True, a ``TierConfig`` or
+a ``HostTier``; implies the prefix cache) parks a finished sequence's
+pages, swaps parked pages out to host memory under pressure and restores
+them on a probe; ``preempt(rid)`` and ``preempt_after=N`` (park the
+least-finished row after N steps of page-blocked admission) requeue a
+running request, which resumes token-exactly.
 
 Not in this slice (see ROADMAP.md): the ``sls``/``loadctl`` admission
-schedules, ``from_plan``, sampled decoding (and sampled speculative
-acceptance), the prefix cache, tiering/preemption, fleet management,
-chaos supervision and observability.
+schedules, ``from_plan``, fleet management, chaos supervision and
+observability.
 """
 from __future__ import annotations
 
@@ -42,13 +58,14 @@ from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
                                      batch_slice, per_layer_state)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.obs import schema
+from repro_torch.serving.paged_cache import HostTier, TierConfig
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import sample, spec_accept
 
 # ServingEngine options of the JAX package that this slice does not port
-_NOT_IN_SLICE = ("prefix_cache", "kv_tiering",
-                 "preempt_after", "fleet", "chaos", "observability",
-                 "target_len", "interval", "w_lim")
+_NOT_IN_SLICE = ("fleet", "chaos", "observability", "target_len",
+                 "interval", "w_lim")
 
 
 def _pad_pow2(n: int, lo: int = 1) -> int:
@@ -86,9 +103,10 @@ class SpecConfig:
     trips), then verifies all k+1 candidates (the pending token plus the
     drafts) in ONE pipelined step as a verify chunk: the R-Part sweeps
     each row's cached KV once for the whole candidate block instead of
-    once per token.  The accepted prefix commits through the greedy
-    accept walk (``sampler.spec_accept``, bit-exact with spec-off greedy
-    decoding) and the rejected tail's KV is rolled back
+    once per token.  The accepted prefix commits through
+    ``sampler.spec_accept`` (greedy rows: the argmax walk, bit-exact with
+    spec-off greedy decoding; sampled rows: rejection sampling, exact in
+    distribution) and the rejected tail's KV is rolled back
     (``HeteroPipelineEngine.truncate_rows``).
 
     ``draft_cfg``/``draft_params`` select the drafter model; both None
@@ -105,10 +123,11 @@ class ServingEngine:
                  num_microbatches: int = 2, kv_chunk: int = 1024,
                  quantized_kv: bool = False, paged_kv: bool = False,
                  page_size: int = 16,
-                 pages_per_worker: Optional[int] = None,
+                 pages_per_worker: Optional[int] = None, seed: int = 0,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
-                 spec_decode: Optional[SpecConfig] = None,
-                 prefill_chunk: int = 0, device=None, **not_ported):
+                 prefill_chunk: int = 0, prefix_cache: bool = False,
+                 kv_tiering=None, spec_decode: Optional[SpecConfig] = None,
+                 preempt_after: int = 0, device=None, **not_ported):
         unknown = set(not_ported) - set(_NOT_IN_SLICE)
         if unknown:
             raise TypeError(f"unexpected keyword argument(s) "
@@ -124,6 +143,36 @@ class ServingEngine:
         if backend not in ("colocated", "hetero"):
             raise ValueError(
                 f"backend must be 'colocated' or 'hetero', got {backend!r}")
+        # KV lifecycle tiering: True (default TierConfig), a TierConfig, or
+        # a ready HostTier.  Implies prefix_cache: the tier is keyed by its
+        # digest chains
+        self.kv_tier: Optional[HostTier] = None
+        if kv_tiering:
+            if backend != "hetero" or not paged_kv:
+                raise ValueError(
+                    "kv_tiering requires backend='hetero' with "
+                    "paged_kv=True — the tier swaps paged R-worker pool "
+                    "pages")
+            if isinstance(kv_tiering, HostTier):
+                self.kv_tier = kv_tiering
+            elif isinstance(kv_tiering, TierConfig):
+                self.kv_tier = HostTier(kv_tiering)
+            else:
+                self.kv_tier = HostTier()
+            prefix_cache = True
+        if prefix_cache:
+            if backend != "hetero" or not paged_kv:
+                raise ValueError(
+                    "prefix_cache=True requires backend='hetero' with "
+                    "paged_kv=True — shared prefixes live in the paged "
+                    "R-worker pools")
+            if any(k != ATTN for k in cfg.layer_pattern) \
+                    or cfg.window > 0 or cfg.is_encdec:
+                raise ValueError(
+                    "prefix_cache=True requires a pure self-attention "
+                    "arch with window=0: recurrent/windowed/cross-"
+                    "attention R-state cannot be shared page-wise, so "
+                    "the skipped-prefill admission would be wrong")
         if spec_decode is not None:
             if backend != "hetero":
                 raise ValueError(
@@ -176,9 +225,27 @@ class ServingEngine:
         self.admission = admission
         self.spec = spec_decode
         self.prefill_chunk = int(prefill_chunk)
-        # chunked prefill and spec decode's verify steps are chunk work:
-        # prefilling and freed rows are gated decode-inactive
-        self._uses_chunks = bool(prefill_chunk) or self.spec is not None
+        self.prefix_cache = bool(prefix_cache)
+        # chunked prefill, prefix-cache hits (one whole-suffix chunk) and
+        # spec decode's verify steps are chunk work: prefilling and freed
+        # rows are gated decode-inactive
+        self._uses_chunks = bool(prefill_chunk) or self.prefix_cache \
+            or self.spec is not None
+        self.prefix_stats = {"hits": 0, "misses": 0, "cached_tokens": 0,
+                             "prompt_tokens": 0}
+        # auto-preemption: after this many consecutive steps in which the
+        # page budget blocked a queued request despite free slots, the
+        # least-finished RUNNING row is parked and requeued (0 disables);
+        # restores are consulted only when the tier streams at all
+        self.preempt_after = int(preempt_after)
+        self._stall_steps = 0
+        self.preemptions = 0
+        self._restore_ok = (self.kv_tier is not None
+                            and self.kv_tier.cfg.dram_gbps > 0)
+        self._choice_cache: Tuple[int, list] = (-1, [])
+        # every sampled draw comes from this generator, on the device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * batch
         self.step_idx = 0
@@ -197,7 +264,9 @@ class ServingEngine:
                 quantized_kv=quantized_kv, paged_kv=paged_kv,
                 page_size=page_size,
                 pages_per_worker=pages_per_worker, schedule=schedule,
-                collect_timeout_s=collect_timeout_s, device=self.device)
+                collect_timeout_s=collect_timeout_s,
+                prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
+                device=self.device)
             self.num_mb = num_microbatches
             self.mb_size = batch // num_microbatches
             for mb in range(self.num_mb):
@@ -262,10 +331,6 @@ class ServingEngine:
         return None
 
     def submit(self, req: Request) -> None:
-        if req.temperature > 0.0:
-            raise NotImplementedError(
-                f"request {req.rid}: sampled decoding (temperature > 0) is "
-                f"not ported yet — see ROADMAP.md")
         reason = self._length_cap_reason()
         if reason is not None \
                 and req.prompt_len + req.max_new_tokens > self.cache_len:
@@ -305,11 +370,16 @@ class ServingEngine:
                  // self.engine.page_size)
 
     def _paged_admit_cap(self, n: int) -> int:
-        """Page-aware admission backpressure: every resident request owes
-        (full-target pages - pages already mapped) of future growth, and
-        a queued request is admitted only if its worst case fits its
+        """Page-aware admission backpressure from live allocator state:
+        every resident request owes (full-target pages - pages already
+        mapped) of future growth, plus one potential CoW clone while any
+        of its pages is shared, and a queued request is admitted only if
+        its worst case, net of the prefix pages it would adopt, fits its
         prospective (worker, micro-batch) pool on top of those debts, so
-        decode-time growth never exhausts a pool."""
+        decode-time growth never exhausts a pool.  Without prefix sharing
+        this is the full-reservation rule; with it, adopted pages held by
+        another resident cost nothing and refcount-zero cached and parked
+        pages count as available."""
         if self._paged_pool_min() is None:
             return n
         budget: Dict[Tuple[int, int], int] = {}
@@ -320,14 +390,22 @@ class ServingEngine:
             if req is None:
                 continue
             w, mb, local = self.engine.worker_for(row)
-            debt = self._paged_pages_for(req) \
-                - w.allocators[mb].mapped_pages(local)
+            a = w.allocators[mb]
+            debt = self._paged_pages_for(req) - a.mapped_pages(local)
+            ids = a.tables[local][a.tables[local] >= 0]
+            if len(ids) and bool((a.refcount[ids] > 1).any()):
+                debt += 1             # a divergence may CoW one clone
             budget[(w.wid, mb)] -= max(0, debt)
         m = 0
-        free = self._free_slots()
-        for row, r in zip(free, list(self.queue)[:n]):
+        for row, r, ids, eff in self._choose_rows(list(self.queue)[:n]):
             w, mb, _ = self.engine.worker_for(row)
+            a = w.allocators.get(mb)
             need = self._paged_pages_for(r)
+            if eff > 0 and a is not None:
+                held = sum(1 for pid in ids if a.refcount[pid] > 0)
+                # pages held by a resident sharer are free to adopt; +1
+                # covers the boundary page's CoW clone
+                need += 1 - held
             if need > budget[(w.wid, mb)]:
                 break
             budget[(w.wid, mb)] -= need
@@ -342,10 +420,24 @@ class ServingEngine:
         return avail
 
     # ------------------------------------------------------------------ #
-    def _sample_tokens(self, logits) -> np.ndarray:
-        """Greedy: one batch argmax on the device, one copy to the host."""
-        return sample(logits).cpu().numpy()
+    def _sample_tokens(self, logits, reqs) -> np.ndarray:
+        """One token per row of ``logits``; ``reqs`` aligns a Request (or
+        None) with each row: None for rows whose token is DISCARDED
+        (mid-prefill, released, padding), so they draw nothing and the
+        surviving rows' draws do not depend on unrelated rows.  Greedy
+        rows ride one batch argmax (one copy to the host); each row whose
+        request sets temperature > 0 is redrawn from the engine's
+        generator with its own temperature / top_k / top_p."""
+        toks = sample(logits).cpu().numpy().copy()
+        for i, r in enumerate(reqs):
+            if r is None or r.temperature <= 0.0:
+                continue
+            toks[i] = int(sample(logits[i:i + 1], self.generator,
+                                 temperature=r.temperature, top_k=r.top_k,
+                                 top_p=r.top_p)[0])
+        return toks
 
+    # -- finish / retire / park / preempt ---------------------------------- #
     def _finish_row(self, row: int, r: Request, reason: str) -> None:
         """THE finish site: status, step, reason, slot release and page
         retirement happen here exactly once per request.  The freed row
@@ -356,22 +448,170 @@ class ServingEngine:
         r.finish_reason = reason
         self.finished.append(r)
         self.slots[row] = None
-        self._retire_row(row)
+        self._retire_row(row, r)
         if self._uses_chunks:
             # a freed slot stops decoding (no KV append, no length bump)
             # until readmission
             self.engine.set_row_active(row, False)
 
-    def _retire_row(self, row: int) -> None:
+    def _retire_row(self, row: int, req: Request) -> None:
+        """A finished sequence's pages: with tiering, PARK the written
+        chain (prompt + generated minus the never-appended last token) so
+        a later same-history request restores it without re-prefill;
+        otherwise free them."""
+        if not self.paged_kv:
+            return
+        if self.kv_tier is not None:
+            chain = req.feed_tokens[:-1] if req.generated \
+                else req.feed_tokens
+            if self.engine.park_row(row, chain):
+                return
+        self.engine.release_row(row)
+
+    def _preempt_row(self, row: int) -> None:
+        """Evict a resident request back to the queue: its written KV
+        chain is parked (tiering) or dropped (readmission re-prefills it),
+        the slot freed, and the request requeued at the BACK with its
+        generated tokens kept; resume prefills ``feed_tokens`` and goes on
+        token-exactly (greedy decoding is a function of the history)."""
+        r = self.slots[row]
+        if r is None:
+            return
         if self.paged_kv:
-            self.engine.release_row(row)
+            if r.status is Status.PREFILLING:
+                chain = r.feed_tokens[:r.prefill_pos]
+            else:
+                chain = r.feed_tokens[:-1] if r.generated \
+                    else r.feed_tokens
+            parked = bool(self.kv_tier is not None and len(chain)
+                          and self.engine.park_row(row, chain))
+            if not parked:
+                self.engine.release_row(row)
+        self.slots[row] = None
+        if self._uses_chunks:
+            self.engine.set_row_active(row, False)
+        r.status = Status.QUEUED
+        r.slot = -1
+        r.prefill_pos = 0
+        self.preemptions += 1
+        self.queue.append(r)
+
+    def preempt(self, rid: int) -> bool:
+        """Preempt the resident request with id ``rid`` (False if it is
+        not slot-resident).  Call between steps."""
+        for row, r in enumerate(self.slots):
+            if r is not None and r.rid == rid:
+                self._preempt_row(row)
+                return True
+        return False
+
+    def _auto_preempt(self) -> None:
+        """Admission has been page-blocked for ``preempt_after``
+        consecutive steps: park the least-finished RUNNING row (most
+        generation budget left: it holds its pages longest)."""
+        best, best_rem = -1, -1
+        for row, r in enumerate(self.slots):
+            if r is None or r.status is not Status.RUNNING:
+                continue
+            rem = r.max_new_tokens - len(r.generated)
+            if rem > best_rem:
+                best, best_rem = row, rem
+        if best >= 0:
+            self._preempt_row(best)
+
+    # -- shared-prefix probing --------------------------------------------- #
+    def _probe_prefix(self, row: int, req: Request):
+        """(page_ids, cached_eff) for ``req`` landing on ``row``, clamped
+        so at least the feed's LAST token is recomputed: its logits seed
+        generation, and recomputing it through the chunk path forces the
+        shared partial tail page onto a private CoW clone before this
+        sequence writes into it.  With tiering the probe also restores
+        swapped-out pages from the host tier."""
+        if not self.prefix_cache:
+            return [], 0
+        ids, cached = self.engine.probe_prefix(row, req.feed_tokens,
+                                               restore=self._restore_ok)
+        eff = min(int(cached), req.feed_len - 1)
+        if eff <= 0:
+            return [], 0
+        return ids[:-(-eff // self.engine.page_size)], eff
+
+    def _note_prefix(self, req: Request, eff: int) -> None:
+        st = self.prefix_stats
+        st["hits" if eff else "misses"] += 1
+        st["cached_tokens"] += eff
+        st["prompt_tokens"] += req.feed_len
+
+    def _choose_rows(self, reqs: List[Request]):
+        """Prefix-aware row assignment: a cached prefix is only adoptable
+        by rows of the (worker, micro-batch) pool that holds it, so each
+        request takes the free slot whose pool caches the longest prefix
+        of its prompt (misses, and the prefix-cache-off path, take the
+        first free slot).  Returns [(row, req, page_ids, cached_eff)] in
+        queue order: the choice ``_paged_admit_cap`` budgets against,
+        memoized per step so placement does not probe again.
+
+        The pages each choice will adopt are held off the eviction ladder
+        while the later requests probe (their restores take pages): the
+        JAX package does not hold them, and under pool pressure a later
+        probe there swaps out or evicts pages an earlier request then
+        adopts, after they were reused (ROADMAP.md §3).  Nothing takes a
+        page between the end of the probes and the adoptions in
+        ``_place``, so the holds end with this call."""
+        step, cached = self._choice_cache
+        if step == self.step_idx and len(cached) >= len(reqs) \
+                and all(c[1] is r for c, r in zip(cached, reqs)):
+            return cached[:len(reqs)]
+        free = self._free_slots()
+        out = []
+        for r in reqs:
+            if not free:
+                break
+            best, best_ids, best_eff = free[0], [], 0
+            if self.prefix_cache:
+                seen: Dict[Tuple[int, int], Tuple[list, int]] = {}
+                for row in free:
+                    w, mb, _ = self.engine.worker_for(row)
+                    key = (w.wid, mb)
+                    if key not in seen:      # one probe per pool
+                        seen[key] = self._probe_prefix(row, r)
+                    ids, eff = seen[key]
+                    if eff > best_eff:
+                        best, best_ids, best_eff = row, ids, eff
+            out.append((best, r, best_ids, best_eff))
+            free.remove(best)
+            if best_eff > 0:
+                self.engine.hold_prefix(best, best_ids)
+        if self.prefix_cache:
+            self.engine.release_prefix_holds()
+        self._choice_cache = (self.step_idx, out)
+        return out
 
     def _place(self, reqs: List[Request]) -> None:
-        rows = self._free_slots()[:len(reqs)]
         if self.prefill_chunk:
-            self._place_chunked(reqs, rows)
-        else:
-            self._place_monolithic(reqs, rows)
+            self._place_chunked(reqs)
+            return
+        if self.prefix_cache:
+            # prefix hits stream their (suffix-only) prefill through the
+            # chunk machinery, one whole-suffix chunk riding the next
+            # step; misses keep the monolithic same-step prefill
+            hit_reqs, hit_rows, miss_reqs, miss_rows = [], [], [], []
+            for row, r, ids, eff in self._choose_rows(reqs):
+                self._note_prefix(r, eff)
+                if eff > 0:
+                    self.engine.adopt_prefix(row, ids, eff)
+                    r.prefill_pos = eff
+                    hit_reqs.append(r)
+                    hit_rows.append(row)
+                else:
+                    miss_reqs.append(r)
+                    miss_rows.append(row)
+            if hit_reqs:
+                self._begin_chunked(hit_reqs, hit_rows)
+            if miss_reqs:
+                self._place_monolithic(miss_reqs, miss_rows)
+            return
+        self._place_monolithic(reqs, self._free_slots()[:len(reqs)])
 
     def _place_monolithic(self, reqs: List[Request],
                           rows: List[int]) -> None:
@@ -381,6 +621,8 @@ class ServingEngine:
         toks = np.zeros((n_pad, s_pad), np.int32)
         plens = np.zeros((n_pad,), np.int32)
         for i, r in enumerate(reqs):
+            # feed_tokens == prompt for a fresh request; a preempted one
+            # resumes by prefilling its whole history
             toks[i, :r.feed_len] = r.feed_tokens
             plens[i] = r.feed_len
         last_logits, sub = M.prefill(
@@ -394,7 +636,8 @@ class ServingEngine:
             self.engine.state = M.scatter_rows(self.engine.state, sub,
                                                rows_np, sub_rows)
         # the prefill's last-token logits ARE the first generation step
-        tok0 = self._sample_tokens(last_logits)
+        tok0 = self._sample_tokens(
+            last_logits, reqs + [None] * (n_pad - len(reqs)))
         for i, r in enumerate(reqs):
             r.status = Status.RUNNING
             r.start_step = self.step_idx
@@ -414,33 +657,55 @@ class ServingEngine:
                 if self.spec is not None:
                     # the drafter has no KV for this fresh history yet
                     self._spec_dirty.add(rows[i])
+        if self.prefix_cache:
+            for row, r in zip(rows, reqs):
+                if self.slots[row] is not None:
+                    self.engine.register_prefix(row, r.feed_tokens)
 
     # ------------------------------------------------------------------ #
     # chunked prefill: an admitted prompt is PREFILLING and streams in
-    # ``prefill_chunk``-token chunks, one per step, queued as chunk work of
-    # the pipelined decode step (its KV goes to the owning R-worker layer
-    # by layer).  It turns RUNNING the step its last chunk lands (token 0
-    # sampled from that chunk's last-valid logits): decode for the rest of
-    # the batch never stalls on a prompt.
+    # ``prefill_chunk``-token chunks (a prefix-cache hit on a monolithic
+    # engine: its whole uncached suffix as one chunk), one per step,
+    # queued as chunk work of the pipelined decode step (its KV goes to
+    # the owning R-worker layer by layer).  It turns RUNNING the step its
+    # last chunk lands (token 0 sampled from that chunk's last-valid
+    # logits): decode for the rest of the batch never stalls on a prompt.
     # ------------------------------------------------------------------ #
-    def _place_chunked(self, reqs: List[Request], rows: List[int]) -> None:
+    def _place_chunked(self, reqs: List[Request]) -> None:
+        rows = []
+        for row, r, ids, eff in self._choose_rows(reqs):
+            if self.prefix_cache:
+                self._note_prefix(r, eff)
+            if eff > 0:
+                # map the cached prefix pages (refcount++, no KV moves):
+                # chunking resumes at the uncached suffix
+                self.engine.adopt_prefix(row, ids, eff)
+            r.prefill_pos = eff
+            rows.append(row)
+        self._begin_chunked(reqs, rows)
+
+    def _begin_chunked(self, reqs: List[Request], rows: List[int]) -> None:
         for row, r in zip(rows, reqs):
             r.status = Status.PREFILLING
             r.slot = row
             r.start_step = self.step_idx
-            r.prefill_pos = 0
             self.slots[row] = r
         self.engine.begin_prefill_rows(rows)
 
     def _queue_prefill_chunks(self) -> None:
         """Queue one chunk per prefilling sequence (one work per
-        micro-batch) for the coming step."""
+        micro-batch) for the coming step.  With ``prefill_chunk=0`` (prefix
+        hits on an otherwise monolithic engine) the chunk spans the whole
+        remaining suffix, pow2-padded so the chunk graphs number O(log),
+        not one per suffix length."""
         per_mb: Dict[int, List[int]] = {}
         for row, r in enumerate(self.slots):
             if r is not None and r.status is Status.PREFILLING:
                 per_mb.setdefault(row // self.mb_size, []).append(row)
-        c = self.prefill_chunk
         for mb, rows in per_mb.items():
+            c = self.prefill_chunk or _pad_pow2(
+                max(self.slots[row].feed_len - self.slots[row].prefill_pos
+                    for row in rows), 8)
             toks = np.zeros((len(rows), c), np.int32)
             bases, counts, locs = [], [], []
             for i, row in enumerate(rows):
@@ -472,7 +737,17 @@ class ServingEngine:
                 # the last chunk's last-token logits ARE the first
                 # generation step (as the monolithic placement's)
                 if sampled is None:
-                    sampled = self._sample_tokens(wk.logits)
+                    # the rows of this work whose last chunk just landed
+                    # draw; every other row's logits are discarded
+                    base = wk.mb * self.mb_size
+                    elig = [None] * wk.logits.shape[0]
+                    for j, loc in enumerate(wk.rows):
+                        rr = self.slots[base + int(loc)]
+                        if rr is not None \
+                                and rr.status is Status.PREFILLING \
+                                and int(wk.new_lens[j]) >= rr.feed_len:
+                            elig[int(loc)] = rr
+                    sampled = self._sample_tokens(wk.logits, elig)
                 tok0 = int(sampled[int(local)])
                 r.status = Status.RUNNING
                 r.generated.append(tok0)
@@ -486,6 +761,12 @@ class ServingEngine:
                         # streamed straight to the R-workers: the drafter
                         # never saw this history
                         self._spec_dirty.add(row)
+                    if self.prefix_cache:
+                        # the written chain's pages are complete: index
+                        # them for later admissions (token 0 was appended
+                        # but never written to KV, hence the [:-1])
+                        self.engine.register_prefix(row,
+                                                    r.feed_tokens[:-1])
 
     def _hetero_scatter(self, rows: np.ndarray, sub, sub_rows: np.ndarray):
         eng = self.engine
@@ -676,7 +957,9 @@ class ServingEngine:
     def _spec_step(self) -> int:
         """One speculative serving step: sync -> draft -> verify ->
         accept/commit -> truncate.  Returns tokens committed batch-wide
-        (bit-exact with non-speculative greedy decoding)."""
+        (greedy rows bit-exact with non-speculative greedy decoding,
+        sampled rows through rejection sampling, exact in
+        distribution)."""
         live = self._spec_rows()
         if not live and not self.engine._prefill_inbox:
             return 0
@@ -699,8 +982,11 @@ class ServingEngine:
         for row, r in live:
             d = drafts[row]
             base = r.feed_len - 1              # KV length before verify
-            toks, acc = spec_accept(lg_of[row], d,
-                                    temperature=r.temperature)
+            # a greedy row draws nothing from the generator
+            toks, acc = spec_accept(
+                lg_of[row], d,
+                self.generator if r.temperature > 0.0 else None,
+                temperature=r.temperature, top_k=r.top_k, top_p=r.top_p)
             self.spec_stats["drafted_tokens"] += len(d)
             self.spec_stats["accepted_tokens"] += acc
             c0 = int(self._last_tok[row])
@@ -723,6 +1009,8 @@ class ServingEngine:
                 self._last_tok[row] = walked[-1]
                 feeds[row] = [c0] + walked[:-1]
         if trunc_rows:
+            # BEFORE retiring finished rows: parking indexes the written
+            # chain, so the rejected tail must already be gone
             self.engine.truncate_rows(trunc_rows, trunc_lens)
         for row, r, reason in finish:
             self._finish_row(row, r, reason)
@@ -736,6 +1024,18 @@ class ServingEngine:
         pc = time.perf_counter
         t0 = pc()
         n = self._admit_count()
+        if self.preempt_after and self.paged_kv:
+            # admission pressure: queued work, free slots, but the page
+            # budget said no: after preempt_after such steps, park the
+            # least-finished row so its pages (restorable) make room; the
+            # victim requeues and resumes token-exactly
+            if n == 0 and self.queue and self._free_slots():
+                self._stall_steps += 1
+                if self._stall_steps >= self.preempt_after:
+                    self._auto_preempt()
+                    self._stall_steps = 0
+            else:
+                self._stall_steps = 0
         if n > 0:
             reqs = [self.queue.popleft() for _ in range(n)]
             self._place(reqs)
@@ -765,7 +1065,9 @@ class ServingEngine:
         else:
             logits = self.engine.decode_step(toks)
         self.last_logits = logits
-        new_tok = self._sample_tokens(logits)
+        new_tok = self._sample_tokens(
+            logits, [r if r is not None and r.status is Status.RUNNING
+                     else None for r in self.slots])
         decode_wall = pc() - t0
         if self.backend == "hetero":
             # chunk work inside the pipelined step (S-side chunk time that
@@ -807,7 +1109,8 @@ class ServingEngine:
         return rec
 
     def paged_resident_bytes(self) -> float:
-        """Current page-backed KV bytes on the R-workers (paged_kv only)."""
+        """Current page-backed KV bytes on the R-workers (paged_kv only):
+        referenced, cached and parked pages."""
         return self.engine.paged_resident_bytes() if self.paged_kv else 0.0
 
     def hotpath_stats(self) -> Dict[str, float]:
@@ -815,6 +1118,36 @@ class ServingEngine:
         (dispatch / collect / S-dispatch / R-wait seconds, step count);
         empty for the colocated backend."""
         return dict(getattr(self.engine, "step_stats", {}) or {})
+
+    def prefix_cache_stats(self) -> Dict[str, float]:
+        """Admission-level hit counters plus allocator-level sharing state
+        (pages shared by > 1 row, refcount-zero cached and parked pages).
+        Schema keys (``hits_count`` ...), the legacy spellings (``hits``
+        ...) still resolve."""
+        out: Dict[str, float] = dict(self.prefix_stats)
+        if self.backend == "hetero":
+            out.update(self.engine.prefix_cache_stats())
+        denom = max(1, out.get("prompt_tokens", 0))
+        out["token_hit_rate"] = out.get("cached_tokens", 0) / denom
+        return schema.normalize(out)
+
+    def tiering_stats(self) -> Dict[str, float]:
+        """Host-tier traffic counters (swap-outs, restores, simulated
+        stream seconds) plus engine-side preemptions and the seconds the
+        port's real page copies took (``swap_out_copy_s``: device to host
+        at swap-out, ``restore_copy_s``: host to device at a restore);
+        empty when tiering is off.  Schema keys (``restore_count`` ...),
+        the legacy spellings (``restored`` ...) still resolve."""
+        if self.kv_tier is None:
+            return {}
+        out: Dict[str, float] = dict(self.kv_tier.stats)
+        out["swapped_pages"] = self.kv_tier.swapped_pages()
+        out["host_bytes"] = self.kv_tier.nbytes()
+        out["preemptions"] = self.preemptions
+        for key in ("swap_out_copy_s", "restore_copy_s"):
+            out[key] = sum(a.copy_stats[key] for w in self.engine.workers
+                           for a in w.allocators.values())
+        return schema.normalize(out)
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Serve until the queue and slots drain, or ``max_steps`` more
@@ -828,3 +1161,5 @@ class ServingEngine:
     def close(self) -> None:
         if self.backend == "hetero":
             self.engine.close()
+        if self.spec is not None:
+            self._draft_graph = self._commit_graph = None

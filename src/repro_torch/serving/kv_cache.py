@@ -3,15 +3,13 @@
 
 The model's decode state already *is* the cache (repro_torch.models.model).
 This module adds:
-  * size accounting helpers,
+  * size accounting helpers (with the bytes the prefix cache's shared
+    pages save, ``shared_prefix_bytes_saved``),
   * conversion of a bf16/fp32 attention block state into int8 + scales,
   * the parameter-free quantized R-Part ops (decompose-compatible), which
     quantize incoming K/V on write: the decode op attends through kernel 3,
     the chunk op (chunked prefill and the dense int8 verify) through the
     plain flash attention, as in the JAX package.
-
-Not in this slice (see ROADMAP.md): ``shared_prefix_bytes_saved`` (prefix
-cache).
 """
 from __future__ import annotations
 
@@ -162,6 +160,15 @@ def paged_kv_bytes_per_seq(cfg: ModelConfig, seq_len: int, page: int,
 def shared_prefix_bytes_saved(cfg: ModelConfig, prefix_len: int,
                               n_sharers: int, page: int,
                               quantized: bool = False) -> int:
-    raise NotImplementedError(
-        "shared_prefix_bytes_saved belongs to the prefix cache, which is "
-        "not ported yet — queued in ROADMAP.md")
+    """Resident KV bytes the ref-counted prefix cache deduplicates when
+    ``n_sharers`` sequences share a ``prefix_len``-token prefix: the
+    shared full pages are stored ONCE instead of once per row (each
+    sharer still pays its own block-table row, and the partial tail page
+    diverges onto a private CoW clone per writer, so only full pages
+    count)."""
+    if n_sharers <= 1 or prefix_len < page:
+        return 0
+    full_pages = prefix_len // page
+    n_attn = sum(1 for k in cfg.pattern if k == ATTN)
+    per_page = page * _token_slot_bytes(cfg, quantized)
+    return (n_sharers - 1) * full_pages * per_page * n_attn

@@ -25,18 +25,20 @@ class Request:
     max_new_tokens: int
     eos_token: Optional[int] = None
     stop_tokens: Optional[Sequence[int]] = None
-    temperature: float = 0.0                 # 0 = greedy (the only mode)
+    temperature: float = 0.0                 # 0 = greedy
     top_k: int = 0
-    top_p: float = 0.0
+    top_p: float = 0.0                       # 0/1 = disabled
     status: Status = Status.QUEUED
     generated: List[int] = field(default_factory=list)
     finish_reason: Optional[str] = None      # "stop" | "length"
     arrive_step: int = 0
     start_step: int = -1
     finish_step: int = -1
-    slot: int = -1
-    prefill_pos: int = 0                     # prompt tokens prefilled so far
-                                             # (chunked prefill progress)
+    slot: int = -1                           # batch row once scheduled; -1
+                                             # queued (also after preemption)
+    prefill_pos: int = 0                     # feed tokens prefilled so far
+                                             # (chunked prefill progress; a
+                                             # prefix hit starts past 0)
 
     @property
     def prompt_len(self) -> int:
@@ -48,8 +50,11 @@ class Request:
 
     @property
     def feed_tokens(self) -> np.ndarray:
-        """The token history a prefill must feed: the prompt plus
-        everything generated so far."""
+        """The token history a (re-)prefill must feed: the prompt plus
+        everything generated so far.  A preempted request keeps its
+        generated tokens and resumes by prefilling this whole feed: its
+        last position's logits predict the next new token, as the
+        prompt's last token seeds generation on first admission."""
         if not self.generated:
             return np.asarray(self.prompt, np.int32)
         return np.concatenate([np.asarray(self.prompt, np.int32),

@@ -228,6 +228,56 @@ def test_graph_serve_matches_eager_and_jax_trace(serve_setup, mode,
         assert stats["accepted_tokens"] < stats["drafted_tokens"]
 
 
+def test_captures_hold_the_cyclic_gc_off():
+    """While any thread is inside a capture the cyclic GC stays off: a
+    collection runs in whatever thread allocates, and collecting an old
+    engine's graphs there destroys them inside that thread's capture
+    (the capture is invalidated; seen on the card).  The last holder
+    restores what the first one found."""
+    import gc
+    assert gc.isenabled()
+    inside, leave = threading.Event(), threading.Event()
+
+    def other():
+        with graphs._no_gc():
+            inside.set()
+            leave.wait(10)
+    t = threading.Thread(target=other)
+    with graphs._no_gc():
+        assert not gc.isenabled()
+        t.start()
+        assert inside.wait(10)
+    assert not gc.isenabled()           # the other thread still holds it
+    leave.set()
+    t.join(10)
+    assert gc.isenabled()
+    gc.disable()                        # a caller's choice is kept
+    try:
+        with graphs._no_gc():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_close_releases_the_graphs(serve_setup):
+    """A closed engine holds no graph (the S-side, the R-Parts', the
+    drafter's): they are freed on the closing thread, not by a later
+    collection that may run inside another engine's capture."""
+    s = serve_setup
+    eng = ServingEngine(s["tp"], s["tc"], batch=4, cache_len=48,
+                        backend="hetero", paged_kv=True, page_size=4,
+                        spec_decode=SpecConfig(k=2), device="cpu")
+    eng.submit(Request(rid=0, prompt=s["spec"][0][0], max_new_tokens=8))
+    eng.run(20)
+    het = eng.engine
+    assert het._s_graphs and all(w._graphs for w in het.workers)
+    assert eng._draft_graph is not None and eng._commit_graph is not None
+    eng.close()
+    assert not het._s_graphs and not any(w._graphs for w in het.workers)
+    assert eng._draft_graph is None and eng._commit_graph is None
+
+
 # ---------------------------------------------------------------------------
 # counters and aliasing
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's step graphs on the card: a captured S-side transition, a
 captured R-Part per storage (paged fp, paged int8, dense fp, dense int8),
 and a chunk work's captured pieces (its S-side start and transitions, and
-its R-Part per storage: a prefill chunk's and a verify's) replayed
-against the same callable run eagerly (``graphs.eager()``) on the same
+its R-Part per storage: a prefill chunk's and a verify's), and a paged
+R-Part after its pools changed in place under the graph (a CoW clone and
+a host-tier restore), replayed against the same callable run eagerly (``graphs.eager()``) on the same
 inputs.  Marked ``cuda``: they skip without a CUDA device.  This
 file imports no JAX, so it runs on the card without the JAX-importing
 conftest:
@@ -128,6 +129,81 @@ def test_r_part_replay_equals_eager(storage):
     assert workers[0]._graphs[("d", 0)]._graph is not None
     assert workers[1]._graphs[("d", 0)]._graph is None
     for k, v in workers[0].state[0].items():
+        _close(v.float(), workers[1].state[0][k].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["paged", "paged-int8"])
+def test_r_part_replay_after_inplace_clone_and_restore_equals_eager(storage):
+    """The paged R-Part replayed after the pools changed under its graph
+    in place: between steps row 1 adopts row 0's two prefix pages (the
+    next appends land in the shared tail page, so the step CoW-clones it
+    into every layer's pool before the replay), and row 0's first page
+    makes a host round trip (out, zeroed, restored by
+    ``restore_pool_pages`` on the worker's stream).  Outputs and KV equal
+    the eager worker's, and no pool tensor moved."""
+    from repro_torch.serving import paged_cache as PC
+    _needs_card()
+    cfg, dev = _cfg(), torch.device("cuda")
+    quant = storage.endswith("int8")
+    hq, hkv, dh, cache = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 32
+    rng = np.random.default_rng(6)
+    lens = np.array([5, 9], np.int32)
+    pos = np.where(np.arange(cache)[None] < lens[:, None],
+                   np.arange(cache)[None], -1).astype(np.int32)
+    st = {"k": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "v": rng.standard_normal((2, cache, hkv, dh)).astype(np.float32),
+          "pos": pos}
+    workers = []
+    for _ in range(2):          # one replays, one runs eagerly
+        w = RWorker(0, cfg, 0, 2, quantized=quant, paged=True, page_size=4,
+                    prefix_cache=True, kv_tier=PC.HostTier(), device=dev)
+        w.load_state(0, {k: torch.from_numpy(v.copy()).to(dev)
+                         for k, v in st.items()})
+        workers.append(w)
+    ptrs = {k: v.data_ptr() for k, v in workers[0].state[0].items()}
+    sink = CompletionSink(2, dev)
+    outs = ([], [])
+    for step, step_lens in enumerate(([5, 9], [6, 6], [7, 7])):
+        if step == 1:
+            for w in workers:
+                a = w.allocators[0]
+                a.register_prefix(0, np.arange(1, 7, dtype=np.int32))
+                a.adopt_prefix(1, [int(p) for p in a.tables[0][:2]], 6)
+                pools = a.pool_reader()
+                pid = int(a.tables[0][0])
+                payload = a._read_page(pools, pid)
+                for pool in pools.values():
+                    for v in pool.values():
+                        v[pid].zero_()
+                entry = PC.TierEntry(digests={b"page"}, payload=payload)
+                with PC.on_stream(w.stream):
+                    for li, pool in pools.items():
+                        PC.restore_pool_pages(pool, [(entry, pid)], li)
+                w.stream.synchronize()
+        r_in = {k: torch.from_numpy(rng.standard_normal(
+                    (2, 1, h, dh)).astype(np.float32)).to(dev)
+                for k, h in (("q", hq), ("k", hkv), ("v", hkv))}
+        r_in["lengths"] = torch.tensor(step_lens, dtype=torch.int32,
+                                       device=dev)
+        r_in["active"] = torch.ones((2,), dtype=torch.bool, device=dev)
+        for w, out, ctx in zip(workers, outs, (contextlib.nullcontext(),
+                                               graphs.eager())):
+            ready = torch.cuda.Event()
+            ready.record()
+            with ctx:
+                w._run_one(((0, 0, 0, 0, 0), 0, "attn", 0, r_in, sink,
+                            ready))
+            _, _, err = sink.q.get_nowait()
+            assert err is None, err
+            out.append(sink._bufs[(0, 0, 0, 0)]["o"].clone())
+            if step == 1:       # row 0's append CoW-cloned the shared page
+                assert len(w._step_clones[(0, "d")]) == 1
+    for a, b in zip(*outs):
+        _close(a, b)
+    assert workers[0]._graphs[("d", 0)]._graph is not None
+    for k, v in workers[0].state[0].items():
+        assert v.data_ptr() == ptrs[k]
         _close(v.float(), workers[1].state[0][k].float())
 
 

@@ -286,15 +286,19 @@ def test_r_attention_int8_matches_jax_and_keeps_inactive_rows(opt):
 
 
 def test_int8_chunk_and_prefix_helpers_wait_for_their_slices():
-    """The prefix cache's byte helper still waits for its slice; the int8
-    chunk R-Part (chunked prefill and the dense int8 verify) is ported:
-    against the JAX package on rows that append mid-slab, over stale
-    entries past their offset, from offset 0, not at all, and past the
-    ring's end (the chunk wraps): int8 values, scales and positions
-    exactly equal, outputs within 1e-5 on the valid positions."""
-    tc = ModelConfig(**dataclasses.asdict(tiny_cfg("qwen3-8b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TKV.shared_prefix_bytes_saved(tc, 32, 2, 16, quantized=True)
+    """Both helpers are ported now.  The prefix cache's byte helper equals
+    the JAX package's on int8 storage (more cases in
+    tests/test_torch_prefix_cache.py); the int8 chunk R-Part (chunked
+    prefill and the dense int8 verify): against the JAX package on rows
+    that append mid-slab, over stale entries past their offset, from
+    offset 0, not at all, and past the ring's end (the chunk wraps): int8
+    values, scales and positions exactly equal, outputs within 1e-5 on the
+    valid positions."""
+    jc = tiny_cfg("qwen3-8b")
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    for args in ((32, 2, 16), (40, 5, 4), (3, 4, 4), (64, 1, 16)):
+        assert TKV.shared_prefix_bytes_saved(tc, *args, quantized=True) \
+            == JKV.shared_prefix_bytes_saved(jc, *args, quantized=True)
     rng = np.random.default_rng(8)
     b, c, hkv, g, dh = 4, 4, 2, 2, 8
     st = TKV.quantize_attn_state({k: _t(v) for k, v in

@@ -263,22 +263,28 @@ def test_not_ported_options_raise():
     tc = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      prefix_cache=4)
-    # int8 storage, chunked prefill and speculative decoding are ported
-    # (tests/test_torch_prefill_chunked.py): they are taken, with the
-    # rest still refused beside them
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
+                      fleet=4)
+    # int8 storage, chunked prefill, speculative decoding, sampling, the
+    # prefix cache, tiering and preemption are ported (their own test
+    # files): they are taken, with the rest still refused beside them
+    with pytest.raises(NotImplementedError, match="chaos"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      quantized_kv=True, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
+                      quantized_kv=True, chaos=True)
+    with pytest.raises(NotImplementedError, match="observability"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      backend="hetero", prefill_chunk=4, prefix_cache=True)
+                      backend="hetero", prefill_chunk=4, paged_kv=True,
+                      prefix_cache=True, kv_tiering=True, preempt_after=2,
+                      observability=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       admission="sls")
     with pytest.raises(TypeError):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       no_such_option=1)
+    # the host tier's fault injection waits for the chaos harness
+    from repro_torch.serving.paged_cache import HostTier
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        HostTier(chaos=object())
 
 
 def test_serving_engine_refuses_cuda_without_it(setup):

@@ -454,5 +454,11 @@ def test_spec_accept_greedy_matches_jax():
             got = TS.spec_accept(_t(logits), draft)
             want = JS.spec_accept(jnp.asarray(logits), draft, key)
             assert got == (list(map(int, want[0])), int(want[1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the sampled branch (tests/test_torch_sampler.py) draws only from a
+    # generator the caller passes: none given is refused
+    with pytest.raises(ValueError, match="Generator"):
         TS.spec_accept(_t(logits), draft, temperature=0.7)
+    toks, acc = TS.spec_accept(_t(logits), draft,
+                               torch.Generator().manual_seed(0),
+                               temperature=0.7)
+    assert len(toks) == acc + 1 and toks[:acc] == draft[:acc]
