@@ -119,6 +119,22 @@ Phases (any failure exits nonzero):
               uninterrupted (bf16, int8); preempt() mid-decode ==
               uninterrupted; sampled hetero == sampled colocated (one
               seed).
+  serve_plan  ServingEngine.from_plan (the §4.3 model, H100 profile;
+              seq_len 1024, max_batch 8) serving a backlog of 24 requests:
+              greedy without and with observability in turns (off, on,
+              on, off, off, on: the overhead as the median per-step wall
+              ratio), then sls and loadctl (S = 32, F = 4); the plan and
+              the roofline at the engine's batch (predictions from the
+              spec sheet), per run tokens/s, step p50, peak resident
+              length and KV, admissions per step, TTFT / queue-wait /
+              inter-token / end-to-end percentiles, the drift report, the
+              span count and the Chrome trace written to --trace-out;
+              checks on/off tokens equal, sls admissions on the schedule,
+              loadctl under w_lim, drift calibrated, metrics in schema.
+  equiv_plan  at 2 layers, fp32: sls and loadctl hetero == colocated
+              (tokens, admissions per step), observability on == off,
+              from_plan serves, a sim_row_cost straggler flagged by the
+              drift monitor.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -134,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -1637,17 +1654,44 @@ def serve_run(dev, model, out: Path, *, kernel, paged: bool,
     ``run_kw``: ``reqs`` (another trace), ``arrive`` ({rid: step}: submit
     before that step, default 0), ``engine_kw`` (more ServingEngine
     options: seed, prefix_cache, kv_tiering, preempt_after,
-    pages_per_worker), ``rows`` (a dict that receives the logits row that
-    chose every token, keyed (rid, token index)), ``check_support``
-    (every token a sampled request commits must have probability > 0
-    under ``sampler.target_probs`` of the row that chose it), ``on_step``
-    (called with the engine after every step) and ``max_steps``."""
+    pages_per_worker, admission, observability), ``plan`` (build the
+    engine with ``ServingEngine.from_plan(seq_len=1024, max_batch=8)``:
+    batch, micro-batches and R-workers come from the plan), ``rows`` (a
+    dict that receives the logits row that chose every token, keyed (rid,
+    token index)), ``check_support`` (every token a sampled request
+    commits must have probability > 0 under ``sampler.target_probs`` of
+    the row that chose it), ``on_step`` (called with the engine after
+    every step), ``after`` (called with the engine after the counted run,
+    before it closes; its result is the record's ``after``) and
+    ``max_steps``."""
     from repro_torch.core import graphs
     with (graphs.eager() if eager else contextlib.nullcontext()):
         return _serve_run(dev, model, out, kernel=kernel, paged=paged,
                           quantized=quantized, spec_k=spec_k,
                           prefill_chunk=prefill_chunk, profile=profile,
                           trace=trace, eager=eager, **run_kw)
+
+
+class _GCTime:
+    """While active, the pauses of Python's cyclic garbage collector (in
+    whichever thread collects; collections never overlap): seconds and
+    collections per generation, from ``gc.callbacks``."""
+
+    def __enter__(self):
+        self.s, self.collections, self._t0 = 0.0, [0, 0, 0], None
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.collections[info["generation"]] += 1
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
 
 
 class _TokenLog:
@@ -1725,7 +1769,8 @@ def _referenced_bytes(eng) -> float:
 def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                prefill_chunk, profile, trace, eager, reqs=None, arrive=None,
                engine_kw=None, rows=None, check_support=False,
-               on_step=None, max_steps=200) -> dict:
+               on_step=None, after=None, plan=False,
+               max_steps=200) -> dict:
     import torch
     from repro_torch.core import graphs
     from repro_torch.kernels import decode_attention as DA
@@ -1735,14 +1780,17 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
     from repro_torch.serving.engine import ServingEngine, SpecConfig
     cfg, params = model["cfg"], model["params"]
     counters = _counters()
-    batch, n_mb, n_workers = 8, 2, 2
-    eng = ServingEngine(params, cfg, backend="hetero", num_r_workers=n_workers,
-                        num_microbatches=n_mb, paged_kv=paged,
-                        quantized_kv=quantized, page_size=16, batch=batch,
-                        cache_len=1024, device=dev,
-                        prefill_chunk=prefill_chunk,
-                        spec_decode=SpecConfig(k=spec_k) if spec_k else None,
-                        **(engine_kw or {}))
+    kw = dict(backend="hetero", paged_kv=paged, quantized_kv=quantized,
+              page_size=16, device=dev, prefill_chunk=prefill_chunk,
+              spec_decode=SpecConfig(k=spec_k) if spec_k else None,
+              **(engine_kw or {}))
+    if plan:
+        eng = ServingEngine.from_plan(params, cfg, seq_len=1024, max_batch=8,
+                                      **kw)
+    else:
+        eng = ServingEngine(params, cfg, num_r_workers=2, num_microbatches=2,
+                            batch=8, cache_len=1024, **kw)
+    batch, n_mb, n_workers = eng.batch, eng.num_mb, len(eng.engine.workers)
     arrive = arrive or {}
     try:
         if reqs is None:
@@ -1762,7 +1810,8 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         prefill_steps = []
         step_capture = []       # capture seconds inside each step
         seen = eng.engine.prefill_results
-        with _GatherCount() as gathers, \
+        heap_objects = len(gc.get_objects())
+        with _GatherCount() as gathers, _GCTime() as gct, \
                 _TokenLog(eng, rows, check_support) as toklog:
             while pending or eng.queue \
                     or any(s is not None for s in eng.slots):
@@ -1821,6 +1870,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         prefix_stats = (dict(eng.prefix_cache_stats()) if eng.prefix_cache
                         else None)
         tier_stats = dict(eng.tiering_stats()) or None
+        after_rec = after(eng) if after is not None else None
         prof = None
         if profile:
             # a separate window on the warm engine (not part of the
@@ -1879,7 +1929,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "build_s": model["build_s"],
            "requests": len(reqs), "decode_steps": steps,
            "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
-           "page_size": 16, "cache_len": 1024,
+           "page_size": 16, "cache_len": eng.cache_len,
            "prompt_tokens": sum(r.prompt_len for r in reqs),
            "decode_tokens": dec_tokens,
            "decode_tokens_per_s": dec_tokens / sum(dec),
@@ -1913,6 +1963,18 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "paged_resident_bytes_peak": peak_resident,
            # pages some row maps (cached and parked pages left out)
            "paged_referenced_bytes_peak": peak_referenced,
+           # the engine's own per-step records: requests admitted, and the
+           # resident length (prompt + generated tokens of the slot rows)
+           "admitted_per_step": [rec.admitted for rec in recs],
+           "decode_wall_per_step": dec,
+           "resident_len_per_step": [rec.resident_len for rec in recs],
+           "resident_len_peak": max(rec.resident_len for rec in recs),
+           "capture_steps": [i for i, c in enumerate(step_capture)
+                             if c > 0.0],
+           # Python's cyclic GC during the counted run, and the objects it
+           # tracked when the run began
+           "gc_s": gct.s, "gc_collections": gct.collections,
+           "gc_heap_objects": heap_objects,
            "kernel": kernel, "kernel_launches": got,
            "launches": launches, "plain_calls": plain,
            "paged_merge_launches": merges,
@@ -1921,6 +1983,8 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "hotpath": hot, "r_worker_busy_s": busy, "trace": prof,
            **capture, **mem,
            "tokens": {r.rid: list(done[r.rid].generated) for r in reqs}}
+    if after is not None:
+        rec["after"] = after_rec
     if prefix_stats is not None:
         rec["prefix_cache"] = prefix_stats
     if tier_stats is not None:
@@ -3283,10 +3347,313 @@ def phase_equiv_prefix(dev) -> dict:
             **out}
 
 
+PLAN_TARGET, PLAN_INTERVAL = 32, 4     # the sls / loadctl S and F
+# drift warmup past the graph captures: a serve with monolithic prefill
+# captures its decode graphs in its first step only
+PLAN_DRIFT_WARMUP = 3
+
+
+def _plan_requests(vocab):
+    """A backlog of 24 requests (3x the batch, as a loaded server holds):
+    prompts of 17-600 tokens, 16-32 new tokens each, all queued at step
+    0, from the phase's seed."""
+    return _requests(np.random.default_rng(19), 24, 17, 600, 16, 32, vocab)
+
+
+def _plan_after(name: str, trace_out: Path):
+    """The ``after`` hook of a serve_plan run: the engine's plan and, with
+    observability on, its metrics (schema-checked), drift report, span
+    count and exported Chrome trace."""
+    def after(eng):
+        rec = {"plan": dict(eng.plan)}
+        if eng.obs is None:
+            return rec
+        from repro_torch.obs import assert_conforms
+        m = eng.metrics()
+        assert_conforms(m)
+        rep = eng.drift_report()
+        trace_out.mkdir(parents=True, exist_ok=True)
+        path = Path(eng.export_trace(str(trace_out / f"serve_plan_{name}"
+                                         ".json")))
+        tracer = eng.obs.tracer
+        rec.update({
+            "metrics": {k: m[k] for k in sorted(m) if k.startswith((
+                "ttft_s", "queue_wait_s", "inter_token_s", "e2e_s"))
+                or k.endswith("_count") and not k.startswith("hotpath_")},
+            "drift": {"calibrated": rep.calibrated,
+                      "watch_steps": rep.steps_count,
+                      "records": [{"key": r.key, "predicted": r.predicted,
+                                   "measured": r.measured, "rel": r.rel}
+                                  for r in rep.records],
+                      "flagged": rep.flagged,
+                      "warmup_steps": eng.obs.drift.warmup_steps,
+                      "calibration_steps": eng.obs.drift.calibration_steps},
+            "spans": tracer.added, "spans_dropped": tracer.dropped,
+            "trace": str(path), "trace_bytes": path.stat().st_size})
+        return rec
+    return after
+
+
+PLAN_RUN_KEYS = ("decode_tokens_per_s", "decode_tokens_per_s_after_first_step",
+                 "decode_step_s_p50", "decode_steps", "resident_len_peak",
+                 "paged_referenced_bytes_peak", "admitted_per_step",
+                 "prefill_step_wall_s_max", "capture_count", "capture_s",
+                 "kernel_launches", "hotpath", "r_worker_busy_s", "gc_s",
+                 "gc_collections", "gc_heap_objects")
+
+
+def phase_serve_plan(dev, model, out: Path, trace_out: Path) -> dict:
+    """The paper's planner and schedules with observability, on the card:
+    ``ServingEngine.from_plan(seq_len=1024, max_batch=8, backend="hetero",
+    paged_kv=True, page_size=16)`` (H100 profile) serving a backlog of 24
+    requests (``_plan_requests``) in turns greedy without and with
+    observability (off, on, on, off, off, on: a paired overhead figure;
+    step i does the same device work in every greedy run, so the median
+    over steps of the per-step ratio on / off is the robust one), then
+    ``sls`` and ``loadctl`` (S = 32, F = 4; loadctl's w_lim half the first
+    greedy run's peak resident length), both observed.  Checks: every
+    request finishes with its count (``_serve_run``); observed tokens ==
+    unobserved; every sls admission on a step = 0 mod F, at most M =
+    microbatch_size(batch, S, F); loadctl's peak resident length <= w_lim;
+    each observed run's drift monitor calibrated with dispatch_s and
+    tokens_per_s among its records; metrics() schema-conformant.  sls and
+    loadctl tokens that differ from greedy's are triaged teacher-forced
+    (both runs again with every logits row logged, ``_triage``) and
+    counted, not failed."""
+    from repro_torch.core import perfmodel as P
+    from repro_torch.core.schedule import microbatch_size
+    from repro_torch.obs import ObsConfig
+    cfg = model["cfg"]
+    ocfg = ObsConfig(drift_warmup_steps=PLAN_DRIFT_WARMUP)
+    base = dict(kernel="paged_decode_attention", paged=True, quantized=False,
+                plan=True, max_steps=400)
+    sched = dict(target_len=PLAN_TARGET, interval=PLAN_INTERVAL)
+
+    def run(name, rows=None, **engine_kw):
+        return serve_run(dev, model, out, reqs=_plan_requests(cfg.vocab_size),
+                         engine_kw=engine_kw, rows=rows,
+                         after=_plan_after(name, trace_out), **base)
+    runs = {}
+    for i, on in enumerate((False, True, True, False, False, True)):
+        name = f"greedy_{'on' if on else 'off'}_{i // 2 + 1}"
+        runs[name] = run(name, **(dict(observability=ocfg) if on else {}))
+    runs["sls"] = run("sls", admission="sls", observability=ocfg, **sched)
+    w_lim = 0.5 * runs["greedy_off_1"]["resident_len_peak"]
+    runs["loadctl"] = run("loadctl", admission="loadctl", w_lim=w_lim,
+                          observability=ocfg, **sched)
+    ref = runs["greedy_off_1"]
+    plan = ref["after"]["plan"]
+    b = ref["batch"]
+    m = microbatch_size(b, PLAN_TARGET, PLAN_INTERVAL)
+    faults = []
+    greedy = [n for n in runs if n.startswith("greedy_")]
+    for name in greedy[1:]:
+        if runs[name]["tokens"] != ref["tokens"]:
+            faults.append(f"{name} tokens != greedy_off_1's")
+    bad = [(i, a) for i, a in enumerate(runs["sls"]["admitted_per_step"])
+           if a and (i % PLAN_INTERVAL or a > m)]
+    if bad:
+        faults.append(f"sls admissions off the schedule (step, n): {bad}")
+    if runs["loadctl"]["resident_len_peak"] > w_lim:
+        faults.append(f"loadctl peak resident length "
+                      f"{runs['loadctl']['resident_len_peak']} > w_lim "
+                      f"{w_lim}")
+    observed = [n for n, r in runs.items() if "drift" in r["after"]]
+    for name in observed:
+        d = runs[name]["after"]["drift"]
+        keys = {r["key"] for r in d["records"]}
+        if not d["calibrated"] or not {"dispatch_s", "tokens_per_s"} <= keys:
+            faults.append(f"{name}: drift not calibrated or records {keys}")
+    if faults:
+        raise AssertionError("serve_plan: " + "; ".join(faults))
+    # triage of the schedules' tokens against greedy's, only where they
+    # differ (the logged runs perturb the timing, so they are extra runs)
+    triage = {}
+    differ = [n for n in ("sls", "loadctl")
+              if runs[n]["tokens"] != ref["tokens"]]
+    if differ:
+        rows_ref = {}
+        run("greedy_rows", rows=rows_ref)
+        for name in differ:
+            rows = {}
+            kw = dict(admission=name, **sched)
+            if name == "loadctl":
+                kw["w_lim"] = w_lim
+            again = run(f"{name}_rows", rows=rows, **kw)
+            triage[name] = _triage(again["tokens"], ref["tokens"], rows,
+                                   rows_ref)
+    summary = {}
+    for name, r in runs.items():
+        s_ = {k: r[k] for k in PLAN_RUN_KEYS}
+        s_["admissions"] = {"steps_admitting": sum(
+            1 for a in r["admitted_per_step"] if a),
+            "max_per_step": max(r["admitted_per_step"])}
+        if "drift" in r["after"]:
+            a = r["after"]
+            ws = a["drift"]["warmup_steps"]
+            cs = a["drift"]["calibration_steps"]
+            s_.update({k: a[k] for k in ("metrics", "drift", "spans",
+                                         "spans_dropped", "trace",
+                                         "trace_bytes")})
+            s_["captures_in_calibration"] = sum(
+                1 for i in r["capture_steps"] if ws <= i < ws + cs)
+        s_["tokens_equal_greedy"] = r["tokens"] == ref["tokens"]
+        summary[name] = s_
+
+    def mean(names, key):
+        return float(np.mean([runs[n][key] for n in names]))
+    on = [n for n in greedy if "_on_" in n]
+    off = [n for n in greedy if "_off_" in n]
+    overhead = {
+        key: {"on": mean(on, key), "off": mean(off, key),
+              "on_over_off": mean(on, key) / mean(off, key)}
+        for key in ("decode_tokens_per_s",
+                    "decode_tokens_per_s_after_first_step",
+                    "decode_step_s_p50")}
+    # per step after the first (which captures): the median wall of the
+    # observed runs over that of the unobserved ones
+    walls = {n: runs[n]["decode_wall_per_step"] for n in greedy}
+    ratios = [float(np.median([walls[n][i] for n in on])
+                    / np.median([walls[n][i] for n in off]))
+              for i in range(1, len(walls[greedy[0]]))]
+    overhead["step_wall_on_over_off"] = {
+        "steps": len(ratios), "median": float(np.median(ratios)),
+        "q1": float(np.percentile(ratios, 25)),
+        "q3": float(np.percentile(ratios, 75))}
+    t_b = P.t_of_b(cfg, P.GPU_H100, b)
+    return {"phase": "serve_plan", "ok": True, "model": "qwen3-8b",
+            "layers": cfg.num_layers, "requests": len(ref["tokens"]),
+            "prompt_tokens": ref["prompt_tokens"],
+            "engine": {"batch": b, "micro_batches": ref["micro_batches"],
+                       "r_workers": ref["r_workers"],
+                       "cache_len": ref["cache_len"], "page_size": 16},
+            # predictions from the H100 spec sheet, not measurements
+            "plan": {k: plan.get(k) for k in (
+                "batch", "workers", "t_of_b", "tokens_per_s",
+                "prefill_chunk", "w_lim_scale", "workers_mem_min")},
+            "roofline_at_engine_batch": {
+                "batch": b, "t_of_b": t_b,
+                "tokens_per_s": b / (2 * cfg.num_layers * t_b)},
+            "schedule": {"target_len": PLAN_TARGET,
+                         "interval": PLAN_INTERVAL, "microbatch": m,
+                         "w_lim": w_lim},
+            "observability_overhead": overhead,
+            "runs": summary, "triage_vs_greedy": triage,
+            "kernel_launches": ref["kernel_launches"]}
+
+
+def phase_equiv_plan(dev) -> dict:
+    """At 2 layers, fp32, TF32 off: hetero paged (through kernel 1) ==
+    colocated under ``sls`` and under ``loadctl`` (tokens; the same
+    admissions and resident length every step); observability on ==
+    off (tokens exact, logits within 1e-4); ``from_plan`` serves
+    (== the hand-sized hetero engine); and a worker made a straggler
+    with ``sim_row_cost`` after the drift monitor calibrated is flagged
+    ``tokens_per_s`` by ``drift_report()``."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, spec = _equiv_model(dev, 4)
+    res = {}
+    hetero = dict(backend="hetero", paged_kv=True)
+    schedules = {"sls": dict(admission="sls", target_len=8, interval=2),
+                 "loadctl": dict(admission="loadctl", target_len=8,
+                                 interval=2, w_lim=400.0)}
+    for name, akw in schedules.items():
+        steps = {"hetero": [], "colocated": []}
+
+        def record(key):
+            return lambda eng: steps[key].append(
+                (eng.records[-1].admitted, eng.records[-1].resident_len))
+        PA.launches.reset()
+        got, _ = _equiv_serve(dev, cfg, params, spec, on_step=record(
+            "hetero"), **hetero, **akw)
+        launches = PA.launches.value
+        want, _ = _equiv_serve(dev, cfg, params, spec, on_step=record(
+            "colocated"), backend="colocated", **akw)
+        max_diff, mismatches, ties, margin = _compare(got, want,
+                                                      EQUIV_LOGIT_TOL)
+        if mismatches or max_diff > EQUIV_LOGIT_TOL or launches == 0 \
+                or steps["hetero"] != steps["colocated"]:
+            raise AssertionError(
+                f"{name}: hetero-paged != colocated: mismatches "
+                f"{mismatches}, max logit diff {max_diff} (tol "
+                f"{EQUIV_LOGIT_TOL}), kernel launches {launches}, "
+                f"(admitted, resident) per step {steps}")
+        res[name] = {"tokens_equal": not ties, "near_tie_flips": ties,
+                     "max_logit_diff": max_diff, "min_top2_margin": margin,
+                     "kernel_launches": launches,
+                     "admitted_per_step": [a for a, _ in steps["hetero"]]}
+    off, _ = _equiv_serve(dev, cfg, params, spec, **hetero)
+    on, _ = _equiv_serve(dev, cfg, params, spec, observability=True,
+                         **hetero)
+    max_diff, mismatches, ties, _ = _compare(on, off, EQUIV_LOGIT_TOL)
+    if mismatches or ties or max_diff > EQUIV_LOGIT_TOL:
+        raise AssertionError(
+            f"observability on != off: mismatches {mismatches}, near-tie "
+            f"flips {ties}, max logit diff {max_diff}")
+    res["observability"] = {"tokens_equal": True, "max_logit_diff": max_diff}
+    eng = ServingEngine.from_plan(params, cfg, seq_len=256, max_batch=4,
+                                  page_size=16, device=dev, **hetero)
+    try:
+        planned, _ = _serve_logged(eng, _requests(np.random.default_rng(2),
+                                                  **spec))
+        sized = (eng.batch, len(eng.engine.workers), eng.num_mb)
+        plan = {k: eng.plan[k] for k in ("batch", "workers", "tokens_per_s")}
+    finally:
+        eng.close()
+    max_diff, mismatches, ties, _ = _compare(planned, off, EQUIV_LOGIT_TOL)
+    if mismatches or max_diff > EQUIV_LOGIT_TOL:
+        raise AssertionError(
+            f"from_plan serve != hetero serve: mismatches {mismatches}, max "
+            f"logit diff {max_diff}")
+    res["from_plan"] = {"batch_workers_micro_batches": sized, "plan": plan,
+                        "tokens_equal": not ties,
+                        "max_logit_diff": max_diff}
+    # the straggler: calibrate on a healthy pair of workers, then slow one
+    ocfg = ObsConfig(drift_warmup_steps=3, drift_calibration_steps=6,
+                     drift_tolerance=0.5)
+    eng = ServingEngine(params, cfg, batch=4, cache_len=256,
+                        num_r_workers=2, num_microbatches=2, page_size=16,
+                        device=dev, observability=ocfg, **hetero)
+    try:
+        for r in _requests(np.random.default_rng(6), 4, 17, 40, 40, 40,
+                           cfg.vocab_size):
+            eng.submit(r)
+        capture_steps = []
+        for i in range(17):
+            if i == 9:
+                rep0 = eng.drift_report()
+                eng.engine.workers[0].sim_row_cost = 0.05
+            n0 = graphs.captures.capture_count
+            eng.step()
+            if graphs.captures.capture_count > n0:
+                capture_steps.append(i)
+        rep = eng.drift_report()
+    finally:
+        eng.close()
+    tps = rep.record("tokens_per_s")
+    if not rep0.calibrated or tps is None or "tokens_per_s" not in \
+            rep.flagged or not tps.rel < -0.5:
+        raise AssertionError(f"straggler not flagged: calibrated "
+                             f"{rep0.calibrated}, report {rep}")
+    res["straggler"] = {
+        "sim_row_cost_s": 0.05, "flagged": rep.flagged,
+        "tokens_per_s": {"predicted": tps.predicted,
+                         "measured": tps.measured, "rel": tps.rel},
+        "watch_steps": rep.steps_count, "capture_steps": capture_steps,
+        "captures_in_calibration": sum(1 for i in capture_steps
+                                       if 3 <= i < 9)}
+    return {"phase": "equiv_plan", "ok": True, "layers": cfg.num_layers,
+            "dtype": "float32", "tf32": False, "logit_tol": EQUIV_LOGIT_TOL,
+            **res}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
-          "equiv", "equiv_int8", "equiv_spec", "equiv_chunk",
-          "equiv_spec_int8", "equiv_prefix")
+          "serve_plan", "equiv", "equiv_int8", "equiv_spec", "equiv_chunk",
+          "equiv_spec_int8", "equiv_prefix", "equiv_plan")
 
 
 def kernels_line(results) -> list:
@@ -3330,6 +3697,10 @@ def kernels_line(results) -> list:
     # entry (ops.paged_decode_attention_int8, no gather)
     line[2]["paged_launches"] = (serve8["runs"][0]["int8_paged_launches"]
                                  if serve8 else None)
+    # kernel 1 in the from_plan serve (its first greedy run, counted alone)
+    plan = results.get("serve_plan")
+    line[0]["serve_plan_launches"] = (plan["kernel_launches"] if plan
+                                      else None)
     return line
 
 
@@ -3340,6 +3711,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for the serve phases' profiler tables "
                          "and the bf16 serve's Chrome trace")
+    ap.add_argument("--trace-out", type=Path, default=None,
+                    help="directory for serve_plan's exported Chrome traces "
+                         "of the pipeline spans (default: --out)")
     ap.add_argument("--v1-dense-source", type=Path, default=None,
                     help="a first-version csrc/decode_attention.cu: adds the "
                          "compare_dense phase (v1 kernels 2 and 3 against "
@@ -3372,7 +3746,7 @@ def main(argv=None) -> int:
         log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
     if {"serve", "serve_int8", "serve_spec", "serve_chunked",
             "serve_spec_int8", "serve_sampled", "serve_prefix",
-            "serve_tier"} & set(phases):
+            "serve_tier", "serve_plan"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:
             results["serve"] = phase_serve(dev, model, args.out)
@@ -3405,6 +3779,10 @@ def main(argv=None) -> int:
         if "serve_tier" in phases:
             results["serve_tier"] = phase_serve_tier(dev, model, args.out)
             log(results["serve_tier"])
+        if "serve_plan" in phases:
+            results["serve_plan"] = phase_serve_plan(
+                dev, model, args.out, args.trace_out or args.out)
+            log(results["serve_plan"])
         del model
         torch.cuda.empty_cache()
     if "equiv" in phases:
@@ -3425,6 +3803,9 @@ def main(argv=None) -> int:
     if "equiv_prefix" in phases:
         results["equiv_prefix"] = phase_equiv_prefix(dev)
         log(results["equiv_prefix"])
+    if "equiv_plan" in phases:
+        results["equiv_plan"] = phase_equiv_plan(dev)
+        log(results["equiv_plan"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -61,8 +61,16 @@ restores them; every page copy runs on the owning worker's stream, and
 the pools are written in place (the R-Part graphs baked their
 addresses).
 
-Not in this slice (see ROADMAP.md): fleet management, chaos supervision
-and observability.
+Observability (``attach_tracer``): with a ``SpanTracer`` attached, the
+S-worker records one span per (step, micro-batch, layer, phase) R-Part
+round trip (dispatch -> last worker's completion) and one per step, and
+each R-worker its busy windows.  Spans are host times around dispatches,
+replays and the sink's waits, recorded outside every captured graph body;
+they add no device synchronisation, and with no tracer attached the cost
+is one attribute read per step.
+
+Not in this slice (see ROADMAP.md): fleet management and chaos
+supervision.
 """
 from __future__ import annotations
 
@@ -225,6 +233,11 @@ class RWorker(threading.Thread):
     ``prefix_cache`` makes the allocators refcounted copy-on-write with a
     prefix index; ``kv_tier`` (the engine-global ``paged_cache.HostTier``)
     adds park / swap-out / restore and implies the prefix index.
+
+    ``sim_row_cost`` (seconds per row per call, settable while serving)
+    makes a deterministic bandwidth-bound straggler: after each R-Part the
+    worker sleeps that long per row it owns, on the host, outside the
+    replayed graph.
     """
 
     def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
@@ -233,7 +246,7 @@ class RWorker(threading.Thread):
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_pages_per_seq: Optional[int] = None,
                  prefix_cache: bool = False, kv_tier: Any = None,
-                 device=None):
+                 sim_row_cost: float = 0.0, device=None):
         super().__init__(daemon=True, name=f"r-worker-{wid}")
         self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
         self.kv_chunk = kv_chunk
@@ -270,6 +283,9 @@ class RWorker(threading.Thread):
         self._step_clones: Dict[Tuple[int, str], list] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
+        self.sim_row_cost = max(0.0, float(sim_row_cost))  # s/row/call
+        # set via HeteroPipelineEngine.attach_tracer, never constructed here
+        self.tracer = None
 
     # -- paged storage helpers ----------------------------------------------
     def _pageable(self, st) -> bool:
@@ -537,7 +553,21 @@ class RWorker(threading.Thread):
                 else:
                     g.feed(r_in)
                 host = self._to_host(g())
-            self.busy_time += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if self.sim_row_cost > 0.0:
+                # deterministic bandwidth-bound service time: streams its
+                # rows' KV at sim_row_cost seconds per row
+                extra = self.sim_row_cost * (self.hi - self.lo)
+                time.sleep(extra)
+                dt += extra
+            self.busy_time += dt
+            tracer = self.tracer
+            if tracer is not None:
+                # busy window on this worker's own track (the straggler's
+                # sleep included, so it renders as a longer span)
+                tracer.add(f"L{layer}.p{phase}", "r-worker",
+                           f"r{self.wid}", t0, t0 + dt,
+                           {"layer": layer, "phase": phase, "kind": kind})
             sink.post(self.wid, tag, host, self.lo, self.hi)
         except Exception as e:  # surface to the S-worker, don't deadlock
             sink.post_error(self.wid, tag, e)
@@ -669,6 +699,17 @@ class HeteroPipelineEngine:
         self.prefill_results: List[_PrefillChunk] = []
         self.step_stats: Dict[str, float] = {}
         self.last_step_stats: Dict[str, float] = {}
+        # optional obs.SpanTracer (attach_tracer); None costs one attribute
+        # read per step
+        self.tracer = None
+        self._step_no = 0
+
+    def attach_tracer(self, tracer) -> None:
+        """Wire (or detach, with ``None``) a span tracer into the
+        dispatch/collect path and every worker thread."""
+        self.tracer = tracer
+        for w in self.workers:
+            w.tracer = tracer
 
     def _lkey(self, mb: int, layer: int) -> int:
         return mb * self.num_layers + layer
@@ -951,9 +992,18 @@ class HeteroPipelineEngine:
         # micro-batch, and the event-loop waits that served only chunk
         # work (repro's accounting; the serving layer moves it from the
         # decode wall to the prefill wall)
+        # (dup_completion_count stays 0 until the chaos harness is ported:
+        # only its injected duplicate deliveries raise it in repro)
         stats = {"dispatch_s": 0.0, "collect_s": 0.0, "s_dispatch_s": 0.0,
-                 "r_wait_s": 0.0, "ooo_advances": 0.0, "prefill_s": 0.0}
+                 "r_wait_s": 0.0, "ooo_advances": 0.0, "prefill_s": 0.0,
+                 "dup_completion_count": 0.0}
         t_step0 = pc()
+        tracer = self.tracer
+        step_no = self._step_no
+        self._step_no += 1
+        # dispatch times for the spans (tracer only): a span is dispatch ->
+        # the last worker's completion of that tag
+        disp_t: Dict[Tuple[int, int, int], float] = {}
         sink = self._sink
         self._parity ^= 1
         parity, epoch = self._parity, sink.epoch
@@ -1002,6 +1052,8 @@ class HeteroPipelineEngine:
             for w, shard in zip(self.workers, shards):
                 w.inq.put((tag, lkey, kind, phase, shard, sink, ev))
             stats["dispatch_s"] += pc() - t0
+            if tracer is not None:
+                disp_t[(mb, li, phase)] = t0
 
         def advance(mb: int, li: int, phase: int) -> None:
             nonlocal active
@@ -1096,6 +1148,13 @@ class HeteroPipelineEngine:
                 if outstanding:
                     continue
                 del pending[(mb, li, phase)]
+                if tracer is not None:
+                    track = (f"mb{mb}" if mb < self.num_mb
+                             else f"prefill-vmb{mb - self.num_mb}")
+                    tracer.add(f"L{li}.p{phase}", "r-rtt", track,
+                               disp_t.pop((mb, li, phase), t0), pc(),
+                               {"step": step_no, "mb": mb, "layer": li,
+                                "phase": phase})
                 if mb >= self.num_mb:
                     advance_chunk(mb, li, phase)
                 elif self.schedule == "fifo":
@@ -1127,6 +1186,12 @@ class HeteroPipelineEngine:
             self.prefill_results.append(wk)
         stats["step_s"] = pc() - t_step0
         stats["emit_mean_s"] = sum(emit_at) / self.num_mb
+        if tracer is not None:
+            # the enclosing step span: every r-rtt span of this step nests
+            # inside it
+            tracer.add(f"step {step_no}", "step", "s-worker", t_step0,
+                       t_step0 + stats["step_s"],
+                       {"step": step_no, "prefill_chunks": len(works)})
         self.last_step_stats = stats
         for k, v in stats.items():
             self.step_stats[k] = self.step_stats.get(k, 0.0) + v

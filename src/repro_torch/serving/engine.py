@@ -1,10 +1,21 @@
 """Continuous-batching serving engine of the port (counterpart of
-repro.serving.engine), greedy admission.
+repro.serving.engine) with the paper's admission schedules.
 
-A fixed pool of ``batch`` sequence slots is decoded every step; a
-finished sequence frees its slot and a queued request takes any free
-slot at once (the paper's baseline, vLLM/Orca-style continuous
-batching).  Backends: ``colocated`` (single-device decode, the vanilla
+A fixed pool of ``batch`` sequence slots is decoded every step; finished
+sequences free their slot and the admission policy decides *when*
+queued requests may take one:
+
+  * ``greedy``  — fill any free slot at once (vLLM/Orca-style continuous
+                  batching; the paper's baseline behaviour).
+  * ``sls``     — fixed-interval micro-batches of M = B·F/S every F steps
+                  (FastDecode §4.2, ``target_len`` S, ``interval`` F).
+  * ``loadctl`` — Algorithm 1: the earliest step under the W_lim peak
+                  bound (``w_lim``; default eq. 6's W'_max), with the
+                  candidates' prompt tokens counted against it.
+
+``ServingEngine.from_plan`` sizes the batch and the R-worker count with
+the §4.3 performance model (``core.perfmodel``; H100 by default).
+Backends: ``colocated`` (single-device decode, the vanilla
 baseline) or ``hetero`` (the S-/R-worker pipeline of core.hetero).  With
 ``paged_kv=True`` (hetero only) the R-workers store attention KV
 block-granular: admission allocates only the pages a prompt needs,
@@ -36,9 +47,16 @@ them on a probe; ``preempt(rid)`` and ``preempt_after=N`` (park the
 least-finished row after N steps of page-blocked admission) requeue a
 running request, which resumes token-exactly.
 
-Not in this slice (see ROADMAP.md): the ``sls``/``loadctl`` admission
-schedules, ``from_plan``, fleet management, chaos supervision and
-observability.
+``observability=True`` (or an ``obs.ObsConfig``) turns on the metrics
+registry (TTFT, queue-wait, inter-token and end-to-end histograms,
+lifecycle counters: ``metrics()``), per-request timelines
+(``request_timeline``), the pipeline span tracer (``export_trace``: Chrome
+trace events) and the perfmodel drift monitor (``drift_report``).  Off,
+every hook is one ``self.obs is None`` test.  The hooks run on the host
+between graph replays: they add no device synchronisation.
+
+Not in this slice (see ROADMAP.md): fleet management and chaos
+supervision.
 """
 from __future__ import annotations
 
@@ -52,20 +70,24 @@ import torch
 
 from repro_torch.core import decompose as D
 from repro_torch.core import graphs
+from repro_torch.core import perfmodel as P
 from repro_torch.core.config import (ATTN, DEC_XATTN, XATTN, ModelConfig,
                                      check_supported)
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
                                      batch_slice, per_layer_state)
+from repro_torch.core.schedule import (LoadController, microbatch_size,
+                                       w_prime_max)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.obs import schema
+from repro_torch.obs import Observability, coerce_obs_config, schema
+from repro_torch.obs.drift import DriftMonitor
 from repro_torch.serving.paged_cache import HostTier, TierConfig
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import sample, spec_accept
 
 # ServingEngine options of the JAX package that this slice does not port
-_NOT_IN_SLICE = ("fleet", "chaos", "observability", "target_len",
-                 "interval", "w_lim")
+_NOT_IN_SLICE = ("fleet", "chaos")
+_ADMISSIONS = ("greedy", "sls", "loadctl")
 
 
 def _pad_pow2(n: int, lo: int = 1) -> int:
@@ -117,9 +139,77 @@ class SpecConfig:
 
 
 class ServingEngine:
+    @classmethod
+    def from_plan(cls, params, cfg, *, seq_len: int, hw_s=None, hw_r=None,
+                  latency_slo: Optional[float] = None, max_batch: int = 4096,
+                  **kw):
+        """Size the engine with the paper's §4.3 performance model: batch
+        from eq. 7/8, R-worker count from eq. 11.  ``hw_s`` / ``hw_r``
+        default to ``perfmodel.GPU_H100`` (the JAX package defaults to its
+        TPU profile).  ``eng.plan`` holds the plan; its ``tokens_per_s``
+        is the model's rate at the PLANNED batch, not at the clamped
+        one."""
+        hw_s = hw_s or P.GPU_H100
+        hw_r = hw_r or P.GPU_H100
+        # windowed archs keep dense KV at runtime (RWorker._pageable), so
+        # they are not planned with paged terms either
+        page = (kw.get("page_size", 16)
+                if kw.get("paged_kv") and cfg.window == 0 else 0)
+        # the expected shared-prefix workload (the fraction of admissions
+        # that hit the cache, and the shared prefix's length): they shrink
+        # eq. 9's residency demand and scale w_lim
+        prefix_hit = kw.pop("prefix_hit_rate", 0.0)
+        prefix_len = kw.pop("prefix_len", 0)
+        if not kw.get("prefix_cache"):
+            prefix_hit = 0.0        # no cache, no dedup to plan for
+        # spec_k="plan" lets the model pick the draft length maximizing
+        # spec_speedup at the expected acceptance rate (spec_alpha); an int
+        # passes through
+        spec_k = kw.pop("spec_k", None)
+        spec_alpha = kw.pop("spec_alpha", 0.8)
+        plan = P.plan(cfg, hw_s, hw_r, seq_len=seq_len,
+                      latency_slo=latency_slo, page=page,
+                      prefix_hit_rate=prefix_hit, prefix_len=prefix_len,
+                      spec_alpha=spec_alpha if spec_k == "plan" else 0.0)
+        if spec_k == "plan":
+            kw["spec_decode"] = SpecConfig(k=int(plan["spec_k"]))
+        elif spec_k:
+            kw["spec_decode"] = SpecConfig(k=int(spec_k))
+        batch = int(min(max_batch, max(2, plan["batch"])))
+        if batch % 2:
+            batch += 1
+        # one row per worker within a micro-batch at least (the
+        # constructor's floor: a clamped batch can undercut an eq. 11
+        # worker count computed for the full one)
+        mb_size = batch // kw.get("num_microbatches", 2)
+        workers = int(max(1, min(8, mb_size, plan["workers"])))
+        if kw.get("prefill_chunk") == "plan":
+            # the largest pow2 chunk whose S-cost fits the decode bubble,
+            # at most the prompt budget
+            kw["prefill_chunk"] = int(min(plan["prefill_chunk"], seq_len))
+        if kw.get("admission") == "loadctl" and kw.get("w_lim") is None \
+                and plan.get("w_lim_scale", 1.0) != 1.0 \
+                and kw.get("target_len"):
+            # credit deduplicated residency against Algorithm 1's peak
+            # bound: shared prefix tokens are resident once, not per row
+            s = max(1, kw["target_len"])
+            f = max(1, kw.get("interval", 1) or 1)
+            kw["w_lim"] = w_prime_max(batch, s, f) * plan["w_lim_scale"]
+        eng = cls(params, cfg, batch=batch, cache_len=seq_len,
+                  backend=kw.pop("backend", "hetero"),
+                  num_r_workers=workers, **kw)
+        eng.plan = plan
+        if eng._obs_obj is not None and eng._obs_obj.drift is not None:
+            # the drift monitor reports measured tokens/s against the
+            # plan's promise too
+            eng._obs_obj.drift.plan = plan
+        return eng
+
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  cache_len: int, backend: str = "colocated",
-                 admission: str = "greedy", num_r_workers: int = 2,
+                 admission: str = "greedy", target_len: int = 0,
+                 interval: int = 0, w_lim: Optional[float] = None,
+                 num_r_workers: int = 2,
                  num_microbatches: int = 2, kv_chunk: int = 1024,
                  quantized_kv: bool = False, paged_kv: bool = False,
                  page_size: int = 16,
@@ -127,7 +217,8 @@ class ServingEngine:
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  prefill_chunk: int = 0, prefix_cache: bool = False,
                  kv_tiering=None, spec_decode: Optional[SpecConfig] = None,
-                 preempt_after: int = 0, device=None, **not_ported):
+                 preempt_after: int = 0, observability=False, device=None,
+                 **not_ported):
         unknown = set(not_ported) - set(_NOT_IN_SLICE)
         if unknown:
             raise TypeError(f"unexpected keyword argument(s) "
@@ -136,10 +227,9 @@ class ServingEngine:
         if asked:
             raise NotImplementedError(
                 f"{asked} not ported yet — queued in ROADMAP.md")
-        if admission != "greedy":
-            raise NotImplementedError(
-                f"admission={admission!r} is not ported yet (only 'greedy'; "
-                f"the sls/loadctl schedules are queued in ROADMAP.md)")
+        if admission not in _ADMISSIONS:
+            raise ValueError(f"admission must be one of {_ADMISSIONS}, got "
+                             f"{admission!r}")
         if backend not in ("colocated", "hetero"):
             raise ValueError(
                 f"backend must be 'colocated' or 'hetero', got {backend!r}")
@@ -223,6 +313,9 @@ class ServingEngine:
         self.backend = backend
         self.paged_kv = paged_kv and backend == "hetero"
         self.admission = admission
+        self.target_len = target_len            # S in the paper's schedule
+        self.interval = interval                # F
+        self.plan: Optional[Dict[str, float]] = None   # set by from_plan
         self.spec = spec_decode
         self.prefill_chunk = int(prefill_chunk)
         self.prefix_cache = bool(prefix_cache)
@@ -297,6 +390,50 @@ class ServingEngine:
             self._draft_graph: Optional[graphs.StepGraph] = None
             self._commit_graph: Optional[graphs.StepGraph] = None
 
+        if admission == "loadctl":
+            s = max(1, target_len)
+            if w_lim is None:
+                w_lim = w_prime_max(batch, s, max(1, interval))
+            self.load_ctl: Optional[LoadController] = LoadController(
+                w_lim=w_lim, seq_len=s)
+        else:
+            self.load_ctl = None
+
+        # observability: off by default, and then every hook is one
+        # ``self.obs is None`` test.  True enables the defaults; an ObsConfig
+        # tunes the span ring and the drift calibration
+        self._obs_obj: Optional[Observability] = None
+        self.obs: Optional[Observability] = None
+        ocfg = coerce_obs_config(observability)
+        if ocfg is not None:
+            self._obs_obj = Observability(ocfg)
+            if ocfg.drift and backend == "hetero":
+                self._obs_obj.drift = DriftMonitor(
+                    cfg, self.num_mb, len(self.engine.workers),
+                    calibration_steps=ocfg.drift_calibration_steps,
+                    tolerance=ocfg.drift_tolerance,
+                    warmup_steps=ocfg.drift_warmup_steps)
+            self.set_observability(True)
+        # each row's previous token time, for the inter-token histogram
+        self._tok_t: List[float] = [0.0] * batch
+        # the tier's restore counter as last seen, to attribute "restored"
+        # timeline events to the admissions whose probe restored pages
+        self._restored_seen = 0
+
+    def set_observability(self, on: bool) -> None:
+        """Toggle observability on an engine constructed with it (a paired
+        overhead measurement flips this between runs).  A no-op if the
+        engine was built with observability=False."""
+        if self._obs_obj is None:
+            if on:
+                raise RuntimeError(
+                    "engine was constructed with observability=False — "
+                    "pass observability=True|ObsConfig() to enable")
+            return
+        self.obs = self._obs_obj if on else None
+        if self.backend == "hetero":
+            self.engine.attach_tracer(self._obs_obj.tracer if on else None)
+
     def _hetero_init_empty(self, mb: int) -> None:
         state = M.init_decode_state(self.cfg, self.mb_size, self.cache_len,
                                     self.device)
@@ -346,6 +483,9 @@ class ServingEngine:
                     f"request {req.rid} needs {need} pages, more than a "
                     f"worker pool holds — raise pages_per_worker")
         req.arrive_step = self.step_idx
+        if self.obs is not None:
+            req.mark("submitted", self.step_idx)
+            self.obs.submitted.inc()
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
@@ -413,11 +553,45 @@ class ServingEngine:
         return m
 
     def _admit_count(self) -> int:
-        """How many queued requests start THIS step (greedy)."""
+        """How many queued requests may start THIS step, per policy."""
         avail = min(len(self._free_slots()), len(self.queue))
         if self.paged_kv and avail > 0:
+            # cap BEFORE the policy, so loadctl records only admissions
+            # that happen
             avail = self._paged_admit_cap(avail)
-        return avail
+        if avail == 0 or self.admission == "greedy":
+            return avail
+        f = max(1, self.interval)
+        mb = microbatch_size(self.batch, max(1, self.target_len), f)
+        if self.admission == "sls":
+            return min(avail, mb) if self.step_idx % f == 0 else 0
+        # loadctl: Algorithm 1, one micro-batch of up to M at a time
+        m = 0
+        lc = self.load_ctl
+        queued = list(self.queue)
+        while m < avail:
+            chunk = min(mb, avail - m)     # the queue's tail may be < M
+            # prefill-cost-aware: the candidates' prompt tokens are
+            # resident KV from their first step and count against w_lim.
+            # With chunked prefill generation starts only once the prompt
+            # has streamed in: the micro-batch is tracked at its true
+            # generation span, shifted by the prefill delay d, so the
+            # controller does not retire it d steps early
+            cand = queued[m:m + chunk]
+            ptoks = sum(r.prompt_len for r in cand)
+            d = 0
+            if self.prefill_chunk:
+                d = -(-max(r.prompt_len for r in cand) // self.prefill_chunk)
+            elif self.prefix_cache:
+                # a prefix hit streams its whole suffix as ONE chunk and
+                # generates a step later (misses shift too: conservative)
+                d = 1
+            t = self.step_idx + d
+            if lc.earliest_step(t, chunk, prompt_tokens=ptoks) > t:
+                break
+            lc.add_microbatch(t, chunk, prompt_tokens=ptoks)
+            m += chunk
+        return m
 
     # ------------------------------------------------------------------ #
     def _sample_tokens(self, logits, reqs) -> np.ndarray:
@@ -449,6 +623,8 @@ class ServingEngine:
         self.finished.append(r)
         self.slots[row] = None
         self._retire_row(row, r)
+        if self.obs is not None:
+            self._obs_finish(r)
         if self._uses_chunks:
             # a freed slot stops decoding (no KV append, no length bump)
             # until readmission
@@ -477,6 +653,7 @@ class ServingEngine:
         r = self.slots[row]
         if r is None:
             return
+        parked = False
         if self.paged_kv:
             if r.status is Status.PREFILLING:
                 chain = r.feed_tokens[:r.prefill_pos]
@@ -494,6 +671,11 @@ class ServingEngine:
         r.slot = -1
         r.prefill_pos = 0
         self.preemptions += 1
+        if self.obs is not None:
+            r.mark("preempted", self.step_idx)
+            self.obs.preempted.inc()
+            if parked:
+                r.mark("parked", self.step_idx)
         self.queue.append(r)
 
     def preempt(self, rid: int) -> bool:
@@ -541,6 +723,61 @@ class ServingEngine:
         st["hits" if eff else "misses"] += 1
         st["cached_tokens"] += eff
         st["prompt_tokens"] += req.feed_len
+        obs = self.obs
+        if obs is not None and eff > 0:
+            req.mark("prefix_hit", self.step_idx, extra=eff)
+            obs.prefix_hits.inc()
+            if self.kv_tier is not None:
+                # the probe restores swapped pages as a side effect:
+                # attribute the tier's restore counter's advance to this
+                # admission's timeline
+                restored = int(self.kv_tier.stats.get("restored", 0))
+                if restored > self._restored_seen:
+                    self._restored_seen = restored
+                    req.mark("restored", self.step_idx)
+                    obs.restores.inc()
+
+    # -- lifecycle observation (every hook is obs-gated by the caller) ----- #
+    def _obs_admit(self, reqs: List[Request]) -> None:
+        obs = self.obs
+        t = time.perf_counter()
+        for r in reqs:
+            r.mark("admitted", self.step_idx, t)
+            obs.admitted.inc()
+            # queue wait restarts at preemption: a requeued request waits
+            # from its preemption, not from its first arrival
+            t0 = r.event_t("preempted", last=True)
+            if t0 is None:
+                t0 = r.event_t("submitted")
+            if t0 is not None:
+                obs.queue_wait.observe(t - t0)
+
+    def _obs_first_token(self, r: Request, row: int) -> None:
+        obs = self.obs
+        t = r.mark("first_token", self.step_idx)
+        obs.generated.inc()
+        t0 = r.event_t("submitted")
+        if t0 is not None:
+            obs.ttft.observe(t - t0)
+        self._tok_t[row] = t
+
+    def _obs_finish(self, r: Request) -> None:
+        obs = self.obs
+        t = r.mark("finished", self.step_idx)
+        obs.finished.inc()
+        t0 = r.event_t("submitted")
+        if t0 is not None:
+            obs.e2e.observe(t - t0)
+
+    def _obs_token(self, r: Request, row: int, t_now: float) -> None:
+        """A decode token of ``r`` (row ``row``) committed at ``t_now``."""
+        obs = self.obs
+        r.mark("token", self.step_idx, t_now)
+        obs.generated.inc()
+        prev = self._tok_t[row]
+        if prev > 0.0:
+            obs.inter_token.observe(t_now - prev)
+        self._tok_t[row] = t_now
 
     def _choose_rows(self, reqs: List[Request]):
         """Prefix-aware row assignment: a cached prefix is only adoptable
@@ -615,6 +852,8 @@ class ServingEngine:
 
     def _place_monolithic(self, reqs: List[Request],
                           rows: List[int]) -> None:
+        if self.obs is not None:
+            self._obs_admit(reqs)
         max_p = max(r.feed_len for r in reqs)
         n_pad = _pad_pow2(len(reqs))
         s_pad = _pad_pow2(max_p, 8)
@@ -645,6 +884,8 @@ class ServingEngine:
             t0 = int(tok0[i])
             r.generated.append(t0)
             self._last_tok[rows[i]] = t0
+            if self.obs is not None:
+                self._obs_first_token(r, rows[i])
             reason = r.finish_reason_for(t0)
             if reason is not None:
                 self._finish_row(rows[i], r, reason)
@@ -685,6 +926,8 @@ class ServingEngine:
         self._begin_chunked(reqs, rows)
 
     def _begin_chunked(self, reqs: List[Request], rows: List[int]) -> None:
+        if self.obs is not None:
+            self._obs_admit(reqs)
         for row, r in zip(rows, reqs):
             r.status = Status.PREFILLING
             r.slot = row
@@ -732,6 +975,9 @@ class ServingEngine:
                 if r is None or r.status is not Status.PREFILLING:
                     continue
                 r.prefill_pos = int(wk.new_lens[i])
+                if self.obs is not None:
+                    r.mark("prefill_chunk", self.step_idx,
+                           extra=r.prefill_pos)
                 if r.prefill_pos < r.feed_len:
                     continue
                 # the last chunk's last-token logits ARE the first
@@ -752,6 +998,8 @@ class ServingEngine:
                 r.status = Status.RUNNING
                 r.generated.append(tok0)
                 self._last_tok[row] = tok0
+                if self.obs is not None:
+                    self._obs_first_token(r, row)
                 reason = r.finish_reason_for(tok0)
                 if reason is not None:
                     self._finish_row(row, r, reason)
@@ -967,6 +1215,11 @@ class ServingEngine:
         if live:
             self._spec_sync_rows(live)
             drafts = self._spec_draft(live)
+        obs = self.obs
+        if obs is not None:
+            for row, r in live:
+                r.mark("draft", self.step_idx, extra=len(drafts[row]))
+                obs.spec_drafted.inc(len(drafts[row]))
         vworks = self._spec_verify(live, drafts)
         lg_of: Dict[int, torch.Tensor] = {}
         for wk in vworks:
@@ -974,6 +1227,7 @@ class ServingEngine:
                 row = wk.mb * self.mb_size + int(local)
                 cnt = len(drafts.get(row, ())) + 1
                 lg_of[row] = wk.logits[int(local), :cnt]
+        t_now = time.perf_counter() if obs is not None else 0.0
         emitted = 0
         trunc_rows: List[int] = []
         trunc_lens: List[int] = []
@@ -989,6 +1243,10 @@ class ServingEngine:
                 temperature=r.temperature, top_k=r.top_k, top_p=r.top_p)
             self.spec_stats["drafted_tokens"] += len(d)
             self.spec_stats["accepted_tokens"] += acc
+            if obs is not None:
+                r.mark("verify", self.step_idx, extra=len(d) + 1)
+                r.mark("accept", self.step_idx, extra=acc)
+                obs.spec_accepted.inc(acc)
             c0 = int(self._last_tok[row])
             m, reason, walked = 0, None, []
             for t in toks:
@@ -996,9 +1254,18 @@ class ServingEngine:
                 walked.append(t)
                 m += 1
                 emitted += 1
+                if obs is not None:
+                    r.mark("token", self.step_idx, t_now)
+                    obs.generated.inc()
                 reason = r.finish_reason_for(t)
                 if reason is not None:
                     break                      # stop token outranks cap
+            if obs is not None:
+                # one gap per row and step: a burst of up to k+1 tokens
+                prev = self._tok_t[row]
+                if prev > 0.0:
+                    obs.inter_token.observe(t_now - prev)
+                self._tok_t[row] = t_now
             # the committed chain's KV = feed_tokens[:-1]: positions
             # base..base+m-1 hold [c0, accepted drafts]; the rest goes
             trunc_rows.append(row)
@@ -1050,11 +1317,11 @@ class ServingEngine:
             # chunk-only pipelined step (queued prefill chunks ride it and
             # count as decode time here, as in the JAX engine), commit the
             # accepted prefix
-            self._spec_step()
+            emitted = self._spec_step()
             self.last_logits = None
             decode_wall = pc() - t0
             prefill_wall += self._land_prefill_chunks()
-            return self._record(n, prefill_wall, decode_wall)
+            return self._record(n, prefill_wall, decode_wall, emitted)
         toks = torch.from_numpy(self._last_tok[:, None].copy()).to(
             self.device)
         if self.backend == "hetero":
@@ -1077,17 +1344,22 @@ class ServingEngine:
             decode_wall -= min(chunk_s, decode_wall)
             prefill_wall += chunk_s
 
+        t_now = pc() if self.obs is not None else 0.0
+        emitted = 0
         for i, r in enumerate(self.slots):
             if r is None or r.status is not Status.RUNNING:
                 continue            # PREFILLING rows own no decode token
             tok = int(new_tok[i])
             r.generated.append(tok)
             self._last_tok[i] = tok
+            emitted += 1
+            if self.obs is not None:
+                self._obs_token(r, i, t_now)
             reason = r.finish_reason_for(tok)
             if reason is not None:
                 self._finish_row(i, r, reason)
         prefill_wall += self._land_prefill_chunks()
-        return self._record(n, prefill_wall, decode_wall)
+        return self._record(n, prefill_wall, decode_wall, emitted)
 
     def _land_prefill_chunks(self) -> float:
         """After the token loop (a sequence whose last chunk landed this
@@ -1100,7 +1372,13 @@ class ServingEngine:
         return time.perf_counter() - t0
 
     def _record(self, admitted: int, prefill_wall: float,
-                decode_wall: float) -> StepRecord:
+                decode_wall: float, emitted: int) -> StepRecord:
+        obs = self.obs
+        if obs is not None and obs.drift is not None:
+            obs.drift.observe_step(
+                wall_s=decode_wall, tokens=emitted,
+                step_stats=self.engine.step_stats,
+                num_workers=len(self.engine.workers))
         rec = StepRecord(self.step_idx, prefill_wall, decode_wall,
                          sum(r is not None for r in self.slots),
                          self.resident_len(), admitted)
@@ -1116,8 +1394,11 @@ class ServingEngine:
     def hotpath_stats(self) -> Dict[str, float]:
         """Cumulative decode hot-path breakdown of the pipelined engine
         (dispatch / collect / S-dispatch / R-wait seconds, step count);
-        empty for the colocated backend."""
-        return dict(getattr(self.engine, "step_stats", {}) or {})
+        empty for the colocated backend.  Schema keys (``steps_count``
+        ...), the legacy spellings (``steps``, ``ooo_advances``) still
+        resolve."""
+        return schema.normalize(
+            dict(getattr(self.engine, "step_stats", {}) or {}))
 
     def prefix_cache_stats(self) -> Dict[str, float]:
         """Admission-level hit counters plus allocator-level sharing state
@@ -1148,6 +1429,71 @@ class ServingEngine:
             out[key] = sum(a.copy_stats[key] for w in self.engine.workers
                            for a in w.allocators.values())
         return schema.normalize(out)
+
+    # -- the observability surface ----------------------------------------- #
+    def metrics(self) -> Dict[str, float]:
+        """One flat snapshot of what the engine measures: the registry's
+        metrics (TTFT / queue-wait / inter-token / end-to-end histograms
+        with p50/p90/p99, lifecycle counters) plus every stats surface
+        under a namespace prefix (``hotpath_``, ``prefix_``, ``tier_``,
+        ``drift_``).  All keys follow ``obs.schema``; with observability
+        off the registry part is absent."""
+        out: Dict[str, float] = {}
+        if self.obs is not None:
+            out.update(self.obs.registry.snapshot())
+            if self.obs.tracer is not None:
+                out["trace_spans_count"] = float(self.obs.tracer.added)
+            if self.obs.drift is not None:
+                out.update(self.obs.drift.report().as_metrics())
+        out["steps_count"] = float(self.step_idx)
+        out["queue_depth_count"] = float(len(self.queue))
+        out["active_count"] = float(sum(r is not None for r in self.slots))
+        out["resident_tokens"] = float(self.resident_len())
+        out["preemptions_count"] = float(self.preemptions)
+        # the step supervisor's faults and recoveries: 0 until the chaos
+        # harness is ported (the key set stays the JAX engine's)
+        out["fault_count"] = 0.0
+        out["recovered_count"] = 0.0
+        for k, v in self.hotpath_stats().items():
+            out[f"hotpath_{k}"] = float(v)
+        if self.prefix_cache:
+            for k, v in self.prefix_cache_stats().items():
+                out[f"prefix_{k}"] = float(v)
+        if self.kv_tier is not None:
+            for k, v in self.tiering_stats().items():
+                out[f"tier_{k}"] = float(v)
+        return schema.StatsDict(out)
+
+    def export_trace(self, path: str) -> str:
+        """Write the pipeline span trace as Chrome trace-event JSON (open
+        in Perfetto or chrome://tracing).  Needs observability with spans
+        on."""
+        if self._obs_obj is None or self._obs_obj.tracer is None:
+            raise RuntimeError(
+                "no span tracer — construct the engine with "
+                "observability=True (or ObsConfig(spans=True))")
+        return self._obs_obj.tracer.export(path)
+
+    def drift_report(self):
+        """The perfmodel drift monitor's measured-vs-predicted residuals
+        (``obs.drift.DriftReport``); needs observability with drift on,
+        on the hetero backend."""
+        if self._obs_obj is None or self._obs_obj.drift is None:
+            raise RuntimeError(
+                "no drift monitor — construct a hetero engine with "
+                "observability=True (or ObsConfig(drift=True))")
+        return self._obs_obj.drift.report()
+
+    def request_timeline(self, rid: int) -> List[Tuple]:
+        """The lifecycle events of a finished, resident or queued request
+        (empty unless observability was on while it ran)."""
+        for r in self.finished:
+            if r.rid == rid:
+                return list(r.events)
+        for r in list(self.slots) + list(self.queue):
+            if r is not None and r.rid == rid:
+                return list(r.events)
+        raise KeyError(f"unknown request id {rid}")
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Serve until the queue and slots drain, or ``max_steps`` more

@@ -3,8 +3,9 @@ repro.serving.request)."""
 from __future__ import annotations
 
 import enum
+import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +40,27 @@ class Request:
     prefill_pos: int = 0                     # feed tokens prefilled so far
                                              # (chunked prefill progress; a
                                              # prefix hit starts past 0)
+    # lifecycle timeline: (event, step, perf_counter_t, extra) tuples,
+    # appended by the engine only when observability is on (see
+    # repro_torch.obs.timeline for the vocabulary and derived latencies)
+    events: List[Tuple[str, int, float, object]] = \
+        field(default_factory=list, repr=False)
+
+    def mark(self, event: str, step: int, t: Optional[float] = None,
+             extra=None) -> float:
+        t = time.perf_counter() if t is None else t
+        self.events.append((event, step, t, extra))
+        return t
+
+    def event_t(self, event: str, last: bool = False) -> Optional[float]:
+        """Timestamp of the first (or last) occurrence of ``event``."""
+        out = None
+        for ev, _step, t, _x in self.events:
+            if ev == event:
+                if not last:
+                    return t
+                out = t
+        return out
 
     @property
     def prompt_len(self) -> int:

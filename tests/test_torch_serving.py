@@ -265,19 +265,27 @@ def test_not_ported_options_raise():
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       fleet=4)
     # int8 storage, chunked prefill, speculative decoding, sampling, the
-    # prefix cache, tiering and preemption are ported (their own test
-    # files): they are taken, with the rest still refused beside them
+    # prefix cache, tiering and preemption, the admission schedules and
+    # observability are ported (their own test files: the sls/loadctl and
+    # observability twins are tests/test_torch_admission.py and
+    # tests/test_torch_obs.py): they are taken, with the rest still
+    # refused beside them
     with pytest.raises(NotImplementedError, match="chaos"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       quantized_kv=True, chaos=True)
-    with pytest.raises(NotImplementedError, match="observability"):
+    with pytest.raises(NotImplementedError, match="fleet"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       backend="hetero", prefill_chunk=4, paged_kv=True,
                       prefix_cache=True, kv_tiering=True, preempt_after=2,
-                      observability=True)
+                      observability=True, fleet=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      admission="sls")
+                      admission="sls", target_len=4, interval=2,
+                      chaos=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine.from_plan({}, tc, seq_len=8, admission="loadctl",
+                                target_len=4, w_lim=10.0, fleet=object(),
+                                device="cpu")
     with pytest.raises(TypeError):
         ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
                       no_such_option=1)
