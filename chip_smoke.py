@@ -135,6 +135,27 @@ Phases (any failure exits nonzero):
               (tokens, admissions per step), observability on == off,
               from_plan serves, a sim_row_cost straggler flagged by the
               drift monitor.
+  serve_fleet the 12-request trace under FleetManager(skewed_fleet((2.0,
+              1.0)), rebalance=True, snapshot_interval=16): the planner's
+              uneven split, a sim_row_cost straggler the rebalancer
+              migrates rows off, kill() of a worker before step 33,
+              recovered by re-prefill and (second run) from the snapshot,
+              beside an uninterrupted serve whose longest R-side capture
+              must be under half the phases' suspect_after_s (SUSPECT_S);
+              tokens/s before and after the kill, MTTR, each migration's
+              and snapshot's seconds and bytes, graphs re-captured, spared
+              workers (0), fleet_* metrics; tokens triaged.
+  serve_chaos the same trace under one seeded FaultPlan (a crash of
+              worker 1, a dropped completion, a pool fault, a 3 s hang),
+              healed by the step supervisor: every fault fired, every
+              request finished; fault_events, MTTR, re-prefilled rows and
+              tokens/s beside the chaos-off serve, tokens triaged.
+  equiv_fleet at 2 layers, fp32: apply_partition to an uneven split and
+              back on four storages (wire payloads bit for bit, tokens ==
+              colocated), re-prefill and snapshot recovery == colocated,
+              and the fault matrix (crash, drop, error, hang, dup, pool,
+              verify, the three tier sites, wire_corrupt on a migration and
+              on a snapshot), each == colocated with its fault fired.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -1770,7 +1791,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                prefill_chunk, profile, trace, eager, reqs=None, arrive=None,
                engine_kw=None, rows=None, check_support=False,
                on_step=None, after=None, plan=False,
-               max_steps=200) -> dict:
+               max_steps=200, retries_ok=False) -> dict:
     import torch
     from repro_torch.core import graphs
     from repro_torch.kernels import decode_attention as DA
@@ -1806,6 +1827,8 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         peak_resident = peak_referenced = 0.0
         verify_works = row_verifies = prefill_works = 0
         step_tokens = []        # decode (or verify) tokens of each step
+        # R-workers after each step (a fleet fails one over before a step)
+        workers_per_step = []
         # steps that admitted (monolithic) or ran a prefill chunk
         prefill_steps = []
         step_capture = []       # capture seconds inside each step
@@ -1843,6 +1866,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                 prefill_steps.append(bool(fills or rec_.admitted))
                 if not spec_k:
                     nonfinite += int((~torch.isfinite(eng.last_logits)).sum())
+                workers_per_step.append(len(eng.engine.workers))
                 peak_resident = max(peak_resident, eng.paged_resident_bytes())
                 peak_referenced = max(peak_referenced,
                                       _referenced_bytes(eng))
@@ -1894,14 +1918,20 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
                 f"wanted {r.max_new_tokens}")
     if nonfinite:
         raise AssertionError(f"{nonfinite} non-finite logits")
-    calls = verify_works if spec_k else n_mb * steps
-    want = cfg.num_layers * n_workers * calls
+    # each decode step launches once per layer, micro-batch and R-worker
+    # (a step a fleet ran with fewer workers, fewer); with ``retries_ok``
+    # a supervised retry relaunches what its aborted attempt launched
+    calls = (n_workers * verify_works if spec_k
+             else n_mb * sum(workers_per_step))
+    want = cfg.num_layers * calls
     others = {n: v for n, v in launches.items() if n != kernel}
     # the paged int8 decode is one call of kernel 3's paged entry, no
     # gather (the int8 verify: one call of its multi-token entry)
     want_paged = want if paged and quantized and not spec_k else 0
     got = launches[kernel] if kernel else 0
-    if got != (want if kernel else 0) or any(plain.values()) \
+    launch_ok = (got >= want if retries_ok and kernel
+                 else got == (want if kernel else 0))
+    if not launch_ok or any(plain.values()) \
             or any(others.values()) or paged_int8 != want_paged \
             or gathers.calls or (prefill_chunk and not prefill_works):
         raise AssertionError(
@@ -1929,6 +1959,9 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "build_s": model["build_s"],
            "requests": len(reqs), "decode_steps": steps,
            "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
+           "r_workers_per_step": workers_per_step,
+           "decode_tokens_per_step": step_tokens,
+           "kernel_launches_expected": want,
            "page_size": 16, "cache_len": eng.cache_len,
            "prompt_tokens": sum(r.prompt_len for r in reqs),
            "decode_tokens": dec_tokens,
@@ -2383,8 +2416,8 @@ def _serve_logged(eng, reqs, forced=None, on_step=None, arrive=None,
         E.spec_accept = own_accept
         toklog.__exit__(None, None, None)
     torch.cuda.synchronize()
-    return ({r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished},
-            sampled)
+    return ({r.rid: (list(r.generated), logs[r.rid]) for r in eng.finished
+             if r.rid in logs}, sampled)
 
 
 def _compare(got, want, tol):
@@ -2443,21 +2476,21 @@ def _equiv_model(dev, seed):
 
 def _equiv_serve(dev, cfg, params, spec, forced=None, stats=None,
                  eager=False, on_step=None, reqs=None, arrive=None,
-                 rows=None, **kw):
+                 rows=None, batch=4, **kw):
     """``stats`` (a dict), when given, receives the engine's spec_stats;
     ``eager`` runs the step callables op by op instead of replaying their
     graphs; ``on_step(eng)`` runs after every step; ``reqs`` (made anew
     for each serve: a function of no argument) replaces the trace of
     ``spec``, ``arrive`` and ``rows`` go to ``_serve_logged``.  Hetero
     engines have 2 R-workers, 2 micro-batches and pages of 16 unless
-    ``kw`` says otherwise."""
+    ``kw`` says otherwise; ``batch`` rows (4)."""
     from repro_torch.core import graphs
     from repro_torch.serving.engine import ServingEngine
     hetero = kw.get("backend") == "hetero"
     if hetero:
         kw = dict(dict(num_r_workers=2, num_microbatches=2, page_size=16),
                   **kw)
-    eng = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev,
+    eng = ServingEngine(params, cfg, batch=batch, cache_len=256, device=dev,
                         **kw)
     try:
         with (graphs.eager() if eager else contextlib.nullcontext()):
@@ -3650,10 +3683,482 @@ def phase_equiv_plan(dev) -> dict:
             **res}
 
 
+# ---------------------------------------------------------------------------
+# fleet management and chaos: serve_fleet, serve_chaos, equiv_fleet
+# ---------------------------------------------------------------------------
+# suspect_after_s of these phases: each phase fails unless the longest
+# single R-side item that captured a graph took under half of it (a
+# capturing worker must never read as hung: a false suspicion costs a
+# re-prefill of every live row)
+SUSPECT_S = 2.0
+HANG_S = 8.0           # equiv_fleet's hang: detected (<= 2 polls) and
+#                        outlasting the grace window (SUSPECT_S) after it
+FLEET_KILL_STEP = 33   # serve_fleet kills right after the step-32 snapshot
+STRAGGLE = (5, 20, 0.002)   # steps [5, 20): s/row on worker 0
+
+
+def _fleet_after(eng) -> dict:
+    """What a fleet or chaos run leaves, read before the engine closes:
+    the longest R-side first call (a graph's warm-up and capture), the
+    re-captures after topology changes, the supervisor's faults and
+    spared workers, the fleet's events and ``fleet_*`` metrics, the plan's
+    fired faults."""
+    het = eng.engine
+    ws = list(het.workers) + list(het._retired)
+    out = {"slices": [list(sl) for sl in het.slices],
+           "capture_max_s": max(w.capture_max_s for w in ws),
+           "spared_workers": eng.spared_workers,
+           "replayed_rows": eng.replayed_rows,
+           "fault_count": eng.faults, "recovered_count": eng.recoveries,
+           "fault_events": [{k: v for k, v in ev.items() if k != "msg"}
+                            for ev in eng.fault_events],
+           "fault_msgs": [ev["msg"][:240] for ev in eng.fault_events
+                          if "msg" in ev],
+           "topology_changes": het.topology_changes,
+           **het.recapture_stats()}
+    if eng.fleet is not None:
+        tel = eng.fleet.telemetry
+        out["fleet_metrics"] = {k: v for k, v in eng.metrics().items()
+                                if k.startswith("fleet_")}
+        out["planned"] = [list(sl) for sl in eng.fleet.planner.plan(
+            eng.mb_size)]
+        out["events"] = [dict(step=e.step, kind=e.kind, **e.detail)
+                         for e in tel.events]
+    if eng.chaos is not None:
+        out["fired"] = [{k: v for k, v in f.items() if k != "t"}
+                        for f in eng.chaos.fired]
+    return out
+
+
+def _rate(rec, lo, hi=None):
+    """Decode tokens per second over steps [lo, hi) of a serve record."""
+    dec = sum(rec["decode_wall_per_step"][lo:hi])
+    return sum(rec["decode_tokens_per_step"][lo:hi]) / dec if dec else None
+
+
+def phase_serve_fleet(dev, model, out: Path) -> tuple:
+    """Qwen3-8B at full width and depth, paged bf16, the 12-request trace
+    under ``FleetManager(skewed_fleet((2.0, 1.0)), rebalance=True,
+    snapshot_interval=16)``: the planner's uneven split (perfmodel rates
+    on the H100 profile), a ``sim_row_cost`` straggler on the 3-row worker
+    for steps 5-19 that the EWMA rebalancer must migrate rows off, then
+    ``kill()`` of the last worker before step 33 (right after the step-32
+    snapshot), recovered by re-prefill and, in a second run, from the
+    snapshot.  Beside them an uninterrupted 2-worker serve: its longest
+    R-side capture must be under SUSPECT_S / 2, and each fleet run's tokens
+    are triaged against it (ROADMAP §3: teacher-forced logits, top-2
+    margin).  Kernel 1 on every decode R-Part (launches = layers x
+    micro-batches x workers of each step); no spared worker, no fault.
+    Returns (record, uninterrupted run, its logits rows)."""
+    from repro_torch.fleet import FleetManager, skewed_fleet
+    cfg = model["cfg"]
+    kw = dict(kernel="paged_decode_attention", paged=True, quantized=False)
+    rows_u = {}
+    plain = serve_run(dev, model, out, rows=rows_u, after=_fleet_after, **kw)
+    cap = plain["after"]["capture_max_s"]
+    if not 0.0 < cap < SUSPECT_S / 2 or plain["after"]["spared_workers"] \
+            or plain["after"]["fault_count"]:
+        raise AssertionError(f"longest R-side capture {cap} s: "
+                             f"suspect_after_s {SUSPECT_S} is too short; "
+                             f"{plain['after']}")
+    runs, tokens, rows = {}, {}, {}
+    for mode in ("reprefill", "snapshot"):
+        fleet = FleetManager(skewed_fleet((2.0, 1.0)), cfg=cfg, page=16,
+                             rebalance=True, snapshot_interval=16,
+                             recovery=mode)
+        killed, straggler = [], []
+
+        def on_step(eng, killed=killed, straggler=straggler):
+            i = eng.step_idx                 # the next step
+            if i == STRAGGLE[0]:
+                w = eng.engine.workers[0]
+                w.sim_row_cost = STRAGGLE[2]
+                straggler.append(w.hi - w.lo)
+            elif i == STRAGGLE[1]:
+                for w in eng.engine.workers:
+                    w.sim_row_cost = 0.0
+            elif i == FLEET_KILL_STEP:
+                w = eng.engine.workers[-1]
+                w.kill()
+                w.join(timeout=30)
+                killed.append((w.wid, w.is_alive()))
+        rows_f = {}
+        rec = serve_run(dev, model, out, rows=rows_f, on_step=on_step,
+                        after=_fleet_after,
+                        engine_kw=dict(fleet=fleet,
+                                       suspect_after_s=SUSPECT_S), **kw)
+        a = rec["after"]
+        migs = [e for e in a["events"] if e["kind"] == "migration"]
+        recs = [e for e in a["events"] if e["kind"] == "recovery"]
+        snaps = [e for e in a["events"] if e["kind"] == "snapshot"]
+        planned = a["planned"]
+        # a migration while worker 0 straggles must take rows off it
+        off = [e for e in migs if STRAGGLE[0] <= e["step"] < STRAGGLE[1]
+               and e["slices"][0][1] - e["slices"][0][0] < straggler[0]]
+        killed_ok = len(killed) == 1 and not killed[0][1]
+        if planned[0][1] - planned[0][0] <= planned[1][1] - planned[1][0] \
+                or not off or len(recs) != 1 or recs[0]["mode"] != mode \
+                or not killed_ok or a["spared_workers"] or a["fault_count"] \
+                or rec["r_workers_per_step"][-1] != 1:
+            raise AssertionError(
+                f"serve_fleet {mode}: planned {planned}, migrations "
+                f"{migs}, recoveries {recs}, killed {killed}, spared "
+                f"{a['spared_workers']}, faults {a['fault_count']}, "
+                f"workers per step {rec['r_workers_per_step']}")
+        k = FLEET_KILL_STEP
+        tokens[mode], rows[mode] = rec["tokens"], rows_f
+        runs[mode] = {
+            "planned_split": planned,
+            "straggler": {"steps": list(STRAGGLE[:2]),
+                          "sim_row_cost_s": STRAGGLE[2],
+                          "rows_when_slowed": straggler[0],
+                          "rows_after_first_move_off": off[0]["slices"][0][1]
+                          - off[0]["slices"][0][0],
+                          "moved_off_at_step": off[0]["step"]},
+            "killed_before_step": k,
+            "tokens_per_s_before_kill": _rate(rec, 1, k),
+            "tokens_per_s_after_kill": _rate(rec, k),
+            "tokens_per_s_after_kill_step": _rate(rec, k + 1),
+            "kill_step_decode_s": rec["decode_wall_per_step"][k],
+            "mttr_s": recs[0]["duration_s"],
+            "recovery": recs[0],
+            "migrations": [{x: e.get(x) for x in (
+                "step", "moved_rows", "duration_s", "export_s", "load_s",
+                "wire_bytes", "skew", "slices")} for e in migs],
+            "snapshots": [{x: e[x] for x in ("step", "duration_s",
+                                              "wire_bytes")}
+                          for e in snaps],
+            "recapture_count": a["recapture_count"],
+            "recapture_s": a["recapture_s"],
+            "capture_max_s": a["capture_max_s"],
+            "spared_workers": a["spared_workers"],
+            "fleet_metrics": a["fleet_metrics"],
+            "triage_vs_uninterrupted": _triage(rec["tokens"], plain["tokens"],
+                                               rows_f, rows_u),
+            "run": {x: rec[x] for x in SUMMARY_KEYS + (
+                "decode_steps", "r_workers_per_step",
+                "kernel_launches_expected", "decode_wall_per_step",
+                "decode_tokens_per_step")}}
+    return ({"phase": "serve_fleet", "ok": True, "card": gpu_name_and_limit(),
+             "suspect_after_s": SUSPECT_S,
+             "uninterrupted_capture_max_s": cap,
+             "uninterrupted_spared_workers": plain["after"]["spared_workers"],
+             "uninterrupted": {x: plain[x] for x in SUMMARY_KEYS},
+             "runs": runs,
+             # the two runs differ only in how the kill is recovered
+             "snapshot_vs_reprefill": _triage(
+                 tokens["snapshot"], tokens["reprefill"], rows["snapshot"],
+                 rows["reprefill"]),
+             "kernel_launches": runs["reprefill"]["run"]["kernel_launches"]},
+            plain, rows_u)
+
+
+def phase_serve_chaos(dev, model, out: Path, chaos_off=None) -> dict:
+    """The same model and trace under one seeded FaultPlan: a crash of
+    worker 1 on its first item after the first step (its graphs
+    captured), a dropped completion, a transient pool fault and a 3 s
+    hang of worker 0 (suspected after SUSPECT_S, spared by the grace
+    window, or done before a poll sees it), healed by the step supervisor
+    (no fleet: ``remove_worker`` with zeros + re-prefill).  Every fault
+    must fire and every request finish; ``fault_events``, MTTR per
+    recovery, re-prefilled rows and tokens/s are printed beside a
+    chaos-off serve of the same call (``chaos_off``: serve_fleet's
+    uninterrupted run and its rows, else one made here), the tokens
+    triaged against it."""
+    from repro_torch.chaos import FaultPlan, FaultSpec
+    kw = dict(kernel="paged_decode_attention", paged=True, quantized=False)
+    if chaos_off is None:
+        rows_u = {}
+        chaos_off = (serve_run(dev, model, out, rows=rows_u, **kw), rows_u)
+    off, rows_u = chaos_off
+    items = model["cfg"].num_layers * 2        # per worker and step
+    plan = FaultPlan([
+        FaultSpec(site="r_step", kind="crash", wid=1, after=items),
+        FaultSpec(site="completion", kind="drop", after=6 * items),
+        FaultSpec(site="pool", after=40),
+        FaultSpec(site="r_step", kind="hang", wid=0, after=30 * items,
+                  hang_s=3.0)], seed=20)
+    rows_c = {}
+    rec = serve_run(dev, model, out, rows=rows_c, after=_fleet_after,
+                    retries_ok=True,
+                    engine_kw=dict(chaos=plan, suspect_after_s=SUSPECT_S,
+                                   collect_timeout_s=120.0), **kw)
+    a = rec["after"]
+    fired = {site: plan.count(site) for site in ("r_step", "completion",
+                                                 "pool")}
+    hangs = sum(1 for f in a["fired"] if f["kind"] == "hang")
+    if fired["r_step"] < 2 or fired["completion"] < 1 or fired["pool"] < 1 \
+            or hangs != 1 or a["fault_count"] < 3 \
+            or a["recovered_count"] < 3 or rec["r_workers_per_step"][-1] != 1:
+        raise AssertionError(f"serve_chaos: fired {a['fired']}, faults "
+                             f"{a['fault_events']}")
+    return {"phase": "serve_chaos", "ok": True, "card": gpu_name_and_limit(),
+            "suspect_after_s": SUSPECT_S, "fired": a["fired"],
+            "fault_events": a["fault_events"], "fault_msgs": a["fault_msgs"],
+            "mttr_s": [ev["mttr_s"] for ev in a["fault_events"]
+                       if ev["kind"] == "recovered"],
+            "replayed_rows": a["replayed_rows"],
+            "spared_workers": a["spared_workers"],
+            "recapture_count": a["recapture_count"],
+            "recapture_s": a["recapture_s"],
+            "decode_tokens_per_s": [rec["decode_tokens_per_s"],
+                                    off["decode_tokens_per_s"]],
+            "decode_tokens_per_s_after_first_step": [
+                rec["decode_tokens_per_s_after_first_step"],
+                off["decode_tokens_per_s_after_first_step"]],
+            "decode_step_s_max": [rec["decode_step_s_max"],
+                                  off["decode_step_s_max"]],
+            "triage_vs_chaos_off": _triage(rec["tokens"], off["tokens"],
+                                           rows_c, rows_u),
+            "kernel_launches": rec["kernel_launches"],
+            "kernel_launches_expected": rec["kernel_launches_expected"],
+            "run": {x: rec[x] for x in SUMMARY_KEYS + (
+                "decode_steps", "r_workers_per_step",
+                "decode_wall_per_step")}}
+
+
+def _wire(eng) -> dict:
+    """{layer key: the whole micro-batch's wire payload} over the engine's
+    workers."""
+    out = {}
+    for lk in sorted({k for w in eng.engine.workers for k in w.state}):
+        parts = [w.export_rows(lk, np.arange(w.hi - w.lo))
+                 for w in eng.engine.workers]
+        out[lk] = {k: np.concatenate([p[k] for p in parts])
+                   for k in parts[0]}
+    return out
+
+
+def _wire_equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        sorted(a[lk]) == sorted(b[lk])
+        and all(a[lk][k].dtype == b[lk][k].dtype
+                and a[lk][k].tobytes() == b[lk][k].tobytes()
+                for k in a[lk]) for lk in a)
+
+
+def _equal_or_raise(name, got, want, extra=None) -> dict:
+    max_diff, mismatches, ties, margin = _compare(got, want, EQUIV_LOGIT_TOL)
+    if mismatches or max_diff > EQUIV_LOGIT_TOL:
+        raise AssertionError(f"equiv_fleet {name}: mismatches {mismatches},"
+                             f" max logit diff {max_diff} (tol "
+                             f"{EQUIV_LOGIT_TOL}); {extra}")
+    return {"tokens_equal": not ties, "near_tie_flips": ties,
+            "max_logit_diff": max_diff, "min_top2_margin": margin}
+
+
+def _two_round_requests(vocab):
+    """Round 1: four short prompts; round 2 (made from round 1's tokens):
+    each prompt's whole history plus three new tokens, so its admission
+    restores the history's parked pages from the host tier."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(20, 40, 4)]
+    extras = [rng.integers(1, vocab, 3).astype(np.int32) for _ in range(4)]
+
+    def rounds(hist=None):
+        if hist is None:
+            return [Request(rid=i, prompt=p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+        return [Request(rid=100 + i, prompt=np.concatenate(
+            [prompts[i], np.asarray(hist[i], np.int32), extras[i]]),
+            max_new_tokens=6) for i in range(4)]
+    return rounds
+
+
+def phase_equiv_fleet(dev) -> dict:
+    """At 2 layers, fp32, TF32 off, batch 8 (2 micro-batches of 4 rows, 2
+    R-workers, pages of 16) or 4 for the fault matrix:
+      * ``apply_partition`` to (0, 3), (3, 4) before step 4 and back
+        before step 9, on paged fp32, paged int8, dense and dense int8:
+        each move leaves every wire payload bit for bit as exported before
+        it, the tokens equal the colocated oracle's (int8: the unmigrated
+        serve of the same storage), logits within 1e-4;
+      * re-prefill and snapshot recovery after ``kill()`` == colocated;
+      * the fault matrix on paged fp32, each == colocated with its fault
+        fired: crash, drop, error, hang (HANG_S), dup, pool; verify with
+        SpecConfig(3); tier_put, tier_get, tier_corrupt (two rounds with
+        tiering, a migration between them); wire_corrupt on a migration
+        and on a snapshot.
+    suspect_after_s is SUSPECT_S (serve_fleet measured the captures)."""
+    from repro_torch.chaos import FaultPlan, FaultSpec
+    from repro_torch.fleet import FleetManager, WorkerProfile, uniform_fleet
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving.engine import SpecConfig, ServingEngine
+    from repro_torch.serving.paged_cache import TierConfig
+    cfg, params, spec = _equiv_model(dev, 5)
+    sup = dict(suspect_after_s=SUSPECT_S, collect_timeout_s=120.0)
+    res = {"phase": "equiv_fleet", "ok": True, "card": gpu_name_and_limit(),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": "float32", "tf32": False, "logit_tol": EQUIV_LOGIT_TOL,
+           "suspect_after_s": SUSPECT_S}
+    want8, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated",
+                            batch=8)
+    want4, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
+    storages = {"paged-fp32": dict(paged_kv=True),
+                "paged-int8": dict(paged_kv=True, quantized_kv=True),
+                "dense-fp32": {}, "dense-int8": dict(quantized_kv=True)}
+    mig = {}
+    for name, skw in storages.items():
+        moves = []
+
+        def on_step(eng, moves=moves):
+            if eng.step_idx in (4, 9):
+                before = _wire(eng)
+                eng.engine.apply_partition(
+                    [(0, 3), (3, 4)] if eng.step_idx == 4
+                    else [(0, 2), (2, 4)])
+                moves.append(_wire_equal(before, _wire(eng)))
+        got, _ = _equiv_serve(dev, cfg, params, spec, batch=8,
+                              on_step=on_step, backend="hetero", **skw)
+        ref = want8
+        if "int8" in name:
+            ref, _ = _equiv_serve(dev, cfg, params, spec, batch=8,
+                                  backend="hetero", **skw)
+        if moves != [True, True]:
+            raise AssertionError(f"equiv_fleet migration {name}: wire "
+                                 f"payloads equal after each move {moves}")
+        mig[name] = dict(_equal_or_raise(f"migration {name}", got, ref),
+                         wire_bitwise_equal=True,
+                         against="colocated" if ref is want8
+                         else "unmigrated " + name)
+    res["migration"] = mig
+    rec_ = {}
+    for mode in ("reprefill", "snapshot"):
+        fleet = FleetManager(uniform_fleet(2), recovery=mode,
+                             snapshot_interval=1 if mode == "snapshot" else 0)
+
+        def kill(eng):
+            if eng.step_idx == 6:
+                w = eng.engine.workers[1]
+                w.kill()
+                w.join(timeout=30)
+        got, _ = _equiv_serve(dev, cfg, params, spec, batch=8, on_step=kill,
+                              backend="hetero", paged_kv=True, fleet=fleet,
+                              **sup)
+        ev = fleet.telemetry.events_of("recovery")
+        if len(ev) != 1 or ev[0].detail["mode"] != mode:
+            raise AssertionError(f"equiv_fleet recovery {mode}: {ev}")
+        rec_[mode] = dict(_equal_or_raise(f"recovery {mode}", got, want8),
+                          duration_s=ev[0].detail["duration_s"],
+                          rows=ev[0].detail["rows"])
+    res["recovery"] = rec_
+    # the fault matrix (batch 4: per worker and step 4 R-Parts, 8
+    # completions and 4 pool growths over the fleet)
+    matrix = {
+        "crash": [FaultSpec(site="r_step", kind="crash", wid=1, after=8)],
+        "drop": [FaultSpec(site="completion", kind="drop", after=16)],
+        "error": [FaultSpec(site="r_step", kind="error", wid=1, after=8)],
+        "hang": [FaultSpec(site="r_step", kind="hang", wid=1, after=8,
+                           hang_s=HANG_S)],
+        "dup": [FaultSpec(site="completion", kind="dup", after=16)],
+        "pool": [FaultSpec(site="pool", after=8)],
+        "verify": [FaultSpec(site="verify", after=3, times=2)],
+    }
+    faults = {}
+    for name, specs in matrix.items():
+        plan = FaultPlan(specs)
+        box = {}
+        extra = dict(spec_decode=SpecConfig(k=3)) if name == "verify" else {}
+        PA.launches.reset()
+        PA.verify_launches.reset()
+        got, _ = _equiv_serve(
+            dev, cfg, params, spec, backend="hetero", paged_kv=True,
+            chaos=plan, on_step=lambda e, box=box: box.update(
+                faults=e.faults, recoveries=e.recoveries,
+                dups=e.engine.step_stats.get("dup_completion_count", 0.0),
+                workers=len(e.engine.workers), spared=e.spared_workers,
+                mttr=[ev["mttr_s"] for ev in e.fault_events
+                      if ev["kind"] == "recovered"]), **extra, **sup)
+        launches = PA.launches.value + PA.verify_launches.value
+        healed = box["dups"] >= 1 if name == "dup" else (
+            box["faults"] >= 1 and box["recoveries"] >= 1)
+        if plan.count() < 1 or not healed or launches == 0:
+            raise AssertionError(f"equiv_fleet {name}: fired "
+                                 f"{plan.count()}, {box}, launches "
+                                 f"{launches}")
+        faults[name] = dict(_equal_or_raise(name, got, want4, box),
+                            fired=plan.count(), kernel_launches=launches,
+                            **box)
+    # host-tier sites: round 1, a migration that flushes every parked page
+    # to the tier, round 2 restoring the histories
+    rounds = _two_round_requests(cfg.vocab_size)
+    colo = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev)
+    try:
+        w1 = _serve_logged(colo, rounds())[0]
+        hist = [w1[i][0] for i in range(4)]
+        w2 = _serve_logged(colo, rounds(hist))[0]
+    finally:
+        colo.close()
+    for site in ("tier_put", "tier_get", "tier_corrupt"):
+        plan = FaultPlan([FaultSpec(site=site)])
+        eng = ServingEngine(params, cfg, batch=4, cache_len=256, device=dev,
+                            backend="hetero", num_r_workers=2,
+                            paged_kv=True, page_size=16,
+                            kv_tiering=TierConfig(), chaos=plan, **sup)
+        try:
+            g1 = _serve_logged(eng, rounds())[0]
+            eng.engine.apply_partition([(0, 2), (2, 2)])
+            g2 = _serve_logged(eng, rounds(hist))[0]
+            st = dict(eng.tiering_stats())
+        finally:
+            eng.close()
+        r1 = _equal_or_raise(f"{site} round 1", g1, w1)
+        r2 = _equal_or_raise(f"{site} round 2", g2, w2, st)
+        if plan.count(site) != 1 or st["restore_count"] < 1:
+            raise AssertionError(f"equiv_fleet {site}: fired "
+                                 f"{plan.count(site)}, tiering {st}")
+        faults[site] = dict(r2, round1_tokens_equal=r1["tokens_equal"],
+                            fired=1, tiering={k: st[k] for k in (
+                                "swap_out_count", "restore_count",
+                                "put_failed_count", "get_failed_count",
+                                "corrupt_count")})
+    # wire corruption: on a forced migration, and on every snapshot
+    plan = FaultPlan([FaultSpec(site="wire_corrupt", where="migration")])
+    fleet = FleetManager([WorkerProfile(name="a"), WorkerProfile(name="b")])
+    done = []
+
+    def migrate(eng):
+        if not done and eng.slots[0] is not None:
+            fleet.rebalance_now([(0, 2), (2, 2)])
+            done.append(eng.step_idx)
+    got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                          paged_kv=True, fleet=fleet, chaos=plan,
+                          on_step=migrate, **sup)
+    ev = fleet.telemetry.events_of("corruption")
+    if plan.count() != 1 or not ev or ev[0].detail["replayed"] < 1:
+        raise AssertionError(f"equiv_fleet wire_corrupt migration: {ev}")
+    faults["wire_corrupt_migration"] = dict(
+        _equal_or_raise("wire_corrupt migration", got, want4), fired=1,
+        corruption=ev[0].detail)
+    plan = FaultPlan([FaultSpec(site="wire_corrupt", where="snapshot",
+                                times=-1),
+                      FaultSpec(site="r_step", kind="crash", wid=0,
+                                after=8)])
+    fleet = FleetManager([WorkerProfile(name="a"), WorkerProfile(name="b")],
+                         snapshot_interval=2, recovery="snapshot")
+    got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                          paged_kv=True, fleet=fleet, chaos=plan, **sup)
+    ev = fleet.telemetry.events_of("corruption")
+    rec = fleet.telemetry.events_of("recovery")
+    if plan.count("wire_corrupt") < 1 or not ev \
+            or ev[0].detail["source"] != "snapshot" \
+            or not rec or rec[-1].detail["mode"] != "reprefill":
+        raise AssertionError(f"equiv_fleet wire_corrupt snapshot: {ev}, "
+                             f"{rec}")
+    faults["wire_corrupt_snapshot"] = dict(
+        _equal_or_raise("wire_corrupt snapshot", got, want4),
+        fired=plan.count(), recovery_mode="reprefill")
+    res["faults"] = faults
+    return res
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
-          "serve_plan", "equiv", "equiv_int8", "equiv_spec", "equiv_chunk",
-          "equiv_spec_int8", "equiv_prefix", "equiv_plan")
+          "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
+          "equiv_spec", "equiv_chunk", "equiv_spec_int8", "equiv_prefix",
+          "equiv_plan", "equiv_fleet")
 
 
 def kernels_line(results) -> list:
@@ -3701,6 +4206,11 @@ def kernels_line(results) -> list:
     plan = results.get("serve_plan")
     line[0]["serve_plan_launches"] = (plan["kernel_launches"] if plan
                                       else None)
+    # and in the fleet serve (re-prefill run: migrations, a failover) and
+    # the chaos serve (aborted attempts included)
+    for name in ("serve_fleet", "serve_chaos"):
+        r = results.get(name)
+        line[0][f"{name}_launches"] = r["kernel_launches"] if r else None
     return line
 
 
@@ -3746,7 +4256,8 @@ def main(argv=None) -> int:
         log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
     if {"serve", "serve_int8", "serve_spec", "serve_chunked",
             "serve_spec_int8", "serve_sampled", "serve_prefix",
-            "serve_tier", "serve_plan"} & set(phases):
+            "serve_tier", "serve_plan", "serve_fleet",
+            "serve_chaos"} & set(phases):
         model = serve_model(dev)
         if "serve" in phases:
             results["serve"] = phase_serve(dev, model, args.out)
@@ -3783,7 +4294,16 @@ def main(argv=None) -> int:
             results["serve_plan"] = phase_serve_plan(
                 dev, model, args.out, args.trace_out or args.out)
             log(results["serve_plan"])
-        del model
+        chaos_off = None
+        if "serve_fleet" in phases:
+            results["serve_fleet"], *chaos_off = phase_serve_fleet(
+                dev, model, args.out)
+            log(results["serve_fleet"])
+        if "serve_chaos" in phases:
+            results["serve_chaos"] = phase_serve_chaos(dev, model, args.out,
+                                                       chaos_off)
+            log(results["serve_chaos"])
+        del model, chaos_off
         torch.cuda.empty_cache()
     if "equiv" in phases:
         results["equiv"] = phase_equiv(dev)
@@ -3806,6 +4326,9 @@ def main(argv=None) -> int:
     if "equiv_plan" in phases:
         results["equiv_plan"] = phase_equiv_plan(dev)
         log(results["equiv_plan"])
+    if "equiv_fleet" in phases:
+        results["equiv_fleet"] = phase_equiv_fleet(dev)
+        log(results["equiv_fleet"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

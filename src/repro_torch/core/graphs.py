@@ -28,6 +28,14 @@ Python's cyclic garbage collector is held off while any thread captures
 collecting an old engine's graphs there calls ``cudaGraphExecDestroy``,
 which a capturing thread may not call (the capture is invalidated).
 Engines also drop their graphs when they close.
+
+PyTorch registers every graph with the CUDA generator's state in
+``capture_begin`` and unregisters it when the graph is destroyed, in a
+set with no lock of its own; the S-worker and the R-workers capture
+concurrently, so a lost entry makes that graph's destructor abort the
+process ("The graph should be registered to the state").  Every
+``capture_begin`` / ``capture_end`` here, and every place the port drops
+graphs (:func:`dropping`), holds one process-wide lock.
 """
 from __future__ import annotations
 
@@ -84,6 +92,17 @@ captures = CaptureStats()
 _gc_lock = threading.Lock()
 _gc_holders = 0
 _gc_was_enabled = False
+
+# serialises PyTorch's graph registry (the generator state's set of graphs)
+_registry_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def dropping():
+    """Hold the graph registry while the body drops graphs (their
+    destructors unregister them)."""
+    with _registry_lock:
+        yield
 
 
 @contextlib.contextmanager
@@ -190,15 +209,17 @@ class StepGraph:
             self._run()                 # the warm-up is this call's work
             graph = torch.cuda.CUDAGraph()
             with tally() as counts:
-                graph.capture_begin(pool=self.pool.handle,
-                                    capture_error_mode="thread_local")
+                with _registry_lock:
+                    graph.capture_begin(pool=self.pool.handle,
+                                        capture_error_mode="thread_local")
                 try:
                     self._write(self.body(self.inputs))
                 except BaseException:
-                    with contextlib.suppress(RuntimeError):
+                    with contextlib.suppress(RuntimeError), _registry_lock:
                         graph.capture_end()
                     raise
-                graph.capture_end()
+                with _registry_lock:
+                    graph.capture_end()
         if side != cur:
             cur.wait_stream(side)
         self.counts = counts

@@ -69,14 +69,31 @@ replays and the sink's waits, recorded outside every captured graph body;
 they add no device synchronisation, and with no tracer attached the cost
 is one attribute read per step.
 
-Not in this slice (see ROADMAP.md): fleet management and chaos
-supervision.
+Fleet management and fault supervision (``fleet=``, ``chaos=``): each
+R-worker keeps a heartbeat and a ``processing`` flag; the collect loop
+polls the sink in short slices and, on every empty window, suspects the
+workers that still owe completions (dead, hung past ``suspect_after_s``,
+or idle with an empty inbox for ``suspect_strikes`` windows: a lost
+message) and aborts the step with a typed :class:`StepFault` after
+fencing the sink; a worker's error post becomes a :class:`WorkerStepError`.
+The serving layer heals them.  ``apply_partition`` live-migrates rows in
+the dense wire format (``RWorker.export_rows``: numpy arrays, bf16 as its
+``uint16`` bit pattern, gathered from the pages on the device in one
+``index_select`` per pool array and copied to pinned host memory once),
+checksummed and verified; ``remove_worker`` fails a worker over.  A
+worker whose rows change releases its R-Part graphs and their pool
+(``RWorker.reassign``) and re-captures them on its next step.  No S-side
+graph bakes the partition: the shards are row views of a transition's
+outputs, cut on the host per call.  A removed worker's graphs are freed
+only once its thread has exited (``_reap_retired``, or ``close``): a
+hung worker wakes, finds itself killed and returns without replaying.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -85,6 +102,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import bridge
+from repro_torch.chaos.checksum import tree_digest
+from repro_torch.chaos.plan import ChaosComputeError
 from repro_torch.core import decompose as D
 from repro_torch.core import graphs
 from repro_torch.core.config import ATTN, ModelConfig, check_supported
@@ -92,6 +112,47 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving import kv_cache as KV
 from repro_torch.serving import paged_cache as PC
+
+
+# ---------------------------------------------------------------------------
+# step faults: typed aborts the serving supervisor can heal
+# ---------------------------------------------------------------------------
+class StepFault(RuntimeError):
+    """A decode step aborted mid-flight.
+
+    Raised from the collect loop after the sink has been fenced (the epoch
+    bump makes every in-flight completion of the aborted step stale), so
+    the engine is quiescent but its per-layer state is inconsistent
+    across layers: some layers appended this step's KV, some did not.
+    The serving layer's supervisor heals that by re-prefilling every live
+    row from token history and retrying the step with the same tokens.
+
+    ``dead_wids`` / ``hung_wids`` name workers to fail over; ``lost_wids``
+    workers suspected of a dropped completion (retry without removal);
+    ``transient`` marks the fault safe to retry as is."""
+
+    def __init__(self, msg: str, *, dead_wids: Sequence[int] = (),
+                 hung_wids: Sequence[int] = (),
+                 lost_wids: Sequence[int] = (),
+                 wid: Optional[int] = None,
+                 transient: bool = False, step_no: int = -1):
+        super().__init__(msg)
+        self.dead_wids = tuple(dead_wids)
+        self.hung_wids = tuple(hung_wids)
+        self.lost_wids = tuple(lost_wids)
+        self.wid = wid
+        self.transient = bool(transient)
+        self.step_no = int(step_no)
+
+
+class CollectTimeout(StepFault):
+    """The collect loop gave up waiting: a pending worker is dead, hung
+    past the suspicion threshold, or its completions went missing."""
+
+
+class WorkerStepError(StepFault):
+    """An R-worker posted an exception for this step (``__cause__``
+    carries the original, with its ``r_worker_context`` coordinates)."""
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +298,17 @@ class RWorker(threading.Thread):
     ``sim_row_cost`` (seconds per row per call, settable while serving)
     makes a deterministic bandwidth-bound straggler: after each R-Part the
     worker sleeps that long per row it owns, on the host, outside the
-    replayed graph.
+    replayed graph; ``slowdown`` stretches each item to that multiple of
+    its time, ``sim_deliver_jitter`` delays each post by a seeded uniform
+    [0, j) seconds without holding the worker (``fleet.WorkerProfile``'s
+    knobs).  ``chaos`` (a ``chaos.FaultPlan``) arms the ``r_step`` and
+    ``completion`` sites and, through the allocators, ``pool``.
+
+    Liveness for the collect loop's suspicion check: ``heartbeat``
+    advances on every inbox wake and item boundary and ``processing`` is
+    True while an item runs, so a stale heartbeat with ``processing`` set
+    reads as hung mid-item, and ``processing`` False with an empty inbox
+    but completions owed as a message lost in flight.
     """
 
     def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
@@ -246,7 +317,9 @@ class RWorker(threading.Thread):
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_pages_per_seq: Optional[int] = None,
                  prefix_cache: bool = False, kv_tier: Any = None,
-                 sim_row_cost: float = 0.0, device=None):
+                 profile: Any = None, slowdown: float = 1.0,
+                 sim_row_cost: float = 0.0, sim_deliver_jitter: float = 0.0,
+                 chaos: Any = None, device=None):
         super().__init__(daemon=True, name=f"r-worker-{wid}")
         self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
         self.kv_chunk = kv_chunk
@@ -283,9 +356,24 @@ class RWorker(threading.Thread):
         self._step_clones: Dict[Tuple[int, str], list] = {}
         self.inq: "queue.Queue" = queue.Queue()
         self.busy_time = 0.0
+        self.profile = profile                   # fleet.WorkerProfile
+        self.slowdown = max(1.0, float(slowdown))
         self.sim_row_cost = max(0.0, float(sim_row_cost))  # s/row/call
+        self.sim_deliver_jitter = max(0.0, float(sim_deliver_jitter))
+        self._jitter_rng = np.random.default_rng(0xD15C0 + wid)
         # set via HeteroPipelineEngine.attach_tracer, never constructed here
         self.tracer = None
+        self.chaos = chaos
+        self._killed = False
+        self.heartbeat = time.monotonic()
+        self.processing = False
+        # a graph's first call (on the card its warm-up and capture): the
+        # longest, which suspect_after_s must exceed, and those after a
+        # topology change released this worker's graphs (``reassign``)
+        self.capture_max_s = 0.0
+        self._released = False
+        self.recapture_count = 0
+        self.recapture_s = 0.0
 
     # -- paged storage helpers ----------------------------------------------
     def _pageable(self, st) -> bool:
@@ -301,7 +389,7 @@ class RWorker(threading.Thread):
             alloc = PC.PagedAllocator(
                 rows, self.num_pages or rows * mp, self.page_size, mp,
                 prefix_cache=self.prefix_cache, tier=self.kv_tier,
-                device=self.device)
+                chaos=self.chaos, device=self.device)
             # a swap-out reads this micro-batch's layer pools, on this
             # worker's stream
             alloc.pool_reader = lambda mb=mb: {
@@ -368,8 +456,9 @@ class RWorker(threading.Thread):
 
     def load_state(self, layer: int, r_state_slice) -> None:
         # a graph of this layer read the buffers this load replaces
-        self._graphs = {k: g for k, g in self._graphs.items()
-                        if k[1] != layer}
+        with graphs.dropping():
+            self._graphs = {k: g for k, g in self._graphs.items()
+                            if k[1] != layer}
         if self._pageable(r_state_slice):
             if "k_q" in r_state_slice and not self.quantized:
                 r_state_slice = KV.dequantize_attn_state(r_state_slice)
@@ -389,6 +478,114 @@ class RWorker(threading.Thread):
         idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         for k, v in r_state_rows.items():
             self.state[layer][k][idx] = v
+
+    # -- migration wire format (live migration, KV snapshots) ----------------
+    def export_rows(self, layer: int, local_rows: np.ndarray
+                    ) -> Dict[str, np.ndarray]:
+        """``local_rows``' R-state of ``layer`` as host numpy arrays in the
+        dense wire format: what a dense worker stores per row ({k, v,
+        pos}, or {k_q, k_s, v_q, v_s, pos} from a quantized worker), bf16
+        as its ``uint16`` bit pattern.  Paged rows come back as contiguous
+        ``[row, cache_len, ...]`` slabs with derived positions, so any
+        worker can install the payload with ``load_state`` whatever its
+        own storage.  Runs between steps on the engine thread; the reads
+        are ordered on this worker's stream, which is then finished."""
+        local_rows = np.asarray(local_rows)
+        with PC.on_stream(self.stream):
+            if layer in self.paged_keys:
+                dev = self._pages_to_dense(layer, local_rows)
+            else:
+                idx = torch.as_tensor(local_rows, dtype=torch.long,
+                                      device=self.device)
+                dev = {k: v.index_select(0, idx)
+                       for k, v in self.state[layer].items()}
+            host = {k: (torch.empty(v.shape, dtype=v.dtype,
+                                    pin_memory=True).copy_(v)
+                        if self.stream is not None else v)
+                    for k, v in dev.items()}
+        if self.stream is not None:
+            self.stream.synchronize()
+        return {k: bridge.tensor_to_numpy(v) for k, v in host.items()}
+
+    def _pages_to_dense(self, layer: int, rows: np.ndarray
+                        ) -> Dict[str, torch.Tensor]:
+        """The rows' pages of ``layer`` gathered on the device into dense
+        slabs: one ``index_select`` per pool array over every row's page
+        list, positions past a row's length zeroed (``pos`` -1) as the JAX
+        package's host loop leaves them.  An inactive row exports nothing;
+        a degraded (pool-exhausted) row its stored prefix."""
+        alloc = self.allocators[layer // self.cfg.num_layers]
+        pool = self.state[layer]
+        page, cap = self.page_size, self._cache_len
+        n_pg = -(-cap // page)
+        ids = np.zeros((len(rows), n_pg), np.int64)
+        lens = np.zeros((len(rows),), np.int64)
+        for i, row in enumerate(rows):
+            row = int(row)
+            if not alloc.active[row]:
+                continue
+            mapped = int((alloc.tables[row] >= 0).sum())
+            length = min(int(alloc.lengths[row]), mapped * page, cap)
+            if length <= 0:
+                continue
+            used = -(-length // page)
+            ids[i, :used] = alloc.tables[row, :used]
+            lens[i] = length
+        dev = PC._any_pages(pool).device
+        idx = torch.from_numpy(ids.reshape(-1)).to(dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        ar = torch.arange(cap, device=dev)
+        keep = ar[None, :] < lens_t[:, None]                   # [R, cap]
+        out = {}
+        for k, v in pool.items():
+            g = v.index_select(0, idx).reshape(
+                (len(rows), n_pg * page) + tuple(v.shape[2:]))[:, :cap]
+            m = keep.reshape(keep.shape + (1,) * (g.dim() - 2))
+            out[k] = torch.where(m, g, torch.zeros((), dtype=g.dtype,
+                                                   device=dev))
+        out["pos"] = torch.where(keep, ar[None, :].to(torch.int32),
+                                 torch.full((), -1, dtype=torch.int32,
+                                            device=dev))
+        return out
+
+    def reassign(self, lo: int, hi: int) -> None:
+        """Adopt a new row slice: drop ALL row-indexed storage (state,
+        page pools, allocators) and the R-Part graphs with their pool,
+        which baked this slice's buffers; the next step re-captures them.
+        The caller (``apply_partition``) re-installs every layer's rows
+        with ``load_state`` right after; runs between steps.  Parked
+        pages are flushed to the host tier first, so park / restore
+        survives the move."""
+        for alloc in self.allocators.values():
+            alloc.swap_out_all_parked()
+        if self.stream is not None:
+            self.stream.synchronize()
+        self.lo, self.hi = int(lo), int(hi)
+        self.state.clear()
+        self.paged_keys.clear()
+        self.allocators.clear()
+        self._first_paged.clear()
+        self._chunk_width.clear()
+        self._step_clones.clear()
+        self.release_graphs()
+        self._pool = graphs.GraphPool(self.device, self.stream)
+        self._released = True
+
+    def release_graphs(self) -> None:
+        """Free this worker's R-Part graphs and staging buffers, on the
+        calling thread, which must not be capturing (and this worker must
+        not be running an item)."""
+        with graphs.dropping():
+            self._graphs.clear()
+        self._stage.clear()
+
+    def kill(self) -> None:
+        """An abrupt crash (tests, chip runs): the thread exits without
+        draining its queue; ``is_alive()`` turning False is what the fleet
+        health check detects.  A worker asleep in a hang wakes, finds
+        itself killed and returns without replaying."""
+        self._killed = True
+        self.inq.put(None)
 
     # -- the R-Part ------------------------------------------------------------
     def _first_paged_key(self, mb: int) -> int:
@@ -518,14 +715,70 @@ class RWorker(threading.Thread):
     def run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        while True:
-            item = self.inq.get()
-            if item is None:
-                return
-            self._run_one(item)
+        while not self._killed:
+            # a bounded wait, not a bare get(): the idle heartbeat tick
+            # tells "alive but idle" from "hung mid-item"
+            try:
+                items = [self.inq.get(timeout=0.25)]
+            except queue.Empty:
+                self.heartbeat = time.monotonic()
+                continue
+            # one wake serves everything already queued; ``processing``
+            # stays set until the whole batch is done, so an empty inbox
+            # with ``processing`` clear means no item is left to run (the
+            # supervisor's quiescence test)
+            while True:
+                try:
+                    items.append(self.inq.get_nowait())
+                except queue.Empty:
+                    break
+            self.processing = True
+            try:
+                for item in items:
+                    if item is None or self._killed:
+                        return
+                    self.heartbeat = time.monotonic()
+                    self._run_one(item)
+                    self.heartbeat = time.monotonic()
+            finally:
+                self.processing = False
+                self.heartbeat = time.monotonic()
+
+    def _chaos_r_step(self, tag, layer, kind, phase, sink):
+        """The ``r_step`` and ``completion`` sites of one item: returns
+        None when the item must not run (crashed, errored, killed while
+        hung), else the completion fault's kind ("drop", "dup" or "")."""
+        spec = self.chaos.fire("r_step", wid=self.wid, layer=layer,
+                               phase=phase)
+        if spec is not None:
+            if spec.kind == "crash":
+                # abrupt death mid-item: no completion, no error post
+                self._killed = True
+                return None
+            if spec.kind == "error":
+                e = ChaosComputeError("injected R-step compute fault")
+                e.r_worker_context = (self.wid, layer, kind, phase)
+                sink.post_error(self.wid, tag, e)
+                return None
+            if spec.kind == "hang":
+                # stall with processing set and a stale heartbeat; a
+                # worker failed over meanwhile returns without replaying
+                # (its pools are no longer the engine's), a short hang
+                # completes late
+                time.sleep(spec.hang_s)
+                if self._killed:
+                    return None
+        spec = self.chaos.fire("completion", wid=self.wid, layer=layer,
+                               phase=phase)
+        return "" if spec is None else spec.kind
 
     def _run_one(self, item) -> None:
         tag, layer, kind, phase, r_in, sink, ready = item
+        fault = ""
+        if self.chaos is not None:
+            fault = self._chaos_r_step(tag, layer, kind, phase, sink)
+            if fault is None:
+                return
         try:
             t0 = time.perf_counter()
             ctx = (torch.cuda.stream(self.stream) if self.stream is not None
@@ -550,10 +803,23 @@ class RWorker(threading.Thread):
                 if g is None:
                     g = self._graphs[key] = graphs.StepGraph(
                         self._r_body(key, kind, phase), r_in, self._pool)
+                    tc = time.perf_counter()
+                    out = g()
+                    tc = time.perf_counter() - tc
+                    self.capture_max_s = max(self.capture_max_s, tc)
+                    if self._released:
+                        self.recapture_count += 1
+                        self.recapture_s += tc
                 else:
                     g.feed(r_in)
-                host = self._to_host(g())
+                    out = g()
+                host = self._to_host(out)
             dt = time.perf_counter() - t0
+            if self.slowdown > 1.0:
+                # a worker with 1/slowdown the bandwidth takes slowdown x
+                # as long for the same rows
+                time.sleep(dt * (self.slowdown - 1.0))
+                dt *= self.slowdown
             if self.sim_row_cost > 0.0:
                 # deterministic bandwidth-bound service time: streams its
                 # rows' KV at sim_row_cost seconds per row
@@ -568,8 +834,35 @@ class RWorker(threading.Thread):
                 tracer.add(f"L{layer}.p{phase}", "r-worker",
                            f"r{self.wid}", t0, t0 + dt,
                            {"layer": layer, "phase": phase, "kind": kind})
-            sink.post(self.wid, tag, host, self.lo, self.hi)
+            if fault == "drop":
+                # the KV append above is DONE (and the allocator grown);
+                # only the completion is lost: the supervisor's resync
+                # re-prefills the rows, overwriting the orphaned append
+                pass
+            elif fault == "dup":
+                # duplicated delivery: the scatter is idempotent and the
+                # collect loop tolerates the second token
+                sink.post(self.wid, tag, host, self.lo, self.hi)
+                sink.post(self.wid, tag, host, self.lo, self.hi)
+            elif self.sim_deliver_jitter > 0.0:
+                # a late delivery over a jittery link: the worker moves on
+                # (its staging buffers with it, so the post gets a copy)
+                delay = float(self._jitter_rng.uniform(
+                    0.0, self.sim_deliver_jitter))
+                late = {k: v.clone() for k, v in host.items()}
+                t = threading.Timer(delay, sink.post,
+                                    args=(self.wid, tag, late, self.lo,
+                                          self.hi))
+                t.daemon = True
+                t.start()
+            else:
+                sink.post(self.wid, tag, host, self.lo, self.hi)
         except Exception as e:  # surface to the S-worker, don't deadlock
+            if self.stream is not None:
+                # what this item enqueued finishes before the supervisor
+                # may read or overwrite the pools
+                self.stream.synchronize()
+            e.r_worker_context = (self.wid, layer, kind, phase)
             sink.post_error(self.wid, tag, e)
 
     def stop(self) -> None:
@@ -613,6 +906,8 @@ class HeteroPipelineEngine:
                  page_size: int = 16, pages_per_worker: Optional[int] = None,
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  prefix_cache: bool = False, kv_tier: Any = None,
+                 fleet: Any = None, chaos: Any = None,
+                 suspect_after_s: float = 120.0, suspect_strikes: int = 2,
                  device=None):
         if num_microbatches < 1:
             raise ValueError(
@@ -652,26 +947,61 @@ class HeteroPipelineEngine:
         self.num_layers = cfg.num_layers
         self.schedule = schedule
         self.collect_timeout_s = float(collect_timeout_s)
-        if num_r_workers < 1:
-            raise ValueError(f"num_r_workers must be >= 1, got {num_r_workers}")
-        if num_r_workers > self.mb_size:
-            raise ValueError(
-                f"num_r_workers ({num_r_workers}) exceeds the micro-batch "
-                f"size ({self.mb_size} = batch {batch} / {num_microbatches} "
-                f"micro-batches) — every R-worker needs at least one row")
-        bounds = np.linspace(0, self.mb_size, num_r_workers + 1).astype(int)
-        self.slices = [(int(bounds[i]), int(bounds[i + 1]))
-                       for i in range(num_r_workers)]
-        self.workers = [
-            RWorker(w, cfg, lo, hi, kv_chunk=kv_chunk,
-                    quantized=quantized_kv, paged=paged_kv,
-                    page_size=page_size, num_pages=pages_per_worker,
-                    max_pages_per_seq=-(-cache_len // page_size),
-                    prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
-                    device=self.device)
-            for w, (lo, hi) in enumerate(self.slices)]
+        self.fleet = fleet
+        # fault injection and suspicion: a pending worker that is dead,
+        # hung past suspect_after_s (stale heartbeat while processing), or
+        # idle with an empty inbox for suspect_strikes consecutive polls
+        # (a completion lost in flight) aborts the step with a StepFault;
+        # collect_timeout_s stays the absolute backstop.  suspect_after_s
+        # must exceed the longest single R-side item, graph captures
+        # included, or a healthy worker is failed over (correct, wasteful)
+        self.chaos = chaos
+        self.suspect_after_s = float(suspect_after_s)
+        self.suspect_strikes = max(1, int(suspect_strikes))
+        # serving-layer hook: mb -> in-flight request ids, for the stall
+        # messages
+        self.rids_of = None
+        # global rows whose migration payload failed its checksum in the
+        # last apply_partition (installed from `lost`; the serving layer
+        # re-prefills them)
+        self.corrupt_rows: List[int] = []
+        # the last topology change: rows moved, wire bytes, seconds
+        self.last_migration: Dict[str, float] = {}
+        self.topology_changes = 0
+        # workers removed from the fleet whose threads may still run (a
+        # hung one wakes later): their graphs are freed once they exit
+        self._retired: List[RWorker] = []
+        self._worker_kwargs = dict(
+            kv_chunk=kv_chunk, quantized=quantized_kv, paged=paged_kv,
+            page_size=page_size, num_pages=pages_per_worker,
+            max_pages_per_seq=-(-cache_len // page_size),
+            prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
+            chaos=chaos, device=self.device)
+        if fleet is not None:
+            # the fleet owns worker construction: profiles -> planned
+            # (possibly uneven) partition -> RWorkers
+            self.workers, self.slices = fleet.spawn_workers(
+                cfg, self.mb_size, self._worker_kwargs)
+        else:
+            if num_r_workers < 1:
+                raise ValueError(
+                    f"num_r_workers must be >= 1, got {num_r_workers}")
+            if num_r_workers > self.mb_size:
+                raise ValueError(
+                    f"num_r_workers ({num_r_workers}) exceeds the "
+                    f"micro-batch size ({self.mb_size} = batch {batch} / "
+                    f"{num_microbatches} micro-batches) — every R-worker "
+                    f"needs at least one row")
+            bounds = np.linspace(0, self.mb_size,
+                                 num_r_workers + 1).astype(int)
+            self.slices = [(int(bounds[i]), int(bounds[i + 1]))
+                           for i in range(num_r_workers)]
+            self.workers = [RWorker(w, cfg, lo, hi, **self._worker_kwargs)
+                            for w, (lo, hi) in enumerate(self.slices)]
         for w in self.workers:
             w.start()
+        if fleet is not None:
+            fleet.attach(self)
         # S-side per-layer state (empty for attention), per micro-batch
         self.s_states: List[List[Any]] = [
             [{} for _ in range(self.num_layers)] for _ in range(self.num_mb)]
@@ -972,6 +1302,63 @@ class HeteroPipelineEngine:
             return None, out["logits"].clone()
         return self._s_out(out, self._chunk_statics(wk))
 
+    # -- stall detection ---------------------------------------------------------
+    def _pending_desc(self, pending, works) -> str:
+        """The outstanding work of a stalled step, with the in-flight
+        request ids of each micro-batch (``rids_of``) so operators can
+        correlate a stall with request timelines."""
+        parts = []
+        for (mb, li, ph), ws in sorted(pending.items()):
+            d = (f"micro-batch {mb} layer {li} ({self.layers[li][0]}) "
+                 f"phase {ph} from worker(s) {sorted(ws)}")
+            real_mb = mb if mb < self.num_mb else works[mb - self.num_mb].mb
+            if self.rids_of is not None:
+                rids = list(self.rids_of(real_mb))
+                if rids:
+                    d += f" [in-flight rids: {rids}]"
+            parts.append(d)
+        return "; ".join(parts)
+
+    def _check_stall(self, pending, works, strikes, waited, step_no) -> None:
+        """Classify the workers still owing completions after an empty poll
+        window; abort the step with a CollectTimeout when one is dead, hung
+        past the suspicion threshold, or struck out as idle with
+        completions owed (a lost message), or when the backstop ran out."""
+        owing: set = set()
+        for ws in pending.values():
+            owing |= ws
+        by_wid = {w.wid: w for w in self.workers}
+        now = time.monotonic()
+        dead: List[int] = []
+        hung: List[int] = []
+        lost: List[int] = []
+        for wid in sorted(owing):
+            w = by_wid.get(wid)
+            if w is None or not w.is_alive():
+                dead.append(wid)
+            elif w.processing and now - w.heartbeat > self.suspect_after_s:
+                hung.append(wid)
+            elif not w.processing and w.inq.empty():
+                lost.append(wid)
+        if not dead and not hung:
+            for wid in lost:
+                strikes[wid] = strikes.get(wid, 0) + 1
+            lost = [wid for wid in lost
+                    if strikes[wid] >= self.suspect_strikes]
+            if not lost and waited <= self.collect_timeout_s:
+                return
+        raise CollectTimeout(
+            f"decode step timed out after {waited:.1f}s waiting for "
+            f"R-worker results — "
+            + (f"dead worker(s) {dead}; " if dead else "")
+            + (f"hung worker(s) {hung} (heartbeat stale > "
+               f"{self.suspect_after_s:.1f}s); " if hung else "")
+            + (f"worker(s) {lost} idle with completions owed "
+               f"(message lost in flight?); " if lost else "")
+            + f"outstanding: {self._pending_desc(pending, works) or 'none'}",
+            dead_wids=dead, hung_wids=hung, lost_wids=lost,
+            transient=not dead and not hung, step_no=step_no) from None
+
     # -- the pipelined decode step ----------------------------------------------
     def decode_step(self, tokens_per_mb: Optional[Sequence[torch.Tensor]]):
         """One new token for every row of every micro-batch, event-driven:
@@ -992,8 +1379,7 @@ class HeteroPipelineEngine:
         # micro-batch, and the event-loop waits that served only chunk
         # work (repro's accounting; the serving layer moves it from the
         # decode wall to the prefill wall)
-        # (dup_completion_count stays 0 until the chaos harness is ported:
-        # only its injected duplicate deliveries raise it in repro)
+        self._reap_retired()
         stats = {"dispatch_s": 0.0, "collect_s": 0.0, "s_dispatch_s": 0.0,
                  "r_wait_s": 0.0, "ooo_advances": 0.0, "prefill_s": 0.0,
                  "dup_completion_count": 0.0}
@@ -1114,19 +1500,27 @@ class HeteroPipelineEngine:
             stats["prefill_s"] += pc() - t0
             dispatch(wk.vmb, 0, 0, shards)
 
+        # poll the sink in short slices (not one fatal blocking get) and
+        # classify the workers still owing completions on every empty
+        # window; `strikes` counts consecutive empty windows per idle
+        # suspect, so a completion merely in flight between the post and
+        # this get is never taken for a lost one
+        strikes: Dict[int, int] = {}
+        poll_s = min(max(self.suspect_after_s, 0.05),
+                     self.collect_timeout_s)
+        last_progress = pc()
         try:
             while active:
                 t0 = pc()
                 try:
-                    wid, tag, err = sink.q.get(timeout=self.collect_timeout_s)
+                    wid, tag, err = sink.q.get(timeout=poll_s)
                 except queue.Empty:
-                    raise TimeoutError(
-                        f"decode step timed out after "
-                        f"{self.collect_timeout_s:.1f}s waiting for R-worker "
-                        f"results; outstanding (micro-batch, layer, phase) -> "
-                        f"workers: {sorted((k, sorted(v)) for k, v in pending.items())}"
-                    ) from None
-                wait = pc() - t0
+                    stats["r_wait_s"] += pc() - t0
+                    self._check_stall(pending, works, strikes,
+                                      pc() - last_progress, step_no)
+                    continue
+                last_progress = pc()
+                wait = last_progress - t0
                 stats["r_wait_s"] += wait
                 if works and all(lg is not None for lg in logits_out):
                     # every decode micro-batch has emitted: this wait
@@ -1135,16 +1529,29 @@ class HeteroPipelineEngine:
                 t_epoch, t_parity, mb, li, phase = tag
                 if t_epoch != epoch or t_parity != parity:
                     continue  # fenced-off straggler from an older step
+                kind = self.layers[li][0]
                 if err is not None:
-                    raise RuntimeError(
+                    ctx = getattr(err, "r_worker_context", None)
+                    raise WorkerStepError(
                         f"R-worker {wid} failed on micro-batch {mb}, layer "
-                        f"{li} ({self.layers[li][0]}), phase {phase}") from err
+                        f"{li} ({kind}), phase {phase}"
+                        + (f" [worker context: wid={ctx[0]} lkey={ctx[1]} "
+                           f"kind={ctx[2]} phase={ctx[3]}]" if ctx else ""),
+                        wid=wid,
+                        transient=bool(getattr(err, "transient", False)),
+                        step_no=step_no) from err
                 outstanding = pending.get((mb, li, phase))
                 if outstanding is None or wid not in outstanding:
+                    if (mb, li, phase) in issue_seq:
+                        # a duplicated delivery of a tag this step did
+                        # dispatch: the scatter is idempotent
+                        stats["dup_completion_count"] += 1.0
+                        continue
                     raise RuntimeError(
                         f"R-worker {wid} posted an unexpected completion for "
                         f"micro-batch {mb}, layer {li}, phase {phase}")
                 outstanding.discard(wid)
+                strikes.pop(wid, None)
                 if outstanding:
                     continue
                 del pending[(mb, li, phase)]
@@ -1315,21 +1722,261 @@ class HeteroPipelineEngine:
             out["swapped_pages"] = self.kv_tier.swapped_pages()
         return out
 
-    def close(self) -> None:
-        for w in self.workers:
+    # -- fleet: live migration and failure recovery ----------------------------
+    def zero_r_state(self) -> List[Dict[str, np.ndarray]]:
+        """Fresh (empty) full-micro-batch R-state, one wire payload per
+        layer: the recovery filler for rows that cannot be restored (the
+        serving layer then re-prefills the live ones), int8 + scales when
+        the workers are quantized so it concatenates with their exports."""
+        state = M.init_decode_state(self.cfg, self.mb_size, self.cache_len,
+                                    self.device)
+        out = []
+        for li, st in enumerate(per_layer_state(state, self.cfg)):
+            r_st = D.split_block_state(self.layers[li][0], st)[0]
+            if self._worker_kwargs["quantized"] and "k" in r_st:
+                r_st = KV.quantize_attn_state(r_st)
+            out.append({k: bridge.tensor_to_numpy(v)
+                        for k, v in r_st.items()})
+        return out
+
+    def _assemble_rows(self, lkey: int, lo: int, hi: int, old_spans,
+                       exports: Dict[int, Any], lost):
+        """Stitch wire rows [lo, hi) of one layer key from the exporting
+        old owners, falling back to the ``lost`` payload for rows no
+        surviving worker held (failure recovery)."""
+        pieces = []
+        cur = lo
+        while cur < hi:
+            src = next(((s_lo, s_hi, exports[wid])
+                        for wid, s_lo, s_hi in old_spans
+                        if s_lo <= cur < s_hi and wid in exports), None)
+            if src is not None:
+                s_lo, s_hi, wire = src
+                take = min(hi, s_hi)
+                pieces.append({k: v[cur - s_lo:take - s_lo]
+                               for k, v in wire.items()})
+            else:
+                nxt = [s_lo for _, s_lo, _ in old_spans if s_lo > cur]
+                take = min(hi, min(nxt) if nxt else hi)
+                if lost is None or lkey not in lost:
+                    raise RuntimeError(
+                        f"rows [{cur}, {take}) of layer key {lkey} have no "
+                        f"surviving owner and no lost-rows payload — pass "
+                        f"a KV snapshot or zero_r_state() filler")
+                pieces.append({k: v[cur:take]
+                               for k, v in lost[lkey].items()})
+            cur = take
+        if len(pieces) == 1:
+            return pieces[0]
+        return {k: np.concatenate([p[k] for p in pieces], axis=0)
+                for k in pieces[0]}
+
+    def apply_partition(self, new_slices, workers=None, lost=None) -> int:
+        """Live-migrate R-state onto a new contiguous partition of the
+        micro-batch rows (the fleet's rebalance and recovery primitive).
+
+        ``new_slices``: one (lo, hi) per entry of ``workers`` (default: the
+        current worker list), in order, covering [0, mb_size).  Workers
+        whose slice is unchanged are untouched; the rest export their rows
+        in the dense wire format, adopt the new slice (releasing their
+        graphs) and re-install, so KV and page tables survive the move.
+        Rows of a vanished worker come from ``lost`` ({lkey: full
+        micro-batch wire payload}, e.g. a KV snapshot).  A worker given
+        zero rows is stopped and dropped.  Each payload is digested at
+        export and verified before install (the chaos site
+        ``wire_corrupt``, ``where="migration"``, corrupts in between); a
+        payload that fails is dropped, its rows installed from ``lost``
+        (zeros when none) and listed in ``corrupt_rows``.
+
+        Runs between decode steps.  Returns the number of (row,
+        micro-batch) assignments that changed owner."""
+        t0 = time.perf_counter()
+        # fence FIRST: an in-flight tag from before the change (a late
+        # delivery, an aborted step's leftovers) carries the old epoch
+        self._sink.fence()
+        workers = list(self.workers) if workers is None else list(workers)
+        new_slices = [(int(lo), int(hi)) for lo, hi in new_slices]
+        if len(workers) != len(new_slices):
+            raise ValueError(f"{len(workers)} workers vs "
+                             f"{len(new_slices)} slices")
+        dropped = [w for w, (lo, hi) in zip(workers, new_slices) if hi <= lo]
+        pairs = [(w, sl) for w, sl in zip(workers, new_slices)
+                 if sl[1] > sl[0]]
+        workers = [w for w, _ in pairs]
+        new_slices = [sl for _, sl in pairs]
+        cur = 0
+        for lo, hi in new_slices:
+            if lo != cur:
+                raise ValueError(
+                    f"partition {new_slices} is not a contiguous cover of "
+                    f"[0, {self.mb_size})")
+            cur = hi
+        if cur != self.mb_size:
+            raise ValueError(
+                f"partition {new_slices} covers [0, {cur}), micro-batch "
+                f"has {self.mb_size} rows")
+        old_owner = {}
+        for w in workers:
+            for r in range(w.lo, w.hi):
+                old_owner[r] = id(w)
+        moved = sum(1 for w, (lo, hi) in zip(workers, new_slices)
+                    for r in range(lo, hi) if old_owner.get(r) != id(w))
+        changed = [w for w, sl in zip(workers, new_slices)
+                   if (w.lo, w.hi) != sl]
+        changed_ids = {id(w) for w in changed}
+        # a worker dropped to zero rows is alive and exports before it goes
+        sources = changed + dropped
+        old_spans = [(id(w), w.lo, w.hi) for w in sources]
+        lkeys = sorted({k for w in workers + dropped for k in w.state}
+                       | (set(lost) if lost else set()))
+        exports: Dict[int, Dict[int, Any]] = {lk: {} for lk in lkeys}
+        sums: Dict[Tuple[int, int], bytes] = {}
+        t_exp = time.perf_counter()
+        for w in sources:
+            for lk in lkeys:
+                if lk in w.state:
+                    exports[lk][id(w)] = wire = w.export_rows(
+                        lk, np.arange(w.hi - w.lo))
+                    sums[(lk, id(w))] = tree_digest(wire)
+        export_s = time.perf_counter() - t_exp
+        wire_bytes = sum(v.nbytes for per in exports.values()
+                         for wire in per.values() for v in wire.values())
+        if self.chaos is not None:
+            for w in sources:
+                for lk in lkeys:
+                    if id(w) in exports[lk] and self.chaos.fire(
+                            "wire_corrupt", wid=w.wid, lkey=lk,
+                            where="migration"):
+                        exports[lk][id(w)] = self.chaos.corrupt_tree(
+                            exports[lk][id(w)])
+        # a corrupted export is dropped: its rows fall back to `lost`
+        # (zeros when the caller gave none) and are listed for the
+        # serving layer to re-prefill: detected, never silent garbage
+        self.corrupt_rows = []
+        span_of = {wid_: (s_lo, s_hi) for wid_, s_lo, s_hi in old_spans}
+        corrupt_lkeys = set()
+        for (lk, wid_), d0 in sums.items():
+            if tree_digest(exports[lk][wid_]) != d0:
+                del exports[lk][wid_]
+                corrupt_lkeys.add(lk)
+                s_lo, s_hi = span_of[wid_]
+                mb = lk // self.num_layers
+                self.corrupt_rows.extend(
+                    mb * self.mb_size + r for r in range(s_lo, s_hi))
+        self.corrupt_rows = sorted(set(self.corrupt_rows))
+        if corrupt_lkeys:
+            zeros = None
+            lost = dict(lost) if lost else {}
+            for lk in corrupt_lkeys:
+                if lk not in lost:
+                    if zeros is None:
+                        zeros = self.zero_r_state()
+                    lost[lk] = zeros[lk % self.num_layers]
+        for w, sl in zip(workers, new_slices):
+            if id(w) in changed_ids:
+                w.reassign(*sl)
+        for w in dropped:
+            # a gracefully dropped worker's parked pages cross to the
+            # engine-global tier before its pools go (a killed worker gets
+            # no such flush: only already-swapped entries survive)
+            for alloc in w.allocators.values():
+                alloc.swap_out_all_parked()
             w.stop()
-        for w in self.workers:
-            w.join(timeout=30)
-        stuck = [w.wid for w in self.workers if w.is_alive()]
-        if stuck:
-            raise RuntimeError(f"R-worker(s) {stuck} did not exit within "
-                               f"30s of stop()")
+            self._retired.append(w)
+        t_load = time.perf_counter()
+        for lk in lkeys:
+            for w, (lo, hi) in zip(workers, new_slices):
+                if id(w) not in changed_ids:
+                    continue
+                wire = self._assemble_rows(lk, lo, hi, old_spans,
+                                           exports[lk], lost)
+                w.load_state(lk, {k: bridge.tensor_from_numpy(v, w.device)
+                                  for k, v in wire.items()})
+        self.workers = workers
+        self.slices = new_slices
+        for w in workers:            # keep span capture across topology
+            w.tracer = self.tracer   # changes (the worker list is new)
+        self.topology_changes += 1
+        self.last_migration = {
+            "moved_rows_count": moved * self.num_mb,
+            "wire_bytes": wire_bytes, "export_s": export_s,
+            "load_s": time.perf_counter() - t_load,
+            "duration_s": time.perf_counter() - t0}
+        return moved * self.num_mb
+
+    def remove_worker(self, widx: int, new_slices=None, lost=None):
+        """Failure path: drop worker ``widx``, repartition the survivors
+        (even split unless the fleet planner gives ``new_slices``), and
+        refill its rows from ``lost`` wire payloads (a KV snapshot) or
+        zero state (the serving layer re-prefills live rows).  The removed
+        worker is killed; its graphs are freed once its thread has exited.
+        Returns it."""
+        if len(self.workers) <= 1:
+            raise RuntimeError(
+                "cannot remove the last R-worker — no survivor can adopt "
+                "its rows")
+        dead = self.workers[widx]
+        survivors = self.workers[:widx] + self.workers[widx + 1:]
+        if new_slices is None:
+            bounds = np.linspace(0, self.mb_size,
+                                 len(survivors) + 1).astype(int)
+            new_slices = [(int(bounds[i]), int(bounds[i + 1]))
+                          for i in range(len(survivors))]
+        if lost is None:
+            zeros = self.zero_r_state()
+            keys = {k for w in self.workers for k in w.state}
+            lost = {lk: zeros[lk % self.num_layers] for lk in keys}
+        dead.kill()
+        self._retired.append(dead)
+        self.apply_partition(new_slices, workers=survivors, lost=lost)
+        return dead
+
+    def _reap_retired(self) -> None:
+        """Free the graphs of removed workers whose threads have exited
+        (on this thread, between steps: nothing captures here)."""
+        if not self._retired:
+            return
+        for w in [w for w in self._retired if not w.is_alive()]:
+            w.release_graphs()
+            self._retired.remove(w)
+
+    def recapture_stats(self) -> Dict[str, float]:
+        """Graphs re-captured after topology changes, and their seconds
+        (warm-up and capture), over live and removed workers."""
+        ws = list(self.workers) + list(self._retired)
+        return {"recapture_count": float(sum(w.recapture_count
+                                             for w in ws)),
+                "recapture_s": float(sum(w.recapture_s for w in ws))}
+
+    def close(self) -> None:
+        """Stop every worker, join those that are not hung, and free the
+        graphs of those that exited; warn (not raise: close runs in
+        teardown, after deliberate kills too) with the ids of workers
+        still alive.  A hung worker (stale heartbeat while processing) is
+        not waited for; its daemon thread cannot block process exit."""
+        ws = list(self.workers) + list(self._retired)
+        for w in ws:
+            w.kill()            # a hung worker then wakes to no replay
+        now = time.monotonic()
+        for w in ws:
+            if not (w.processing
+                    and now - w.heartbeat > self.suspect_after_s):
+                w.join(timeout=30)
+        stuck = [w.wid for w in ws if w.is_alive()]
         # free the graphs here, on the closing thread: left to the cyclic
         # GC (their bodies close over the workers), they could be
         # destroyed inside a later engine's capture
-        for w in self.workers:
-            w._graphs.clear()
-        self._s_graphs.clear()
+        for w in ws:
+            if not w.is_alive():
+                w.release_graphs()
+        self._retired = [w for w in self._retired if w.is_alive()]
+        with graphs.dropping():
+            self._s_graphs.clear()
+        if stuck:
+            warnings.warn(
+                f"HeteroPipelineEngine.close(): R-worker(s) {stuck} did "
+                f"not exit after stop() — thread(s) leaked (hung "
+                f"mid-item?)", RuntimeWarning, stacklevel=2)
 
 
 # ---------------------------------------------------------------------------

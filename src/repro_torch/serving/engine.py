@@ -55,8 +55,24 @@ trace events) and the perfmodel drift monitor (``drift_report``).  Off,
 every hook is one ``self.obs is None`` test.  The hooks run on the host
 between graph replays: they add no device synchronisation.
 
-Not in this slice (see ROADMAP.md): fleet management and chaos
-supervision.
+With ``fleet=FleetManager(...)`` (hetero only) the R-worker pool is
+fleet-managed: heterogeneity-aware partition planning, straggler
+rebalancing by live KV migration, and failure recovery run around each
+step (``pre_step`` / ``post_step``), lost rows are re-prefilled exactly
+from the token history (``_replay_rows``), and admission is re-costed
+after a topology change (``_recost_admission``).
+
+The step supervisor (``_decode_supervised``, and the verify step's
+healer) catches a ``StepFault`` from the pipelined step (a dead, hung or
+silent worker, a worker's error post, a transient pool or tier fault),
+heals it (a grace window for a suspected worker, then quiesce, fail over
+the dead and hung, re-prefill every live row from token history) and
+retries the same step with the same tokens: sampling draws only after a
+step returns, so the retry is token-exact.  ``chaos=FaultPlan(...)``
+injects faults at the named sites of ``chaos.FAULT_SITES``;
+``fault_events``, ``fault_count`` / ``recovered_count`` and ``mttr_s``
+record them.  On the card ``suspect_after_s`` must exceed the longest
+R-side graph capture of a step, or a capturing worker reads as hung.
 """
 from __future__ import annotations
 
@@ -74,7 +90,8 @@ from repro_torch.core import perfmodel as P
 from repro_torch.core.config import (ATTN, DEC_XATTN, XATTN, ModelConfig,
                                      check_supported)
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
-                                     batch_slice, per_layer_state)
+                                     StepFault, batch_slice,
+                                     per_layer_state)
 from repro_torch.core.schedule import (LoadController, microbatch_size,
                                        w_prime_max)
 from repro_torch.device import resolve_device
@@ -85,8 +102,6 @@ from repro_torch.serving.paged_cache import HostTier, TierConfig
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import sample, spec_accept
 
-# ServingEngine options of the JAX package that this slice does not port
-_NOT_IN_SLICE = ("fleet", "chaos")
 _ADMISSIONS = ("greedy", "sls", "loadctl")
 
 
@@ -103,17 +118,19 @@ class StepRecord:
     chunked prefill: queueing the chunks, the chunk work inside the
     pipelined step that held no decode micro-batch back, and the landing
     of the chunks' results), ``decode_wall`` the decode step and its
-    sampling."""
+    sampling (a supervised retry's healing included), ``fleet_wall`` the
+    fleet's pre- and post-step hooks (recovery, migration, snapshots)."""
     step: int
     prefill_wall: float
     decode_wall: float
+    fleet_wall: float
     active: int
     resident_len: int
     admitted: int
 
     @property
     def wall(self) -> float:
-        return self.prefill_wall + self.decode_wall
+        return self.prefill_wall + self.decode_wall + self.fleet_wall
 
 
 @dataclass
@@ -217,22 +234,18 @@ class ServingEngine:
                  schedule: str = "ooo", collect_timeout_s: float = 600.0,
                  prefill_chunk: int = 0, prefix_cache: bool = False,
                  kv_tiering=None, spec_decode: Optional[SpecConfig] = None,
-                 preempt_after: int = 0, observability=False, device=None,
-                 **not_ported):
-        unknown = set(not_ported) - set(_NOT_IN_SLICE)
-        if unknown:
-            raise TypeError(f"unexpected keyword argument(s) "
-                            f"{sorted(unknown)}")
-        asked = sorted(k for k, v in not_ported.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"{asked} not ported yet — queued in ROADMAP.md")
+                 preempt_after: int = 0, observability=False,
+                 fleet=None, chaos=None, suspect_after_s: float = 120.0,
+                 suspect_strikes: int = 2, max_step_retries: int = 4,
+                 retry_backoff_s: float = 0.02, device=None):
         if admission not in _ADMISSIONS:
             raise ValueError(f"admission must be one of {_ADMISSIONS}, got "
                              f"{admission!r}")
         if backend not in ("colocated", "hetero"):
             raise ValueError(
                 f"backend must be 'colocated' or 'hetero', got {backend!r}")
+        if fleet is not None and backend != "hetero":
+            raise ValueError("fleet management requires backend='hetero'")
         # KV lifecycle tiering: True (default TierConfig), a TierConfig, or
         # a ready HostTier.  Implies prefix_cache: the tier is keyed by its
         # digest chains
@@ -349,6 +362,23 @@ class ServingEngine:
         # None after a speculative step, whose logits are those of the
         # verify works, engine.prefill_results)
         self.last_logits: Optional[torch.Tensor] = None
+        self.fleet = fleet
+        # self-healing supervision: chaos is the (optional) fault plan
+        # injected into every layer below; the retry / failover loop runs
+        # regardless (real faults need no plan)
+        self.chaos = chaos
+        self.max_step_retries = max(0, int(max_step_retries))
+        self.retry_backoff_s = max(0.0, float(retry_backoff_s))
+        self.faults = 0
+        self.recoveries = 0
+        # one dict per detected fault ({step, attempt, kind, implicated,
+        # lost, transient, msg}) and per recovery ({step, kind
+        # "recovered", attempts, mttr_s}); workers the grace window spared
+        self.fault_events: List[Dict[str, Any]] = []
+        self.spared_workers = 0
+        self.replayed_rows = 0          # rows re-prefilled by recoveries
+        if self.kv_tier is not None and chaos is not None:
+            self.kv_tier.chaos = chaos
         if backend == "hetero":
             self.engine = HeteroPipelineEngine(
                 params, cfg, batch=batch, cache_len=cache_len,
@@ -359,9 +389,12 @@ class ServingEngine:
                 pages_per_worker=pages_per_worker, schedule=schedule,
                 collect_timeout_s=collect_timeout_s,
                 prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
-                device=self.device)
+                fleet=fleet, chaos=chaos, suspect_after_s=suspect_after_s,
+                suspect_strikes=suspect_strikes, device=self.device)
             self.num_mb = num_microbatches
             self.mb_size = batch // num_microbatches
+            # stall messages name the in-flight rids of each micro-batch
+            self.engine.rids_of = self._rids_of_mb
             for mb in range(self.num_mb):
                 self._hetero_init_empty(mb)
         else:
@@ -398,6 +431,9 @@ class ServingEngine:
                 w_lim=w_lim, seq_len=s)
         else:
             self.load_ctl = None
+        self._w_lim0 = w_lim if self.load_ctl is not None else None
+        self._topo_seen = (tuple(self.engine.slices)
+                           if backend == "hetero" else None)
 
         # observability: off by default, and then every hook is one
         # ``self.obs is None`` test.  True enables the defaults; an ObsConfig
@@ -1158,12 +1194,34 @@ class ServingEngine:
                                             counts, verify=True)
 
     def _spec_verify(self, live, drafts) -> List:
-        """Run the queued verify chunks in one chunk-only pipelined step;
-        returns the verify works (their logits [mb_size, k+1, V])."""
-        if live:
-            self._spec_queue_verify(live, drafts)
-        self.engine.decode_step(None)
-        return [wk for wk in self.engine.prefill_results if wk.verify]
+        """Run the queued verify (and any prefill) chunks in one chunk-only
+        pipelined step under the step supervisor; returns the verify works
+        (their logits [mb_size, k+1, V]).  On a StepFault the healer
+        re-prefills every live row from token history (discarding any
+        orphaned candidate appends) and the verify work is re-queued and
+        re-run token-exactly: drafts are fixed by the drafter state and the
+        sampling generator is untouched until commit.  The ``verify`` chaos
+        site aborts after the candidates' KV append, before commit."""
+        attempt, t_first = 0, 0.0
+        while True:
+            if live:
+                self._spec_queue_verify(live, drafts)
+            try:
+                self.engine.decode_step(None)
+                if self.chaos is not None and live \
+                        and self.chaos.fire("verify", step=self.step_idx):
+                    raise StepFault(
+                        "chaos: verify step aborted before commit",
+                        transient=True, step_no=self.step_idx)
+            except StepFault as fault:
+                if attempt == 0:
+                    t_first = time.monotonic()
+                attempt += 1
+                self._heal_step_fault(fault, attempt)
+                continue
+            if attempt:
+                self._note_recovered(attempt, time.monotonic() - t_first)
+            return [wk for wk in self.engine.prefill_results if wk.verify]
 
     def _spec_commit_drafter(self, feeds: Dict[int, List[int]]) -> None:
         """Advance the drafter through each surviving row's committed
@@ -1287,8 +1345,247 @@ class ServingEngine:
         return emitted
 
     # ------------------------------------------------------------------ #
+    # fleet hooks: exact re-prefill of lost rows, admission re-costing and
+    # prefix re-indexing after a topology change
+    # ------------------------------------------------------------------ #
+    def _replay_rows(self, rows) -> int:
+        """Recompute lost R-state exactly by running prefill on the token
+        history of the live sequences among global ``rows`` (the lost KV
+        is a deterministic function of it), through ``write_rows``, which
+        resets each row's table and length (paged) or its whole slab row
+        (dense).  The last sampled token stays in ``_last_tok``: it has not
+        been appended to any KV yet.  A half-prefilled sequence replays
+        its streamed prefix (``prefill_pos`` tokens)."""
+        live = [(int(r), self.slots[int(r)]) for r in rows
+                if self.slots[int(r)] is not None]
+        live = [(r, req) for r, req in live
+                if req.status is not Status.PREFILLING
+                or req.prefill_pos > 0]       # nothing streamed yet
+        if not live or self.backend != "hetero":
+            return 0
+        lens = [req.prefill_pos if req.status is Status.PREFILLING
+                else req.feed_len - 1 for _, req in live]
+        n_pad = _pad_pow2(len(live))
+        s_pad = _pad_pow2(max(lens), 8)
+        toks = np.zeros((n_pad, s_pad), np.int32)
+        plens = np.zeros((n_pad,), np.int32)
+        for i, ((_, req), ln) in enumerate(zip(live, lens)):
+            toks[i, :ln] = req.feed_tokens[:ln]
+            plens[i] = ln
+        _, sub = M.prefill(
+            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(plens).to(self.device), self.cache_len)
+        self._hetero_scatter(np.asarray([r for r, _ in live]), sub,
+                             np.arange(len(live)))
+        self.replayed_rows += len(live)
+        return len(live)
+
+    def _recost_admission(self, weight_frac: float) -> None:
+        """The surviving fleet does R-Part work at ``weight_frac`` of the
+        planned rate: scale Algorithm 1's peak bound with it (paged page
+        budgets re-cost themselves from the live allocators)."""
+        if self.load_ctl is not None and self._w_lim0 is not None:
+            self.load_ctl.w_lim = self._w_lim0 * max(0.0, weight_frac)
+
+    def _reregister_prefixes(self) -> None:
+        """A migration or recovery rebuilt the changed workers'
+        allocators, dropping their prefix indexes (the per-row wire format
+        un-shares pages): re-index every live row's written chain so later
+        admissions share again."""
+        for row, r in enumerate(self.slots):
+            if r is None:
+                continue
+            n = (r.prefill_pos if r.status is Status.PREFILLING
+                 else r.feed_len - 1)   # the last sampled token is unwritten
+            if n > 0:
+                self.engine.register_prefix(row, r.feed_tokens[:n])
+
+    # ------------------------------------------------------------------ #
+    # the step supervisor: decode_step aborts with a typed StepFault after
+    # fencing the sink; this layer owns the token history, so it rebuilds
+    # a consistent KV state and retries the SAME step with the SAME tokens
+    # (the sampling generator is drawn from only after a step returns)
+    # ------------------------------------------------------------------ #
+    def _rids_of_mb(self, mb: int) -> List[int]:
+        """Request ids resident in micro-batch ``mb`` (for the pipelined
+        engine's stall messages)."""
+        lo = int(mb) * self.mb_size
+        return [r.rid for r in self.slots[lo:lo + self.mb_size]
+                if r is not None]
+
+    def _decode_supervised(self, toks) -> torch.Tensor:
+        """The pipelined decode step under the supervisor: on a StepFault,
+        heal and retry until the step lands or the retry budget is spent.
+        Other exceptions propagate untouched: they are bugs, not faults."""
+        split = [toks[m * self.mb_size:(m + 1) * self.mb_size]
+                 for m in range(self.num_mb)]
+        attempt, t_first = 0, 0.0
+        while True:
+            try:
+                parts = self.engine.decode_step(split)
+            except StepFault as fault:
+                if attempt == 0:
+                    t_first = time.monotonic()
+                attempt += 1
+                self._heal_step_fault(fault, attempt)
+                continue
+            if attempt:
+                self._note_recovered(attempt, time.monotonic() - t_first)
+            return torch.cat(parts, dim=0)
+
+    def _heal_step_fault(self, fault: StepFault, attempt: int) -> None:
+        """One recovery round for an aborted step.  Re-raises when the
+        fault cannot be healed (a deterministic worker error, no survivor
+        to adopt rows, the retry budget spent)."""
+        self.faults += 1
+        implicated = tuple(sorted(set(fault.dead_wids)
+                                  | set(fault.hung_wids)))
+        self.fault_events.append({
+            "step": self.step_idx, "attempt": attempt,
+            "kind": type(fault).__name__, "implicated": list(implicated),
+            "lost": list(fault.lost_wids),
+            "transient": bool(fault.transient), "msg": str(fault)})
+        if self.obs is not None:
+            self.obs.faults.inc()
+            for r in self.slots:
+                if r is not None:
+                    r.mark("fault", self.step_idx)
+        if self.fleet is not None:
+            self.fleet.telemetry.record_event(
+                self.step_idx, "fault", fault_kind=type(fault).__name__,
+                attempt=attempt, implicated=list(implicated),
+                transient=bool(fault.transient))
+        # a deterministic worker-side error (no dead or hung worker, not
+        # transient) would fail the same way again: surface it
+        if fault.wid is not None and not fault.transient \
+                and not implicated:
+            raise fault
+        if attempt > self.max_step_retries:
+            raise fault
+        # suspicion is not conviction: a worker flagged hung may only be
+        # stalled on one slow item.  Grant a grace window, which a real
+        # hang outlasts and a straggler does not, and spare a worker that
+        # finishes its item or shows a fresh heartbeat: that costs the
+        # step's retry, not a failover
+        to_remove = []
+        grace = max(self.engine.suspect_after_s, 0.05)
+        for wid in implicated:
+            w = next((w for w in self.engine.workers if w.wid == wid), None)
+            if w is None:
+                continue                    # already failed over
+            if wid in fault.hung_wids and w.is_alive():
+                deadline = time.monotonic() + grace
+                spared = False
+                while time.monotonic() < deadline:
+                    if not w.processing or (time.monotonic()
+                                            - w.heartbeat) <= grace:
+                        spared = True
+                        break
+                    time.sleep(0.01)
+                if spared:
+                    self.spared_workers += 1
+                    continue
+            to_remove.append(wid)
+        # survivors may still run stale items of the aborted step: their
+        # posts are fenced off, their KV appends are not, so wait for
+        # quiescence before exporting or overwriting any state
+        self._quiesce_workers(skip=to_remove)
+        for wid in to_remove:
+            widx = next((i for i, w in enumerate(self.engine.workers)
+                         if w.wid == wid), None)
+            if widx is None:
+                continue
+            self.engine.workers[widx].kill()
+            if len(self.engine.workers) <= 1:
+                raise fault      # no survivor to adopt its rows
+            if self.fleet is not None:
+                self.fleet.handle_failure(
+                    widx, reprefill=self._replay_rows,
+                    on_topology=self._recost_admission)
+            else:
+                self.engine.remove_worker(widx)
+        if not to_remove:
+            # transient (a dropped completion, a pool or tier hiccup, a
+            # spared straggler): a short escalating backoff
+            time.sleep(min(0.5,
+                           self.retry_backoff_s * (2 ** (attempt - 1))))
+        self._resync_after_fault()
+
+    def _quiesce_workers(self, skip=(), timeout_s: float = 5.0) -> None:
+        """Wait (bounded) until the live workers have drained their inboxes
+        and stepped off any item; each worker finishes its stream before it
+        posts or fails, so then no device work of theirs is in flight.
+        Implicated workers are skipped: a hung one would pin the wait."""
+        deadline = time.monotonic() + timeout_s
+        for w in self.engine.workers:
+            if w.wid in skip or not w.is_alive():
+                continue
+            while ((not w.inq.empty() or w.processing)
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+
+    def _resync_after_fault(self) -> None:
+        """Rebuild a cross-layer-consistent KV state after an aborted step
+        (some layers hold its append, some not): re-prefill EVERY live row
+        from token history (orphaned appends overwritten, tables and
+        lengths reset), then re-arm chunked prefill from each sequence's
+        streamed position."""
+        rows = [r for r, req in enumerate(self.slots) if req is not None]
+        if rows:
+            self._replay_rows(rows)
+        if self.spec is not None:
+            # the drafter (S-side) was not touched by the fault; a resync
+            # of every row keeps draft and verify on the same histories
+            self._spec_dirty.update(rows)
+        fresh = [r for r, req in enumerate(self.slots)
+                 if req is not None and req.status is Status.PREFILLING
+                 and req.prefill_pos == 0]
+        if fresh:
+            self.engine.begin_prefill_rows(fresh)
+        if self._uses_chunks:
+            # the aborted step consumed the queued chunks without applying
+            # their progress: requeue from prefill_pos
+            self.engine._prefill_inbox.clear()
+            self._queue_prefill_chunks()
+
+    def _note_recovered(self, attempts: int, mttr_s: float) -> None:
+        self.recoveries += 1
+        self.fault_events.append({
+            "step": self.step_idx, "kind": "recovered",
+            "attempts": attempts, "mttr_s": mttr_s})
+        if self.obs is not None:
+            self.obs.recovered.inc()
+            self.obs.mttr.observe(mttr_s)
+            for r in self.slots:
+                if r is not None:
+                    r.mark("recovered", self.step_idx)
+        if self.fleet is not None:
+            self.fleet.telemetry.record_event(
+                self.step_idx, "recovered", attempts=attempts,
+                mttr_s=mttr_s)
+
+    # ------------------------------------------------------------------ #
     def step(self) -> StepRecord:
         pc = time.perf_counter
+        fleet_wall = 0.0
+        if self.fleet is not None:
+            t0 = pc()
+            self.fleet.pre_step(reprefill=self._replay_rows,
+                                on_topology=self._recost_admission)
+            fleet_wall += pc() - t0
+        if self.backend == "hetero":
+            topo = tuple(self.engine.slices)
+            if topo != self._topo_seen:
+                self._topo_seen = topo
+                if self.prefix_cache:
+                    # a migration or recovery rebuilt allocators: re-index
+                    # live rows' prompts before this step's probes
+                    self._reregister_prefixes()
+                if self.obs is not None:
+                    for r in self.slots:
+                        if r is not None:
+                            r.mark("migrated", self.step_idx)
+                            self.obs.migrated.inc()
         t0 = pc()
         n = self._admit_count()
         if self.preempt_after and self.paged_kv:
@@ -1321,14 +1618,12 @@ class ServingEngine:
             self.last_logits = None
             decode_wall = pc() - t0
             prefill_wall += self._land_prefill_chunks()
-            return self._record(n, prefill_wall, decode_wall, emitted)
+            return self._record(n, prefill_wall, decode_wall, emitted,
+                                fleet_wall)
         toks = torch.from_numpy(self._last_tok[:, None].copy()).to(
             self.device)
         if self.backend == "hetero":
-            parts = self.engine.decode_step(
-                [toks[m * self.mb_size:(m + 1) * self.mb_size]
-                 for m in range(self.num_mb)])
-            logits = torch.cat(parts, dim=0)
+            logits = self._decode_supervised(toks)
         else:
             logits = self.engine.decode_step(toks)
         self.last_logits = logits
@@ -1359,7 +1654,8 @@ class ServingEngine:
             if reason is not None:
                 self._finish_row(i, r, reason)
         prefill_wall += self._land_prefill_chunks()
-        return self._record(n, prefill_wall, decode_wall, emitted)
+        return self._record(n, prefill_wall, decode_wall, emitted,
+                            fleet_wall)
 
     def _land_prefill_chunks(self) -> float:
         """After the token loop (a sequence whose last chunk landed this
@@ -1372,7 +1668,12 @@ class ServingEngine:
         return time.perf_counter() - t0
 
     def _record(self, admitted: int, prefill_wall: float,
-                decode_wall: float, emitted: int) -> StepRecord:
+                decode_wall: float, emitted: int,
+                fleet_wall: float) -> StepRecord:
+        if self.fleet is not None:
+            t0 = time.perf_counter()
+            self.fleet.post_step(self.step_idx)
+            fleet_wall += time.perf_counter() - t0
         obs = self.obs
         if obs is not None and obs.drift is not None:
             obs.drift.observe_step(
@@ -1380,7 +1681,7 @@ class ServingEngine:
                 step_stats=self.engine.step_stats,
                 num_workers=len(self.engine.workers))
         rec = StepRecord(self.step_idx, prefill_wall, decode_wall,
-                         sum(r is not None for r in self.slots),
+                         fleet_wall, sum(r is not None for r in self.slots),
                          self.resident_len(), admitted)
         self.records.append(rec)
         self.step_idx += 1
@@ -1396,9 +1697,13 @@ class ServingEngine:
         (dispatch / collect / S-dispatch / R-wait seconds, step count);
         empty for the colocated backend.  Schema keys (``steps_count``
         ...), the legacy spellings (``steps``, ``ooo_advances``) still
-        resolve."""
-        return schema.normalize(
-            dict(getattr(self.engine, "step_stats", {}) or {}))
+        resolve.  After a topology change it also counts the graphs the
+        changed workers re-captured and their seconds (``recapture_count``,
+        ``recapture_s``)."""
+        out = dict(getattr(self.engine, "step_stats", {}) or {})
+        if self.backend == "hetero" and self.engine.topology_changes:
+            out.update(self.engine.recapture_stats())
+        return schema.normalize(out)
 
     def prefix_cache_stats(self) -> Dict[str, float]:
         """Admission-level hit counters plus allocator-level sharing state
@@ -1450,10 +1755,8 @@ class ServingEngine:
         out["active_count"] = float(sum(r is not None for r in self.slots))
         out["resident_tokens"] = float(self.resident_len())
         out["preemptions_count"] = float(self.preemptions)
-        # the step supervisor's faults and recoveries: 0 until the chaos
-        # harness is ported (the key set stays the JAX engine's)
-        out["fault_count"] = 0.0
-        out["recovered_count"] = 0.0
+        out["fault_count"] = float(self.faults)
+        out["recovered_count"] = float(self.recoveries)
         for k, v in self.hotpath_stats().items():
             out[f"hotpath_{k}"] = float(v)
         if self.prefix_cache:
@@ -1462,6 +1765,10 @@ class ServingEngine:
         if self.kv_tier is not None:
             for k, v in self.tiering_stats().items():
                 out[f"tier_{k}"] = float(v)
+        if self.fleet is not None:
+            for k, v in schema.normalize(
+                    self.fleet.telemetry.summary()).items():
+                out[f"fleet_{k}"] = float(0.0 if v is None else v)
         return schema.StatsDict(out)
 
     def export_trace(self, path: str) -> str:
@@ -1508,4 +1815,5 @@ class ServingEngine:
         if self.backend == "hetero":
             self.engine.close()
         if self.spec is not None:
-            self._draft_graph = self._commit_graph = None
+            with graphs.dropping():
+                self._draft_graph = self._commit_graph = None

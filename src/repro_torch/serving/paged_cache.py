@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.chaos.checksum import ChecksumError, payload_checksum
+from repro_torch.chaos.plan import ChaosIOError, ChaosPoolExhausted
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -179,17 +180,16 @@ class HostTier:
     (``stats['sim_seconds']``) instead of sleeping; the copies the port
     really makes are timed by the allocator (``copy_stats``).  Thread-
     safe: R-worker threads swap out during decode growth while the engine
-    thread restores at admission.  Fault injection (``chaos``) is not
-    ported yet (ROADMAP.md)."""
+    thread restores at admission.  ``chaos`` (a ``chaos.FaultPlan``)
+    arms ``tier_put`` and ``tier_get`` (injected I/O failures, at the TOP
+    of ``put`` / ``pop``, before any state changes) and ``tier_corrupt``
+    (bit rot after the checksum is stamped)."""
 
     def __init__(self, cfg: Optional[TierConfig] = None, chaos: Any = None):
-        if chaos is not None:
-            raise NotImplementedError(
-                "HostTier(chaos=...) is not ported yet — queued in "
-                "ROADMAP.md with the chaos harness")
         self.cfg = cfg or TierConfig()
         self.entries: "OrderedDict[bytes, TierEntry]" = OrderedDict()
         self._lock = threading.RLock()
+        self.chaos = chaos
         self.stats = {"swapped_out": 0, "restored": 0, "spilled": 0,
                       "dropped": 0, "bytes_out": 0, "bytes_in": 0,
                       "put_failed": 0, "get_failed": 0, "corrupt": 0,
@@ -205,8 +205,15 @@ class HostTier:
         pools can park the same chain; identical digests carry identical
         bytes).  A full DRAM tier spills its LRU entries to disk; payloads
         are never dropped."""
+        if self.chaos is not None and self.chaos.fire("tier_put"):
+            with self._lock:
+                self.stats["put_failed"] += 1
+            raise ChaosIOError("injected host-tier write failure")
         if not entry.checksum:
             entry.checksum = payload_checksum(entry.payload)
+        if self.chaos is not None and self.chaos.fire("tier_corrupt"):
+            # bit rot AFTER the checksum was stamped: pop() detects it
+            entry.payload = self.chaos.corrupt_tree(entry.payload)
         with self._lock:
             nbytes = _payload_nbytes(entry.payload)
             self.stats["swapped_out"] += 1
@@ -237,6 +244,10 @@ class HostTier:
         checksum, and account the restore at the entry's tier bandwidth.
         A corrupted entry is removed and raises ChecksumError (the caller
         treats it as a miss)."""
+        if self.chaos is not None and self.chaos.fire("tier_get"):
+            with self._lock:
+                self.stats["get_failed"] += 1
+            raise ChaosIOError("injected host-tier read failure")
         with self._lock:
             for d in entry.digests:
                 self.entries.pop(d, None)
@@ -299,8 +310,14 @@ class PagedAllocator:
 
     def __init__(self, rows: int, num_pages: int, page: int,
                  max_pages_per_seq: int, prefix_cache: bool = False,
-                 tier: Optional[HostTier] = None, device=None):
+                 tier: Optional[HostTier] = None, chaos: Any = None,
+                 device=None):
         self.rows, self.num_pages, self.page = rows, num_pages, page
+        # a chaos.FaultPlan (or None): the "pool" site injects TRANSIENT
+        # exhaustion into growth, which propagates to the worker's error
+        # post and the step supervisor (not a MemoryError: the real
+        # exhaustion fallback would freeze the row)
+        self.chaos = chaos
         self.max_pages = max_pages_per_seq
         self.device = resolve_device(device)
         self.tables = np.full((rows, max_pages_per_seq), -1, np.int32)
@@ -388,6 +405,44 @@ class PagedAllocator:
                 pass
         self.prefix.drop_page(pid)
         return pid
+
+    def swap_out_all_parked(self) -> int:
+        """Flush every parked page to the host tier: the pre-migration
+        hook (a topology change drops this allocator and its pools, so
+        device-resident parked KV must cross to the engine-global tier to
+        survive).  Returns the pages swapped; they land on the free list."""
+        n = 0
+        for pid in list(self.parked):
+            self.free.append(self._swap_out(pid))
+            n += 1
+        return n
+
+    def flush_parked_to_tier(self) -> int:
+        """COPY every parked page's bytes to the host tier without evicting
+        it: the KV-snapshot transport, so a worker that later dies abruptly
+        still leaves its parked chains restorable.  Device state is
+        untouched; a later real swap-out of the same digests is
+        deduplicated by the tier (first content wins; a digest match
+        implies the same tokens and so the same bytes)."""
+        if self.tier is None or self.pool_reader is None \
+                or not self.parked:
+            return 0
+        pools = self.pool_reader()
+        if not pools:
+            return 0
+        n = 0
+        for pid in self.parked:
+            digests = set(self.prefix.page_digests.get(pid, ()))
+            if not digests:
+                continue
+            try:
+                self.tier.put(TierEntry(digests=digests,
+                                        payload=self._read_page(pools, pid),
+                                        tokens=self.page))
+            except Exception:
+                continue    # the snapshot copy is lost; the page is not
+            n += 1
+        return n
 
     def _ensure_row(self, row: int, new_len: int) -> bool:
         need = -(-new_len // self.page)
@@ -573,8 +628,12 @@ class PagedAllocator:
         is clamped to the per-sequence capacity and a pool-exhausted grow
         freezes the row (its further writes are dropped) instead of
         failing the step; admission bounds make neither reachable under
-        admitted load."""
+        admitted load.  The ``pool`` chaos site raises
+        ``ChaosPoolExhausted`` before anything changes."""
         cap = self.max_pages * self.page
+        if self.chaos is not None and self.chaos.fire("pool"):
+            raise ChaosPoolExhausted(
+                "injected transient pool exhaustion (decode growth)")
         changed = False
         rows = self.active & ~self.frozen
         if mask is not None:
@@ -597,8 +656,12 @@ class PagedAllocator:
         (re-)admitted fresh: a previous occupant's pages are released
         first.  A suffix starting inside an adopted (shared) page CoWs it.
         Rows with counts == 0 are untouched.  Pool exhaustion freezes the
-        row as decode-time growth does."""
+        row as decode-time growth does; the ``pool`` chaos site raises
+        first, as there."""
         cap = self.max_pages * self.page
+        if self.chaos is not None and self.chaos.fire("pool"):
+            raise ChaosPoolExhausted(
+                "injected transient pool exhaustion (chunk append)")
         changed = False
         for row in np.nonzero(np.asarray(counts) > 0)[0]:
             row = int(row)

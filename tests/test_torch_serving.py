@@ -259,40 +259,62 @@ def test_paged_admission_cap_and_errors_like_reference(setup):
         teng.close()
 
 
-def test_not_ported_options_raise():
-    tc = ModelConfig(**dataclasses.asdict(tiny_cfg("llama-7b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      fleet=4)
-    # int8 storage, chunked prefill, speculative decoding, sampling, the
-    # prefix cache, tiering and preemption, the admission schedules and
-    # observability are ported (their own test files: the sls/loadctl and
-    # observability twins are tests/test_torch_admission.py and
-    # tests/test_torch_obs.py): they are taken, with the rest still
-    # refused beside them
-    with pytest.raises(NotImplementedError, match="chaos"):
-        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      quantized_kv=True, chaos=True)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      backend="hetero", prefill_chunk=4, paged_kv=True,
-                      prefix_cache=True, kv_tiering=True, preempt_after=2,
-                      observability=True, fleet=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      admission="sls", target_len=4, interval=2,
-                      chaos=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine.from_plan({}, tc, seq_len=8, admission="loadctl",
-                                target_len=4, w_lim=10.0, fleet=object(),
-                                device="cpu")
-    with pytest.raises(TypeError):
-        ServingEngine({}, tc, batch=2, cache_len=8, device="cpu",
-                      no_such_option=1)
-    # the host tier's fault injection waits for the chaos harness
+def test_engine_constructor_validation(setup):
+    """The port's twin of test_fleet.py::test_engine_constructor_validation."""
+    from repro_torch.core.hetero import ColocatedEngine, HeteroPipelineEngine
+    jc, tc, jp, tp, spec, want = setup
+    with pytest.raises(ValueError, match="divisible"):
+        HeteroPipelineEngine(tp, tc, batch=5, cache_len=16,
+                             num_microbatches=2, device="cpu")
+    with pytest.raises(ValueError, match="micro-batch size"):
+        HeteroPipelineEngine(tp, tc, batch=4, cache_len=16,
+                             num_r_workers=3, num_microbatches=2,
+                             device="cpu")
+    with pytest.raises(ValueError, match="num_r_workers"):
+        HeteroPipelineEngine(tp, tc, batch=4, cache_len=16,
+                             num_r_workers=0, device="cpu")
+    with pytest.raises(ValueError):
+        ColocatedEngine(tp, tc, batch=0, cache_len=16, device="cpu")
+
+
+def test_serving_constructor_validation(setup):
+    """The port's twin of test_fleet.py::test_serving_constructor_validation:
+    every option of the JAX engine is taken now (fleet and chaos were the
+    last), an unknown one is a TypeError, and fleet management refuses the
+    colocated backend."""
+    from repro_torch.chaos import FaultPlan
+    from repro_torch.fleet import FleetManager, uniform_fleet
     from repro_torch.serving.paged_cache import HostTier
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HostTier(chaos=object())
+    jc, tc, jp, tp, spec, want = setup
+    with pytest.raises(ValueError, match="backend"):
+        ServingEngine(tp, tc, batch=2, cache_len=16, backend="gpu",
+                      device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        ServingEngine(tp, tc, batch=3, cache_len=16, backend="hetero",
+                      device="cpu")
+    with pytest.raises(ValueError, match="hetero"):
+        ServingEngine(tp, tc, batch=2, cache_len=16,
+                      fleet=FleetManager(uniform_fleet(2)), device="cpu")
+    with pytest.raises(TypeError):
+        ServingEngine(tp, tc, batch=2, cache_len=8, device="cpu",
+                      no_such_option=1)
+    with pytest.raises(TypeError):
+        ServingEngine.from_plan(tp, tc, seq_len=8, no_such_option=1,
+                                device="cpu")
+    plan = FaultPlan()
+    assert HostTier(chaos=plan).chaos is plan
+    eng = ServingEngine(tp, tc, batch=4, cache_len=16, backend="hetero",
+                        paged_kv=True, kv_tiering=True, chaos=plan,
+                        fleet=FleetManager(uniform_fleet(2)),
+                        suspect_after_s=5.0, max_step_retries=1,
+                        device="cpu")
+    try:
+        assert eng.kv_tier.chaos is plan and eng.engine.chaos is plan
+        assert eng.fleet.engine is eng.engine
+        assert eng.engine.suspect_after_s == 5.0
+        assert len(eng.engine.workers) == 2
+    finally:
+        eng.close()
 
 
 def test_serving_engine_refuses_cuda_without_it(setup):
