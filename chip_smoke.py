@@ -18,6 +18,7 @@ Phases (any failure exits nonzero):
               kernel (paged flash-decode; dense flash-decode in bf16/fp32
               and with int8 K/V, the latter also through its paged
               entry and its multi-token paged entry, the int8 verify,
+              the paged kernels at G = Hq / Hkv 1, 4, 7 and 8,
               whose T = 1 must equal the paged entry bitwise; the paged
               multi-token verify, whose T = 1 must equal paged
               flash-decode bitwise) against its plain PyTorch
@@ -26,8 +27,9 @@ Phases (any failure exits nonzero):
               the main path's shape and at a bandwidth shape beside its
               bound, its plain version and a library yardstick, in a host
               loop and replayed from a CUDA graph, with the split plan it
-              used; times the one-call paged-int8 op against the gather +
-              kernel 3 chain it replaced.
+              used (kernel 1 also at llama-13b's and opt-175b's serve
+              shapes); times the one-call paged-int8 op against the
+              gather + kernel 3 chain it replaced.
   compare     (only with --v1-source) the first version of kernels 1 and
               4 against this tree's, timed in turns v1, v2, v2, v1 at both
               shapes with SDPA between, and a sweep of split plans.
@@ -150,6 +152,29 @@ Phases (any failure exits nonzero):
               healed by the step supervisor: every fault fired, every
               request finished; fault_events, MTTR, re-prefilled rows and
               tokens/s beside the chaos-off serve, tokens triaged.
+  serve_eval  the paper's evaluation models served as ``serve``'s graph
+              run serves Qwen3-8B (same trace, engine and checks, one
+              profiled window each): llama-13b at full width and depth
+              (40 layers), then opt-175b at full width cut to 8 of its
+              96 layers (the cut is on the phase's line); Qwen3-8B is
+              freed first.
+  static_eval llama-13b at full size through the static-batch API as
+              the JAX package's benches drive it: HeteroPipelineEngine(
+              batch=8, num_microbatches=2, num_r_workers=2, paged_kv=True,
+              cache_len=1024), load_prefill of 512-token prompts per
+              micro-batch, reset_step_stats, 16 steps of decode_step, of
+              decode_step_legacy and of decode_step with
+              profile_timing=True, beside ColocatedEngine.load_prefill + 16
+              decode_steps: load wall, tokens/s, step p50, step_stats per
+              step and worker busy times; kernel 1's count exact on every
+              hetero run; legacy and profile_timing tokens equal the fused
+              step's (a bf16 difference triaged); the §4.3 prediction
+              for the same batch beside them.
+  equiv_eval  fp32 at 2 layers of llama-13b's, opt-175b's and
+              deepseek-coder-33b's (G = 7) width: hetero paged == colocated
+              and graphs == eager in the serve; load_prefill +
+              decode_step == decode_step_legacy == the two alternated ==
+              ColocatedEngine.load_prefill + decode_step, graphs == eager.
   equiv_fleet at 2 layers, fp32: apply_partition to an uneven split and
               back on four storages (wire payloads bit for bit, tokens ==
               colocated), re-prefill and snapshot recovery == colocated,
@@ -211,6 +236,10 @@ KERNELS = {
 # may differ by one rounding step, at most 2^-7 of |want|; one dropped
 # key among 512 moves an output by ~2e-3, far beyond atol.
 TOL = {"bfloat16": (1e-4, 2.0 ** -7), "float32": (1e-5, 0.0)}
+# the group sizes G = Hq / Hkv the paged cases cover, each with its
+# kv-head count: 1 (llama-13b, opt-175b), 4 (Qwen3-8B), 7
+# (deepseek-coder-33b: no power of two) and 8 (deepseek-67b)
+G_HKV = {1: 8, 4: 2, 7: 2, 8: 2}
 
 
 def tol_check(out, want, dtype_name: str):
@@ -317,7 +346,7 @@ def _paged_case(gen, *, b, hq, hkv, dh, page, mp, lengths, dtype, dev,
 
 
 def kernel_checks(dev) -> dict:
-    """Kernel 1 against its plain version: G 1 and 4, page 4 and 16, bf16
+    """Kernel 1 against its plain version: G 1, 4, 7 and 8, page 4 and 16, bf16
     and fp32, ragged rows, a -1 hole, a shared page and an all-unmapped
     row (exactly 0); window + sink and softcap cases; and the long
     multi-split cases of ``long_cases``, each repeated bitwise."""
@@ -330,9 +359,8 @@ def kernel_checks(dev) -> dict:
     cases = []
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for g in (1, 4):
+        for g, hkv in G_HKV.items():
             for page in (4, 16):
-                hkv = 8 // g if g < 8 else 1
                 lengths = [37, 5, 0, 63, 20]
                 cases.append(dict(
                     name=f"{dtype_name}-G{g}-page{page}", dtype=dtype,
@@ -426,7 +454,7 @@ def long_cases(dtype_name, *, t) -> list:
 
 def verify_checks(dev) -> dict:
     """Kernel 4 against its plain version: T 1, 2 and 4 candidate tokens,
-    G 1 and 4, page 4 and 16, Dh 64 and 128, bf16 and fp32, with ragged
+    G 1, 4, 7 and 8, page 4 and 16, Dh 64 and 128, bf16 and fp32, with ragged
     rows, a -1 hole, a shared page and an all-unmapped row (no valid key:
     exactly 0); window + sink and softcap cases; the long multi-split
     cases of ``long_cases`` at T 1 and 4, each repeated bitwise; and T = 1
@@ -440,10 +468,9 @@ def verify_checks(dev) -> dict:
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
         for t in (1, 2, 4):
-            for g in (1, 4):
+            for g, hkv in G_HKV.items():
                 for page in (4, 16):
                     for dh in (64, 128):
-                        hkv = 8 // g
                         cases.append(dict(
                             name=f"{dtype_name}-T{t}-G{g}-page{page}-dh{dh}",
                             dtype=dtype, t=t,
@@ -783,7 +810,7 @@ def slab_checks(dev) -> dict:
 def paged_int8_checks(dev) -> dict:
     """Kernel 3's paged addressing against ``ref.paged_decode_attention_
     int8_ref`` (the gather chain, on q.float() for a bf16 q) on the tables
-    kernel 1's cases use: G 1 and 4, page 4 and 16, ragged rows, a -1
+    kernel 1's cases use: G 1, 4, 7 and 8, page 4 and 16, ragged rows, a -1
     hole, a shared page and an all-unmapped row (exactly 0); window +
     sink and softcap; and the long multi-split tables of ``long_cases``
     (4096 positions, empty splits past short rows and between sink and
@@ -793,9 +820,8 @@ def paged_int8_checks(dev) -> dict:
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(6)
     cases = []
-    for g in (1, 4):
+    for g, hkv in G_HKV.items():
         for page in (4, 16):
-            hkv = 8 // g
             cases.append(dict(
                 name=f"G{g}-page{page}",
                 kw=dict(b=5, hq=hkv * g, hkv=hkv, dh=128, page=page,
@@ -1045,7 +1071,7 @@ def verify_int8_checks(dev) -> dict:
     """Kernel 3's multi-token paged entry (the int8 verify) against
     ``ref.paged_verify_attention_int8_ref`` (the gather chain, on q.float()
     for a bf16 q: the kernel keeps the dequantized K/V in fp32): bf16 and
-    fp32 q; GQA 4 and 8; page 4 and 16; T 1, 2, 4 and 8 candidate tokens;
+    fp32 q; GQA 4, 7 and 8; page 4 and 16; T 1, 2, 4 and 8 candidate tokens;
     ragged rows, a -1 hole, a shared page and an all-unmapped row (no
     valid key: exactly 0); window + sink and softcap; the long multi-split
     tables of ``long_cases``, each repeated bitwise; and T = 1 against
@@ -1057,7 +1083,7 @@ def verify_int8_checks(dev) -> dict:
     gen = torch.Generator().manual_seed(7)
     cases = []
     for t in (1, 2, 4, 8):
-        for g in (4, 8):
+        for g in (4, 7, 8):
             for page in (4, 16):
                 cases.append(dict(
                     name=f"T{t}-G{g}-page{page}", t=t,
@@ -1300,6 +1326,11 @@ def phase_kernel(dev) -> dict:
                          copies=16, iters=200)
     bw = kernel_timing(dev, "bandwidth", b=64, n_tok=4096, copies=1,
                        iters=20)
+    # the same R-worker call at the evaluation models' widths (MHA, G 1):
+    # llama-13b's 40 heads and opt-175b's 96
+    evals = [kernel_timing(dev, f"main-path-{name}", b=2, n_tok=512,
+                           cache_len=1024, hq=h, hkv=h, copies=16, iters=200)
+             for name, h in (("llama-13b", 40), ("opt-175b", 96))]
     vchecks = verify_checks(dev)
     # kernel 4 at the spec serve's per-worker verify call (2 rows, the
     # last of 4 candidates at position 511) and at 64 x 4096
@@ -1325,8 +1356,10 @@ def phase_kernel(dev) -> dict:
                                copies=1, iters=20)
     kernels = {"paged_decode_attention": {
         "checks": checks["cases"], "timing": [main, bw],
-        "max_abs_err": max(checks["max_abs_err"], main["max_abs_err"],
-                           bw["max_abs_err"])}}
+        "timing_eval_models": evals,
+        "max_abs_err": max([checks["max_abs_err"], main["max_abs_err"],
+                            bw["max_abs_err"]]
+                           + [e["max_abs_err"] for e in evals])}}
     for name in ("decode_attention", "decode_attention_int8"):
         t = [s_main[name], s_bw[name]]
         kernels[name] = {"checks": slab[name]["cases"], "timing": t,
@@ -1951,7 +1984,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            + ("int8" if quantized else cfg.dtype),
            "mode": "eager" if eager else "graphs",
            "prefill_chunk": prefill_chunk,
-           "model": "qwen3-8b", "layers": cfg.num_layers,
+           "model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
@@ -4154,11 +4187,364 @@ def phase_equiv_fleet(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the paper's evaluation models and the static-batch API
+# ---------------------------------------------------------------------------
+OPT_LAYERS = 8          # opt-175b's depth on one card (of 96)
+
+
+def _free_device() -> None:
+    """Return dropped models' and engines' device memory: an engine's
+    graphs and workers form reference cycles with it (and its params),
+    which only the cyclic collector frees."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+STATIC_STEPS = 16       # decode steps per static_eval run
+STATIC_PROMPT = 512     # static_eval's prompt tokens per row
+
+
+def eval_model(dev, arch: str, layers=None) -> dict:
+    """One of the paper's evaluation models at full width, bf16, random
+    weights from a seeded generator; ``layers`` cuts its depth.  Builds
+    the kernels first (a no-op once built), so that no serve's first step
+    pays for nvcc."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.kv_cache import cache_bytes
+    cfg = get_arch(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    build.build()
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    return {"cfg": cfg, "params": params, "build_s": t1 - t0,
+            "init_s": time.perf_counter() - t1,
+            "weight_bytes": cache_bytes(params), "full_layers": full}
+
+
+def serve_eval_run(dev, model, out: Path) -> dict:
+    """The 12-request trace through ServingEngine(backend="hetero",
+    num_r_workers=2, paged_kv=True) on an evaluation model, with graphs,
+    counted as ``serve``'s graph run (launches of kernel 1 = layers x
+    micro-batches x workers x decode steps, no plain version), with a
+    profiled window."""
+    cfg = model["cfg"]
+    t0 = time.perf_counter()
+    rec = serve_run(dev, model, out, kernel="paged_decode_attention",
+                    paged=True, quantized=False,
+                    profile=f"serve_eval_{cfg.name}")
+    keys = SUMMARY_KEYS + (
+        "model", "layers", "d_model", "heads", "d_ff", "vocab",
+        "weight_bytes", "init_s", "decode_steps", "requests",
+        "kernel_launches_expected", "decode_tokens", "prompt_tokens",
+        "page_pool_bytes", "graph_pool_bytes", "prefill_step_wall_s_max")
+    run = {k: rec[k] for k in keys}
+    run["full_layers"] = model["full_layers"]
+    run["depth_cut"] = (None if cfg.num_layers == model["full_layers"]
+                        else f"{cfg.num_layers} of {model['full_layers']} "
+                             f"layers (full width)")
+    run["window"] = {k: rec["trace"][k] for k in (
+        "wall_s", "device_idle_ratio", "host_launches",
+        "kernel_launches_host", "graph_launches_host")}
+    run["seconds"] = time.perf_counter() - t0
+    print(f"serve_eval {cfg.name}: {cfg.num_layers} layers"
+          + (f" (cut from {model['full_layers']})" if run["depth_cut"]
+             else " (full depth)")
+          + f", {rec['decode_tokens_per_s']:.2f} tokens/s", flush=True)
+    return run
+
+
+def _static_prompts(cfg, batch: int, p_len: int, seed: int, ragged=False):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (batch, p_len)).astype(np.int32)
+    plens = (rng.integers(17, p_len + 1, batch) if ragged
+             else np.full((batch,), p_len)).astype(np.int32)
+    return toks, plens
+
+
+def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
+                batch: int, cache_len: int, num_mb: int = 2,
+                workers: int = 2, eager: bool = False, engine_kw=None):
+    """repro's static-batch bench loop on the port: ``load_prefill`` of
+    every micro-batch (``ColocatedEngine.load_prefill`` of the batch for
+    ``how`` "colocated"), ``reset_step_stats``, then ``steps`` greedy
+    steps of ``decode_step`` ("fused"), ``decode_step_legacy``
+    ("legacy"), the two in turns ("alternated", legacy first) or the
+    colocated step, each fed the last prompt token first (as
+    examples/quickstart.py).  Every count is set to 0 just before the
+    steps and read just after.  Returns (record, {row: tokens}, {(row,
+    step): the logits row that chose the token, on the host})."""
+    import torch
+    from repro_torch.core import graphs
+    from repro_torch.core.hetero import ColocatedEngine, HeteroPipelineEngine
+    pc = time.perf_counter
+    mb = batch // num_mb
+    tt = torch.from_numpy(toks).to(dev)
+    pp = torch.from_numpy(plens).to(dev)
+    colo = how == "colocated"
+    with (graphs.eager() if eager else contextlib.nullcontext()):
+        if colo:
+            eng = ColocatedEngine(params, cfg, batch=batch,
+                                  cache_len=cache_len, device=dev)
+        else:
+            eng = HeteroPipelineEngine(
+                params, cfg, batch=batch, cache_len=cache_len,
+                num_r_workers=workers, num_microbatches=num_mb,
+                paged_kv=True, device=dev, **(engine_kw or {}))
+        try:
+            torch.cuda.synchronize()
+            t0 = pc()
+            if colo:
+                eng.load_prefill(tt, pp)
+            else:
+                for m in range(num_mb):
+                    eng.load_prefill(m, tt[m * mb:(m + 1) * mb],
+                                     pp[m * mb:(m + 1) * mb])
+            torch.cuda.synchronize()
+            load_s = pc() - t0
+            if not colo:
+                eng.reset_step_stats()
+            tok = tt[torch.arange(batch, device=dev), pp.long() - 1][:, None]
+            counters = _counters()
+            _reset_counters()
+            graphs.captures.reset()
+            tokens = {r: [] for r in range(batch)}
+            rows, step_s, stats = {}, [], []
+            for i in range(steps):
+                t0 = pc()
+                if colo:
+                    logits = eng.decode_step(tok)
+                else:
+                    legacy = how == "legacy" or (how == "alternated"
+                                                 and i % 2 == 0)
+                    fn = eng.decode_step_legacy if legacy else eng.decode_step
+                    logits = torch.cat(fn([tok[m * mb:(m + 1) * mb]
+                                           for m in range(num_mb)]))
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+                host = tok[:, 0].cpu().tolist()     # the step's sync
+                step_s.append(pc() - t0)
+                lg = logits.float().cpu()
+                for r in range(batch):
+                    tokens[r].append(host[r])
+                    rows[(r, i)] = lg[r]
+                if not colo:
+                    stats.append(dict(eng.last_step_stats))
+            torch.cuda.synchronize()
+            launches = {n: c[0].value for n, c in counters.items()}
+            plain = {n: c[1].value for n, c in counters.items()}
+            rec = {"how": how, "mode": "eager" if eager else "graphs",
+                   "engine": ("ColocatedEngine" if colo else
+                              "HeteroPipelineEngine(paged_kv=True)"),
+                   "load_prefill_s": load_s, "steps": steps,
+                   "tokens_per_s": batch * steps / sum(step_s),
+                   "tokens_per_s_after_first_step":
+                       batch * (steps - 1) / sum(step_s[1:]),
+                   "first_step_s": step_s[0],
+                   "step_s_p50": float(np.median(step_s)),
+                   "step_s": step_s, "kernel_launches": launches,
+                   "plain_calls": plain,
+                   "capture_count": graphs.captures.capture_count,
+                   "capture_s": graphs.captures.capture_s}
+            if not colo:
+                rec.update({"step_stats": stats,
+                            "step_stats_total": dict(eng.step_stats),
+                            "r_worker_busy_s": eng.worker_busy_times(),
+                            "kernel_launches_expected":
+                                cfg.num_layers * num_mb
+                                * len(eng.workers) * steps})
+                if engine_kw:
+                    rec["engine_kw"] = {k: str(v)
+                                        for k, v in engine_kw.items()}
+        finally:
+            if not colo:
+                eng.close()
+    want = rec.get("kernel_launches_expected", 0)
+    got = launches["paged_decode_attention"]
+    others = {n: v for n, v in launches.items()
+              if n != "paged_decode_attention"}
+    if got != want or any(plain.values()) or any(others.values()):
+        raise AssertionError(
+            f"static {how} run: kernel 1 launches {got} != layers x "
+            f"micro-batches x workers x steps = {want} (other kernels "
+            f"{others}, plain calls {plain})")
+    return rec, tokens, rows
+
+
+def phase_static_eval(dev, model) -> dict:
+    """llama-13b at full size through the static-batch API, as repro's
+    benches drive it: batch 8 in 2 micro-batches, 2 R-workers, paged,
+    cache_len 1024, 512-token prompts; 16 steps each of the fused step,
+    the legacy step and the fused step with profile_timing (each on a
+    fresh engine after load_prefill and reset_step_stats), beside the
+    colocated engine at the same batch.  The legacy and profile_timing
+    tokens must equal the fused step's, any bf16 difference a near-tie
+    flip by the ROADMAP §3 rule; the colocated tokens are reported,
+    triaged the same way.  Beside the measurements, the §4.3 model's
+    prediction for the same batch on GPU_H100 (from the spec sheet)."""
+    import torch
+    from repro_torch.core import perfmodel as P
+    t_phase = time.perf_counter()
+    cfg, params = model["cfg"], model["params"]
+    toks, plens = _static_prompts(cfg, 8, STATIC_PROMPT, 3)
+    kw = dict(steps=STATIC_STEPS, batch=8, cache_len=1024)
+    runs, logs = {}, {}
+    for name, how, ekw in (("fused", "fused", None),
+                           ("legacy", "legacy", None),
+                           ("profile_timing", "fused",
+                            {"profile_timing": True}),
+                           ("colocated", "colocated", None)):
+        rec, tokens, rows = _static_run(dev, cfg, params, toks, plens,
+                                        how=how, engine_kw=ekw, **kw)
+        runs[name], logs[name] = rec, (tokens, rows)
+        _free_device()
+    want, rows_w = logs["fused"]
+    triage = {n: _triage(logs[n][0], want, logs[n][1], rows_w)
+              for n in ("legacy", "profile_timing", "colocated")}
+    bad = {n: triage[n]["not_near_tie"] for n in ("legacy", "profile_timing")
+           if triage[n]["not_near_tie"]}
+    if bad:
+        raise AssertionError(f"static_eval: tokens part from the fused "
+                             f"step's beyond a near-tie flip: {bad}")
+    b = kw["batch"]
+    t_b = P.t_of_b(cfg, P.GPU_H100, b)
+    plan = P.plan(cfg, P.GPU_H100, P.GPU_H100, seq_len=1024, page=16)
+    prediction = {
+        "source": "core/perfmodel.py (§4.3) on GPU_H100, from the spec "
+                  "sheet: a prediction, not a measurement",
+        "batch": b, "t_of_b": t_b,
+        "tokens_per_s": b / (2 * cfg.num_layers * t_b),
+        "plan": {k: plan.get(k) for k in ("batch", "workers", "t_of_b",
+                                          "tokens_per_s")}}
+    print(f"static_eval {cfg.name}: fused {runs['fused']['tokens_per_s']:.2f}"
+          f" tokens/s, legacy {runs['legacy']['tokens_per_s']:.2f}, "
+          f"profile_timing {runs['profile_timing']['tokens_per_s']:.2f}, "
+          f"colocated {runs['colocated']['tokens_per_s']:.2f}; predicted "
+          f"(perfmodel, GPU_H100, batch {b}) "
+          f"{prediction['tokens_per_s']:.1f}", flush=True)
+    return {"phase": "static_eval", "ok": True, "model": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads], "dtype": cfg.dtype,
+            "batch": b, "micro_batches": 2, "r_workers": 2,
+            "cache_len": 1024, "page_size": 16,
+            "prompt_tokens_per_row": STATIC_PROMPT, "runs": runs,
+            "triage_vs_fused": triage, "prediction": prediction,
+            "kernel_launches": runs["fused"]["kernel_launches"][
+                "paged_decode_attention"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+EVAL_EQUIV_ARCHS = (("llama-13b", "G 1, 40 heads"),
+                    ("opt-175b", "G 1, 96 heads, GELU MLP"),
+                    ("deepseek-coder-33b", "G 7"))
+
+
+def _static_equal(name, got, want, tol) -> dict:
+    """Two static runs' tokens and rows: token-exact, a flip counting
+    only if the teacher-forced rows that chose it are within ``tol``;
+    every row before any divergence within ``tol``."""
+    max_diff, mismatches, ties, margin = _compare_rows(
+        got[0], want[0], got[1], want[1], tol)
+    if mismatches or max_diff > tol:
+        raise AssertionError(
+            f"equiv_eval {name}: mismatches {mismatches}, max logit diff "
+            f"{max_diff} (tol {tol})")
+    return {"tokens_equal": not ties, "near_tie_flips": ties,
+            "max_logit_diff": max_diff, "min_top2_margin": margin}
+
+
+def phase_equiv_eval(dev) -> dict:
+    """fp32, TF32 off, 2 layers at the full width of llama-13b, opt-175b
+    and deepseek-coder-33b (G = 7): the serve (hetero paged through
+    kernel 1 == colocated, graphs == eager) and the static-batch API
+    (load_prefill + decode_step == + decode_step_legacy == the two
+    alternated == ColocatedEngine.load_prefill + decode_step, and the
+    fused step's graphs == its eager run)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t_phase = time.perf_counter()
+    cases = {}
+    for arch, note in EVAL_EQUIV_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), num_layers=2,
+                                  dtype="float32")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                             device=dev)
+        spec = dict(n=6, p_lo=17, p_hi=200, new_lo=6, new_hi=10,
+                    vocab=cfg.vocab_size)
+        PA.launches.reset()
+        got, _ = _equiv_serve(dev, cfg, params, spec, backend="hetero",
+                              paged_kv=True)
+        launches = PA.launches.value
+        eager, _ = _equiv_serve(dev, cfg, params, spec, eager=True,
+                                backend="hetero", paged_kv=True)
+        vs_eager = _graphs_equal_eager(f"{arch} serve", got, eager)
+        want, _ = _equiv_serve(dev, cfg, params, spec, backend="colocated")
+        max_diff, mismatches, ties, margin = _compare(got, want,
+                                                      EQUIV_LOGIT_TOL)
+        if mismatches or max_diff > EQUIV_LOGIT_TOL or launches == 0:
+            raise AssertionError(
+                f"equiv_eval {arch}: hetero-paged != colocated: mismatches "
+                f"{mismatches}, max logit diff {max_diff} (tol "
+                f"{EQUIV_LOGIT_TOL}), kernel launches {launches}")
+        rec = {"note": note, "heads": [cfg.num_heads, cfg.num_kv_heads],
+               "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+               "ffn": cfg.ffn_kind,
+               "serve": {"requests": len(want), "tokens_equal": not ties,
+                         "near_tie_flips": ties, "max_logit_diff": max_diff,
+                         "min_top2_margin": margin,
+                         "max_logit_diff_vs_eager": vs_eager,
+                         "kernel_launches": launches}}
+        toks, plens = _static_prompts(cfg, 4, 200, 5, ragged=True)
+        kw = dict(steps=8, batch=4, cache_len=256)
+        static = {}
+        for name, how, eager_ in (("fused", "fused", False),
+                                  ("fused_eager", "fused", True),
+                                  ("legacy", "legacy", False),
+                                  ("alternated", "alternated", False),
+                                  ("colocated", "colocated", False)):
+            r, tokens, rows = _static_run(dev, cfg, params, toks, plens,
+                                          how=how, eager=eager_, **kw)
+            static[name] = ((tokens, rows), r)
+        ref = static["colocated"][0]
+        rec["static"] = {
+            name: dict(_static_equal(f"{arch} static {name}", static[name][0],
+                                     ref, EQUIV_LOGIT_TOL),
+                       kernel_launches=static[name][1]["kernel_launches"][
+                           "paged_decode_attention"])
+            for name in ("fused", "fused_eager", "legacy", "alternated")}
+        for name in ("fused_eager", "legacy", "alternated"):
+            rec["static"][name]["vs_fused"] = _static_equal(
+                f"{arch} static {name} vs fused", static[name][0],
+                static["fused"][0], EQUIV_LOGIT_TOL)
+        rec["seconds"] = time.perf_counter() - t0
+        cases[arch] = rec
+        del params, static
+        _free_device()
+    return {"phase": "equiv_eval", "ok": True, "layers": 2,
+            "dtype": "float32", "tf32": False, "logit_tol": EQUIV_LOGIT_TOL,
+            "cases": cases, "seconds": time.perf_counter() - t_phase}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
           "equiv_spec", "equiv_chunk", "equiv_spec_int8", "equiv_prefix",
-          "equiv_plan", "equiv_fleet")
+          "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
+          "equiv_eval")
 
 
 def kernels_line(results) -> list:
@@ -4211,6 +4597,13 @@ def kernels_line(results) -> list:
     for name in ("serve_fleet", "serve_chaos"):
         r = results.get(name)
         line[0][f"{name}_launches"] = r["kernel_launches"] if r else None
+    # and in the evaluation models' serves and the static-batch fused run
+    ev = results.get("serve_eval")
+    line[0]["serve_eval_launches"] = (
+        {r["model"]: r["kernel_launches"] for r in ev["runs"]} if ev
+        else None)
+    st = results.get("static_eval")
+    line[0]["static_eval_launches"] = st["kernel_launches"] if st else None
     return line
 
 
@@ -4304,7 +4697,27 @@ def main(argv=None) -> int:
                                                        chaos_off)
             log(results["serve_chaos"])
         del model, chaos_off
-        torch.cuda.empty_cache()
+        _free_device()
+    if {"serve_eval", "static_eval"} & set(phases):
+        # Qwen3-8B is freed: llama-13b at full size, then opt-175b cut
+        eval_runs = []
+        llama = eval_model(dev, "llama-13b")
+        if "serve_eval" in phases:
+            eval_runs.append(serve_eval_run(dev, llama, args.out))
+        if "static_eval" in phases:
+            results["static_eval"] = phase_static_eval(dev, llama)
+            log(results["static_eval"])
+        del llama
+        _free_device()
+        if "serve_eval" in phases:
+            opt = eval_model(dev, "opt-175b", layers=OPT_LAYERS)
+            eval_runs.append(serve_eval_run(dev, opt, args.out))
+            del opt
+            _free_device()
+            results["serve_eval"] = {
+                "phase": "serve_eval", "ok": True, "runs": eval_runs,
+                "seconds": sum(r["seconds"] for r in eval_runs)}
+            log(results["serve_eval"])
     if "equiv" in phases:
         results["equiv"] = phase_equiv(dev)
         log(results["equiv"])
@@ -4329,6 +4742,9 @@ def main(argv=None) -> int:
     if "equiv_fleet" in phases:
         results["equiv_fleet"] = phase_equiv_fleet(dev)
         log(results["equiv_fleet"])
+    if "equiv_eval" in phases:
+        results["equiv_eval"] = phase_equiv_eval(dev)
+        log(results["equiv_eval"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

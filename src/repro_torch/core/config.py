@@ -2,9 +2,11 @@
 
 The fields, ``reduced()`` and the registry match the JAX package's, so a
 config built from ``dataclasses.asdict`` of a reference config is the
-same config here.  This slice registers the pure-attention archs it
-serves (``qwen3-8b``, ``llama-7b``); the model runs the ATTN mixer with
-a SwiGLU FFN only.
+same config here.  It registers the dense pure-attention archs the port
+serves: ``qwen3-8b``, ``llama-7b``, ``granite-3-8b``, the paper's
+evaluation models ``llama-13b`` and ``opt-175b``, and ``deepseek-67b``
+and ``deepseek-coder-33b``.  The model runs the ATTN mixer with a SwiGLU
+or a GELU MLP FFN.
 """
 from __future__ import annotations
 
@@ -122,16 +124,21 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice runs pure self-attention layers with a SwiGLU FFN."""
+    """The port runs pure self-attention layers with a SwiGLU or MLP FFN."""
     if any(k != ATTN for k in cfg.layer_pattern) \
-            or cfg.ffn_kind != FFN_SWIGLU or cfg.is_encdec:
+            or cfg.ffn_kind not in (FFN_SWIGLU, FFN_MLP) or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN layers with a SwiGLU FFN are ported so "
-            f"far (other mixers, MoE and enc-dec are queued in ROADMAP.md)")
+            f"{cfg.name}: only ATTN layers with a SwiGLU or MLP FFN are "
+            f"ported so far (other mixers, MoE and enc-dec are queued in "
+            f"ROADMAP.md)")
 
 
 _ARCHS: Dict[str, ModelConfig] = {}
-_ARCH_MODULES = ["qwen3_8b", "llama_7b", "granite_3_8b"]
+_ARCH_MODULES = [
+    "deepseek_67b", "granite_3_8b", "deepseek_coder_33b", "qwen3_8b",
+    # the paper's own evaluation models
+    "llama_7b", "llama_13b", "opt_175b",
+]
 
 
 def register_arch(cfg: ModelConfig) -> ModelConfig:

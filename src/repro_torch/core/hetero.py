@@ -309,6 +309,14 @@ class RWorker(threading.Thread):
     True while an item runs, so a stale heartbeat with ``processing`` set
     reads as hung mid-item, and ``processing`` False with an empty inbox
     but completions owed as a message lost in flight.
+
+    An item with no sink is a legacy request (``decode_step_legacy``):
+    its R-Part runs eager, never as a graph, and the device ``r_out``
+    goes back on ``outq`` with an event recorded after it on this
+    worker's stream.  ``profile_timing`` synchronises that stream after
+    each R-Part, before the D2H copy or the reply, so ``busy_time``
+    holds the R-Part's device time (without it a legacy item's
+    ``busy_time`` is its host enqueue only).
     """
 
     def __init__(self, wid: int, cfg: ModelConfig, lo: int, hi: int,
@@ -319,7 +327,8 @@ class RWorker(threading.Thread):
                  prefix_cache: bool = False, kv_tier: Any = None,
                  profile: Any = None, slowdown: float = 1.0,
                  sim_row_cost: float = 0.0, sim_deliver_jitter: float = 0.0,
-                 chaos: Any = None, device=None):
+                 chaos: Any = None, profile_timing: bool = False,
+                 device=None):
         super().__init__(daemon=True, name=f"r-worker-{wid}")
         self.wid, self.cfg, self.lo, self.hi = wid, cfg, lo, hi
         self.kv_chunk = kv_chunk
@@ -355,6 +364,10 @@ class RWorker(threading.Thread):
         # applied to every paged layer's pool
         self._step_clones: Dict[Tuple[int, str], list] = {}
         self.inq: "queue.Queue" = queue.Queue()
+        # legacy (FIFO) replies: (tag, r_out on the device, event), or
+        # (tag, exception, None)
+        self.outq: "queue.Queue" = queue.Queue()
+        self.profile_timing = bool(profile_timing)
         self.busy_time = 0.0
         self.profile = profile                   # fleet.WorkerProfile
         self.slowdown = max(1.0, float(slowdown))
@@ -758,7 +771,7 @@ class RWorker(threading.Thread):
             if spec.kind == "error":
                 e = ChaosComputeError("injected R-step compute fault")
                 e.r_worker_context = (self.wid, layer, kind, phase)
-                sink.post_error(self.wid, tag, e)
+                self._post_error(sink, tag, e)
                 return None
             if spec.kind == "hang":
                 # stall with processing set and a stale heartbeat; a
@@ -771,6 +784,26 @@ class RWorker(threading.Thread):
         spec = self.chaos.fire("completion", wid=self.wid, layer=layer,
                                phase=phase)
         return "" if spec is None else spec.kind
+
+    def _post_error(self, sink, tag, err: BaseException) -> None:
+        if sink is None:
+            self.outq.put((tag, err, None))
+        else:
+            sink.post_error(self.wid, tag, err)
+
+    def _run_legacy(self, key, kind: str, phase: int, r_in):
+        """A legacy item's R-Part, eager on this worker's stream: returns
+        the device r_out and an event recorded after it (None on the
+        CPU).  The payload, made on the S-stream, is marked in use by this
+        stream so its memory outlives the R-Part."""
+        out = self._r_body(key, kind, phase)(r_in)
+        if self.stream is None:
+            return out, None
+        for v in r_in.values():
+            v.record_stream(self.stream)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        return out, done
 
     def _run_one(self, item) -> None:
         tag, layer, kind, phase, r_in, sink, ready = item
@@ -799,8 +832,9 @@ class RWorker(threading.Thread):
                     key = ("d", layer)
                     if layer in self.paged_keys:
                         self._grow_paged(layer, r_in)
-                g = self._graphs.get(key)
-                if g is None:
+                if sink is None:
+                    out, done = self._run_legacy(key, kind, phase, r_in)
+                elif key not in self._graphs:
                     g = self._graphs[key] = graphs.StepGraph(
                         self._r_body(key, kind, phase), r_in, self._pool)
                     tc = time.perf_counter()
@@ -811,9 +845,13 @@ class RWorker(threading.Thread):
                         self.recapture_count += 1
                         self.recapture_s += tc
                 else:
+                    g = self._graphs[key]
                     g.feed(r_in)
                     out = g()
-                host = self._to_host(out)
+                if self.profile_timing and self.stream is not None:
+                    # outside any capture: the graph call has returned
+                    self.stream.synchronize()
+                host = None if sink is None else self._to_host(out)
             dt = time.perf_counter() - t0
             if self.slowdown > 1.0:
                 # a worker with 1/slowdown the bandwidth takes slowdown x
@@ -834,7 +872,9 @@ class RWorker(threading.Thread):
                 tracer.add(f"L{layer}.p{phase}", "r-worker",
                            f"r{self.wid}", t0, t0 + dt,
                            {"layer": layer, "phase": phase, "kind": kind})
-            if fault == "drop":
+            if sink is None:
+                self.outq.put((tag, out, done))
+            elif fault == "drop":
                 # the KV append above is DONE (and the allocator grown);
                 # only the completion is lost: the supervisor's resync
                 # re-prefills the rows, overwriting the orphaned append
@@ -863,7 +903,7 @@ class RWorker(threading.Thread):
                 # may read or overwrite the pools
                 self.stream.synchronize()
             e.r_worker_context = (self.wid, layer, kind, phase)
-            sink.post_error(self.wid, tag, e)
+            self._post_error(sink, tag, e)
 
     def stop(self) -> None:
         self.inq.put(None)
@@ -908,7 +948,7 @@ class HeteroPipelineEngine:
                  prefix_cache: bool = False, kv_tier: Any = None,
                  fleet: Any = None, chaos: Any = None,
                  suspect_after_s: float = 120.0, suspect_strikes: int = 2,
-                 device=None):
+                 profile_timing: bool = False, device=None):
         if num_microbatches < 1:
             raise ValueError(
                 f"num_microbatches must be >= 1, got {num_microbatches}")
@@ -976,7 +1016,7 @@ class HeteroPipelineEngine:
             page_size=page_size, num_pages=pages_per_worker,
             max_pages_per_seq=-(-cache_len // page_size),
             prefix_cache=self.prefix_cache, kv_tier=self.kv_tier,
-            chaos=chaos, device=self.device)
+            chaos=chaos, profile_timing=profile_timing, device=self.device)
         if fleet is not None:
             # the fleet owns worker construction: profiles -> planned
             # (possibly uneven) partition -> RWorkers
@@ -1043,6 +1083,55 @@ class HeteroPipelineEngine:
 
     def _lkey(self, mb: int, layer: int) -> int:
         return mb * self.num_layers + layer
+
+    # -- state loading (between decode steps) ----------------------------------
+    def load_mb_state(self, mb: int, state) -> None:
+        """Install a full-micro-batch decode state (``M.prefill``'s or
+        ``M.init_decode_state``'s) for micro-batch ``mb``: each layer's
+        R-state slice goes to its R-worker (``RWorker.load_state``, which
+        drops the R-Part graphs that read the replaced buffers), S-side
+        state is written into the buffers the S-side graphs captured."""
+        for li, st in enumerate(per_layer_state(state, self.cfg)):
+            r_st, s_st = D.split_block_state(self.layers[li][0], st)
+            for w in self.workers:
+                w.load_state(self._lkey(mb, li), batch_slice(r_st, w.lo, w.hi))
+            cur = self.s_states[mb][li]
+            if cur.keys() == s_st.keys():
+                for k, v in s_st.items():
+                    cur[k].copy_(v)
+            else:
+                self.s_states[mb][li] = s_st
+
+    def load_prefill(self, mb: int, tokens, prompt_lens, enc_feats=None):
+        """Run prefill for micro-batch ``mb`` on the S-worker and ship each
+        layer's R-state slice to its R-worker (once per admission: the
+        steady state never moves KV again).  ``tokens`` [mb_size, S]
+        right-padded, ``prompt_lens`` [mb_size].  Every row becomes active
+        at its prompt length; the decode graphs read lengths and the
+        active mask from static buffers that each step refreshes by copy,
+        and the block tables from the allocator's fixed device buffer, so
+        nothing a captured graph holds is reallocated here."""
+        if enc_feats is not None:
+            raise NotImplementedError(
+                "enc_feats: encoder-decoder models are not ported yet "
+                "(queued in ROADMAP.md)")
+        tokens = torch.as_tensor(tokens, dtype=torch.int32,
+                                 device=self.device)
+        prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
+                                      device=self.device)
+        if tokens.shape[0] != self.mb_size:
+            raise ValueError(f"{tokens.shape[0]} token rows for a "
+                             f"micro-batch of {self.mb_size}")
+        _, state = M.prefill(self.params, self.cfg, tokens, prompt_lens,
+                             self.cache_len)
+        self.load_mb_state(mb, state)
+        self.mb_lengths[mb] = prompt_lens.clone()
+        self.mb_active[mb] = torch.ones((self.mb_size,), dtype=torch.bool,
+                                        device=self.device)
+
+    def reset_step_stats(self) -> None:
+        self.step_stats = {}
+        self.last_step_stats = {}
 
     def set_row_length(self, row: int, length: int) -> None:
         """Set a global batch row's decode position (admission)."""
@@ -1605,6 +1694,129 @@ class HeteroPipelineEngine:
         self.step_stats["steps"] = self.step_stats.get("steps", 0.0) + 1.0
         return logits_out
 
+    # -- the pre-fusion FIFO decode step (A/B baseline) -------------------------
+    def _dispatch_legacy(self, mb: int, li: int, phase: int, shards) -> None:
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        kind = self.layers[li][0]
+        for w, shard in zip(self.workers, shards):
+            w.inq.put(((mb, li, phase), self._lkey(mb, li), kind, phase,
+                       shard, None, ready))
+
+    def _collect_legacy(self, mb: int, li: int, phase: int, stats):
+        """Each worker's reply in worker order from its ``outq``, then the
+        fan-in: the S-stream waits on each reply's event and takes over
+        its tensors' lifetime, and the shards are concatenated."""
+        pc = time.perf_counter
+        kind = self.layers[li][0]
+        parts = []
+        for w in self.workers:
+            t0 = pc()
+            try:
+                tag, r_out, done = w.outq.get(timeout=self.collect_timeout_s)
+            except queue.Empty:
+                raise CollectTimeout(
+                    f"timed out after {self.collect_timeout_s:.0f}s waiting "
+                    f"for R-worker {w.wid} on micro-batch {mb}, layer {li} "
+                    f"({kind}), phase {phase}",
+                    dead_wids=[] if w.is_alive() else [w.wid],
+                    hung_wids=[w.wid] if w.is_alive() else []) from None
+            stats["r_wait_s"] += pc() - t0
+            if isinstance(r_out, BaseException):
+                raise WorkerStepError(
+                    f"R-worker {w.wid} failed on micro-batch {mb}, layer "
+                    f"{li} ({kind}), phase {phase}", wid=w.wid,
+                    transient=bool(getattr(r_out, "transient", False))
+                ) from r_out
+            if tag != (mb, li, phase):
+                raise RuntimeError(
+                    f"R-worker {w.wid} returned a result for (micro-batch, "
+                    f"layer, phase) {tag}, expected ({mb}, {li}, {phase})")
+            parts.append((r_out, done))
+        t0 = pc()
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream()
+            for r_out, done in parts:
+                cur.wait_event(done)
+                for v in r_out.values():
+                    v.record_stream(cur)
+        out = {k: torch.cat([r[k] for r, _ in parts], dim=0)
+               for k in parts[0][0]}
+        stats["collect_s"] += pc() - t0
+        return out
+
+    def decode_step_legacy(self, tokens_per_mb: Sequence[torch.Tensor]):
+        """The pre-fusion hot path, kept as repro keeps it: the A/B
+        baseline of the fused :meth:`decode_step` and a second oracle.
+        Strict FIFO collection, separate eager ``s_pre`` and ``s_advance``
+        calls per layer, per-worker replies on each R-worker's ``outq``
+        and fan-in by concatenation on the device.  Nothing is captured
+        or replayed, on either side.  Queued chunk works wait for the next
+        ``decode_step``.  Its tokens equal ``decode_step``'s, and the two
+        may alternate on one engine.  tokens_per_mb: list of [mb_size, 1]
+        int32; returns a list of logits [mb_size, vocab]."""
+        if len(tokens_per_mb) != self.num_mb:
+            raise ValueError(f"{len(tokens_per_mb)} token groups for "
+                             f"{self.num_mb} micro-batches")
+        pc = time.perf_counter
+        self._reap_retired()
+        stats = {"dispatch_s": 0.0, "collect_s": 0.0, "s_dispatch_s": 0.0,
+                 "r_wait_s": 0.0}
+        t_step0 = pc()
+        carries: List[Any] = [None] * self.num_mb
+        last_h: List[Any] = [None] * self.num_mb
+        order: List[Tuple[int, int, int]] = []
+
+        def start_layer(mb: int, li: int, h) -> None:
+            kind, p = self.layers[li]
+            lengths, active = self.mb_lengths[mb], self.mb_active[mb]
+            t0 = pc()
+            out = self._pre(kind, p, h, self.s_states[mb][li],
+                            self._ctx(lengths), active)
+            carries[mb], shards = self._s_out(
+                out, {"lengths": lengths, "active": active})
+            t1 = pc()
+            stats["s_dispatch_s"] += t1 - t0
+            self._dispatch_legacy(mb, li, 0, shards)
+            stats["dispatch_s"] += pc() - t1
+            order.append((mb, li, 0))
+
+        for mb in range(self.num_mb):
+            t0 = pc()
+            tok = torch.as_tensor(tokens_per_mb[mb], device=self.device)
+            h = self.params["embed"][tok.long()]
+            stats["s_dispatch_s"] += pc() - t0
+            start_layer(mb, 0, h)
+        qi = 0
+        while qi < len(order):
+            mb, li, phase = order[qi]
+            qi += 1
+            kind, p = self.layers[li]
+            r_out = self._collect_legacy(mb, li, phase, stats)
+            t0 = pc()
+            h = D.s_advance(kind, phase, p, carries[mb], r_out,
+                            self._ctx(self.mb_lengths[mb]))
+            stats["s_dispatch_s"] += pc() - t0
+            if li + 1 < self.num_layers:
+                start_layer(mb, li + 1, h)
+            else:
+                last_h[mb] = h
+        outs = []
+        for mb in range(self.num_mb):
+            t0 = pc()
+            outs.append(M._logits(self.params, self.cfg, last_h[mb])[:, 0])
+            stats["s_dispatch_s"] += pc() - t0
+            self.mb_lengths[mb] = (self.mb_lengths[mb]
+                                   + self.mb_active[mb].to(torch.int32))
+        stats["step_s"] = pc() - t_step0
+        self.last_step_stats = stats
+        for k, v in stats.items():
+            self.step_stats[k] = self.step_stats.get(k, 0.0) + v
+        self.step_stats["steps"] = self.step_stats.get("steps", 0.0) + 1.0
+        return outs
+
     # -- bookkeeping -------------------------------------------------------------
     def worker_busy_times(self) -> List[float]:
         return [w.busy_time for w in self.workers]
@@ -1996,6 +2208,20 @@ class ColocatedEngine:
         self.params, self.cfg = params, cfg
         self.cache_len = cache_len
         self.state = M.init_decode_state(cfg, batch, cache_len, self.device)
+
+    def load_prefill(self, tokens, prompt_lens, enc_feats=None):
+        """Prefill the whole batch: ``tokens`` [batch, S] right-padded,
+        ``prompt_lens`` [batch]."""
+        if enc_feats is not None:
+            raise NotImplementedError(
+                "enc_feats: encoder-decoder models are not ported yet "
+                "(queued in ROADMAP.md)")
+        tokens = torch.as_tensor(tokens, dtype=torch.int32,
+                                 device=self.device)
+        prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
+                                      device=self.device)
+        _, self.state = M.prefill(self.params, self.cfg, tokens,
+                                  prompt_lens, self.cache_len)
 
     def decode_step(self, tokens):
         logits, self.state = M.decode_step(self.params, self.cfg,

@@ -202,3 +202,11 @@ def swiglu(p, x):
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     return (F.silu(g.to(F32)).to(x.dtype) * u) @ p["w_down"]
+
+
+def mlp(p, x):
+    """GELU MLP.  ``jax.nn.gelu`` defaults to the tanh approximation, so
+    this one does too (the exact erf form differs by up to ~1e-3)."""
+    h = x @ p["w_in"]
+    h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
+    return h @ p["w_out"]

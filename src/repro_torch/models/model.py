@@ -1,4 +1,5 @@
-"""The port's model: the ATTN + SwiGLU decoder of repro.models.model.
+"""The port's model: the ATTN decoder of repro.models.model, with a
+SwiGLU or a GELU MLP FFN.
 
 Public entry points (same layout and semantics as the JAX package):
 
@@ -27,7 +28,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.config import ATTN, ModelConfig, check_supported
+from repro_torch.core.config import (ATTN, FFN_MLP, FFN_SWIGLU, ModelConfig,
+                                     check_supported)
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as L
 
@@ -47,8 +49,17 @@ def _is_norm(name: str) -> bool:
     return name.startswith("ln") or name.endswith("norm")
 
 
+def _ffn_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.ffn_kind == FFN_SWIGLU:
+        return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    if cfg.ffn_kind == FFN_MLP:
+        return {"w_in": (d, f), "w_out": (f, d)}
+    raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r} is not ported yet")
+
+
 def _block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     shapes = {"ln1": (d,), "wq": (d, hq * hd), "wk": (d, hkv * hd),
               "wv": (d, hkv * hd), "wo": (hq * hd, d)}
@@ -56,14 +67,23 @@ def _block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         shapes["q_norm"] = (hd,)
         shapes["k_norm"] = (hd,)
     shapes["ln2"] = (d,)
-    shapes.update({"ffn_w_gate": (d, f), "ffn_w_up": (d, f),
-                   "ffn_w_down": (f, d)})
+    shapes.update({"ffn_" + k: v for k, v in _ffn_param_shapes(cfg).items()})
     return shapes
 
 
 def _normal(gen, shape, scale, dtype, device):
     x = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
     return (x * scale).to(device=device, dtype=dtype)
+
+
+def _normal_stacked(gen, shape, scale, dtype, device):
+    """A stacked leaf drawn one layer at a time into its final dtype, so
+    the fp32 transient is one layer's, not the stack's (llama-13b's
+    stacked ``ffn_w_gate`` would be 11.3 GB of fp32 in one draw)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = _normal(gen, shape[1:], scale, dtype, device)
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -85,8 +105,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
             if _is_norm(name):
                 out[name] = torch.zeros(full, dtype=F32, device=device)
             else:
-                scale = depth_scale if name in ("wo", "ffn_w_down") else 0.02
-                out[name] = _normal(generator, full, scale, dtype, device)
+                scale = depth_scale if name in ("wo", "ffn_w_down",
+                                                "ffn_w_out") else 0.02
+                draw = _normal_stacked if stack_n else _normal
+                out[name] = draw(generator, full, scale, dtype, device)
         return out
 
     params: Dict[str, Any] = {
@@ -207,6 +229,8 @@ def _self_attention(p, x, st, ctx: Ctx):
 
 def _ffn(p, x, cfg: ModelConfig):
     fp = {k[4:]: v for k, v in p.items() if k.startswith("ffn_")}
+    if cfg.ffn_kind == FFN_MLP:
+        return L.mlp(fp, x)
     return L.swiglu(fp, x)
 
 

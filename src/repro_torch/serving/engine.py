@@ -90,8 +90,7 @@ from repro_torch.core import perfmodel as P
 from repro_torch.core.config import (ATTN, DEC_XATTN, XATTN, ModelConfig,
                                      check_supported)
 from repro_torch.core.hetero import (ColocatedEngine, HeteroPipelineEngine,
-                                     StepFault, batch_slice,
-                                     per_layer_state)
+                                     StepFault, per_layer_state)
 from repro_torch.core.schedule import (LoadController, microbatch_size,
                                        w_prime_max)
 from repro_torch.device import resolve_device
@@ -471,14 +470,8 @@ class ServingEngine:
             self.engine.attach_tracer(self._obs_obj.tracer if on else None)
 
     def _hetero_init_empty(self, mb: int) -> None:
-        state = M.init_decode_state(self.cfg, self.mb_size, self.cache_len,
-                                    self.device)
-        for li, st in enumerate(per_layer_state(state, self.cfg)):
-            r_st, s_st = D.split_block_state(self.engine.layers[li][0], st)
-            for w in self.engine.workers:
-                w.load_state(self.engine._lkey(mb, li),
-                             batch_slice(r_st, w.lo, w.hi))
-            self.engine.s_states[mb][li] = s_st
+        self.engine.load_mb_state(mb, M.init_decode_state(
+            self.cfg, self.mb_size, self.cache_len, self.device))
 
     # ------------------------------------------------------------------ #
     def _paged_pool_min(self) -> Optional[int]:

@@ -388,3 +388,51 @@ def test_int8_verify_entry_on_card_matches_plain(dtype):
                     q[:, 0].contiguous(), *args[1:], **kw)
                 torch.cuda.synchronize()
                 assert torch.equal(out[:, 0], dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [7, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_large_groups_on_card_match_plain(dtype, g):
+    """The group sizes of the DeepSeek configs (G = Hq / Hkv = 7 for
+    deepseek-coder-33b, the first that is no power of two, and 8 for
+    deepseek-67b) through kernel 1, kernel 4 (T 1, 2, 4: a T = 4 verify
+    needs two row groups) and kernel 3's paged decode and multi-token
+    entries, over the ragged/hole/shared/unmapped tables, against their
+    plain versions; kernel 4 and the multi-token entry at T = 1 bitwise
+    equal to their decode kernels."""
+    _needs_card()
+    rng = np.random.default_rng(13 + g)
+    dt = getattr(torch, dtype)
+    for page in (4, 16):
+        _, pk, pv, tables, lengths = (torch.from_numpy(a).cuda()
+                                      for a in _case(rng, g=g, page=page))
+        pk, pv = pk.to(dt), pv.to(dt)
+        pkq, pks = TQK.quantize_kv(pk.float())
+        pvq, pvs = TQK.quantize_kv(pv.float())
+        for t in (1, 2, 4):
+            base = torch.clamp(lengths - (t - 1), min=0)
+            q = torch.from_numpy(rng.standard_normal(
+                (4, t, 2 * g, 128)).astype(np.float32)).cuda().to(dt)
+            out = TPA.paged_verify_attention(q, pk, pv, tables, base)
+            out8 = TQK.paged_verify_attention_int8(q, pkq, pks, pvq, pvs,
+                                                   tables, base)
+            torch.cuda.synchronize()
+            _assert_within(out, TREF.paged_verify_attention_ref(
+                q, pk, pv, tables, base), dtype)
+            _assert_within(out8, TREF.paged_verify_attention_int8_ref(
+                q.float(), pkq, pks, pvq, pvs, tables, base), dtype)
+            assert torch.all(out[3] == 0) and torch.all(out8[3] == 0)
+            if t == 1:
+                q1 = q[:, 0].contiguous()
+                dec = TPA.paged_decode_attention(q1, pk, pv, tables, base)
+                dec8 = TQK.paged_decode_attention_int8(q1, pkq, pks, pvq,
+                                                       pvs, tables, base)
+                torch.cuda.synchronize()
+                _assert_within(dec, TREF.paged_decode_attention_ref(
+                    q1, pk, pv, tables, base), dtype)
+                _assert_within(dec8, TREF.paged_decode_attention_int8_ref(
+                    q1.float(), pkq, pks, pvq, pvs, tables, base), dtype)
+                assert torch.all(dec[3] == 0) and torch.all(dec8[3] == 0)
+                assert torch.equal(out[:, 0], dec)
+                assert torch.equal(out8[:, 0], dec8)

@@ -14,7 +14,8 @@ from repro.core.config import get_arch as jget_arch
 from repro_torch.core import perfmodel as TP
 from repro_torch.core.config import ModelConfig, get_arch
 
-ARCHS = ["qwen3-8b", "llama-7b", "granite-3-8b"]
+ARCHS = ["qwen3-8b", "llama-7b", "granite-3-8b", "llama-13b", "opt-175b",
+         "deepseek-67b", "deepseek-coder-33b"]
 HW_NAMES = sorted(TP.HW)
 
 
