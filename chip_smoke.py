@@ -28,15 +28,23 @@ Phases (any failure exits nonzero):
               bound, its plain version and a library yardstick, in a host
               loop and replayed from a CUDA graph, with the split plan it
               used (kernel 1 also at llama-13b's and opt-175b's serve
-              shapes); times the one-call paged-int8 op against the
-              gather + kernel 3 chain it replaced.
+              shapes; kernels 1 and 4 also at grok-1's Hq 48 / Hkv 8
+              with softcap 30, G = 6, whose T = 4 verify runs two row
+              groups, and llama4-scout's Hq 40 / Hkv 8, G = 5, each also
+              checked with ragged rows, holes and shared pages; the
+              softcap rows' yardstick is compiled flex_attention, and
+              grok-1's fp32 case with the cap saturated is held against
+              fp64); times
+              the one-call paged-int8 op against the gather + kernel 3
+              chain it replaced.
   compare     (only with --v1-source) the first version of kernels 1 and
               4 against this tree's, timed in turns v1, v2, v2, v1 at both
               shapes with SDPA between, and a sweep of split plans.
   compare_dense (only with --v1-dense-source) the same for kernels 2 and
               3: an older csrc/decode_attention.cu against this tree's.
-  serve       Qwen3-8B at full width, random weights from a seeded
-              generator, served greedily through
+  serve       Qwen3-8B at full width cut to 18 of its 36 layers
+              (QWEN_LAYERS; every serve_* phase below serves it), random
+              weights from a seeded generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
               paged_kv=True), in turns eager, graphs, eager (the step
               callables op by op, then replayed from their CUDA graphs):
@@ -175,6 +183,22 @@ Phases (any failure exits nonzero):
               and graphs == eager in the serve; load_prefill +
               decode_step == decode_step_legacy == the two alternated ==
               ColocatedEngine.load_prefill + decode_step, graphs == eager.
+  serve_moe   the mixture-of-experts models served as serve_eval serves
+              (same trace, engine and checks, one profiled window each),
+              bf16 at full width: grok-1 cut to 4 of 64 layers (softcap
+              30, G = 6), spec-off and with spec_decode=SpecConfig(k=3)
+              (kernel 4 only), then llama4-scout cut to 8 of 48 layers
+              (G = 5, qk_norm), each model freed before the next; the
+              share of routed (token, expert) pairs the capacity dropped
+              at decode and at prefill (counted in an eager replay of the
+              trace after the timed run), the weight bytes a step reads
+              (every expert) and the §4.3 prediction beside them.
+  equiv_moe   fp32 at 2 layers of both MoE models' width: with
+              moe_capacity = experts (no drops) hetero paged == colocated
+              and graphs == eager; at the published 1.25 graphs == eager
+              bit for bit and the drops of hetero and colocated reported
+              (they differ: each call's token count does); llama4-scout's
+              load_prefill with 64 patch embeddings, hetero == colocated.
   equiv_fleet at 2 layers, fp32: apply_partition to an uneven split and
               back on four storages (wire payloads bit for bit, tokens ==
               colocated), re-prefill and snapshot recovery == colocated,
@@ -240,6 +264,21 @@ TOL = {"bfloat16": (1e-4, 2.0 ** -7), "float32": (1e-5, 0.0)}
 # kv-head count: 1 (llama-13b, opt-175b), 4 (Qwen3-8B), 7
 # (deepseek-coder-33b: no power of two) and 8 (deepseek-67b)
 G_HKV = {1: 8, 4: 2, 7: 2, 8: 2}
+# the MoE models' heads (Hq, Hkv, softcap): grok-1's G = 6 with its
+# attention logit softcap of 30, llama4-scout's G = 5
+MOE_HEADS = {"grok-1": (48, 8, 30.0), "llama4-scout": (40, 8, 0.0)}
+# q scaled so that the softcap bites: at x 16 the scores reach |s| ~ 60
+# and tanh(s / 30) saturates.  The fp32 cases held against the plain
+# version scale q by 2 (|s| under ~8; the cap still moves the top score
+# by ~0.1), because at |s| ~ 60 fp32's own rounding of the scores parts
+# the plain version from fp64 by ~9e-6, the size of the fp32 tolerance
+# (atol 1e-5); the saturated fp32 case (q x 16) is held against an fp64
+# version instead (``_fp64_check``)
+SOFTCAP_Q_SCALE = {"bfloat16": 16.0, "float32": 2.0}
+SATURATED_Q_SCALE = 16.0
+SOFTCAP_LIBRARY = ("torch.nn.attention.flex_attention(score_mod = softcap "
+                   "tanh, block_mask = the causal mask, enable_gqa), "
+                   "compiled")
 
 
 def tol_check(out, want, dtype_name: str):
@@ -250,7 +289,13 @@ def tol_check(out, want, dtype_name: str):
     return float(d.max()), inside and bool(out.float().isfinite().all())
 
 
+T0 = time.perf_counter()
+
+
 def log(obj) -> None:
+    """One JSON line; a phase's carries the seconds since the start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -378,24 +423,31 @@ def kernel_checks(dev) -> dict:
             kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=16,
                     lengths=[50, 3, 61]),
             attn=dict(softcap=5.0)))
+        cases += moe_cases(dtype_name, t=1)
         cases += long_cases(dtype_name, t=1)
     worst = 0.0
     results = []
     for c in cases:
         q, pk, pv, tables, lens = _paged_case(gen, dtype=c["dtype"], dev=dev,
                                               **c["kw"])
+        q = (q * c.get("q_scale", 1.0)).to(q.dtype)
         out = PA.paged_decode_attention(q, pk, pv, tables, lens, **c["attn"])
         torch.cuda.synchronize()
         want = ref.paged_decode_attention_ref(q, pk, pv, tables, lens,
                                               **c["attn"])
         dtype_name = str(c["dtype"]).split(".")[-1]
         err, ok = tol_check(out, want, dtype_name)
-        un = c["kw"].get("unmapped_row")
-        if un is not None:
-            ok = ok and bool((out[un] == 0).all())
         rec = {"case": c["name"], "max_abs_err": err,
                "atol_rtol": TOL[dtype_name],
                "split_plan": PA.kernel_plan(q, pk, tables)}
+        if c.get("fp64"):
+            rec.update(_fp64_check(out, want, q, pk, pv, tables, lens,
+                                   c["attn"]))
+            err, ok = rec["kernel_vs_fp64"], rec["fp64_ok"]
+            rec["max_abs_err"] = err
+        un = c["kw"].get("unmapped_row")
+        if un is not None:
+            ok = ok and bool((out[un] == 0).all())
         if c.get("long"):
             again = PA.paged_decode_attention(q, pk, pv, tables, lens,
                                               **c["attn"])
@@ -408,9 +460,84 @@ def kernel_checks(dev) -> dict:
             raise AssertionError(f"kernel case {c['name']} failed: err {err} "
                                  f"(atol, rtol) {TOL[dtype_name]} (unmapped "
                                  f"row must be exactly 0; a long case must "
-                                 f"repeat bitwise): {rec}")
-        worst = max(worst, err)
+                                 f"repeat bitwise; an fp64 case: "
+                                 f"tol_vs_fp64): {rec}")
+        if not c.get("fp64"):
+            worst = max(worst, err)
     return {"cases": results, "max_abs_err": worst}
+
+
+def moe_cases(dtype_name, *, t) -> list:
+    """The MoE models' head layouts (``MOE_HEADS``) at Dh 128, page 16:
+    grok-1 (Hq 48 / Hkv 8, G = 6) with softcap 30 and q scaled so that
+    the cap bites, llama4-scout (Hq 40 / Hkv 8, G = 5); ragged rows, a -1
+    hole, a shared page and an all-unmapped row.  A verify at T = 4 holds
+    T*G = 24 and 20 query rows: two row groups of a 16-row CTA.  In fp32
+    grok-1's layout runs twice: q x 2 against the plain version, and q x
+    16 (the cap saturated) against fp64 (``fp64``: ``_fp64_check``)."""
+    import torch
+    cases = []
+    for name, (hq, hkv, cap) in MOE_HEADS.items():
+        scales = [(SOFTCAP_Q_SCALE[dtype_name] if cap else 1.0, False)]
+        if cap and dtype_name == "float32":
+            scales.append((SATURATED_Q_SCALE, True))
+        for q_scale, fp64 in scales:
+            cases.append(dict(
+                name=f"{dtype_name}-T{t}-{name}-G{hq // hkv}"
+                     + (f"-softcap{cap:g}" if cap else "")
+                     + (f"-q{q_scale:g}-fp64" if fp64 else ""),
+                dtype=getattr(torch, dtype_name), t=t, q_scale=q_scale,
+                fp64=fp64,
+                kw=dict(b=5, hq=hq, hkv=hkv, dh=128, page=16,
+                        mp=-(-84 // 16), lengths=[37, 5, 0, 63, 20],
+                        unmapped_row=2, hole=(3, 1), share=(0, 4)),
+                attn=dict(softcap=cap) if cap else dict()))
+    return cases
+
+
+def _paged_fp64(q, pk, pv, tables, lengths, *, softcap=0.0):
+    """Paged attention computed in fp64 (no window or sink): q [B,Hq,Dh]
+    (query at lengths) or [B,T,Hq,Dh] (query t at lengths + t) -> the
+    same shape in fp64; a query with no valid key gives 0."""
+    import math
+    import torch
+    from repro_torch.kernels import ref
+    f64 = torch.float64
+    q4 = q[:, None] if q.dim() == 3 else q
+    b, t, hq, dh = q4.shape
+    k, kpos = ref.paged_gather(pk, tables)
+    v, _ = ref.paged_gather(pv, tables)
+    hkv = k.shape[2]
+    qg = q4.to(f64).reshape(b, t, hkv, hq // hkv, dh) / math.sqrt(dh)
+    s = torch.einsum("bthgd,bshd->bthgs", qg, k.to(f64))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = lengths[:, None].long() + torch.arange(t, device=q.device)
+    msk = ((kpos[:, None, :] >= 0)
+           & (kpos[:, None, :] <= qpos[:, :, None]))[:, :, None, None, :]
+    s = torch.where(msk, s, torch.tensor(float("-inf"), dtype=f64,
+                                         device=q.device))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    o = torch.einsum("bthgs,bshd->bthgd", p, v.to(f64)).reshape(b, t, hq,
+                                                                 dh)
+    return o[:, 0] if q.dim() == 3 else o
+
+
+def _fp64_check(out, plain, q, pk, pv, tables, lengths, attn) -> dict:
+    """A saturated fp32 case: the kernel's and the plain version's
+    distance to fp64.  The kernel passes when its distance is at most
+    atol plus the plain version's own: what |kernel - plain| <= atol
+    implies by the triangle inequality, with fp64 in the plain version's
+    place."""
+    want = _paged_fp64(q, pk, pv, tables, lengths, **attn)
+    d_plain = float((plain.double() - want).abs().max())
+    d_kern = float((out.double() - want).abs().max())
+    atol = TOL["float32"][0]
+    return {"kernel_vs_fp64": d_kern, "plain_vs_fp64": d_plain,
+            "kernel_vs_plain": float((out - plain).abs().max()),
+            "tol_vs_fp64": atol + d_plain,
+            "fp64_ok": d_kern <= atol + d_plain
+            and bool(out.isfinite().all())}
 
 
 def long_cases(dtype_name, *, t) -> list:
@@ -491,6 +618,7 @@ def verify_checks(dev) -> dict:
                 kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=18,
                         lengths=[50, 3, 61], unmapped_row=None),
                 attn=dict(softcap=5.0)))
+            cases += moe_cases(dtype_name, t=t)
             cases += long_cases(dtype_name, t=t)
     worst = 0.0
     results = []
@@ -503,20 +631,27 @@ def verify_checks(dev) -> dict:
         _, pk, pv, tables, lens = _paged_case(gen, dtype=c["dtype"], dev=dev,
                                               **kw)
         base = (lens - (t - 1)).contiguous()
-        q = torch.randn((kw["b"], t, kw["hq"], kw["dh"]),
-                        generator=gen).to(c["dtype"]).to(dev)
+        q = (torch.randn((kw["b"], t, kw["hq"], kw["dh"]), generator=gen)
+             * c.get("q_scale", 1.0)).to(c["dtype"]).to(dev)
         out = PA.paged_verify_attention(q, pk, pv, tables, base, **c["attn"])
         torch.cuda.synchronize()
         want = ref.paged_verify_attention_ref(q, pk, pv, tables, base,
                                               **c["attn"])
         dtype_name = str(c["dtype"]).split(".")[-1]
         err, ok = tol_check(out, want, dtype_name)
+        rec = {"case": c["name"], "max_abs_err": err,
+               "atol_rtol": TOL[dtype_name],
+               "split_plan": PA.kernel_plan(q, pk, tables, t),
+               "row_groups": PA.row_groups(t, kw["hq"] // kw["hkv"])}
+        if c.get("fp64"):
+            rec.update(_fp64_check(out, want, q, pk, pv, tables, base,
+                                   c["attn"]))
+            err, ok = rec["kernel_vs_fp64"], rec["fp64_ok"]
+            rec["max_abs_err"] = err
         un = kw.get("unmapped_row")
         if un is not None:
             ok = ok and bool((out[un] == 0).all())
-        rec = {"case": c["name"], "max_abs_err": err,
-               "atol_rtol": TOL[dtype_name], "ok": ok,
-               "split_plan": PA.kernel_plan(q, pk, tables, t)}
+        rec["ok"] = ok
         if c.get("long"):
             again = PA.paged_verify_attention(q, pk, pv, tables, base,
                                               **c["attn"])
@@ -538,8 +673,9 @@ def verify_checks(dev) -> dict:
                 f"verify kernel case {c['name']} failed: err {err} (atol, "
                 f"rtol) {TOL[dtype_name]} (unmapped row must be exactly 0; "
                 f"T = 1 must equal kernel 1 bitwise; a long case must "
-                f"repeat bitwise): {rec}")
-        worst = max(worst, err)
+                f"repeat bitwise; an fp64 case: tol_vs_fp64): {rec}")
+        if not c.get("fp64"):
+            worst = max(worst, err)
     return {"cases": results, "max_abs_err": worst,
             "t1_bitwise_equal_to_kernel_1": all(t1_equal)}
 
@@ -602,10 +738,39 @@ def _sdpa(q, kg, vg, mask, t):
                                           enable_gqa=True)[:, :, 0]
 
 
+def _flex_softcap(dev, *, n_tok, t, lens_val, softcap):
+    """The library yardstick of a softcap row: ``flex_attention`` with
+    the tanh softcap as its score_mod (and, for kernel 4, the causal mask
+    to lens_val + i as a block mask), compiled once for this shape; takes
+    the arguments of ``_sdpa``."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def score_mod(s, b, h, qi, kj):
+        return softcap * torch.tanh(s / softcap)
+
+    def mask_mod(b, h, qi, kj):
+        return kj <= lens_val + qi
+    block_mask = (create_block_mask(mask_mod, None, None, t, n_tok,
+                                    device=dev) if t else None)
+
+    def run(q, kg, vg, mask, t_):
+        q4 = q.transpose(1, 2) if t_ else q[:, :, None]
+        o = flex(q4, kg, vg, score_mod=score_mod, block_mask=block_mask,
+                 enable_gqa=True)
+        return o.transpose(1, 2) if t_ else o[:, :, 0]
+    return run
+
+
 def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
-                  cache_len=None, copies=1, iters=50, t=None) -> dict:
+                  cache_len=None, copies=1, iters=50, t=None,
+                  softcap=0.0) -> dict:
     """Kernel 1 (``t`` None) or kernel 4 (``t`` candidate tokens), its
-    plain version and the SDPA yardstick at one shape, bf16.  Every row
+    plain version and the library yardstick at one shape, bf16: SDPA, or
+    with ``softcap`` (q scaled so the cap bites) compiled flex_attention
+    (``_flex_softcap``; SDPA has no tanh softcap).  Every row
     holds ``n_tok`` valid tokens: kernel 1's query sits at n_tok - 1;
     kernel 4's base is n_tok - t, so its last candidate sits at n_tok - 1.
     Kernel 4's tables are cut to the power of two of the used pages, as
@@ -618,42 +783,52 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
     bufs, mask, lens_val = _timing_case(
         dev, b=b, n_tok=n_tok, hq=hq, hkv=hkv, dh=dh, page=page,
         cache_len=cache_len, copies=copies, t=t)
+    if softcap:
+        bufs = [((x[0] * SOFTCAP_Q_SCALE["bfloat16"]).to(x[0].dtype),)
+                + tuple(x[1:]) for x in bufs]
     nq = t or 1
+    attn = dict(softcap=softcap) if softcap else {}
+    library = (_flex_softcap(dev, n_tok=n_tok, t=t, lens_val=lens_val,
+                             softcap=softcap) if softcap else _sdpa)
 
     def kern(i):
         q, pk, pv, tables, lens = bufs[i % copies][:5]
         if t:
-            return PA.paged_verify_attention(q, pk, pv, tables, lens)
-        return PA.paged_decode_attention(q, pk, pv, tables, lens)
+            return PA.paged_verify_attention(q, pk, pv, tables, lens, **attn)
+        return PA.paged_decode_attention(q, pk, pv, tables, lens, **attn)
 
     def plain(i):
         q, pk, pv, tables, lens = bufs[i % copies][:5]
         if t:
-            return ref.paged_verify_attention_ref(q, pk, pv, tables, lens)
-        return ref.paged_decode_attention_ref(q, pk, pv, tables, lens)
+            return ref.paged_verify_attention_ref(q, pk, pv, tables, lens,
+                                                  **attn)
+        return ref.paged_decode_attention_ref(q, pk, pv, tables, lens,
+                                              **attn)
 
     def lib(i):
         q, kg, vg = bufs[i % copies][0], bufs[i % copies][5], \
             bufs[i % copies][6]
-        return _sdpa(q, kg, vg, mask, t)
+        return library(q, kg, vg, mask, t)
 
     q, pk, pv, tables, lens, kg, vg = bufs[0]
+    groups = PA.row_groups(nq, hq // hkv)
     got = kern(0)
     err, ok = tol_check(got, plain(0), "bfloat16")
     if not ok:
         raise AssertionError(f"kernel at the {name} shape: max err {err} "
                              f"against the plain version, (atol, rtol) "
                              f"{TOL['bfloat16']}")
-    lib_err = float((got.float() - lib(0).float()).abs().max())
     ms = cuda_time_ms(kern, iters)
     plain_ms = cuda_time_ms(plain, max(3, iters // 10), warmup=1)
-    library_ms = cuda_time_ms(lib, iters)
     # the same calls replayed from a CUDA graph: device time alone
     device_ms = graph_time_ms(kern, copies * max(1, 16 // copies))
-    library_device_ms = graph_time_ms(lib, copies * max(1, 16 // copies),
-                                      strict=False)
+    # the library call's first call compiles (flex_attention), outside
+    # the timed loops
+    lib_err = float((got.float() - lib(0).float()).abs().max())
+    library_ms = cuda_time_ms(lib, iters)
+    library_device_ms = graph_time_ms(
+        lib, copies * max(1, 16 // copies), strict=False)
     pps, n_splits = PA.kernel_plan(q, pk, tables, nq)
-    groups = PA.row_groups(nq, hq // hkv)
     elt = 2
     kv_bytes = 2 * b * n_tok * hkv * dh * elt
     io_bytes = 2 * b * nq * hq * dh * elt + tables.numel() * 4 + b * 4
@@ -663,7 +838,10 @@ def kernel_timing(dev, name, *, b, n_tok, hq=32, hkv=8, dh=128, page=16,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     return {"shape": name, "B": b, "T": nq, "tokens_per_row": n_tok,
-            "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page,
+            "Hq": hq, "Hkv": hkv, "Dh": dh, "page": page, "softcap": softcap,
+            "library": SOFTCAP_LIBRARY if softcap else
+            "torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
+            "row_groups": groups,
             "table_pages": tables.shape[1], "dtype": "bfloat16",
             "pool_copies": copies, "max_abs_err": err,
             "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
@@ -1331,6 +1509,18 @@ def phase_kernel(dev) -> dict:
     evals = [kernel_timing(dev, f"main-path-{name}", b=2, n_tok=512,
                            cache_len=1024, hq=h, hkv=h, copies=16, iters=200)
              for name, h in (("llama-13b", 40), ("opt-175b", 96))]
+    # and at the MoE models' (grok-1: G 6 with softcap 30; llama4-scout:
+    # G 5): kernel 1, and kernel 4 at T = 4 (24 and 20 query rows, two
+    # row groups)
+    moe = {name: [kernel_timing(dev, f"main-path-{name}", b=2, n_tok=512,
+                                cache_len=1024, hq=hq, hkv=hkv, copies=16,
+                                iters=200, softcap=cap, t=t)
+                  for t in (None, 4)]
+           for name, (hq, hkv, cap) in MOE_HEADS.items()}
+    # flex_attention's compile started inductor's worker processes: stop
+    # them before the serve phases time the host
+    from torch._inductor.async_compile import shutdown_compile_workers
+    shutdown_compile_workers()
     vchecks = verify_checks(dev)
     # kernel 4 at the spec serve's per-worker verify call (2 rows, the
     # last of 4 candidates at position 511) and at 64 x 4096
@@ -1357,9 +1547,11 @@ def phase_kernel(dev) -> dict:
     kernels = {"paged_decode_attention": {
         "checks": checks["cases"], "timing": [main, bw],
         "timing_eval_models": evals,
+        "timing_moe_models": [r[0] for r in moe.values()],
         "max_abs_err": max([checks["max_abs_err"], main["max_abs_err"],
                             bw["max_abs_err"]]
-                           + [e["max_abs_err"] for e in evals])}}
+                           + [e["max_abs_err"] for e in evals]
+                           + [r[0]["max_abs_err"] for r in moe.values()])}}
     for name in ("decode_attention", "decode_attention_int8"):
         t = [s_main[name], s_bw[name]]
         kernels[name] = {"checks": slab[name]["cases"], "timing": t,
@@ -1371,10 +1563,12 @@ def phase_kernel(dev) -> dict:
         pchecks["max_abs_err"])
     kernels["paged_verify_attention"] = {
         "checks": vchecks["cases"], "timing": [v_main, v_bw],
+        "timing_moe_models": [r[1] for r in moe.values()],
         "t1_bitwise_equal_to_kernel_1":
             vchecks["t1_bitwise_equal_to_kernel_1"],
-        "max_abs_err": max(vchecks["max_abs_err"], v_main["max_abs_err"],
-                           v_bw["max_abs_err"])}
+        "max_abs_err": max([vchecks["max_abs_err"], v_main["max_abs_err"],
+                            v_bw["max_abs_err"]]
+                           + [r[1]["max_abs_err"] for r in moe.values()])}
     kernels["verify_int8"] = {
         "checks": v8checks["cases"], "timing": [v8_main, v8_bw],
         "t1_bitwise_equal_to_decode_entry":
@@ -1594,15 +1788,21 @@ def _requests(rng, n, p_lo, p_hi, new_lo, new_hi, vocab):
             for i in range(n)]
 
 
+QWEN_LAYERS = 18        # Qwen3-8B's depth in the serve phases (of 36)
+
+
 def serve_model(dev):
-    """Qwen3-8B at full width and depth, bf16, random weights from a
-    seeded generator (shared by the serve phases)."""
+    """Qwen3-8B at full width cut to ``QWEN_LAYERS`` of its 36 layers (so
+    that the whole run keeps to half its time limit on a slow host),
+    bf16, random weights from a seeded generator (shared by the serve
+    phases)."""
+    import dataclasses
     import torch
     from repro_torch.core.config import get_arch
     from repro_torch.models.model import init_params
     from repro_torch.serving.kv_cache import cache_bytes
     from repro_torch.kernels import build
-    cfg = get_arch("qwen3-8b")
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), num_layers=QWEN_LAYERS)
     t0 = time.perf_counter()
     build.build()       # so that no serve's first step pays for nvcc
     t1 = time.perf_counter()
@@ -1611,7 +1811,8 @@ def serve_model(dev):
     torch.cuda.synchronize()
     return {"cfg": cfg, "params": params, "build_s": t1 - t0,
             "init_s": time.perf_counter() - t1,
-            "weight_bytes": cache_bytes(params)}
+            "weight_bytes": cache_bytes(params),
+            "full_layers": get_arch("qwen3-8b").num_layers}
 
 
 def _counters():
@@ -1918,6 +2119,9 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
         dense_merges = DA.merge_launches.value
         paged_int8 = QK.paged_launches.value
         steps = eng.step_idx
+        # the counted run's step records (``after`` and the profiled
+        # window step the engine on)
+        recs = list(eng.records)
         spec_stats = dict(eng.spec_stats)
         kv_bytes = sum(KV.cache_bytes(w.state) for w in eng.engine.workers)
         pool_bytes = sum(w.pool_bytes() for w in eng.engine.workers)
@@ -1974,7 +2178,6 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
             f"{plain}; kernel 3's paged launches {paged_int8}, want "
             f"{want_paged}; page gathers {gathers.calls}, want 0; prefill "
             f"works {prefill_works} at prefill_chunk {prefill_chunk})")
-    recs = eng.records
     dec = [rec.decode_wall for rec in recs]
     wall = [rec.wall for rec in recs]
     # tokens emitted by decode (or verify) steps (token 0 of a request
@@ -1985,6 +2188,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "mode": "eager" if eager else "graphs",
            "prefill_chunk": prefill_chunk,
            "model": cfg.name, "layers": cfg.num_layers,
+           "full_layers": model.get("full_layers", cfg.num_layers),
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
@@ -2200,7 +2404,7 @@ def phase_serve_spec_int8(dev, model, out: Path, spec_off=None,
     if spec_bf16 is not None:
         paged["tokens_per_s_ratio_to_bf16_spec"] = (
             paged["decode_tokens_per_s"] / spec_bf16["decode_tokens_per_s"])
-    # the int8 spec-on/spec-off divergence at full depth, triaged
+    # the int8 spec-on/spec-off divergence at the serve's depth, triaged
     # teacher-forced as the bf16 one is (serve_spec)
     for r, off, is_paged in zip((paged, dense), spec_off or (None, None),
                                 (True, False)):
@@ -3770,7 +3974,7 @@ def _rate(rec, lo, hi=None):
 
 
 def phase_serve_fleet(dev, model, out: Path) -> tuple:
-    """Qwen3-8B at full width and depth, paged bf16, the 12-request trace
+    """Qwen3-8B (``serve_model``), paged bf16, the 12-request trace
     under ``FleetManager(skewed_fleet((2.0, 1.0)), rebalance=True,
     snapshot_interval=16)``: the planner's uneven split (perfmodel rates
     on the H100 profile), a ``sim_row_cost`` straggler on the 3-row worker
@@ -4230,22 +4434,29 @@ def eval_model(dev, arch: str, layers=None) -> dict:
             "weight_bytes": cache_bytes(params), "full_layers": full}
 
 
-def serve_eval_run(dev, model, out: Path) -> dict:
+def serve_eval_run(dev, model, out: Path, spec_k: int = 0,
+                   phase: str = "serve_eval", after=None) -> dict:
     """The 12-request trace through ServingEngine(backend="hetero",
     num_r_workers=2, paged_kv=True) on an evaluation model, with graphs,
     counted as ``serve``'s graph run (launches of kernel 1 = layers x
-    micro-batches x workers x decode steps, no plain version), with a
-    profiled window."""
+    micro-batches x workers x decode steps; with ``spec_k``, kernel 4 =
+    layers x workers x verify works and no kernel 1; no plain version),
+    with a profiled window; ``after`` goes to ``serve_run``."""
     cfg = model["cfg"]
     t0 = time.perf_counter()
-    rec = serve_run(dev, model, out, kernel="paged_decode_attention",
-                    paged=True, quantized=False,
-                    profile=f"serve_eval_{cfg.name}")
+    tag = f"{phase}_{cfg.name}" + (f"_spec{spec_k}" if spec_k else "")
+    rec = serve_run(dev, model, out, paged=True, quantized=False,
+                    spec_k=spec_k, kernel="paged_verify_attention" if spec_k
+                    else "paged_decode_attention", profile=tag, after=after)
     keys = SUMMARY_KEYS + (
         "model", "layers", "d_model", "heads", "d_ff", "vocab",
         "weight_bytes", "init_s", "decode_steps", "requests",
-        "kernel_launches_expected", "decode_tokens", "prompt_tokens",
-        "page_pool_bytes", "graph_pool_bytes", "prefill_step_wall_s_max")
+        "kernel_launches_expected", "launches", "plain_calls",
+        "decode_tokens", "prompt_tokens", "page_pool_bytes",
+        "graph_pool_bytes", "prefill_step_wall_s_max", "prefill_steps",
+        "tokens")
+    if spec_k:
+        keys += ("spec_k", "verify_works", "acceptance_rate", "spec_stats")
     run = {k: rec[k] for k in keys}
     run["full_layers"] = model["full_layers"]
     run["depth_cut"] = (None if cfg.num_layers == model["full_layers"]
@@ -4255,10 +4466,11 @@ def serve_eval_run(dev, model, out: Path) -> dict:
         "wall_s", "device_idle_ratio", "host_launches",
         "kernel_launches_host", "graph_launches_host")}
     run["seconds"] = time.perf_counter() - t0
-    print(f"serve_eval {cfg.name}: {cfg.num_layers} layers"
+    print(f"{tag}: {cfg.num_layers} layers"
           + (f" (cut from {model['full_layers']})" if run["depth_cut"]
              else " (full depth)")
-          + f", {rec['decode_tokens_per_s']:.2f} tokens/s", flush=True)
+          + f", {rec['decode_tokens_per_s']:.2f} tokens/s, step p50 "
+            f"{rec['decode_step_s_p50']:.4f} s", flush=True)
     return run
 
 
@@ -4272,16 +4484,19 @@ def _static_prompts(cfg, batch: int, p_len: int, seed: int, ragged=False):
 
 def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
                 batch: int, cache_len: int, num_mb: int = 2,
-                workers: int = 2, eager: bool = False, engine_kw=None):
+                workers: int = 2, eager: bool = False, engine_kw=None,
+                enc_feats=None):
     """repro's static-batch bench loop on the port: ``load_prefill`` of
     every micro-batch (``ColocatedEngine.load_prefill`` of the batch for
     ``how`` "colocated"), ``reset_step_stats``, then ``steps`` greedy
     steps of ``decode_step`` ("fused"), ``decode_step_legacy``
     ("legacy"), the two in turns ("alternated", legacy first) or the
     colocated step, each fed the last prompt token first (as
-    examples/quickstart.py).  Every count is set to 0 just before the
-    steps and read just after.  Returns (record, {row: tokens}, {(row,
-    step): the logits row that chose the token, on the host})."""
+    examples/quickstart.py).  ``enc_feats`` [batch, n, d] (an
+    early-fusion arch's patch embeddings) go to ``load_prefill``, sliced
+    per micro-batch.  Every count is set to 0 just before the steps and
+    read just after.  Returns (record, {row: tokens}, {(row, step): the
+    logits row that chose the token, on the host})."""
     import torch
     from repro_torch.core import graphs
     from repro_torch.core.hetero import ColocatedEngine, HeteroPipelineEngine
@@ -4290,6 +4505,8 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
     tt = torch.from_numpy(toks).to(dev)
     pp = torch.from_numpy(plens).to(dev)
     colo = how == "colocated"
+    feats = [None] * num_mb if enc_feats is None else [
+        enc_feats[m * mb:(m + 1) * mb] for m in range(num_mb)]
     with (graphs.eager() if eager else contextlib.nullcontext()):
         if colo:
             eng = ColocatedEngine(params, cfg, batch=batch,
@@ -4303,11 +4520,12 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
             torch.cuda.synchronize()
             t0 = pc()
             if colo:
-                eng.load_prefill(tt, pp)
+                eng.load_prefill(tt, pp, enc_feats=enc_feats)
             else:
                 for m in range(num_mb):
                     eng.load_prefill(m, tt[m * mb:(m + 1) * mb],
-                                     pp[m * mb:(m + 1) * mb])
+                                     pp[m * mb:(m + 1) * mb],
+                                     enc_feats=feats[m])
             torch.cuda.synchronize()
             load_s = pc() - t0
             if not colo:
@@ -4539,12 +4757,318 @@ def phase_equiv_eval(dev) -> dict:
             "cases": cases, "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# the mixture-of-experts models
+# ---------------------------------------------------------------------------
+GROK_LAYERS = 4         # grok-1-314b's depth on one card (of 64)
+SCOUT_LAYERS = 8        # llama4-scout-17b-a16e's (of 48)
+
+
+class _DropCount:
+    """While active, every MoE routing call (``layers.moe_route``) adds
+    its dropped and its routed (token, expert) pairs to counters on the
+    card: the calls inside a monolithic prefill (``model.prefill``) to
+    ``counts["prefill"]``, all others (the decode micro-batches' S-Part
+    bodies; with spec decoding the drafter's and the verify's too) to
+    ``counts["decode"]``.  A graph captured while it is active carries
+    the adds, so its replays count: two in-place adds per MoE call."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import threading
+        import torch
+        from repro_torch.models import layers, model
+        self.counts = {k: torch.zeros(2, dtype=torch.int64, device=self.dev)
+                       for k in ("decode", "prefill")}
+        self._route, self._prefill = layers.moe_route, model.prefill
+        flag = threading.local()
+
+        def route(probs, **kw):
+            out = self._route(probs, **kw)
+            keep = out[3]
+            c = self.counts["prefill" if getattr(flag, "on", False)
+                            else "decode"]
+            c[0] += (~keep).sum()
+            c[1] += keep.numel()
+            return out
+
+        def prefill(*a, **kw):
+            flag.on = True
+            try:
+                return self._prefill(*a, **kw)
+            finally:
+                flag.on = False
+        layers.moe_route, model.prefill = route, prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers, model
+        layers.moe_route, model.prefill = self._route, self._prefill
+
+    def read(self) -> dict:
+        """{"decode" | "prefill": {dropped, routed, dropped_share}}."""
+        out = {}
+        for k, c in self.counts.items():
+            dropped, routed = c.tolist()
+            out[k] = {"dropped": dropped, "routed": routed,
+                      "dropped_share": dropped / routed if routed else None}
+        return out
+
+
+REPLAY_RID = 200        # rid offset of the drop-counting replay
+
+
+def _replay_drops(dev, eng) -> dict:
+    """The ``after`` hook of a MoE serve: the counted trace once more on
+    the warm engine, op by op (``graphs.eager``) under ``_DropCount``, so
+    the timed run's graphs carry no counter.  The drops, and the share of
+    requests whose tokens equal the timed run's (the eager bodies compute
+    what the graphs replay, so the replay routes the same tokens)."""
+    import torch
+    from repro_torch.core import graphs
+    timed = {r.rid: list(r.generated) for r in eng.finished}
+    reqs = _requests(np.random.default_rng(0), 12, 17, 600, 16, 32,
+                     eng.cfg.vocab_size)
+    for r in reqs:
+        r.rid += REPLAY_RID
+        eng.submit(r)
+    with graphs.eager(), _DropCount(dev) as drops:
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+        torch.cuda.synchronize()
+    rec = drops.read()
+    rec["requests_equal_to_timed_run"] = sum(
+        list(r.generated) == timed[r.rid - REPLAY_RID] for r in reqs) \
+        / len(reqs)
+    return rec
+
+
+def moe_weight_bytes(cfg) -> dict:
+    """Bytes of bf16 weights one decode micro-batch reads a step: every
+    layer's attention and ALL its experts (the capacity dispatch runs
+    each expert's products on its [cap, d] slots, empty or not), the
+    router, and the lm head; beside the §4.3 model's count, which takes
+    the top-k experts per token (``perfmodel.s_part_params_per_block``)."""
+    import dataclasses
+    from repro_torch.core import perfmodel as P
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.top_k
+    attn = P.s_part_params_per_block(dataclasses.replace(cfg,
+                                                         ffn_kind="none"))
+    layer = attn + e * 3 * d * f + d * e
+    model_layer = P.s_part_params_per_block(cfg)
+    head = d * cfg.vocab_size
+    return {"layer_bytes": 2 * layer,
+            "perfmodel_layer_bytes": 2 * model_layer,
+            "perfmodel_undercount": layer / model_layer,
+            "expert_ratio_e_over_k": e / k,
+            "micro_batch_step_bytes": 2 * (cfg.num_layers * layer + head),
+            "step_bytes_two_micro_batches":
+                2 * 2 * (cfg.num_layers * layer + head),
+            "step_bound_s": 2 * 2 * (cfg.num_layers * layer + head)
+            / HBM_BYTES_PER_S}
+
+
+def moe_serve_run(dev, model, out: Path, spec_k: int = 0) -> dict:
+    """``serve_eval_run`` on a MoE model, with the capacity's drops at
+    decode and at prefill (counted in an eager replay of the trace after
+    the timed run: ``_replay_drops``), the weight bytes a step reads and
+    the §4.3 model's prediction."""
+    from repro_torch.core import perfmodel as P
+    cfg = model["cfg"]
+    snap = {}
+    run = serve_eval_run(dev, model, out, spec_k=spec_k, phase="serve_moe",
+                         after=lambda eng: snap.update(_replay_drops(dev,
+                                                                     eng)))
+    t_b = P.t_of_b(cfg, P.GPU_H100, 8)
+    run.update({
+        "experts": cfg.num_experts, "top_k": cfg.top_k,
+        "moe_capacity": cfg.moe_capacity,
+        "softcap": cfg.attn_logit_softcap, "qk_norm": cfg.qk_norm,
+        "drops": snap, "weights": moe_weight_bytes(cfg),
+        "prediction": {
+            "source": "core/perfmodel.py (§4.3) on GPU_H100, from the "
+                      "spec sheet: a prediction, not a measurement",
+            "batch": 8, "t_of_b": t_b,
+            "tokens_per_s": 8 / (2 * cfg.num_layers * t_b)}})
+    print(f"serve_moe {cfg.name}: dropped {snap['decode']['dropped_share']}"
+          f" (decode), {snap['prefill']['dropped_share']} (prefill)",
+          flush=True)
+    return run
+
+
+def phase_serve_moe(dev, out: Path) -> dict:
+    """grok-1 (4 of 64 layers) served spec-off then with
+    spec_decode=SpecConfig(k=3), then llama4-scout (8 of 48 layers), each
+    at full width in bf16 from seeded random weights, each model freed
+    before the next."""
+    t_phase = time.perf_counter()
+    runs = []
+    grok = eval_model(dev, "grok-1-314b", layers=GROK_LAYERS)
+    runs.append(moe_serve_run(dev, grok, out))
+    runs.append(moe_serve_run(dev, grok, out, spec_k=3))
+    del grok
+    _free_device()
+    scout = eval_model(dev, "llama4-scout-17b-a16e", layers=SCOUT_LAYERS)
+    runs.append(moe_serve_run(dev, scout, out))
+    del scout
+    _free_device()
+    off, on = runs[0]["tokens"], runs[1]["tokens"]
+    runs[1]["requests_equal_to_spec_off"] = sum(
+        on[r] == off[r] for r in off) / len(off)
+    return {"phase": "serve_moe", "ok": True, "runs": runs,
+            "kernel_launches": {
+                "paged_decode_attention": {
+                    r["model"]: r["kernel_launches"] for r in runs
+                    if "spec_k" not in r},
+                "paged_verify_attention": runs[1]["kernel_launches"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _moe_equiv_model(dev, arch: str, capacity=None):
+    """2 layers of ``arch`` at full width, fp32 (TF32 off), seeded random
+    weights; ``capacity`` (None: the published 1.25) sets moe_capacity."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32")
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe_capacity=float(capacity))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    return cfg, params
+
+
+def _bitwise_equal(name, got, want) -> dict:
+    """Two runs of one trace: equal tokens and every logits row equal
+    bit for bit."""
+    rows = 0
+    for rid, (toks_w, logs_w) in want.items():
+        toks_g, logs_g = got[rid]
+        if toks_g != toks_w or len(logs_g) != len(logs_w) or not all(
+                bool((a == b).all()) for a, b in zip(logs_g, logs_w)):
+            raise AssertionError(f"{name}: graphs != eager bitwise on "
+                                 f"request {rid}")
+        rows += len(logs_w)
+    return {"requests": len(want), "logit_rows": rows, "bitwise": True}
+
+
+def phase_equiv_moe(dev) -> dict:
+    """fp32 at 2 layers of grok-1's and llama4-scout's full width: with
+    moe_capacity = num_experts (no drops) hetero paged (kernel 1) ==
+    colocated, graphs == eager; at the published 1.25, graphs == eager
+    bitwise on the hetero path, and the drops of hetero and colocated
+    reported (they differ, as in the JAX package: t differs); and
+    llama4-scout's load_prefill with 64 patch embeddings: hetero ==
+    colocated logits (no drops)."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    t_phase = time.perf_counter()
+    spec = dict(n=6, p_lo=17, p_hi=200, new_lo=6, new_hi=10)
+    cases = {}
+    for arch in ("grok-1-314b", "llama4-scout-17b-a16e"):
+        t0 = time.perf_counter()
+        rec = {}
+        cfg, params = _moe_equiv_model(dev, arch)
+        sp = dict(spec, vocab=cfg.vocab_size)
+        # the published capacity: graphs == eager bitwise (hetero), and
+        # the two engines' drops
+        with _DropCount(dev) as dh:
+            got, _ = _equiv_serve(dev, cfg, params, sp, backend="hetero",
+                                  paged_kv=True)
+        with _DropCount(dev) as dh_eager:
+            eager, _ = _equiv_serve(dev, cfg, params, sp, eager=True,
+                                    backend="hetero", paged_kv=True)
+        with _DropCount(dev) as dc:
+            colo, _ = _equiv_serve(dev, cfg, params, sp,
+                                   backend="colocated")
+        max_diff, mism, ties, _ = _compare(got, colo, EQUIV_LOGIT_TOL)
+        rec["capacity_1.25"] = {
+            "graphs_vs_eager": _bitwise_equal(f"{arch} capacity 1.25", got,
+                                              eager),
+            "drops_hetero": dh.read(), "drops_hetero_eager": dh_eager.read(),
+            "drops_colocated": dc.read(),
+            "vs_colocated": {"requests_equal": sum(
+                got[r][0] == colo[r][0] for r in colo),
+                "first_diffs": mism + ties, "max_logit_diff_before": max_diff}}
+        if rec["capacity_1.25"]["drops_hetero"] \
+                != rec["capacity_1.25"]["drops_hetero_eager"]:
+            raise AssertionError(f"{arch}: graph and eager drops differ")
+        del params
+        _free_device()
+        # no drops: hetero paged == colocated
+        cfg, params = _moe_equiv_model(dev, arch, capacity=cfg.num_experts)
+        PA.launches.reset()
+        with _DropCount(dev) as dn:
+            got, _ = _equiv_serve(dev, cfg, params, sp, backend="hetero",
+                                  paged_kv=True)
+        launches = PA.launches.value
+        eager, _ = _equiv_serve(dev, cfg, params, sp, eager=True,
+                                backend="hetero", paged_kv=True)
+        vs_eager = _graphs_equal_eager(f"{arch} no drops", got, eager)
+        want, _ = _equiv_serve(dev, cfg, params, sp, backend="colocated")
+        max_diff, mism, ties, margin = _compare(got, want, EQUIV_LOGIT_TOL)
+        nodrop = dn.read()
+        if mism or max_diff > EQUIV_LOGIT_TOL or launches == 0 \
+                or nodrop["decode"]["dropped"] or nodrop["prefill"]["dropped"]:
+            raise AssertionError(
+                f"equiv_moe {arch}: hetero-paged != colocated at capacity "
+                f"= experts: mismatches {mism}, max logit diff {max_diff} "
+                f"(tol {EQUIV_LOGIT_TOL}), kernel launches {launches}, "
+                f"drops {nodrop}")
+        rec["capacity_experts"] = {
+            "requests": len(want), "tokens_equal": not ties,
+            "near_tie_flips": ties, "max_logit_diff": max_diff,
+            "min_top2_margin": margin, "max_logit_diff_vs_eager": vs_eager,
+            "kernel_launches": launches, "drops": nodrop}
+        if cfg.frontend == "vision_stub":
+            # early fusion through load_prefill: 64 patch embeddings
+            toks, plens = _static_prompts(cfg, 4, 200, 7, ragged=True)
+            plens = np.maximum(plens, cfg.encoder_seq + 1).astype(np.int32)
+            feats = torch.randn((4, cfg.encoder_seq, cfg.d_model),
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(8),
+                                device=dev)
+            kw = dict(steps=8, batch=4, cache_len=256, enc_feats=feats)
+            runs = {}
+            for how in ("fused", "colocated"):
+                r, tokens, rows = _static_run(dev, cfg, params, toks, plens,
+                                              how=how, **kw)
+                runs[how] = (tokens, rows)
+            plain, _, rows_plain = _static_run(dev, cfg, params, toks, plens,
+                                               how="colocated", steps=2,
+                                               batch=4, cache_len=256)
+            moved = float((rows_plain[(0, 0)]
+                           - runs["colocated"][1][(0, 0)]).abs().max())
+            rec["load_prefill_enc_feats"] = dict(
+                _static_equal(f"{arch} load_prefill(enc_feats)",
+                              runs["fused"], runs["colocated"],
+                              EQUIV_LOGIT_TOL),
+                patch_embeddings=cfg.encoder_seq,
+                max_logit_change_from_features=moved)
+            if moved <= EQUIV_LOGIT_TOL:
+                raise AssertionError(f"{arch}: the patch embeddings did "
+                                     f"not reach the logits")
+        rec["seconds"] = time.perf_counter() - t0
+        cases[arch] = rec
+        del params
+        _free_device()
+    return {"phase": "equiv_moe", "ok": True, "layers": 2,
+            "dtype": "float32", "tf32": False, "logit_tol": EQUIV_LOGIT_TOL,
+            "cases": cases, "seconds": time.perf_counter() - t_phase}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
           "equiv_spec", "equiv_chunk", "equiv_spec_int8", "equiv_prefix",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
-          "equiv_eval")
+          "equiv_eval", "serve_moe", "equiv_moe")
 
 
 def kernels_line(results) -> list:
@@ -4604,6 +5128,25 @@ def kernels_line(results) -> list:
         else None)
     st = results.get("static_eval")
     line[0]["static_eval_launches"] = st["kernel_launches"] if st else None
+    # and in the MoE models' serves: kernel 1 in grok-1's and
+    # llama4-scout's, kernel 4 in grok-1's spec serve
+    moe = results.get("serve_moe")
+    line[0]["serve_moe_launches"] = (
+        moe["kernel_launches"]["paged_decode_attention"] if moe else None)
+    line[3]["serve_moe_launches"] = (
+        moe["kernel_launches"]["paged_verify_attention"] if moe else None)
+    # kernels 1 and 4 at the MoE models' head layouts (G 6 with softcap
+    # 30, G 5): their times beside the main path's
+    if k:
+        for i, name in ((0, "paged_decode_attention"),
+                        (3, "paged_verify_attention")):
+            line[i]["moe_models"] = [
+                {key: r[key] for key in ("shape", "Hq", "Hkv", "T",
+                                         "softcap", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library",
+                                         "max_abs_err", "row_groups")}
+                for r in k["kernels"][name]["timing_moe_models"]]
     return line
 
 
@@ -4718,6 +5261,9 @@ def main(argv=None) -> int:
                 "phase": "serve_eval", "ok": True, "runs": eval_runs,
                 "seconds": sum(r["seconds"] for r in eval_runs)}
             log(results["serve_eval"])
+    if "serve_moe" in phases:
+        results["serve_moe"] = phase_serve_moe(dev, args.out)
+        log(results["serve_moe"])
     if "equiv" in phases:
         results["equiv"] = phase_equiv(dev)
         log(results["equiv"])
@@ -4745,6 +5291,9 @@ def main(argv=None) -> int:
     if "equiv_eval" in phases:
         results["equiv_eval"] = phase_equiv_eval(dev)
         log(results["equiv_eval"])
+    if "equiv_moe" in phases:
+        results["equiv_moe"] = phase_equiv_moe(dev)
+        log(results["equiv_moe"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

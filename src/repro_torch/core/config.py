@@ -4,9 +4,10 @@ The fields, ``reduced()`` and the registry match the JAX package's, so a
 config built from ``dataclasses.asdict`` of a reference config is the
 same config here.  It registers the dense pure-attention archs the port
 serves: ``qwen3-8b``, ``llama-7b``, ``granite-3-8b``, the paper's
-evaluation models ``llama-13b`` and ``opt-175b``, and ``deepseek-67b``
-and ``deepseek-coder-33b``.  The model runs the ATTN mixer with a SwiGLU
-or a GELU MLP FFN.
+evaluation models ``llama-13b`` and ``opt-175b``, ``deepseek-67b`` and
+``deepseek-coder-33b``, and the mixture-of-experts models
+``grok-1-314b`` and ``llama4-scout-17b-a16e``.  The model runs the ATTN
+mixer with a SwiGLU, a GELU MLP or a capacity-dispatched MoE FFN.
 """
 from __future__ import annotations
 
@@ -124,13 +125,16 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs pure self-attention layers with a SwiGLU or MLP FFN."""
+    """The port runs pure self-attention layers with a SwiGLU, MLP or MoE
+    FFN; a ``vision_stub`` frontend is early fusion into the embeddings
+    (no cross-attention layer), so it passes too."""
     if any(k != ATTN for k in cfg.layer_pattern) \
-            or cfg.ffn_kind not in (FFN_SWIGLU, FFN_MLP) or cfg.is_encdec:
+            or cfg.ffn_kind not in (FFN_SWIGLU, FFN_MLP, FFN_MOE) \
+            or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN layers with a SwiGLU or MLP FFN are "
-            f"ported so far (other mixers, MoE and enc-dec are queued in "
-            f"ROADMAP.md)")
+            f"{cfg.name}: only ATTN layers with a SwiGLU, MLP or MoE FFN "
+            f"are ported so far (RG-LRU, SSD, cross-attention and enc-dec "
+            f"are queued in ROADMAP.md)")
 
 
 _ARCHS: Dict[str, ModelConfig] = {}
@@ -138,6 +142,8 @@ _ARCH_MODULES = [
     "deepseek_67b", "granite_3_8b", "deepseek_coder_33b", "qwen3_8b",
     # the paper's own evaluation models
     "llama_7b", "llama_13b", "opt_175b",
+    # mixture of experts
+    "grok_1_314b", "llama4_scout_17b_a16e",
 ]
 
 

@@ -176,6 +176,20 @@ def shard_rin(r_in: dict, slices) -> tuple:
     return tuple(batch_slice(r_in, lo, hi) for lo, hi in slices)
 
 
+def _fusion_feats(cfg: ModelConfig, enc_feats, device):
+    """``enc_feats`` for ``load_prefill`` on ``device``: an early-fusion
+    arch's patch embeddings; any other arch refuses them (encoder-decoder
+    and cross-attention models are not ported)."""
+    if enc_feats is None:
+        return None
+    if not M.early_fusion(cfg):
+        raise NotImplementedError(
+            f"enc_feats: {cfg.name} has no early-fusion frontend; "
+            f"encoder-decoder and cross-attention models are not ported "
+            f"yet (queued in ROADMAP.md)")
+    return torch.as_tensor(enc_feats, device=device)
+
+
 def mask_rows(new: Dict, old: Dict, active) -> Dict:
     """Row-gated state update: rows with active=False keep their old
     value."""
@@ -1110,11 +1124,10 @@ class HeteroPipelineEngine:
         at its prompt length; the decode graphs read lengths and the
         active mask from static buffers that each step refreshes by copy,
         and the block tables from the allocator's fixed device buffer, so
-        nothing a captured graph holds is reallocated here."""
-        if enc_feats is not None:
-            raise NotImplementedError(
-                "enc_feats: encoder-decoder models are not ported yet "
-                "(queued in ROADMAP.md)")
+        nothing a captured graph holds is reallocated here.
+        ``enc_feats`` [mb_size, n, d]: an early-fusion arch's patch
+        embeddings (``M.prefill``)."""
+        enc_feats = _fusion_feats(self.cfg, enc_feats, self.device)
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
         prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
@@ -1123,7 +1136,7 @@ class HeteroPipelineEngine:
             raise ValueError(f"{tokens.shape[0]} token rows for a "
                              f"micro-batch of {self.mb_size}")
         _, state = M.prefill(self.params, self.cfg, tokens, prompt_lens,
-                             self.cache_len)
+                             self.cache_len, enc_feats)
         self.load_mb_state(mb, state)
         self.mb_lengths[mb] = prompt_lens.clone()
         self.mb_active[mb] = torch.ones((self.mb_size,), dtype=torch.bool,
@@ -2211,17 +2224,15 @@ class ColocatedEngine:
 
     def load_prefill(self, tokens, prompt_lens, enc_feats=None):
         """Prefill the whole batch: ``tokens`` [batch, S] right-padded,
-        ``prompt_lens`` [batch]."""
-        if enc_feats is not None:
-            raise NotImplementedError(
-                "enc_feats: encoder-decoder models are not ported yet "
-                "(queued in ROADMAP.md)")
+        ``prompt_lens`` [batch]; ``enc_feats`` [batch, n, d] as
+        ``HeteroPipelineEngine.load_prefill``'s."""
+        enc_feats = _fusion_feats(self.cfg, enc_feats, self.device)
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
         prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
                                       device=self.device)
         _, self.state = M.prefill(self.params, self.cfg, tokens,
-                                  prompt_lens, self.cache_len)
+                                  prompt_lens, self.cache_len, enc_feats)
 
     def decode_step(self, tokens):
         logits, self.state = M.decode_step(self.params, self.cfg,

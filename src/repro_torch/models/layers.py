@@ -210,3 +210,83 @@ def mlp(p, x):
     h = x @ p["w_in"]
     h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
     return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based dispatch, GShard/Switch style; a token
+# over an expert's capacity falls through to the residual connection)
+# ---------------------------------------------------------------------------
+def moe_route(probs, *, top_k: int, capacity_factor: float):
+    """The routing of ``moe_ffn``: probs [T, E] fp32 ->
+
+      gate_w    [T, k]   top-k weights renormalized by max(sum, 1e-9)
+      gate_idx  [T, k]   their experts; ties go to the lower index, as
+                         ``lax.top_k`` (a stable descending sort)
+      pos       [T*k]    each entry's slot in its expert, counted over the
+                         token-major [T*k] order (token t's k entries
+                         are entries t*k .. t*k+k-1)
+      keep      [T*k]    pos < cap
+      cap       int      max(1, ceil(T*k/E * capacity_factor)), from the
+                         static shape, so the body needs no host sync
+
+    Padded and inactive rows route like any other token and take
+    capacity, as in the JAX package: the drops depend on T."""
+    t, e = probs.shape
+    k = top_k
+    _, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = order[:, :k]
+    gate_w = torch.gather(probs, 1, gate_idx)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    cap = max(1, int(math.ceil(t * k / e * capacity_factor)))
+    flat_e = gate_idx.reshape(-1)
+    onehot = (flat_e[:, None] == torch.arange(e, device=probs.device)).to(
+        torch.int32)                                       # [T*k, E]
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    return gate_w, gate_idx, pos, pos < cap, cap
+
+
+def moe_ffn(p, x, *, num_experts: int, top_k: int,
+            capacity_factor: float = 2.0):
+    """x [..., d] -> (y [..., d], aux_loss scalar): the JAX package's
+    ``moe_ffn`` with its capacity rule and drops.
+
+    No atomics and no duplicate-index writes that matter: a kept entry
+    owns its (expert, slot); dropped entries are routed to a spare slot
+    ``cap`` of a [E, cap + 1, d] buffer that the expert products never
+    read.  The k outputs of a token are summed in a fixed order (over
+    the k axis of [T, k, d]), so a replay of a CUDA graph equals the
+    eager run bit for bit.  Nothing here syncs with the host."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    e, k = num_experts, top_k
+
+    logits = (xt @ p["router"]).to(F32)                    # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx, pos, keep, cap = moe_route(
+        probs, top_k=k, capacity_factor=capacity_factor)
+
+    # load-balance aux loss (Switch eq. 4)
+    me = probs.mean(dim=0)
+    flat_e = gate_idx.reshape(-1)
+    ce = (flat_e[:, None] == torch.arange(e, device=x.device)).to(F32).sum(
+        0) / (t * k)
+    aux = e * (me * ce).sum()
+
+    tok = torch.arange(t * k, device=x.device) // k
+    slot = torch.where(keep, pos, torch.full_like(pos, cap))
+    buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=x.device)
+    buf[flat_e, slot] = xt[tok]
+    buf = buf[:, :cap]
+
+    g = torch.bmm(buf, p["w_gate"])
+    u = torch.bmm(buf, p["w_up"])
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    outb = torch.bmm(h, p["w_down"])                       # [E, cap, d]
+
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    gathered = outb[flat_e, safe_pos]                      # [T*k, d]
+    w = (gate_w.reshape(-1) * keep).to(outb.dtype)
+    y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
+    return y.reshape(orig_shape), aux

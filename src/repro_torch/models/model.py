@@ -1,11 +1,14 @@
 """The port's model: the ATTN decoder of repro.models.model, with a
-SwiGLU or a GELU MLP FFN.
+SwiGLU, a GELU MLP or a mixture-of-experts FFN, and the early fusion of
+a ``vision_stub`` frontend (patch embeddings in place of the first
+token embeddings).
 
 Public entry points (same layout and semantics as the JAX package):
 
     init_params(cfg, generator, device)
     init_decode_state(cfg, batch, cache_len, device)
-    prefill(params, cfg, tokens, prompt_lens, cache_len) -> (last_logits, state)
+    prefill(params, cfg, tokens, prompt_lens, cache_len, enc_feats=None)
+        -> (last_logits, state)
     prefill_chunk(params, cfg, state, tokens, chunk_pos) -> (last_logits, state)
     decode_step(params, cfg, state, tokens) -> (logits, state)
     scatter_rows(state, sub, rows, sub_rows)
@@ -28,7 +31,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.config import (ATTN, FFN_MLP, FFN_SWIGLU, ModelConfig,
+from repro_torch.core.config import (ATTN, DEC_XATTN, FFN_MLP, FFN_MOE,
+                                     FFN_SWIGLU, XATTN, ModelConfig,
                                      check_supported)
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as L
@@ -55,6 +59,10 @@ def _ffn_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
     if cfg.ffn_kind == FFN_MLP:
         return {"w_in": (d, f), "w_out": (f, d)}
+    if cfg.ffn_kind == FFN_MOE:
+        e = cfg.num_experts
+        return {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+                "w_down": (e, f, d)}
     raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r} is not ported yet")
 
 
@@ -79,10 +87,15 @@ def _normal(gen, shape, scale, dtype, device):
 def _normal_stacked(gen, shape, scale, dtype, device):
     """A stacked leaf drawn one layer at a time into its final dtype, so
     the fp32 transient is one layer's, not the stack's (llama-13b's
-    stacked ``ffn_w_gate`` would be 11.3 GB of fp32 in one draw)."""
+    stacked ``ffn_w_gate`` would be 11.3 GB of fp32 in one draw); an
+    expert leaf [L, E, ...] one expert of one layer at a time (one
+    grok-1 layer's ``ffn_w_gate`` is 6.4 GB of fp32)."""
     out = torch.empty(shape, dtype=dtype, device=device)
     for i in range(shape[0]):
-        out[i] = _normal(gen, shape[1:], scale, dtype, device)
+        if len(shape) > 3:
+            out[i] = _normal_stacked(gen, shape[1:], scale, dtype, device)
+        else:
+            out[i] = _normal(gen, shape[1:], scale, dtype, device)
     return out
 
 
@@ -228,9 +241,15 @@ def _self_attention(p, x, st, ctx: Ctx):
 
 
 def _ffn(p, x, cfg: ModelConfig):
+    """The FFN's output; a MoE's aux loss is a training term, dropped on
+    the serve path."""
     fp = {k[4:]: v for k, v in p.items() if k.startswith("ffn_")}
     if cfg.ffn_kind == FFN_MLP:
         return L.mlp(fp, x)
+    if cfg.ffn_kind == FFN_MOE:
+        y, _ = L.moe_ffn(fp, x, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k, capacity_factor=cfg.moe_capacity)
+        return y
     return L.swiglu(fp, x)
 
 
@@ -272,8 +291,20 @@ def _run_layers(params, h, state, ctx: Ctx):
     return h, state
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens.long()]
+def early_fusion(cfg: ModelConfig) -> bool:
+    """A ``vision_stub`` frontend with no cross-attention layer: its patch
+    embeddings enter through ``_embed``."""
+    return (cfg.frontend == "vision_stub" and XATTN not in cfg.layer_pattern
+            and DEC_XATTN not in cfg.layer_pattern)
+
+
+def _embed(params, cfg: ModelConfig, tokens, enc_feats=None):
+    h = params["embed"][tokens.long()]
+    if enc_feats is not None and early_fusion(cfg):
+        # early fusion: patch embeddings occupy the first n positions
+        n = enc_feats.shape[1]
+        h = torch.cat([enc_feats.to(h.dtype), h[:, n:]], dim=1)
+    return h
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -283,15 +314,17 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
-            q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Process right-padded prompts tokens [B,Sp] with prompt_lens [B].
-    Returns (logits at each prompt's last token [B,V], state)."""
+            enc_feats=None, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Process right-padded prompts tokens [B,Sp] with prompt_lens [B];
+    ``enc_feats`` [B, n, d] (an early-fusion arch) replaces the first n
+    token embeddings.  Returns (logits at each prompt's last token [B,V],
+    state)."""
     b, s = tokens.shape
     dev = tokens.device
     state = init_decode_state(cfg, b, cache_len, dev)
     prompt_lens = prompt_lens.to(torch.int32)
     state["lengths"] = prompt_lens.clone()
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens, enc_feats)
     qpos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     ctx = Ctx(cfg, "prefill", qpos, prompt_lens, kv_chunk, q_chunk)
     h, state = _run_layers(params, h, state, ctx)
@@ -322,7 +355,7 @@ def prefill_chunk(params, cfg: ModelConfig, state, tokens, chunk_pos,
     valid = chunk_pos >= 0
     base = state["lengths"].to(torch.int32)
     ctx = Ctx(cfg, "chunk", chunk_pos, base, kv_chunk, c)
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens)
     h, state = _run_layers(params, h, state, ctx)
     cnt = valid.sum(dim=1).to(torch.int32)
     last = torch.clamp(cnt.long() - 1, 0, c - 1)
@@ -350,7 +383,7 @@ def scatter_rows(state, sub, rows, sub_rows):
 
 def decode_step(params, cfg: ModelConfig, state, tokens, kv_chunk=1024):
     """One token per sequence.  tokens [B,1] -> (logits [B,V], state)."""
-    h = _embed(params, tokens)
+    h = _embed(params, cfg, tokens)
     lengths = state["lengths"]
     ctx = Ctx(cfg, "decode", lengths[:, None], lengths, kv_chunk, 1)
     h, state = _run_layers(params, h, state, ctx)

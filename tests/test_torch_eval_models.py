@@ -56,14 +56,17 @@ def test_full_config_equals_jax(arch):
 
 @pytest.mark.parametrize("arch", sorted(jlist_archs()))
 def test_check_supported_takes_the_dense_archs_only(arch):
-    """ATTN layers with a SwiGLU or MLP FFN pass; MoE, the other mixers
+    """ATTN layers with a SwiGLU, MLP or MoE FFN pass (the dense archs
+    and, since the MoE slice, grok-1 and llama4-scout); the other mixers
     and enc-dec are still refused (by the reference's full configs)."""
     from repro_torch.core.config import check_supported
     tc = ModelConfig(**dataclasses.asdict(jget_arch(arch)))
     if arch in list_archs():
+        assert tc.ffn_kind in ("swiglu", "mlp", "moe")
         check_supported(tc)
     else:
-        with pytest.raises(NotImplementedError, match="SwiGLU or MLP"):
+        with pytest.raises(NotImplementedError,
+                           match="SwiGLU, MLP or MoE"):
             check_supported(tc)
 
 

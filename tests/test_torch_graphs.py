@@ -345,7 +345,7 @@ def test_verify_logits_survive_the_next_step(serve_setup):
 # ---------------------------------------------------------------------------
 # no host sync inside a captured body (the torch analogue of RA002)
 # ---------------------------------------------------------------------------
-SYNCS = {"item", "cpu", "tolist", "numpy", "synchronize"}
+SYNCS = {"item", "cpu", "tolist", "numpy", "synchronize", "nonzero"}
 
 
 def _resolve(call, scope, cls):
@@ -409,8 +409,11 @@ def captured_bodies(module):
                     yield f"{getattr(cls, '__name__', '')}.{f.name}", sub, cls
 
 
-def host_syncs(module):
-    found, seen, n = [], set(), 0
+def host_syncs(module, seen=None):
+    """(bodies, syncs) of ``module``; ``seen`` (a set), when given,
+    receives every port function the bodies reach."""
+    found, n = [], 0
+    seen = set() if seen is None else seen
     for where, node, cls in captured_bodies(module):
         n += 1
         scan(node, vars(module), cls, where, seen, found)
@@ -418,17 +421,21 @@ def host_syncs(module):
 
 
 def test_captured_bodies_have_no_host_sync():
-    bodies, syncs = 0, []
+    bodies, syncs, reached = 0, [], set()
     for path in sorted(PORT.rglob("*.py")):
         mod = importlib.import_module("repro_torch." + ".".join(
             path.relative_to(PORT).with_suffix("").parts).replace(
                 ".__init__", ""))
-        n, found = host_syncs(mod)
+        n, found = host_syncs(mod, reached)
         bodies += n
         syncs += [(path.name,) + f for f in found]
     # the S-side transitions (4), the R-Parts (5), the drafter's step and
     # commit (2)
     assert bodies >= 11
+    # the FFNs the S-side transitions run, the MoE dispatch among them
+    from repro_torch.models import layers
+    assert {layers.swiglu, layers.mlp, layers.moe_ffn,
+            layers.moe_route} <= reached
     assert not syncs, syncs
 
 

@@ -15,7 +15,8 @@ from repro_torch.core import perfmodel as TP
 from repro_torch.core.config import ModelConfig, get_arch
 
 ARCHS = ["qwen3-8b", "llama-7b", "granite-3-8b", "llama-13b", "opt-175b",
-         "deepseek-67b", "deepseek-coder-33b"]
+         "deepseek-67b", "deepseek-coder-33b", "grok-1-314b",
+         "llama4-scout-17b-a16e"]
 HW_NAMES = sorted(TP.HW)
 
 
