@@ -34,7 +34,13 @@ Phases (any failure exits nonzero):
               checked with ragged rows, holes and shared pages; the
               softcap rows' yardstick is compiled flex_attention, and
               grok-1's fp32 case with the cap saturated is held against
-              fp64); times
+              fp64); kernel 3's slab entry at recurrentgemma-2b's heads
+              (Dh 256, Hq 10 / Hkv 1, window 2048: rings wrapped past
+              the window, a window under the ring, ragged and empty rows,
+              bf16 and fp32 q, fp32 also against fp64, each repeated
+              bitwise; Dh 96 and 512 refused), its ptxas registers and
+              spills, and its times at the hybrid's int8 serve shape and
+              at 64 x 2048; times
               the one-call paged-int8 op against the gather + kernel 3
               chain it replaced.
   compare     (only with --v1-source) the first version of kernels 1 and
@@ -205,6 +211,26 @@ Phases (any failure exits nonzero):
               and the fault matrix (crash, drop, error, hang, dup, pool,
               verify, the three tier sites, wire_corrupt on a migration and
               on a snapshot), each == colocated with its fault fired.
+  serve_rglru recurrentgemma-2b at full size (26 layers: 18 RG-LRU, 8
+              windowed MQA layers at Dh 256), bf16, through
+              ServingEngine(backend="hetero", num_r_workers=2,
+              paged_kv=True) on the 12-request trace as serve_eval serves
+              (one profiled window each): as is (the windowed layers stay
+              on the dense slab and attend in plain torch: no kernel),
+              with quantized_kv=True (kernel 3's slab entry: launches =
+              8 attention layers x 2 micro-batches x 2 workers x decode
+              steps, no plain call) and with prefill_chunk=128; the step
+              bound (2 x weight bytes / 3.35 TB/s) beside the p50.
+  serve_ssd   mamba2-2.7b at full size (64 SSD layers), bf16, the same
+              trace as is and with prefill_chunk=128: no kernel, no KV
+              pool or allocator built under paged_kv.
+  equiv_recurrent
+              fp32 (TF32 off) at full width, the hybrid at 3 layers (one
+              period) and mamba2 at 2: hetero paged == colocated,
+              chunked (16) == monolithic, graphs == eager bit for bit, a
+              migration and a re-prefill failover of the recurrent rows
+              == colocated (wire payloads bit for bit), the hybrid's int8
+              storage within 0.5 of fp on teacher-forced logits.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -252,6 +278,11 @@ KERNELS = {
     # kernel 3's multi-token paged entry (the paged int8 verify): a
     # port-side entry of kernel 3, computing src/repro/kernels/ops.py:152
     "verify_int8": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/quant_kv.py:44"),
+    # kernel 3's slab entry at recurrentgemma-2b's heads (Dh 256, G 10,
+    # window 2048): the hybrid's quantized_kv decode
+    "decode_attention_int8_dh256": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/quant_kv.py:44"),
 }
@@ -985,6 +1016,120 @@ def slab_checks(dev) -> dict:
             for k, v in out.items()}
 
 
+# recurrentgemma-2b's windowed MQA layers: Hq 10 / Hkv 1 (G 10: two row
+# groups of the kernel, 8 and 2), Dh 256, window 2048, ring-ordered slabs
+# of S = min(cache_len, window) slots
+HYBRID_HEADS = dict(hq=10, hkv=1, dh=256)
+HYBRID_WINDOW = 2048
+# (name, S, rows, lengths, window): a ring wrapped past its size twice
+# (every slot valid, the window the ring's), the same ring under a window
+# of 512 (three quarters masked), the serve's S = 1024 < window wrapped
+# once, and ragged rows: a prefix, a short row, a stale slot past its
+# length, a row with no valid slot (exactly 0)
+DH256_CASES = [
+    ("ring-S2048", 2048, [("ring", 1000, 3048), ("ring", 2500, 4548),
+                          ("prefix", 700, (3, 99)), ("empty",)],
+     [3047, 4547, 699, 9], HYBRID_WINDOW),
+    ("ring-window512", 2048, [("ring", 1000, 3048), ("ring", 2500, 4548),
+                              ("prefix", 5, ()), ("empty",)],
+     [3047, 4547, 4, 9], 512),
+    ("serve-S1024", 1024, [("ring", 300, 1324), ("prefix", 600, ()),
+                           ("prefix", 17, (16,)), ("empty",)],
+     [1323, 598, 15, 3], HYBRID_WINDOW),
+]
+
+
+def _slab_fp64(q, k, v, pos, lengths, window):
+    """Dense-slab attention in fp64: q [B,Hq,Dh] at position lengths[b],
+    k, v [B,S,Hkv,Dh] (already dequantized), validity from pos (mapped,
+    <= lengths, inside the window); a row with no valid slot gives 0."""
+    import math
+    import torch
+    f64 = torch.float64
+    b, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.to(f64).reshape(b, hkv, hq // hkv, dh) / math.sqrt(dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.to(f64))
+    ln = lengths.long()[:, None]
+    ok = (pos >= 0) & (pos <= ln)
+    if window > 0:
+        ok &= pos > ln - window
+    s = torch.where(ok[:, None, None, :], s,
+                    torch.tensor(float("-inf"), dtype=f64, device=q.device))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.to(f64)).reshape(b, hq, dh)
+
+
+def dh256_checks(dev) -> dict:
+    """Kernel 3's slab entry at the hybrid's heads (``HYBRID_HEADS``) on
+    ``DH256_CASES``: bf16 q against the plain version on q.float() (the
+    kernel keeps the dequantized K/V in fp32), fp32 q against the plain
+    version and against fp64 (it passes when |kernel - fp64| <= atol +
+    |plain - fp64|, what |kernel - plain| <= atol implies, as the
+    saturated fp32 cases of the paged kernels), each repeated bitwise;
+    the row with no valid slot exactly 0."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(23)
+    hq, hkv, dh = (HYBRID_HEADS[k] for k in ("hq", "hkv", "dh"))
+    results = []
+    for name, s, rows, lengths, window in DH256_CASES:
+        pos = torch.stack([_slab_pos(s, r) for r in rows]).to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        b = len(rows)
+        k = torch.randn((b, s, hkv, dh), generator=gen).to(dev)
+        v = torch.randn((b, s, hkv, dh), generator=gen).to(dev)
+        kq, ks = QK.quantize_kv(k)
+        vq, vs = QK.quantize_kv(v)
+        del k, v
+        for dtype_name in ("bfloat16", "float32"):
+            q = torch.randn((b, hq, dh), generator=gen).to(dev).to(
+                getattr(torch, dtype_name))
+            args = (q, kq, ks, vq, vs, pos, lens)
+            got = QK.decode_attention_int8(*args, window=window)
+            again = QK.decode_attention_int8(*args, window=window)
+            plain = ref.decode_attention_int8_ref(q.float(), *args[1:],
+                                                  window=window)
+            rec = _check_case("decode_attention_int8",
+                              f"{dtype_name}-dh256-G10-{name}", dtype_name,
+                              got, plain, empty_row=rows.index(("empty",)),
+                              again=again, plan=DA.kernel_plan(q, kq))
+            rec.update(S=s, window=window, lengths=lengths)
+            if dtype_name == "float32":
+                want = _slab_fp64(q, QK.dequantize_kv(kq, ks),
+                                  QK.dequantize_kv(vq, vs), pos, lens,
+                                  window)
+                d_plain = float((plain.double() - want).abs().max())
+                d_kern = float((got.double() - want).abs().max())
+                rec.update(kernel_vs_fp64=d_kern, plain_vs_fp64=d_plain,
+                           tol_vs_fp64=TOL["float32"][0] + d_plain,
+                           fp64_ok=d_kern <= TOL["float32"][0] + d_plain)
+                if not rec["fp64_ok"]:
+                    raise AssertionError(f"kernel 3 at Dh 256 is further "
+                                         f"from fp64 than the plain "
+                                         f"version allows: {rec}")
+            results.append(rec)
+    # a head dim or layout the entry does not take raises, with no
+    # fallback to the plain version
+    refused = []
+    for bad_dh in (96, 512):
+        q = torch.zeros((1, 10, bad_dh), dtype=torch.bfloat16, device=dev)
+        kq = torch.zeros((1, 64, 1, bad_dh), dtype=torch.int8, device=dev)
+        sc = torch.ones((1, 64, 1), device=dev)
+        pos = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+        ln = torch.zeros((1,), dtype=torch.int32, device=dev)
+        try:
+            QK.decode_attention_int8(q, kq, sc, kq, sc, pos, ln)
+        except ValueError as e:
+            refused.append({"Dh": bad_dh, "error": str(e)})
+        else:
+            raise AssertionError(f"kernel 3 took Dh {bad_dh}")
+    return {"cases": results, "refused": refused,
+            "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
 def paged_int8_checks(dev) -> dict:
     """Kernel 3's paged addressing against ``ref.paged_decode_attention_
     int8_ref`` (the gather chain, on q.float() for a bf16 q) on the tables
@@ -1106,12 +1251,14 @@ def _slab_runs(pos, lens):
 
 
 def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
-                copies=1, iters=50) -> dict:
-    """Kernels 2 and 3, their plain versions and the SDPA yardstick at one
-    shape, bf16 q: host-loop ms from CUDA events, device ms from the same
-    calls replayed from a CUDA graph, the split plan, CTAs and merge
-    launches per call.  ``copies`` distinct slabs are cycled so the
-    working set exceeds the 50 MB L2."""
+                copies=1, iters=50,
+                kernels=("decode_attention", "decode_attention_int8")
+                ) -> dict:
+    """Kernels 2 and 3 (or those of ``kernels``), their plain versions
+    and the SDPA yardstick at one shape, bf16 q: host-loop ms from CUDA
+    events, device ms from the same calls replayed from a CUDA graph, the
+    split plan, CTAs and merge launches per call.  ``copies`` distinct
+    slabs are cycled so the working set exceeds the 50 MB L2."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
     bufs, pos, lens = _slab_inputs(dev, b=b, s=s, n_valid=n_valid, hq=hq,
@@ -1158,7 +1305,8 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
             "achieved_GBps_device": bytes_moved / (device_ms * 1e-3) / 1e9}
 
     return {kernel: measure(kernel, r)
-            for kernel, r in _slab_runs(pos, lens).items()}
+            for kernel, r in _slab_runs(pos, lens).items()
+            if kernel in kernels}
 
 
 def gather_timing(dev, *, b=2, n_tok=512, cache_len=1024, hq=32, hkv=8,
@@ -1536,6 +1684,19 @@ def phase_kernel(dev) -> dict:
                          copies=16, iters=200)
     s_bw = slab_timing(dev, "bandwidth", b=64, s=4096, n_valid=4096,
                        copies=1, iters=20)
+    # kernel 3's slab entry at recurrentgemma-2b's windowed MQA heads (Dh
+    # 256, G 10): its checks, then one R-worker call of the hybrid's int8
+    # serve (2 rows, S = min(cache_len 1024, window 2048), 512 valid) and
+    # 64 rows x a full window
+    d256 = dh256_checks(dev)
+    s256 = [slab_timing(dev, name, hq=10, hkv=1, dh=256, copies=c,
+                        iters=it, kernels=("decode_attention_int8",),
+                        **kw)["decode_attention_int8"]
+            for name, kw, c, it in (
+                ("main-path-recurrentgemma", dict(b=2, s=1024, n_valid=512),
+                 16, 200),
+                ("bandwidth-recurrentgemma",
+                 dict(b=64, s=HYBRID_WINDOW, n_valid=HYBRID_WINDOW), 1, 20))]
     v8checks = verify_int8_checks(dev)
     # kernel 3's multi-token entry at the int8 spec serve's per-worker
     # verify call (2 rows, the last of 4 candidates at position 511) and
@@ -1561,6 +1722,12 @@ def phase_kernel(dev) -> dict:
     kernels["decode_attention_int8"]["max_abs_err"] = max(
         kernels["decode_attention_int8"]["max_abs_err"],
         pchecks["max_abs_err"])
+    kernels["decode_attention_int8_dh256"] = {
+        "checks": d256["cases"], "refused": d256["refused"],
+        "timing": s256,
+        "ptxas": [r for r in ptxas["decode_attention"] if r["Dh"] == 256],
+        "max_abs_err": max([d256["max_abs_err"]]
+                           + [x["max_abs_err"] for x in s256])}
     kernels["paged_verify_attention"] = {
         "checks": vchecks["cases"], "timing": [v_main, v_bw],
         "timing_moe_models": [r[1] for r in moe.values()],
@@ -2160,11 +2327,16 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
     # a supervised retry relaunches what its aborted attempt launched
     calls = (n_workers * verify_works if spec_k
              else n_mb * sum(workers_per_step))
-    want = cfg.num_layers * calls
+    # only attention layers launch a kernel (the RG-LRU and SSD R-Parts
+    # are plain torch)
+    n_attn = sum(k == "attn" for k in cfg.pattern)
+    want = n_attn * calls
     others = {n: v for n, v in launches.items() if n != kernel}
     # the paged int8 decode is one call of kernel 3's paged entry, no
-    # gather (the int8 verify: one call of its multi-token entry)
-    want_paged = want if paged and quantized and not spec_k else 0
+    # gather (the int8 verify: one call of its multi-token entry); a
+    # windowed arch keeps the dense slab under paged_kv
+    pageable = paged and cfg.window == 0
+    want_paged = want if pageable and quantized and not spec_k else 0
     got = launches[kernel] if kernel else 0
     launch_ok = (got >= want if retries_ok and kernel
                  else got == (want if kernel else 0))
@@ -2188,6 +2360,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "mode": "eager" if eager else "graphs",
            "prefill_chunk": prefill_chunk,
            "model": cfg.name, "layers": cfg.num_layers,
+           "attention_layers": n_attn,
            "full_layers": model.get("full_layers", cfg.num_layers),
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
@@ -2198,7 +2371,7 @@ def _serve_run(dev, model, out, *, kernel, paged, quantized, spec_k,
            "batch": batch, "micro_batches": n_mb, "r_workers": n_workers,
            "r_workers_per_step": workers_per_step,
            "decode_tokens_per_step": step_tokens,
-           "kernel_launches_expected": want,
+           "kernel_launches_expected": want if kernel else 0,
            "page_size": 16, "cache_len": eng.cache_len,
            "prompt_tokens": sum(r.prompt_len for r in reqs),
            "decode_tokens": dec_tokens,
@@ -5063,12 +5236,271 @@ def phase_equiv_moe(dev) -> dict:
             "cases": cases, "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# the recurrent models: recurrentgemma-2b (RG-LRU + windowed MQA) and
+# mamba2-2.7b (SSD), full size
+# ---------------------------------------------------------------------------
+RECURRENT_CHUNK = 128   # serve_rglru's and serve_ssd's prefill_chunk
+
+
+def recurrent_serve_run(dev, model, out: Path, *, quantized=False,
+                        prefill_chunk=0, phase: str) -> dict:
+    """The 12-request trace through ServingEngine(backend="hetero",
+    num_r_workers=2, paged_kv=True) on a recurrent model, with graphs and
+    a profiled window, counted as ``serve``'s graph run.  Only attention
+    layers launch a kernel: with ``quantized`` kernel 3's slab entry
+    (the windowed layers stay dense under paged_kv) = attention layers x
+    micro-batches x workers x decode steps; else none at all; no plain
+    version.  The record adds the step bound (the weights read once per
+    micro-batch: 2 x weight bytes / 3.35 TB/s) and the R-state's bytes."""
+    cfg = model["cfg"]
+    t0 = time.perf_counter()
+    tag = (f"{phase}_{cfg.name}" + ("_int8" if quantized else "")
+           + (f"_chunk{prefill_chunk}" if prefill_chunk else ""))
+    state = {}
+
+    def after(eng):
+        ws = eng.engine.workers
+        state.update(
+            allocators=sum(len(w.allocators) for w in ws),
+            paged_keys=sum(len(w.paged_keys) for w in ws),
+            recurrent_state_bytes=sum(
+                v.numel() * v.element_size() for w in ws
+                for st in w.state.values() if set(st) == {"h"}
+                for v in st.values()),
+            attention_state_bytes=sum(
+                v.numel() * v.element_size() for w in ws
+                for st in w.state.values() if set(st) != {"h"}
+                for v in st.values()),
+            s_conv_bytes=sum(v.numel() * v.element_size()
+                             for mb in eng.engine.s_states for st in mb
+                             for v in st.values()))
+    rec = serve_run(dev, model, out, paged=True, quantized=quantized,
+                    prefill_chunk=prefill_chunk,
+                    kernel="decode_attention_int8" if quantized else None,
+                    profile=tag, after=after)
+    keys = SUMMARY_KEYS + (
+        "model", "layers", "attention_layers", "d_model", "heads", "d_ff",
+        "vocab", "weight_bytes", "init_s", "decode_steps", "requests",
+        "kernel_launches_expected", "launches", "plain_calls",
+        "dense_merge_launches", "decode_tokens", "prompt_tokens",
+        "page_pool_bytes", "kv_bytes", "graph_pool_bytes",
+        "graphs_chunk_s", "graphs_chunk_r", "prefill_step_wall_s_max",
+        "prefill_step_wall_s_max_without_captures", "prefill_steps",
+        "prefill_works", "prefill_chunk", "storage", "tokens")
+    run = {k: rec[k] for k in keys}
+    run["full_layers"] = model["full_layers"]
+    run["state"] = state
+    run["step_bound_s"] = 2 * model["weight_bytes"] / HBM_BYTES_PER_S
+    run["p50_over_step_bound"] = (rec["decode_step_s_p50"]
+                                  / run["step_bound_s"])
+    run["window"] = {k: rec["trace"][k] for k in (
+        "wall_s", "device_idle_ratio", "host_launches",
+        "kernel_launches_host", "graph_launches_host",
+        "attention_device")}
+    run["seconds"] = time.perf_counter() - t0
+    print(f"{tag}: {cfg.num_layers} layers, "
+          f"{rec['decode_tokens_per_s']:.2f} tokens/s, step p50 "
+          f"{rec['decode_step_s_p50']:.4f} s (bound "
+          f"{run['step_bound_s']:.5f} s), idle "
+          f"{run['window']['device_idle_ratio']:.3f}", flush=True)
+    return run
+
+
+def _chunk_triage(dev, model, out: Path) -> dict:
+    """The bf16 chunked serve against the monolithic one, by the ROADMAP
+    §3 rule (``_triage``): both served again with the logits row that
+    chose every token logged (host copies: these runs are not timed)."""
+    rows_m, rows_c = {}, {}
+    mono = serve_run(dev, model, out, paged=True, quantized=False,
+                     kernel=None, rows=rows_m)
+    chunk = serve_run(dev, model, out, paged=True, quantized=False,
+                      kernel=None, prefill_chunk=RECURRENT_CHUNK,
+                      rows=rows_c)
+    return _triage(chunk["tokens"], mono["tokens"], rows_c, rows_m)
+
+
+def phase_serve_rglru(dev, out: Path) -> dict:
+    """recurrentgemma-2b at full size (26 layers: 8 windowed MQA layers,
+    Dh 256, Hq 10 / Hkv 1, window 2048, and 18 RG-LRU layers), bf16,
+    served as is, with quantized_kv=True (kernel 3's slab entry at Dh
+    256 on every decode R-Part of the attention layers) and with
+    prefill_chunk=128, the chunked tokens triaged against the monolithic
+    ones; the model freed after."""
+    t_phase = time.perf_counter()
+    model = eval_model(dev, "recurrentgemma-2b")
+    runs = [recurrent_serve_run(dev, model, out, phase="serve_rglru"),
+            recurrent_serve_run(dev, model, out, quantized=True,
+                                phase="serve_rglru"),
+            recurrent_serve_run(dev, model, out,
+                                prefill_chunk=RECURRENT_CHUNK,
+                                phase="serve_rglru")]
+    runs[2]["triage_vs_monolithic"] = _chunk_triage(dev, model, out)
+    del model
+    _free_device()
+    base = runs[0]["tokens"]
+    for r in runs[1:]:
+        r["requests_equal_to_bf16"] = sum(
+            r["tokens"][k] == base[k] for k in base) / len(base)
+    return {"phase": "serve_rglru", "ok": True, "runs": runs,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def phase_serve_ssd(dev, out: Path) -> dict:
+    """mamba2-2.7b at full size (64 SSD layers, no attention: no KV pool
+    is built under paged_kv), bf16, served as is and with
+    prefill_chunk=128, the chunked tokens triaged against the monolithic
+    ones; the model freed after."""
+    t_phase = time.perf_counter()
+    model = eval_model(dev, "mamba2-2.7b")
+    runs = [recurrent_serve_run(dev, model, out, phase="serve_ssd"),
+            recurrent_serve_run(dev, model, out,
+                                prefill_chunk=RECURRENT_CHUNK,
+                                phase="serve_ssd")]
+    runs[1]["triage_vs_monolithic"] = _chunk_triage(dev, model, out)
+    cfg = model["cfg"]
+    del model
+    _free_device()
+    for r in runs:
+        st = r["state"]
+        if st["allocators"] or st["paged_keys"] or r["page_pool_bytes"] \
+                or st["attention_state_bytes"]:
+            raise AssertionError(f"serve_ssd built KV storage: {st}, pool "
+                                 f"bytes {r['page_pool_bytes']}")
+    runs[1]["requests_equal_to_monolithic"] = sum(
+        runs[1]["tokens"][k] == runs[0]["tokens"][k]
+        for k in runs[0]["tokens"]) / len(runs[0]["tokens"])
+    return {"phase": "serve_ssd", "ok": True, "runs": runs,
+            "kv_pool_built": False,
+            "r_state_bytes_per_row_and_layer":
+                cfg.ssd_heads * cfg.ssd_head_dim * cfg.ssm_state * 4,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _recurrent_equiv_model(dev, arch: str, layers: int):
+    """``layers`` of ``arch`` at full width, fp32 (TF32 off), seeded
+    random weights."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+    return cfg, params
+
+
+def phase_equiv_recurrent(dev) -> dict:
+    """fp32, TF32 off, at full width: recurrentgemma-2b at 3 layers (one
+    period: rglru, rglru, windowed attention) and mamba2-2.7b at 2.
+    Hetero paged (2 workers) == colocated; prefill_chunk=16 == monolithic;
+    graphs == eager bit for bit; a live migration (apply_partition to (0,
+    3), (3, 4) and back, batch 8) leaves every wire payload bit for bit
+    and the colocated tokens, as does a re-prefill failover after a
+    kill(); the hybrid's int8 storage (kernel 3 at Dh 256) within 0.5 of
+    fp on teacher-forced logits."""
+    from repro_torch.fleet import FleetManager, uniform_fleet
+    t_phase = time.perf_counter()
+    spec = dict(n=6, p_lo=17, p_hi=200, new_lo=6, new_hi=10)
+    cases = {}
+    for arch, layers in (("recurrentgemma-2b", 3), ("mamba2-2.7b", 2)):
+        t0 = time.perf_counter()
+        cfg, params = _recurrent_equiv_model(dev, arch, layers)
+        sp = dict(spec, vocab=cfg.vocab_size)
+        rec = {"layers": layers, "pattern": list(cfg.pattern)}
+        want, _ = _equiv_serve(dev, cfg, params, sp, backend="colocated")
+        _reset_counters()
+        got, _ = _equiv_serve(dev, cfg, params, sp, backend="hetero",
+                              paged_kv=True)
+        launches = {n: c[0].value for n, c in _counters().items()}
+        rec["hetero_vs_colocated"] = _equal_or_raise(
+            f"equiv_recurrent {arch} hetero", got, want)
+        rec["hetero_launches"] = launches
+        if any(launches.values()):
+            raise AssertionError(f"{arch}: a kernel ran on an fp path "
+                                 f"with no pageable layer: {launches}")
+        eager, _ = _equiv_serve(dev, cfg, params, sp, eager=True,
+                                backend="hetero", paged_kv=True)
+        rec["graphs_vs_eager"] = _bitwise_equal(f"{arch} graphs", got, eager)
+        chunked, _ = _equiv_serve(dev, cfg, params, sp, backend="hetero",
+                                  paged_kv=True, prefill_chunk=16)
+        rec["chunked_vs_monolithic"] = _equal_or_raise(
+            f"equiv_recurrent {arch} chunked", chunked, got)
+        want8, _ = _equiv_serve(dev, cfg, params, sp, backend="colocated",
+                                batch=8)
+        moves = []
+
+        def on_step(eng, moves=moves):
+            if eng.step_idx in (4, 9):
+                before = _wire(eng)
+                eng.engine.apply_partition(
+                    [(0, 3), (3, 4)] if eng.step_idx == 4
+                    else [(0, 2), (2, 4)])
+                moves.append(_wire_equal(before, _wire(eng)))
+        mig, _ = _equiv_serve(dev, cfg, params, sp, batch=8, on_step=on_step,
+                              backend="hetero", paged_kv=True)
+        if moves != [True, True]:
+            raise AssertionError(f"{arch} migration: wire payloads equal "
+                                 f"after each move {moves}")
+        rec["migration"] = dict(_equal_or_raise(f"{arch} migration", mig,
+                                                want8),
+                                wire_bitwise_equal=True)
+        fleet = FleetManager(uniform_fleet(2), recovery="reprefill")
+
+        def kill(eng):
+            if eng.step_idx == 6:
+                w = eng.engine.workers[1]
+                w.kill()
+                w.join(timeout=30)
+        fo, _ = _equiv_serve(dev, cfg, params, sp, batch=8, on_step=kill,
+                             backend="hetero", paged_kv=True, fleet=fleet,
+                             suspect_after_s=SUSPECT_S,
+                             collect_timeout_s=120.0)
+        ev = fleet.telemetry.events_of("recovery")
+        if len(ev) != 1 or ev[0].detail["mode"] != "reprefill":
+            raise AssertionError(f"{arch} failover: {ev}")
+        rec["failover_reprefill"] = dict(
+            _equal_or_raise(f"{arch} failover", fo, want8),
+            rows=ev[0].detail["rows"], duration_s=ev[0].detail["duration_s"])
+        if "attn" in cfg.pattern:
+            forced = {r: t for r, (t, _) in got.items()}
+            k3, k3_plain = _counters()["decode_attention_int8"]
+            _reset_counters()
+            q8, _ = _equiv_serve(dev, cfg, params, sp, forced=forced,
+                                 backend="hetero", paged_kv=True,
+                                 quantized_kv=True)
+            n8, plain8 = k3.value, k3_plain.value
+            d = max(float((a - b).abs().max())
+                    for r in got for a, b in zip(q8[r][1], got[r][1]))
+            if not 0.0 < d <= QUANT_BOUND or n8 == 0 or plain8:
+                raise AssertionError(
+                    f"{arch} int8: max logit diff {d} (bound "
+                    f"{QUANT_BOUND}), kernel 3 launches {n8}, plain "
+                    f"{plain8}")
+            rec["int8_vs_fp"] = {"max_logit_diff": d,
+                                 "bound": QUANT_BOUND,
+                                 "kernel3_launches": n8}
+        rec["seconds"] = time.perf_counter() - t0
+        cases[arch] = rec
+        del params
+        _free_device()
+    return {"phase": "equiv_recurrent", "ok": True, "dtype": "float32",
+            "tf32": False, "logit_tol": EQUIV_LOGIT_TOL, "cases": cases,
+            "seconds": time.perf_counter() - t_phase}
+
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
           "equiv_spec", "equiv_chunk", "equiv_spec_int8", "equiv_prefix",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
-          "equiv_eval", "serve_moe", "equiv_moe")
+          "equiv_eval", "serve_moe", "equiv_moe", "serve_rglru",
+          "serve_ssd", "equiv_recurrent")
 
 
 def kernels_line(results) -> list:
@@ -5085,6 +5517,7 @@ def kernels_line(results) -> list:
     serve, serve8 = results.get("serve"), results.get("serve_int8")
     spec, spec8 = results.get("serve_spec"), results.get("serve_spec_int8")
     chunked = results.get("serve_chunked")
+    rg = results.get("serve_rglru")
     runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else []) \
         + ([spec] if spec else []) + (spec8["runs"] if spec8 else []) \
         + (chunked["runs"] if chunked else [])
@@ -5096,6 +5529,8 @@ def kernels_line(results) -> list:
         else None,
         "paged_verify_attention": spec["kernel_launches"] if spec else None,
         "verify_int8": spec8["kernel_launches"] if spec8 else None,
+        "decode_attention_int8_dh256": rg["runs"][1]["kernel_launches"]
+        if rg else None,
     }
     line = []
     for name, (source, replaces) in KERNELS.items():
@@ -5294,6 +5729,15 @@ def main(argv=None) -> int:
     if "equiv_moe" in phases:
         results["equiv_moe"] = phase_equiv_moe(dev)
         log(results["equiv_moe"])
+    if "serve_rglru" in phases:
+        results["serve_rglru"] = phase_serve_rglru(dev, args.out)
+        log(results["serve_rglru"])
+    if "serve_ssd" in phases:
+        results["serve_ssd"] = phase_serve_ssd(dev, args.out)
+        log(results["serve_ssd"])
+    if "equiv_recurrent" in phases:
+        results["equiv_recurrent"] = phase_equiv_recurrent(dev)
+        log(results["equiv_recurrent"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

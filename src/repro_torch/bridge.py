@@ -15,6 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.model import FP32_LEAVES
+
 
 def tensor_from_numpy(x: np.ndarray, device, dtype=None) -> torch.Tensor:
     """One leaf: uint16 is taken as bf16 bits, anything else as is."""
@@ -45,18 +47,22 @@ def _map(tree: Any, fn, name: str = ""):
     return fn(tree, name)
 
 
-def _is_norm(name: str) -> bool:
-    return name.startswith("ln") or name.endswith("norm")
+def _keeps_fp32(name: str) -> bool:
+    """Norm scales and ``model.FP32_LEAVES`` (the RG-LRU's and the SSD's
+    gate and decay constants) stay float32 as in the JAX package."""
+    return (name.startswith("ln") or name.endswith("norm")
+            or name in FP32_LEAVES)
 
 
 def params_from_numpy(np_params, cfg, device, dtype=None):
     """The JAX ``init_params`` pytree (numpy leaves) as the port's params
     dict, same layout.  ``dtype`` (optional) casts the weight matrices;
-    norm scales stay float32 as in the JAX package.  ``cfg`` is accepted
+    norm scales and the recurrent mixers' fp32 constants stay float32 as
+    in the JAX package.  ``cfg`` is accepted
     for symmetry with the reference's signatures and checks nothing
     beyond the embedding width."""
     out = _map(np_params, lambda x, name: tensor_from_numpy(
-        x, device, None if _is_norm(name) else dtype))
+        x, device, None if _keeps_fp32(name) else dtype))
     if out["embed"].shape[-1] != cfg.d_model:
         raise ValueError(f"embed width {out['embed'].shape[-1]} != "
                          f"d_model {cfg.d_model}")

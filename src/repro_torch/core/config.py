@@ -5,9 +5,12 @@ config built from ``dataclasses.asdict`` of a reference config is the
 same config here.  It registers the dense pure-attention archs the port
 serves: ``qwen3-8b``, ``llama-7b``, ``granite-3-8b``, the paper's
 evaluation models ``llama-13b`` and ``opt-175b``, ``deepseek-67b`` and
-``deepseek-coder-33b``, and the mixture-of-experts models
-``grok-1-314b`` and ``llama4-scout-17b-a16e``.  The model runs the ATTN
-mixer with a SwiGLU, a GELU MLP or a capacity-dispatched MoE FFN.
+``deepseek-coder-33b``, the mixture-of-experts models ``grok-1-314b``
+and ``llama4-scout-17b-a16e``, and the recurrent models
+``recurrentgemma-2b`` (RG-LRU blocks with windowed attention every third
+layer) and ``mamba2-2.7b`` (SSD blocks).  The model runs the ATTN mixer
+with a SwiGLU, a GELU MLP or a capacity-dispatched MoE FFN, and the
+RG-LRU and SSD mixers.
 """
 from __future__ import annotations
 
@@ -86,6 +89,14 @@ class ModelConfig:
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
     @property
+    def d_inner(self) -> int:          # mamba2
+        return self.ssd_expand * self.d_model
+
+    @property
+    def ssd_heads(self) -> int:
+        return self.d_inner // self.ssd_head_dim
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
@@ -125,16 +136,17 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs pure self-attention layers with a SwiGLU, MLP or MoE
-    FFN; a ``vision_stub`` frontend is early fusion into the embeddings
-    (no cross-attention layer), so it passes too."""
-    if any(k != ATTN for k in cfg.layer_pattern) \
-            or cfg.ffn_kind not in (FFN_SWIGLU, FFN_MLP, FFN_MOE) \
-            or cfg.is_encdec:
+    """The port runs self-attention, RG-LRU and SSD layers, attention and
+    RG-LRU layers with a SwiGLU, MLP or MoE FFN (SSD blocks have none); a
+    ``vision_stub`` frontend is early fusion into the embeddings (no
+    cross-attention layer), so it passes too."""
+    if any(k not in (ATTN, RGLRU, SSD) for k in cfg.layer_pattern) \
+            or cfg.is_encdec \
+            or (cfg.ffn_kind == FFN_NONE
+                and any(k != SSD for k in cfg.layer_pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN layers with a SwiGLU, MLP or MoE FFN "
-            f"are ported so far (RG-LRU, SSD, cross-attention and enc-dec "
-            f"are queued in ROADMAP.md)")
+            f"{cfg.name}: only ATTN, RG-LRU and SSD layers are ported so "
+            f"far (cross-attention and enc-dec are queued in ROADMAP.md)")
 
 
 _ARCHS: Dict[str, ModelConfig] = {}
@@ -144,6 +156,8 @@ _ARCH_MODULES = [
     "llama_7b", "llama_13b", "opt_175b",
     # mixture of experts
     "grok_1_314b", "llama4_scout_17b_a16e",
+    # recurrent mixers
+    "recurrentgemma_2b", "mamba2_2_7b",
 ]
 
 

@@ -1,11 +1,13 @@
-"""The paper's model decomposition (FastDecode §3.1) for the port, ATTN
-blocks only (counterpart of repro.core.decompose).
+"""The paper's model decomposition (FastDecode §3.1) for the port's ATTN,
+RG-LRU and SSD blocks (counterpart of repro.core.decompose).
 
 Each block splits into the S-Part (``s_pre`` / ``s_advance``: norms,
-QKV/O projections, FFN — shared parameters, batch-friendly) and the
-parameter-free R-Part (``r_attention``: append the new token's K/V and
-attend over the cache).  Only activations cross the boundary (q, k, v
--> o).  The invariant
+projections, gates, the short convs, FFN — shared parameters,
+batch-friendly; the conv window is the S-side's small per-row state) and
+the parameter-free R-Part: ``r_attention`` (append the new token's K/V
+and attend over the cache), ``r_rglru`` (h_t = a h_{t-1} + b) or
+``r_ssd`` (the SSD state update and readout).  Only activations cross
+the boundary (q, k, v -> o; a, b -> h; x, dt, B, C -> y).  The invariant
 
     model.apply_block(kind, p, h, st, ctx) == run_decomposed(kind, p, h, st, ctx)
 
@@ -20,19 +22,29 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.config import ATTN, ModelConfig
+import torch.nn.functional as F
+
+from repro_torch.core.config import ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import Ctx, _ffn, _qkv_proj
+
+F32 = torch.float32
+
+# r_in entries that are per-head constants, not per-row data: every
+# R-worker gets them whole (``r_ssd``)
+RIN_BROADCAST = ("A_log", "D")
+# the R-Part result key of each kind (``s_advance`` reads it)
+R_OUT_KEY = {ATTN: "o", RGLRU: "h", SSD: "y"}
 
 
 def num_phases(kind: str) -> int:
     return 1
 
 
-def _attn_only(kind: str) -> None:
-    if kind != ATTN:
+def _check_kind(kind: str) -> None:
+    if kind not in R_OUT_KEY:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (the other mixers are "
+            f"block kind {kind!r} is not ported yet (cross-attention is "
             f"queued in ROADMAP.md)")
 
 
@@ -106,14 +118,74 @@ def r_attention_chunk(r_in: Dict[str, torch.Tensor], r_state, *,
     return {"o": o}, r_state
 
 
+def r_rglru(r_in, r_state):
+    """h_t = a * h_{t-1} + b, the parameter-free LRU recurrence.  An
+    optional ``active`` [B] gates the update (inactive rows keep their
+    h).  r_state {h} is updated in place; the result is a copy."""
+    h = r_in["a"] * r_state["h"] + r_in["b"]
+    act = r_in.get("active")
+    if act is not None:
+        h = torch.where(act[:, None], h, r_state["h"])
+    r_state["h"].copy_(h)
+    return {"h": h}, r_state
+
+
+def r_rglru_chunk(r_in, r_state):
+    """Chunk LRU: scan h_t = a_t h_{t-1} + b_t over the chunk from the
+    stored h, invalid positions (``valid`` False) as identity steps (a=1,
+    b=0), so short prompts and rows not fed leave h untouched.  r_in: a, b
+    [B,C,W], valid [B,C].  Returns every position's h; the last becomes
+    the stored h."""
+    valid = r_in["valid"][..., None]
+    a = torch.where(valid, r_in["a"], torch.ones((), dtype=F32,
+                                                 device=valid.device))
+    b_ = torch.where(valid, r_in["b"], torch.zeros((), dtype=F32,
+                                                   device=valid.device))
+    h = L.rglru_scan_h0(a, b_, r_state["h"])
+    r_state["h"].copy_(h[:, -1, :])
+    return {"h": h}, r_state
+
+
+def r_ssd(r_in, r_state):
+    """SSD state update and readout (parameter-free given x, dt, B, C;
+    the per-head A_log and D ride in r_in).  An optional ``active`` [B]
+    gates the update.  r_state {h} is updated in place."""
+    y, h = L.ssd_step(r_in["x"], r_in["dt"], r_in["A_log"], r_in["B"],
+                      r_in["C"], r_in["D"], r_state["h"])
+    act = r_in.get("active")
+    if act is not None:
+        h = torch.where(act[:, None, None, None], h, r_state["h"])
+    r_state["h"].copy_(h)
+    return {"y": y}, r_state
+
+
+def r_ssd_chunk(r_in, r_state, *, chunk: int):
+    """Chunk SSD: the chunk-parallel recurrence from the stored h, with
+    dt = 0 and x = 0 at invalid positions (identity steps).  r_in: x
+    [B,C,H,P], dt [B,C,H], B, C [B,C,N], valid [B,C]."""
+    valid = r_in["valid"]
+    zero = torch.zeros((), dtype=F32, device=valid.device)
+    dt = torch.where(valid[..., None], r_in["dt"], zero)
+    x = torch.where(valid[:, :, None, None], r_in["x"],
+                    zero.to(r_in["x"].dtype))
+    y, h = L.ssd_chunked(x, dt, r_in["A_log"], r_in["B"], r_in["C"],
+                         r_in["D"], chunk=chunk, h0=r_state["h"],
+                         return_state=True)
+    r_state["h"].copy_(h)
+    return {"y": y}, r_state
+
+
 class PhaseOut(NamedTuple):
     carry: Any                 # S-side residual
     r_in: Optional[Dict]       # payload for the R-worker (None if finished)
 
 
 def s_pre(kind: str, p, h, ctx: Ctx) -> PhaseOut:
-    """S-side phase 0: from block input to the R payload."""
-    _attn_only(kind)
+    """S-side phase 0 of an ATTN block: from block input to the R
+    payload (the recurrent kinds go through :func:`s_pre_stateful`)."""
+    if kind != ATTN:
+        raise NotImplementedError(
+            f"s_pre of {kind!r}: its conv state makes it s_pre_stateful")
     cfg = ctx.cfg
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv_proj(p, hn, cfg)
@@ -123,18 +195,75 @@ def s_pre(kind: str, p, h, ctx: Ctx) -> PhaseOut:
                                "lengths": ctx.lengths})
 
 
+def _rglru_in(p, h, cfg):
+    hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    gate = F.gelu((hn @ p["w_in_gate"]).to(F32),
+                  approximate="tanh").to(h.dtype)
+    return gate, hn @ p["w_in_rnn"]
+
+
+def _ssd_in(p, h, cfg):
+    di, n = cfg.d_inner, cfg.ssm_state
+    hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    z, xbc, dt = torch.split(hn @ p["w_in"], [di, di + 2 * n,
+                                               cfg.ssd_heads], dim=-1)
+    return z, F.silu(xbc.to(F32)).to(h.dtype), dt
+
+
+def _ssd_payload(p, xbc, dt, cfg, b, c):
+    di, n = cfg.d_inner, cfg.ssm_state
+    xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
+    xs = xs.reshape(b, c, cfg.ssd_heads, cfg.ssd_head_dim)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"][None, None, :])
+    return {"x": xs, "dt": dt, "B": Bm, "C": Cm, "A_log": p["A_log"],
+            "D": p["Dskip"]}
+
+
 def s_pre_stateful(kind: str, p, h, s_state, ctx: Ctx):
-    """s_pre for kinds with S-side state; ATTN keeps none.
-    Returns (PhaseOut, s_state)."""
+    """s_pre for every kind: a recurrent block's S-side holds its conv
+    window (``s_state`` {"conv"}), ATTN none.  Returns (PhaseOut,
+    new_s_state); the caller writes the new state where it keeps it."""
+    cfg = ctx.cfg
+    if kind == RGLRU:
+        gate, r = _rglru_in(p, h, cfg)
+        r, new_conv = L.causal_conv1d(p["conv"], r, s_state["conv"])
+        a, b_ = L._rglru_gates(p, r[:, 0])
+        return (PhaseOut({"h": h, "gate": gate}, {"a": a, "b": b_}),
+                {"conv": new_conv})
+    if kind == SSD:
+        z, xbc, dt = _ssd_in(p, h, cfg)
+        xbc, new_conv = L.causal_conv1d(p["conv"], xbc, s_state["conv"])
+        r_in = _ssd_payload(p, xbc, dt, cfg, h.shape[0], 1)
+        for k in ("x", "dt", "B", "C"):
+            r_in[k] = r_in[k][:, 0]
+        return PhaseOut({"h": h, "z": z}, r_in), {"conv": new_conv}
     return s_pre(kind, p, h, ctx), s_state
 
 
 def s_pre_chunk_stateful(kind: str, p, h, s_state, ctx: Ctx, valid):
     """Chunk-mode s_pre_stateful: h is [B, C, D], ``valid`` [B, C] marks
     real tokens; the payload carries ``valid`` so the R-Part gates its
-    writes.  ``ctx.qpos`` holds the chunk's absolute positions (base +
-    offset) and ``ctx.lengths`` the per-row KV offsets.  ATTN keeps no
-    S-side state.  Returns (PhaseOut, s_state)."""
+    writes and updates the same way, and the S-side conv windows freeze
+    at each row's last valid position.  ``ctx.qpos`` holds the chunk's
+    absolute positions (base + offset) and ``ctx.lengths`` the per-row
+    KV offsets.  Returns (PhaseOut, new_s_state)."""
+    cfg = ctx.cfg
+    t_end = valid.sum(dim=1)
+    if kind == RGLRU:
+        gate, r = _rglru_in(p, h, cfg)
+        r, new_conv = L.causal_conv1d_chunk(p["conv"], r, s_state["conv"],
+                                            t_end)
+        a, b_ = L._rglru_gates(p, r)
+        return (PhaseOut({"h": h, "gate": gate},
+                         {"a": a, "b": b_, "valid": valid}),
+                {"conv": new_conv})
+    if kind == SSD:
+        z, xbc, dt = _ssd_in(p, h, cfg)
+        xbc, new_conv = L.causal_conv1d_chunk(p["conv"], xbc,
+                                              s_state["conv"], t_end)
+        r_in = _ssd_payload(p, xbc, dt, cfg, h.shape[0], h.shape[1])
+        r_in["valid"] = valid
+        return PhaseOut({"h": h, "z": z}, r_in), {"conv": new_conv}
     out = s_pre(kind, p, h, ctx)
     r_in = dict(out.r_in)
     r_in["valid"] = valid
@@ -148,26 +277,55 @@ def _finish(p, h, cfg: ModelConfig):
     return h + _ffn(p, hn, cfg)
 
 
+def _ssd_out(p, carry, y, cfg):
+    """An SSD block's output from the R result y [B, S, H, P]: gated
+    RMSNorm, out projection, residual (no FFN)."""
+    h = carry["h"]
+    b, s = y.shape[:2]
+    y = y.reshape(b, s, cfg.d_inner).to(h.dtype)
+    y = L.rms_norm(y * F.silu(carry["z"].to(F32)).to(h.dtype),
+                   p["gate_norm"], cfg.norm_eps)
+    return h + y @ p["w_out"]
+
+
 def s_advance(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
-    """Consume the R result: o projection, residual and FFN."""
-    _attn_only(kind)
+    """Consume the R result (decode: one position); the block output."""
+    cfg = ctx.cfg
+    h = carry["h"]
+    if kind == RGLRU:
+        hr = r_out["h"]                                   # [B, W] fp32
+        out = (hr[:, None, :].to(h.dtype) * carry["gate"]) @ p["w_out"]
+        return _finish(p, h + out, cfg)
+    if kind == SSD:
+        return _ssd_out(p, carry, r_out["y"][:, None], cfg)
+    _check_kind(kind)
     o = r_out["o"]
     b, s = o.shape[:2]
     mix = o.reshape(b, s, -1) @ p["wo"]
-    return _finish(p, carry["h"] + mix, ctx.cfg)
+    return _finish(p, h + mix, cfg)
 
 
 def s_advance_chunk(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
     """Chunk-mode s_advance: per-position R results [B, C, ...] to the
     block output [B, C, D]; the attention math is already
-    sequence-general."""
+    sequence-general, the recurrent kinds take every position."""
+    h = carry["h"]
+    if kind == RGLRU:
+        out = (r_out["h"].to(h.dtype) * carry["gate"]) @ p["w_out"]
+        return _finish(p, h + out, ctx.cfg)
+    if kind == SSD:
+        return _ssd_out(p, carry, r_out["y"], ctx.cfg)
     return s_advance(kind, phase, p, carry, r_out, ctx)
 
 
 def r_dispatch_chunk(kind: str, phase: int, r_in, r_state,
                      cfg: ModelConfig, kv_chunk: int = 1024):
     """Chunk-work counterpart of :func:`r_dispatch` (dense storage)."""
-    _attn_only(kind)
+    if kind == RGLRU:
+        return r_rglru_chunk(r_in, r_state)
+    if kind == SSD:
+        return r_ssd_chunk(r_in, r_state, chunk=cfg.ssd_chunk)
+    _check_kind(kind)
     return r_attention_chunk(r_in, r_state, window=cfg.window,
                              softcap=cfg.attn_logit_softcap,
                              kv_chunk=kv_chunk)
@@ -175,14 +333,21 @@ def r_dispatch_chunk(kind: str, phase: int, r_in, r_state,
 
 def r_dispatch(kind: str, phase: int, r_in, r_state, cfg: ModelConfig,
                kv_chunk: int = 1024):
-    _attn_only(kind)
+    if kind == RGLRU:
+        return r_rglru(r_in, r_state)
+    if kind == SSD:
+        return r_ssd(r_in, r_state)
+    _check_kind(kind)
     return r_attention(r_in, r_state, window=cfg.window,
                        softcap=cfg.attn_logit_softcap, kv_chunk=kv_chunk)
 
 
 def split_block_state(kind: str, st: Dict):
-    """(r_state, s_state): attention state lives wholly R-side."""
-    _attn_only(kind)
+    """(r_state, s_state): attention state lives wholly R-side; a
+    recurrent block keeps h R-side and its conv window S-side."""
+    if kind in (RGLRU, SSD):
+        return {"h": st["h"]}, {"conv": st["conv"]}
+    _check_kind(kind)
     return st, {}
 
 
@@ -196,7 +361,9 @@ def run_decomposed(kind: str, p, h, st, ctx: Ctx, kv_chunk: int = 1024):
     """Single-process reference: chain the phases.  Mirrors
     model.apply_block for decode."""
     r_state, s_state = split_block_state(kind, st)
-    po, s_state = s_pre_stateful(kind, p, h, s_state, ctx)
+    po, new_s = s_pre_stateful(kind, p, h, s_state, ctx)
+    for k, v in new_s.items():
+        s_state[k].copy_(v)
     r_out, r_state = r_dispatch(kind, 0, po.r_in, r_state, ctx.cfg,
                                 kv_chunk)
     h = s_advance(kind, 0, p, po.carry, r_out, ctx)

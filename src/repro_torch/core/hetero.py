@@ -3,9 +3,11 @@ counterpart of repro.core.hetero).
 
 One S-worker (the caller's thread, on the device's current stream) owns
 all weights and computes the S-Part of every layer; ``num_r_workers``
-R-workers (threads) own the per-sequence KV of a contiguous slice of
-each micro-batch and compute the parameter-free R-Part near it.  Per
-layer and token step only activations cross: q, k, v out, o back.  Two
+R-workers (threads) own the per-sequence KV (or a recurrent block's
+state h) of a contiguous slice of each micro-batch and compute the
+parameter-free R-Part near it.  Per layer and token step only
+activations cross: q, k, v out, o back (a, b -> h for an RG-LRU block;
+x, dt, B, C -> y for an SSD block).  Two
 or more micro-batches are in flight, so while the R-workers attend for
 micro-batch A the S-worker advances micro-batch B.
 
@@ -107,7 +109,8 @@ from repro_torch.chaos.checksum import tree_digest
 from repro_torch.chaos.plan import ChaosComputeError
 from repro_torch.core import decompose as D
 from repro_torch.core import graphs
-from repro_torch.core.config import ATTN, ModelConfig, check_supported
+from repro_torch.core.config import (ATTN, RGLRU, SSD, ModelConfig,
+                                     check_supported)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving import kv_cache as KV
@@ -171,9 +174,16 @@ def batch_slice(tree: Dict, lo: int, hi: int) -> Dict:
     return {k: v[lo:hi] for k, v in tree.items()}
 
 
+def rin_slice(r_in: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of a payload; the per-head constants
+    (``decompose.RIN_BROADCAST``) go whole."""
+    return {k: (v if k in D.RIN_BROADCAST else v[lo:hi])
+            for k, v in r_in.items()}
+
+
 def shard_rin(r_in: dict, slices) -> tuple:
     """Per-worker ``r_in`` shards (row-slice views, no copies)."""
-    return tuple(batch_slice(r_in, lo, hi) for lo, hi in slices)
+    return tuple(rin_slice(r_in, lo, hi) for lo, hi in slices)
 
 
 def _fusion_feats(cfg: ModelConfig, enc_feats, device):
@@ -195,6 +205,32 @@ def mask_rows(new: Dict, old: Dict, active) -> Dict:
     value."""
     return {k: torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
                            n, old[k]) for k, n in new.items()}
+
+
+# a transition's outputs that stay S-side: the block's carry (the residual
+# ``h``, and a recurrent block's ``gate`` or ``z``), named apart from the
+# payload
+_CARRY = "carry."
+
+
+def _graph_carry(carry: Dict) -> Dict:
+    """A carry as a transition graph's inputs: the residual as ``resid``
+    (an RG-LRU's R result is ``h`` too)."""
+    return {("resid" if k == "h" else k): v for k, v in carry.items()}
+
+
+def _carry_of(ins: Dict, carry: Dict) -> Dict:
+    """The carry ``D.s_advance`` takes (the keys of ``carry``), from a
+    transition graph's inputs ``ins``."""
+    return {k: ins["resid" if k == "h" else k] for k in carry}
+
+
+def _r_out_of(ins: Dict, kind: str) -> Dict:
+    """The R result of a ``kind`` block from a graph's inputs: attention's
+    ``o``, the RG-LRU's fp32 ``h`` [B, W] or the SSD's fp32 ``y``
+    [B, H, P] (with a chunk dimension in chunk works)."""
+    key = D.R_OUT_KEY[kind]
+    return {key: ins[key]}
 
 
 class CompletionSink:
@@ -1056,9 +1092,13 @@ class HeteroPipelineEngine:
             w.start()
         if fleet is not None:
             fleet.attach(self)
-        # S-side per-layer state (empty for attention), per micro-batch
+        # S-side per-layer state, per micro-batch: a recurrent block's conv
+        # window ({} for attention), allocated once here so that the S-side
+        # graphs capture these buffers; every load and reset writes them in
+        # place
         self.s_states: List[List[Any]] = [
-            [{} for _ in range(self.num_layers)] for _ in range(self.num_mb)]
+            [self._fresh_recurrent(kind, self.mb_size)[1]
+             for kind, _ in self.layers] for _ in range(self.num_mb)]
         self.mb_lengths = [torch.zeros((self.mb_size,), dtype=torch.int32,
                                        device=self.device)
                            for _ in range(self.num_mb)]
@@ -1098,6 +1138,14 @@ class HeteroPipelineEngine:
     def _lkey(self, mb: int, layer: int) -> int:
         return mb * self.num_layers + layer
 
+    def _fresh_recurrent(self, kind: str, rows: int) -> Tuple[Dict, Dict]:
+        """(r_state, s_state) of ``rows`` fresh rows of a recurrent block
+        (zero h and conv window); ({}, {}) for attention."""
+        if kind not in (RGLRU, SSD):
+            return {}, {}
+        return D.split_block_state(kind, M._block_state(
+            self.cfg, kind, rows, self.cache_len, self.device))
+
     # -- state loading (between decode steps) ----------------------------------
     def load_mb_state(self, mb: int, state) -> None:
         """Install a full-micro-batch decode state (``M.prefill``'s or
@@ -1109,12 +1157,19 @@ class HeteroPipelineEngine:
             r_st, s_st = D.split_block_state(self.layers[li][0], st)
             for w in self.workers:
                 w.load_state(self._lkey(mb, li), batch_slice(r_st, w.lo, w.hi))
-            cur = self.s_states[mb][li]
-            if cur.keys() == s_st.keys():
-                for k, v in s_st.items():
-                    cur[k].copy_(v)
-            else:
-                self.s_states[mb][li] = s_st
+            for k, v in s_st.items():
+                self.s_states[mb][li][k].copy_(v)
+
+    def write_s_rows(self, mb: int, li: int, rows, s_state_rows) -> None:
+        """Continuous batching: write micro-batch-local ``rows`` of layer
+        ``li``'s S-side state (a recurrent block's conv window), in
+        place."""
+        if not s_state_rows:
+            return
+        idx = torch.as_tensor(np.asarray(rows), dtype=torch.long,
+                              device=self.device)
+        for k, v in s_state_rows.items():
+            self.s_states[mb][li][k][idx] = v
 
     def load_prefill(self, mb: int, tokens, prompt_lens, enc_feats=None):
         """Run prefill for micro-batch ``mb`` on the S-worker and ship each
@@ -1200,10 +1255,12 @@ class HeteroPipelineEngine:
 
     def begin_prefill_rows(self, rows) -> None:
         """Prepare global batch rows for chunked prefill: mark them
-        decode-inactive and zero their lengths.  The attention-only archs
-        of the port need no state reset: chunk appends are write-then-
-        attend, and a previous occupant's stale entries are masked by
-        position.  Must run between decode steps."""
+        decode-inactive, zero their lengths, and zero their recurrent
+        (RG-LRU / SSD) R-side h and S-side conv rows, in place, so chunk 0
+        continues from h0 = 0 (repro's reset).  Attention rows need no
+        reset: chunk appends are write-then-attend, and a previous
+        occupant's stale entries are masked by position.  Must run between
+        decode steps."""
         by_mb: Dict[int, List[int]] = {}
         for row in rows:
             mb, local = divmod(int(row), self.mb_size)
@@ -1213,6 +1270,17 @@ class HeteroPipelineEngine:
             lens = self.mb_lengths[mb].clone()    # in-flight payloads keep
             lens[locs] = 0                        # the old tensor
             self.mb_lengths[mb] = lens
+            locs = np.asarray(sorted(locs))
+            for li, (kind, _) in enumerate(self.layers):
+                r_st, s_st = self._fresh_recurrent(kind, len(locs))
+                if not r_st:
+                    continue
+                for w in self.workers:
+                    sel = np.flatnonzero((locs >= w.lo) & (locs < w.hi))
+                    if len(sel):
+                        w.write_rows(self._lkey(mb, li), locs[sel] - w.lo,
+                                     batch_slice(r_st, 0, len(sel)))
+                self.write_s_rows(mb, li, locs, s_st)
 
     def truncate_rows(self, rows, new_lens) -> None:
         """Roll global batch rows back to ``new_lens`` tokens: the
@@ -1256,14 +1324,19 @@ class HeteroPipelineEngine:
         return g
 
     def _s_out(self, out, statics) -> Tuple[Dict, tuple]:
-        """(carry, per-worker r_in shards) of a transition's outputs."""
-        r_in = {k: v for k, v in out.items() if k != "h"}
+        """(carry, per-worker r_in shards) of a transition's outputs.  The
+        carry is the residual ``h`` and a recurrent block's S-side operand
+        of its advance (RG-LRU ``gate``, SSD ``z``)."""
+        carry = {k[len(_CARRY):]: v for k, v in out.items()
+                 if k.startswith(_CARRY)}
+        r_in = {k: v for k, v in out.items() if not k.startswith(_CARRY)}
         r_in.update(statics)
-        return {"h": out["h"]}, shard_rin(r_in, self.slices)
+        return carry, shard_rin(r_in, self.slices)
 
     def _pre(self, kind, p, h, s_state, ctx, gate=None, valid=None):
         """s_pre(li) inside a graph body: S-side state written in place
-        (row-gated by ``gate`` in decode), payload without its statics."""
+        (row-gated by ``gate`` in decode), payload without its statics,
+        and the carry under ``_CARRY`` names."""
         if valid is None:
             po, new_s = D.s_pre_stateful(kind, p, h, s_state, ctx)
             new_s = mask_rows(new_s, s_state, gate)
@@ -1274,7 +1347,7 @@ class HeteroPipelineEngine:
             s_state[k].copy_(v)
         out = {k: v for k, v in po.r_in.items()
                if k not in ("lengths", "valid")}
-        out["h"] = po.carry["h"]
+        out.update({_CARRY + k: v for k, v in po.carry.items()})
         return out
 
     def _start(self, mb: int, tokens):
@@ -1304,15 +1377,15 @@ class HeteroPipelineEngine:
 
             def body(ins):
                 ctx = self._ctx(ins["lengths"])
-                h = D.s_advance(kind, phase, p, {"h": ins["h"]},
-                                {"o": ins["o"]}, ctx)
+                h = D.s_advance(kind, phase, p, _carry_of(ins, carry),
+                                _r_out_of(ins, kind), ctx)
                 if last:
                     return {"logits": M._logits(self.params, self.cfg,
                                                 h)[:, 0]}
                 return self._pre(kind2, p2, h, s2, ctx, ins["active"])
             return body
         return self._s_graph(("step", mb, li, phase), make,
-                             dict(self._mb_in[mb], h=carry["h"]))
+                             dict(self._mb_in[mb], **_graph_carry(carry)))
 
     def _advance(self, mb: int, li: int, phase: int, carry, r_out=None):
         """s_advance(li) fused with s_pre(li+1) (shards out), or with the
@@ -1320,7 +1393,7 @@ class HeteroPipelineEngine:
         valid until the micro-batch's next step).  ``r_out`` None: the
         step already gathered it into the graph's inputs."""
         g = self._advance_graph(mb, li, phase, carry)
-        g.feed(dict(r_out or {}, h=carry["h"]))
+        g.feed(dict(r_out or {}, **_graph_carry(carry)))
         out = g()
         if li + 1 >= self.num_layers:
             return None, out["logits"]
@@ -1371,8 +1444,8 @@ class HeteroPipelineEngine:
 
             def body(ins):
                 ctx = self._chunk_ctx(ins["lengths"], c)
-                h = D.s_advance_chunk(kind, phase, p, {"h": ins["h"]},
-                                      {"o": ins["o"]}, ctx)
+                h = D.s_advance_chunk(kind, phase, p, _carry_of(ins, carry),
+                                      _r_out_of(ins, kind), ctx)
                 if last and verify:
                     return {"logits": M._logits(self.params, self.cfg, h)}
                 if last:
@@ -1387,7 +1460,7 @@ class HeteroPipelineEngine:
                 return self._pre(kind2, p2, h, s2, ctx, valid=ins["valid"])
             return body
         return self._s_graph(("chunk_step", wk.mb, verify, li, phase, c),
-                             make, dict(st, h=carry["h"]))
+                             make, dict(st, **_graph_carry(carry)))
 
     def _chunk_advance(self, wk: _PrefillChunk, li: int, phase: int, carry):
         """s_advance_chunk(li) fused with s_pre_chunk(li+1) (shards out),
@@ -1398,7 +1471,7 @@ class HeteroPipelineEngine:
         work outlives the step).  The step has gathered r_out into the
         graph's inputs."""
         g = self._chunk_advance_graph(wk, li, phase, carry)
-        g.feed({"h": carry["h"]})
+        g.feed(_graph_carry(carry))
         out = g()
         if li + 1 >= self.num_layers:
             return None, out["logits"].clone()

@@ -10,7 +10,9 @@
 //   src/repro/kernels/quant_kv.py:44 (_kernel, wrapped by
 //   decode_attention_int8): int8 K/V with one fp32 scale per (token,
 //   kv-head), dequantized exactly (never rounded below the products'
-//   precision).
+//   precision).  It alone also takes Dh 256 (recurrentgemma's windowed
+//   MQA layers, G 10, in ring order); every other entry takes Dh 64 and
+//   128.
 // * repro_paged_decode_attention_int8 computes the function of
 //   src/repro/kernels/ops.py:78 (paged_decode_attention_int8: gather the
 //   int8 pages into a slab, then kernel 3) without the gather: kernel 3's
@@ -106,6 +108,14 @@
 //   split plan (shapes only) and the merge kernel are the decode entry's,
 //   over B*T*Hq output rows.  T = 1 launches the decode instantiation with
 //   the decode plan, so it is bitwise the decode entry.
+//
+// * Dh 256 (the slab int8 entry only) is the same template at DH = 256,
+//   simple first: rows padded by 16 B (no swizzle: 16 chunks a row put
+//   chunk c and c + 8 on the same banks, so the tensor-core engine's K
+//   reads take 2 wavefronts), 2 CTAs per SM on either engine where Dh
+//   128's ring allows 4 (106 KB of ring at 64 rows x 3 stages on the
+//   tensor-core path; 53 KB on the CUDA-core one), and twice the
+//   accumulator registers.
 //
 // Left for later: TMA bulk copies with mbarriers in place of cp.async,
 // persistent CTAs walking several (row, kv-head, split) items, a
@@ -282,6 +292,13 @@ template <> struct Vec<int8_t, 16> {
     i8x4_to_f32(v.w, o + 12);
   }
 };
+template <> struct Vec<int8_t, 8> {
+  __device__ static void load(const int8_t* p, float* o) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    i8x4_to_f32(v.x, o);
+    i8x4_to_f32(v.y, o + 4);
+  }
+};
 template <> struct Vec<int8_t, 4> {
   __device__ static void load(const int8_t* p, float* o) {
     i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), o);
@@ -368,7 +385,7 @@ struct FmaEngine {
   static constexpr int EPC = 16 / (int)sizeof(TKV);  // elements per chunk
   static constexpr int CPQ = R::kChunks / 4;         // chunks per lane
   static constexpr int CPL = DH / 32;                // PV columns per lane
-  static constexpr int kMinBlocks = sizeof(TKV) == 4 ? 2 : 3;
+  static constexpr int kMinBlocks = sizeof(TKV) == 4 || DH > 128 ? 2 : 3;
   struct Shared {
     float q[GT][DH];              // pre-scaled q rows
     float pw[kWarps][8][GT];      // each warp's p (x v_s) of this tile
@@ -499,6 +516,7 @@ struct FmaEngine {
   __device__ void finish(const Params& p, unsigned char* ring, int split,
                          int b, int h, int r0, int nr) {
     float* s_acc = reinterpret_cast<float*>(ring);    // [warp][row][DH]
+    static_assert(kWarps * GT * DH * 4 <= R::kRowsBytes, "s_acc in the ring");
     if (lane == 0) {
 #pragma unroll
       for (int j = 0; j < GT; ++j) {
@@ -558,7 +576,7 @@ struct MmaEngine {
   static constexpr int MT = DH / 16;      // dim tiles of PV
   static constexpr int KB = DH / 4;       // K bytes per lane and row
   static constexpr int VB = DH / 8;       // V bytes per lane and token
-  static constexpr int kMinBlocks = NT == 1 ? 4 : 2;
+  static constexpr int kMinBlocks = NT == 1 && DH <= 128 ? 4 : 2;
   struct Shared {
     float m[kWarps][GT], l[kWarps][GT];
   };
@@ -1100,6 +1118,7 @@ cudaError_t allow_smem_kv() {
   cudaError_t r = allow_smem_one<TQ, TKV, 64, false>();
   if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 128, false>();
   if constexpr (std::is_same<TKV, int8_t>::value) {
+    if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 256, false>();
     if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 64, true>();
     if (r == cudaSuccess) r = allow_smem_one<TQ, TKV, 128, true>();
   }
@@ -1157,6 +1176,10 @@ template <typename TQ, typename TKV, bool PAGED>
 int launch_kv(const Params& p, int b, int dh, cudaStream_t s) {
   if (dh == 128) return (int)launch_dh<TQ, TKV, 128, PAGED>(p, b, s);
   if (dh == 64) return (int)launch_dh<TQ, TKV, 64, PAGED>(p, b, s);
+  // Dh 256: kernel 3's slab entry only
+  if constexpr (std::is_same<TKV, int8_t>::value && !PAGED) {
+    if (dh == 256) return (int)launch_dh<TQ, TKV, 256, PAGED>(p, b, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1232,8 +1255,9 @@ extern "C" int repro_decode_attention(
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 3.  k_q/v_q int8 [B,S,Hkv,Dh], k_s/v_s float32 [B,S,Hkv];
-// q_dtype (of q and the output): 0 = float32, 1 = bfloat16.
+// Kernel 3.  k_q/v_q int8 [B,S,Hkv,Dh] (Dh 64, 128 or 256), k_s/v_s
+// float32 [B,S,Hkv]; q_dtype (of q and the output): 0 = float32, 1 =
+// bfloat16.
 extern "C" int repro_decode_attention_int8(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* pos, const void* lengths, void* out,

@@ -30,8 +30,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import LaunchCounter
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what configs/ needs; Dh 256 (recurrentgemma) is not ported
+# the head dims of kernels 1, 2 and 4 and of kernel 3's paged entries;
+# kernel 3's slab entry also takes recurrentgemma's 256 (its windowed
+# layers stay on the dense slab, and quantized_kv reaches only that entry)
 HEAD_DIMS = (64, 128)
+INT8_SLAB_HEAD_DIMS = (64, 128, 256)
 MAX_SPLIT_SLOTS = 8192    # pos or table entries one CTA stages (kMaxSplitIdx)
 
 launches = LaunchCounter()      # kernel launches on CUDA tensors
@@ -114,10 +117,12 @@ def launch(name: str, q, ptrs, ints, plan, *, window, sink, softcap):
     return out
 
 
-def _check(q, k, v, pos, lengths, *, kv_dtype, scales=()):
+def _check(q, k, v, pos, lengths, *, kv_dtype, scales=(),
+           head_dims=HEAD_DIMS):
     """Raise on what the dense kernels do not take.  q [B,Hq,Dh] fp32 or
-    bf16; k, v [B,S,Hkv,Dh] of ``kv_dtype``; optional fp32 ``scales``
-    [B,S,Hkv] (int8 storage); pos [B,S] and lengths [B] int32."""
+    bf16 with Dh in ``head_dims``; k, v [B,S,Hkv,Dh] of ``kv_dtype``;
+    optional fp32 ``scales`` [B,S,Hkv] (int8 storage); pos [B,S] and
+    lengths [B] int32."""
     dev = q.device
     named = [("k", k), ("v", v), ("pos", pos), ("lengths", lengths)]
     named += [(f"scale{i}", s) for i, s in enumerate(scales)]
@@ -150,9 +155,9 @@ def _check(q, k, v, pos, lengths, *, kv_dtype, scales=()):
         raise ValueError(f"scales must be [B,S,Hkv]=[{b},{s_len},{hkv}]")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if dh not in HEAD_DIMS:
+    if dh not in head_dims:
         raise ValueError(f"head_dim {dh} not supported by the kernel "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}")
     for name, t in [("q", q)] + named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -64,8 +64,9 @@ def dequantize_kv(q, scale):
 def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
                           window: int = 0, sink: int = 0,
                           softcap: float = 0.0):
-    """q [B,Hq,Dh] bf16/fp32; k_q, v_q int8 [B,S,Hkv,Dh]; k_scale,
-    v_scale fp32 [B,S,Hkv]; pos [B,S] int32; lengths [B] int32.  Returns
+    """q [B,Hq,Dh] bf16/fp32 (Dh 64, 128 or 256); k_q, v_q int8
+    [B,S,Hkv,Dh]; k_scale, v_scale fp32 [B,S,Hkv]; pos [B,S] int32 (ring
+    order for a windowed cache); lengths [B] int32.  Returns
     o [B,Hq,Dh] in q.dtype.  The plain version rounds the dequantized K/V
     to q.dtype (as the JAX reference does); the kernel keeps them exact
     (as the TPU kernel does), so in bf16 the two differ by that rounding."""
@@ -77,7 +78,8 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _da._check(q, k_q, v_q, pos, lengths, kv_dtype=torch.int8,
-               scales=(k_scale, v_scale))
+               scales=(k_scale, v_scale),
+               head_dims=_da.INT8_SLAB_HEAD_DIMS)
     b, hq, dh = q.shape
     _, s_len, hkv, _ = k_q.shape
     out = _da.launch(

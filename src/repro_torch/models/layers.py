@@ -290,3 +290,196 @@ def moe_ffn(p, x, *, num_experts: int, top_k: int,
     w = (gate_w.reshape(-1) * keep).to(outb.dtype)
     y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
     return y.reshape(orig_shape), aux
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+_LRU_C = 8.0  # the fixed c exponent from the paper
+
+
+def _rglru_gates(p, xc):
+    """xc [..., W] (post-conv branch) -> (a, b) of h_t = a*h_{t-1} + b, in
+    fp32 whatever xc's dtype."""
+    x32 = xc.to(F32)
+    r = torch.sigmoid(x32 @ p["w_a"].to(F32) + p["b_a"].to(F32))
+    i = torch.sigmoid(x32 @ p["w_x"].to(F32) + p["b_x"].to(F32))
+    log_a = -_LRU_C * F.softplus(p["lam"].to(F32)) * r
+    a = torch.exp(log_a)
+    # sqrt(1-a^2) multiplier, computed stably
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, mult * (i * x32)
+
+
+def _linear_scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along dim 1 from h = 0:
+    returns (prod_{k<=t} a_k, h_t).  Hillis-Steele doubling over the
+    associative combine (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2), the
+    operator ``lax.associative_scan`` takes: log2(S) elementwise steps of
+    products and sums of terms in [0, 1] (no division, no
+    exp(-cumsum(log a)), which overflows on long prompts).  Shapes only:
+    no host sync."""
+    s = a.shape[1]
+    d = 1
+    while d < s:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def rglru_scan(p, xc):
+    """Full-sequence RG-LRU.  xc [B,S,W] -> h [B,S,W] (fp32)."""
+    a, b = _rglru_gates(p, xc)
+    return _linear_scan(a, b)[1]
+
+
+def rglru_scan_h0(a, b, h0):
+    """The recurrence from an explicit initial state (chunk
+    continuation).  a, b [B,S,W] fp32 gates (identity steps: a=1, b=0),
+    h0 [B,W] fp32.  Returns h [B,S,W]."""
+    a_s, b_s = _linear_scan(a, b)
+    return a_s * h0[:, None, :].to(F32) + b_s
+
+
+def rglru_step(p, xc, h_prev):
+    """One decode step.  xc [B,W], h_prev [B,W] (fp32) -> (h, h)."""
+    a, b = _rglru_gates(p, xc)
+    h = a * h_prev + b
+    return h, h
+
+
+def _conv_sum(w, xp, s: int):
+    """sum_i xp[:, i:i+s] * w[i], in the order of the JAX package's
+    Python ``sum`` (from 0, i ascending)."""
+    ys = 0
+    for i in range(w.shape[0]):
+        ys = ys + xp[:, i:i + s, :] * w[i][None, None, :]
+    return ys
+
+
+def causal_conv1d(w, x, state=None):
+    """Depthwise causal conv.  w [CW, D], x [B,S,D]; with ``state``
+    [B, CW-1, D] (previous inputs) streaming decode.  Returns
+    (y, new_state)."""
+    cw = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    ys = _conv_sum(w, xp, x.shape[1])
+    new_state = xp[:, xp.shape[1] - (cw - 1):, :] if cw > 1 else x[:, :0]
+    return ys, new_state
+
+
+def causal_conv1d_chunk(w, x, state, t_end):
+    """Streaming causal conv over a chunk whose valid length varies per
+    row.  w [CW, D], x [B,C,D], state [B, CW-1, D], t_end [B] int in
+    [0, C].  y for all C positions (garbage past t_end, causally
+    confined); each row's new state is the window ending at its LAST
+    VALID position, so a row whose prompt ended mid-chunk keeps a clean
+    state and a row with t_end == 0 keeps its old one."""
+    cw = w.shape[0]
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    ys = _conv_sum(w, xp, x.shape[1])
+    if cw > 1:
+        idx = (t_end.long()[:, None]
+               + torch.arange(cw - 1, device=x.device)[None, :])
+        new_state = torch.gather(
+            xp, 1, idx[..., None].expand(-1, -1, xp.shape[-1]))
+    else:
+        new_state = x[:, :0]
+    return ys, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality, arXiv:2405.21060 §6)
+# ---------------------------------------------------------------------------
+def ssd_chunked(x, dt, A_log, B, C, D, *, chunk: int, h0=None,
+                return_state: bool = False):
+    """Chunk-parallel SSD, fp32 throughout.
+
+    x [Bb,S,H,P], dt [Bb,S,H] (softplus'd, > 0), A_log [H] (A =
+    -exp(A_log)), B, C [Bb,S,N] shared across heads (ngroups 1), D [H]
+    skip, h0 [Bb,H,P,N] fp32 or None.  Returns y [Bb,S,H,P] (and h_last
+    [Bb,H,P,N] with ``return_state``).  The chunk count comes from the
+    static shape; the inter-chunk recurrence is a Python loop over it."""
+    bb, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    x32 = x.to(F32)
+    A = -torch.exp(A_log.to(F32))                          # [H] negative
+    dA = dt.to(F32) * A[None, None, :]                     # [Bb,S,H]
+    xc = x32.reshape(bb, nc, chunk, h, p)
+    dtc = dt.to(F32).reshape(bb, nc, chunk, h)
+    dAc = dA.reshape(bb, nc, chunk, h)
+    Bc = B.to(F32).reshape(bb, nc, chunk, n)
+    Cc = C.to(F32).reshape(bb, nc, chunk, n)
+
+    cums = torch.cumsum(dAc, dim=2)                        # [Bb,nc,L,H]
+    # intra-chunk: decay(i <- j) = exp(cums_i - cums_j), j <= i; masked
+    # before the exp (a j > i entry would overflow)
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]  # [Bb,nc,L,L,H]
+    li = torch.arange(chunk, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    decay = torch.exp(torch.where(causal, seg, torch.full(
+        (), float("-inf"), dtype=F32, device=x.device)))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)           # [Bb,nc,L,L]
+    w_ij = cb[..., None] * decay * dtc[:, :, None, :, :]   # [Bb,nc,L,L,H]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", w_ij, xc)
+
+    # chunk states: S_c = sum_j exp(cums_L - cums_j) dt_j B_j x_j
+    chunk_decay = torch.exp(cums[:, :, -1:, :] - cums)     # [Bb,nc,L,H]
+    states = torch.einsum("bcjh,bcjn,bcjhp->bchpn", chunk_decay * dtc, Bc,
+                          xc)                              # [Bb,nc,H,P,N]
+
+    # inter-chunk recurrence (nc steps), emitting each chunk's entry state
+    tot_decay = torch.exp(cums[:, :, -1, :])               # [Bb,nc,H]
+    carry = (torch.zeros((bb, h, p, n), dtype=F32, device=x.device)
+             if h0 is None else h0.to(F32))
+    prev = []
+    for ci in range(nc):
+        prev.append(carry)
+        carry = carry * tot_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)                 # [Bb,nc,H,P,N]
+
+    in_decay = torch.exp(cums)                             # [Bb,nc,L,H]
+    y_off = torch.einsum("bcin,bcih,bchpn->bcihp", Cc, in_decay,
+                         prev_states)
+    y = (y_diag + y_off).reshape(bb, nc * chunk, h, p)[:, :s]
+    y = y + x32[:, :s] * D.to(F32)[None, None, :, None]
+    if return_state:
+        return y, carry
+    return y
+
+
+def ssd_step(x, dt, A_log, B, C, D, h_prev):
+    """One decode step of the SSD recurrence.  x [Bb,H,P], dt [Bb,H],
+    B, C [Bb,N], h_prev [Bb,H,P,N] fp32:
+    h_t = exp(dt*A) h_{t-1} + dt * B x;  y = C.h + D x."""
+    x32, dt32 = x.to(F32), dt.to(F32)
+    A = -torch.exp(A_log.to(F32))
+    da = torch.exp(dt32 * A[None, :])                      # [Bb,H]
+    h = (h_prev * da[:, :, None, None]
+         + torch.einsum("bh,bn,bhp->bhpn", dt32, B.to(F32), x32))
+    y = torch.einsum("bn,bhpn->bhp", C.to(F32), h)
+    return y + x32 * D.to(F32)[None, :, None], h
+
+
+def ssd_naive(x, dt, A_log, B, C, D, h0=None):
+    """Sequential reference recurrence (tests only)."""
+    bb, s, h, p = x.shape
+    n = B.shape[-1]
+    hst = (torch.zeros((bb, h, p, n), dtype=F32, device=x.device)
+           if h0 is None else h0.to(F32))
+    ys = []
+    for t in range(s):
+        y, hst = ssd_step(x[:, t], dt[:, t], A_log, B[:, t], C[:, t], D, hst)
+        ys.append(y)
+    return torch.stack(ys, dim=1), hst

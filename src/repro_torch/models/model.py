@@ -1,7 +1,7 @@
-"""The port's model: the ATTN decoder of repro.models.model, with a
-SwiGLU, a GELU MLP or a mixture-of-experts FFN, and the early fusion of
-a ``vision_stub`` frontend (patch embeddings in place of the first
-token embeddings).
+"""The port's model: the decoder of repro.models.model with the ATTN,
+RG-LRU and SSD mixers, a SwiGLU, a GELU MLP or a mixture-of-experts FFN
+(SSD blocks have none), and the early fusion of a ``vision_stub``
+frontend (patch embeddings in place of the first token embeddings).
 
 Public entry points (same layout and semantics as the JAX package):
 
@@ -14,12 +14,15 @@ Public entry points (same layout and semantics as the JAX package):
     scatter_rows(state, sub, rows, sub_rows)
 
 Params are a plain dict mirroring the JAX pytree: ``embed``,
-``final_norm``, ``lm_head``, ``stack`` ({"s0": {name: [L, ...]}}) and
-``rem``.  Layers run as a Python loop over the stacked leaves.  Decode
-state lives in preallocated KV slabs that ``prefill``, ``prefill_chunk``,
-``decode_step`` and ``scatter_rows`` update IN PLACE (the returned state
-is the same tensors), which keeps one copy of the cache instead of one
-per step.
+``final_norm``, ``lm_head``, ``stack`` (one entry ``s{i}`` per slot i
+of ``cfg.layer_pattern``, {name: [n_full, ...]}) and ``rem`` (the
+blocks past the last full period, of ``layer_pattern[i]``'s kind).
+Layers run as a Python loop over the stacked leaves.  Decode state
+(attention KV slabs; a recurrent block's fp32 ``h`` and its conv
+window) is preallocated, and ``prefill``, ``prefill_chunk``,
+``decode_step`` and ``scatter_rows`` update it IN PLACE (the returned
+state is the same tensors), which keeps one copy of the cache instead
+of one per step.
 
 This is the port's colocated oracle; the S-/R-Part split of each block
 lives in ``repro_torch.core.decompose``.
@@ -30,10 +33,11 @@ import math
 from typing import Any, Dict, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.config import (ATTN, DEC_XATTN, FFN_MLP, FFN_MOE,
-                                     FFN_SWIGLU, XATTN, ModelConfig,
-                                     check_supported)
+                                     FFN_NONE, FFN_SWIGLU, RGLRU, SSD, XATTN,
+                                     ModelConfig, check_supported)
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as L
 
@@ -66,17 +70,43 @@ def _ffn_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r} is not ported yet")
 
 
-def _block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _block_param_shapes(cfg: ModelConfig, kind: str = ATTN
+                        ) -> Dict[str, tuple]:
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    shapes = {"ln1": (d,), "wq": (d, hq * hd), "wk": (d, hkv * hd),
-              "wv": (d, hkv * hd), "wo": (hq * hd, d)}
-    if cfg.qk_norm:
-        shapes["q_norm"] = (hd,)
-        shapes["k_norm"] = (hd,)
-    shapes["ln2"] = (d,)
-    shapes.update({"ffn_" + k: v for k, v in _ffn_param_shapes(cfg).items()})
+    shapes: Dict[str, tuple] = {"ln1": (d,)}
+    if kind == ATTN:
+        shapes.update({"wq": (d, hq * hd), "wk": (d, hkv * hd),
+                       "wv": (d, hkv * hd), "wo": (hq * hd, d)})
+        if cfg.qk_norm:
+            shapes["q_norm"] = (hd,)
+            shapes["k_norm"] = (hd,)
+    elif kind == RGLRU:
+        w = cfg.rnn_width
+        shapes.update({
+            "w_in_rnn": (d, w), "w_in_gate": (d, w),
+            "conv": (cfg.conv_width, w), "w_a": (w, w), "b_a": (w,),
+            "w_x": (w, w), "b_x": (w,), "lam": (w,), "w_out": (w, d)})
+    elif kind == SSD:
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssd_heads
+        shapes.update({
+            "w_in": (d, 2 * di + 2 * n + h),
+            "conv": (cfg.conv_width, di + 2 * n),
+            "A_log": (h,), "Dskip": (h,), "dt_bias": (h,),
+            "gate_norm": (di,), "w_out": (di, d)})
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind != SSD and cfg.ffn_kind != FFN_NONE:
+        shapes["ln2"] = (d,)
+        shapes.update({"ffn_" + k: v
+                       for k, v in _ffn_param_shapes(cfg).items()})
     return shapes
+
+
+# leaves the JAX package keeps in fp32 whatever ``cfg.dtype`` (besides the
+# norm scales): the RG-LRU's gate biases and decay, the SSD's per-head
+# constants
+FP32_LEAVES = ("lam", "b_a", "b_x", "A_log", "Dskip", "dt_bias")
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -111,14 +141,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
     depth_scale = 0.02 / math.sqrt(2.0 * cfg.num_layers)
 
-    def block(stack_n):
+    def uniform(full, lo, hi):
+        u = torch.rand(full, generator=generator, dtype=F32,
+                       device=generator.device)
+        return (lo + (hi - lo) * u).to(device)
+
+    def block(kind, stack_n):
         out = {}
-        for name, shp in _block_param_shapes(cfg).items():
+        for name, shp in _block_param_shapes(cfg, kind).items():
             full = ((stack_n,) if stack_n else ()) + shp
-            if _is_norm(name):
+            if _is_norm(name) or name in ("dt_bias", "b_a", "b_x"):
                 out[name] = torch.zeros(full, dtype=F32, device=device)
+            elif name == "lam":
+                # a in [0.9, 0.999] roughly (the Griffin init):
+                # softplus^-1(-log a) of a = u^(1/c)
+                a = uniform(full, 0.9, 0.999) ** (1.0 / L._LRU_C)
+                out[name] = torch.log(torch.expm1(-torch.log(a)))
+            elif name == "A_log":
+                out[name] = torch.log(uniform(full, 1.0, 16.0))
+            elif name == "Dskip":
+                out[name] = torch.ones(full, dtype=F32, device=device)
             else:
-                scale = depth_scale if name in ("wo", "ffn_w_down",
+                scale = depth_scale if name in ("wo", "w_out", "ffn_w_down",
                                                 "ffn_w_out") else 0.02
                 draw = _normal_stacked if stack_n else _normal
                 out[name] = draw(generator, full, scale, dtype, device)
@@ -132,31 +176,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
                                     0.02, dtype, device)
-    params["stack"] = {"s0": block(n_full)}
-    params["rem"] = [block(0) for _ in range(rem)]
+    pattern = cfg.layer_pattern
+    params["stack"] = {f"s{i}": block(kind, n_full)
+                       for i, kind in enumerate(pattern)}
+    params["rem"] = [block(pattern[i], 0) for i in range(rem)]
     return params
 
 
-def _block_state(cfg: ModelConfig, batch: int, cache_len: int, device):
-    c = min(cache_len, cfg.window) if cfg.window else cache_len
-    hkv, hd, dtype = cfg.num_kv_heads, cfg.head_dim, torch_dtype(cfg.dtype)
-    return {"k": torch.zeros((batch, c, hkv, hd), dtype=dtype, device=device),
-            "v": torch.zeros((batch, c, hkv, hd), dtype=dtype, device=device),
-            "pos": torch.full((batch, c), -1, dtype=torch.int32,
-                              device=device)}
+def _block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 device):
+    dtype = torch_dtype(cfg.dtype)
+    if kind == ATTN:
+        c = min(cache_len, cfg.window) if cfg.window else cache_len
+        hkv, hd = cfg.num_kv_heads, cfg.head_dim
+        return {"k": torch.zeros((batch, c, hkv, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, c, hkv, hd), dtype=dtype,
+                                 device=device),
+                "pos": torch.full((batch, c), -1, dtype=torch.int32,
+                                  device=device)}
+    if kind == RGLRU:
+        w = cfg.rnn_width
+        return {"h": torch.zeros((batch, w), dtype=F32, device=device),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                                    dtype=dtype, device=device)}
+    if kind == SSD:
+        return {"h": torch.zeros((batch, cfg.ssd_heads, cfg.ssd_head_dim,
+                                  cfg.ssm_state), dtype=F32, device=device),
+                "conv": torch.zeros((batch, cfg.conv_width - 1,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=dtype, device=device)}
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device=None):
     check_supported(cfg)
     device = resolve_device(device)
-    n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
-    one = _block_state(cfg, batch, cache_len, device)
+    pattern = cfg.layer_pattern
+    n_full, rem = divmod(cfg.num_layers, len(pattern))
+
+    def stacked(kind):
+        one = _block_state(cfg, kind, batch, cache_len, device)
+        return {k: v[None].repeat((n_full,) + (1,) * v.dim())
+                for k, v in one.items()}
+
     return {
-        "stack": {"s0": {k: v[None].repeat((n_full,) + (1,) * v.dim())
-                         for k, v in one.items()}},
-        "rem": [_block_state(cfg, batch, cache_len, device)
-                for _ in range(rem)],
+        "stack": {f"s{i}": stacked(kind) for i, kind in enumerate(pattern)},
+        "rem": [_block_state(cfg, pattern[i], batch, cache_len, device)
+                for i in range(rem)],
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
 
@@ -178,8 +246,8 @@ def _qkv_proj(p, x, cfg: ModelConfig):
 
 def _self_attention(p, x, st, ctx: Ctx):
     """Self-attention block body (no residual/norm).  Prefill: x is the
-    whole (right-padded) prompt and the last min(S, cache) tokens land in
-    the ring cache.  Chunk: x is C tokens at positions ``qpos`` (-1 for
+    whole (right-padded) prompt and each row's last min(len, cache)
+    tokens land in the ring cache.  Chunk: x is C tokens at positions ``qpos`` (-1 for
     padding), appended at the row's offset ``lengths`` and attended
     against [old cache + chunk].  Decode: x is one token, appended at
     ``lengths``.  ``st`` is updated in place and returned."""
@@ -203,6 +271,21 @@ def _self_attention(p, x, st, ctx: Ctx):
         st["k"][:, slots] = k[:, s - m:]
         st["v"][:, slots] = v[:, s - m:]
         st["pos"][:, slots] = kpos[:, s - m:]
+        if s > cache_n:
+            # a ring shorter than the padded prompt: the write above keeps
+            # the last cache_n positions of the PADDED batch, which drops
+            # a shorter row's oldest in-window tokens (the JAX package
+            # does so).  Those positions [len - cache_n, s - cache_n) go
+            # to their slots here, which hold padding (pos -1): a row the
+            # write above served right is left bit for bit as it is
+            keep = ((idx < ctx.lengths[:, None])
+                    & (idx >= ctx.lengths[:, None] - cache_n)
+                    & (idx < s - cache_n)).expand(b, s)
+            lost = torch.where(keep, idx % cache_n,
+                               torch.full_like(idx, cache_n))
+            L.scatter_rows_drop(st["k"], lost, k)
+            L.scatter_rows_drop(st["v"], lost, v)
+            L.scatter_rows_drop(st["pos"], lost, kpos)
     elif ctx.mode == "decode":
         cache_n = st["k"].shape[1]
         slot = (ctx.lengths % cache_n).long()
@@ -240,6 +323,98 @@ def _self_attention(p, x, st, ctx: Ctx):
     return out, st
 
 
+# ---------------------------------------------------------------------------
+# non-attention mixers
+# ---------------------------------------------------------------------------
+def _write(st, new) -> None:
+    for k, v in new.items():
+        st[k].copy_(v)
+
+
+def _rglru_mixer(p, x, st, ctx: Ctx):
+    """RG-LRU block body (no residual/norm); ``st`` {h, conv} updated in
+    place.  Chunk mode continues the recurrence from ``st["h"]`` with
+    identity steps (a=1, b=0) at invalid positions; prefill of ragged
+    prompts freezes the conv window at each prompt's end and takes h at
+    its last valid position."""
+    gate = F.gelu((x @ p["w_in_gate"]).to(F32),
+                  approximate="tanh").to(x.dtype)
+    r = x @ p["w_in_rnn"]
+    if ctx.mode == "chunk":
+        valid = ctx.qpos >= 0
+        r, new_conv = L.causal_conv1d_chunk(p["conv"], r, st["conv"],
+                                            valid.sum(dim=1))
+        a, b_ = L._rglru_gates(p, r)
+        a = torch.where(valid[..., None], a, torch.ones((), dtype=F32,
+                                                        device=a.device))
+        b_ = torch.where(valid[..., None], b_, torch.zeros(
+            (), dtype=F32, device=b_.device))
+        h = L.rglru_scan_h0(a, b_, st["h"])
+        new_h = h[:, -1, :]
+    elif ctx.mode == "prefill":
+        t_end = torch.clamp(ctx.lengths, 0, x.shape[1])
+        r, new_conv = L.causal_conv1d_chunk(p["conv"], r, st["conv"], t_end)
+        h = L.rglru_scan(p, r)
+        idx = torch.clamp(ctx.lengths.long() - 1, 0, h.shape[1] - 1)
+        new_h = h[torch.arange(h.shape[0], device=h.device), idx]
+    elif ctx.mode == "decode":
+        r, new_conv = L.causal_conv1d(p["conv"], r, st["conv"])
+        h, new_h = L.rglru_step(p, r[:, 0], st["h"])
+        h = h[:, None, :]
+    else:
+        raise NotImplementedError(f"RG-LRU mode {ctx.mode!r} is not ported")
+    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    _write(st, {"h": new_h, "conv": new_conv})
+    return out, st
+
+
+def _ssd_mixer(p, x, st, ctx: Ctx):
+    """Mamba-2 SSD block body (no residual); ``st`` {h, conv} updated in
+    place.  Positions past a row's prompt (prefill) or invalid chunk
+    positions are identity steps (dt=0, x=0) and do not advance the conv
+    window."""
+    cfg = ctx.cfg
+    di, n, hh, pp = cfg.d_inner, cfg.ssm_state, cfg.ssd_heads, \
+        cfg.ssd_head_dim
+    b, s, _ = x.shape
+    zxbcdt = x @ p["w_in"]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, hh], dim=-1)
+    xbc_in = F.silu(xbc.to(F32)).to(x.dtype)
+    valid = None
+    if ctx.mode in ("prefill", "chunk"):
+        if ctx.mode == "chunk":
+            valid = ctx.qpos >= 0
+        else:
+            valid = (torch.arange(s, device=x.device)[None, :]
+                     < ctx.lengths[:, None])
+        xbc, new_conv = L.causal_conv1d_chunk(p["conv"], xbc_in, st["conv"],
+                                              valid.sum(dim=1))
+    elif ctx.mode == "decode":
+        xbc, new_conv = L.causal_conv1d(p["conv"], xbc_in, st["conv"])
+    else:
+        raise NotImplementedError(f"SSD mode {ctx.mode!r} is not ported")
+    xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
+    xs = xs.reshape(b, s, hh, pp)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"][None, None, :])
+    if valid is not None:
+        zero = torch.zeros((), dtype=F32, device=x.device)
+        dt = torch.where(valid[..., None], dt, zero)
+        xs = torch.where(valid[:, :, None, None], xs, zero.to(xs.dtype))
+    if ctx.mode == "decode":
+        y, new_h = L.ssd_step(xs[:, 0], dt[:, 0], p["A_log"], Bm[:, 0],
+                              Cm[:, 0], p["Dskip"], st["h"])
+        y = y[:, None]
+    else:
+        y, new_h = L.ssd_chunked(xs, dt, p["A_log"], Bm, Cm, p["Dskip"],
+                                 chunk=cfg.ssd_chunk, h0=st["h"],
+                                 return_state=True)
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = L.rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"],
+                   cfg.norm_eps)
+    _write(st, {"h": new_h, "conv": new_conv})
+    return y @ p["w_out"], st
+
+
 def _ffn(p, x, cfg: ModelConfig):
     """The FFN's output; a MoE's aux loss is a training term, dropped on
     the serve path."""
@@ -255,12 +430,19 @@ def _ffn(p, x, cfg: ModelConfig):
 
 def apply_block(kind: str, p, h, st, ctx: Ctx):
     """Returns (h, st)."""
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     cfg = ctx.cfg
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    mix, st = _self_attention(p, hn, st, ctx)
+    if kind == ATTN:
+        mix, st = _self_attention(p, hn, st, ctx)
+    elif kind == RGLRU:
+        mix, st = _rglru_mixer(p, hn, st, ctx)
+    elif kind == SSD:
+        mix, st = _ssd_mixer(p, hn, st, ctx)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = h + mix
+    if kind == SSD or cfg.ffn_kind == FFN_NONE:
+        return h, st
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + _ffn(p, hn, cfg), st
 
@@ -371,9 +553,9 @@ def scatter_rows(state, sub, rows, sub_rows):
     dev = state["lengths"].device
     rows = torch.as_tensor(rows, dtype=torch.long, device=dev)
     sub_rows = torch.as_tensor(sub_rows, dtype=torch.long, device=dev)
-    for c, n in zip(state["stack"]["s0"].values(),
-                    sub["stack"]["s0"].values()):
-        c[:, rows] = n[:, sub_rows]
+    for slot, cur in state["stack"].items():
+        for k, c in cur.items():
+            c[:, rows] = sub["stack"][slot][k][:, sub_rows]
     for cs, ns in zip(state["rem"], sub["rem"]):
         for k in cs:
             cs[k][rows] = ns[k][sub_rows]

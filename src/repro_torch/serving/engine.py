@@ -284,12 +284,12 @@ class ServingEngine:
                 raise ValueError(
                     f"spec_decode.k must be >= 1, got {spec_decode.k}")
             if any(kk != ATTN for kk in cfg.layer_pattern) \
-                    or cfg.window > 0:
+                    or cfg.window > 0 or cfg.is_encdec:
                 raise ValueError(
                     "spec_decode requires a pure self-attention arch "
                     "with window=0: rejected-KV rollback is positional "
-                    "truncation, which windowed attention does not "
-                    "support")
+                    "truncation, which recurrent/windowed/cross-"
+                    "attention R-state does not support")
             if (spec_decode.draft_cfg is None) \
                     != (spec_decode.draft_params is None):
                 raise ValueError(
@@ -1056,12 +1056,15 @@ class ServingEngine:
             locs.append(local)
             gis.append(int(gi))
         for li, st in enumerate(per_layer_state(sub, self.cfg)):
-            r_st, _ = D.split_block_state(eng.layers[li][0], st)
+            r_st, s_st = D.split_block_state(eng.layers[li][0], st)
             for (wid, mb), (w, locs, gis) in groups.items():
                 idx = torch.as_tensor(gis, dtype=torch.long,
                                       device=self.device)
                 w.write_rows(eng._lkey(mb, li), np.asarray(locs),
                              {k: v[idx] for k, v in r_st.items()})
+                # a recurrent block's conv window stays S-side
+                eng.write_s_rows(mb, li, np.asarray(locs) + w.lo,
+                                 {k: v[idx] for k, v in s_st.items()})
         lens = sub["lengths"].cpu().numpy()
         for gi, row in zip(sub_rows, rows):
             eng.set_row_length(int(row), int(lens[gi]))

@@ -57,16 +57,20 @@ def test_full_config_equals_jax(arch):
 @pytest.mark.parametrize("arch", sorted(jlist_archs()))
 def test_check_supported_takes_the_dense_archs_only(arch):
     """ATTN layers with a SwiGLU, MLP or MoE FFN pass (the dense archs
-    and, since the MoE slice, grok-1 and llama4-scout); the other mixers
-    and enc-dec are still refused (by the reference's full configs)."""
+    and, since the MoE slice, grok-1 and llama4-scout), and since the
+    recurrent slice the RG-LRU hybrid and mamba2's SSD blocks (no FFN);
+    cross-attention and enc-dec are still refused (by the reference's
+    full configs)."""
     from repro_torch.core.config import check_supported
     tc = ModelConfig(**dataclasses.asdict(jget_arch(arch)))
     if arch in list_archs():
-        assert tc.ffn_kind in ("swiglu", "mlp", "moe")
+        assert tc.ffn_kind in ("swiglu", "mlp", "moe") \
+            or set(tc.layer_pattern) == {"ssd"}
         check_supported(tc)
     else:
+        assert tc.is_encdec or "xattn" in tc.layer_pattern
         with pytest.raises(NotImplementedError,
-                           match="SwiGLU, MLP or MoE"):
+                           match="cross-attention and enc-dec"):
             check_supported(tc)
 
 
