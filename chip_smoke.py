@@ -40,7 +40,13 @@ Phases (any failure exits nonzero):
               bf16 and fp32 q, fp32 also against fp64, each repeated
               bitwise; Dh 96 and 512 refused), its ptxas registers and
               spills, and its times at the hybrid's int8 serve shape and
-              at 64 x 2048; times
+              at 64 x 2048; kernel 2 as the cross-attention R-Part
+              (every slot at position 0) at whisper-medium's heads (Hq =
+              Hkv = 16, Dh 64, S 1500) and llama-3.2-vision-90b's (Hq 64
+              / Hkv 8, Dh 128, S 1600), 2 and 64 rows, bf16 and fp32
+              (fp32 also against fp64), each repeated bitwise, timed at
+              2 rows (one R-worker call of the static runs) and 64;
+              kernel 3's paged entry also at the vision heads; times
               the one-call paged-int8 op against the gather + kernel 3
               chain it replaced.
   compare     (only with --v1-source) the first version of kernels 1 and
@@ -231,6 +237,31 @@ Phases (any failure exits nonzero):
               migration and a re-prefill failover of the recurrent rows
               == colocated (wire payloads bit for bit), the hybrid's int8
               storage within 0.5 of fp on teacher-forced logits.
+  static_vision
+              llama-3.2-vision-90b at full width cut to 10 of its 100
+              layers (VISION_LAYERS: two periods, 8 ATTN and 2 XATTN),
+              bf16, through the static-batch API: HeteroPipelineEngine(
+              batch=8, num_microbatches=2, num_r_workers=2, paged_kv=True,
+              cache_len=1024), seeded prompts of 17-600 tokens and patch
+              embeddings [8, 1600, 8192], load_prefill per micro-batch,
+              32 decode_steps (XATTN_STEPS), then the same with
+              quantized_kv=True: kernel 1 (int8: kernel 3's paged entry)
+              = 8 x 2 x 2 x steps and kernel 2 = 2 x 2 x 2 x steps
+              exactly, no plain call; tokens/s, step p50 beside the step
+              bound (2 x the weights a step reads / 3.35 TB/s), a
+              profiled window each (device idle, host launches).
+  static_whisper
+              whisper-medium at full size (24 encoder + 24 decoder
+              layers, 1500 frames), bf16, the same engine (paged_kv a
+              no-op: no page pool), prompts of 17-448 tokens: the fused
+              step (profiled window), decode_step_legacy and
+              profile_timing, 16 steps each (WHISPER_STEPS), their tokens
+              equal; kernel 2 = 24 x 2 x 2 x steps on each, nothing else.
+  equiv_xattn fp32 (TF32 off), seeded non-zero gates, at full width:
+              vision at 5 layers (one period), whisper at 2 + 2 layers:
+              hetero paged == colocated, graphs == eager bit for bit,
+              legacy == fused, paged == dense (whisper bit for bit), 1
+              R-worker == colocated; launches exact.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -252,6 +283,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1130,6 +1162,63 @@ def dh256_checks(dev) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in results)}
 
 
+# the cross-attention R-Part's slabs: whisper-medium's decoder (MHA, Dh 64,
+# 1500 encoder frames) and llama-3.2-vision-90b's XATTN layers (G 8, Dh
+# 128, 1600 patches)
+CROSS_HEADS = {"whisper": dict(hq=16, hkv=16, dh=64, s=1500),
+               "vision": dict(hq=64, hkv=8, dh=128, s=1600)}
+
+
+def cross_checks(dev) -> dict:
+    """Kernel 2 as the cross-attention R-Part (``decompose.
+    r_cross_attention``: every slot at position 0, window and softcap 0)
+    at ``CROSS_HEADS``, 2 rows (one R-worker call of the static runs) and
+    64, against its plain version: bf16 q within one rounding step, fp32
+    q within 1e-5 and against fp64 (it passes when |kernel - fp64| <=
+    atol + |plain - fp64|), each repeated bitwise."""
+    import torch
+    from repro_torch.core import decompose as D
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(29)
+    results = []
+    for shape, h in CROSS_HEADS.items():
+        hq, hkv, dh, s = h["hq"], h["hkv"], h["dh"], h["s"]
+        for b in (2, 64):
+            pos = D.cross_pos(b, s, dev)
+            lens = torch.randint(0, 1024, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            k32 = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+            v32 = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+            q32 = torch.randn((b, hq, dh), generator=gen, device=dev)
+            for dtype_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype_name)
+                q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+                got = DA.decode_attention(q, k, v, pos, lens)
+                plain = ref.decode_attention_ref(q, k, v, pos, lens)
+                rec = _check_case(
+                    "decode_attention", f"{dtype_name}-cross-{shape}-B{b}",
+                    dtype_name, got, plain, empty_row=[],
+                    again=DA.decode_attention(q, k, v, pos, lens),
+                    plan=DA.kernel_plan(q, k))
+                rec.update(B=b, S=s, Hq=hq, Hkv=hkv, Dh=dh)
+                if dtype_name == "float32":
+                    want = _slab_fp64(q, k, v, pos, lens, 0)
+                    d_plain = float((plain.double() - want).abs().max())
+                    d_kern = float((got.double() - want).abs().max())
+                    rec.update(kernel_vs_fp64=d_kern, plain_vs_fp64=d_plain,
+                               fp64_ok=d_kern <= TOL["float32"][0] + d_plain)
+                    if not rec["fp64_ok"]:
+                        raise AssertionError(f"kernel 2 at the cross shape "
+                                             f"is further from fp64 than "
+                                             f"the plain version allows: "
+                                             f"{rec}")
+                results.append(rec)
+                del q, k, v
+    return {"cases": results,
+            "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
 def paged_int8_checks(dev) -> dict:
     """Kernel 3's paged addressing against ``ref.paged_decode_attention_
     int8_ref`` (the gather chain, on q.float() for a bf16 q) on the tables
@@ -1157,6 +1246,11 @@ def paged_int8_checks(dev) -> dict:
     cases.append(dict(name="softcap-dh64", kw=dict(
         b=3, hq=12, hkv=4, dh=64, page=4, mp=16, lengths=[50, 3, 61]),
         attn=dict(softcap=5.0)))
+    # llama-3.2-vision-90b's heads (Hq 64 / Hkv 8: G 8 over 8 kv-heads),
+    # which static_vision's quantized_kv run gives this entry
+    cases.append(dict(name="vision-heads-G8", kw=dict(
+        b=4, hq=64, hkv=8, dh=128, page=16, mp=40,
+        lengths=[600, 17, 0, 333], unmapped_row=2), attn=dict()))
     cases += [dict(c, name=c["name"].split("-T1-")[1])
               for c in long_cases("float32", t=1)]
     results = []
@@ -1184,18 +1278,21 @@ def paged_int8_checks(dev) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in results)}
 
 
-def _slab_inputs(dev, *, b, s, n_valid, hq, hkv, dh, copies):
+def _slab_inputs(dev, *, b, s, n_valid, hq, hkv, dh, copies, cross=False):
     """``copies`` bf16 slabs (and their int8 quantization) whose rows hold
     ``n_valid`` tokens in slots 0..n_valid-1 (lengths = n_valid - 1), the
     SDPA yardsticks' K/V already laid out per head (bf16, and the
     dequantized int8 in bf16; neither the layout nor the dequantization
-    is in their time), pos and lengths."""
+    is in their time), pos and lengths.  ``cross``: the cross-attention
+    R-Part's layout, every slot at position 0 (``decompose.cross_pos``)."""
     import torch
     from repro_torch.kernels import quant_kv as QK
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(2)
     pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
     pos[:, :n_valid] = torch.arange(n_valid, dtype=torch.int32, device=dev)
+    if cross:
+        pos.zero_()
     lens = torch.full((b,), n_valid - 1, dtype=torch.int32, device=dev)
 
     def heads_first(x):          # [B,S,H,Dh] valid part -> [B,H,n,Dh]
@@ -1252,17 +1349,19 @@ def _slab_runs(pos, lens):
 
 def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
                 copies=1, iters=50,
-                kernels=("decode_attention", "decode_attention_int8")
-                ) -> dict:
+                kernels=("decode_attention", "decode_attention_int8"),
+                cross=False) -> dict:
     """Kernels 2 and 3 (or those of ``kernels``), their plain versions
     and the SDPA yardstick at one shape, bf16 q: host-loop ms from CUDA
     events, device ms from the same calls replayed from a CUDA graph, the
     split plan, CTAs and merge launches per call.  ``copies`` distinct
-    slabs are cycled so the working set exceeds the 50 MB L2."""
+    slabs are cycled so the working set exceeds the 50 MB L2; ``cross``
+    as ``_slab_inputs``'s."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
     bufs, pos, lens = _slab_inputs(dev, b=b, s=s, n_valid=n_valid, hq=hq,
-                                   hkv=hkv, dh=dh, copies=copies)
+                                   hkv=hkv, dh=dh, copies=copies,
+                                   cross=cross)
     kv_bytes_per_tok = {"decode_attention": 2 * hkv * dh * 2,
                         "decode_attention_int8": 2 * hkv * (dh + 4)}
     calls = copies * max(1, 16 // copies)
@@ -1291,6 +1390,7 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         return {
             "shape": name, "B": b, "S": s, "tokens_per_row": n_valid,
+            "pos": "all 0 (cross-attention)" if cross else "0..n-1",
             "Hq": hq, "Hkv": hkv, "Dh": dh, "q_dtype": "bfloat16",
             "slab_copies": copies, "max_abs_err": err,
             "atol_rtol": TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
@@ -1697,6 +1797,17 @@ def phase_kernel(dev) -> dict:
                  16, 200),
                 ("bandwidth-recurrentgemma",
                  dict(b=64, s=HYBRID_WINDOW, n_valid=HYBRID_WINDOW), 1, 20))]
+    # kernel 2 as the cross-attention R-Part: its checks at whisper-
+    # medium's and llama-3.2-vision-90b's heads, then one R-worker call of
+    # each static run (2 rows over the whole slab) and 64 rows
+    xchecks = cross_checks(dev)
+    xtiming = [slab_timing(dev, f"{run}-{shape}", b=b, s=h["s"],
+                           n_valid=h["s"], hq=h["hq"], hkv=h["hkv"],
+                           dh=h["dh"], copies=c, iters=it, cross=True,
+                           kernels=("decode_attention",))["decode_attention"]
+               for shape, h in CROSS_HEADS.items()
+               for run, b, c, it in (("main", 2, 16, 200),
+                                     ("bw", 64, 1, 20))]
     v8checks = verify_int8_checks(dev)
     # kernel 3's multi-token entry at the int8 spec serve's per-worker
     # verify call (2 rows, the last of 4 candidates at position 511) and
@@ -1718,6 +1829,15 @@ def phase_kernel(dev) -> dict:
         kernels[name] = {"checks": slab[name]["cases"], "timing": t,
                          "max_abs_err": max([slab[name]["max_abs_err"]]
                                             + [x["max_abs_err"] for x in t])}
+    kernels["decode_attention"]["cross_checks"] = xchecks["cases"]
+    kernels["decode_attention"]["timing_cross"] = xtiming
+    kernels["decode_attention"]["ptxas"] = [
+        r for r in ptxas["decode_attention"]
+        if r["kernel"] == "dense_attn_kernel"
+        and r.get("kv_dtype") != "int8" and r["Dh"] in (64, 128)]
+    kernels["decode_attention"]["max_abs_err"] = max(
+        [kernels["decode_attention"]["max_abs_err"], xchecks["max_abs_err"]]
+        + [x["max_abs_err"] for x in xtiming])
     kernels["decode_attention_int8"]["paged_checks"] = pchecks["cases"]
     kernels["decode_attention_int8"]["max_abs_err"] = max(
         kernels["decode_attention_int8"]["max_abs_err"],
@@ -4658,7 +4778,8 @@ def _static_prompts(cfg, batch: int, p_len: int, seed: int, ragged=False):
 def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
                 batch: int, cache_len: int, num_mb: int = 2,
                 workers: int = 2, eager: bool = False, engine_kw=None,
-                enc_feats=None):
+                enc_feats=None, paged: bool = True, expect=None,
+                profile=None, out=None, after=None):
     """repro's static-batch bench loop on the port: ``load_prefill`` of
     every micro-batch (``ColocatedEngine.load_prefill`` of the batch for
     ``how`` "colocated"), ``reset_step_stats``, then ``steps`` greedy
@@ -4666,13 +4787,19 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
     ("legacy"), the two in turns ("alternated", legacy first) or the
     colocated step, each fed the last prompt token first (as
     examples/quickstart.py).  ``enc_feats`` [batch, n, d] (an
-    early-fusion arch's patch embeddings) go to ``load_prefill``, sliced
-    per micro-batch.  Every count is set to 0 just before the steps and
-    read just after.  Returns (record, {row: tokens}, {(row, step): the
-    logits row that chose the token, on the host})."""
+    early-fusion or a cross-attention arch's features) go to
+    ``load_prefill``, sliced per micro-batch.  Every count is set to 0
+    just before the steps and read just after, and must equal ``expect``
+    ({kernel: launches}; default kernel 1 = layers x micro-batches x
+    workers x steps on a hetero run, nothing on a colocated one) with no
+    plain call.  ``profile`` (a name): 3 more steps in a profiled window
+    after the counted ones (tables to ``out``); ``after(eng)`` adds to
+    the record before the engine closes.  Returns (record, {row: tokens},
+    {(row, step): the logits row that chose the token, on the host})."""
     import torch
     from repro_torch.core import graphs
     from repro_torch.core.hetero import ColocatedEngine, HeteroPipelineEngine
+    from repro_torch.kernels import quant_kv as QK
     pc = time.perf_counter
     mb = batch // num_mb
     tt = torch.from_numpy(toks).to(dev)
@@ -4688,7 +4815,7 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
             eng = HeteroPipelineEngine(
                 params, cfg, batch=batch, cache_len=cache_len,
                 num_r_workers=workers, num_microbatches=num_mb,
-                paged_kv=True, device=dev, **(engine_kw or {}))
+                paged_kv=paged, device=dev, **(engine_kw or {}))
         try:
             torch.cuda.synchronize()
             t0 = pc()
@@ -4731,9 +4858,11 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
             torch.cuda.synchronize()
             launches = {n: c[0].value for n, c in counters.items()}
             plain = {n: c[1].value for n, c in counters.items()}
+            paged_int8 = QK.paged_launches.value
             rec = {"how": how, "mode": "eager" if eager else "graphs",
                    "engine": ("ColocatedEngine" if colo else
-                              "HeteroPipelineEngine(paged_kv=True)"),
+                              f"HeteroPipelineEngine(paged_kv={paged}, "
+                              f"num_r_workers={workers})"),
                    "load_prefill_s": load_s, "steps": steps,
                    "tokens_per_s": batch * steps / sum(step_s),
                    "tokens_per_s_after_first_step":
@@ -4741,6 +4870,7 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
                    "first_step_s": step_s[0],
                    "step_s_p50": float(np.median(step_s)),
                    "step_s": step_s, "kernel_launches": launches,
+                   "int8_paged_launches": paged_int8,
                    "plain_calls": plain,
                    "capture_count": graphs.captures.capture_count,
                    "capture_s": graphs.captures.capture_s}
@@ -4748,24 +4878,34 @@ def _static_run(dev, cfg, params, toks, plens, *, how: str, steps: int,
                 rec.update({"step_stats": stats,
                             "step_stats_total": dict(eng.step_stats),
                             "r_worker_busy_s": eng.worker_busy_times(),
-                            "kernel_launches_expected":
-                                cfg.num_layers * num_mb
-                                * len(eng.workers) * steps})
+                            "kernel_launches_expected": expect or {
+                                "paged_decode_attention": cfg.num_layers
+                                * num_mb * len(eng.workers) * steps}})
                 if engine_kw:
                     rec["engine_kw"] = {k: str(v)
                                         for k, v in engine_kw.items()}
+            if profile:
+                def step():
+                    nonlocal tok
+                    lg = torch.cat(eng.decode_step(
+                        [tok[m * mb:(m + 1) * mb] for m in range(num_mb)]))
+                    tok = lg.argmax(-1)[:, None].to(torch.int32)
+                # _profile_steps drives eng.step()
+                rec["window"] = _profile_steps(
+                    types.SimpleNamespace(step=step), 3, out, profile,
+                    trace=False)
+            if after is not None:
+                rec.update(after(eng))
         finally:
             if not colo:
                 eng.close()
-    want = rec.get("kernel_launches_expected", 0)
-    got = launches["paged_decode_attention"]
-    others = {n: v for n, v in launches.items()
-              if n != "paged_decode_attention"}
-    if got != want or any(plain.values()) or any(others.values()):
+    want = rec.get("kernel_launches_expected") or {}
+    bad = {n: (v, want.get(n, 0)) for n, v in launches.items()
+           if v != want.get(n, 0)}
+    if bad or any(plain.values()):
         raise AssertionError(
-            f"static {how} run: kernel 1 launches {got} != layers x "
-            f"micro-batches x workers x steps = {want} (other kernels "
-            f"{others}, plain calls {plain})")
+            f"static {how} run: launches (got, expected) {bad} (expected "
+            f"{want}), plain calls {plain}")
     return rec, tokens, rows
 
 
@@ -5494,13 +5634,353 @@ def phase_equiv_recurrent(dev) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# cross-attention: the vision model and the encoder-decoder
+# ---------------------------------------------------------------------------
+VISION_LAYERS = 10      # llama-3.2-vision-90b's depth on one card (of 100):
+                        # two periods, 8 ATTN and 2 XATTN layers
+XATTN_STEPS = 32        # decode steps per static_vision run
+WHISPER_STEPS = 16      # per static_whisper run: its legacy step takes
+                        # ~0.7 s, and the whole run keeps near its budget
+WHISPER_PROMPT = 448    # whisper's decoder context (arXiv:2212.04356)
+
+
+def _features(dev, cfg, batch: int, seed: int, dtype=None):
+    """Seeded stub-frontend features [batch, encoder_seq, encoder_d_model]
+    made on the card: patch embeddings (vision) or frame embeddings
+    (whisper's encoder input)."""
+    import torch
+    from repro_torch.device import torch_dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.encoder_d_model),
+                       generator=gen, device=dev,
+                       dtype=dtype or torch_dtype(cfg.dtype))
+
+
+def _xattn_expect(cfg, workers: int, steps: int, *, paged=True,
+                  quantized=False, num_mb: int = 2) -> dict:
+    """Each kernel's launches in a static run: kernel 2 on every
+    cross-attention R-Part (XATTN layers, DEC_XATTN phases 1), the ATTN
+    layers through kernel 1 when paged, kernel 3 with int8 storage (its
+    paged entry when paged); a DEC_XATTN block's self-attention is plain
+    torch on its dense slab, as in repro."""
+    per = num_mb * workers * steps
+    n_attn = cfg.pattern.count("attn")
+    out = {"decode_attention": per * sum(k in ("xattn", "dec_xattn")
+                                         for k in cfg.pattern)}
+    if n_attn and quantized:
+        out["decode_attention_int8"] = n_attn * per
+    elif n_attn and paged:
+        out["paged_decode_attention"] = n_attn * per
+    return out
+
+
+def _step_bytes(model) -> float:
+    """The weight bytes one decode step reads per micro-batch: every
+    weight but the embedding table (a step gathers B rows of it; a tied
+    head reads it whole, so then it counts) and the encoder (it runs at
+    load_prefill only)."""
+    params, cfg = model["params"], model["cfg"]
+    skip = 0 if cfg.tie_embeddings else params["embed"].numel() * \
+        params["embed"].element_size()
+    if "encoder" in params:
+        skip += sum(v.numel() * v.element_size()
+                    for v in params["encoder"]["stack"]["s0"].values())
+    return model["weight_bytes"] - skip
+
+
+def _storage_counts(eng) -> dict:
+    """Paged layer keys and allocators over the engine's workers, and the
+    bytes of the cross-attention K/V they hold."""
+    return {"paged_keys": sum(len(w.paged_keys) for w in eng.workers),
+            "allocators": sum(len(w.allocators) for w in eng.workers),
+            "cross_state_bytes": sum(
+                v.numel() * v.element_size() for w in eng.workers
+                for st in w.state.values() if "xk" in st
+                for k, v in st.items() if k in ("xk", "xv"))}
+
+
+def _xattn_static(dev, model, out: Path, *, phase, toks, plens, feats,
+                  runs, steps) -> tuple:
+    """``runs``: (name, how, engine_kw) static runs of ``model`` (batch 8,
+    2 micro-batches, 2 R-workers, paged_kv, cache_len 1024, ``steps``
+    steps, each on a fresh engine), counted against ``_xattn_expect``,
+    the fused and int8 runs with a profiled window.  Returns ({name:
+    record, with the step bound 2 x ``_step_bytes`` / 3.35 TB/s beside
+    the p50}, {name: (tokens, logits rows)})."""
+    cfg, params = model["cfg"], model["params"]
+    bound = 2 * _step_bytes(model) / HBM_BYTES_PER_S
+    recs, logs = {}, {}
+    for name, how, ekw in runs:
+        q = bool((ekw or {}).get("quantized_kv"))
+        rec, tokens, rows = _static_run(
+            dev, cfg, params, toks, plens, how=how, steps=steps,
+            batch=8, cache_len=1024, engine_kw=ekw, enc_feats=feats,
+            expect=_xattn_expect(cfg, 2, steps, quantized=q),
+            profile=f"{phase}_{name}" if name in ("fused", "int8") else None,
+            out=out, after=_storage_counts)
+        if q and rec["int8_paged_launches"] != rec["kernel_launches"][
+                "decode_attention_int8"]:
+            raise AssertionError(f"{phase} {name}: kernel 3 launches did not "
+                                 f"all go through its paged entry: {rec}")
+        rec["step_bound_s"] = bound
+        rec["p50_over_step_bound"] = rec["step_s_p50"] / bound
+        recs[name], logs[name] = rec, (tokens, rows)
+        w = rec.get("window", {})
+        print(f"{phase} {name}: {rec['tokens_per_s']:.2f} tokens/s "
+              f"({rec['tokens_per_s_after_first_step']:.2f} after the "
+              f"first), step p50 {rec['step_s_p50']:.4f} s (bound "
+              f"{bound:.5f} s)"
+              + (f", idle {w['device_idle_ratio']:.3f}" if w else ""),
+              flush=True)
+        _free_device()
+    return recs, logs
+
+
+def phase_static_vision(dev, out: Path) -> dict:
+    """llama-3.2-vision-90b at full width cut to VISION_LAYERS of its 100
+    layers (two periods: 8 ATTN, 2 XATTN), bf16, through the static-batch
+    API: batch 8 in 2 micro-batches, 2 R-workers, paged_kv (page 16),
+    cache_len 1024, seeded prompts of 17-600 tokens and patch embeddings
+    [8, 1600, 8192], load_prefill per micro-batch, XATTN_STEPS fused
+    decode_steps; kernel 1 on every ATTN layer and kernel 2 on every
+    XATTN layer, exactly; then the same with quantized_kv=True (kernel 3's
+    paged entry on the ATTN layers, kernel 2 unchanged).  The model is
+    freed after."""
+    t_phase = time.perf_counter()
+    model = eval_model(dev, "llama-3.2-vision-90b", layers=VISION_LAYERS)
+    cfg = model["cfg"]
+    toks, plens = _static_prompts(cfg, 8, 600, 13, ragged=True)
+    feats = _features(dev, cfg, 8, 14)
+    recs, logs = _xattn_static(
+        dev, model, out, phase="static_vision", toks=toks, plens=plens,
+        feats=feats, steps=XATTN_STEPS,
+        runs=(("fused", "fused", None),
+              ("int8", "fused", {"quantized_kv": True}),
+              ("fused_again", "fused", None)))
+    triage = _triage(logs["int8"][0], logs["fused"][0], logs["int8"][1],
+                     logs["fused"][1])
+    rec = {"phase": "static_vision", "ok": True, "model": cfg.name,
+           "layers": cfg.num_layers, "full_layers": model["full_layers"],
+           "depth_cut": f"{cfg.num_layers} of {model['full_layers']} layers "
+                        f"(full width)",
+           "pattern": list(cfg.pattern), "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "patches": cfg.encoder_seq, "dtype": cfg.dtype,
+           "weight_bytes": model["weight_bytes"],
+           "step_bytes": _step_bytes(model), "init_s": model["init_s"],
+           "batch": 8, "micro_batches": 2, "r_workers": 2,
+           "cache_len": 1024, "page_size": 16,
+           "prompt_tokens": plens.tolist(), "runs": recs,
+           "int8_vs_bf16": triage,
+           "kernel_launches": {n: r["kernel_launches"]
+                               for n, r in recs.items()},
+           "seconds": time.perf_counter() - t_phase}
+    del model, feats
+    _free_device()
+    return rec
+
+
+def phase_static_whisper(dev, out: Path) -> dict:
+    """whisper-medium at full size (24 encoder and 24 decoder layers, d
+    1024, 1500 frames), bf16, through the static-batch API as
+    static_vision (paged_kv is a no-op: the DEC_XATTN slabs stay dense,
+    no page is made), seeded prompts of 17-448 tokens and frame
+    embeddings [8, 1500, 1024]: the fused step (a profiled window after),
+    the legacy step and the fused step with profile_timing, each
+    WHISPER_STEPS steps on a fresh engine, their tokens equal (a bf16
+    difference only as a near-tie flip by the ROADMAP §3 rule); kernel 2
+    on every DEC_XATTN phase 1 (24 x 2 x 2 x steps), nothing else."""
+    t_phase = time.perf_counter()
+    model = eval_model(dev, "whisper-medium")
+    cfg = model["cfg"]
+    toks, plens = _static_prompts(cfg, 8, WHISPER_PROMPT, 15, ragged=True)
+    feats = _features(dev, cfg, 8, 16)
+    recs, logs = _xattn_static(
+        dev, model, out, phase="static_whisper", toks=toks, plens=plens,
+        feats=feats, steps=WHISPER_STEPS,
+        runs=(("fused", "fused", None), ("legacy", "legacy", None),
+              ("profile_timing", "fused", {"profile_timing": True})))
+    for name, r in recs.items():
+        if r["paged_keys"] or r["allocators"]:
+            raise AssertionError(f"static_whisper {name}: paged_kv paged a "
+                                 f"DEC_XATTN slab: {r}")
+    want, rows_w = logs["fused"]
+    triage = {n: _triage(logs[n][0], want, logs[n][1], rows_w)
+              for n in ("legacy", "profile_timing")}
+    bad = {n: t["not_near_tie"] for n, t in triage.items()
+           if t["not_near_tie"]}
+    if bad:
+        raise AssertionError(f"static_whisper: tokens part from the fused "
+                             f"step's beyond a near-tie flip: {bad}")
+    rec = {"phase": "static_whisper", "ok": True, "model": cfg.name,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "frames": cfg.encoder_seq, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "dtype": cfg.dtype,
+           "weight_bytes": model["weight_bytes"],
+           "step_bytes": _step_bytes(model), "init_s": model["init_s"],
+           "batch": 8, "micro_batches": 2, "r_workers": 2,
+           "cache_len": 1024, "paged_kv": "no-op (no page pool)",
+           "prompt_tokens": plens.tolist(), "runs": recs,
+           "tokens_equal": {n: t["requests_equal"] == t["requests"]
+                            for n, t in triage.items()},
+           "triage_vs_fused": triage,
+           "kernel_launches": {n: r["kernel_launches"]
+                               for n, r in recs.items()},
+           "seconds": time.perf_counter() - t_phase}
+    del model, feats
+    _free_device()
+    return rec
+
+
+def _xattn_equiv_model(dev, arch: str, **cut):
+    """``arch`` at full width cut by ``cut`` (layers), fp32 (TF32 off),
+    seeded weights and seeded non-zero XATTN gates (their init is 0: the
+    block would be the identity)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32", **cut)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(9),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for blk in list(params["stack"].values()) + params["rem"]:
+        for k in ("gate_attn", "gate_ffn"):
+            if k in blk:
+                blk[k].copy_(0.3 + torch.rand(blk[k].shape, generator=gen,
+                                              device=dev))
+    return cfg, params
+
+
+def _static_bitwise(name, got, want) -> dict:
+    """Two static runs' tokens and every logits row, bit for bit."""
+    import torch
+    if got[0] != want[0] or any(not torch.equal(got[1][k], v)
+                                for k, v in want[1].items()):
+        raise AssertionError(f"equiv_xattn {name}: not bit for bit")
+    return {"tokens_equal": True, "bitwise": True, "rows": len(want[1])}
+
+
+def _colocated_halves(dev, cfg, params, toks, plens, feats, **kw):
+    """The colocated engine run on each half of the batch apart (batch 2,
+    the rows a hetero micro-batch holds): ({row: tokens}, {(row, step):
+    logits row}) of the whole batch.  Against the batch-4 run it gives
+    the reference's own fp32 spread under the hetero engine's row
+    split (other matrix shapes, other summation orders)."""
+    tokens, rows = {}, {}
+    h = toks.shape[0] // 2
+    for half in range(2):
+        sl = slice(half * h, (half + 1) * h)
+        _, t, r = _static_run(dev, cfg, params, toks[sl], plens[sl],
+                              how="colocated", batch=h,
+                              enc_feats=feats[sl], **kw)
+        tokens.update({half * h + k: v for k, v in t.items()})
+        rows.update({(half * h + a, i): v for (a, i), v in r.items()})
+    return tokens, rows
+
+
+def phase_equiv_xattn(dev) -> dict:
+    """fp32, TF32 off, seeded non-zero gates, at full width:
+    llama-3.2-vision-90b at 5 layers (one period: 4 ATTN, 1 XATTN) and
+    whisper-medium at 2 decoder + 2 encoder layers, through the
+    static-batch API (batch 4, ragged prompts of 17-200 tokens, 6
+    steps): hetero paged (2 R-workers) == colocated; graphs == eager bit
+    for bit; the legacy step == the fused step; paged == dense (whisper:
+    bit for bit, paged_kv is a no-op; vision within tolerance); 1 R-worker
+    == colocated; every hetero run's launches exact.  The tolerance is
+    EQUIV_LOGIT_TOL over the colocated engine's own spread when its batch
+    is split as the hetero engine's micro-batches (``_colocated_halves``;
+    the rule of the kernel checks' fp64 comparison: atol + the
+    reference's own distance): at width 8192 over 5 layers that spread
+    alone is near 1e-4."""
+    t_phase = time.perf_counter()
+    cases = {}
+    for arch, cut in (("llama-3.2-vision-90b", dict(num_layers=5)),
+                      ("whisper-medium", dict(num_layers=2,
+                                              encoder_layers=2))):
+        t0 = time.perf_counter()
+        cfg, params = _xattn_equiv_model(dev, arch, **cut)
+        toks, plens = _static_prompts(cfg, 4, 200, 17, ragged=True)
+        feats = _features(dev, cfg, 4, 18)
+        kw = dict(steps=6, batch=4, cache_len=256, enc_feats=feats)
+        halves = _colocated_halves(dev, cfg, params, toks, plens, feats,
+                                   steps=6, cache_len=256)
+        runs = {}
+        for name, how, workers, paged, eager in (
+                ("colocated", "colocated", 2, True, False),
+                ("fused", "fused", 2, True, False),
+                ("fused_eager", "fused", 2, True, True),
+                ("legacy", "legacy", 2, True, False),
+                ("dense", "fused", 2, False, False),
+                ("one_worker", "fused", 1, True, False)):
+            rec, tokens, rows = _static_run(
+                dev, cfg, params, toks, plens, how=how, workers=workers,
+                paged=paged, eager=eager,
+                expect=None if how == "colocated" else _xattn_expect(
+                    cfg, workers, kw["steps"], paged=paged), **kw)
+            runs[name] = ((tokens, rows), rec)
+        ref = runs["colocated"][0]
+        spread, flips, ties, _ = _compare_rows(halves[0], ref[0], halves[1],
+                                               ref[1], 1.0)
+        if flips:
+            raise AssertionError(f"equiv_xattn {arch}: the colocated engine "
+                                 f"on the batch's halves parts from itself "
+                                 f"beyond 1.0: {flips}")
+        tol = EQUIV_LOGIT_TOL + spread
+        res = {"layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "pattern": list(cfg.pattern),
+               "colocated_halves_spread": spread,
+               "colocated_halves_near_tie_flips": ties,
+               "logit_tol": tol,
+               "max_abs_logit": max(float(v.abs().max())
+                                    for v in ref[1].values()),
+               "launches": {n: r[1]["kernel_launches"]
+                            for n, r in runs.items() if n != "colocated"}}
+        for name in ("fused", "legacy", "dense", "one_worker"):
+            res[f"{name}_vs_colocated"] = _static_equal(
+                f"equiv_xattn {arch} {name}", runs[name][0], ref, tol)
+        res["graphs_vs_eager"] = _static_bitwise(
+            f"{arch} graphs", runs["fused"][0], runs["fused_eager"][0])
+        res["legacy_vs_fused"] = _static_equal(
+            f"equiv_xattn {arch} legacy vs fused", runs["legacy"][0],
+            runs["fused"][0], tol)
+        if cfg.is_encdec:
+            res["paged_vs_dense"] = _static_bitwise(
+                f"{arch} paged (a no-op) vs dense", runs["fused"][0],
+                runs["dense"][0])
+        else:
+            res["paged_vs_dense"] = _static_equal(
+                f"equiv_xattn {arch} paged vs dense", runs["fused"][0],
+                runs["dense"][0], tol)
+        res["max_logit_diff"] = max(
+            res[f"{n}_vs_colocated"]["max_logit_diff"]
+            for n in ("fused", "legacy", "dense", "one_worker"))
+        res["seconds"] = time.perf_counter() - t0
+        cases[arch] = res
+        print(f"equiv_xattn {arch}: max logit diff "
+              f"{res['max_logit_diff']:.3g} against colocated (the "
+              f"colocated engine's own spread {spread:.3g}, tol "
+              f"{tol:.3g})", flush=True)
+        del params, feats, runs
+        _free_device()
+    return {"phase": "equiv_xattn", "ok": True, "dtype": "float32",
+            "tf32": False, "logit_atol": EQUIV_LOGIT_TOL, "cases": cases,
+            "seconds": time.perf_counter() - t_phase}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
           "equiv_spec", "equiv_chunk", "equiv_spec_int8", "equiv_prefix",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
           "equiv_eval", "serve_moe", "equiv_moe", "serve_rglru",
-          "serve_ssd", "equiv_recurrent")
+          "serve_ssd", "equiv_recurrent", "static_vision", "static_whisper",
+          "equiv_xattn")
 
 
 def kernels_line(results) -> list:
@@ -5509,22 +5989,26 @@ def kernels_line(results) -> list:
     launches in the counted serve run of its path: the bf16 paged serve
     for kernel 1, the paged-int8 serve for kernel 3, the spec serve for
     kernel 4, the paged int8 spec serve for kernel 3's multi-token entry
-    (``verify_int8``); kernel 2 is on no
-    serve path (as in the JAX package, only ops.decode_attention reaches
-    it), so its count is that of the serve runs, 0 (null where no serve
-    phase ran)."""
+    (``verify_int8``); kernel 2, the cross-attention R-Part, the static
+    runs of static_vision and static_whisper (with the serve runs' count,
+    0: no serve path reaches it; null where none of these phases ran),
+    its times at the cross-attention shapes beside it."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
     spec, spec8 = results.get("serve_spec"), results.get("serve_spec_int8")
     chunked = results.get("serve_chunked")
     rg = results.get("serve_rglru")
+    sv, sw = results.get("static_vision"), results.get("static_whisper")
     runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else []) \
         + ([spec] if spec else []) + (spec8["runs"] if spec8 else []) \
         + (chunked["runs"] if chunked else [])
+    xruns = [{"launches": r["kernel_launches"]} for ph in (sv, sw) if ph
+             for r in ph["runs"].values()]
     launches = {
         "paged_decode_attention": serve["kernel_launches"] if serve else None,
         "decode_attention": sum(r["launches"]["decode_attention"]
-                                for r in runs) if runs else None,
+                                for r in runs + xruns)
+        if runs or xruns else None,
         "decode_attention_int8": serve8["kernel_launches"] if serve8
         else None,
         "paged_verify_attention": spec["kernel_launches"] if spec else None,
@@ -5570,6 +6054,26 @@ def kernels_line(results) -> list:
         moe["kernel_launches"]["paged_decode_attention"] if moe else None)
     line[3]["serve_moe_launches"] = (
         moe["kernel_launches"]["paged_verify_attention"] if moe else None)
+    # the cross-attention slice: kernel 2 in each static run of the vision
+    # model and the encoder-decoder, kernel 1 and kernel 3's paged entry on
+    # the vision model's ATTN layers
+    for name, ph in (("static_vision", sv), ("static_whisper", sw)):
+        line[1][f"{name}_launches"] = (
+            {n: r["kernel_launches"]["decode_attention"]
+             for n, r in ph["runs"].items()} if ph else None)
+    line[0]["static_vision_launches"] = (
+        sv["runs"]["fused"]["kernel_launches"]["paged_decode_attention"]
+        if sv else None)
+    line[2]["static_vision_launches"] = (
+        sv["runs"]["int8"]["kernel_launches"]["decode_attention_int8"]
+        if sv else None)
+    if k:
+        line[1]["cross_attention"] = [
+            {key: r[key] for key in ("shape", "B", "S", "Hq", "Hkv", "Dh",
+                                     "ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_device_ms", "max_abs_err")}
+            for r in k["kernels"]["decode_attention"]["timing_cross"]]
     # kernels 1 and 4 at the MoE models' head layouts (G 6 with softcap
     # 30, G 5): their times beside the main path's
     if k:
@@ -5738,6 +6242,15 @@ def main(argv=None) -> int:
     if "equiv_recurrent" in phases:
         results["equiv_recurrent"] = phase_equiv_recurrent(dev)
         log(results["equiv_recurrent"])
+    if "static_vision" in phases:
+        results["static_vision"] = phase_static_vision(dev, args.out)
+        log(results["static_vision"])
+    if "static_whisper" in phases:
+        results["static_whisper"] = phase_static_whisper(dev, args.out)
+        log(results["static_whisper"])
+    if "equiv_xattn" in phases:
+        results["equiv_xattn"] = phase_equiv_xattn(dev)
+        log(results["equiv_xattn"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,12 @@ evaluation models ``llama-13b`` and ``opt-175b``, ``deepseek-67b`` and
 ``deepseek-coder-33b``, the mixture-of-experts models ``grok-1-314b``
 and ``llama4-scout-17b-a16e``, and the recurrent models
 ``recurrentgemma-2b`` (RG-LRU blocks with windowed attention every third
-layer) and ``mamba2-2.7b`` (SSD blocks).  The model runs the ATTN mixer
-with a SwiGLU, a GELU MLP or a capacity-dispatched MoE FFN, and the
-RG-LRU and SSD mixers.
+layer) and ``mamba2-2.7b`` (SSD blocks), and the cross-attention models
+``llama-3.2-vision-90b`` (a gated XATTN layer every fifth) and
+``whisper-medium`` (an encoder and DEC_XATTN decoder blocks): all 13 of
+the JAX package's configs.  The model runs the ATTN mixer with a SwiGLU,
+a GELU MLP or a capacity-dispatched MoE FFN, the RG-LRU and SSD mixers,
+and cross-attention against static encoder or patch features.
 """
 from __future__ import annotations
 
@@ -136,17 +139,18 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs self-attention, RG-LRU and SSD layers, attention and
-    RG-LRU layers with a SwiGLU, MLP or MoE FFN (SSD blocks have none); a
-    ``vision_stub`` frontend is early fusion into the embeddings (no
-    cross-attention layer), so it passes too."""
-    if any(k not in (ATTN, RGLRU, SSD) for k in cfg.layer_pattern) \
-            or cfg.is_encdec \
-            or (cfg.ffn_kind == FFN_NONE
-                and any(k != SSD for k in cfg.layer_pattern)):
+    """The port runs every decoder kind (self-attention, RG-LRU, SSD, the
+    gated XATTN and the DEC_XATTN blocks) and an encoder of ENC_ATTN
+    blocks; every block but an SSD one needs an FFN (SwiGLU, MLP or
+    MoE).  An encoder layer inside the decoder's pattern is refused, as
+    the JAX package only builds it under ``params["encoder"]``."""
+    if ENC_ATTN in cfg.layer_pattern:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN, RG-LRU and SSD layers are ported so "
-            f"far (cross-attention and enc-dec are queued in ROADMAP.md)")
+            f"{cfg.name}: ENC_ATTN blocks run only in the encoder "
+            f"(encoder_layers), not in the decoder's layer_pattern")
+    if cfg.ffn_kind == FFN_NONE and any(k != SSD for k in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: only SSD blocks run without an FFN")
 
 
 _ARCHS: Dict[str, ModelConfig] = {}
@@ -158,6 +162,8 @@ _ARCH_MODULES = [
     "grok_1_314b", "llama4_scout_17b_a16e",
     # recurrent mixers
     "recurrentgemma_2b", "mamba2_2_7b",
+    # cross-attention: a vision model and an encoder-decoder
+    "llama_3_2_vision_90b", "whisper_medium",
 ]
 
 

@@ -1,13 +1,17 @@
-"""The paper's model decomposition (FastDecode §3.1) for the port's ATTN,
-RG-LRU and SSD blocks (counterpart of repro.core.decompose).
+"""The paper's model decomposition (FastDecode §3.1) for the port's
+blocks (counterpart of repro.core.decompose).
 
 Each block splits into the S-Part (``s_pre`` / ``s_advance``: norms,
 projections, gates, the short convs, FFN — shared parameters,
 batch-friendly; the conv window is the S-side's small per-row state) and
 the parameter-free R-Part: ``r_attention`` (append the new token's K/V
-and attend over the cache), ``r_rglru`` (h_t = a h_{t-1} + b) or
-``r_ssd`` (the SSD state update and readout).  Only activations cross
-the boundary (q, k, v -> o; a, b -> h; x, dt, B, C -> y).  The invariant
+and attend over the cache), ``r_cross_attention`` (attend over the
+static cross-attention K/V, kernel 2 on the card), ``r_rglru`` (h_t = a
+h_{t-1} + b) or ``r_ssd`` (the SSD state update and readout).  Only
+activations cross the boundary (q, k, v -> o; q -> o; a, b -> h; x, dt,
+B, C -> y).  A block runs as a chain of phases, each an S-side advance
+then an R-Part: one phase for every kind but DEC_XATTN, whose two are
+its self-attention and then its cross-attention.  The invariant
 
     model.apply_block(kind, p, h, st, ctx) == run_decomposed(kind, p, h, st, ctx)
 
@@ -24,7 +28,9 @@ import torch
 
 import torch.nn.functional as F
 
-from repro_torch.core.config import ATTN, RGLRU, SSD, ModelConfig
+from repro_torch.core.config import (ATTN, DEC_XATTN, RGLRU, SSD, XATTN,
+                                     ModelConfig)
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.model import Ctx, _ffn, _qkv_proj
 
@@ -34,18 +40,24 @@ F32 = torch.float32
 # R-worker gets them whole (``r_ssd``)
 RIN_BROADCAST = ("A_log", "D")
 # the R-Part result key of each kind (``s_advance`` reads it)
-R_OUT_KEY = {ATTN: "o", RGLRU: "h", SSD: "y"}
+R_OUT_KEY = {ATTN: "o", XATTN: "o", DEC_XATTN: "o", RGLRU: "h", SSD: "y"}
 
 
 def num_phases(kind: str) -> int:
-    return 1
+    return 2 if kind == DEC_XATTN else 1
 
 
 def _check_kind(kind: str) -> None:
     if kind not in R_OUT_KEY:
+        raise ValueError(f"block kind {kind!r} has no decode R-Part (an "
+                         f"ENC_ATTN block runs only in the encoder)")
+
+
+def _no_chunk(kind: str) -> None:
+    if kind in (XATTN, DEC_XATTN):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (cross-attention is "
-            f"queued in ROADMAP.md)")
+            f"chunked prefill does not support block kind {kind!r} "
+            f"(enc-dec / vision archs): use whole-prompt prefill")
 
 
 def attn_state_lengths(st) -> torch.Tensor:
@@ -118,6 +130,30 @@ def r_attention_chunk(r_in: Dict[str, torch.Tensor], r_state, *,
     return {"o": o}, r_state
 
 
+def cross_pos(b: int, s: int, device) -> torch.Tensor:
+    """The key positions of a cross-attention slab: all 0, so every slot
+    is valid for a query at any position >= 0, with no window."""
+    return torch.zeros((b, s), dtype=torch.int32, device=device)
+
+
+def r_cross_attention(r_in, r_state, *, pos=None):
+    """Attend q against the static (image / encoder) K/V held R-side:
+    decode attention of one query per row over the dense slab
+    ``r_state`` {xk, xv} [B, S, Hkv, Dh], every slot valid.  That is
+    kernel 2's function with an all-zero ``pos`` [B, S] (``cross_pos``;
+    the caller may pass one it keeps, as an R-worker's graph does),
+    window 0 and softcap 0, so it goes through ``ops.decode_attention``:
+    kernel 2 on a CUDA tensor, its plain version on a CPU one.  The state
+    is read only.  r_in: q [B,1,Hq,Dh], lengths [B] (>= 0)."""
+    q = r_in["q"]
+    xk, xv = r_state["xk"], r_state["xv"]
+    if pos is None:
+        pos = cross_pos(q.shape[0], xk.shape[1], q.device)
+    o = ops.decode_attention(q[:, 0].contiguous(), xk, xv, pos,
+                             r_in["lengths"].to(torch.int32))
+    return {"o": o[:, None]}, r_state
+
+
 def r_rglru(r_in, r_state):
     """h_t = a * h_{t-1} + b, the parameter-free LRU recurrence.  An
     optional ``active`` [B] gates the update (inactive rows keep their
@@ -180,14 +216,27 @@ class PhaseOut(NamedTuple):
     r_in: Optional[Dict]       # payload for the R-worker (None if finished)
 
 
+def _xq(p, hn, cfg, prefix=""):
+    """Cross-attention's query [B, S, Hq, Dh] (not roped: the features
+    carry no position)."""
+    b, s = hn.shape[:2]
+    return (hn @ p[prefix + "wq"]).reshape(b, s, cfg.num_heads,
+                                           cfg.head_dim)
+
+
 def s_pre(kind: str, p, h, ctx: Ctx) -> PhaseOut:
-    """S-side phase 0 of an ATTN block: from block input to the R
-    payload (the recurrent kinds go through :func:`s_pre_stateful`)."""
-    if kind != ATTN:
+    """S-side phase 0 of an attention block: from block input to the R
+    payload, q, k, v for self-attention (ATTN, and DEC_XATTN's first
+    phase), q for XATTN (the recurrent kinds go through
+    :func:`s_pre_stateful`)."""
+    if kind not in (ATTN, XATTN, DEC_XATTN):
         raise NotImplementedError(
             f"s_pre of {kind!r}: its conv state makes it s_pre_stateful")
     cfg = ctx.cfg
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    if kind == XATTN:
+        return PhaseOut({"h": h}, {"q": _xq(p, hn, cfg),
+                                   "lengths": ctx.lengths})
     q, k, v = _qkv_proj(p, hn, cfg)
     q = L.rope(q, ctx.qpos, cfg.rope_theta)
     k = L.rope(k, ctx.qpos, cfg.rope_theta)
@@ -264,6 +313,7 @@ def s_pre_chunk_stateful(kind: str, p, h, s_state, ctx: Ctx, valid):
         r_in = _ssd_payload(p, xbc, dt, cfg, h.shape[0], h.shape[1])
         r_in["valid"] = valid
         return PhaseOut({"h": h, "z": z}, r_in), {"conv": new_conv}
+    _no_chunk(kind)
     out = s_pre(kind, p, h, ctx)
     r_in = dict(out.r_in)
     r_in["valid"] = valid
@@ -289,7 +339,9 @@ def _ssd_out(p, carry, y, cfg):
 
 
 def s_advance(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
-    """Consume the R result (decode: one position); the block output."""
+    """Consume the R result of ``phase`` (decode: one position): the
+    block output, or (DEC_XATTN's phase 0) a :class:`PhaseOut` whose
+    payload {q, lengths} feeds the cross-attention phase."""
     cfg = ctx.cfg
     h = carry["h"]
     if kind == RGLRU:
@@ -301,7 +353,18 @@ def s_advance(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
     _check_kind(kind)
     o = r_out["o"]
     b, s = o.shape[:2]
-    mix = o.reshape(b, s, -1) @ p["wo"]
+    o = o.reshape(b, s, -1)
+    if kind == XATTN:
+        mix = (o @ p["wo"]) * torch.tanh(p["gate_attn"].to(o.dtype))
+        h = h + mix
+        f = _ffn(p, L.rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+        return h + f * torch.tanh(p["gate_ffn"].to(f.dtype))
+    if kind == DEC_XATTN and phase == 0:
+        h = h + o @ p["wo"]
+        hx = L.rms_norm(h, p["lnx"], cfg.norm_eps)
+        return PhaseOut({"h": h}, {"q": _xq(p, hx, cfg, "x_"),
+                                   "lengths": ctx.lengths})
+    mix = o @ p["x_wo" if kind == DEC_XATTN else "wo"]
     return _finish(p, h + mix, cfg)
 
 
@@ -326,25 +389,31 @@ def r_dispatch_chunk(kind: str, phase: int, r_in, r_state,
     if kind == SSD:
         return r_ssd_chunk(r_in, r_state, chunk=cfg.ssd_chunk)
     _check_kind(kind)
+    _no_chunk(kind)
     return r_attention_chunk(r_in, r_state, window=cfg.window,
                              softcap=cfg.attn_logit_softcap,
                              kv_chunk=kv_chunk)
 
 
 def r_dispatch(kind: str, phase: int, r_in, r_state, cfg: ModelConfig,
-               kv_chunk: int = 1024):
+               kv_chunk: int = 1024, pos=None):
+    """The R-Part of (``kind``, ``phase``) on dense storage; ``pos`` is a
+    cross-attention's kept all-zero key positions (``r_cross_attention``)."""
     if kind == RGLRU:
         return r_rglru(r_in, r_state)
     if kind == SSD:
         return r_ssd(r_in, r_state)
     _check_kind(kind)
+    if kind == XATTN or (kind == DEC_XATTN and phase == 1):
+        return r_cross_attention(r_in, r_state, pos=pos)
     return r_attention(r_in, r_state, window=cfg.window,
                        softcap=cfg.attn_logit_softcap, kv_chunk=kv_chunk)
 
 
 def split_block_state(kind: str, st: Dict):
-    """(r_state, s_state): attention state lives wholly R-side; a
-    recurrent block keeps h R-side and its conv window S-side."""
+    """(r_state, s_state): attention state (a cross-attention block's
+    static xk / xv with it) lives wholly R-side; a recurrent block keeps
+    h R-side and its conv window S-side."""
     if kind in (RGLRU, SSD):
         return {"h": st["h"]}, {"conv": st["conv"]}
     _check_kind(kind)
@@ -364,7 +433,8 @@ def run_decomposed(kind: str, p, h, st, ctx: Ctx, kv_chunk: int = 1024):
     po, new_s = s_pre_stateful(kind, p, h, s_state, ctx)
     for k, v in new_s.items():
         s_state[k].copy_(v)
-    r_out, r_state = r_dispatch(kind, 0, po.r_in, r_state, ctx.cfg,
-                                kv_chunk)
-    h = s_advance(kind, 0, p, po.carry, r_out, ctx)
-    return h, merge_block_state(kind, r_state, s_state)
+    for phase in range(num_phases(kind)):
+        r_out, r_state = r_dispatch(kind, phase, po.r_in, r_state, ctx.cfg,
+                                    kv_chunk)
+        po = s_advance(kind, phase, p, po.carry, r_out, ctx)
+    return po, merge_block_state(kind, r_state, s_state)

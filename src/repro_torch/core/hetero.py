@@ -6,10 +6,13 @@ all weights and computes the S-Part of every layer; ``num_r_workers``
 R-workers (threads) own the per-sequence KV (or a recurrent block's
 state h) of a contiguous slice of each micro-batch and compute the
 parameter-free R-Part near it.  Per layer and token step only
-activations cross: q, k, v out, o back (a, b -> h for an RG-LRU block;
-x, dt, B, C -> y for an SSD block).  Two
-or more micro-batches are in flight, so while the R-workers attend for
-micro-batch A the S-worker advances micro-batch B.
+activations cross: q, k, v out, o back (q out, o back for a
+cross-attention; a, b -> h for an RG-LRU block; x, dt, B, C -> y for an
+SSD block).  A block is a chain of phases (``decompose.num_phases``): a
+DEC_XATTN block's self-attention phase is followed by its
+cross-attention phase on the same layer before the next layer starts.
+Two or more micro-batches are in flight, so while the R-workers attend
+for micro-batch A the S-worker advances micro-batch B.
 
 The hot path is event-driven: every R-worker posts finished work to one
 shared :class:`CompletionSink` and the S-worker advances whichever
@@ -26,9 +29,10 @@ measured rather than short-cut.
 
 Each fixed-shape step callable is a CUDA graph on the card
 (``core/graphs.StepGraph``, the role ``jax.jit`` plays in repro): the
-S-side start, the fused ``s_advance(li) -> s_pre(li+1)`` transitions and
-the logits head per micro-batch, and each R-worker's R-Part per
-(micro-batch, layer) (and per table width for a paged verify).  Graphs
+S-side start, the fused ``s_advance(li) -> s_pre(li+1)`` transitions (a
+DEC_XATTN layer's phase-0 -> phase-1 transition too) and the logits head
+per micro-batch, and each R-worker's R-Part per (micro-batch, layer,
+phase) (and per table width for a paged verify).  Graphs
 are captured on first use and replayed over static buffers: the
 gathered r_out lands in a transition's own input, payload shards are
 row views of its outputs, and the block tables live in one fixed device
@@ -109,8 +113,8 @@ from repro_torch.chaos.checksum import tree_digest
 from repro_torch.chaos.plan import ChaosComputeError
 from repro_torch.core import decompose as D
 from repro_torch.core import graphs
-from repro_torch.core.config import (ATTN, RGLRU, SSD, ModelConfig,
-                                     check_supported)
+from repro_torch.core.config import (ATTN, DEC_XATTN, RGLRU, SSD, XATTN,
+                                     ModelConfig, check_supported)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving import kv_cache as KV
@@ -186,17 +190,16 @@ def shard_rin(r_in: dict, slices) -> tuple:
     return tuple(rin_slice(r_in, lo, hi) for lo, hi in slices)
 
 
-def _fusion_feats(cfg: ModelConfig, enc_feats, device):
+def _frontend_feats(cfg: ModelConfig, enc_feats, device):
     """``enc_feats`` for ``load_prefill`` on ``device``: an early-fusion
-    arch's patch embeddings; any other arch refuses them (encoder-decoder
-    and cross-attention models are not ported)."""
+    arch's patch embeddings, a cross-attention arch's patch or frame
+    embeddings (``M.prefill``); an arch with no frontend refuses them."""
     if enc_feats is None:
         return None
-    if not M.early_fusion(cfg):
+    if cfg.frontend == "none":
         raise NotImplementedError(
-            f"enc_feats: {cfg.name} has no early-fusion frontend; "
-            f"encoder-decoder and cross-attention models are not ported "
-            f"yet (queued in ROADMAP.md)")
+            f"enc_feats: {cfg.name} has no frontend (neither early fusion "
+            f"nor cross-attention) to take features")
     return torch.as_tensor(enc_feats, device=device)
 
 
@@ -223,6 +226,15 @@ def _carry_of(ins: Dict, carry: Dict) -> Dict:
     """The carry ``D.s_advance`` takes (the keys of ``carry``), from a
     transition graph's inputs ``ins``."""
     return {k: ins["resid" if k == "h" else k] for k in carry}
+
+
+def _phase_out(po: "D.PhaseOut") -> Dict:
+    """A phase's outputs as a transition graph returns them: the payload
+    without its statics (lengths, valid) and the carry under ``_CARRY``
+    names."""
+    out = {k: v for k, v in po.r_in.items() if k not in ("lengths", "valid")}
+    out.update({_CARRY + k: v for k, v in po.carry.items()})
+    return out
 
 
 def _r_out_of(ins: Dict, kind: str) -> Dict:
@@ -400,6 +412,10 @@ class RWorker(threading.Thread):
         # storage), in one pool on the worker's stream
         self._pool = graphs.GraphPool(self.device, self.stream)
         self._graphs: Dict[Tuple, graphs.StepGraph] = {}
+        # (rows, S) -> the all-zero key positions of a cross-attention
+        # slab (``D.cross_pos``): made once outside any capture, read by
+        # every cross-attention R-Part graph of that shape
+        self._cross_pos: Dict[Tuple[int, int], torch.Tensor] = {}
         self._cache_len = 0                      # set at first state load
         self.state: Dict[int, Any] = {}          # layer key -> r_state
         self.paged_keys: set = set()             # layer keys stored paged
@@ -440,9 +456,12 @@ class RWorker(threading.Thread):
 
     # -- paged storage helpers ----------------------------------------------
     def _pageable(self, st) -> bool:
-        # a payload from a quantized worker carries k_q instead of k
+        # a payload from a quantized worker carries k_q instead of k; a
+        # DEC_XATTN state (with its cross-KV "xk") keeps the dense slab,
+        # as in repro
         return (self.paged and self.cfg.window == 0 and isinstance(st, dict)
-                and ("k" in st or "k_q" in st) and "pos" in st)
+                and ("k" in st or "k_q" in st) and "pos" in st
+                and "xk" not in st)
 
     def _alloc(self, mb: int) -> PC.PagedAllocator:
         if mb not in self.allocators:
@@ -630,6 +649,7 @@ class RWorker(threading.Thread):
         self._first_paged.clear()
         self._chunk_width.clear()
         self._step_clones.clear()
+        self._cross_pos.clear()
         self.release_graphs()
         self._pool = graphs.GraphPool(self.device, self.stream)
         self._released = True
@@ -715,7 +735,9 @@ class RWorker(threading.Thread):
 
     def _r_body(self, key, kind: str, phase: int):
         """The R-Part of ``key`` as a graph body over its payload: the
-        storage's append + attend, KV updated in place."""
+        storage's append + attend, KV updated in place (a
+        cross-attention's read of its static slab, through kernel 2 on
+        the card)."""
         layer = key[1]
         st, cfg = self.state[layer], self.cfg
         win, cap = cfg.window, cfg.attn_logit_softcap
@@ -753,9 +775,17 @@ class RWorker(threading.Thread):
                 return KV.r_attention_int8(r_in, st, window=win,
                                            softcap=cap)[0]
         else:
+            pos = None
+            if kind == XATTN or (kind == DEC_XATTN and phase == 1):
+                rows, s_enc = st["xk"].shape[:2]
+                pos = self._cross_pos.get((rows, s_enc))
+                if pos is None:
+                    pos = self._cross_pos[(rows, s_enc)] = D.cross_pos(
+                        rows, s_enc, self.device)
+
             def body(r_in):
                 return D.r_dispatch(kind, phase, r_in, st, cfg,
-                                    self.kv_chunk)[0]
+                                    self.kv_chunk, pos)[0]
         return body
 
     def _to_host(self, r_out: Dict[str, torch.Tensor]):
@@ -879,7 +909,9 @@ class RWorker(threading.Thread):
                     if layer in self.paged_keys:
                         key += (self._grow_paged_chunk(layer, r_in, mode),)
                 else:
-                    key = ("d", layer)
+                    # a later phase of the layer (DEC_XATTN's
+                    # cross-attention) has a graph of its own
+                    key = ("d", layer) + ((phase,) if phase else ())
                     if layer in self.paged_keys:
                         self._grow_paged(layer, r_in)
                 if sink is None:
@@ -1020,6 +1052,15 @@ class HeteroPipelineEngine:
                 f"{-(-batch // num_microbatches) * num_microbatches} or "
                 f"change num_microbatches")
         check_supported(cfg)
+        if quantized_kv and DEC_XATTN in cfg.layer_pattern:
+            # repro takes the option and fails at the first decode step:
+            # the int8 storage quantizes the DEC_XATTN state's k / v, and
+            # only ATTN blocks reach the int8 R-Part, so the plain
+            # self-attention phase finds no k
+            raise ValueError(
+                f"quantized_kv=True does not support {cfg.name}: its "
+                f"DEC_XATTN blocks' self-attention has no int8 R-Part "
+                f"(only ATTN blocks do); serve it with quantized_kv=False")
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
         self.batch = batch
@@ -1181,8 +1222,11 @@ class HeteroPipelineEngine:
         and the block tables from the allocator's fixed device buffer, so
         nothing a captured graph holds is reallocated here.
         ``enc_feats`` [mb_size, n, d]: an early-fusion arch's patch
-        embeddings (``M.prefill``)."""
-        enc_feats = _fusion_feats(self.cfg, enc_feats, self.device)
+        embeddings, or a cross-attention arch's patch or frame embeddings,
+        which that arch requires (``M.prefill``); the cross-attention
+        K/V they give go to the R-workers once, with the rest of the
+        state."""
+        enc_feats = _frontend_feats(self.cfg, enc_feats, self.device)
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
         prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
@@ -1229,7 +1273,12 @@ class HeteroPipelineEngine:
         the last valid position, or every position with ``verify``)
         appears in ``prefill_results`` after that step.  ``verify=True``
         is speculative-decode scoring.  A step takes at most one work per
-        (micro-batch, verify)."""
+        (micro-batch, verify).  Cross-attention archs are refused, as
+        ``repro``'s chunk mode refuses them."""
+        if M.has_xattn(self.cfg):
+            raise NotImplementedError(
+                f"chunk work does not support {self.cfg.name}'s "
+                f"cross-attention blocks: use load_prefill")
         rows = np.asarray(rows, np.int64)
         tokens = np.asarray(tokens, np.int32)
         n, c = tokens.shape
@@ -1345,10 +1394,7 @@ class HeteroPipelineEngine:
                                                valid)
         for k, v in new_s.items():
             s_state[k].copy_(v)
-        out = {k: v for k, v in po.r_in.items()
-               if k not in ("lengths", "valid")}
-        out.update({_CARRY + k: v for k, v in po.carry.items()})
-        return out
+        return _phase_out(po)
 
     def _start(self, mb: int, tokens):
         """embed -> s_pre(0), emitting the per-worker r_in shards; also
@@ -1368,9 +1414,14 @@ class HeteroPipelineEngine:
                 "active": self.mb_active[mb]})
         return self._s_out(g(), statics)
 
+    def _more_phases(self, li: int, phase: int) -> bool:
+        """Layer ``li`` has a phase after ``phase`` (DEC_XATTN's 0)."""
+        return phase + 1 < D.num_phases(self.layers[li][0])
+
     def _advance_graph(self, mb: int, li: int, phase: int, carry):
         def make():
             kind, p = self.layers[li]
+            more = self._more_phases(li, phase)
             last = li + 1 >= self.num_layers
             kind2, p2 = self.layers[min(li + 1, self.num_layers - 1)]
             s2 = self.s_states[mb][min(li + 1, self.num_layers - 1)]
@@ -1379,6 +1430,9 @@ class HeteroPipelineEngine:
                 ctx = self._ctx(ins["lengths"])
                 h = D.s_advance(kind, phase, p, _carry_of(ins, carry),
                                 _r_out_of(ins, kind), ctx)
+                if more:
+                    # the same layer's next phase: its payload out
+                    return _phase_out(h)
                 if last:
                     return {"logits": M._logits(self.params, self.cfg,
                                                 h)[:, 0]}
@@ -1388,14 +1442,15 @@ class HeteroPipelineEngine:
                              dict(self._mb_in[mb], **_graph_carry(carry)))
 
     def _advance(self, mb: int, li: int, phase: int, carry, r_out=None):
-        """s_advance(li) fused with s_pre(li+1) (shards out), or with the
-        logits head after the last layer (logits out: the graph's buffer,
-        valid until the micro-batch's next step).  ``r_out`` None: the
-        step already gathered it into the graph's inputs."""
+        """s_advance(li, phase) fused with s_pre(li+1) (shards out), with
+        the layer's next phase's payload (shards out), or with the logits
+        head after the last layer (logits out: the graph's buffer, valid
+        until the micro-batch's next step).  ``r_out`` None: the step
+        already gathered it into the graph's inputs."""
         g = self._advance_graph(mb, li, phase, carry)
         g.feed(dict(r_out or {}, **_graph_carry(carry)))
         out = g()
-        if li + 1 >= self.num_layers:
+        if li + 1 >= self.num_layers and not self._more_phases(li, phase):
             return None, out["logits"]
         return self._s_out(out, self._mb_in[mb])
 
@@ -1635,7 +1690,10 @@ class HeteroPipelineEngine:
                 active -= 1
             else:
                 carries[mb] = carry
-                dispatch(mb, li + 1, 0, out)
+                if self._more_phases(li, phase):
+                    dispatch(mb, li, phase + 1, out)
+                else:
+                    dispatch(mb, li + 1, 0, out)
 
         def advance_chunk(vmb: int, li: int, phase: int) -> None:
             nonlocal active
@@ -1837,7 +1895,8 @@ class HeteroPipelineEngine:
         """The pre-fusion hot path, kept as repro keeps it: the A/B
         baseline of the fused :meth:`decode_step` and a second oracle.
         Strict FIFO collection, separate eager ``s_pre`` and ``s_advance``
-        calls per layer, per-worker replies on each R-worker's ``outq``
+        calls per layer and phase, per-worker replies on each R-worker's
+        ``outq``
         and fan-in by concatenation on the device.  Nothing is captured
         or replayed, on either side.  Queued chunk works wait for the next
         ``decode_step``.  Its tokens equal ``decode_step``'s, and the two
@@ -1855,19 +1914,23 @@ class HeteroPipelineEngine:
         last_h: List[Any] = [None] * self.num_mb
         order: List[Tuple[int, int, int]] = []
 
-        def start_layer(mb: int, li: int, h) -> None:
-            kind, p = self.layers[li]
-            lengths, active = self.mb_lengths[mb], self.mb_active[mb]
-            t0 = pc()
-            out = self._pre(kind, p, h, self.s_states[mb][li],
-                            self._ctx(lengths), active)
+        def send(mb: int, li: int, phase: int, out, t0: float) -> None:
             carries[mb], shards = self._s_out(
-                out, {"lengths": lengths, "active": active})
+                out, {"lengths": self.mb_lengths[mb],
+                      "active": self.mb_active[mb]})
             t1 = pc()
             stats["s_dispatch_s"] += t1 - t0
-            self._dispatch_legacy(mb, li, 0, shards)
+            self._dispatch_legacy(mb, li, phase, shards)
             stats["dispatch_s"] += pc() - t1
-            order.append((mb, li, 0))
+            order.append((mb, li, phase))
+
+        def start_layer(mb: int, li: int, h) -> None:
+            kind, p = self.layers[li]
+            t0 = pc()
+            out = self._pre(kind, p, h, self.s_states[mb][li],
+                            self._ctx(self.mb_lengths[mb]),
+                            self.mb_active[mb])
+            send(mb, li, 0, out, t0)
 
         for mb in range(self.num_mb):
             t0 = pc()
@@ -1884,6 +1947,9 @@ class HeteroPipelineEngine:
             t0 = pc()
             h = D.s_advance(kind, phase, p, carries[mb], r_out,
                             self._ctx(self.mb_lengths[mb]))
+            if self._more_phases(li, phase):
+                send(mb, li, phase + 1, _phase_out(h), t0)
+                continue
             stats["s_dispatch_s"] += pc() - t0
             if li + 1 < self.num_layers:
                 start_layer(mb, li + 1, h)
@@ -2299,7 +2365,7 @@ class ColocatedEngine:
         """Prefill the whole batch: ``tokens`` [batch, S] right-padded,
         ``prompt_lens`` [batch]; ``enc_feats`` [batch, n, d] as
         ``HeteroPipelineEngine.load_prefill``'s."""
-        enc_feats = _fusion_feats(self.cfg, enc_feats, self.device)
+        enc_feats = _frontend_feats(self.cfg, enc_feats, self.device)
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
         prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,

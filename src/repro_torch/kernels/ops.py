@@ -7,7 +7,9 @@ So the dense int8 op runs kernel 3 on the card, where ``repro`` runs its
 jnp reference even on the TPU (``kv_cache.r_attention_int8`` defaults to
 ``use_kernel="ref"``), and the paged int8 op runs kernel 3's paged entry
 where ``repro`` gathers and then runs its int8 kernel: same functions,
-another dispatch.  The verify ops
+another dispatch.  The cross-attention R-Part, jnp flash attention in
+``repro``, runs kernel 2 (``decode_attention``) on the card.  The verify
+ops
 follow ``repro``'s split: the paged fp verify has its kernel (kernel 4),
 the dense verify is plain torch on both devices (jnp in ``repro``).  So is
 the dense int8 verify.  The paged int8 verify, jnp in ``repro`` (it
@@ -29,8 +31,10 @@ def _auto(use_kernel: str) -> None:
 
 def decode_attention(q, k, v, pos, lengths, *, window: int = 0, sink: int = 0,
                      softcap: float = 0.0, use_kernel: str = "auto"):
-    """Batched decode attention.  q [B,Hq,Dh]; k,v [B,S,Hkv,Dh];
-    pos [B,S] int32; lengths [B] int32 -> [B,Hq,Dh]."""
+    """Batched decode attention (kernel 2).  q [B,Hq,Dh]; k,v
+    [B,S,Hkv,Dh]; pos [B,S] int32; lengths [B] int32 -> [B,Hq,Dh].  The
+    cross-attention R-Part (``decompose.r_cross_attention``) calls it
+    with an all-zero pos, where ``repro`` runs its jnp flash attention."""
     _auto(use_kernel)
     return _da.decode_attention(q, k, v, pos, lengths, window=window,
                                 sink=sink, softcap=softcap)

@@ -1,7 +1,11 @@
 """The port's model: the decoder of repro.models.model with the ATTN,
 RG-LRU and SSD mixers, a SwiGLU, a GELU MLP or a mixture-of-experts FFN
-(SSD blocks have none), and the early fusion of a ``vision_stub``
-frontend (patch embeddings in place of the first token embeddings).
+(SSD blocks have none), the early fusion of a ``vision_stub`` frontend
+(patch embeddings in place of the first token embeddings), the gated
+cross-attention (XATTN) layers of a vision model, and whisper's
+encoder-decoder: a non-causal encoder of ENC_ATTN blocks over stub frame
+embeddings and DEC_XATTN decoder blocks (self-attention, then
+cross-attention to the encoder output).
 
 Public entry points (same layout and semantics as the JAX package):
 
@@ -15,10 +19,13 @@ Public entry points (same layout and semantics as the JAX package):
 
 Params are a plain dict mirroring the JAX pytree: ``embed``,
 ``final_norm``, ``lm_head``, ``stack`` (one entry ``s{i}`` per slot i
-of ``cfg.layer_pattern``, {name: [n_full, ...]}) and ``rem`` (the
-blocks past the last full period, of ``layer_pattern[i]``'s kind).
+of ``cfg.layer_pattern``, {name: [n_full, ...]}), ``rem`` (the
+blocks past the last full period, of ``layer_pattern[i]``'s kind) and,
+for an encoder-decoder, ``encoder`` ({"stack": {"s0": ...},
+"final_norm"}).
 Layers run as a Python loop over the stacked leaves.  Decode state
-(attention KV slabs; a recurrent block's fp32 ``h`` and its conv
+(attention KV slabs; a cross-attention block's static ``xk``/``xv``,
+written once by ``prefill``; a recurrent block's fp32 ``h`` and its conv
 window) is preallocated, and ``prefill``, ``prefill_chunk``,
 ``decode_step`` and ``scatter_rows`` update it IN PLACE (the returned
 state is the same tensors), which keeps one copy of the cache instead
@@ -30,14 +37,15 @@ lives in ``repro_torch.core.decompose``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.config import (ATTN, DEC_XATTN, FFN_MLP, FFN_MOE,
-                                     FFN_NONE, FFN_SWIGLU, RGLRU, SSD, XATTN,
-                                     ModelConfig, check_supported)
+from repro_torch.core.config import (ATTN, DEC_XATTN, ENC_ATTN, FFN_MLP,
+                                     FFN_MOE, FFN_NONE, FFN_SWIGLU, RGLRU,
+                                     SSD, XATTN, ModelConfig,
+                                     check_supported)
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as L
 
@@ -46,11 +54,14 @@ F32 = torch.float32
 
 class Ctx(NamedTuple):
     cfg: ModelConfig
-    mode: str                    # prefill | chunk | decode
+    mode: str                    # train (the encoder) | prefill | chunk | decode
     qpos: torch.Tensor           # [B, Sq] absolute positions of the q tokens
     lengths: torch.Tensor        # [B] current sequence lengths
     kv_chunk: int = 1024
     q_chunk: int = 1024
+    # [B, S_enc, d_enc] the features cross-attention projects at prefill:
+    # the encoder's output, or a vision model's patch embeddings
+    enc_feats: Optional[torch.Tensor] = None
 
 
 def _is_norm(name: str) -> bool:
@@ -70,17 +81,36 @@ def _ffn_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r} is not ported yet")
 
 
-def _block_param_shapes(cfg: ModelConfig, kind: str = ATTN
-                        ) -> Dict[str, tuple]:
+def _attn_param_shapes(cfg: ModelConfig, cross: bool = False
+                       ) -> Dict[str, tuple]:
+    """Q/K/V/O projections; cross-attention's K/V read the features
+    (``encoder_d_model`` wide) and take no qk-norm."""
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    src = cfg.encoder_d_model if cross else d
+    shapes = {"wq": (d, hq * hd), "wk": (src, hkv * hd),
+              "wv": (src, hkv * hd), "wo": (hq * hd, d)}
+    if cfg.qk_norm and not cross:
+        shapes["q_norm"] = (hd,)
+        shapes["k_norm"] = (hd,)
+    return shapes
+
+
+def _block_param_shapes(cfg: ModelConfig, kind: str = ATTN
+                        ) -> Dict[str, tuple]:
+    d = cfg.d_model
     shapes: Dict[str, tuple] = {"ln1": (d,)}
-    if kind == ATTN:
-        shapes.update({"wq": (d, hq * hd), "wk": (d, hkv * hd),
-                       "wv": (d, hkv * hd), "wo": (hq * hd, d)})
-        if cfg.qk_norm:
-            shapes["q_norm"] = (hd,)
-            shapes["k_norm"] = (hd,)
+    if kind in (ATTN, ENC_ATTN):
+        shapes.update(_attn_param_shapes(cfg))
+    elif kind == DEC_XATTN:
+        shapes.update(_attn_param_shapes(cfg))
+        shapes["lnx"] = (d,)
+        shapes.update({"x_" + k: v for k, v in
+                       _attn_param_shapes(cfg, cross=True).items()})
+    elif kind == XATTN:
+        shapes.update(_attn_param_shapes(cfg, cross=True))
+        shapes["gate_attn"] = (1,)
+        shapes["gate_ffn"] = (1,)
     elif kind == RGLRU:
         w = cfg.rnn_width
         shapes.update({
@@ -95,7 +125,7 @@ def _block_param_shapes(cfg: ModelConfig, kind: str = ATTN
             "A_log": (h,), "Dskip": (h,), "dt_bias": (h,),
             "gate_norm": (di,), "w_out": (di, d)})
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown block kind {kind!r}")
     if kind != SSD and cfg.ffn_kind != FFN_NONE:
         shapes["ln2"] = (d,)
         shapes.update({"ffn_" + k: v
@@ -105,8 +135,9 @@ def _block_param_shapes(cfg: ModelConfig, kind: str = ATTN
 
 # leaves the JAX package keeps in fp32 whatever ``cfg.dtype`` (besides the
 # norm scales): the RG-LRU's gate biases and decay, the SSD's per-head
-# constants
-FP32_LEAVES = ("lam", "b_a", "b_x", "A_log", "Dskip", "dt_bias")
+# constants, an XATTN block's tanh gates
+FP32_LEAVES = ("lam", "b_a", "b_x", "A_log", "Dskip", "dt_bias",
+               "gate_attn", "gate_ffn")
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -131,7 +162,9 @@ def _normal_stacked(gen, shape, scale, dtype, device):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random weights with the JAX package's shapes and scales (0.02, and
-    0.02/sqrt(2L) for the output projections) and zero-init norms.  The
+    0.02/sqrt(2L) for the output projections), zero-init norms and (as
+    the JAX package) zero-init XATTN gates, so that an XATTN block with
+    these weights is the identity: tanh(0) = 0.  The
     numbers are torch's, not jax.random's: tests that compare the two
     packages carry JAX's weights across with ``repro_torch.bridge``.
     Draws on ``generator``'s device, then moves to ``device``."""
@@ -150,7 +183,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         out = {}
         for name, shp in _block_param_shapes(cfg, kind).items():
             full = ((stack_n,) if stack_n else ()) + shp
-            if _is_norm(name) or name in ("dt_bias", "b_a", "b_x"):
+            if _is_norm(name) or name in ("dt_bias", "b_a", "b_x",
+                                          "gate_attn", "gate_ffn"):
                 out[name] = torch.zeros(full, dtype=F32, device=device)
             elif name == "lam":
                 # a in [0.9, 0.999] roughly (the Griffin init):
@@ -162,7 +196,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
             elif name == "Dskip":
                 out[name] = torch.ones(full, dtype=F32, device=device)
             else:
-                scale = depth_scale if name in ("wo", "w_out", "ffn_w_down",
+                scale = depth_scale if name in ("wo", "x_wo", "w_out",
+                                                "ffn_w_down",
                                                 "ffn_w_out") else 0.02
                 draw = _normal_stacked if stack_n else _normal
                 out[name] = draw(generator, full, scale, dtype, device)
@@ -180,21 +215,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     params["stack"] = {f"s{i}": block(kind, n_full)
                        for i, kind in enumerate(pattern)}
     params["rem"] = [block(pattern[i], 0) for i in range(rem)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "stack": {"s0": block(ENC_ATTN, cfg.encoder_layers)},
+            "final_norm": torch.zeros((cfg.d_model,), dtype=F32,
+                                      device=device)}
     return params
 
 
 def _block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  device):
     dtype = torch_dtype(cfg.dtype)
-    if kind == ATTN:
-        c = min(cache_len, cfg.window) if cfg.window else cache_len
-        hkv, hd = cfg.num_kv_heads, cfg.head_dim
-        return {"k": torch.zeros((batch, c, hkv, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((batch, c, hkv, hd), dtype=dtype,
-                                 device=device),
-                "pos": torch.full((batch, c), -1, dtype=torch.int32,
-                                  device=device)}
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def slab(c):
+        return torch.zeros((batch, c, hkv, hd), dtype=dtype, device=device)
+    if kind in (ATTN, DEC_XATTN):
+        # a DEC_XATTN block's self-attention cache has no window
+        c = min(cache_len, cfg.window) if cfg.window and kind == ATTN \
+            else cache_len
+        st = {"k": slab(c), "v": slab(c),
+              "pos": torch.full((batch, c), -1, dtype=torch.int32,
+                                device=device)}
+        if kind == DEC_XATTN:
+            st.update(xk=slab(cfg.encoder_seq), xv=slab(cfg.encoder_seq))
+        return st
+    if kind == XATTN:
+        return {"xk": slab(cfg.encoder_seq), "xv": slab(cfg.encoder_seq)}
     if kind == RGLRU:
         w = cfg.rnn_width
         return {"h": torch.zeros((batch, w), dtype=F32, device=device),
@@ -206,7 +253,8 @@ def _block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                 "conv": torch.zeros((batch, cfg.conv_width - 1,
                                      cfg.d_inner + 2 * cfg.ssm_state),
                                     dtype=dtype, device=device)}
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    # an ENC_ATTN block runs only in the stateless encoder
+    raise ValueError(f"block kind {kind!r} has no decode state")
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
@@ -233,6 +281,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 # attention sub-blocks
 # ---------------------------------------------------------------------------
 def _qkv_proj(p, x, cfg: ModelConfig):
+    """Self-attention's q, k, v (a DEC_XATTN block's unprefixed ones)."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
@@ -244,20 +293,27 @@ def _qkv_proj(p, x, cfg: ModelConfig):
     return q, k, v
 
 
-def _self_attention(p, x, st, ctx: Ctx):
-    """Self-attention block body (no residual/norm).  Prefill: x is the
-    whole (right-padded) prompt and each row's last min(len, cache)
-    tokens land in the ring cache.  Chunk: x is C tokens at positions ``qpos`` (-1 for
-    padding), appended at the row's offset ``lengths`` and attended
-    against [old cache + chunk].  Decode: x is one token, appended at
-    ``lengths``.  ``st`` is updated in place and returned."""
+def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
+    """Self-attention block body (no residual/norm).  Train (the
+    encoder, forward only): x is the whole sequence, every position
+    valid, no state; ``causal=False`` for an ENC_ATTN block.  Prefill: x
+    is the whole (right-padded) prompt and each row's last min(len,
+    cache) tokens land in the ring cache.  Chunk: x is C tokens at
+    positions ``qpos`` (-1 for padding), appended at the row's offset
+    ``lengths`` and attended against [old cache + chunk].  Decode: x is
+    one token, appended at ``lengths``.  ``st`` is updated in place and
+    returned.  q and k are roped in every mode, the encoder's too."""
     cfg = ctx.cfg
     q, k, v = _qkv_proj(p, x, cfg)
     win = cfg.window
     q = L.rope(q, ctx.qpos, cfg.rope_theta)
     k = L.rope(k, ctx.qpos, cfg.rope_theta)        # keys stored rotated
     b, s = x.shape[:2]
-    if ctx.mode == "prefill":
+    if ctx.mode == "train":
+        out = L.flash_attention(q, k, v, ctx.qpos, ctx.qpos, causal=causal,
+                                window=win, softcap=cfg.attn_logit_softcap,
+                                q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
+    elif ctx.mode == "prefill":
         cache_n = st["k"].shape[1]
         idx = torch.arange(s, device=x.device)[None, :]
         kpos = torch.where(idx < ctx.lengths[:, None], ctx.qpos,
@@ -316,11 +372,40 @@ def _self_attention(p, x, st, ctx: Ctx):
         L.scatter_rows_drop(st["v"], slots, v)
         L.scatter_rows_drop(st["pos"], slots, qpos.to(torch.int32))
     else:
-        raise NotImplementedError(
-            f"attention mode {ctx.mode!r} is not ported yet (training is "
-            f"queued in ROADMAP.md)")
+        raise ValueError(f"attention mode {ctx.mode!r}")
     out = out.reshape(b, s, -1) @ p["wo"]
     return out, st
+
+
+def _cross_attention(p, x, st, ctx: Ctx, prefix: str = ""):
+    """Cross-attention against static features (no residual/norm): q from
+    x; K/V projected from ``ctx.enc_feats`` in train and prefill mode
+    (prefill writes them into ``st["xk"]``/``st["xv"]`` in place), read
+    from the state in decode mode.  Every feature slot is valid and none
+    is causal (an all-zero key position).  ``prefix`` "x_" names a
+    DEC_XATTN block's cross projections."""
+    if ctx.mode == "chunk":
+        raise NotImplementedError(
+            "chunked prefill does not support cross-attention blocks "
+            "(enc-dec / vision archs): use whole-prompt prefill")
+    cfg = ctx.cfg
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = (x @ p[prefix + "wq"]).reshape(b, s, hq, hd)
+    if ctx.mode == "decode":
+        xk, xv = st["xk"], st["xv"]
+    else:
+        f = ctx.enc_feats.to(x.dtype)
+        se = f.shape[1]
+        xk = (f @ p[prefix + "wk"]).reshape(b, se, hkv, hd)
+        xv = (f @ p[prefix + "wv"]).reshape(b, se, hkv, hd)
+        if st is not None:
+            st["xk"].copy_(xk)
+            st["xv"].copy_(xv)
+    kpos = torch.zeros((b, xk.shape[1]), dtype=torch.int32, device=x.device)
+    out = L.flash_attention(q, xk, xv, ctx.qpos, kpos, causal=False,
+                            kv_chunk=ctx.kv_chunk)
+    return out.reshape(b, s, -1) @ p[prefix + "wo"], st
 
 
 # ---------------------------------------------------------------------------
@@ -434,17 +519,30 @@ def apply_block(kind: str, p, h, st, ctx: Ctx):
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     if kind == ATTN:
         mix, st = _self_attention(p, hn, st, ctx)
+    elif kind == ENC_ATTN:
+        mix, st = _self_attention(p, hn, st, ctx, causal=False)
+    elif kind == XATTN:
+        mix, st = _cross_attention(p, hn, st, ctx)
+        mix = mix * torch.tanh(p["gate_attn"].to(mix.dtype))
+    elif kind == DEC_XATTN:
+        mix, st = _self_attention(p, hn, st, ctx)
+        h = h + mix
+        hx = L.rms_norm(h, p["lnx"], cfg.norm_eps)
+        mix, st = _cross_attention(p, hx, st, ctx, prefix="x_")
     elif kind == RGLRU:
         mix, st = _rglru_mixer(p, hn, st, ctx)
     elif kind == SSD:
         mix, st = _ssd_mixer(p, hn, st, ctx)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown block kind {kind!r}")
     h = h + mix
     if kind == SSD or cfg.ffn_kind == FFN_NONE:
         return h, st
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + _ffn(p, hn, cfg), st
+    f = _ffn(p, hn, cfg)
+    if kind == XATTN:
+        f = f * torch.tanh(p["gate_ffn"].to(f.dtype))
+    return h + f, st
 
 
 def per_layer(tree, cfg: ModelConfig):
@@ -473,11 +571,15 @@ def _run_layers(params, h, state, ctx: Ctx):
     return h, state
 
 
+def has_xattn(cfg: ModelConfig) -> bool:
+    """The arch has cross-attention layers (XATTN or DEC_XATTN)."""
+    return XATTN in cfg.layer_pattern or DEC_XATTN in cfg.layer_pattern
+
+
 def early_fusion(cfg: ModelConfig) -> bool:
     """A ``vision_stub`` frontend with no cross-attention layer: its patch
     embeddings enter through ``_embed``."""
-    return (cfg.frontend == "vision_stub" and XATTN not in cfg.layer_pattern
-            and DEC_XATTN not in cfg.layer_pattern)
+    return cfg.frontend == "vision_stub" and not has_xattn(cfg)
 
 
 def _embed(params, cfg: ModelConfig, tokens, enc_feats=None):
@@ -489,6 +591,24 @@ def _embed(params, cfg: ModelConfig, tokens, enc_feats=None):
     return h
 
 
+def _encode(params, cfg: ModelConfig, enc_feats):
+    """Whisper-style encoder over stub frame embeddings [B, S_enc, d]:
+    ENC_ATTN blocks (roped, non-causal, every position valid) and the
+    encoder's final norm."""
+    h = enc_feats.to(torch_dtype(cfg.dtype))
+    b, se = h.shape[:2]
+    epos = torch.arange(se, dtype=torch.int32,
+                        device=h.device)[None].expand(b, se)
+    ectx = Ctx(cfg, "train", epos, torch.full((b,), se, dtype=torch.int32,
+                                              device=h.device))
+    enc = params["encoder"]
+    stack = enc["stack"]["s0"]
+    for i in range(cfg.encoder_layers):
+        h, _ = apply_block(ENC_ATTN, {k: v[i] for k, v in stack.items()},
+                           h, None, ectx)
+    return L.rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
 def _logits(params, cfg: ModelConfig, h):
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     tab = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
@@ -497,18 +617,28 @@ def _logits(params, cfg: ModelConfig, h):
 
 def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
             enc_feats=None, q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Process right-padded prompts tokens [B,Sp] with prompt_lens [B];
-    ``enc_feats`` [B, n, d] (an early-fusion arch) replaces the first n
-    token embeddings.  Returns (logits at each prompt's last token [B,V],
+    """Process right-padded prompts tokens [B,Sp] with prompt_lens [B].
+    ``enc_feats`` [B, n, d]: an early-fusion arch's patch embeddings
+    (they replace the first n token embeddings), a cross-attention
+    arch's features (a vision model's patch embeddings, or the frame
+    embeddings an encoder-decoder's encoder runs over first; required
+    for both).  Returns (logits at each prompt's last token [B,V],
     state)."""
     b, s = tokens.shape
     dev = tokens.device
+    if has_xattn(cfg) and enc_feats is None:
+        raise ValueError(f"{cfg.name} has cross-attention layers: prefill "
+                         f"needs enc_feats [B, {cfg.encoder_seq}, "
+                         f"{cfg.encoder_d_model}]")
     state = init_decode_state(cfg, b, cache_len, dev)
     prompt_lens = prompt_lens.to(torch.int32)
     state["lengths"] = prompt_lens.clone()
+    enc_out = (_encode(params, cfg, enc_feats) if cfg.is_encdec
+               else enc_feats)
     h = _embed(params, cfg, tokens, enc_feats)
     qpos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-    ctx = Ctx(cfg, "prefill", qpos, prompt_lens, kv_chunk, q_chunk)
+    ctx = Ctx(cfg, "prefill", qpos, prompt_lens, kv_chunk, q_chunk,
+              enc_out)
     h, state = _run_layers(params, h, state, ctx)
     # the lm head runs on each prompt's last position only: the JAX
     # package builds [B, S, V] logits and then picks the same rows, which

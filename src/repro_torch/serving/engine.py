@@ -319,6 +319,15 @@ class ServingEngine:
                 f"({num_microbatches}); round batch up to "
                 f"{-(-batch // num_microbatches) * num_microbatches} or "
                 f"change num_microbatches")
+        if cfg.is_encdec or M.has_xattn(cfg):
+            # repro's ServingEngine takes these archs and fails at the
+            # first admission: its prefill gets no encoder features
+            raise ValueError(
+                f"ServingEngine does not serve {cfg.name}: its cross-"
+                f"attention needs encoder or patch features, which no "
+                f"admission carries; serve it through the static-batch "
+                f"API, HeteroPipelineEngine or ColocatedEngine "
+                f".load_prefill(..., enc_feats=...) then decode_step")
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
         self.batch, self.cache_len = batch, cache_len

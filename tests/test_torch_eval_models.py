@@ -56,22 +56,18 @@ def test_full_config_equals_jax(arch):
 
 @pytest.mark.parametrize("arch", sorted(jlist_archs()))
 def test_check_supported_takes_the_dense_archs_only(arch):
-    """ATTN layers with a SwiGLU, MLP or MoE FFN pass (the dense archs
-    and, since the MoE slice, grok-1 and llama4-scout), and since the
-    recurrent slice the RG-LRU hybrid and mamba2's SSD blocks (no FFN);
-    cross-attention and enc-dec are still refused (by the reference's
-    full configs)."""
+    """Every reference config passes, each block with a SwiGLU, MLP or
+    MoE FFN, or (mamba2) SSD blocks with none: the dense archs, since the
+    MoE slice grok-1 and llama4-scout, since the recurrent slice the
+    RG-LRU hybrid and mamba2, and since the cross-attention slice
+    llama-3.2-vision-90b and whisper-medium (whose refusals now stand at
+    the serving layer: ``tests/test_torch_xattn_serve.py``)."""
     from repro_torch.core.config import check_supported
     tc = ModelConfig(**dataclasses.asdict(jget_arch(arch)))
-    if arch in list_archs():
-        assert tc.ffn_kind in ("swiglu", "mlp", "moe") \
-            or set(tc.layer_pattern) == {"ssd"}
-        check_supported(tc)
-    else:
-        assert tc.is_encdec or "xattn" in tc.layer_pattern
-        with pytest.raises(NotImplementedError,
-                           match="cross-attention and enc-dec"):
-            check_supported(tc)
+    assert arch in list_archs()
+    assert tc.ffn_kind in ("swiglu", "mlp", "moe") \
+        or set(tc.layer_pattern) == {"ssd"}
+    check_supported(tc)
 
 
 def test_opt_175b_keeps_the_reference_definition():

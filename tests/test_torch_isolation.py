@@ -52,9 +52,10 @@ def test_importing_the_port_loads_no_jax():
             + "".join(f"import {m}\n" for m in mods)
             + "from repro_torch.core.config import list_archs\n"
             + "assert list_archs() == ['deepseek-67b', 'deepseek-coder-33b', "
-            + "'granite-3-8b', 'grok-1-314b', 'llama-13b', 'llama-7b', "
+            + "'granite-3-8b', 'grok-1-314b', 'llama-13b', "
+            + "'llama-3.2-vision-90b', 'llama-7b', "
             + "'llama4-scout-17b-a16e', 'mamba2-2.7b', 'opt-175b', "
-            + "'qwen3-8b', 'recurrentgemma-2b']\n"
+            + "'qwen3-8b', 'recurrentgemma-2b', 'whisper-medium']\n"
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             + f"{sorted(FORBIDDEN)!r})\n"
             + "assert not bad, bad\n")

@@ -603,16 +603,26 @@ def test_load_prefill_early_fusion_matches_jax_on_both_engines():
 
 
 def test_enc_feats_still_refused_without_early_fusion():
-    """Encoder-decoder and cross-attention archs are not ported (their
-    configs are refused), and an arch with no frontend takes no
-    features."""
+    """An arch with no frontend takes no features, on both engines; the
+    cross-attention archs (no early fusion: their features feed
+    cross-attention, tests/test_torch_xattn_serve.py) are refused by the
+    ServingEngine, whose admissions carry no features."""
     for arch in ("whisper-medium", "llama-3.2-vision-90b"):
         tc = ModelConfig(**dataclasses.asdict(jget_arch(arch)))
-        assert not TM.early_fusion(tc)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ColocatedEngine({}, tc.reduced(), batch=2, cache_len=8,
-                            device="cpu")
+        assert not TM.early_fusion(tc) and TM.has_xattn(tc)
+        with pytest.raises(ValueError, match="static-batch API"):
+            ServingEngine({}, tc.reduced(), batch=2, cache_len=8,
+                          device="cpu")
     _, tc, _, tp = _setup("grok-1-314b")
+    heng = HeteroPipelineEngine(tp, tc, batch=2, cache_len=16,
+                                num_r_workers=1, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="enc_feats"):
+            heng.load_prefill(0, torch.ones((1, 4), dtype=torch.int32),
+                              torch.tensor([4]),
+                              enc_feats=torch.zeros((1, 2, tc.d_model)))
+    finally:
+        heng.close()
     eng = ColocatedEngine(tp, tc, batch=2, cache_len=16, device="cpu")
     with pytest.raises(NotImplementedError, match="enc_feats"):
         eng.load_prefill(torch.ones((2, 4), dtype=torch.int32),

@@ -260,12 +260,25 @@ def test_published_widths_the_port_serves():
 
 
 def test_check_supported_still_refuses_cross_attention_and_encdec():
+    """Since the cross-attention slice ``check_supported`` admits both
+    archs; it still refuses an FFN-less arch with blocks other than SSD.
+    What stays refused of cross-attention and enc-dec: the ServingEngine
+    on both archs and whisper with quantized_kv (its DEC_XATTN blocks
+    have no int8 R-Part), each with its reason."""
+    from repro_torch.core.hetero import HeteroPipelineEngine
+    from repro_torch.serving.engine import ServingEngine
     for arch in ("whisper-medium", "llama-3.2-vision-90b"):
         tc = ModelConfig(**dataclasses.asdict(jget_arch(arch)))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(tc)
+        check_supported(tc)
+        with pytest.raises(ValueError, match="static-batch API"):
+            ServingEngine({}, tc.reduced(), batch=2, cache_len=8,
+                          device="cpu")
+    whisper = get_arch("whisper-medium").reduced()
+    with pytest.raises(ValueError, match="no int8 R-Part"):
+        HeteroPipelineEngine({}, whisper, batch=2, cache_len=8,
+                             quantized_kv=True, device="cpu")
     bad = dataclasses.replace(get_arch("qwen3-8b"), ffn_kind="none")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="FFN"):
         check_supported(bad)
 
 
