@@ -262,6 +262,22 @@ Phases (any failure exits nonzero):
               hetero paged == colocated, graphs == eager bit for bit,
               legacy == fused, paged == dense (whisper bit for bit), 1
               R-worker == colocated; launches exact.
+  train       Qwen3-8B at full width cut to 4 of its 36 layers
+              (TRAIN_LAYERS), bf16, seeded weights, trained through
+              make_train_step (AdamW, warmup-cosine) on SyntheticLM
+              batches of 4 x 1024 tokens: 8 steps without remat, then 8
+              with remat from the same weights (the first losses equal
+              bit for bit, the later within 2^-7); per run the first
+              step, the step p50, forward + backward and the update apart
+              (CUDA events), tokens/s, peak memory and the model-flops
+              share; no kernel counter moves (the train path attends in
+              plain torch); then ``python -m repro_torch.launch.train``
+              with no --device (the card is the default).
+  equiv_train fp32 (TF32 off) at reduced() sizes, for qwen3-8b, grok-1
+              (capacity 1.25, aux on), recurrentgemma-2b, mamba2-2.7b,
+              llama-3.2-vision-90b (10 layers, seeded gates) and
+              whisper-medium: loss and grads on the card == on the CPU,
+              remat == no remat, three train steps card == CPU.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -5973,6 +5989,357 @@ def phase_equiv_xattn(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# training: train_forward with autograd's backward, AdamW, remat
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 4        # Qwen3-8B's depth in the train phase (of 36)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_LR = dict(peak_lr=3e-4, warmup=2, total_steps=8)
+# remat's later losses against no remat's: bf16 weights, and the
+# embedding's backward accumulates with atomics on CUDA, so grads (and
+# with them the updated params) are not bitwise repeatable
+TRAIN_LOSS_RTOL = 2.0 ** -7
+TRAIN_LAUNCHER = ["--arch", "qwen3-8b", "--reduced", "--layers", "2",
+                  "--d-model", "256", "--steps", "20"]
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Model flops of one train step: 6 x the matmul params (the
+    projections, the FFN and the lm head; not the embedding gather) x
+    tokens, plus causal attention (QK^T and PV over S^2 / 2 pairs, x 3
+    for the forward and the backward)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    per_layer = (d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+                 + 3 * d * cfg.d_ff)
+    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    tokens = batch * seq
+    attn = cfg.num_layers * 3 * 2 * 2 * batch * hq * hd * seq * seq / 2
+    return {"matmul_params": matmul, "tokens": tokens,
+            "flops": 6 * matmul * tokens + attn, "attention_flops": attn}
+
+
+class _OptEvents:
+    """Puts CUDA events around the AdamW update of every train step made
+    by ``make_train_step`` while active (it builds its update through
+    ``training.train.adamw``): the optimizer's device time apart from the
+    forward and backward's, with no sync added."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.training import train as TT
+        self.marks, self._own = [], TT.adamw
+
+        def adamw(*a, **kw):
+            init, update = self._own(*a, **kw)
+
+            def timed(grads, state, params):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = update(grads, state, params)
+                e1.record()
+                self.marks.append((e0, e1))
+                return out
+            return init, timed
+        TT.adamw = adamw
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.training import train as TT
+        TT.adamw = self._own
+
+
+def _train_run(dev, cfg, batches, *, remat: bool) -> dict:
+    """``TRAIN_STEPS`` steps of ``make_train_step`` from seeded weights
+    (the same seed for every run) on ``batches``: per step the host wall
+    (to the step's end, synced), the forward + backward's and the
+    update's device time (CUDA events), loss and grad norm; peak device
+    memory over the run."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train import make_train_step
+    from repro_torch.training.tree import leaves
+    _free_device()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    with _OptEvents() as ev:
+        init_state, train_step = make_train_step(
+            cfg, remat=remat, q_chunk=min(1024, TRAIN_SEQ),
+            kv_chunk=min(1024, TRAIN_SEQ), **TRAIN_LR)
+    state = init_state(params)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    steps = []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = train_step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e0, e1 = ev.marks[-1]
+        steps.append({"wall_s": wall,
+                      "fwd_bwd_ms": start.elapsed_time(e0),
+                      "opt_ms": e0.elapsed_time(e1),
+                      "loss": float(m["loss"]), "ce": float(m["ce"]),
+                      "grad_norm": float(m["grad_norm"])})
+    if len(ev.marks) != len(batches):
+        raise AssertionError(f"train: {len(ev.marks)} timed updates for "
+                             f"{len(batches)} steps")
+    rec = {"remat": remat, "steps": steps,
+           "params": sum(t.numel() for t in leaves(params)),
+           "state_bytes": state_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    del params, state, m
+    _free_device()
+    return rec
+
+
+def _train_summary(rec, flops) -> dict:
+    later = rec["steps"][1:]
+    walls = [s["wall_s"] for s in later]
+    p50 = float(np.median(walls))
+    bound_s = flops["flops"] / PEAK_FLOPS["bfloat16"]
+    out = {"remat": rec["remat"], "params": rec["params"],
+           "first_step_s": rec["steps"][0]["wall_s"],
+           "step_p50_s": p50,
+           "fwd_bwd_p50_ms": float(np.median([s["fwd_bwd_ms"]
+                                              for s in later])),
+           "opt_p50_ms": float(np.median([s["opt_ms"] for s in later])),
+           "tokens_per_s_after_first": flops["tokens"] * len(later)
+           / sum(walls),
+           "model_flops_bound_ms": bound_s * 1e3,
+           "model_flops_share": bound_s / p50,
+           "state_bytes": rec["state_bytes"],
+           "max_memory_allocated": rec["max_memory_allocated"],
+           "max_memory_reserved": rec["max_memory_reserved"],
+           "losses": [s["loss"] for s in rec["steps"]],
+           "grad_norms": [s["grad_norm"] for s in rec["steps"]]}
+    return out
+
+
+def _train_launcher_run() -> dict:
+    """``python -m repro_torch.launch.train`` with no ``--device`` (the
+    card is the default), as a user starts it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                       + TRAIN_LAUNCHER, capture_output=True, text=True,
+                       timeout=300, env=env, cwd=str(ROOT))
+    lines = p.stdout.splitlines()
+    if p.returncode != 0:
+        raise AssertionError(f"train launcher failed ({p.returncode}): "
+                             f"{p.stdout[-2000:]}{p.stderr[-2000:]}")
+    steps = [ln for ln in lines if ln.startswith("step")]
+    losses = [float(ln.split()[3]) for ln in steps]
+    if [int(ln.split()[1]) for ln in steps] != [0, 10, 19] \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"train launcher: unexpected output {lines}")
+    return {"args": TRAIN_LAUNCHER, "lines": lines,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train(dev) -> dict:
+    """Qwen3-8B at full width cut to TRAIN_LAYERS of 36, bf16, seeded
+    weights: TRAIN_STEPS steps of batch 4 x seq 1024 from SyntheticLM
+    (seed 0, drawn before the timed window), without and then with remat
+    from the same weights; the first remat loss must equal no remat's
+    bit for bit and the later ones agree within TRAIN_LOSS_RTOL.  No
+    kernel of the port runs (the train path attends in plain torch):
+    every counter, launches and plain calls, stays 0.  Then the train
+    launcher as a subprocess with no --device."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    t_phase = time.perf_counter()
+    full = get_arch("qwen3-8b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0)).batches()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS)]
+    data_s = time.perf_counter() - t0
+    _reset_counters()
+    runs = [_train_run(dev, cfg, batches, remat=r) for r in (False, True)]
+    counts = {name: (launched.value, plain.value)
+              for name, (launched, plain) in _counters().items()}
+    if any(a or b for a, b in counts.values()):
+        raise AssertionError(f"train: a kernel counter moved: {counts}")
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    summary = [_train_summary(r, flops) for r in runs]
+    plain, remat = summary
+    for s in summary:
+        if not all(np.isfinite(s["losses"] + s["grad_norms"])):
+            raise AssertionError(f"train: non-finite loss or grad norm {s}")
+    if remat["losses"][0] != plain["losses"][0]:
+        raise AssertionError(f"train: remat's first loss "
+                             f"{remat['losses'][0]!r} != "
+                             f"{plain['losses'][0]!r}")
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(remat["losses"], plain["losses"]))
+    if worst > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train: remat's losses part from no remat's "
+                             f"by {worst:.3g} (relative)")
+    launcher = _train_launcher_run()
+    for s in summary:
+        print(f"train remat={s['remat']}: step p50 {s['step_p50_s']:.4f} s "
+              f"(fwd+bwd {s['fwd_bwd_p50_ms']:.1f} ms, opt "
+              f"{s['opt_p50_ms']:.1f} ms), "
+              f"{s['tokens_per_s_after_first']:,.0f} tokens/s, model-flops "
+              f"share {s['model_flops_share']:.3f}, peak "
+              f"{s['max_memory_allocated'] / 2**30:.1f} GiB", flush=True)
+    return {"phase": "train", "ok": True, "arch": full.name,
+            "layers": TRAIN_LAYERS, "full_layers": full.num_layers,
+            "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "schedule": TRAIN_LR,
+            "params": plain["params"], "data_s": data_s, **flops,
+            "runs": summary, "remat_max_rel_loss_diff": worst,
+            "kernel_launches": {k: v[0] for k, v in counts.items()},
+            "plain_calls": {k: v[1] for k, v in counts.items()},
+            "launcher": launcher, "card": gpu_name_and_limit(),
+            "seconds": time.perf_counter() - t_phase}
+
+
+EQUIV_TRAIN_ARCHS = {"qwen3-8b": 3, "grok-1-314b": 3,
+                     "recurrentgemma-2b": 3, "mamba2-2.7b": 3,
+                     "llama-3.2-vision-90b": 10, "whisper-medium": 3}
+EQUIV_TRAIN_LOSS_RTOL = 1e-5
+EQUIV_TRAIN_GRAD_TOL = (1e-4, 1e-5)      # rtol, atol
+EQUIV_TRAIN_STEP_RTOL = 1e-4
+
+
+def _train_equiv_case(arch: str):
+    """``arch`` at reduced() size (d_model 256, vocab 512), fp32, seeded
+    weights on the CPU with seeded non-zero XATTN gates and norm scales
+    (both init to 0), a masked batch of 2 x 32 and seeded features."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.model import early_fusion, init_params
+    from repro_torch.training.tree import leaves_with_path
+    cfg = get_arch(arch).reduced(layers=EQUIV_TRAIN_ARCHS[arch])
+    if cfg.ffn_kind == "moe":
+        cfg = dataclasses.replace(cfg, moe_capacity=1.25)
+    gen = torch.Generator().manual_seed(25)
+    params = init_params(cfg, gen, "cpu")
+    for path, t in leaves_with_path(params):
+        if path[-1] in ("gate_attn", "gate_ffn"):
+            t.copy_(0.3 + torch.rand(t.shape, generator=gen))
+        elif path[-1].startswith("ln") or path[-1].endswith("norm"):
+            t.add_(0.1 * torch.randn(t.shape, generator=gen))
+    b, s = 2, 32
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, dtype=torch.int32),
+             "targets": torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen, dtype=torch.int32),
+             "mask": (torch.rand((b, s), generator=gen) > 0.2).float()}
+    if cfg.frontend != "none":
+        n = s // 2 if early_fusion(cfg) else cfg.encoder_seq
+        batch["enc_feats"] = torch.randn((b, n, cfg.encoder_d_model),
+                                         generator=gen)
+    return cfg, params, batch
+
+
+def _to(tree, dev):
+    from repro_torch.training.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def phase_equiv_train(dev) -> dict:
+    """fp32 (TF32 off) at reduced() sizes, for one arch of each block
+    kind and FFN (grok-1 at capacity 1.25 with its aux loss on; vision at
+    10 layers with seeded gates): the port's loss and grads on the card
+    == on the CPU (loss within EQUIV_TRAIN_LOSS_RTOL, every grad leaf
+    within EQUIV_TRAIN_GRAD_TOL), remat == no remat on the card (loss
+    bit for bit, grads within tolerance), and three make_train_step
+    steps on the card == on the CPU from one state (losses and grad
+    norms within EQUIV_TRAIN_STEP_RTOL)."""
+    import torch
+    from repro_torch.training.train import loss_and_grads, make_train_step
+    from repro_torch.training.tree import leaves_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t_phase = time.perf_counter()
+    rtol, atol = EQUIV_TRAIN_GRAD_TOL
+    cases = {}
+    for arch in EQUIV_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        cfg, params, batch = _train_equiv_case(arch)
+        kw = dict(q_chunk=16, kv_chunk=16)
+        dparams, dbatch = _to(params, dev), _to(batch, dev)
+        (lc, mc), gc_ = loss_and_grads(params, cfg, batch, **kw)
+        (ld, md), gd = loss_and_grads(dparams, cfg, dbatch, **kw)
+        (lr, _), gr = loss_and_grads(dparams, cfg, dbatch, remat=True, **kw)
+        if float(lr) != float(ld):
+            raise AssertionError(f"equiv_train {arch}: remat loss "
+                                 f"{float(lr)!r} != {float(ld)!r}")
+        rel = abs(float(ld) - float(lc)) / abs(float(lc))
+        if rel > EQUIV_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"equiv_train {arch}: card loss "
+                                 f"{float(ld)!r} vs CPU {float(lc)!r}")
+        worst = {"card_vs_cpu": 0.0, "remat_vs_plain": 0.0}
+        cpu = dict(leaves_with_path(gc_))
+        plain = dict(leaves_with_path(gd))
+        for name, got, want in (
+                ("card_vs_cpu", plain, cpu),
+                ("remat_vs_plain", dict(leaves_with_path(gr)), plain)):
+            for path, w in want.items():
+                g = got[path].float().cpu()
+                w = w.float().cpu()
+                err = (g - w).abs()
+                if not bool((err <= atol + rtol * w.abs()).all()):
+                    raise AssertionError(
+                        f"equiv_train {arch} {name}: grad {path} off by "
+                        f"{float(err.max()):.3g}")
+                worst[name] = max(worst[name], float(err.max()))
+        # three steps from one state on each side
+        traj = {}
+        for where, p, bt in (("cpu", params, batch),
+                             ("card", dparams, dbatch)):
+            init, step = make_train_step(cfg, peak_lr=1e-2, warmup=2,
+                                         total_steps=6, **kw)
+            st = init(_clone(p))
+            out = []
+            for _ in range(3):
+                st, m = step(st, bt)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            traj[where] = out
+        step_rel = max(abs(a - b) / abs(b)
+                       for x, y in zip(traj["card"], traj["cpu"])
+                       for a, b in zip(x, y))
+        if step_rel > EQUIV_TRAIN_STEP_RTOL:
+            raise AssertionError(f"equiv_train {arch}: three steps part "
+                                 f"by {step_rel:.3g}: {traj}")
+        cases[arch] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                       "loss": float(ld), "aux": float(md["aux"]),
+                       "loss_rel_card_vs_cpu": rel,
+                       "grad_max_abs": worst, "steps": traj,
+                       "steps_max_rel": step_rel,
+                       "seconds": time.perf_counter() - t0}
+        print(f"equiv_train {arch}: loss rel {rel:.3g}, grads "
+              f"{worst['card_vs_cpu']:.3g} (card vs CPU), "
+              f"{worst['remat_vs_plain']:.3g} (remat), steps "
+              f"{step_rel:.3g}", flush=True)
+    _free_device()
+    return {"phase": "equiv_train", "ok": True, "dtype": "float32",
+            "tf32": False, "loss_rtol": EQUIV_TRAIN_LOSS_RTOL,
+            "grad_tol": EQUIV_TRAIN_GRAD_TOL,
+            "step_rtol": EQUIV_TRAIN_STEP_RTOL, "cases": cases,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _clone(tree):
+    from repro_torch.training.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
@@ -5980,7 +6347,7 @@ PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
           "equiv_eval", "serve_moe", "equiv_moe", "serve_rglru",
           "serve_ssd", "equiv_recurrent", "static_vision", "static_whisper",
-          "equiv_xattn")
+          "equiv_xattn", "train", "equiv_train")
 
 
 def kernels_line(results) -> list:
@@ -5992,7 +6359,9 @@ def kernels_line(results) -> list:
     (``verify_int8``); kernel 2, the cross-attention R-Part, the static
     runs of static_vision and static_whisper (with the serve runs' count,
     0: no serve path reaches it; null where none of these phases ran),
-    its times at the cross-attention shapes beside it."""
+    its times at the cross-attention shapes beside it.  Each entry's
+    ``train_launches`` is its count in the train phase: 0, the train path
+    reaches no kernel (null where the phase did not run)."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
     spec, spec8 = results.get("serve_spec"), results.get("serve_spec_int8")
@@ -6076,6 +6445,16 @@ def kernels_line(results) -> list:
             for r in k["kernels"]["decode_attention"]["timing_cross"]]
     # kernels 1 and 4 at the MoE models' head layouts (G 6 with softcap
     # 30, G 5): their times beside the main path's
+    # the training slice: the train path attends in plain torch
+    # and launches no kernel of the port; the train phase's count (the
+    # Dh 256 row shares kernel 3's counter)
+    tr = results.get("train")
+    for entry in line:
+        counter = ("decode_attention_int8"
+                   if entry["name"] == "decode_attention_int8_dh256"
+                   else entry["name"])
+        entry["train_launches"] = (tr["kernel_launches"][counter] if tr
+                                   else None)
     if k:
         for i, name in ((0, "paged_decode_attention"),
                         (3, "paged_verify_attention")):
@@ -6251,6 +6630,12 @@ def main(argv=None) -> int:
     if "equiv_xattn" in phases:
         results["equiv_xattn"] = phase_equiv_xattn(dev)
         log(results["equiv_xattn"])
+    if "train" in phases:
+        results["train"] = phase_train(dev)
+        log(results["train"])
+    if "equiv_train" in phases:
+        results["equiv_train"] = phase_equiv_train(dev)
+        log(results["equiv_train"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import FP32_LEAVES
+from repro_torch.training.optimizer import AdamWState
 
 
 def tensor_from_numpy(x: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -81,3 +82,20 @@ def state_from_numpy(np_state, device):
 
 def state_to_numpy(state):
     return _map(state, lambda t, name: tensor_to_numpy(t))
+
+
+def opt_state_from_numpy(np_state, device):
+    """The JAX ``AdamWState(step, mu, nu)`` (numpy leaves: the int32 step,
+    fp32 moment trees) as the port's ``AdamWState``."""
+    step, mu, nu = np_state
+    return AdamWState(
+        torch.as_tensor(np.asarray(step), dtype=torch.int32).to(device),
+        _map(mu, lambda x, name: tensor_from_numpy(x, device)),
+        _map(nu, lambda x, name: tensor_from_numpy(x, device)))
+
+
+def opt_state_to_numpy(state):
+    """(step, mu, nu) as numpy: the fields of the JAX ``AdamWState``."""
+    return (np.asarray(state.step.item(), dtype=np.int32),
+            _map(state.mu, lambda t, name: tensor_to_numpy(t)),
+            _map(state.nu, lambda t, name: tensor_to_numpy(t)))

@@ -324,7 +324,7 @@ def _finish(p, h, cfg: ModelConfig):
     if cfg.ffn_kind == "none" or "ln2" not in p:
         return h
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + _ffn(p, hn, cfg)
+    return h + _ffn(p, hn, cfg)[0]
 
 
 def _ssd_out(p, carry, y, cfg):
@@ -357,7 +357,7 @@ def s_advance(kind: str, phase: int, p, carry, r_out, ctx: Ctx):
     if kind == XATTN:
         mix = (o @ p["wo"]) * torch.tanh(p["gate_attn"].to(o.dtype))
         h = h + mix
-        f = _ffn(p, L.rms_norm(h, p["ln2"], cfg.norm_eps), cfg)
+        f = _ffn(p, L.rms_norm(h, p["ln2"], cfg.norm_eps), cfg)[0]
         return h + f * torch.tanh(p["gate_ffn"].to(f.dtype))
     if kind == DEC_XATTN and phase == 0:
         h = h + o @ p["wo"]

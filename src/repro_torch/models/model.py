@@ -10,6 +10,8 @@ cross-attention to the encoder output).
 Public entry points (same layout and semantics as the JAX package):
 
     init_params(cfg, generator, device)
+    train_forward(params, cfg, tokens, enc_feats=None, q_chunk, kv_chunk,
+                  remat) -> (logits [B, S, V] fp32, aux)
     init_decode_state(cfg, batch, cache_len, device)
     prefill(params, cfg, tokens, prompt_lens, cache_len, enc_feats=None)
         -> (last_logits, state)
@@ -29,7 +31,9 @@ written once by ``prefill``; a recurrent block's fp32 ``h`` and its conv
 window) is preallocated, and ``prefill``, ``prefill_chunk``,
 ``decode_step`` and ``scatter_rows`` update it IN PLACE (the returned
 state is the same tensors), which keeps one copy of the cache instead
-of one per step.
+of one per step.  ``train_forward`` keeps no state and writes nothing in
+place, so autograd sees every op of it (the backward is autograd's, as
+the JAX package's is ``jax.value_and_grad``'s).
 
 This is the port's colocated oracle; the S-/R-Part split of each block
 lives in ``repro_torch.core.decompose``.
@@ -41,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import (ATTN, DEC_XATTN, ENC_ATTN, FFN_MLP,
                                      FFN_MOE, FFN_NONE, FFN_SWIGLU, RGLRU,
@@ -54,7 +59,7 @@ F32 = torch.float32
 
 class Ctx(NamedTuple):
     cfg: ModelConfig
-    mode: str                    # train (the encoder) | prefill | chunk | decode
+    mode: str                    # train | prefill | chunk | decode
     qpos: torch.Tensor           # [B, Sq] absolute positions of the q tokens
     lengths: torch.Tensor        # [B] current sequence lengths
     kv_chunk: int = 1024
@@ -294,9 +299,9 @@ def _qkv_proj(p, x, cfg: ModelConfig):
 
 
 def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
-    """Self-attention block body (no residual/norm).  Train (the
-    encoder, forward only): x is the whole sequence, every position
-    valid, no state; ``causal=False`` for an ENC_ATTN block.  Prefill: x
+    """Self-attention block body (no residual/norm).  Train (the decoder
+    and the encoder): x is the whole sequence, every position valid, no
+    state; ``causal=False`` for an ENC_ATTN block.  Prefill: x
     is the whole (right-padded) prompt and each row's last min(len,
     cache) tokens land in the ring cache.  Chunk: x is C tokens at
     positions ``qpos`` (-1 for padding), appended at the row's offset
@@ -412,16 +417,21 @@ def _cross_attention(p, x, st, ctx: Ctx, prefix: str = ""):
 # non-attention mixers
 # ---------------------------------------------------------------------------
 def _write(st, new) -> None:
+    """Copy a mixer's new state into ``st`` in place; train mode has no
+    state (``st`` None) and writes nothing."""
+    if st is None:
+        return
     for k, v in new.items():
         st[k].copy_(v)
 
 
 def _rglru_mixer(p, x, st, ctx: Ctx):
     """RG-LRU block body (no residual/norm); ``st`` {h, conv} updated in
-    place.  Chunk mode continues the recurrence from ``st["h"]`` with
-    identity steps (a=1, b=0) at invalid positions; prefill of ragged
-    prompts freezes the conv window at each prompt's end and takes h at
-    its last valid position."""
+    place.  Train mode runs from a zero state and keeps none.  Chunk mode
+    continues the recurrence from ``st["h"]`` with identity steps (a=1,
+    b=0) at invalid positions; prefill of ragged prompts freezes the conv
+    window at each prompt's end and takes h at its last valid
+    position."""
     gate = F.gelu((x @ p["w_in_gate"]).to(F32),
                   approximate="tanh").to(x.dtype)
     r = x @ p["w_in_rnn"]
@@ -446,6 +456,10 @@ def _rglru_mixer(p, x, st, ctx: Ctx):
         r, new_conv = L.causal_conv1d(p["conv"], r, st["conv"])
         h, new_h = L.rglru_step(p, r[:, 0], st["h"])
         h = h[:, None, :]
+    elif ctx.mode == "train":
+        r, new_conv = L.causal_conv1d(p["conv"], r)
+        h = L.rglru_scan(p, r)
+        new_h = None
     else:
         raise NotImplementedError(f"RG-LRU mode {ctx.mode!r} is not ported")
     out = (h.to(x.dtype) * gate) @ p["w_out"]
@@ -455,9 +469,9 @@ def _rglru_mixer(p, x, st, ctx: Ctx):
 
 def _ssd_mixer(p, x, st, ctx: Ctx):
     """Mamba-2 SSD block body (no residual); ``st`` {h, conv} updated in
-    place.  Positions past a row's prompt (prefill) or invalid chunk
-    positions are identity steps (dt=0, x=0) and do not advance the conv
-    window."""
+    place (train mode: no state, from h = 0).  Positions past a row's
+    prompt (prefill) or invalid chunk positions are identity steps (dt=0,
+    x=0) and do not advance the conv window."""
     cfg = ctx.cfg
     di, n, hh, pp = cfg.d_inner, cfg.ssm_state, cfg.ssd_heads, \
         cfg.ssd_head_dim
@@ -476,6 +490,8 @@ def _ssd_mixer(p, x, st, ctx: Ctx):
                                               valid.sum(dim=1))
     elif ctx.mode == "decode":
         xbc, new_conv = L.causal_conv1d(p["conv"], xbc_in, st["conv"])
+    elif ctx.mode == "train":
+        xbc, new_conv = L.causal_conv1d(p["conv"], xbc_in)
     else:
         raise NotImplementedError(f"SSD mode {ctx.mode!r} is not ported")
     xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
@@ -491,7 +507,8 @@ def _ssd_mixer(p, x, st, ctx: Ctx):
         y = y[:, None]
     else:
         y, new_h = L.ssd_chunked(xs, dt, p["A_log"], Bm, Cm, p["Dskip"],
-                                 chunk=cfg.ssd_chunk, h0=st["h"],
+                                 chunk=cfg.ssd_chunk,
+                                 h0=None if st is None else st["h"],
                                  return_state=True)
     y = y.reshape(b, s, di).to(x.dtype)
     y = L.rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"],
@@ -501,20 +518,22 @@ def _ssd_mixer(p, x, st, ctx: Ctx):
 
 
 def _ffn(p, x, cfg: ModelConfig):
-    """The FFN's output; a MoE's aux loss is a training term, dropped on
-    the serve path."""
+    """(the FFN's output, its aux loss): a MoE's load-balance loss, 0.0
+    for the others.  The aux loss is a training term; the serve path
+    drops it."""
     fp = {k[4:]: v for k, v in p.items() if k.startswith("ffn_")}
     if cfg.ffn_kind == FFN_MLP:
-        return L.mlp(fp, x)
+        return L.mlp(fp, x), 0.0
     if cfg.ffn_kind == FFN_MOE:
-        y, _ = L.moe_ffn(fp, x, num_experts=cfg.num_experts,
-                         top_k=cfg.top_k, capacity_factor=cfg.moe_capacity)
-        return y
-    return L.swiglu(fp, x)
+        return L.moe_ffn(fp, x, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.moe_capacity)
+    return L.swiglu(fp, x), 0.0
 
 
 def apply_block(kind: str, p, h, st, ctx: Ctx):
-    """Returns (h, st)."""
+    """Returns (h, st, aux): aux is the FFN's aux loss (0.0 but for a
+    MoE FFN)."""
     cfg = ctx.cfg
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     if kind == ATTN:
@@ -537,12 +556,12 @@ def apply_block(kind: str, p, h, st, ctx: Ctx):
         raise ValueError(f"unknown block kind {kind!r}")
     h = h + mix
     if kind == SSD or cfg.ffn_kind == FFN_NONE:
-        return h, st
+        return h, st, 0.0
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    f = _ffn(p, hn, cfg)
+    f, aux = _ffn(p, hn, cfg)
     if kind == XATTN:
         f = f * torch.tanh(p["gate_ffn"].to(f.dtype))
-    return h + f, st
+    return h + f, st, aux
 
 
 def per_layer(tree, cfg: ModelConfig):
@@ -563,12 +582,38 @@ def per_layer(tree, cfg: ModelConfig):
     return out
 
 
-def _run_layers(params, h, state, ctx: Ctx):
+def _run_layers(params, h, state, ctx: Ctx, remat: bool = False):
+    """Every layer in order; returns (h, state, aux), aux the blocks' aux
+    losses summed in layer order from an fp32 0.  ``state`` is None in
+    train mode.  ``remat`` checkpoints each full pattern period (the
+    body of the JAX package's layer scan, which its ``jax.checkpoint``
+    wraps): its activations are recomputed in the backward; the
+    remainder blocks are not checkpointed, as in the JAX package."""
     cfg = ctx.cfg
-    for kind, p, st in zip(cfg.pattern, per_layer(params, cfg),
-                           per_layer(state, cfg)):
-        h, _ = apply_block(kind, p, h, st, ctx)
-    return h, state
+    period = len(cfg.layer_pattern)
+    n_full = cfg.num_layers // period
+    ps = per_layer(params, cfg)
+    sts = (per_layer(state, cfg) if state is not None
+           else [None] * cfg.num_layers)
+
+    def run(lo, hi, h, aux):
+        for li in range(lo, hi):
+            h, _, a = apply_block(cfg.pattern[li], ps[li], h, sts[li], ctx)
+            aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=F32, device=h.device)
+    for per in range(n_full):
+        lo = per * period
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            h, aux = checkpoint(run, lo, lo + period, h, aux,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            h, aux = run(lo, lo + period, h, aux)
+    h, aux = run(n_full * period, cfg.num_layers, h, aux)
+    return h, state, aux
 
 
 def has_xattn(cfg: ModelConfig) -> bool:
@@ -604,8 +649,9 @@ def _encode(params, cfg: ModelConfig, enc_feats):
     enc = params["encoder"]
     stack = enc["stack"]["s0"]
     for i in range(cfg.encoder_layers):
-        h, _ = apply_block(ENC_ATTN, {k: v[i] for k, v in stack.items()},
-                           h, None, ectx)
+        h, _, _ = apply_block(ENC_ATTN,
+                              {k: v[i] for k, v in stack.items()}, h, None,
+                              ectx)
     return L.rms_norm(h, enc["final_norm"], cfg.norm_eps)
 
 
@@ -613,6 +659,33 @@ def _logits(params, cfg: ModelConfig, h):
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     tab = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return (h @ tab).to(F32)
+
+
+def train_forward(params, cfg: ModelConfig, tokens, enc_feats=None,
+                  q_chunk: int = 1024, kv_chunk: int = 1024,
+                  remat: bool = False):
+    """tokens [B, S] -> (logits [B, S, V] fp32, aux loss scalar fp32).
+    Every position is valid and causal; no state.  ``enc_feats``: an
+    encoder-decoder's frame embeddings (the encoder runs over them), a
+    cross-attention arch's patch features, or an early-fusion arch's
+    patch embeddings (they replace the first n token embeddings).
+    ``remat`` checkpoints each full pattern period (see ``_run_layers``).
+    Differentiable end to end: nothing is written in place."""
+    b, s = tokens.shape
+    dev = tokens.device
+    if has_xattn(cfg) and enc_feats is None:
+        raise ValueError(f"{cfg.name} has cross-attention layers: "
+                         f"train_forward needs enc_feats [B, "
+                         f"{cfg.encoder_seq}, {cfg.encoder_d_model}]")
+    enc_out = (_encode(params, cfg, enc_feats) if cfg.is_encdec
+               else enc_feats)
+    h = _embed(params, cfg, tokens, enc_feats)
+    qpos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    ctx = Ctx(cfg, "train", qpos, torch.full((b,), s, dtype=torch.int32,
+                                             device=dev),
+              kv_chunk, q_chunk, enc_out)
+    h, _, aux = _run_layers(params, h, None, ctx, remat=remat)
+    return _logits(params, cfg, h), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
@@ -639,7 +712,7 @@ def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
     qpos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     ctx = Ctx(cfg, "prefill", qpos, prompt_lens, kv_chunk, q_chunk,
               enc_out)
-    h, state = _run_layers(params, h, state, ctx)
+    h, state, _ = _run_layers(params, h, state, ctx)
     # the lm head runs on each prompt's last position only: the JAX
     # package builds [B, S, V] logits and then picks the same rows, which
     # gives the same numbers (the head is per position) at 0.6 MB per
@@ -668,7 +741,7 @@ def prefill_chunk(params, cfg: ModelConfig, state, tokens, chunk_pos,
     base = state["lengths"].to(torch.int32)
     ctx = Ctx(cfg, "chunk", chunk_pos, base, kv_chunk, c)
     h = _embed(params, cfg, tokens)
-    h, state = _run_layers(params, h, state, ctx)
+    h, state, _ = _run_layers(params, h, state, ctx)
     cnt = valid.sum(dim=1).to(torch.int32)
     last = torch.clamp(cnt.long() - 1, 0, c - 1)
     h_last = h[torch.arange(b, device=h.device), last][:, None]
@@ -698,7 +771,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, kv_chunk=1024):
     h = _embed(params, cfg, tokens)
     lengths = state["lengths"]
     ctx = Ctx(cfg, "decode", lengths[:, None], lengths, kv_chunk, 1)
-    h, state = _run_layers(params, h, state, ctx)
+    h, state, _ = _run_layers(params, h, state, ctx)
     logits = _logits(params, cfg, h)[:, 0]
     state["lengths"] = lengths + 1
     return logits, state

@@ -207,7 +207,7 @@ def test_run_decomposed_mlp_block_matches(name):
     st_b = {k: v.clone() for k, v in st_a.items()}
     th = torch.from_numpy(h)
     ha, st_a = TD.run_decomposed("attn", tpl, th, st_a, tctx)
-    hb, st_b = TM.apply_block("attn", tpl, th, st_b, tctx)
+    hb, st_b, _ = TM.apply_block("attn", tpl, th, st_b, tctx)
     _close(ha, hb)
     _close(ha, jh)
     for k in ("k", "v"):

@@ -118,7 +118,8 @@ def test_run_decomposed_equals_apply_block(name):
     tctx = TM.Ctx(tc, "decode", tl[:, None], tl)
     st_a = {k: v.clone() for k, v in TM.per_layer(ts, tc)[0].items()}
     st_b = {k: v.clone() for k, v in st_a.items()}
-    ha, st_a = TM.apply_block("attn", tpl, torch.from_numpy(h), st_a, tctx)
+    ha, st_a, _ = TM.apply_block("attn", tpl, torch.from_numpy(h), st_a,
+                                 tctx)
     hb, st_b = TD.run_decomposed("attn", tpl, torch.from_numpy(h), st_b,
                                  tctx)
     torch.testing.assert_close(ha, hb, atol=1e-6, rtol=0)

@@ -449,8 +449,8 @@ def test_decomposed_equals_fused_block(name):
         st_b = {k: v.clone() for k, v in st_a.items()}
         ha, st_a = TD.run_decomposed("attn", tpl, torch.from_numpy(h), st_a,
                                      tctx, kv_chunk=8)
-        hb, st_b = TM.apply_block("attn", tpl, torch.from_numpy(h), st_b,
-                                  tctx)
+        hb, st_b, _ = TM.apply_block("attn", tpl, torch.from_numpy(h),
+                                     st_b, tctx)
         _close(ha, hb)
         _close(ha, jh)
         for k in ("k", "v"):

@@ -517,7 +517,7 @@ def test_decomposed_equals_fused_block_and_jax(arch):
         st_a = {k: v.clone() for k, v in TM.per_layer(ts, tc)[li].items()}
         st_b = {k: v.clone() for k, v in st_a.items()}
         ha, st_a = TD.run_decomposed(kind, tpl, _t(h), st_a, tctx)
-        hb, st_b = TM.apply_block(kind, tpl, _t(h), st_b, tctx)
+        hb, st_b, _ = TM.apply_block(kind, tpl, _t(h), st_b, tctx)
         np.testing.assert_array_equal(ha, hb)
         _close(ha, jh)
         assert sorted(st_a) == sorted(jnew)

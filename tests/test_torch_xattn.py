@@ -284,8 +284,8 @@ def test_zero_gates_make_an_xattn_block_the_identity():
     st = {k: torch.randn(v.shape) for k, v in TM._block_state(
         tc, "xattn", 2, 8, "cpu").items()}
     ln = torch.zeros((2,), dtype=torch.int32)
-    out, _ = TM.apply_block("xattn", p, h, st,
-                            TM.Ctx(tc, "decode", ln[:, None], ln))
+    out, _, _ = TM.apply_block("xattn", p, h, st,
+                               TM.Ctx(tc, "decode", ln[:, None], ln))
     assert torch.equal(out, h)
 
 
@@ -356,8 +356,8 @@ def test_run_decomposed_equals_apply_block_and_jax(arch):
             TM.per_layer(ts, tc))):
         kinds.append(kind)
         fused_st = {k: v.clone() for k, v in tst.items()}
-        h_fused, _ = TM.apply_block(kind, tpl, torch.from_numpy(h),
-                                    fused_st, tctx)
+        h_fused, _, _ = TM.apply_block(kind, tpl, torch.from_numpy(h),
+                                       fused_st, tctx)
         h_dec, st_dec = TD.run_decomposed(kind, tpl, torch.from_numpy(h),
                                           tst, tctx)
         _close(h_dec, h_fused, TOL)
