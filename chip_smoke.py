@@ -272,12 +272,29 @@ Phases (any failure exits nonzero):
               (CUDA events), tokens/s, peak memory and the model-flops
               share; no kernel counter moves (the train path attends in
               plain torch); then ``python -m repro_torch.launch.train``
-              with no --device (the card is the default).
+              with no --device (the card is the default; it runs on the
+              launcher's own world of 1 over NCCL and its (1, 1) mesh).
   equiv_train fp32 (TF32 off) at reduced() sizes, for qwen3-8b, grok-1
               (capacity 1.25, aux on), recurrentgemma-2b, mamba2-2.7b,
               llama-3.2-vision-90b (10 layers, seeded gates) and
               whisper-medium: loss and grads on the card == on the CPU,
-              remat == no remat, three train steps card == CPU.
+              remat == no remat, three train steps card == CPU (lr
+              1e-2); the drift of 8 steps at lr 3e-4, reported.
+  dist        the distributed layer (repro_torch.distributed) on a world
+              of 1 over NCCL (a FileStore under build/) and a (1, 1)
+              ('data', 'model') DeviceMesh: Qwen3-8B at full width cut
+              to 4 of 36 layers (DIST_LAYERS), bf16, 8 prompts of 512
+              tokens prefilled into a 1024-token cache and 16 greedy
+              decode steps, with no mesh and under the rules fastdecode,
+              fastdecode_sm and baseline (DTensor params and state): each
+              run's tokens and logit difference against the no-mesh run,
+              its eager step p50 beside the no-mesh p50, peak memory and
+              the collectives of a step; in fp32 at 2 layers, fastdecode
+              and baseline == no mesh within 1e-5 (relative),
+              fastdecode_sm == fastdecode within 2e-4, and one train step
+              with grad_shardings == the no-mesh step; no kernel counter
+              moves.  More than one rank cannot share the card over NCCL:
+              the CPU tests hold the 2x2 gloo world.
 
 The serve and equiv phases run the hetero engine's CUDA graphs
 (``repro_torch.core.graphs``) unless a run says eager; the serve
@@ -6212,6 +6229,8 @@ EQUIV_TRAIN_ARCHS = {"qwen3-8b": 3, "grok-1-314b": 3,
 EQUIV_TRAIN_LOSS_RTOL = 1e-5
 EQUIV_TRAIN_GRAD_TOL = (1e-4, 1e-5)      # rtol, atol
 EQUIV_TRAIN_STEP_RTOL = 1e-4
+# the drift reported beside the three steps: the train phase's schedule
+DRIFT_LR, DRIFT_STEPS = dict(peak_lr=3e-4, warmup=2, total_steps=8), 8
 
 
 def _train_equiv_case(arch: str):
@@ -6259,7 +6278,9 @@ def phase_equiv_train(dev) -> dict:
     within EQUIV_TRAIN_GRAD_TOL), remat == no remat on the card (loss
     bit for bit, grads within tolerance), and three make_train_step
     steps on the card == on the CPU from one state (losses and grad
-    norms within EQUIV_TRAIN_STEP_RTOL)."""
+    norms within EQUIV_TRAIN_STEP_RTOL); beside them, reported only, the
+    card-vs-CPU relative drift of each of DRIFT_STEPS steps at the train
+    phase's schedule (lr 3e-4)."""
     import torch
     from repro_torch.training.train import loss_and_grads, make_train_step
     from repro_torch.training.tree import leaves_with_path
@@ -6317,16 +6338,32 @@ def phase_equiv_train(dev) -> dict:
         if step_rel > EQUIV_TRAIN_STEP_RTOL:
             raise AssertionError(f"equiv_train {arch}: three steps part "
                                  f"by {step_rel:.3g}: {traj}")
+        # the drift at the train phase's rate over its 8 steps, reported
+        # only (no gate): card against CPU, relative, step by step
+        drift = {}
+        for where, p, bt in (("cpu", params, batch),
+                             ("card", dparams, dbatch)):
+            init, step = make_train_step(cfg, **DRIFT_LR, **kw)
+            st = init(_clone(p))
+            out = []
+            for _ in range(DRIFT_STEPS):
+                st, m = step(st, bt)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            drift[where] = out
+        drift_rel = [max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                     for x, y in zip(drift["card"], drift["cpu"])]
         cases[arch] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
                        "loss": float(ld), "aux": float(md["aux"]),
                        "loss_rel_card_vs_cpu": rel,
                        "grad_max_abs": worst, "steps": traj,
                        "steps_max_rel": step_rel,
+                       "drift_lr3e-4_rel_by_step": drift_rel,
                        "seconds": time.perf_counter() - t0}
         print(f"equiv_train {arch}: loss rel {rel:.3g}, grads "
               f"{worst['card_vs_cpu']:.3g} (card vs CPU), "
               f"{worst['remat_vs_plain']:.3g} (remat), steps "
-              f"{step_rel:.3g}", flush=True)
+              f"{step_rel:.3g}, 8 steps at 3e-4 {max(drift_rel):.3g}",
+              flush=True)
     _free_device()
     return {"phase": "equiv_train", "ok": True, "dtype": "float32",
             "tf32": False, "loss_rtol": EQUIV_TRAIN_LOSS_RTOL,
@@ -6340,6 +6377,313 @@ def _clone(tree):
     return tree_map(lambda t: t.clone(), tree)
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: logical-axis rules on a DeviceMesh of the card
+# ---------------------------------------------------------------------------
+DIST_LAYERS = 4           # Qwen3-8B's depth in the dist phase (of 36)
+DIST_ROWS, DIST_PROMPT, DIST_CACHE, DIST_STEPS = 8, 512, 1024, 16
+DIST_STRATEGIES = ("fastdecode", "fastdecode_sm", "baseline")
+DIST_EXACT_RTOL = 1e-5    # a mesh decode against the plain one (fp32)
+DIST_SM_TOL = 2e-4        # fastdecode_sm against fastdecode (the reference's)
+DIST_EXACT_LAYERS, DIST_EXACT_ROWS, DIST_EXACT_PROMPT = 2, 4, 128
+DIST_EXACT_CACHE, DIST_EXACT_STEPS = 256, 4
+
+
+@contextlib.contextmanager
+def _dist_world(dev):
+    """A world of 1 over NCCL on ``dev`` (a FileStore under build/, no
+    network port) and its (1, 1) ('data', 'model') DeviceMesh; destroyed
+    on exit.  A missing NCCL or a failed init raises."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store_dir = ROOT / "build" / "dist_store"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    path = store_dir / f"store_{os.getpid()}"
+    if path.exists():
+        path.unlink()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        if path.exists():
+            path.unlink()
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _relayout(state, shardings):
+    """A DTensor state moved to ``shardings`` (prefill's layout to
+    decode's)."""
+    from repro_torch.training.tree import tree_map
+    return tree_map(lambda x, sh: x if tuple(x.placements) == sh.placements
+                    else x.redistribute(sh.mesh, sh.placements),
+                    state, shardings)
+
+
+def _dist_serve(dev, cfg, params, mesh, strategy, tokens, plens, cache,
+                steps, feed=None, time_steps=False):
+    """Prefill ``tokens`` then ``steps`` greedy decode steps (or the tokens
+    of ``feed``, teacher-forced), with no mesh (``strategy`` None) or under
+    ``strategy``'s prefill then decode rules.  Returns the prefill logits,
+    each step's logits (fp32, on the CPU), the tokens fed, each step's
+    host wall (synced) and, for a mesh run, the collectives of one more
+    counted step."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.api import use_rules
+    from repro_torch.launch.dryrun import _counter_class, collective_bytes
+    from repro_torch.models import model as M
+    b = tokens.shape[0]
+    if strategy is None:
+        rules = None
+        ctx = contextlib.nullcontext
+        p = params
+    else:
+        rules = {m: SH.make_rules(strategy, m) for m in ("prefill", "decode")}
+        p = SH.distribute(params, SH.param_shardings(cfg, mesh,
+                                                     rules["decode"]))
+
+        def ctx(mode="decode"):
+            return use_rules(mesh, rules[mode])
+    with (ctx("prefill") if rules else ctx()):
+        logits, state = M.prefill(p, cfg, tokens, plens, cache)
+    if rules:
+        state = _relayout(state, SH.state_shardings(cfg, mesh,
+                                                    rules["decode"], b,
+                                                    cache))
+    first = _full(logits).float().cpu()
+    tok = first.argmax(-1).to(dev)[:, None].to(torch.int32)
+    out, fed, walls = [], [], []
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[i]
+        fed.append(tok)
+        if time_steps:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx():
+            logits, state = M.decode_step(p, cfg, state, tok)
+        lg = _full(logits)
+        if time_steps:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out.append(lg.float().cpu())
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    colls = None
+    if rules:
+        counter = _counter_class()()
+        with ctx(), counter:
+            M.decode_step(p, cfg, state, tok)
+        torch.cuda.synchronize()
+        colls = collective_bytes(counter.colls)
+    del state, p
+    return {"prefill": first, "logits": out, "fed": fed, "walls": walls,
+            "collectives": colls}
+
+
+def phase_dist(dev) -> dict:
+    """The distributed layer on the card: a world of 1 over NCCL (a
+    FileStore under build/) and a (1, 1) ('data', 'model') DeviceMesh.
+    A world of more than one rank cannot run on one card over NCCL
+    (NCCL refuses two ranks on one device): the multi-rank semantics are
+    held on the CPU by gloo tests (tests/test_torch_collectives.py, a
+    2x2 world, and tests/test_torch_dist_launchers.py).
+
+    Full width: Qwen3-8B cut to DIST_LAYERS of 36, bf16, seeded weights;
+    8 prompts of 512 tokens prefilled into a 1024-token cache, then 16
+    greedy decode steps, with no mesh and under each of DIST_STRATEGIES
+    (prefill rules, then the state moved to the decode rules): greedy
+    tokens and max logit difference against the no-mesh run, the eager
+    step p50 beside the no-mesh p50 (DTensor's dispatch on the host),
+    peak memory, the collectives of one counted step.
+
+    Exactness (fp32, TF32 off, 2 layers at full width, teacher-forced on
+    the no-mesh run's tokens): fastdecode and baseline == the no-mesh
+    decode within DIST_EXACT_RTOL (relative to the logits' max), and
+    fastdecode_sm == fastdecode within DIST_SM_TOL; one make_train_step
+    step under the train rules with grad_shardings == the no-mesh step
+    (loss within EQUIV_TRAIN_LOSS_RTOL, every grad leaf within
+    EQUIV_TRAIN_GRAD_TOL).  No kernel of the port runs (the mesh paths
+    attend in plain torch): every counter stays 0."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import get_arch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.api import use_rules
+    from repro_torch.models.model import init_params
+    from repro_torch.training import train as TT
+    from repro_torch.training.tree import leaves_with_path
+    t_phase = time.perf_counter()
+    _reset_counters()
+    full = get_arch("qwen3-8b")
+    gen = torch.Generator().manual_seed(26)
+    runs, exact = {}, {}
+    with _dist_world(dev) as mesh:
+        # -- full width, bf16 --
+        cfg = dataclasses.replace(full, num_layers=DIST_LAYERS)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (DIST_ROWS, DIST_PROMPT),
+                               generator=gen, dtype=torch.int32).to(dev)
+        plens = torch.full((DIST_ROWS,), DIST_PROMPT, dtype=torch.int32,
+                           device=dev)
+        base = None
+        for strategy in (None,) + DIST_STRATEGIES:
+            _free_device()
+            torch.cuda.reset_peak_memory_stats()
+            r = _dist_serve(dev, cfg, params, mesh, strategy, tokens, plens,
+                            DIST_CACHE, DIST_STEPS, time_steps=True)
+            toks = [t.cpu().flatten().tolist() for t in r["fed"]]
+            rec = {"step_p50_s": float(np.median(r["walls"][1:])),
+                   "first_step_s": r["walls"][0],
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "collectives_per_step": r["collectives"],
+                   "logits_finite": all(bool(x.isfinite().all())
+                                        for x in r["logits"])}
+            if not rec["logits_finite"]:
+                raise AssertionError(f"dist {strategy}: non-finite logits")
+            if base is None:
+                base = r
+                rec["tokens"] = toks
+            else:
+                rec["tokens_equal"] = toks == runs["none"]["tokens"]
+                rec["first_token_diff_step"] = next(
+                    (i for i, (a, b) in enumerate(zip(toks,
+                                                      runs["none"]["tokens"]))
+                     if a != b), None)
+                rec["prefill_max_logit_diff"] = float(
+                    (r["prefill"] - base["prefill"]).abs().max())
+                rec["max_logit_diff_before_divergence"] = float(max(
+                    (a - b).abs().max() for a, b in zip(
+                        r["logits"][:rec["first_token_diff_step"]
+                                    or DIST_STEPS], base["logits"])))
+            runs[strategy or "none"] = rec
+            del r
+        del params
+        _free_device()
+        # -- exactness, fp32 --
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        cfg = dataclasses.replace(full, num_layers=DIST_EXACT_LAYERS,
+                                  dtype="float32")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (DIST_EXACT_ROWS, DIST_EXACT_PROMPT),
+                               generator=gen, dtype=torch.int32).to(dev)
+        plens = torch.randint(DIST_EXACT_PROMPT // 2, DIST_EXACT_PROMPT + 1,
+                              (DIST_EXACT_ROWS,), generator=gen,
+                              dtype=torch.int32).to(dev)
+        ref = _dist_serve(dev, cfg, params, mesh, None, tokens, plens,
+                          DIST_EXACT_CACHE, DIST_EXACT_STEPS)
+        outs = {}
+        for strategy in DIST_STRATEGIES:
+            outs[strategy] = _dist_serve(
+                dev, cfg, params, mesh, strategy, tokens, plens,
+                DIST_EXACT_CACHE, DIST_EXACT_STEPS, feed=ref["fed"])
+        scale = max(float(x.abs().max()) for x in ref["logits"])
+
+        def diff(a, b):
+            return max([float((x - y).abs().max())
+                        for x, y in zip(a["logits"], b["logits"])]
+                       + [float((a["prefill"] - b["prefill"]).abs().max())])
+        for strategy in ("fastdecode", "baseline"):
+            exact[strategy] = {"max_abs": diff(outs[strategy], ref),
+                               "rel": diff(outs[strategy], ref) / scale}
+            if exact[strategy]["rel"] > DIST_EXACT_RTOL:
+                raise AssertionError(f"dist exact {strategy}: {exact}")
+        exact["fastdecode_sm_vs_fastdecode"] = diff(outs["fastdecode_sm"],
+                                                    outs["fastdecode"])
+        if exact["fastdecode_sm_vs_fastdecode"] > DIST_SM_TOL:
+            raise AssertionError(f"dist exact fastdecode_sm: {exact}")
+        del outs, ref
+        # one train step under the train rules, with grad_shardings
+        n = min(64, DIST_EXACT_PROMPT)
+        batch = {"tokens": tokens[:, :n].contiguous(),
+                 "targets": torch.roll(tokens[:, :n], -1, 1).contiguous(),
+                 "mask": torch.ones((DIST_EXACT_ROWS, n), device=dev)}
+        grads = {}
+        own = TT.adamw
+
+        def adamw(*a, **kw):
+            init, update = own(*a, **kw)
+
+            def record(g, st, p):
+                grads[where] = {k: _full(v).detach().clone()
+                                for k, v in leaves_with_path(g)}
+                return update(g, st, p)
+            return init, record
+        TT.adamw = adamw
+        losses = {}
+        try:
+            for where in ("plain", "mesh"):
+                p = _clone(params)
+                if where == "plain":
+                    init, step = TT.make_train_step(cfg, q_chunk=n,
+                                                    kv_chunk=n)
+                    st, m = step(init(p), batch)
+                else:
+                    rules = SH.make_rules("fastdecode", "train", train=True)
+                    p_sh = SH.param_shardings(cfg, mesh, rules)
+                    init, step = TT.make_train_step(
+                        cfg, q_chunk=n, kv_chunk=n, grad_shardings=p_sh)
+                    with use_rules(mesh, rules):
+                        st = init(SH.distribute(p, p_sh))
+                        b_d = {k: SH.distribute_leaf(v, SH.data_sharding(
+                            mesh, rules, v.shape, ("batch", "seq")))
+                               for k, v in batch.items()}
+                        st, m = step(st, b_d)
+                losses[where] = float(_full(m["loss"]))
+                del st, m, p
+        finally:
+            TT.adamw = own
+        rel = abs(losses["mesh"] - losses["plain"]) / abs(losses["plain"])
+        if rel > EQUIV_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"dist train: loss {losses}")
+        rtol, atol = EQUIV_TRAIN_GRAD_TOL
+        worst = 0.0
+        for path, w in grads["plain"].items():
+            g = grads["mesh"][path]
+            err = (g.float() - w.float()).abs()
+            if not bool((err <= atol + rtol * w.float().abs()).all()):
+                raise AssertionError(f"dist train: grad {path} off by "
+                                     f"{float(err.max()):.3g}")
+            worst = max(worst, float(err.max()))
+        exact["train"] = {"losses": losses, "loss_rel": rel,
+                          "grad_max_abs": worst}
+        del params, grads
+    counts = {name: (launched.value, plain.value)
+              for name, (launched, plain) in _counters().items()}
+    if any(a for a, _ in counts.values()):
+        raise AssertionError(f"dist: a kernel launched: {counts}")
+    _free_device()
+    for name, rec in runs.items():
+        print(f"dist {name}: step p50 {rec['step_p50_s']:.4f} s, peak "
+              f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, "
+              f"collectives/step "
+              f"{(rec['collectives_per_step'] or {}).get('counts')}",
+              flush=True)
+    return {"phase": "dist", "ok": True, "arch": full.name,
+            "layers": DIST_LAYERS, "full_layers": full.num_layers,
+            "rows": DIST_ROWS, "prompt": DIST_PROMPT, "cache": DIST_CACHE,
+            "steps": DIST_STEPS, "world": 1, "mesh": {"data": 1, "model": 1},
+            "backend": "nccl", "runs": runs, "exact": exact,
+            "exact_rtol": DIST_EXACT_RTOL, "sm_tol": DIST_SM_TOL,
+            "kernel_launches": {k: v[0] for k, v in counts.items()},
+            "plain_calls": {k: v[1] for k, v in counts.items()},
+            "card": gpu_name_and_limit(),
+            "seconds": time.perf_counter() - t_phase}
+
+
 PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "serve_spec_int8", "serve_sampled", "serve_prefix", "serve_tier",
           "serve_plan", "serve_fleet", "serve_chaos", "equiv", "equiv_int8",
@@ -6347,7 +6691,7 @@ PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
           "equiv_eval", "serve_moe", "equiv_moe", "serve_rglru",
           "serve_ssd", "equiv_recurrent", "static_vision", "static_whisper",
-          "equiv_xattn", "train", "equiv_train")
+          "equiv_xattn", "train", "equiv_train", "dist")
 
 
 def kernels_line(results) -> list:
@@ -6361,7 +6705,9 @@ def kernels_line(results) -> list:
     0: no serve path reaches it; null where none of these phases ran),
     its times at the cross-attention shapes beside it.  Each entry's
     ``train_launches`` is its count in the train phase: 0, the train path
-    reaches no kernel (null where the phase did not run)."""
+    reaches no kernel (null where the phase did not run); ``dist_launches``
+    its count in the dist phase: 0, the mesh paths attend in plain torch
+    (null where the phase did not run)."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
     spec, spec8 = results.get("serve_spec"), results.get("serve_spec_int8")
@@ -6448,13 +6794,16 @@ def kernels_line(results) -> list:
     # the training slice: the train path attends in plain torch
     # and launches no kernel of the port; the train phase's count (the
     # Dh 256 row shares kernel 3's counter)
-    tr = results.get("train")
+    tr, di = results.get("train"), results.get("dist")
     for entry in line:
         counter = ("decode_attention_int8"
                    if entry["name"] == "decode_attention_int8_dh256"
                    else entry["name"])
         entry["train_launches"] = (tr["kernel_launches"][counter] if tr
                                    else None)
+        # the distributed slice attends in plain torch too
+        entry["dist_launches"] = (di["kernel_launches"][counter] if di
+                                  else None)
     if k:
         for i, name in ((0, "paged_decode_attention"),
                         (3, "paged_verify_attention")):
@@ -6636,6 +6985,9 @@ def main(argv=None) -> int:
     if "equiv_train" in phases:
         results["equiv_train"] = phase_equiv_train(dev)
         log(results["equiv_train"])
+    if "dist" in phases:
+        results["dist"] = phase_dist(dev)
+        log(results["dist"])
     log({"kernels": kernels_line(results)})
     print(gpu_name_and_limit(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -103,6 +103,47 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    def param_count(self) -> int:
+        """Approximate parameter count (for roofline MODEL_FLOPS=6ND)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+        total = v * d                                   # embed
+        if not self.tie_embeddings:
+            total += v * d                              # lm head
+        for kind in self.pattern:
+            if kind in (ATTN, ENC_ATTN):
+                total += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            elif kind == XATTN:
+                total += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            elif kind == DEC_XATTN:
+                total += 2 * (d * nh * hd + 2 * d * nkv * hd + nh * hd * d)
+            elif kind == RGLRU:
+                w = self.rnn_width
+                total += 2 * d * w + w * d + self.conv_width * w + 2 * w * w + 2 * w
+            elif kind == SSD:
+                di, n, h = self.d_inner, self.ssm_state, self.ssd_heads
+                total += d * (2 * di + 2 * n + h) + di * d + self.conv_width * (di + 2 * n)
+            if kind == SSD or self.ffn_kind == FFN_NONE:
+                continue
+            if self.ffn_kind == FFN_SWIGLU:
+                total += 3 * d * f
+            elif self.ffn_kind == FFN_MLP:
+                total += 2 * d * f
+            elif self.ffn_kind == FFN_MOE:
+                total += self.num_experts * 3 * d * f + d * self.num_experts
+        if self.encoder_layers:
+            ed = self.encoder_d_model
+            total += self.encoder_layers * (4 * ed * ed + 2 * ed * self.d_ff)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE uses top_k of num_experts)."""
+        if self.ffn_kind != FFN_MOE:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense = self.param_count() - self.num_layers * self.num_experts * 3 * d * f
+        return dense + self.num_layers * self.top_k * 3 * d * f
+
     def reduced(self, layers: int = 2, d_model: int = 256,
                 experts: int = 4, vocab: int = 512) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's rule:
@@ -153,6 +194,23 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only SSD blocks run without an FFN")
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the dry-run: one entry point at one size."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
 _ARCHS: Dict[str, ModelConfig] = {}
 _ARCH_MODULES = [
     "deepseek_67b", "granite_3_8b", "deepseek_coder_33b", "qwen3_8b",
@@ -189,3 +247,18 @@ def get_arch(name: str) -> ModelConfig:
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_ARCHS)
+
+
+# the dry-run's archs (the paper's three evaluation models are not among
+# them) and the (arch, shape) pairs it skips, with the reason
+ASSIGNED_ARCHS = [
+    "deepseek-67b", "granite-3-8b", "deepseek-coder-33b", "llama-3.2-vision-90b",
+    "qwen3-8b", "grok-1-314b", "recurrentgemma-2b", "mamba2-2.7b",
+    "llama4-scout-17b-a16e", "whisper-medium",
+]
+
+SKIPS: Dict[Tuple[str, str], str] = {
+    ("whisper-medium", "long_500k"):
+        "enc-dec full-attention decoder; 524k generated tokens is semantically "
+        "void for ASR",
+}

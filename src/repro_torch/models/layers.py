@@ -276,7 +276,7 @@ def moe_ffn(p, x, *, num_experts: int, top_k: int,
 
     tok = torch.arange(t * k, device=x.device) // k
     slot = torch.where(keep, pos, torch.full_like(pos, cap))
-    buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=x.device)
+    buf = xt.new_zeros((e, cap + 1, d))    # a DTensor's under a mesh
     buf[flat_e, slot] = xt[tok]
     buf = buf[:, :cap]
 

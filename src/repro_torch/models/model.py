@@ -37,9 +37,20 @@ the JAX package's is ``jax.value_and_grad``'s).
 
 This is the port's colocated oracle; the S-/R-Part split of each block
 lives in ``repro_torch.core.decompose``.
+
+Under ``distributed.api.use_rules(mesh, rules)`` the same entry points
+run on DTensor params and state (``distributed.sharding``): ``D.shard``
+pins activations to the rules' layout at the reference's sites (each
+named below), the in-place state writes touch only the rank's own block
+of the state (``_scatter_slots``, ``_copy_into``: DTensor refuses an
+in-place write that would move a sharded dim), and the tensors the model
+makes itself (aranges, fills, the RoPE frequencies) enter as replicated
+through ``D.implicit_replication`` at each entry point.  Outside
+``use_rules`` every ``D.`` call is the identity and no DTensor is made.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -52,6 +63,8 @@ from repro_torch.core.config import (ATTN, DEC_XATTN, ENC_ATTN, FFN_MLP,
                                      SSD, XATTN, ModelConfig,
                                      check_supported)
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed import api as D
+from repro_torch.distributed import layout
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -165,6 +178,49 @@ def _normal_stacked(gen, shape, scale, dtype, device):
     return out
 
 
+def _param_tree(cfg: ModelConfig, leaf):
+    """The params' tree (embed, final_norm, lm_head unless tied, one stack
+    per pattern slot, the remainder blocks, the encoder), each leaf
+    ``leaf(name, shape, stacked)``, made in a fixed order (the draws of
+    ``init_params`` follow it)."""
+    n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
+
+    def block(kind, stack_n):
+        return {name: leaf(name, ((stack_n,) if stack_n else ()) + shp,
+                           bool(stack_n))
+                for name, shp in _block_param_shapes(cfg, kind).items()}
+
+    params: Dict[str, Any] = {
+        "embed": leaf("embed", (cfg.vocab_size, cfg.d_model), False),
+        "final_norm": leaf("final_norm", (cfg.d_model,), False),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = leaf("lm_head", (cfg.d_model, cfg.vocab_size),
+                                 False)
+    pattern = cfg.layer_pattern
+    params["stack"] = {f"s{i}": block(kind, n_full)
+                       for i, kind in enumerate(pattern)}
+    params["rem"] = [block(pattern[i], 0) for i in range(rem)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "stack": {"s0": block(ENC_ATTN, cfg.encoder_layers)},
+            "final_norm": leaf("final_norm", (cfg.d_model,), False)}
+    return params
+
+
+def _leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    return F32 if _is_norm(name) or name in FP32_LEAVES \
+        else torch_dtype(cfg.dtype)
+
+
+def param_shapes(cfg: ModelConfig):
+    """``init_params``' tree of ``meta`` tensors: its structure, shapes and
+    dtypes, nothing allocated."""
+    check_supported(cfg)
+    return _param_tree(cfg, lambda name, shape, _: torch.empty(
+        shape, dtype=_leaf_dtype(cfg, name), device="meta"))
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random weights with the JAX package's shapes and scales (0.02, and
     0.02/sqrt(2L) for the output projections), zero-init norms and (as
@@ -175,8 +231,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     Draws on ``generator``'s device, then moves to ``device``."""
     check_supported(cfg)
     device = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
-    n_full, rem = divmod(cfg.num_layers, len(cfg.layer_pattern))
     depth_scale = 0.02 / math.sqrt(2.0 * cfg.num_layers)
 
     def uniform(full, lo, hi):
@@ -184,48 +238,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                        device=generator.device)
         return (lo + (hi - lo) * u).to(device)
 
-    def block(kind, stack_n):
-        out = {}
-        for name, shp in _block_param_shapes(cfg, kind).items():
-            full = ((stack_n,) if stack_n else ()) + shp
-            if _is_norm(name) or name in ("dt_bias", "b_a", "b_x",
-                                          "gate_attn", "gate_ffn"):
-                out[name] = torch.zeros(full, dtype=F32, device=device)
-            elif name == "lam":
-                # a in [0.9, 0.999] roughly (the Griffin init):
-                # softplus^-1(-log a) of a = u^(1/c)
-                a = uniform(full, 0.9, 0.999) ** (1.0 / L._LRU_C)
-                out[name] = torch.log(torch.expm1(-torch.log(a)))
-            elif name == "A_log":
-                out[name] = torch.log(uniform(full, 1.0, 16.0))
-            elif name == "Dskip":
-                out[name] = torch.ones(full, dtype=F32, device=device)
-            else:
-                scale = depth_scale if name in ("wo", "x_wo", "w_out",
-                                                "ffn_w_down",
-                                                "ffn_w_out") else 0.02
-                draw = _normal_stacked if stack_n else _normal
-                out[name] = draw(generator, full, scale, dtype, device)
-        return out
+    def leaf(name, full, stacked):
+        if _is_norm(name) or name in ("dt_bias", "b_a", "b_x", "gate_attn",
+                                      "gate_ffn"):
+            return torch.zeros(full, dtype=F32, device=device)
+        if name == "lam":
+            # a in [0.9, 0.999] roughly (the Griffin init):
+            # softplus^-1(-log a) of a = u^(1/c)
+            a = uniform(full, 0.9, 0.999) ** (1.0 / L._LRU_C)
+            return torch.log(torch.expm1(-torch.log(a)))
+        if name == "A_log":
+            return torch.log(uniform(full, 1.0, 16.0))
+        if name == "Dskip":
+            return torch.ones(full, dtype=F32, device=device)
+        scale = depth_scale if name in ("wo", "x_wo", "w_out", "ffn_w_down",
+                                        "ffn_w_out") else 0.02
+        draw = _normal_stacked if stacked else _normal
+        return draw(generator, full, scale, torch_dtype(cfg.dtype), device)
 
-    params: Dict[str, Any] = {
-        "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), 0.02,
-                         dtype, device),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=F32, device=device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
-                                    0.02, dtype, device)
-    pattern = cfg.layer_pattern
-    params["stack"] = {f"s{i}": block(kind, n_full)
-                       for i, kind in enumerate(pattern)}
-    params["rem"] = [block(pattern[i], 0) for i in range(rem)]
-    if cfg.is_encdec:
-        params["encoder"] = {
-            "stack": {"s0": block(ENC_ATTN, cfg.encoder_layers)},
-            "final_norm": torch.zeros((cfg.d_model,), dtype=F32,
-                                      device=device)}
-    return params
+    return _param_tree(cfg, leaf)
 
 
 def _block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -264,6 +295,21 @@ def _block_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device=None):
+    """The zeroed decode state (``pos`` -1).  Under ``use_rules`` its
+    leaves are DTensors laid out by the rules (``layout._state_axes``),
+    each rank allocating only its own block."""
+    if D._current() is None:
+        return plain_decode_state(cfg, batch, cache_len, device)
+    mesh, rules = D._current()
+    return layout.allocate(
+        plain_decode_state(cfg, batch, cache_len, "meta"), mesh, rules,
+        layout._state_axes, resolve_device(device),
+        fill=lambda name: -1 if name == "pos" else 0)
+
+
+def plain_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                       device=None):
+    """``init_decode_state`` of plain tensors, whatever the rules."""
     check_supported(cfg)
     device = resolve_device(device)
     pattern = cfg.layer_pattern
@@ -283,15 +329,141 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 # ---------------------------------------------------------------------------
+# state writes (rank-local under a mesh)
+# ---------------------------------------------------------------------------
+def _scatter_slots(dst, slots, vals, drop: bool = False) -> None:
+    """``dst[b, slots[b, c]] = vals[b, c]`` in place; with ``drop`` a slot
+    of ``dst.shape[1]`` is dropped (``L.scatter_rows_drop``).  On a
+    DTensor ``dst`` rank-locally: each rank writes the entries whose row
+    and slot fall in its own block and drops the others; ``vals`` comes
+    to the rank laid out as ``dst`` but for dim 1 (an activation-sized
+    move), ``slots`` as ``dst``'s rows."""
+    if not D.is_dtensor(dst):
+        if drop:
+            L.scatter_rows_drop(dst, slots, vals)
+        else:
+            rows = torch.arange(dst.shape[0], device=dst.device)[:, None]
+            dst[rows, slots.long()] = vals
+        return
+    local, slot0 = D.local_slots(dst)
+    vals = D.local_like(vals, dst, dims=tuple(
+        d for d in range(dst.dim()) if d != 1))
+    slots = D.local_like(slots, dst, dims=(0,)).long() - slot0
+    n = local.shape[1]
+    slots = torch.where((slots >= 0) & (slots < n), slots,
+                        torch.full_like(slots, n))
+    L.scatter_rows_drop(local, slots, vals)
+
+
+def _copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` in place; a DTensor ``dst`` takes ``src``
+    redistributed to its own layout."""
+    if D.is_dtensor(dst):
+        dst.to_local().copy_(D.local_like(src, dst, dims=range(dst.dim())))
+    else:
+        dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
 # attention sub-blocks
 # ---------------------------------------------------------------------------
+def _split_heads(y, n: int, hd: int, heads: str):
+    """A projection [B, S, n*hd] as heads [B, S, n, hd].  Under a mesh the
+    flat dim is first laid out as the heads will be (split over the mesh
+    axis of ``heads`` if n divides by it, else whole): DTensor cannot
+    split a dim sharded finer than its leading factor."""
+    b, s = y.shape[:2]
+    mesh_ctx = D._current()
+    if mesh_ctx is not None:
+        spec = D.logical_to_spec(mesh_ctx[0], mesh_ctx[1], (b, s, n, hd),
+                                 ("batch", "qkv_seq", heads, "head_dim"))
+        y = D.constrain(y, spec[:3])
+    return y.reshape(b, s, n, hd)
+
+
+def _merge_heads(out):
+    """Attention's [B, S, H, hd] as [B, S, H*hd] for the o projection.
+    Under a mesh the heads are first laid out by the rules (split over
+    the ``heads`` axis if H divides by it, else whole), so the flat dim
+    is a plain split (DTensor turns a strided one into a broadcast
+    batched matmul against the weight)."""
+    b, s = out.shape[:2]
+    if D._current() is None:
+        return out.reshape(b, s, -1)
+    out = D.shard(out, "batch", "qkv_seq", "heads", "head_dim")
+    # then split as the o projection's input dim is stored: an explicit
+    # move, so that the backward brings the grad back to the heads'
+    # layout before the view (a move inside the matmul would not)
+    return D.shard(out.reshape(b, s, -1), "batch", "qkv_seq", "heads_dim")
+
+
+def _heads_split(x) -> int:
+    """Into how many blocks a DTensor's dim 2 (its heads) is split."""
+    from torch.distributed.tensor import Shard
+    n = 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def _mesh_kv_heads(q, k, v):
+    """Under a mesh: when q's heads are split over more blocks than there
+    are kv heads (GQA, e.g. 8 kv heads on a model axis of 16), k and v
+    repeated to q's heads and laid out as q, so the attention stays
+    head-parallel (DTensor cannot split the grouped [Hkv, G] view of a
+    finer-split heads dim).  k and v as they are otherwise."""
+    if not D.is_dtensor(q) or q.shape[2] == k.shape[2]:
+        return k, v
+    n = _heads_split(q)
+    if n == 1 or k.shape[2] % n == 0:
+        return k, v
+    idx = torch.arange(q.shape[2], device=q.device) // (
+        q.shape[2] // k.shape[2])
+    return tuple(D.constrain(t.index_select(2, idx), _spec_of(q))
+                 for t in (k, v))
+
+
+def _attend(q, k, v, qpos, kpos, like_kv: bool = False, **kw):
+    """``L.flash_attention``.  Under a mesh, rank-local: attention over an
+    unsplit key sequence is batch- and head-parallel, so q, k, v and the
+    positions are laid out alike on rows and heads (as q is, or, with
+    ``like_kv``, as a cache or features k is: the small q moves, not the
+    state), each rank attends over its own block and the blocks form
+    the output.  DTensor's own propagation through the grouped einsums
+    is skipped: on a 3-axis mesh it takes minutes per op to plan."""
+    if not D.is_dtensor(q) and not D.is_dtensor(k):
+        return L.flash_attention(q, k, v, qpos, kpos, **kw)
+    src = D.to_dtensor(k if like_kv else q, D._current()[0])
+    spec = _spec_of(src)
+    spec = (spec[0], None, spec[2], None)
+    q = D.constrain(q, spec)
+    if not like_kv:
+        k, v = _mesh_kv_heads(q, k, v)
+    ql, kl, vl = (D.constrain(t, spec).to_local() for t in (q, k, v))
+    pq, pk = (D.constrain(t, spec[:2]).to_local() for t in (qpos, kpos))
+    out = L.flash_attention(ql, kl, vl, pq, pk, **kw)
+    return D.from_local(out, q.device_mesh, q.placements, q.shape)
+
+
+def _spec_of(x):
+    """The spec of a DTensor's placements (one entry per dim)."""
+    from torch.distributed.tensor import Shard
+    names = x.device_mesh.mesh_dim_names
+    out = [[] for _ in range(x.dim())]
+    for name, pl in zip(names, x.placements):
+        if isinstance(pl, Shard):
+            out[pl.dim].append(name)
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                 for e in out)
+
+
 def _qkv_proj(p, x, cfg: ModelConfig):
     """Self-attention's q, k, v (a DEC_XATTN block's unprefixed ones)."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    q = _split_heads(x @ p["wq"], hq, hd, "heads")
+    k = _split_heads(x @ p["wk"], hkv, hd, "kv_heads")
+    v = _split_heads(x @ p["wv"], hkv, hd, "kv_heads")
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -313,9 +485,12 @@ def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
     win = cfg.window
     q = L.rope(q, ctx.qpos, cfg.rope_theta)
     k = L.rope(k, ctx.qpos, cfg.rope_theta)        # keys stored rotated
+    # mesh site: q and k after RoPE (ref model.py:270-271)
+    q = D.shard(q, "batch", "qkv_seq", "heads", "head_dim")
+    k = D.shard(k, "batch", "qkv_seq", "kv_heads", "head_dim")
     b, s = x.shape[:2]
     if ctx.mode == "train":
-        out = L.flash_attention(q, k, v, ctx.qpos, ctx.qpos, causal=causal,
+        out = _attend(q, k, v, ctx.qpos, ctx.qpos, causal=causal,
                                 window=win, softcap=cfg.attn_logit_softcap,
                                 q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
     elif ctx.mode == "prefill":
@@ -324,14 +499,14 @@ def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
         kpos = torch.where(idx < ctx.lengths[:, None], ctx.qpos,
                            torch.full((), -1, dtype=ctx.qpos.dtype,
                                       device=x.device)).to(torch.int32)
-        out = L.flash_attention(q, k, v, ctx.qpos, kpos, causal=True,
+        out = _attend(q, k, v, ctx.qpos, kpos, causal=True,
                                 window=win, softcap=cfg.attn_logit_softcap,
                                 q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
         m = min(s, cache_n)
-        slots = torch.arange(s - m, s, device=x.device) % cache_n
-        st["k"][:, slots] = k[:, s - m:]
-        st["v"][:, slots] = v[:, s - m:]
-        st["pos"][:, slots] = kpos[:, s - m:]
+        slots = (torch.arange(s - m, s, device=x.device) % cache_n)[None]
+        # mesh site: the prefill write, rank-local
+        for name, val in (("k", k), ("v", v), ("pos", kpos)):
+            _scatter_slots(st[name], slots.expand(b, m), val[:, s - m:])
         if s > cache_n:
             # a ring shorter than the padded prompt: the write above keeps
             # the last cache_n positions of the PADDED batch, which drops
@@ -344,20 +519,43 @@ def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
                     & (idx < s - cache_n)).expand(b, s)
             lost = torch.where(keep, idx % cache_n,
                                torch.full_like(idx, cache_n))
-            L.scatter_rows_drop(st["k"], lost, k)
-            L.scatter_rows_drop(st["v"], lost, v)
-            L.scatter_rows_drop(st["pos"], lost, kpos)
+            for name, val in (("k", k), ("v", v), ("pos", kpos)):
+                _scatter_slots(st[name], lost, val, drop=True)
     elif ctx.mode == "decode":
         cache_n = st["k"].shape[1]
         slot = (ctx.lengths % cache_n).long()
-        bidx = torch.arange(b, device=x.device)
-        st["k"][bidx, slot] = k[:, 0]
-        st["v"][bidx, slot] = v[:, 0]
-        st["pos"][bidx, slot] = ctx.lengths.to(torch.int32)
-        out = L.flash_attention(q, st["k"], st["v"], ctx.qpos, st["pos"],
-                                causal=True, window=win,
-                                softcap=cfg.attn_logit_softcap,
-                                kv_chunk=max(cache_n, 1))
+        # mesh site: the decode write, rank-local (ref model.py:326-328)
+        for name, val in (("k", k), ("v", v),
+                          ("pos", ctx.lengths.to(torch.int32)[:, None])):
+            _scatter_slots(st[name], slot[:, None], val)
+        # mesh site: the cache after its write (ref model.py:329-330)
+        kc = D.shard(st["k"], "kv_batch", "cache", "kv_heads", "head_dim")
+        vc = D.shard(st["v"], "kv_batch", "cache", "kv_heads", "head_dim")
+        mesh_ctx = D._current()
+        if mesh_ctx is not None and mesh_ctx[1].get("_explicit_decode_attn"):
+            # the pinned flash-decoding schedule (ref model.py:331-341)
+            from repro_torch.distributed.collectives import \
+                decode_attention_sharded
+            out = decode_attention_sharded(
+                q, kc, vc, st["pos"], ctx.lengths, mesh=mesh_ctx[0],
+                rules=mesh_ctx[1], window=win,
+                softcap=cfg.attn_logit_softcap)
+        elif D.is_dtensor(kc) and _spec_of(kc)[1] is not None:
+            # mesh site: the implicit schedule over a sequence-sharded
+            # cache (fastdecode): DTensor's propagation picks the
+            # collectives around the softmax; q is laid out as the
+            # cache's rows and kv heads (its heads gather, not the cache)
+            kv_spec = _spec_of(kc)
+            q = D.constrain(q, (kv_spec[0], None, kv_spec[2], None))
+            out = L.flash_attention(q, kc, vc, ctx.qpos, st["pos"],
+                                    causal=True, window=win,
+                                    softcap=cfg.attn_logit_softcap,
+                                    kv_chunk=max(cache_n, 1))
+        else:
+            out = _attend(q, kc, vc, ctx.qpos, st["pos"], like_kv=True,
+                          causal=True, window=win,
+                          softcap=cfg.attn_logit_softcap,
+                          kv_chunk=max(cache_n, 1))
     elif ctx.mode == "chunk":
         # old entries at positions the chunk covers (a previous occupant's,
         # or rejected speculative tokens) are masked by pos >= base;
@@ -369,16 +567,15 @@ def _self_attention(p, x, st, ctx: Ctx, *, causal: bool = True):
         kcat = torch.cat([st["k"], k.to(st["k"].dtype)], dim=1)
         vcat = torch.cat([st["v"], v.to(st["v"].dtype)], dim=1)
         pcat = torch.cat([old_pos, kpos_new], dim=1)
-        out = L.flash_attention(q, kcat, vcat, qpos, pcat, causal=True,
-                                window=win, softcap=cfg.attn_logit_softcap,
-                                q_chunk=ctx.q_chunk,
-                                kv_chunk=max(kcat.shape[1], 1))
-        L.scatter_rows_drop(st["k"], slots, k)
-        L.scatter_rows_drop(st["v"], slots, v)
-        L.scatter_rows_drop(st["pos"], slots, qpos.to(torch.int32))
+        out = _attend(q, kcat, vcat, qpos, pcat, causal=True, window=win,
+                      softcap=cfg.attn_logit_softcap, q_chunk=ctx.q_chunk,
+                      kv_chunk=max(kcat.shape[1], 1))
+        for name, val in (("k", k), ("v", v),
+                          ("pos", qpos.to(torch.int32))):
+            _scatter_slots(st[name], slots, val, drop=True)
     else:
         raise ValueError(f"attention mode {ctx.mode!r}")
-    out = out.reshape(b, s, -1) @ p["wo"]
+    out = _merge_heads(out) @ p["wo"]
     return out, st
 
 
@@ -396,21 +593,21 @@ def _cross_attention(p, x, st, ctx: Ctx, prefix: str = ""):
     cfg = ctx.cfg
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b, s, _ = x.shape
-    q = (x @ p[prefix + "wq"]).reshape(b, s, hq, hd)
+    q = _split_heads(x @ p[prefix + "wq"], hq, hd, "heads")
     if ctx.mode == "decode":
         xk, xv = st["xk"], st["xv"]
     else:
         f = ctx.enc_feats.to(x.dtype)
         se = f.shape[1]
-        xk = (f @ p[prefix + "wk"]).reshape(b, se, hkv, hd)
-        xv = (f @ p[prefix + "wv"]).reshape(b, se, hkv, hd)
+        xk = _split_heads(f @ p[prefix + "wk"], hkv, hd, "kv_heads")
+        xv = _split_heads(f @ p[prefix + "wv"], hkv, hd, "kv_heads")
         if st is not None:
-            st["xk"].copy_(xk)
-            st["xv"].copy_(xv)
+            _copy_into(st["xk"], xk)
+            _copy_into(st["xv"], xv)
     kpos = torch.zeros((b, xk.shape[1]), dtype=torch.int32, device=x.device)
-    out = L.flash_attention(q, xk, xv, ctx.qpos, kpos, causal=False,
-                            kv_chunk=ctx.kv_chunk)
-    return out.reshape(b, s, -1) @ p[prefix + "wo"], st
+    out = _attend(q, xk, xv, ctx.qpos, kpos, like_kv=ctx.mode == "decode",
+                  causal=False, kv_chunk=ctx.kv_chunk)
+    return _merge_heads(out) @ p[prefix + "wo"], st
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +619,7 @@ def _write(st, new) -> None:
     if st is None:
         return
     for k, v in new.items():
-        st[k].copy_(v)
+        _copy_into(st[k], v)
 
 
 def _rglru_mixer(p, x, st, ctx: Ctx):
@@ -517,25 +714,47 @@ def _ssd_mixer(p, x, st, ctx: Ctx):
     return y @ p["w_out"], st
 
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, mode: str = ""):
     """(the FFN's output, its aux loss): a MoE's load-balance loss, 0.0
     for the others.  The aux loss is a training term; the serve path
-    drops it."""
+    drops it.  A MoE in train or prefill mode on a mesh with a ``model``
+    axis above 1 that divides the sequence takes the explicit schedule
+    of ``distributed.moe`` (ref model.py:487-498)."""
     fp = {k[4:]: v for k, v in p.items() if k.startswith("ffn_")}
     if cfg.ffn_kind == FFN_MLP:
         return L.mlp(fp, x), 0.0
     if cfg.ffn_kind == FFN_MOE:
+        mesh_ctx = D._current()
+        if mesh_ctx is not None:
+            mp = D.axis_sizes(mesh_ctx[0]).get("model", 1)
+            if mode in ("train", "prefill") and mp > 1 and x.dim() == 3 \
+                    and x.shape[1] % mp == 0:
+                from repro_torch.distributed.moe import moe_ffn_distributed
+                return moe_ffn_distributed(fp, x, cfg=cfg, mesh=mesh_ctx[0],
+                                           rules=mesh_ctx[1])
+            # otherwise (decode: one token a row) the few tokens are
+            # replicated and the dispatch runs on DTensors; the expert
+            # products keep the weights where they are stored
+            x = D.constrain(x, (None,) * x.dim())
         return L.moe_ffn(fp, x, num_experts=cfg.num_experts,
                          top_k=cfg.top_k,
                          capacity_factor=cfg.moe_capacity)
     return L.swiglu(fp, x), 0.0
 
 
+def _gather_seq(hn):
+    """Mesh site (port-side): a sequence-parallel normed residual gathered
+    over the sequence ONCE before the block's projections, as XLA's CSE
+    does, not once per projection (DTensor gathers each matmul's input
+    on its own)."""
+    return D.shard(hn, "batch", "qkv_seq", "embed")
+
+
 def apply_block(kind: str, p, h, st, ctx: Ctx):
     """Returns (h, st, aux): aux is the FFN's aux loss (0.0 but for a
     MoE FFN)."""
     cfg = ctx.cfg
-    hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    hn = _gather_seq(L.rms_norm(h, p["ln1"], cfg.norm_eps))
     if kind == ATTN:
         mix, st = _self_attention(p, hn, st, ctx)
     elif kind == ENC_ATTN:
@@ -554,14 +773,18 @@ def apply_block(kind: str, p, h, st, ctx: Ctx):
         mix, st = _ssd_mixer(p, hn, st, ctx)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    h = h + mix
+    # mesh site: the residual after the mixer (ref model.py:539)
+    h = D.shard(h + mix, "batch", "seq", "embed")
     if kind == SSD or cfg.ffn_kind == FFN_NONE:
         return h, st, 0.0
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    f, aux = _ffn(p, hn, cfg)
+    if cfg.ffn_kind != FFN_MOE:
+        hn = _gather_seq(hn)
+    f, aux = _ffn(p, hn, cfg, ctx.mode)
     if kind == XATTN:
         f = f * torch.tanh(p["gate_ffn"].to(f.dtype))
-    return h + f, st, aux
+    # mesh site: the residual after the FFN (ref model.py:547)
+    return D.shard(h + f, "batch", "seq", "embed"), st, aux
 
 
 def per_layer(tree, cfg: ModelConfig):
@@ -616,6 +839,16 @@ def _run_layers(params, h, state, ctx: Ctx, remat: bool = False):
     return h, state, aux
 
 
+def _entry(fn):
+    """An entry point: under ``use_rules`` it runs in DTensor's implicit
+    replication (see the module docstring)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with D.implicit_replication():
+            return fn(*args, **kwargs)
+    return run
+
+
 def has_xattn(cfg: ModelConfig) -> bool:
     """The arch has cross-attention layers (XATTN or DEC_XATTN)."""
     return XATTN in cfg.layer_pattern or DEC_XATTN in cfg.layer_pattern
@@ -628,7 +861,15 @@ def early_fusion(cfg: ModelConfig) -> bool:
 
 
 def _embed(params, cfg: ModelConfig, tokens, enc_feats=None):
-    h = params["embed"][tokens.long()]
+    if D._current() is not None:
+        # mesh site: the table at its use and h (ref model.py:612-614);
+        # ``F.embedding`` keeps a vocab-sharded table sharded (each rank
+        # looks up its own rows, then one h-sized reduction)
+        tab = D.shard(params["embed"], "vocab", "embed")
+        tokens = D.shard(tokens.long(), "batch", "seq")
+        h = D.shard(F.embedding(tokens, tab), "batch", "seq", "embed")
+    else:
+        h = params["embed"][tokens.long()]
     if enc_feats is not None and early_fusion(cfg):
         # early fusion: patch embeddings occupy the first n positions
         n = enc_feats.shape[1]
@@ -657,10 +898,15 @@ def _encode(params, cfg: ModelConfig, enc_feats):
 
 def _logits(params, cfg: ModelConfig, h):
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    tab = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return (h @ tab).to(F32)
+    # mesh site: the head and the logits (ref model.py:647-652)
+    if cfg.tie_embeddings:
+        tab = D.shard(params["embed"], "vocab", "embed").t()
+    else:
+        tab = D.shard(params["lm_head"], "embed", "vocab")
+    return D.shard((h @ tab).to(F32), "batch", "seq", "vocab")
 
 
+@_entry
 def train_forward(params, cfg: ModelConfig, tokens, enc_feats=None,
                   q_chunk: int = 1024, kv_chunk: int = 1024,
                   remat: bool = False):
@@ -688,6 +934,7 @@ def train_forward(params, cfg: ModelConfig, tokens, enc_feats=None,
     return _logits(params, cfg, h), aux
 
 
+@_entry
 def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
             enc_feats=None, q_chunk: int = 1024, kv_chunk: int = 1024):
     """Process right-padded prompts tokens [B,Sp] with prompt_lens [B].
@@ -705,7 +952,7 @@ def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
                          f"{cfg.encoder_d_model}]")
     state = init_decode_state(cfg, b, cache_len, dev)
     prompt_lens = prompt_lens.to(torch.int32)
-    state["lengths"] = prompt_lens.clone()
+    _copy_into(state["lengths"], prompt_lens)
     enc_out = (_encode(params, cfg, enc_feats) if cfg.is_encdec
                else enc_feats)
     h = _embed(params, cfg, tokens, enc_feats)
@@ -722,6 +969,7 @@ def prefill(params, cfg: ModelConfig, tokens, prompt_lens, cache_len: int,
     return _logits(params, cfg, h_last)[:, 0], state
 
 
+@_entry
 def prefill_chunk(params, cfg: ModelConfig, state, tokens, chunk_pos,
                   kv_chunk: int = 1024):
     """Append a chunk of tokens to an EXISTING decode state, in place (KV
@@ -766,6 +1014,7 @@ def scatter_rows(state, sub, rows, sub_rows):
     return state
 
 
+@_entry
 def decode_step(params, cfg: ModelConfig, state, tokens, kv_chunk=1024):
     """One token per sequence.  tokens [B,1] -> (logits [B,V], state)."""
     h = _embed(params, cfg, tokens)

@@ -44,7 +44,8 @@ def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float,
         dev = leaves(params)[0].device
 
         def z(p):
-            return torch.zeros(p.shape, dtype=F32, device=p.device)
+            # zeros_like: a DTensor param gets moments of its own layout
+            return torch.zeros_like(p, dtype=F32)
         return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                           tree_map(z, params), tree_map(z, params))
 
