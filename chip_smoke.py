@@ -262,6 +262,32 @@ Phases (any failure exits nonzero):
               hetero paged == colocated, graphs == eager bit for bit,
               legacy == fused, paged == dense (whisper bit for bit), 1
               R-worker == colocated; launches exact.
+  fleet_xattn cross-attention rows through a live migration and a
+              snapshot failover at static_vision's and static_whisper's
+              widths, bf16, batch 8, 2 micro-batches, 2 R-workers, paged:
+              an unmoved greedy run of 16 steps, then a run
+              teacher-forced on its tokens that moves to 3 + 1 rows a
+              micro-batch before step 4 (apply_partition) and, before
+              step 8, snapshots (KVSnapshotStore), kills worker 0 and
+              restores its rows onto the survivor (remove_worker(...,
+              lost=)): wire bytes and seconds of each, graphs captured
+              again, kernel 2's launches after each (exact), the logit
+              difference against the unmoved run and whether the greedy
+              tokens are equal (a flip must be a near tie); kernel 2 on
+              the workers' slabs after each (3, 1 and 4 rows) against
+              its plain version.
+  paged_kv_api
+              the single-sequence PagedKV API at Qwen3-8B's heads (Hq 32,
+              Hkv 8, Dh 128), page 16, bf16: the same op sequence on the
+              card and on the CPU (prefill, decode, a release and a
+              regrowth), equal allocator state and pools after every op,
+              no op changing its argument, r_attention_paged within the
+              bf16 tolerance of the CPU; on the rows written from 0, its
+              pool and tables through kernel 1 too.
+  examples    repro_torch.examples' quickstart (its hetero == colocated
+              assertion), serve_continuous (48 requests) and train_small
+              --quick, each with no --device; no kernel counter moves
+              (dense fp storage attends in plain torch).
   train       Qwen3-8B at full width cut to 4 of its 36 layers
               (TRAIN_LAYERS), bf16, seeded weights, trained through
               make_train_step (AdamW, warmup-cosine) on SyntheticLM
@@ -6007,6 +6033,551 @@ def phase_equiv_xattn(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cross-attention rows through a live migration and a snapshot failover
+# ---------------------------------------------------------------------------
+FLEET_XATTN_STEPS = 16
+FLEET_XATTN_MOVE = 4          # apply_partition before this step
+FLEET_XATTN_RESTORE = 8       # snapshot, kill worker 0, restore: before it
+FLEET_XATTN_SPLIT = [(0, 3), (3, 4)]
+
+
+def _fleet_xattn_run(dev, cfg, params, toks, plens, feats, *, forced=None,
+                     cache_len=1024):
+    """One static run of ``cfg`` (batch 8, 2 micro-batches, 2 R-workers,
+    paged_kv, ``cache_len``, FLEET_XATTN_STEPS fused steps).  Greedy
+    when ``forced`` is None (the unmoved run); else teacher-forced on
+    ``forced`` ({row: tokens}, the unmoved run's) with the move to
+    FLEET_XATTN_SPLIT before step FLEET_XATTN_MOVE and, before step
+    FLEET_XATTN_RESTORE, a KVSnapshotStore snapshot, ``kill()`` of worker 0
+    and ``remove_worker(0, lost=payload())``.  Every count is set to 0
+    just before the steps and read just after; kernel 2's count is also
+    read at each event.  Returns (record, {row: tokens}, [step logits on
+    the host], {event: [(rows, xk, xv) of one cross layer per worker]})."""
+    import torch
+    from repro_torch.core import graphs
+    from repro_torch.core.hetero import HeteroPipelineEngine
+    from repro_torch.fleet.recovery import KVSnapshotStore
+    from repro_torch.kernels import decode_attention as DA
+    batch, mb = 8, 4
+    tt = torch.from_numpy(toks).to(dev)
+    pp = torch.from_numpy(plens).to(dev)
+    eng = HeteroPipelineEngine(params, cfg, batch=batch, cache_len=cache_len,
+                               num_r_workers=2, num_microbatches=2,
+                               paged_kv=True, device=dev)
+    events, slabs, pending = {}, {}, []
+
+    def cross_slabs():
+        out = []
+        for w in eng.workers:
+            lk = min(k for k, st in w.state.items() if "xk" in st)
+            out.append((w.hi - w.lo, w.state[lk]["xk"].clone(),
+                        w.state[lk]["xv"].clone()))
+        return out
+
+    def event(name, fn):
+        torch.cuda.synchronize()
+        rc0 = eng.recapture_stats()
+        rec = {"kernel2_before": DA.launches.value,
+               "captures_before": graphs.captures.capture_count}
+        t0 = time.perf_counter()
+        extra = fn()
+        rec.update(seconds=time.perf_counter() - t0, **extra,
+                   migration=dict(eng.last_migration),
+                   slices=[(w.lo, w.hi) for w in eng.workers],
+                   recapture_before=rc0)
+        events[name] = rec
+        slabs[name] = cross_slabs()
+        pending.append(name)
+
+    def move():
+        return {"moved_rows": eng.apply_partition(FLEET_XATTN_SPLIT)}
+
+    def restore():
+        t0 = time.perf_counter()
+        store = KVSnapshotStore()
+        store.snapshot(eng, FLEET_XATTN_RESTORE)
+        snap_s = time.perf_counter() - t0
+        dead = eng.workers[0]
+        dead.kill()
+        dead.join(timeout=30)
+        t1 = time.perf_counter()
+        eng.remove_worker(0, lost=store.payload())
+        return {"snapshot_s": snap_s, "snapshot_bytes": store.nbytes(),
+                "remove_worker_s": time.perf_counter() - t1}
+
+    try:
+        for m in range(2):
+            eng.load_prefill(m, tt[m * mb:(m + 1) * mb],
+                             pp[m * mb:(m + 1) * mb],
+                             enc_feats=feats[m * mb:(m + 1) * mb])
+        torch.cuda.synchronize()
+        tok = tt[torch.arange(batch, device=dev), pp.long() - 1][:, None]
+        counters = _counters()
+        _reset_counters()
+        graphs.captures.reset()
+        tokens = {r: [] for r in range(batch)}
+        logits_host, step_s = [], []
+        for i in range(FLEET_XATTN_STEPS):
+            if forced is not None and i == FLEET_XATTN_MOVE:
+                event("move", move)
+            if forced is not None and i == FLEET_XATTN_RESTORE:
+                event("restore", restore)
+            t0 = time.perf_counter()
+            logits = torch.cat(eng.decode_step([tok[:mb], tok[mb:]]))
+            nxt = logits.argmax(-1)[:, None].to(torch.int32)
+            host = nxt[:, 0].cpu().tolist()
+            step_s.append(time.perf_counter() - t0)
+            logits_host.append(logits.float().cpu())
+            for r in range(batch):
+                tokens[r].append(host[r])
+            if forced is None:
+                tok = nxt
+            else:
+                tok = torch.tensor([[forced[r][i]] for r in range(batch)],
+                                   dtype=torch.int32, device=dev)
+            if pending:             # the first step after an event
+                ev, rc = events[pending.pop()], eng.recapture_stats()
+                ev["after_step"] = {
+                    "captures": graphs.captures.capture_count
+                    - ev.pop("captures_before"),
+                    "recapture_count": rc["recapture_count"]
+                    - ev["recapture_before"]["recapture_count"],
+                    "recapture_s": rc["recapture_s"]
+                    - ev.pop("recapture_before")["recapture_s"],
+                    "step_s": step_s[-1]}
+        torch.cuda.synchronize()
+        launches = {n: c[0].value for n, c in counters.items()}
+        plain = {n: c[1].value for n, c in counters.items()}
+        for ev in events.values():
+            ev["kernel2_after"] = launches["decode_attention"] \
+                - ev.pop("kernel2_before")
+        rec = {"launches": launches, "plain_calls": plain,
+               "step_s": step_s, "step_s_p50": float(np.median(step_s)),
+               "events": events,
+               "workers_at_end": [(w.lo, w.hi) for w in eng.workers],
+               "capture_count": graphs.captures.capture_count}
+    finally:
+        eng.close()
+    if any(plain.values()):
+        raise AssertionError(f"fleet_xattn: plain calls on the card {plain}")
+    return rec, tokens, logits_host, slabs
+
+
+def _fleet_xattn_expect(cfg, forced: bool) -> dict:
+    """Kernel launches of a fleet_xattn run: every cross-attention R-Part
+    through kernel 2 and every paged ATTN layer through kernel 1, per
+    micro-batch and per worker holding rows (2, then 1 after the
+    restore)."""
+    n_cross = sum(k in ("xattn", "dec_xattn") for k in cfg.pattern)
+    n_attn = cfg.pattern.count("attn")
+    workers = [2 if not forced or i < FLEET_XATTN_RESTORE else 1
+               for i in range(FLEET_XATTN_STEPS)]
+    calls = 2 * sum(workers)
+    out = {"decode_attention": n_cross * calls}
+    if n_attn:
+        out["paged_decode_attention"] = n_attn * calls
+    after_move = 2 * sum(workers[FLEET_XATTN_MOVE:])
+    after_restore = 2 * sum(workers[FLEET_XATTN_RESTORE:])
+    return {"launches": out, "kernel2_after": {
+        "move": n_cross * after_move, "restore": n_cross * after_restore}}
+
+
+def _fleet_xattn_compare(got_logits, want_logits, want_tokens, lo, hi):
+    """Teacher-forced logits of steps [lo, hi) against the unmoved run's:
+    the max difference, and each (row, step) whose argmax differs from the
+    unmoved token with its logit difference and the unmoved row's top-2
+    margin (a near-tie flip by the ROADMAP §3 rule when the difference is
+    within the largest one on agreeing rows)."""
+    diff, flips, agree = 0.0, [], 0.0
+    for i in range(lo, hi):
+        d = (got_logits[i] - want_logits[i]).abs().amax(-1)
+        diff = max(diff, float(d.max()))
+        arg = got_logits[i].argmax(-1)
+        for r in range(d.shape[0]):
+            if int(arg[r]) != want_tokens[r][i]:
+                top = want_logits[i][r].topk(2).values
+                flips.append({"row": r, "step": i,
+                              "logit_diff": float(d[r]),
+                              "top2_margin": float(top[0] - top[1])})
+            else:
+                agree = max(agree, float(d[r]))
+    for f in flips:
+        f["near_tie"] = f["logit_diff"] <= agree
+    return {"steps": [lo, hi], "max_logit_diff": diff,
+            "tokens_equal": not flips, "flips": flips,
+            "max_logit_diff_on_agreeing": agree}
+
+
+def _fleet_xattn_kernel_checks(dev, cfg, slabs) -> list:
+    """Kernel 2 on each worker's cross K/V slab after each event (3 and 1
+    rows after the move, 4 after the restore): the wrapper against its
+    plain version on a seeded bf16 query, repeated bitwise, with its
+    split plan."""
+    import torch
+    from repro_torch.core import decompose as D
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = []
+    for name, per_worker in slabs.items():
+        for wi, (rows, k, v) in enumerate(per_worker):
+            s = k.shape[1]
+            q = torch.randn((rows, cfg.num_heads, cfg.head_dim),
+                            generator=gen, device=dev).to(k.dtype)
+            pos = D.cross_pos(rows, s, dev)
+            lens = torch.full((rows,), 600, dtype=torch.int32, device=dev)
+            got = DA.decode_attention(q, k, v, pos, lens)
+            rec = _check_case(
+                "decode_attention", f"{cfg.name}-{name}-w{wi}-B{rows}",
+                "bfloat16", got, ref.decode_attention_ref(q, k, v, pos, lens),
+                empty_row=[], again=DA.decode_attention(q, k, v, pos, lens),
+                plan=DA.kernel_plan(q, k))
+            rec.update(event=name, worker=wi, B=rows, S=s)
+            out.append(rec)
+    return out
+
+
+def _fleet_xattn_case(dev, arch, cfg, params, toks, plens, feats,
+                      cache_len=1024):
+    """fleet_xattn's two runs of one model and their checks: launches
+    exact in both (kernel 2 also after each event), the survivor holding
+    every row, graphs captured again after each event, and every greedy
+    flip against the unmoved run a near tie.  Returns (unmoved record,
+    moved record, comparisons, the workers' cross slabs at each event)."""
+    base, base_tokens, base_logits, _ = _fleet_xattn_run(
+        dev, cfg, params, toks, plens, feats, cache_len=cache_len)
+    moved, moved_tokens, moved_logits, slabs = _fleet_xattn_run(
+        dev, cfg, params, toks, plens, feats, forced=base_tokens,
+        cache_len=cache_len)
+    for name, r, forced in (("unmoved", base, False),
+                            ("moved", moved, True)):
+        want = _fleet_xattn_expect(cfg, forced)
+        got = {n: v for n, v in r["launches"].items() if v}
+        if got != want["launches"]:
+            raise AssertionError(f"fleet_xattn {arch} {name}: launches "
+                                 f"{got}, expected {want['launches']}")
+    want = _fleet_xattn_expect(cfg, True)["kernel2_after"]
+    got = {n: e["kernel2_after"] for n, e in moved["events"].items()}
+    if got != want:
+        raise AssertionError(f"fleet_xattn {arch}: kernel 2 launches "
+                             f"after the events {got}, expected {want}")
+    if moved["workers_at_end"] != [(0, 4)]:
+        raise AssertionError(f"fleet_xattn {arch}: survivor holds "
+                             f"{moved['workers_at_end']}")
+    for name, e in moved["events"].items():
+        if e["after_step"]["recapture_count"] <= 0:
+            raise AssertionError(f"fleet_xattn {arch}: no graph captured "
+                                 f"again after the {name}: {e}")
+    cmp = {"before": _fleet_xattn_compare(
+               moved_logits, base_logits, base_tokens, 0,
+               FLEET_XATTN_MOVE),
+           "moved": _fleet_xattn_compare(
+               moved_logits, base_logits, base_tokens, FLEET_XATTN_MOVE,
+               FLEET_XATTN_RESTORE),
+           "restored": _fleet_xattn_compare(
+               moved_logits, base_logits, base_tokens,
+               FLEET_XATTN_RESTORE, FLEET_XATTN_STEPS)}
+    bad = [f for c in cmp.values() for f in c["flips"]
+           if not f["near_tie"]]
+    if bad:
+        raise AssertionError(f"fleet_xattn {arch}: greedy tokens part "
+                             f"beyond a near-tie flip: {bad}")
+    return base, moved, cmp, slabs
+
+
+def phase_fleet_xattn(dev) -> dict:
+    """Cross-attention rows through a live migration and a snapshot
+    failover at the widths of static_vision (llama-3.2-vision-90b, 10 of
+    100 layers) and static_whisper (whisper-medium, full), bf16, with
+    their prompts and features: an unmoved greedy run of
+    FLEET_XATTN_STEPS, then a run teacher-forced on its tokens that moves
+    to FLEET_XATTN_SPLIT (3 + 1 rows per micro-batch) before step
+    FLEET_XATTN_MOVE and, before FLEET_XATTN_RESTORE, snapshots, kills
+    worker 0 and restores its rows onto the survivor (4 rows).  Per
+    event: wire bytes and seconds, snapshot bytes and seconds, graphs
+    captured again in the step after, kernel 2's launches after it; the
+    moved and restored steps' logit difference against the unmoved run
+    and whether the greedy tokens are equal (a flip must be a near tie);
+    every launch exact; kernel 2 on the workers' slabs after each event
+    against its plain version.  Then the same two runs in fp32 (TF32 off,
+    seeded non-zero gates) at equiv_xattn's cut (vision 5 layers, whisper
+    2 + 2), cache_len 256, prompts of 17-200 tokens: the difference there.
+    Each model is freed after."""
+    t_phase = time.perf_counter()
+    cases = {}
+    for arch, layers, p_len, seed, cut in (
+            ("llama-3.2-vision-90b", VISION_LAYERS, 600, 13,
+             dict(num_layers=5)),
+            ("whisper-medium", None, WHISPER_PROMPT, 15,
+             dict(num_layers=2, encoder_layers=2))):
+        t0 = time.perf_counter()
+        model = eval_model(dev, arch, layers=layers)
+        cfg, params = model["cfg"], model["params"]
+        full_layers = model["full_layers"]
+        toks, plens = _static_prompts(cfg, 8, p_len, seed, ragged=True)
+        feats = _features(dev, cfg, 8, seed + 1)
+        base, moved, cmp, slabs = _fleet_xattn_case(
+            dev, arch, cfg, params, toks, plens, feats)
+        checks = _fleet_xattn_kernel_checks(dev, cfg, slabs)
+        del model, params, feats, slabs
+        _free_device()
+        # the same moves in fp32 (TF32 off) at equiv_xattn's cut: what the
+        # bf16 difference is made of (the split plans change with the rows
+        # a worker holds, and so does the order of each row's fp32 sums)
+        cfg32, params32 = _xattn_equiv_model(dev, arch, **cut)
+        toks32, plens32 = _static_prompts(cfg32, 8, 200, 17, ragged=True)
+        feats32 = _features(dev, cfg32, 8, 18)
+        _, _, cmp32, _ = _fleet_xattn_case(
+            dev, arch, cfg32, params32, toks32, plens32, feats32,
+            cache_len=256)
+        del params32, feats32
+        _free_device()
+        fp32 = {"layers": cfg32.num_layers,
+                "encoder_layers": cfg32.encoder_layers, "cache_len": 256,
+                "prompt_tokens": plens32.tolist(), "vs_unmoved": cmp32,
+                "max_logit_diff": max(c["max_logit_diff"]
+                                      for c in cmp32.values()),
+                "tokens_equal": all(c["tokens_equal"]
+                                    for c in cmp32.values())}
+        cases[arch] = {
+            "layers": cfg.num_layers, "full_layers": full_layers,
+            "pattern": list(cfg.pattern), "dtype": cfg.dtype,
+            "encoder_seq": cfg.encoder_seq,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "prompt_tokens": plens.tolist(), "unmoved": base,
+            "moved": moved, "vs_unmoved": cmp,
+            "kernel2_checks": checks, "fp32": fp32,
+            "seconds": time.perf_counter() - t0}
+        print(f"fleet_xattn {arch}: moved max logit diff "
+              f"{cmp['moved']['max_logit_diff']:.4g} (tokens equal "
+              f"{cmp['moved']['tokens_equal']}), restored "
+              f"{cmp['restored']['max_logit_diff']:.4g} (tokens equal "
+              f"{cmp['restored']['tokens_equal']}); move "
+              f"{moved['events']['move']['migration']['wire_bytes']} B in "
+              f"{moved['events']['move']['seconds']:.3f} s, restore "
+              f"{moved['events']['restore']['migration']['wire_bytes']} B "
+              f"in {moved['events']['restore']['seconds']:.3f} s; fp32 max "
+              f"logit diff {fp32['max_logit_diff']:.3g} (tokens equal "
+              f"{fp32['tokens_equal']})", flush=True)
+    return {"phase": "fleet_xattn", "ok": True, "batch": 8,
+            "micro_batches": 2, "r_workers": 2, "paged_kv": True,
+            "cache_len": 1024, "steps": FLEET_XATTN_STEPS,
+            "move_before_step": FLEET_XATTN_MOVE,
+            "restore_before_step": FLEET_XATTN_RESTORE,
+            "split": FLEET_XATTN_SPLIT, "cases": cases,
+            "kernel_launches": {a: c["moved"]["launches"]
+                                for a, c in cases.items()},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# the single-sequence PagedKV API (serving/paged_cache.py's first layer)
+# ---------------------------------------------------------------------------
+PKV_HEADS = dict(hq=32, hkv=8, dh=128)     # Qwen3-8B's
+PKV_PAGE, PKV_PAGES, PKV_MAX_PAGES = 16, 256, 64
+PKV_PROMPTS = [517, 33, 900, 16]
+PKV_STEPS = 6
+
+
+def phase_paged_kv_api(dev) -> dict:
+    """The single-sequence ``PagedKV`` API at Qwen3-8B's heads (Hq 32, Hkv
+    8, Dh 128), page 16, bf16, 4 rows: the same op sequence on the card
+    and on the CPU (init_paged, ensure_capacity, write_prefill per row,
+    PKV_STEPS r_attention_paged steps, then release_row of row 1, a
+    longer prompt on its reused pages, PKV_STEPS more): after every op
+    the tables, free list, lengths and page_pos equal the CPU run's, the
+    pools bit for bit, the op left its argument's tensors unchanged, and
+    r_attention_paged (plain torch, as the reference attends) is within
+    the bf16 tolerance of the CPU.  On the rows written contiguously from
+    0 (before the release), the pool and tables also go through kernel 1
+    (``ops.paged_decode_attention``, positions derived from the slot
+    index), which must agree with the stored-position attention; both
+    timed with CUDA events."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import paged_cache as PC
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    hq, hkv, dh = PKV_HEADS["hq"], PKV_HEADS["hkv"], PKV_HEADS["dh"]
+    b = len(PKV_PROMPTS)
+    bf = torch.bfloat16
+
+    def data(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(bf)
+
+    kv = {d: PC.init_paged(b, PKV_PAGES, PKV_PAGE, hkv, dh, PKV_MAX_PAGES,
+                           dtype=bf, device=d) for d in (dev, "cpu")}
+    ops_run, attn = [], []
+
+    def check(name):
+        g, c = kv[dev], kv["cpu"]
+        if g.free != c.free:
+            raise AssertionError(f"paged_kv_api {name}: free lists differ")
+        for f in ("tables", "lengths", "page_pos", "pages_k", "pages_v"):
+            if not torch.equal(getattr(g, f).cpu(), getattr(c, f)):
+                raise AssertionError(f"paged_kv_api {name}: {f} differs")
+
+    def op(name, *args):
+        for d in (dev, "cpu"):
+            old = kv[d]
+            before = {k: v.clone() for k, v in vars(old).items()
+                      if torch.is_tensor(v)}
+            args_d = [a.to(d) if torch.is_tensor(a) else a for a in args]
+            kv[d] = getattr(PC, name)(old, *args_d)
+            if any(not torch.equal(getattr(old, k), v)
+                   for k, v in before.items()):
+                raise AssertionError(f"paged_kv_api {name}: changed its "
+                                     f"argument in place on {d}")
+        check(name)
+        ops_run.append(name)
+
+    def step(tag):
+        lengths = kv["cpu"].lengths.clone()
+        for row in range(b):
+            op("ensure_capacity", row, int(lengths[row]) + 1)
+        r_in = {"q": data(b, 1, hq, dh), "k": data(b, 1, hkv, dh),
+                "v": data(b, 1, hkv, dh), "lengths": lengths}
+        outs = {}
+        for d in (dev, "cpu"):
+            outs[d], kv[d] = PC.r_attention_paged(
+                {k: v.to(d) for k, v in r_in.items()}, kv[d])
+        check("r_attention_paged")
+        err, ok = tol_check(outs[dev]["o"].cpu(), outs["cpu"]["o"],
+                            "bfloat16")
+        if not ok:
+            raise AssertionError(f"paged_kv_api {tag}: r_attention_paged on "
+                                 f"the card parts from the CPU by {err}")
+        attn.append({"tag": tag, "max_abs_err_vs_cpu": err})
+        return r_in, outs[dev]["o"]
+
+    for row, n in enumerate(PKV_PROMPTS):
+        op("ensure_capacity", row, n)
+        op("write_prefill", row, data(n, hkv, dh), data(n, hkv, dh))
+    for _ in range(PKV_STEPS):
+        r_in, o = step("contiguous")
+    # kernel 1 over the same pool and tables: on rows written from 0 the
+    # slot index gives the stored positions
+    g = kv[dev]
+    q = r_in["q"][:, 0].to(dev)
+    qlen = r_in["lengths"].to(dev)
+    _reset_counters()
+    from repro_torch.kernels import paged_attention as PA
+    k1 = ops.paged_decode_attention(q, g.pages_k, g.pages_v, g.tables, qlen)
+    k1_launches = PA.launches.value
+    err_k1, ok = tol_check(k1, o[:, 0], "bfloat16")
+    if not ok or k1_launches != 1:
+        raise AssertionError(f"paged_kv_api: kernel 1 on the API's pool "
+                             f"parts from r_attention_paged by {err_k1} "
+                             f"(launches {k1_launches})")
+    r_dev = {k: v.to(dev) for k, v in r_in.items()}
+    ms_api = cuda_time_ms(lambda i: PC.r_attention_paged(r_dev, g), 10)
+    ms_k1 = cuda_time_ms(lambda i: ops.paged_decode_attention(
+        q, g.pages_k, g.pages_v, g.tables, qlen), 50)
+    # the stored positions of these rows are the slot index's
+    _, _, stored = PC.gather_views(kv["cpu"])
+    slot = torch.arange(stored.shape[1], dtype=torch.int32)[None, :]
+    derived = torch.where(slot < kv["cpu"].lengths[:, None], slot, -1)
+    if not torch.equal(stored, derived):
+        raise AssertionError("paged_kv_api: rows written from 0 store other "
+                             "positions than their slot index")
+    # release and regrow: row 1's new pages come back from the free list's
+    # end, its stored positions no longer follow the table's page order
+    op("release_row", 1)
+    op("ensure_capacity", 1, 300)
+    op("write_prefill", 1, data(300, hkv, dh), data(300, hkv, dh))
+    for _ in range(PKV_STEPS):
+        step("after_release")
+    util = {d: PC.pool_utilization(kv[d]) for d in (dev, "cpu")}
+    if util[dev] != util["cpu"]:
+        raise AssertionError(f"paged_kv_api: pool utilization {util}")
+    return {"phase": "paged_kv_api", "ok": True, **PKV_HEADS,
+            "page": PKV_PAGE, "num_pages": PKV_PAGES,
+            "max_pages_per_seq": PKV_MAX_PAGES, "dtype": "bfloat16",
+            "prompts": PKV_PROMPTS, "steps": 2 * PKV_STEPS,
+            "ops": len(ops_run), "attention": attn,
+            "max_abs_err_vs_cpu": max(a["max_abs_err_vs_cpu"] for a in attn),
+            "contiguous_rows_positions_derived": True,
+            "kernel1_vs_api": {"max_abs_err": err_k1,
+                               "launches": k1_launches,
+                               "api_ms": ms_api, "kernel1_ms": ms_k1},
+            "pool_utilization": util[dev],
+            "free_pages": len(kv[dev].free),
+            "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# the examples (repro_torch.examples), as a user runs them
+# ---------------------------------------------------------------------------
+def phase_examples(dev) -> dict:
+    """``repro_torch.examples``' three modules on the card, each through
+    its ``main`` with no --device (the card is the default):
+    ``quickstart`` (its own hetero == colocated assertion), then
+    ``serve_continuous`` (48 requests of 24 new tokens, loadctl, prefill
+    chunks of 8) and ``train_small --quick`` (60 steps).  Every count is
+    set to 0 just before each and read just after, and stays 0: the
+    examples keep the reference's dense fp storage, whose R-Part attends
+    in plain torch (``repro``'s in jnp), and the train path runs no
+    kernel."""
+    import io
+    import torch
+    from repro_torch.examples import quickstart, serve_continuous, train_small
+    t_phase = time.perf_counter()
+    recs = {}
+    for name, fn in (("quickstart", lambda: quickstart.main([])),
+                     ("serve_continuous", lambda: serve_continuous.main([])),
+                     ("train_small", lambda: train_small.main(["--quick"]))):
+        counters = _counters()
+        _reset_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: c[0].value for n, c in counters.items()}
+        plain = {n: c[1].value for n, c in counters.items()}
+        printed = buf.getvalue().splitlines()
+        if any(plain.values()):
+            raise AssertionError(f"examples {name}: plain calls {plain}")
+        rec = {"seconds": seconds, "launches": launches,
+               "printed_tail": printed[-8:]}
+        if any(launches.values()):
+            raise AssertionError(f"examples {name}: a kernel counter moved "
+                                 f"on dense fp storage: {rec}")
+        if name == "quickstart":
+            if not printed[-1].startswith("OK"):
+                raise AssertionError(f"examples quickstart: {rec}")
+            rec["tokens"] = out["fastdecode"].tolist()
+            rec["hetero_equals_colocated"] = True
+        elif name == "serve_continuous":
+            done, records = out
+            n_tok = sum(len(r.generated) for r in done)
+            if len(done) != 48 or n_tok != 48 * 24:
+                raise AssertionError(f"examples serve_continuous: {len(done)}"
+                                     f" requests, {n_tok} tokens, {rec}")
+            rec.update(requests=len(done), tokens=n_tok,
+                       steps=len(records),
+                       tokens_per_s_host=n_tok / seconds,
+                       resident_len_max=max(r.resident_len for r in records))
+        else:
+            losses = out["losses"]
+            if len(losses) != 60 or not all(np.isfinite(losses)):
+                raise AssertionError(f"examples train_small: {rec}, "
+                                     f"losses {losses}")
+            rec.update(argv=out["argv"], first_loss=losses[0],
+                       last_loss=losses[-1])
+        print(f"examples {name}: {seconds:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        recs[name] = rec
+        del out
+        _free_device()
+    return {"phase": "examples", "ok": True, "runs": recs,
+            "kernel_launches": {n: r["launches"] for n, r in recs.items()},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
 # training: train_forward with autograd's backward, AdamW, remat
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4        # Qwen3-8B's depth in the train phase (of 36)
@@ -6174,6 +6745,10 @@ def phase_train(dev) -> dict:
     from repro_torch.core.config import get_arch
     from repro_torch.training.data import DataConfig, SyntheticLM
     t_phase = time.perf_counter()
+    # what earlier phases still hold stays out of this phase's peaks
+    _free_device()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
     full = get_arch("qwen3-8b")
     cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
@@ -6190,6 +6765,9 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"train: a kernel counter moved: {counts}")
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     summary = [_train_summary(r, flops) for r in runs]
+    for s_ in summary:
+        s_["max_memory_allocated_over_start"] = (
+            s_["max_memory_allocated"] - allocated_at_start)
     plain, remat = summary
     for s in summary:
         if not all(np.isfinite(s["losses"] + s["grad_norms"])):
@@ -6210,7 +6788,9 @@ def phase_train(dev) -> dict:
               f"{s['opt_p50_ms']:.1f} ms), "
               f"{s['tokens_per_s_after_first']:,.0f} tokens/s, model-flops "
               f"share {s['model_flops_share']:.3f}, peak "
-              f"{s['max_memory_allocated'] / 2**30:.1f} GiB", flush=True)
+              f"{s['max_memory_allocated'] / 2**30:.1f} GiB ("
+              f"{allocated_at_start / 2**30:.2f} GiB held at the phase's "
+              f"start)", flush=True)
     return {"phase": "train", "ok": True, "arch": full.name,
             "layers": TRAIN_LAYERS, "full_layers": full.num_layers,
             "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -6220,6 +6800,7 @@ def phase_train(dev) -> dict:
             "kernel_launches": {k: v[0] for k, v in counts.items()},
             "plain_calls": {k: v[1] for k, v in counts.items()},
             "launcher": launcher, "card": gpu_name_and_limit(),
+            "allocated_at_start": allocated_at_start,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -6691,7 +7272,8 @@ PHASES = ("kernel", "serve", "serve_int8", "serve_spec", "serve_chunked",
           "equiv_plan", "equiv_fleet", "serve_eval", "static_eval",
           "equiv_eval", "serve_moe", "equiv_moe", "serve_rglru",
           "serve_ssd", "equiv_recurrent", "static_vision", "static_whisper",
-          "equiv_xattn", "train", "equiv_train", "dist")
+          "equiv_xattn", "fleet_xattn", "paged_kv_api", "examples", "train",
+          "equiv_train", "dist")
 
 
 def kernels_line(results) -> list:
@@ -6707,6 +7289,11 @@ def kernels_line(results) -> list:
     ``train_launches`` is its count in the train phase: 0, the train path
     reaches no kernel (null where the phase did not run); ``dist_launches``
     its count in the dist phase: 0, the mesh paths attend in plain torch
+    (null where the phase did not run).  Kernel 2's ``launches`` also
+    sums fleet_xattn's runs (the cross-attention R-Part before and after
+    a move and a restore; ``fleet_xattn_launches`` gives them apart);
+    ``examples_launches`` is each entry's count in the examples' runs: 0,
+    their dense fp R-Parts attend in plain torch, as ``repro``'s in jnp
     (null where the phase did not run)."""
     k = results.get("kernel")
     serve, serve8 = results.get("serve"), results.get("serve_int8")
@@ -6717,8 +7304,12 @@ def kernels_line(results) -> list:
     runs = ([serve] if serve else []) + (serve8["runs"] if serve8 else []) \
         + ([spec] if spec else []) + (spec8["runs"] if spec8 else []) \
         + (chunked["runs"] if chunked else [])
+    fx, ex = results.get("fleet_xattn"), results.get("examples")
     xruns = [{"launches": r["kernel_launches"]} for ph in (sv, sw) if ph
              for r in ph["runs"].values()]
+    # fleet_xattn's unmoved and moved runs
+    xruns += [{"launches": r} for c in (fx["cases"].values() if fx else ())
+              for r in (c["unmoved"]["launches"], c["moved"]["launches"])]
     launches = {
         "paged_decode_attention": serve["kernel_launches"] if serve else None,
         "decode_attention": sum(r["launches"]["decode_attention"]
@@ -6776,6 +7367,19 @@ def kernels_line(results) -> list:
         line[1][f"{name}_launches"] = (
             {n: r["kernel_launches"]["decode_attention"]
              for n, r in ph["runs"].items()} if ph else None)
+    # cross-attention rows through the move and the restore: kernel 2 in
+    # each fleet_xattn run, and in the moved run after each event; kernel
+    # 1 on the vision model's paged ATTN layers there
+    line[1]["fleet_xattn_launches"] = (
+        {a: {"unmoved": c["unmoved"]["launches"]["decode_attention"],
+             "moved": c["moved"]["launches"]["decode_attention"],
+             "after": {n: e["kernel2_after"]
+                       for n, e in c["moved"]["events"].items()}}
+         for a, c in fx["cases"].items()} if fx else None)
+    line[0]["fleet_xattn_launches"] = (
+        {a: {n: c[n]["launches"]["paged_decode_attention"]
+             for n in ("unmoved", "moved")}
+         for a, c in fx["cases"].items()} if fx else None)
     line[0]["static_vision_launches"] = (
         sv["runs"]["fused"]["kernel_launches"]["paged_decode_attention"]
         if sv else None)
@@ -6804,6 +7408,10 @@ def kernels_line(results) -> list:
         # the distributed slice attends in plain torch too
         entry["dist_launches"] = (di["kernel_launches"][counter] if di
                                   else None)
+        # the examples: the entry's count in each module's run
+        entry["examples_launches"] = (
+            {n: r[counter] for n, r in ex["kernel_launches"].items()}
+            if ex else None)
     if k:
         for i, name in ((0, "paged_decode_attention"),
                         (3, "paged_verify_attention")):
@@ -6979,6 +7587,15 @@ def main(argv=None) -> int:
     if "equiv_xattn" in phases:
         results["equiv_xattn"] = phase_equiv_xattn(dev)
         log(results["equiv_xattn"])
+    if "fleet_xattn" in phases:
+        results["fleet_xattn"] = phase_fleet_xattn(dev)
+        log(results["fleet_xattn"])
+    if "paged_kv_api" in phases:
+        results["paged_kv_api"] = phase_paged_kv_api(dev)
+        log(results["paged_kv_api"])
+    if "examples" in phases:
+        results["examples"] = phase_examples(dev)
+        log(results["examples"])
     if "train" in phases:
         results["train"] = phase_train(dev)
         log(results["train"])

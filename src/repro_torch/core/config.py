@@ -103,6 +103,9 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    def kv_bytes_per_token_per_layer(self, bytes_per_el: int = 2) -> int:
+        return 2 * self.num_kv_heads * self.head_dim * bytes_per_el
+
     def param_count(self) -> int:
         """Approximate parameter count (for roofline MODEL_FLOPS=6ND)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size

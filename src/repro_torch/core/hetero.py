@@ -1102,6 +1102,9 @@ class HeteroPipelineEngine:
         # workers removed from the fleet whose threads may still run (a
         # hung one wakes later): their graphs are freed once they exit
         self._retired: List[RWorker] = []
+        # re-captures of removed workers whose graphs were freed: kept
+        # after they leave ``_retired`` so the totals never go back
+        self._reaped_recaptures = [0, 0.0]
         self._worker_kwargs = dict(
             kv_chunk=kv_chunk, quantized=quantized_kv, paged=paged_kv,
             page_size=page_size, num_pages=pages_per_worker,
@@ -2302,15 +2305,19 @@ class HeteroPipelineEngine:
             return
         for w in [w for w in self._retired if not w.is_alive()]:
             w.release_graphs()
+            self._reaped_recaptures[0] += w.recapture_count
+            self._reaped_recaptures[1] += w.recapture_s
             self._retired.remove(w)
 
     def recapture_stats(self) -> Dict[str, float]:
         """Graphs re-captured after topology changes, and their seconds
         (warm-up and capture), over live and removed workers."""
         ws = list(self.workers) + list(self._retired)
-        return {"recapture_count": float(sum(w.recapture_count
-                                             for w in ws)),
-                "recapture_s": float(sum(w.recapture_s for w in ws))}
+        count, secs = self._reaped_recaptures
+        return {"recapture_count": float(count + sum(w.recapture_count
+                                                     for w in ws)),
+                "recapture_s": float(secs + sum(w.recapture_s
+                                                for w in ws))}
 
     def close(self) -> None:
         """Stop every worker, join those that are not hung, and free the

@@ -49,6 +49,7 @@ def _full(x):
 
 
 def main(argv=None):
+    """Returns (the final TrainState, every step's loss)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -111,6 +112,7 @@ def _train(args, device):
 
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed)).batches()
+    losses = []
     t0 = time.time()
     for i in range(args.steps):
         batch = {k: torch.from_numpy(v).to(device)
@@ -125,6 +127,7 @@ def _train(args, device):
             mesh, rules, v.shape, axes[k])) for k, v in batch.items()}
         with use_rules(mesh, rules):
             state, metrics = train_step(state, batch)
+        losses.append(metrics["loss"].detach().clone())
         if i % args.log_every == 0 or i == args.steps - 1:
             m = {k: float(_full(v)) for k, v in metrics.items()}
             tok_s = args.batch * args.seq * (i + 1) / (time.time() - t0)
@@ -135,7 +138,7 @@ def _train(args, device):
         if rank == 0:
             CK.save(args.save, full)
         say("saved", args.save)
-    return state
+    return state, [float(_full(x)) for x in losses]
 
 
 if __name__ == "__main__":

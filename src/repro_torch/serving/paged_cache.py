@@ -1,5 +1,18 @@
-"""Paged KV storage for the port's R-workers (counterpart of
-repro.serving.paged_cache's engine-integrated path).
+"""Paged KV storage (counterpart of repro.serving.paged_cache).
+
+Two layers of API live here, as in the JAX package:
+
+1. The self-contained ``PagedKV`` dataclass (single-sequence ops over
+   explicit STORED positions, ``page_pos``): ``init_paged``,
+   ``ensure_capacity``, ``release_row``, ``write_tokens``,
+   ``write_prefill``, ``gather_views``, ``r_attention_paged`` and
+   ``pool_utilization``.  Functional like the JAX original: every op
+   returns a new ``PagedKV`` and leaves its argument's tensors untouched.
+   Its R-Part attends through the plain ``layers.flash_attention``, as
+   the reference does, not through a kernel: the paged kernels derive
+   positions from the slot index, and ``release_row`` can leave stored
+   positions that the slot index does not give.
+2. The engine-integrated path of the port's R-workers:
 
 * ``PagedAllocator`` — HOST-side block-table state for one worker's rows
   of one micro-batch, shared by every attention layer (a sequence's
@@ -54,7 +67,7 @@ import hashlib
 import threading
 import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +80,161 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
+F32 = torch.float32
+
+
+@dataclass
+class PagedKV:
+    pages_k: torch.Tensor       # [P, page, Hkv, Dh]
+    pages_v: torch.Tensor
+    page_pos: torch.Tensor      # [P, page] int32
+    tables: torch.Tensor        # [B, max_pages] int32
+    lengths: torch.Tensor       # [B] int32
+    free: List[int]             # host-side free list (allocator state)
+
+    @property
+    def page_size(self) -> int:
+        return self.pages_k.shape[1]
+
+    @property
+    def max_pages(self) -> int:
+        return self.tables.shape[1]
+
+
+def init_paged(batch: int, num_pages: int, page: int, hkv: int, dh: int,
+               max_pages_per_seq: int, dtype=F32, device=None) -> PagedKV:
+    dev = resolve_device(device)
+    return PagedKV(
+        pages_k=torch.zeros((num_pages, page, hkv, dh), dtype=dtype,
+                            device=dev),
+        pages_v=torch.zeros((num_pages, page, hkv, dh), dtype=dtype,
+                            device=dev),
+        page_pos=torch.full((num_pages, page), -1, dtype=torch.int32,
+                            device=dev),
+        tables=torch.full((batch, max_pages_per_seq), -1, dtype=torch.int32,
+                          device=dev),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        free=list(range(num_pages)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# host-side allocator (the part vLLM's scheduler owns)
+# ---------------------------------------------------------------------------
+def ensure_capacity(kv: PagedKV, row: int, new_len: int) -> PagedKV:
+    """Map enough pages for ``row`` to hold ``new_len`` tokens."""
+    need = -(-new_len // kv.page_size)
+    tables = kv.tables.cpu().numpy().copy()
+    have = int((tables[row] >= 0).sum())
+    if need > kv.max_pages:
+        raise ValueError("sequence exceeds max_pages_per_seq")
+    free = list(kv.free)
+    for slot in range(have, need):
+        if not free:
+            raise MemoryError("paged KV pool exhausted")
+        tables[row, slot] = free.pop()
+    return replace(kv, tables=torch.as_tensor(tables, device=kv.tables.device),
+                   free=free)
+
+
+def release_row(kv: PagedKV, row: int) -> PagedKV:
+    """Free all pages of a finished sequence (no fragmentation — the
+    paper's §2.2 point about paging)."""
+    tables = kv.tables.cpu().numpy().copy()
+    ids = [int(p) for p in tables[row] if p >= 0]
+    tables[row] = -1
+    page_pos = kv.page_pos
+    if ids:
+        page_pos = page_pos.clone()
+        page_pos[torch.as_tensor(ids, device=page_pos.device)] = -1
+    lengths = kv.lengths.clone()
+    lengths[row] = 0
+    return replace(kv, tables=torch.as_tensor(tables, device=kv.tables.device),
+                   page_pos=page_pos, lengths=lengths,
+                   free=list(kv.free) + ids)
+
+
+# ---------------------------------------------------------------------------
+# device-side ops (given a capacity-ensured table)
+# ---------------------------------------------------------------------------
+def write_tokens(kv: PagedKV, k_new, v_new) -> PagedKV:
+    """Append one token per row.  k_new/v_new [B, Hkv, Dh].
+    Caller must have run ensure_capacity(row, lengths+1)."""
+    page = kv.page_size
+    pos = kv.lengths                                    # [B]
+    slot_in_page = (pos % page).long()
+    page_idx = (pos // page).long()
+    page_ids = torch.gather(kv.tables, 1, page_idx[:, None])[:, 0].long()
+    pages_k, pages_v = kv.pages_k.clone(), kv.pages_v.clone()
+    page_pos = kv.page_pos.clone()
+    pages_k[page_ids, slot_in_page] = k_new.to(pages_k.dtype)
+    pages_v[page_ids, slot_in_page] = v_new.to(pages_v.dtype)
+    page_pos[page_ids, slot_in_page] = pos
+    return replace(kv, pages_k=pages_k, pages_v=pages_v, page_pos=page_pos,
+                   lengths=pos + 1)
+
+
+def write_prefill(kv: PagedKV, row: int, k_seq, v_seq) -> PagedKV:
+    """Write a whole prompt for one row.  k_seq/v_seq [S, Hkv, Dh]."""
+    s = k_seq.shape[0]
+    page = kv.page_size
+    n_pages = -(-s // page)
+    pad = n_pages * page - s
+    kp = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad)).reshape(
+        n_pages, page, *k_seq.shape[1:])
+    vp = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad)).reshape(
+        n_pages, page, *v_seq.shape[1:])
+    ar = torch.arange(n_pages * page, dtype=torch.int32,
+                      device=kv.page_pos.device)
+    pos = torch.where(ar < s, ar, -1).reshape(n_pages, page)
+    ids = kv.tables[row, :n_pages].long()
+    pages_k, pages_v = kv.pages_k.clone(), kv.pages_v.clone()
+    page_pos, lengths = kv.page_pos.clone(), kv.lengths.clone()
+    pages_k[ids] = kp.to(pages_k.dtype)
+    pages_v[ids] = vp.to(pages_v.dtype)
+    page_pos[ids] = pos
+    lengths[row] = s
+    return replace(kv, pages_k=pages_k, pages_v=pages_v, page_pos=page_pos,
+                   lengths=lengths)
+
+
+def gather_views(kv: PagedKV):
+    """[B, max_pages*page, Hkv, Dh] contiguous views + positions."""
+    b = kv.tables.shape[0]
+    safe = kv.tables.clamp_min(0).long()                # [B, MP]
+    k = kv.pages_k[safe]                                # [B, MP, page, H, D]
+    v = kv.pages_v[safe]
+    pos = kv.page_pos[safe]
+    mapped = (kv.tables >= 0)[:, :, None]
+    pos = torch.where(mapped, pos, -1)
+    mp, page = kv.tables.shape[1], kv.page_size
+    k = k.reshape(b, mp * page, *k.shape[3:])
+    v = v.reshape(b, mp * page, *v.shape[3:])
+    return k, v, pos.reshape(b, mp * page)
+
+
+def r_attention_paged(r_in, kv: PagedKV, *, window: int = 0,
+                      softcap: float = 0.0) -> Tuple[dict, PagedKV]:
+    """Parameter-free R-Part over the paged cache.  r_in as in
+    decompose.r_attention (q/k/v [B,1,...], lengths [B])."""
+    kv = write_tokens(kv, r_in["k"][:, 0], r_in["v"][:, 0])
+    kc, vc, pc = gather_views(kv)
+    o = L.flash_attention(r_in["q"], kc, vc, r_in["lengths"][:, None], pc,
+                          causal=True, window=window, softcap=softcap,
+                          kv_chunk=max(kc.shape[1], 1))
+    return {"o": o}, kv
+
+
+def pool_utilization(kv: PagedKV) -> float:
+    used = kv.pages_k.shape[0] - len(kv.free)
+    tokens = int(kv.lengths.sum())
+    cap = used * kv.page_size
+    return tokens / cap if cap else 1.0
+
+
+# ===========================================================================
+# engine-integrated path (RWorker storage format) — see module docstring
+# ===========================================================================
 def _block_digest(parent: bytes, tokens: np.ndarray, tail: bool = False
                   ) -> bytes:
     """Chained content hash of one page-aligned token block.  The parent
