@@ -13,8 +13,10 @@
 Phases (any failure exits nonzero):
 
   kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
-              the gitignored build/ directory; no bf16-q Dh 128
-              instantiation of either source may spill), holds every
+              the gitignored build/ directory; no bf16-q instantiation at
+              Dh 128 or 256 nor any multi-token one may spill, and kernel
+              3's 16-row engine must fit 3 CTAs per SM: each
+              instantiation's registers and CTAs per SM printed), holds every
               kernel (paged flash-decode; dense flash-decode in bf16/fp32
               and with int8 K/V, the latter also through its paged
               entry and its multi-token paged entry, the int8 verify,
@@ -38,14 +40,17 @@ Phases (any failure exits nonzero):
               (Dh 256, Hq 10 / Hkv 1, window 2048: rings wrapped past
               the window, a window under the ring, ragged and empty rows,
               bf16 and fp32 q, fp32 also against fp64, each repeated
-              bitwise; Dh 96 and 512 refused), its ptxas registers and
+              bitwise; Dh 96 and 512 refused; with a bf16 q one CTA per
+              row and split), its ptxas registers and
               spills, and its times at the hybrid's int8 serve shape and
               at 64 x 2048; kernel 2 as the cross-attention R-Part
               (every slot at position 0) at whisper-medium's heads (Hq =
               Hkv = 16, Dh 64, S 1500) and llama-3.2-vision-90b's (Hq 64
               / Hkv 8, Dh 128, S 1600), 2 and 64 rows, bf16 and fp32
               (fp32 also against fp64), each repeated bitwise, timed at
-              2 rows (one R-worker call of the static runs) and 64;
+              2 rows (one R-worker call of the static runs) and 64,
+              and at the 3, 1 and 4 rows a worker holds after
+              fleet_xattn's move and restore;
               kernel 3's paged entry also at the vision heads; times
               the one-call paged-int8 op against the gather + kernel 3
               chain it replaced.
@@ -54,7 +59,7 @@ Phases (any failure exits nonzero):
               shapes with SDPA between, and a sweep of split plans.
   compare_dense (only with --v1-dense-source) the same for kernels 2 and
               3: an older csrc/decode_attention.cu against this tree's.
-  serve       Qwen3-8B at full width cut to 18 of its 36 layers
+  serve       Qwen3-8B at full width cut to 12 of its 36 layers
               (QWEN_LAYERS; every serve_* phase below serves it), random
               weights from a seeded generator, served greedily through
               ServingEngine(backend="hetero", num_r_workers=2,
@@ -1101,14 +1106,15 @@ def slab_checks(dev) -> dict:
                     ref.decode_attention_int8_ref(q.float(), kq, ks, vq, vs,
                                                   pos, lens, **attn),
                     empty_row=empty, again=k3() if long else None,
-                    plan=plan))
+                    plan=QK.slab_plan(q, kq)))
                 del k, v, kq, vq
     return {k: {"cases": v, "max_abs_err": max(c["max_abs_err"] for c in v)}
             for k, v in out.items()}
 
 
-# recurrentgemma-2b's windowed MQA layers: Hq 10 / Hkv 1 (G 10: two row
-# groups of the kernel, 8 and 2), Dh 256, window 2048, ring-ordered slabs
+# recurrentgemma-2b's windowed MQA layers: Hq 10 / Hkv 1 (G 10: one CTA
+# of the 16-row tensor-core engine with a bf16 q, two row groups of 8 and 2
+# on the CUDA cores with an fp32 q), Dh 256, window 2048, ring-ordered slabs
 # of S = min(cache_len, window) slots
 HYBRID_HEADS = dict(hq=10, hkv=1, dh=256)
 HYBRID_WINDOW = 2048
@@ -1151,6 +1157,35 @@ def _slab_fp64(q, k, v, pos, lengths, window):
     return torch.einsum("bhgs,bshd->bhgd", p, v.to(f64)).reshape(b, hq, dh)
 
 
+# kernel 3's 16-row engine (bf16 q) against ``ref.int8_mma16_attention_ref``,
+# a plain model of its order of operations in fp32 (run on the CPU): the two
+# differ by fp32 summation order and the kernel's bf16 store (half a bf16
+# ulp, 2^-9 of the value), so the bound is one bf16 ulp plus 1e-5, tighter
+# than the bf16 tolerance against the plain version (TOL)
+MMA16_MODEL_TOL = (1e-5, 2.0 ** -8)
+
+
+def _mma16_model_check(name, got, q, kq, ks, vq, vs, kpos, qpos, *,
+                       slots_per_split, **attn) -> dict:
+    """One 16-row engine output (``got`` [B,T,Hq,Dh] bf16) against the
+    model on the same inputs (q [B,T,Hq,Dh]; the slab, or a page pool
+    gathered by ``ref.paged_gather``; kpos [B,S]; qpos [B,T]) at the
+    call's split size, within ``MMA16_MODEL_TOL``."""
+    from repro_torch.kernels import ref
+    model = ref.int8_mma16_attention_ref(
+        *(x.cpu() for x in (q, kq, ks, vq, vs, kpos, qpos)),
+        slots_per_split=slots_per_split, **attn)
+    atol, rtol = MMA16_MODEL_TOL
+    d = (got.float().cpu() - model).abs()
+    rec = {"model_max_abs_err": float(d.max()),
+           "model_atol_rtol": MMA16_MODEL_TOL}
+    if not bool((d <= atol + rtol * model.abs()).all()):
+        raise AssertionError(f"{name}: the 16-row engine departs from its "
+                             f"order of operations (ref.int8_mma16_"
+                             f"attention_ref): {rec}")
+    return rec
+
+
 def dh256_checks(dev) -> dict:
     """Kernel 3's slab entry at the hybrid's heads (``HYBRID_HEADS``) on
     ``DH256_CASES``: bf16 q against the plain version on q.float() (the
@@ -1158,7 +1193,8 @@ def dh256_checks(dev) -> dict:
     version and against fp64 (it passes when |kernel - fp64| <= atol +
     |plain - fp64|, what |kernel - plain| <= atol implies, as the
     saturated fp32 cases of the paged kernels), each repeated bitwise;
-    the row with no valid slot exactly 0."""
+    the row with no valid slot exactly 0; with a bf16 q (the 16-row
+    engine) also against its order of operations (``_mma16_model_check``)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import quant_kv as QK
@@ -1186,8 +1222,13 @@ def dh256_checks(dev) -> dict:
             rec = _check_case("decode_attention_int8",
                               f"{dtype_name}-dh256-G10-{name}", dtype_name,
                               got, plain, empty_row=rows.index(("empty",)),
-                              again=again, plan=DA.kernel_plan(q, kq))
+                              again=again, plan=QK.slab_plan(q, kq))
             rec.update(S=s, window=window, lengths=lengths)
+            if dtype_name == "bfloat16":
+                rec.update(_mma16_model_check(
+                    rec["case"], got[:, None], q[:, None], kq, ks, vq, vs,
+                    pos, lens[:, None], slots_per_split=rec["split_plan"][0],
+                    window=window))
             if dtype_name == "float32":
                 want = _slab_fp64(q, QK.dequantize_kv(kq, ks),
                                   QK.dequantize_kv(vq, vs), pos, lens,
@@ -1201,6 +1242,19 @@ def dh256_checks(dev) -> dict:
                     raise AssertionError(f"kernel 3 at Dh 256 is further "
                                          f"from fp64 than the plain "
                                          f"version allows: {rec}")
+            # the C side's rows per CTA: with a bf16 q all 10 heads in one
+            # CTA, so the grid is B * splits CTAs (not 2 * B * splits)
+            sps, n_splits = rec["split_plan"]
+            per_cta, per_sm = DA.occupancy(kv_int8=True, paged=False, t=1,
+                                           hq=hq, hkv=hkv, dh=dh,
+                                           dtype=q.dtype, per_split=sps)
+            groups = -(-(hq // hkv) // per_cta)
+            rec.update(rows_per_cta=per_cta, ctas_per_sm=per_sm,
+                       ctas=n_splits * hkv * b * groups)
+            if groups != QK.slab_row_groups(hq // hkv, dh, q.dtype) or (
+                    dtype_name == "bfloat16" and rec["ctas"] != b * n_splits):
+                raise AssertionError(f"kernel 3 at Dh 256 launches {groups} "
+                                     f"row groups of {per_cta}: {rec}")
             results.append(rec)
     # a head dim or layout the entry does not take raises, with no
     # fallback to the plain version
@@ -1413,11 +1467,14 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
     """Kernels 2 and 3 (or those of ``kernels``), their plain versions
     and the SDPA yardstick at one shape, bf16 q: host-loop ms from CUDA
     events, device ms from the same calls replayed from a CUDA graph, the
-    split plan, CTAs and merge launches per call.  ``copies`` distinct
+    split plan, CTAs (the rows per CTA and CTAs per SM of the C side's
+    instantiation) and merge launches per call.  ``copies`` distinct
     slabs are cycled so the working set exceeds the 50 MB L2; ``cross``
     as ``_slab_inputs``'s."""
+    import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_kv as QK
     bufs, pos, lens = _slab_inputs(dev, b=b, s=s, n_valid=n_valid, hq=hq,
                                    hkv=hkv, dh=dh, copies=copies,
                                    cross=cross)
@@ -1441,7 +1498,20 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
         library_ms = cuda_time_ms(lib, iters)
         device_ms = graph_time_ms(kern, calls)
         library_device_ms = graph_time_ms(lib, calls, strict=False)
-        sps, n_splits = DA.kernel_plan(bufs[0]["q"], bufs[0]["k"])
+        int8 = kernel == "decode_attention_int8"
+        if int8:
+            sps, n_splits = QK.slab_plan(bufs[0]["q"], bufs[0]["kq"])
+            groups = QK.slab_row_groups(hq // hkv, dh, torch.bfloat16)
+        else:
+            sps, n_splits = DA.kernel_plan(bufs[0]["q"], bufs[0]["k"])
+            groups = PA.row_groups(1, hq // hkv)
+        rows, per_sm = DA.occupancy(kv_int8=int8, paged=False, t=1, hq=hq,
+                                    hkv=hkv, dh=dh, dtype=torch.bfloat16,
+                                    per_split=sps)
+        if groups != -(-(hq // hkv) // rows):
+            raise AssertionError(f"{kernel}: the wrapper's {groups} row "
+                                 f"groups are not the C side's (rows of "
+                                 f"{rows})")
         bytes_moved = (b * n_valid * kv_bytes_per_tok[kernel] + b * s * 4
                        + 2 * b * hq * dh * 2 + b * 4)
         flops = 4 * b * n_valid * hq * dh
@@ -1456,7 +1526,8 @@ def slab_timing(dev, name, *, b, s, n_valid, hq=32, hkv=8, dh=128,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             "device_ms": device_ms, "library_device_ms": library_device_ms,
             "split_plan": {"slots_per_split": sps, "num_splits": n_splits},
-            "ctas": n_splits * hkv * b * PA.row_groups(1, hq // hkv),
+            "ctas": n_splits * hkv * b * groups, "rows_per_cta": rows,
+            "ctas_per_sm": per_sm,
             "merge_launches_per_call": int(n_splits > 1),
             "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1561,7 +1632,9 @@ def verify_int8_checks(dev) -> dict:
     valid key: exactly 0); window + sink and softcap; the long multi-split
     tables of ``long_cases``, each repeated bitwise; and T = 1 against
     the decode entry on the same inputs, which must be bitwise equal (the
-    same instantiation and split plan)."""
+    same instantiation and split plan); the cases on the 16-row engine
+    (bf16 q, T > 1, T·G > 8) also against its order of operations
+    (``_mma16_model_check``)."""
     import torch
     from repro_torch.kernels import quant_kv as QK
     from repro_torch.kernels import ref
@@ -1615,6 +1688,17 @@ def verify_int8_checks(dev) -> dict:
                               dtype_name, got, want,
                               empty_row=un if un is not None else [],
                               again=again, plan=QK.paged_plan(q, pkq, tables))
+            g = kw["hq"] // kw["hkv"]
+            if dtype_name == "bfloat16" and t > 1 and t * g > 8:
+                gathered = [ref.paged_gather(x, tables)
+                            for x in (pkq, pks, pvq, pvs)]
+                qpos = base[:, None] + torch.arange(
+                    t, dtype=torch.int32, device=dev)[None, :]
+                rec.update(_mma16_model_check(
+                    rec["case"], got, q, *(x for x, _ in gathered),
+                    gathered[0][1], qpos,
+                    slots_per_split=rec["split_plan"][0] * kw["page"],
+                    **c["attn"]))
             if t == 1:
                 dec = QK.paged_decode_attention_int8(q[:, 0].contiguous(),
                                                      *args[1:], **c["attn"])
@@ -1631,18 +1715,12 @@ def verify_int8_checks(dev) -> dict:
             "t1_bitwise_equal_to_decode_entry": all(t1_equal)}
 
 
-def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
-                       page=16, cache_len=None, copies=1,
-                       iters=50) -> dict:
-    """Kernel 3's multi-token paged entry, its plain version and the SDPA
-    yardstick at one shape, bf16 q, int8 pools: every row holds ``n_tok``
-    valid tokens, the verify's base is n_tok - t (its last candidate at
-    n_tok - 1), the tables cut to the power of two of the used pages as
-    the verify R-Part cuts them; ``copies`` pools cycled past the L2.
-    SDPA reads K/V dequantized to bf16 and laid out per head, with a
-    boolean mask (neither the dequantization nor the layout is timed)."""
+def _verify_int8_inputs(dev, *, b, n_tok, t, hq, hkv, dh, page, cache_len,
+                        copies, deq=True):
+    """``copies`` int8 pools for ``verify_int8_timing``: (q, pk_q, pk_s,
+    pv_q, pv_s, tables[, K, V dequantized to bf16 per head]) each, and
+    the verify's base lengths."""
     import torch
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quant_kv as QK
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1652,8 +1730,7 @@ def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
     while used < per_row:
         used *= 2
     n_pages = b * mp + 1
-    lens_val = n_tok - t
-    lens = torch.full((b,), lens_val, dtype=torch.int32, device=dev)
+    lens = torch.full((b,), n_tok - t, dtype=torch.int32, device=dev)
     bufs = []
     for _ in range(copies):
         pool = []
@@ -1669,12 +1746,34 @@ def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
         tables[:, :per_row] = ids[:b * per_row].reshape(b, per_row).to(
             torch.int32)
         tables = tables[:, :min(used, mp)].contiguous()
-        deq = []
-        for vq, vs in ((pool[0], pool[1]), (pool[2], pool[3])):
+        dq = []
+        for vq, vs in ((pool[0], pool[1]), (pool[2], pool[3])) if deq \
+                else ():
             g, _ = ref.paged_gather(QK.dequantize_kv(vq, vs), tables)
-            deq.append(g[:, :n_tok].permute(0, 2, 1, 3).contiguous().to(
+            dq.append(g[:, :n_tok].permute(0, 2, 1, 3).contiguous().to(
                 torch.bfloat16))
-        bufs.append((q, *pool, tables, deq[0], deq[1]))
+        bufs.append((q, *pool, tables, *dq))
+    return bufs, lens
+
+
+def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
+                       page=16, cache_len=None, copies=1,
+                       iters=50) -> dict:
+    """Kernel 3's multi-token paged entry, its plain version and the SDPA
+    yardstick at one shape, bf16 q, int8 pools: every row holds ``n_tok``
+    valid tokens, the verify's base is n_tok - t (its last candidate at
+    n_tok - 1), the tables cut to the power of two of the used pages as
+    the verify R-Part cuts them; ``copies`` pools cycled past the L2.
+    SDPA reads K/V dequantized to bf16 and laid out per head, with a
+    boolean mask (neither the dequantization nor the layout is timed)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    from repro_torch.kernels import ref
+    bufs, lens = _verify_int8_inputs(dev, b=b, n_tok=n_tok, t=t, hq=hq,
+                                     hkv=hkv, dh=dh, page=page,
+                                     cache_len=cache_len, copies=copies)
+    lens_val = n_tok - t
     qp = lens_val + torch.arange(t, device=dev)
     mask = (torch.arange(n_tok, device=dev)[None, :]
             <= qp[:, None])[None, None].expand(b, 1, t, n_tok)
@@ -1710,6 +1809,13 @@ def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
     device_ms = graph_time_ms(kern, calls)
     library_device_ms = graph_time_ms(lib, calls, strict=False)
     pps, n_splits = QK.paged_plan(q, kq, tables)
+    rows, per_sm = DA.occupancy(kv_int8=True, paged=True, t=t, hq=hq,
+                                hkv=hkv, dh=dh, dtype=torch.bfloat16,
+                                per_split=pps)
+    groups = QK.verify_row_groups(t, hq // hkv, torch.bfloat16)
+    if groups != -(-t * (hq // hkv) // rows):
+        raise AssertionError(f"verify_int8: the wrapper's {groups} row groups "
+                             f"are not the C side's (rows of {rows})")
     # the valid rows' int8 K/V and scales once, q and o, tables, lengths
     bytes_moved = (2 * b * n_tok * hkv * (dh + 4) + 2 * b * t * hq * dh * 2
                    + tables.numel() * 4 + b * 4)
@@ -1724,8 +1830,8 @@ def verify_int8_timing(dev, name, *, b, n_tok, t=4, hq=32, hkv=8, dh=128,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             "device_ms": device_ms, "library_device_ms": library_device_ms,
             "split_plan": {"pages_per_split": pps, "num_splits": n_splits},
-            "ctas": n_splits * hkv * b * QK.verify_row_groups(
-                t, hq // hkv, torch.bfloat16),
+            "ctas": n_splits * hkv * b * groups, "rows_per_cta": rows,
+            "ctas_per_sm": per_sm,
             "merge_launches_per_call": int(n_splits > 1),
             "bytes": bytes_moved, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
@@ -1761,9 +1867,11 @@ def ptxas_summary(text: str) -> list:
                         cur.update(rows_per_cta=int(gt),
                                    entry="paged-multi-token" if flag2 == "1"
                                    else "paged" if flag1 == "1" else "slab",
-                                   engine="tensor cores"
-                                   if cur.get("kv_dtype") == "int8"
-                                   and dtype == "bfloat16" else "CUDA cores")
+                                   engine=("CUDA cores"
+                                           if cur.get("kv_dtype") != "int8"
+                                           or dtype != "bfloat16"
+                                           else "tensor cores, 16 rows"
+                                           if gt == "16" else "tensor cores"))
                 elif gt:
                     cur.update(rows_per_cta=int(gt),
                                entry="verify" if flag1 == "1" else "decode",
@@ -1785,6 +1893,63 @@ def ptxas_summary(text: str) -> list:
     return rows
 
 
+# kernels 2 and 3's instantiations on the paths (kernel, paged, T, Hq,
+# Hkv, Dh, q dtype, slots or pages per split at that path's main shape):
+# the dense-int8 serve's call, the hybrid's Dh 256 call (bf16 and fp32 q),
+# the paged-int8 serve's call, the int8 spec serve's verify (T 4) and the
+# cross-attention R-Part at vision's and whisper's heads
+OCCUPANCY_CASES = [
+    ("decode_attention_int8", False, 1, 32, 8, 128, "bfloat16", 64),
+    ("decode_attention_int8", False, 1, 10, 1, 256, "bfloat16", 64),
+    ("decode_attention_int8", False, 1, 10, 1, 256, "float32", 64),
+    ("decode_attention_int8", True, 1, 32, 8, 128, "bfloat16", 4),
+    ("verify_int8", True, 4, 32, 8, 128, "bfloat16", 4),
+    ("verify_int8", True, 4, 16, 4, 64, "bfloat16", 4),
+    ("decode_attention", False, 1, 64, 8, 128, "bfloat16", 95),
+    ("decode_attention", False, 1, 16, 16, 64, "bfloat16", 167)]
+# the rows one worker holds after fleet_xattn's move (3 + 1) and restore (4)
+MOVED_ROWS = (3, 1, 4)
+
+
+def dense_occupancy(ptxas_rows) -> list:
+    """Each ``OCCUPANCY_CASES`` instantiation of csrc/decode_attention.cu:
+    its rows per CTA and CTAs per SM (the C side's choice and the CUDA
+    occupancy calculator) beside its registers and spills (ptxas); the
+    16-row tensor-core engine's (Dh 256 and the multi-token entry) must
+    fit 3 CTAs per SM."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    out = []
+    for kernel, paged, t, hq, hkv, dh, dtype_name, per_split in \
+            OCCUPANCY_CASES:
+        dtype = getattr(torch, dtype_name)
+        rows, per_sm = DA.occupancy(kv_int8=kernel != "decode_attention",
+                                    paged=paged, t=t, hq=hq, hkv=hkv, dh=dh,
+                                    dtype=dtype, per_split=per_split)
+        entry = ("paged-multi-token" if t > 1 else "paged" if paged
+                 else "slab")
+        kv = "int8" if kernel != "decode_attention" else dtype_name
+        reg = [r for r in ptxas_rows if r["kernel"] == "dense_attn_kernel"
+               and r["dtype"] == dtype_name and r.get("kv_dtype") == kv
+               and r["Dh"] == dh and r.get("rows_per_cta") == rows
+               and r.get("entry") == entry]
+        rec = {"kernel": kernel, "entry": entry, "T": t, "Hq": hq,
+               "Hkv": hkv, "Dh": dh, "q_dtype": dtype_name,
+               "per_split": per_split, "rows_per_cta": rows,
+               "ctas_per_sm": per_sm,
+               "registers": reg[0].get("registers") if reg else None,
+               "spill_bytes": (reg[0].get("spill_stores", 0)
+                               + reg[0].get("spill_loads", 0)) if reg
+               else None}
+        print(f"occupancy: {rec}", flush=True)
+        if rows == 16 and kv == "int8" and dtype_name == "bfloat16" \
+                and per_sm < 3:
+            raise AssertionError(f"the 16-row engine fits fewer than 3 CTAs "
+                                 f"per SM: {rec}")
+        out.append(rec)
+    return out
+
+
 def phase_kernel(dev) -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -1795,14 +1960,17 @@ def phase_kernel(dev) -> dict:
         print(f"ptxas report of {stem}:\n{text}", flush=True)
     ptxas = {stem: ptxas_summary(report[stem])
              for stem in ("paged_attention", "decode_attention")}
-    # no bf16-q Dh 128 instantiation may spill (decode_attention's: bf16
-    # and int8 K/V)
+    # no bf16-q instantiation at Dh 128 or 256 may spill (decode_attention's:
+    # bf16 and int8 K/V), nor any multi-token one (Dh 64 included)
     spills = [r for rows in ptxas.values() for r in rows
-              if r["dtype"] == "bfloat16" and r["Dh"] == 128
+              if r["dtype"] == "bfloat16"
+              and (r["Dh"] in (128, 256)
+                   or r.get("entry") == "paged-multi-token")
               and r.get("spill_stores", 0) + r.get("spill_loads", 0)]
     if spills or not all(ptxas.values()):
-        raise AssertionError(f"bf16 Dh 128 instantiations spill (or no "
-                             f"report): {spills}")
+        raise AssertionError(f"bf16 Dh 128 / 256 or multi-token "
+                             f"instantiations spill (or no report): {spills}")
+    occupancy = dense_occupancy(ptxas["decode_attention"])
     checks = kernel_checks(dev)
     # main path: one R-worker call = 2 rows of a micro-batch (batch 8, two
     # micro-batches, two workers) over ~512 tokens, pool sized for
@@ -1867,6 +2035,13 @@ def phase_kernel(dev) -> dict:
                for shape, h in CROSS_HEADS.items()
                for run, b, c, it in (("main", 2, 16, 200),
                                      ("bw", 64, 1, 20))]
+    # and on the rows one worker holds after fleet_xattn's move (3, 1) and
+    # its snapshot restore (4)
+    xmoved = [slab_timing(dev, f"moved-{b}rows-{shape}", b=b, s=h["s"],
+                          n_valid=h["s"], hq=h["hq"], hkv=h["hkv"],
+                          dh=h["dh"], copies=16, iters=200, cross=True,
+                          kernels=("decode_attention",))["decode_attention"]
+              for shape, h in CROSS_HEADS.items() for b in MOVED_ROWS]
     v8checks = verify_int8_checks(dev)
     # kernel 3's multi-token entry at the int8 spec serve's per-worker
     # verify call (2 rows, the last of 4 candidates at position 511) and
@@ -1890,13 +2065,14 @@ def phase_kernel(dev) -> dict:
                                             + [x["max_abs_err"] for x in t])}
     kernels["decode_attention"]["cross_checks"] = xchecks["cases"]
     kernels["decode_attention"]["timing_cross"] = xtiming
+    kernels["decode_attention"]["timing_cross_moved"] = xmoved
     kernels["decode_attention"]["ptxas"] = [
         r for r in ptxas["decode_attention"]
         if r["kernel"] == "dense_attn_kernel"
         and r.get("kv_dtype") != "int8" and r["Dh"] in (64, 128)]
     kernels["decode_attention"]["max_abs_err"] = max(
         [kernels["decode_attention"]["max_abs_err"], xchecks["max_abs_err"]]
-        + [x["max_abs_err"] for x in xtiming])
+        + [x["max_abs_err"] for x in xtiming + xmoved])
     kernels["decode_attention_int8"]["paged_checks"] = pchecks["cases"]
     kernels["decode_attention_int8"]["max_abs_err"] = max(
         kernels["decode_attention_int8"]["max_abs_err"],
@@ -1905,6 +2081,7 @@ def phase_kernel(dev) -> dict:
         "checks": d256["cases"], "refused": d256["refused"],
         "timing": s256,
         "ptxas": [r for r in ptxas["decode_attention"] if r["Dh"] == 256],
+        "occupancy": [r for r in occupancy if r["Dh"] == 256],
         "max_abs_err": max([d256["max_abs_err"]]
                            + [x["max_abs_err"] for x in s256])}
     kernels["paged_verify_attention"] = {
@@ -1921,10 +2098,12 @@ def phase_kernel(dev) -> dict:
             v8checks["t1_bitwise_equal_to_decode_entry"],
         "ptxas": [r for r in ptxas["decode_attention"]
                   if r.get("entry") == "paged-multi-token"],
+        "occupancy": [r for r in occupancy
+                      if r["entry"] == "paged-multi-token"],
         "max_abs_err": max(v8checks["max_abs_err"], v8_main["max_abs_err"],
                            v8_bw["max_abs_err"])}
     return {"phase": "kernel", "ok": True, "build_s": build_s,
-            "ptxas": ptxas, "kernels": kernels,
+            "ptxas": ptxas, "occupancy": occupancy, "kernels": kernels,
             "paged_int8_op": gather_timing(dev)}
 
 
@@ -2134,7 +2313,7 @@ def _requests(rng, n, p_lo, p_hi, new_lo, new_hi, vocab):
             for i in range(n)]
 
 
-QWEN_LAYERS = 18        # Qwen3-8B's depth in the serve phases (of 36)
+QWEN_LAYERS = 12        # Qwen3-8B's depth in the serve phases (of 36)
 
 
 def serve_model(dev):

@@ -50,7 +50,8 @@
 // csrc/paged_attention.cu):
 // * Split-K over the slots (flash-decoding).  The grid is (splits, Hkv, B x
 //   head groups); a CTA owns slots [split*sps, (split+1)*sps) of one row and
-//   kv-head for up to 8 query heads.  The plan comes from the wrapper
+//   kv-head for up to 8 query heads (16 on the 16-row engine).  The plan
+//   comes from the wrapper
 //   (kernels/decode_attention.py::slab_plan: paged_attention.split_plan
 //   with slots counted as pages of one; shapes only, no host sync): one
 //   split when the grid fills the SMs, else splits of >= 64 slots for about
@@ -72,9 +73,11 @@
 //   up to lengths[b]; unmapped (-1) and out-of-pool entries are never read.
 // * A cp.async ring of K/V tiles in shared memory (3 stages of 32 rows in
 //   bf16 and for int8 with an fp32 q, 2 in fp32; 3 stages of 64 rows on the
-//   tensor-core path, 4 CTAs per SM): 16-byte copies of the valid rows
-//   only, zero-fill (src-size 0) for the others, rows padded by 16 B (or,
-//   on the tensor-core path at Dh 128, chunks XOR-swizzled by row) so the
+//   tensor-core path, 4 CTAs per SM; 2 stages on the 16-row one at Dh
+//   256): 16-byte
+//   copies of the valid rows only, zero-fill (src-size 0) for the others,
+//   rows padded by 16 B (or, on the tensor-core paths at Dh 128 and 256,
+//   chunks XOR-swizzled by row) so the
 //   8 rows a quarter warp reads fall on distinct banks; the int8 scales
 //   come with their tile as 4-byte copies (they are not 16-byte aligned),
 //   and each row's validity flag is written beside them.
@@ -98,9 +101,10 @@
 //     dimensions, so PV keeps about 16 bits of p.
 // * The multi-token entry (MULTI) folds the T queries of a row into the
 //   query rows of a kv-head: row r = t*G + head, T*G rows per (row,
-//   kv-head), cut into CTAs of up to 16 rows (bf16 q: the N of the
-//   tensor-core products is two n8 tiles, so Qwen3-8B's verify at k = 3,
-//   T*G = 16, reads each page once per kv-head) or 8 (fp32 q, CUDA cores).
+//   kv-head), cut into CTAs of up to 16 rows (bf16 q, Mma16Engine: the N
+//   of the tensor-core products is two n8 tiles, so Qwen3-8B's verify at
+//   k = 3, T*G = 16, reads each page once per kv-head; 8 rows or fewer on
+//   MmaEngine) or 8 (fp32 q, CUDA cores).
 //   Each tile row carries its position in place of its validity flag, and
 //   query row r sees it when it is mapped, <= lengths[b] + r/G and inside
 //   the window or the sink; the split walks positions up to lengths[b] +
@@ -109,20 +113,52 @@
 //   over B*T*Hq output rows.  T = 1 launches the decode instantiation with
 //   the decode plan, so it is bitwise the decode entry.
 //
-// * Dh 256 (the slab int8 entry only) is the same template at DH = 256,
-//   simple first: rows padded by 16 B (no swizzle: 16 chunks a row put
-//   chunk c and c + 8 on the same banks, so the tensor-core engine's K
-//   reads take 2 wavefronts), 2 CTAs per SM on either engine where Dh
-//   128's ring allows 4 (106 KB of ring at 64 rows x 3 stages on the
-//   tensor-core path; 53 KB on the CUDA-core one), and twice the
-//   accumulator registers.
+// * Dh 256 (the slab int8 entry only) is the same template at DH = 256.
+//
+// Third version of kernel 3's 16-row instances (Mma16Engine): the slab
+// entry at Dh 256 with a bf16 q (src/repro/kernels/quant_kv.py:44 at
+// recurrentgemma-2b's windowed MQA heads, G 10) and the multi-token entry
+// at T*G > 8 (src/repro/kernels/ops.py:152, Qwen3-8B's verify: T 4, G 4).
+// What bounds them: HBM bytes, as above (Dh 256: 520 B per token with its
+// scales).  What held them back: G 10 ran as two CTAs of 8 and 2 rows, each
+// streaming and converting the whole slab (twice the bytes); the Dh 256
+// rows were padded, not swizzled; and the 8- and 16-row engine kept q's
+// fragments and the whole O^T accumulator in every warp (KS x NT x 2 +
+// Dh/16 x NT x 4 registers: 249 at Dh 256), so with a 106 KB ring 2 CTAs
+// fitted an SM.  Measured on an H100 once that was cured, the engine was
+// bound by its own instructions and latency more than by the bytes
+// (tools/k3_variants.py on an H100: at 64 x 2048 its tile loop without its
+// K/V copies keeps 85% of its time).  The design:
+// * One CTA for up to 16 query rows at any Dh: G 10 reads and converts
+//   each K/V byte and scale once (grid.z = B, quant_kv.slab_row_groups;
+//   its plan keeps Dh 256 to one wave of 2 CTAs per SM).
+// * Per-thread state that does not grow with Dh x rows: q in shared memory
+//   (ldmatrix at each k-step), one running max per query row shared by the
+//   4 warps (the tile's max through shared memory), P' through shared
+//   memory, and PV cut by output dims, so a warp holds Dh/64 x 2 x 4
+//   accumulators (32 at Dh 256) and no warp merge remains.
+// * fp16 products: int8 -> fp16 is exact in 5 instructions per 4 values
+//   (int8 -> bf16 took 11), with powers of two keeping q and P' in fp16's
+//   range (below); q is staged by read-only loads issued all at once.
+// * The swizzle spans 16-chunk rows (chunk c of row r at (c & 8) | ((c ^ r)
+//   & 7)), so Dh 256 drops the padding; 2 stages of 64 rows at Dh 256 (66
+//   KB of ring + 9 KB of q and maxima: 3 CTAs per SM), 3 at Dh 128 (4 per
+//   SM); the loader copies whole 64- or 128-byte pieces of rows per warp
+//   instruction.  P' reuses the K half of the tile's stage.
 //
 // Left for later: TMA bulk copies with mbarriers in place of cp.async,
 // persistent CTAs walking several (row, kv-head, split) items, a
-// single-launch merge, wgmma (needs 64 rows on one side: a decode has <= 8
-// query heads per kv-head), tensor cores for kernel 2.
+// single-launch merge, wgmma (needs 64 rows on one side: a decode has <= 16
+// query rows per kv-head), tensor cores for kernel 2, the fp16 conversions
+// for the 8-row decode instances at Dh 64 / 128 (they stay on MmaEngine:
+// on the 16-row engine the paged decode at 64 x 4096 took 7.7% longer,
+// tools/k3_variants.py on an H100), fewer barriers per tile in the 16-row
+// engine (3: the tile's max, P', the ring), and a 256-byte L2 prefetch
+// hint on the K/V copies (measured there: 10-11% off the 8-row decodes at
+// 64 x 4096, outputs bitwise the same, the 16-row instances unmoved).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -132,7 +168,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 8;             // query heads per CTA
 constexpr int kMaxSplitIdx = 8192;      // pos / table entries a CTA stages
 constexpr float kNegInf = -1e30f;       // NEG_INF of the reference
 constexpr float kEmpty = kNegInf * 0.5f;   // m at or below: no valid key
@@ -158,12 +193,18 @@ struct Params {
   float softcap, scale;
 };
 
+// chunk c of a row r of 16-byte chunks, XOR-swizzled within each group of
+// 8 chunks: 8 rows read at one chunk index fall on distinct banks
+__host__ __device__ constexpr int swz(int c, int r) {
+  return (c & ~7) | ((c ^ r) & 7);
+}
+
 // ---------------------------------------------------------------------------
 // the ring: [stage][K,V][TILE rows][Dh*elt + 16 B], then (int8) the tiles'
 // scales [stage][K,V][TILE] and every tile row's validity [stage][TILE].
-// SWZ (rows of 8 16-byte chunks) drops the 16-byte padding and stores
-// chunk c of row r at chunk c ^ (r & 7) instead: the same distinct banks
-// for the tensor-core engine's reads, in 11% less shared memory.
+// SWZ (rows of 8 or 16 16-byte chunks) drops the 16-byte padding and
+// stores chunk c of row r at chunk swz(c, r) instead: the same distinct
+// banks for the tensor-core engines' reads, in less shared memory.
 // ---------------------------------------------------------------------------
 template <typename TKV, int DH, int TILE, int STAGES, bool SWZ = false>
 struct Ring {
@@ -171,7 +212,7 @@ struct Ring {
   static constexpr int kRowBytes = DH * (int)sizeof(TKV);
   static constexpr int kStride = SWZ ? kRowBytes : kRowBytes + 16;
   static constexpr int kChunks = kRowBytes / 16;
-  static_assert(!SWZ || kChunks == 8, "the swizzle spans 8 chunks");
+  static_assert(!SWZ || kChunks % 8 == 0, "the swizzle spans 8 chunks");
   static constexpr int kStages = STAGES;
   static constexpr int kTile = TILE;
   static constexpr int kRowsBytes = kStages * 2 * TILE * kStride;
@@ -184,8 +225,7 @@ struct Ring {
   // byte ``byte`` of row r (contiguous within each 16-byte chunk)
   __device__ static unsigned char* at(unsigned char* base, int stage, int kv,
                                       int r, int byte) {
-    const int off = SWZ ? ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15))
-                        : byte;
+    const int off = SWZ ? ((swz(byte >> 4, r) << 4) | (byte & 15)) : byte;
     return row(base, stage, kv, r) + off;
   }
   __device__ static float* scales(unsigned char* base, int stage, int kv) {
@@ -386,6 +426,7 @@ struct FmaEngine {
   static constexpr int CPQ = R::kChunks / 4;         // chunks per lane
   static constexpr int CPL = DH / 32;                // PV columns per lane
   static constexpr int kMinBlocks = sizeof(TKV) == 4 || DH > 128 ? 2 : 3;
+  static constexpr int kLoadTPR = kThreads / 32;   // a pass: the tile
   struct Shared {
     float q[GT][DH];              // pre-scaled q rows
     float pw[kWarps][8][GT];      // each warp's p (x v_s) of this tile
@@ -568,15 +609,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DH, int NT, bool MULTI>
+template <int DH, bool MULTI>
 struct MmaEngine {
   using R = Ring<int8_t, DH, 64, 3, DH == 128>;
-  static constexpr int GT = 8 * NT;       // query rows: NT n8 tiles
+  static constexpr int NT = 1;            // one n8 tile (16 rows: Mma16Engine)
+  static constexpr int GT = 8 * NT;       // query rows
   static constexpr int KS = DH / 16;      // k-steps of QK^T
   static constexpr int MT = DH / 16;      // dim tiles of PV
   static constexpr int KB = DH / 4;       // K bytes per lane and row
   static constexpr int VB = DH / 8;       // V bytes per lane and token
-  static constexpr int kMinBlocks = NT == 1 && DH <= 128 ? 4 : 2;
+  static constexpr int kMinBlocks = 4;
+  static constexpr int kLoadTPR = kThreads / 64;   // a pass: the tile
   struct Shared {
     float m[kWarps][GT], l[kWarps][GT];
   };
@@ -807,19 +850,411 @@ struct MmaEngine {
   }
 };
 
+// ---------------------------------------------------------------------------
+// 16-row tensor-core engine: int8 K/V with bf16 q, 16 query rows per CTA
+// (kernel 3's slab entry at Dh 256, G 10 in one CTA; its multi-token entry
+// at T*G > 8).  Its registers do not grow with Dh x rows:
+//   * q lives in shared memory, its head dimension stored in QK^T's
+//     permuted order (MmaEngine's: logical k 2ti+{0,1} and 2ti+8+{0,1} of
+//     step kk are physical dims ti*Dh/4 + 4kk + {0..3}) and its 16-byte
+//     chunks swizzled by row, so one ldmatrix.x4 gives both n8 tiles' B
+//     fragments of a k-step;
+//   * QK^T as MmaEngine's: warp w scores tokens 16w..16w+15 of the 64-row
+//     tile (M) against the 16 query rows (two n8 tiles), in two chains of
+//     k-steps summed at the end;
+//   * the tile's max per query row is taken over the 4 warps through
+//     shared memory, so every warp keeps the same running m (and its own
+//     share of l, summed over the warps at the end);
+//   * P' = p * v_s goes to shared memory (as B of PV, [hi/lo][row][token],
+//     chunks swizzled by row) in the K half of the tile's stage, which
+//     QK^T no longer reads; after a barrier warp w computes O^T for the
+//     output dims [w*Dh/4, (w+1)*Dh/4) over all 64 tokens: M = 16 dims (row
+//     gi of dim tile mt is local dim gi*Dh/32 + 2mt, row gi+8 the next), K =
+//     16 tokens (4 steps), N = the query rows.  A warp's accumulator is
+//     Dh/64 x 2 x 4 floats, and no merge of the warps' accumulators remains.
+// The products run in fp16 (fp32 accumulate): int8 converts to fp16 exactly
+// in 2 PRMT + 2 HSUB2 per 4 values (0x6400 | (x + 128) is the half 1152 +
+// x), where bf16 took 4 PRMT + 4 FADD + 2 F2F (the conversions were most
+// of the engine's instructions).  fp16's range is
+// kept with powers of two, which round nothing: each q row is scaled so its
+// largest |q| lies in [2^14, 2^15) (exact: bf16's 8 significant bits fit
+// fp16's 11 down to 2^-31 of that largest value; the score is scaled back
+// in fp32), and P' by a running 2^T shared by the CTA, lowered (with acc)
+// whenever a tile's largest v_s would take P' past 2^15 (P' <= v_s, as p <=
+// 1); P' = hi + lo in fp16 keeps 22 bits of it, and acc / 2^T is the
+// output's numerator.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void mma_16816_f16(float* c, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// the two bytes of u that sel picks (each x + 128 of an int8 x) as the
+// f16x2 {x0, x1}
+__device__ __forceinline__ uint32_t u8x2_to_f16x2(uint32_t u, int sel) {
+  const uint32_t h = __byte_perm(u, 0x64646464u, sel);   // 1152 + x
+  uint32_t r;
+  asm("sub.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(h), "r"(0x64806480u));
+  return r;
+}
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DH, bool MULTI>
+struct Mma16Engine {
+  // 2 stages at Dh 256 (64 KB of K/V), 3 below: ring, q and the staged
+  // index fit 3 CTAs per SM at Dh 256 and 4 at Dh 128
+  using R = Ring<int8_t, DH, 64, (DH == 256 ? 2 : 3), (DH >= 128)>;
+  static constexpr int GT = 16;          // query rows: two n8 tiles
+  static constexpr int NT = 2;
+  static constexpr int KB = DH / 4;      // K bytes per lane and row
+  static constexpr int DW = DH / 4;      // output dims per warp
+  static constexpr int MTW = DW / 16;    // its dim tiles
+  static constexpr int VBW = DW / 8;     // V bytes per lane and token
+  static constexpr int VW = VBW >= 4 ? VBW / 4 : 1;    // as words
+  static constexpr int QROW = DH * 2;    // bytes of a q row
+  static constexpr int PHALF = GT * 64 * 2;   // bytes of P' hi (or lo)
+  static constexpr int kMinBlocks = DH == 256 ? 3 : 4;
+  // threads per tile row in the loader: 8 at Dh 256 (a copy instruction
+  // of a warp reads a 128-byte line of each of 4 rows), 4 below (64 bytes
+  // of each of 8 rows); the fastest of 2, 4, 8 and 16 on an H100
+  static constexpr int kLoadTPR = DH == 256 ? 8 : 4;
+  static_assert(KB % 16 == 0 && 2 * PHALF <= 64 * R::kStride, "layout");
+  struct Shared {
+    __align__(16) unsigned char q[GT * QROW];   // fp16, scaled per row
+    float mx[kWarps][GT];        // each warp's max of the tile per row
+    float l[kWarps][GT];         // each warp's l, at the end
+    float vmx[kWarps];           // each warp's largest v_s of the tile
+    float rq[GT];                // 1 / each q row's scale (a power of 2)
+  };
+
+  Shared& sh;
+  const int warp, lane, gi, ti;
+  float acc[MTW][NT][4];   // O^T: dims (gi, gi+8 of tile mt) x rows 8nt+2ti+e
+  float m[NT][2], l[NT][2];    // rows 8nt + 2ti + e (l: this warp's tokens)
+  float ps;                // P''s running scale 2^T
+  int qp[NT][2];           // MULTI: those rows' positions (-1: dead row)
+
+  __device__ Mma16Engine(Shared& s, const Params& p, int b, int h, int r0,
+                         int nr)
+      : sh(s), warp(threadIdx.x / 32), lane(threadIdx.x % 32),
+        gi(lane / 4), ti(lane % 4), ps(0x1p126f) {
+    // warp w stages q rows w, w+4, ...: each lane loads its Dh/32 elements
+    // of every such row at once (read-only loads: none waits on a shared
+    // store), scales the row by a power of two from the warp's max |q| and
+    // stores it as fp16.  q rows need no alignment beyond their element (a
+    // worker's slice).
+    const unsigned short* q = static_cast<const unsigned short*>(p.q);
+    constexpr int RW = GT / kWarps, EL = DH / 32;
+    float x[RW][EL];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int n = warp + kWarps * i;
+      const unsigned short* qr =
+          q + (size_t)out_row(p, b, h, r0 + min(n, nr - 1)) * DH + lane;
+#pragma unroll
+      for (int j = 0; j < EL; ++j)
+        x[i][j] = n < nr ? __bfloat162float(
+                               __ushort_as_bfloat16(__ldg(qr + 32 * j)))
+                         : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int n = warp + kWarps * i;
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < EL; ++j) a = fmaxf(a, fabsf(x[i][j]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+      const float sc = a > 0.f && isfinite(a)
+                           ? ldexpf(1.f, min(14 - ilogbf(a), 126)) : 1.f;
+      if (lane == 0) sh.rq[n] = 1.f / sc;
+#pragma unroll
+      for (int j = 0; j < EL; ++j) {
+        const int d = lane + 32 * j;
+        const int t = d / KB, kk = (d % KB) / 4, f = d % 4;
+        const int col = 16 * kk + (f < 2 ? 2 * t + f : 8 + 2 * t + f - 2);
+        *reinterpret_cast<__half*>(
+            sh.q + n * QROW + (swz(col >> 3, n) << 4) + (col & 7) * 2) =
+            __float2half_rn(x[i][j] * sc);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m[nt][e] = kNegInf;
+        l[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3]
+            = 0.f;
+    }
+  }
+
+  // each query row's position, once the row's length is known
+  __device__ void set_base(const Params& p, int base, int r0, int nr) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * nt + 2 * ti + e;
+        qp[nt][e] = j < nr ? base + (r0 + j) / p.g : -1;
+      }
+  }
+
+  // this lane's ldmatrix.x4 row of a [16 rows][chunks] 16-bit operand:
+  // rows (lane/16)*8 + lane%8, chunk 2*step + (lane/8)%2 (B of n8 tiles 0
+  // and 1, k 0-7 and 8-15); byte offset for rows of ``row_bytes``
+  __device__ int frag_off(int step, int row_bytes) const {
+    const int n = (lane >> 4) * 8 + (lane & 7);
+    return n * row_bytes + (swz(2 * step + ((lane >> 3) & 1), n) << 4);
+  }
+
+  __device__ void tile(const Params& p, unsigned char* ring, int stage) {
+    const int tok0 = 16 * warp;
+    // ---- S^T = K q^T on the tensor cores, q's fragments from shared; two
+    // chains of k-steps (even, odd) for the tensor pipe's latency
+    float c[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        c[i][nt][0] = c[i][nt][1] = c[i][nt][2] = c[i][nt][3] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < KB / 16; ++ch) {
+      const uint4 r0 = *reinterpret_cast<const uint4*>(
+          R::at(ring, stage, 0, tok0 + gi, ti * KB + 16 * ch));
+      const uint4 r8 = *reinterpret_cast<const uint4*>(
+          R::at(ring, stage, 0, tok0 + gi + 8, ti * KB + 16 * ch));
+      const uint32_t w0[4] = {r0.x, r0.y, r0.z, r0.w};
+      const uint32_t w8[4] = {r8.x, r8.y, r8.z, r8.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t u0 = w0[u] ^ 0x80808080u, u8 = w8[u] ^ 0x80808080u;
+        const uint32_t a[4] = {u8x2_to_f16x2(u0, 0x4140),
+                               u8x2_to_f16x2(u8, 0x4140),
+                               u8x2_to_f16x2(u0, 0x4342),
+                               u8x2_to_f16x2(u8, 0x4342)};
+        uint32_t qb[4];
+        ldmatrix_x4(qb, sh.q + frag_off(4 * ch + u, QROW));
+        mma_16816_f16(c[u & 1][0], a, qb[0], qb[1]);
+        mma_16816_f16(c[u & 1][1], a, qb[2], qb[3]);
+      }
+    }
+    // ---- the tile's max per query row and largest v_s, over the 4 warps
+    const int* okf = R::ok(ring, stage);
+    const float* ksc = R::scales(ring, stage, 0);
+    const float* vsc = R::scales(ring, stage, 1);
+    const int flag[2] = {okf[tok0 + gi], okf[tok0 + gi + 8]};
+    const bool ok[2] = {MULTI ? flag[0] >= 0 : flag[0] != 0,
+                        MULTI ? flag[1] >= 0 : flag[1] != 0};
+    const float kscale[2] = {ksc[tok0 + gi] * p.scale,
+                             ksc[tok0 + gi + 8] * p.scale};
+    const float vs[2] = {vsc[tok0 + gi], vsc[tok0 + gi + 8]};
+    float s[NT][4];
+    bool v[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // a decode query's limit and window are the span's own
+          const int i = 2 * hh + e;
+          v[nt][i] = MULTI ? ok[hh] && sees(p, flag[hh], qp[nt][e]) : ok[hh];
+          float sc = (c[0][nt][i] + c[1][nt][i])
+                     * sh.rq[8 * nt + 2 * ti + e] * kscale[hh];
+          if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
+          s[nt][i] = v[nt][i] ? sc : kNegInf;
+        }
+        float mt = fmaxf(s[nt][e], s[nt][2 + e]);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+        if (gi == 0) sh.mx[warp][8 * nt + 2 * ti + e] = mt;
+      }
+    }
+    {
+      float vm = fmaxf(vs[0], vs[1]);
+      vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, 4));
+      vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, 8));
+      vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, 16));
+      if (lane == 0) sh.vmx[warp] = vm;
+    }
+    __syncthreads();       // every warp's maxima; every warp done with K
+    // ---- P''s scale: lowered when the tile's v_s would pass 2^15
+    float vmax = sh.vmx[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) vmax = fmaxf(vmax, sh.vmx[w]);
+    const float ps_new =
+        vmax > 0.f && isfinite(vmax)
+            ? fminf(ps, ldexpf(1.f, min(14 - ilogbf(vmax), 126))) : ps;
+    const float pratio = ps_new / ps;          // a power of two, <= 1
+    ps = ps_new;
+    // ---- online softmax with the shared max; P' into the K half
+    unsigned char* pb = R::row(ring, stage, 0, 0);
+    float corr[NT][2];
+    bool moved = false;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float pr[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * nt + 2 * ti + e;
+        float tm = sh.mx[0][row];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) tm = fmaxf(tm, sh.mx[w][row]);
+        const float m_new = fmaxf(m[nt][e], tm);
+        pr[e] = v[nt][e] ? expf(s[nt][e] - m_new) : 0.f;
+        pr[2 + e] = v[nt][2 + e] ? expf(s[nt][2 + e] - m_new) : 0.f;
+        float lt = pr[e] + pr[2 + e];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 8);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 16);
+        const float cm = expf(m[nt][e] - m_new);
+        l[nt][e] = l[nt][e] * cm + lt;
+        m[nt][e] = m_new;
+        corr[nt][e] = cm * pratio;
+        moved |= corr[nt][e] != 1.f;
+      }
+      // P' of tokens gi, gi+8 x rows 2ti+e, transposed by movmatrix to
+      // rows gi x tokens 8hh+2ti+{0,1}: one 4-byte store of hi and of lo
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float sv = vs[hh] * ps;
+        const float x0 = pr[2 * hh] * sv, x1 = pr[2 * hh + 1] * sv;
+        const __half2 hi = __floats2half2_rn(x0, x1);
+        const float2 hf = __half22float2(hi);
+        const uint32_t th =
+            movmatrix_trans(*reinterpret_cast<const uint32_t*>(&hi));
+        const uint32_t tl = movmatrix_trans(pack_f16(x0 - hf.x, x1 - hf.y));
+        const int n = 8 * nt + gi, tok = tok0 + 8 * hh + 2 * ti;
+        const int off = n * 128 + (swz(tok >> 3, n) << 4) + (tok & 7) * 2;
+        *reinterpret_cast<uint32_t*>(pb + off) = th;
+        *reinterpret_cast<uint32_t*>(pb + PHALF + off) = tl;
+      }
+    }
+    // rescale only when some row's max or P''s scale moved (x 1.0 is exact)
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= corr[nt][e % 2];
+    }
+    __syncthreads();       // P' of all 64 tokens
+    // ---- O^T += V^T P'^T for this warp's dims, 16 tokens a step
+    const int byte0 = warp * DW + gi * VBW;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4(bh, pb + frag_off(ks, 128));
+      ldmatrix_x4(bl, pb + PHALF + frag_off(ks, 128));
+      uint32_t vw[4][VW];
+      const int vt[4] = {16 * ks + 2 * ti, 16 * ks + 2 * ti + 1,
+                         16 * ks + 2 * ti + 8, 16 * ks + 2 * ti + 9};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const unsigned char* a = R::at(ring, stage, 1, vt[r], byte0);
+        if constexpr (VBW == 8) {
+          const uint2 x = *reinterpret_cast<const uint2*>(a);
+          vw[r][0] = x.x;
+          vw[r][1] = x.y;
+        } else if constexpr (VBW == 4) {
+          vw[r][0] = *reinterpret_cast<const uint32_t*>(a);
+        } else {
+          vw[r][0] = *reinterpret_cast<const uint16_t*>(a);
+        }
+      }
+#pragma unroll
+      for (int wi = 0; wi < VW; ++wi) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {        // dim tile mt = 2wi + u
+          const int mt = 2 * wi + u;
+          if (mt >= MTW) break;
+          // bytes 2u, 2u+1 (local dims 4wi+2u, +1) of tokens (0, 1) and
+          // (2, 3), interleaved: x0 y0 x1 y1
+          const int sel = u ? 0x7362 : 0x5140;
+          const uint32_t z01 =
+              __byte_perm(vw[0][wi], vw[1][wi], sel) ^ 0x80808080u;
+          const uint32_t z23 =
+              __byte_perm(vw[2][wi], vw[3][wi], sel) ^ 0x80808080u;
+          const uint32_t a[4] = {u8x2_to_f16x2(z01, 0x4140),
+                                 u8x2_to_f16x2(z01, 0x4342),
+                                 u8x2_to_f16x2(z23, 0x4140),
+                                 u8x2_to_f16x2(z23, 0x4342)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_16816_f16(acc[mt][nt], a, bh[2 * nt], bh[2 * nt + 1]);
+            mma_16816_f16(acc[mt][nt], a, bl[2 * nt], bl[2 * nt + 1]);
+          }
+        }
+      }
+    }
+  }
+
+  // every warp writes its own dims; only l is summed over the warps
+  __device__ void finish(const Params& p, unsigned char* ring, int split,
+                         int b, int h, int r0, int nr) {
+    if (gi == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sh.l[warp][8 * nt + 2 * ti + e] = l[nt][e];
+    }
+    __syncthreads();
+    const float rps = 1.f / ps;          // acc / 2^T: a power of two
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * nt + 2 * ti + e;
+        if (row >= nr) continue;
+        float ls = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) ls += sh.l[w][row];
+        const int orow = out_row(p, b, h, r0 + row);
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            emit<__nv_bfloat16>(p, split, orow,
+                                warp * DW + gi * VBW + 2 * mt + hh, DH,
+                                m[nt][e], ls, acc[mt][nt][2 * hh + e] * rps);
+      }
+    }
+  }
+};
+
 // the engine of an instantiation: tensor cores for int8 K/V with a bf16 q
-// (8 query rows per CTA, or 16 for the multi-token entry), CUDA cores else
+// (8 query rows per CTA on MmaEngine; 16 on Mma16Engine: the multi-token
+// entry at T*G > 8, the slab entry at Dh 256), CUDA cores else
 template <typename TQ, typename TKV, int DH, int GT, bool MULTI>
 struct EngineOf {
   using type = FmaEngine<TQ, TKV, DH, GT, MULTI>;
 };
 template <int DH, bool MULTI>
 struct EngineOf<__nv_bfloat16, int8_t, DH, 8, MULTI> {
-  using type = MmaEngine<DH, 1, MULTI>;
+  using type = MmaEngine<DH, MULTI>;
 };
 template <int DH, bool MULTI>
 struct EngineOf<__nv_bfloat16, int8_t, DH, 16, MULTI> {
-  using type = MmaEngine<DH, 2, MULTI>;
+  using type = Mma16Engine<DH, MULTI>;
 };
 
 // ---------------------------------------------------------------------------
@@ -961,37 +1396,41 @@ dense_attn_kernel(const Params p) {
 
   const unsigned char* gk = static_cast<const unsigned char*>(p.k);
   const unsigned char* gv = static_cast<const unsigned char*>(p.v);
-  constexpr int TPR = kThreads / TILE;        // threads per tile row
-  static_assert(kThreads % TILE == 0 && R::kChunks % TPR == 0, "loader");
+  constexpr int TPR = E::kLoadTPR;            // threads per tile row
+  constexpr int RPP = kThreads / TPR;         // rows a pass covers
+  static_assert(TILE % RPP == 0 && R::kChunks % TPR == 0, "loader");
   auto load_tile = [&](int k) {
     const int stage = k % R::kStages;
-    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-    size_t off = 0;
-    int at = -1;
-    const bool ok = span.row(p, s_idx, b, h, qpos, TILE, k, r, off, at);
-    const size_t byte0 = off * R::kRowBytes;
-    const unsigned char* ksrc = ok ? gk + byte0 : gk;
-    const unsigned char* vsrc = ok ? gv + byte0 : gv;
-
-    // each copy instruction of a warp reads TPR*16 contiguous bytes of
-    // 32/TPR rows
+    const int part = threadIdx.x % TPR;
 #pragma unroll
-    for (int j = 0; j < R::kChunks / TPR; ++j) {
-      const int byte = (part + TPR * j) * 16;
-      cp_async16(R::at(ring, stage, 0, r, byte), ksrc + (ok ? byte : 0),
-                 ok);
-      cp_async16(R::at(ring, stage, 1, r, byte), vsrc + (ok ? byte : 0),
-                 ok);
-    }
-    if (part == 0) {
-      if constexpr (R::kInt8) {
-        cp_async4(R::scales(ring, stage, 0) + r, ok ? p.k_s + off : p.k_s,
-                  ok);
-        cp_async4(R::scales(ring, stage, 1) + r, ok ? p.v_s + off : p.v_s,
-                  ok);
+    for (int r = threadIdx.x / TPR; r < TILE; r += RPP) {
+      size_t off = 0;
+      int at = -1;
+      const bool ok = span.row(p, s_idx, b, h, qpos, TILE, k, r, off, at);
+      const size_t byte0 = off * R::kRowBytes;
+      const unsigned char* ksrc = ok ? gk + byte0 : gk;
+      const unsigned char* vsrc = ok ? gv + byte0 : gv;
+
+      // each copy instruction of a warp reads TPR*16 contiguous bytes of
+      // 32/TPR rows
+#pragma unroll
+      for (int j = 0; j < R::kChunks / TPR; ++j) {
+        const int byte = (part + TPR * j) * 16;
+        cp_async16(R::at(ring, stage, 0, r, byte), ksrc + (ok ? byte : 0),
+                   ok);
+        cp_async16(R::at(ring, stage, 1, r, byte), vsrc + (ok ? byte : 0),
+                   ok);
       }
-      // MULTI: the row's position, which each query row masks itself
-      R::ok(ring, stage)[r] = MULTI ? (ok ? at : -1) : ok;
+      if (part == 0) {
+        if constexpr (R::kInt8) {
+          cp_async4(R::scales(ring, stage, 0) + r,
+                    ok ? p.k_s + off : p.k_s, ok);
+          cp_async4(R::scales(ring, stage, 1) + r,
+                    ok ? p.v_s + off : p.v_s, ok);
+        }
+        // MULTI: the row's position, which each query row masks itself
+        R::ok(ring, stage)[r] = MULTI ? (ok ? at : -1) : ok;
+      }
     }
   };
 
@@ -1047,66 +1486,77 @@ dense_merge(const float* __restrict__ part, TQ* __restrict__ out,
 // ---------------------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
+// an instantiation, its query rows per CTA and its ring (dynamic shared
+// memory before the staged index)
+struct Choice {
+  KernelFn fn;
+  int gt;
+  int ring_bytes;
+};
+
+template <typename TQ, typename TKV, int DH, int GT, bool PAGED, bool MULTI>
+Choice pick() {
+  return {&dense_attn_kernel<TQ, TKV, DH, GT, PAGED, MULTI>, GT,
+          EngineOf<TQ, TKV, DH, GT, MULTI>::type::R::kBytes};
+}
+
 // the instantiation for t_count query tokens and g query heads per
 // kv-head.  A decode (t_count = 1): the smallest width in {1,2,4,8} that
-// holds the g heads (FmaEngine), or 8 (MmaEngine); grid.z covers the rest
-// in groups of 8, as the wrappers' row_groups(1, g).  The multi-token
-// entry (paged only): the t_count*g rows in CTAs of 8 or 16 (MmaEngine)
-// or of 2, 4 or 8 (FmaEngine), as the wrapper's verify_row_groups.
+// holds the g heads (FmaEngine), or 8 (MmaEngine) or, at Dh 256 (the slab
+// entry), 16 (Mma16Engine); grid.z covers the rest in groups of that
+// width, as the wrappers' row_groups(1, g) and, for kernel 3's slab entry,
+// quant_kv.slab_row_groups.  The multi-token entry (paged only): the
+// t_count*g rows in CTAs of 8 (MmaEngine) or 16 (Mma16Engine), or of 2, 4
+// or 8 (FmaEngine), as the wrapper's verify_row_groups.
 template <typename TQ, typename TKV, int DH, bool PAGED>
-KernelFn choose(int t_count, int g, int* gt) {
+Choice choose(int t_count, int g) {
   constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
                         && std::is_same<TKV, int8_t>::value;
   if constexpr (PAGED) {
     if (t_count > 1) {
       const int rows = t_count * g;
       if constexpr (kMma) {
-        *gt = rows > 8 ? 16 : 8;
-        if (rows > 8) return &dense_attn_kernel<TQ, TKV, DH, 16, true, true>;
-        return &dense_attn_kernel<TQ, TKV, DH, 8, true, true>;
+        if (rows > 8) return pick<TQ, TKV, DH, 16, true, true>();
+        return pick<TQ, TKV, DH, 8, true, true>();
       } else {
-        *gt = rows > 4 ? 8 : rows > 2 ? 4 : 2;
-        if (rows > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, true, true>;
-        if (rows > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, true, true>;
-        return &dense_attn_kernel<TQ, TKV, DH, 2, true, true>;
+        if (rows > 4) return pick<TQ, TKV, DH, 8, true, true>();
+        if (rows > 2) return pick<TQ, TKV, DH, 4, true, true>();
+        return pick<TQ, TKV, DH, 2, true, true>();
       }
     }
   }
   if constexpr (kMma) {
-    *gt = 8;
-    return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED, false>;
+    if constexpr (DH == 256) return pick<TQ, TKV, DH, 16, PAGED, false>();
+    else return pick<TQ, TKV, DH, 8, PAGED, false>();
   } else {
-    *gt = g > 4 ? 8 : g > 2 ? 4 : g > 1 ? 2 : 1;
-    if (g > 4) return &dense_attn_kernel<TQ, TKV, DH, 8, PAGED, false>;
-    if (g > 2) return &dense_attn_kernel<TQ, TKV, DH, 4, PAGED, false>;
-    if (g > 1) return &dense_attn_kernel<TQ, TKV, DH, 2, PAGED, false>;
-    return &dense_attn_kernel<TQ, TKV, DH, 1, PAGED, false>;
+    if (g > 4) return pick<TQ, TKV, DH, 8, PAGED, false>();
+    if (g > 2) return pick<TQ, TKV, DH, 4, PAGED, false>();
+    if (g > 1) return pick<TQ, TKV, DH, 2, PAGED, false>();
+    return pick<TQ, TKV, DH, 1, PAGED, false>();
   }
 }
 
-// the ring of every instantiation of (TQ, TKV, DH): the engines' rings do
-// not depend on the rows per CTA or on MULTI
-template <typename TQ, typename TKV, int DH>
-constexpr int ring_bytes() {
-  constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
-                        && std::is_same<TKV, int8_t>::value;
-  return EngineOf<TQ, TKV, DH, kMma ? 8 : 1, false>::type::R::kBytes;
-}
-
 // every instantiation may take its ring + the largest staged index as
-// dynamic shared memory (above the default 48 KB), once per device
+// dynamic shared memory (above the default 48 KB), once per device; the
+// 16-row engine's also asks for the largest shared-memory carveout (its 3
+// or 4 CTAs per SM need it)
 template <typename TQ, typename TKV, int DH, bool PAGED>
 cudaError_t allow_smem_one() {
-  const int bytes = ring_bytes<TQ, TKV, DH>() + kMaxSplitIdx * 4;
   // t_count 2 reaches every multi-token instantiation: rows 2, 4, 8, 16
   for (int t_count : {1, 2}) {
     if (!PAGED && t_count > 1) continue;
     for (int g : {1, 2, 4, 8}) {
-      int gt;
-      const cudaError_t e = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(
-              choose<TQ, TKV, DH, PAGED>(t_count, g, &gt)),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      const Choice c = choose<TQ, TKV, DH, PAGED>(t_count, g);
+      const void* fn = reinterpret_cast<const void*>(c.fn);
+      cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          c.ring_bytes + kMaxSplitIdx * 4);
+      if (e == cudaSuccess && c.gt == 16
+          && std::is_same<TKV, int8_t>::value
+          && std::is_same<TQ, __nv_bfloat16>::value)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
       if (e != cudaSuccess) return e;
     }
   }
@@ -1142,18 +1592,21 @@ cudaError_t allow_smem() {
   return err[dev];
 }
 
+// staged: the split's table entries (paged) or a validity bit per slot,
+// in words of 128 slots (slab)
+template <bool PAGED>
+int staged_bytes(int per_split) {
+  return PAGED ? per_split * 4
+               : (per_split + kThreads - 1) / kThreads * kThreads / 8;
+}
+
 template <typename TQ, typename TKV, int DH, bool PAGED>
 cudaError_t launch_dh(Params p, int b, cudaStream_t stream) {
-  int gt;
-  const KernelFn fn = choose<TQ, TKV, DH, PAGED>(p.t_count, p.g, &gt);
+  const Choice c = choose<TQ, TKV, DH, PAGED>(p.t_count, p.g);
   const dim3 grid(p.num_splits, p.hkv,
-                  b * ((p.t_count * p.g + gt - 1) / gt));
-  // staged: the split's table entries (paged) or a validity bit per
-  // slot, in words of 128 slots (slab)
-  const int smem = ring_bytes<TQ, TKV, DH>()
-      + (PAGED ? p.per_split * 4 : (p.per_split + kThreads - 1) / kThreads
-                                   * kThreads / 8);
-  fn<<<grid, kThreads, smem, stream>>>(p);
+                  b * ((p.t_count * p.g + c.gt - 1) / c.gt));
+  c.fn<<<grid, kThreads, c.ring_bytes + staged_bytes<PAGED>(p.per_split),
+         stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.num_splits == 1) return e;
   // programmatic dependent launch: the merge's launch overlaps the
@@ -1170,6 +1623,35 @@ cudaError_t launch_dh(Params p, int b, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, dense_merge<TQ, DH>, (const float*)p.part,
                             static_cast<TQ*>(p.out), p.rows_total,
                             p.num_splits);
+}
+
+// the query rows per CTA of the instantiation a call launches and the
+// CTAs of it that fit on one SM (the occupancy calculator)
+template <typename TQ, typename TKV, int DH, bool PAGED>
+cudaError_t occupancy_dh(int t_count, int g, int per_split, int* rows,
+                         int* ctas) {
+  const Choice c = choose<TQ, TKV, DH, PAGED>(t_count, g);
+  *rows = c.gt;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, reinterpret_cast<const void*>(c.fn), kThreads,
+      c.ring_bytes + staged_bytes<PAGED>(per_split));
+}
+
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t occupancy_kv(int t_count, int g, int dh, int per_split,
+                         int* rows, int* ctas) {
+  if (dh == 128)
+    return occupancy_dh<TQ, TKV, 128, PAGED>(t_count, g, per_split, rows,
+                                             ctas);
+  if (dh == 64)
+    return occupancy_dh<TQ, TKV, 64, PAGED>(t_count, g, per_split, rows,
+                                            ctas);
+  if constexpr (std::is_same<TKV, int8_t>::value && !PAGED) {
+    if (dh == 256)
+      return occupancy_dh<TQ, TKV, 256, PAGED>(t_count, g, per_split, rows,
+                                               ctas);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV, bool PAGED>
@@ -1342,4 +1824,39 @@ extern "C" int repro_paged_verify_attention_int8(
                     t_count, hq, hkv, dh, page, mp, num_pages, window, sink,
                     softcap, scale, q_dtype, pages_per_split, num_splits,
                     scratch, stream);
+}
+
+// The instantiation a call of these entries would launch: kv_int8 0 =
+// kernel 2 (K/V in q's dtype), 1 = kernel 3; paged 1 = kernel 3's paged
+// entries (t_count > 1: the multi-token one); q_dtype as above; per_split
+// the plan's slots or pages per split.  Writes its query rows per CTA and
+// the CTAs of it that fit on one SM at that staged index.
+extern "C" int repro_decode_attention_occupancy(
+    int kv_int8, int paged, int t_count, int hq, int hkv, int dh,
+    int q_dtype, int per_split, int* rows_per_cta, int* ctas_per_sm) {
+  if (t_count <= 0 || hkv <= 0 || hq <= 0 || hq % hkv != 0
+      || per_split <= 0 || per_split > kMaxSplitIdx
+      || (t_count > 1 && !paged) || (paged && !kv_int8))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  const int g = hq / hkv;
+  int* r = rows_per_cta;
+  int* c = ctas_per_sm;
+  if (!kv_int8 && q_dtype == 0)
+    return (int)occupancy_kv<float, float, false>(1, g, dh, per_split, r, c);
+  if (!kv_int8 && q_dtype == 1)
+    return (int)occupancy_kv<__nv_bfloat16, __nv_bfloat16, false>(
+        1, g, dh, per_split, r, c);
+  if (q_dtype == 0)
+    return (int)(paged ? occupancy_kv<float, int8_t, true>(
+                             t_count, g, dh, per_split, r, c)
+                       : occupancy_kv<float, int8_t, false>(
+                             1, g, dh, per_split, r, c));
+  if (q_dtype == 1)
+    return (int)(paged ? occupancy_kv<__nv_bfloat16, int8_t, true>(
+                             t_count, g, dh, per_split, r, c)
+                       : occupancy_kv<__nv_bfloat16, int8_t, false>(
+                             1, g, dh, per_split, r, c));
+  return (int)cudaErrorInvalidValue;
 }

@@ -48,38 +48,61 @@ _ENTRIES = {"repro_decode_attention": (5, 7),
             "repro_decode_attention_int8": (7, 7),
             "repro_paged_decode_attention_int8": (7, 9),
             "repro_paged_verify_attention_int8": (7, 10)}
+_OCCUPANCY = "repro_decode_attention_occupancy"
 _fns = {}   # C entry point name -> the declared ctypes function
 
 
 def _kernel_fn(name: str):
-    """A C entry point of csrc/decode_attention.cu, built on first use."""
+    """A C entry point of csrc/decode_attention.cu, built on first use;
+    ``repro_decode_attention_occupancy`` takes (kv_int8, paged, T, hq,
+    hkv, dh, dtype, per_split, int* rows_per_cta, int* ctas_per_sm)."""
     if name not in _fns:
         from repro_torch.kernels import build
         fn = getattr(build.load("decode_attention"), name)
-        n_ptrs, n_int = _ENTRIES[name]
-        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
-                       + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        if name == _OCCUPANCY:
+            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        else:
+            n_ptrs, n_int = _ENTRIES[name]
+            fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
+                           + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def occupancy(*, kv_int8: bool, paged: bool, t: int, hq: int, hkv: int,
+              dh: int, dtype, per_split: int):
+    """(query rows per CTA, CTAs per SM) of the instantiation such a call
+    launches (kernel 2, or kernel 3's slab, paged or multi-token entry),
+    from the C side's own choice and the CUDA occupancy calculator on the
+    built kernel at that staged index."""
+    rows, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    err = _kernel_fn(_OCCUPANCY)(int(kv_int8), int(paged), t, hq, hkv, dh,
+                                 _DTYPES[dtype], per_split,
+                                 ctypes.addressof(rows),
+                                 ctypes.addressof(ctas))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed (cudaError {err})")
+    return rows.value, ctas.value
 
 
 # ---------------------------------------------------------------------------
 # the split plan over a slab: slots counted as pages of one, shapes only
 # ---------------------------------------------------------------------------
 def slab_plan(b: int, hkv: int, g: int, s_len: int, sm_count: int):
-    """(slots_per_split, num_splits) of a dense call: one split when the
+    """(slots_per_split, num_splits) of a kernel-2 call: one split when the
     b*hkv*row_groups CTAs (up to 8 query heads each, as kernel 1's
     decode) fill the SMs, else splits of >= 64 slots for about 2 CTAs per
     SM (``paged_attention.capped_split_plan`` over pages of one slot), at
-    most ``MAX_SPLIT_SLOTS`` slots each."""
+    most ``MAX_SPLIT_SLOTS`` slots each.  Kernel 3's slab entry groups its
+    rows by ``quant_kv.slab_row_groups`` (``quant_kv.slab_plan``)."""
     return _pa.capped_split_plan(b, hkv, _pa.row_groups(1, g), s_len, 1,
                                  sm_count, MAX_SPLIT_SLOTS)
 
 
 def kernel_plan(q, k):
-    """The split plan a dense call with these tensors launches."""
+    """The split plan a kernel-2 call with these tensors launches."""
     b, hq, _ = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     return slab_plan(b, hkv, hq // hkv, s_len, _pa.sm_count(q.device))

@@ -119,14 +119,17 @@ def split_plan(b: int, hkv: int, groups: int, mp: int, page: int,
 
 @functools.lru_cache(maxsize=None)
 def capped_split_plan(b: int, hkv: int, groups: int, mp: int, page: int,
-                      sm_count: int, max_split: int):
+                      sm_count: int, max_split: int, one_wave: bool = False):
     """``split_plan`` with at most ``max_split`` pages per split (the
     entries one CTA stages); the dense kernels count slab slots as pages
-    of one (``decode_attention.slab_plan``)."""
+    of one (``decode_attention.slab_plan``).  ``one_wave``: at most
+    ``SPLIT_CTAS_PER_SM`` CTAs per SM (splits rounded down, not up, so no
+    SM takes a third CTA while others hold two)."""
     ctas = b * hkv * groups
     pps = mp
     if ctas < sm_count:
-        want = -(-SPLIT_CTAS_PER_SM * sm_count // ctas)
+        want = (SPLIT_CTAS_PER_SM * sm_count // ctas if one_wave
+                else -(-SPLIT_CTAS_PER_SM * sm_count // ctas))
         pps = max(-(-mp // want), -(-SPLIT_MIN_TOKENS // page))
     pps = max(1, min(pps, mp, max_split))
     return pps, -(-mp // pps)

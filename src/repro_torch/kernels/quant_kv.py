@@ -86,7 +86,7 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, pos, lengths, *,
         "repro_decode_attention_int8", q,
         (q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
          v_scale.data_ptr(), pos.data_ptr(), lengths.data_ptr()),
-        (b, s_len, hq, hkv, dh), _da.kernel_plan(q, k_q), window=window,
+        (b, s_len, hq, hkv, dh), slab_plan(q, k_q), window=window,
         sink=sink, softcap=softcap)
     launches.add()
     return out
@@ -206,6 +206,35 @@ def paged_verify_attention_int8(q, pk_q, pk_s, pv_q, pv_s, tables, lengths,
         window=window, sink=sink, softcap=softcap)
     verify_launches.add()
     return out
+
+
+def _sixteen_rows(dh: int, dtype) -> bool:
+    """Whether kernel 3's slab entry runs on the 16-row tensor-core engine
+    (a bf16 q at Dh 256), as the C side chooses."""
+    return dtype == torch.bfloat16 and dh == 256
+
+
+def slab_row_groups(g: int, dh: int, dtype) -> int:
+    """CTAs per (row, kv-head) of kernel 3's slab entry, as the C side
+    chooses them: 16 query heads per CTA on the 16-row engine
+    (recurrentgemma's G 10 in one CTA), else 8 (kernel 1's decode
+    grouping)."""
+    return -(-g // (16 if _sixteen_rows(dh, dtype) else 8))
+
+
+def slab_plan(q, k_q):
+    """The split plan of kernel 3's slab entry (shapes only): the slab
+    plan of ``decode_attention.slab_plan`` for the CTAs of
+    ``slab_row_groups``; the 16-row instance (bf16 q, Dh 256) keeps its
+    grid to one wave of 2 CTAs per SM (at 64 rows x 2048 slots 4 splits,
+    256 CTAs, where rounding up gave 5 and put a third CTA on 56 SMs)."""
+    b, hq, dh = q.shape
+    s_len, hkv = k_q.shape[1], k_q.shape[2]
+    return _pa.capped_split_plan(b, hkv, slab_row_groups(hq // hkv, dh,
+                                                         q.dtype),
+                                 s_len, 1, _pa.sm_count(q.device),
+                                 _da.MAX_SPLIT_SLOTS,
+                                 one_wave=_sixteen_rows(dh, q.dtype))
 
 
 def verify_row_groups(t: int, g: int, dtype) -> int:

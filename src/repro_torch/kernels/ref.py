@@ -274,3 +274,90 @@ def slab_split_attention_ref(q, k, v, pos, lengths, *, slots_per_split: int,
         q, k, v, pos, lengths, slots_per_split=slots_per_split,
         window=window, sink=sink, softcap=softcap, k_scale=k_scale,
         v_scale=v_scale)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the order of operations of kernel 3's 16-row tensor-core engine
+# (csrc/decode_attention.cu ``Mma16Engine``: the slab entry at Dh 256 with a
+# bf16 q, the multi-token entry at T*G > 8).  Each split walks its slots in
+# tiles of 64 from its first slot; per tile: scores k_s * scale * (q . k_q)
+# with q as bf16 (the kernel's fp16 q, scaled by a power of two per row,
+# holds the same values), the tile's max per query row taken over the whole
+# tile (the 4 warps share one running m), p = exp(s - m), P' = p * v_s *
+# 2^T split into fp16 hi + lo, with 2^T a running power of two per (row,
+# kv-head) lowered when the tile's largest v_s (over the slots it loads)
+# would take P' past 2^15, and O += V^T hi + V^T lo computed by quarters of
+# the output dims (each warp owns one), O / 2^T at the end; then the split
+# merge.  Tests hold it against the JAX package; no serving path runs it.
+# ---------------------------------------------------------------------------
+MMA16_TILE = 64
+
+
+def _pow2_below(x):
+    """2^(14 - floor(log2 x)) (at most 2^126) where x > 0, else inf: the
+    power of two that takes x into [2^14, 2^15)."""
+    _, e = torch.frexp(x)
+    t = torch.ldexp(torch.ones_like(x), torch.clamp(15 - e, max=126))
+    return torch.where(x > 0, t, torch.full_like(x, math.inf))
+
+
+def int8_mma16_attention_ref(q, k_q, k_s, v_q, v_s, kpos, qpos, *,
+                             slots_per_split: int, window: int = 0,
+                             sink: int = 0, softcap: float = 0.0):
+    """q [B,T,Hq,Dh] (read as bf16); k_q, v_q int8 [B,S,Hkv,Dh]; k_s, v_s
+    fp32 [B,S,Hkv]; kpos [B,S] each slot's position (-1 = empty; a paged
+    pool gathered by ``paged_gather``); qpos [B,T] each query's position ->
+    [B,T,Hq,Dh] fp32."""
+    f32 = torch.float32
+    b, t, hq, dh = q.shape
+    s_len, hkv = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    qg = q.to(torch.bfloat16).to(f32).reshape(b, t, hkv, g, dh)
+    scale = 1.0 / math.sqrt(dh)
+    quarter = dh // 4
+    parts = []
+    for lo in range(0, s_len, slots_per_split):
+        m = torch.full((b, t, hkv, g), L.NEG_INF, dtype=f32)
+        l = torch.zeros((b, t, hkv, g), dtype=f32)
+        acc = torch.zeros((b, t, hkv, g, dh), dtype=f32)
+        ps = torch.full((b, hkv), 2.0 ** 126, dtype=f32)
+        for t0 in range(lo, min(lo + slots_per_split, s_len), MMA16_TILE):
+            sl = slice(t0, min(t0 + MMA16_TILE, lo + slots_per_split, s_len))
+            kt = k_q[:, sl].to(f32)                  # [B,n,Hkv,Dh]
+            vt = v_q[:, sl].to(f32)
+            sc = torch.einsum("bthgd,bnhd->bthgn", qg, kt) \
+                * (k_s[:, sl] * scale).permute(0, 2, 1)[:, None, :, None, :]
+            if softcap > 0.0:
+                sc = softcap * torch.tanh(sc / softcap)
+            msk = L._mask(qpos, kpos[:, sl], causal=True, window=window,
+                          sink=sink)[:, :, None, None, :]
+            sc = torch.where(msk, sc, torch.tensor(L.NEG_INF, dtype=f32))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.where(msk, torch.exp(sc - m_new[..., None]),
+                            torch.zeros((), dtype=f32))
+            cm = torch.exp(m - m_new)
+            l = l * cm + p.sum(dim=-1)
+            # the slots the kernel loads: those some query sees
+            loaded = msk[:, :, 0, 0, :].any(dim=1)            # [B,n]
+            vmax = torch.where(loaded[..., None], v_s[:, sl],
+                               torch.zeros((), dtype=f32)).amax(dim=1)
+            ps_new = torch.minimum(ps, _pow2_below(vmax))
+            pratio = (ps_new / ps)[:, None, :, None]
+            ps = ps_new
+            sv = (v_s[:, sl] * ps[:, None, :]).permute(0, 2, 1)
+            pv = p * sv[:, None, :, None, :]
+            hi = pv.to(torch.float16).to(f32)
+            lo_ = (pv - hi).to(torch.float16).to(f32)
+            acc = acc * (cm * pratio)[..., None]
+            acc = torch.cat([
+                acc[..., w * quarter:(w + 1) * quarter]
+                + torch.einsum("bthgn,bnhd->bthgd", hi,
+                               vt[..., w * quarter:(w + 1) * quarter])
+                + torch.einsum("bthgn,bnhd->bthgd", lo_,
+                               vt[..., w * quarter:(w + 1) * quarter])
+                for w in range(4)], dim=-1)
+            m = m_new
+        acc = acc / ps[:, None, :, None, None]
+        parts.append((m.reshape(b, t, hq), l.reshape(b, t, hq),
+                      acc.reshape(b, t, hq, dh)))
+    return merge_split_partials_ref(*(torch.stack(x) for x in zip(*parts)))

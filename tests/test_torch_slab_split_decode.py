@@ -302,7 +302,13 @@ SLAB_PLAN_GRID = [(b, hkv, g, s, sms) for b in (1, 2, 8, 64)
                   for s in (1, 50, 300, 1024, 4096, 20000) for sms in (8, 132)]
 
 
-@pytest.mark.parametrize("b,hkv,g,s,sms", SLAB_PLAN_GRID[::11])
+# recurrentgemma-2b's windowed heads (Hkv 1, G 10): its int8 serve's
+# per-worker call (2 rows, S 1024) and 64 rows over the 2048-slot window
+HYBRID_PLAN_SHAPES = [(2, 1, 10, 1024, 132), (64, 1, 10, 2048, 132)]
+
+
+@pytest.mark.parametrize("b,hkv,g,s,sms",
+                         SLAB_PLAN_GRID[::11] + HYBRID_PLAN_SHAPES)
 def test_slab_plan_covers_every_slot_once(b, hkv, g, s, sms):
     sps, n = TDA.slab_plan(b, hkv, g, s, sms)
     assert 1 <= sps <= min(s, TDA.MAX_SPLIT_SLOTS)
@@ -313,6 +319,43 @@ def test_slab_plan_covers_every_slot_once(b, hkv, g, s, sms):
     assert np.all(covered == 1)
     if b * hkv * TPA.row_groups(1, g) >= sms and s <= TDA.MAX_SPLIT_SLOTS:
         assert n == 1                    # the grid already fills the SMs
+    if n > 1 and s <= TDA.MAX_SPLIT_SLOTS:
+        assert sps >= TPA.SPLIT_MIN_TOKENS
+
+
+@pytest.mark.parametrize("b,hkv,g,s,sms",
+                         SLAB_PLAN_GRID[5::23] + HYBRID_PLAN_SHAPES)
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_slab_plan_covers_every_slot_once(b, hkv, g, s, sms, dh,
+                                               dtype):
+    """Kernel 3's slab entry plans its splits for its own row groups
+    (``quant_kv.slab_row_groups``: 16 query heads per CTA with a bf16 q at
+    Dh 256, else 8): every slot once, no empty split, one split where its
+    grid fills the SMs, and the CTAs it launches per (row, kv-head, split)
+    as the C side chooses them."""
+    q = torch.zeros((b, hkv * g, dh), dtype=dtype)
+    kq = torch.zeros((b, s, hkv, dh), dtype=torch.int8)
+    TPA._SM_COUNT[q.device] = sms
+    try:
+        sps, n = TQK.slab_plan(q, kq)
+    finally:
+        del TPA._SM_COUNT[q.device]
+    groups = TQK.slab_row_groups(g, dh, dtype)
+    assert groups == -(-g // (16 if dtype == torch.bfloat16 and dh == 256
+                              else 8))
+    wide = dtype == torch.bfloat16 and dh == 256
+    assert (sps, n) == TPA.capped_split_plan(b, hkv, groups, s, 1, sms,
+                                             TDA.MAX_SPLIT_SLOTS,
+                                             one_wave=wide)
+    if wide and n > 1:
+        # one wave of at most SPLIT_CTAS_PER_SM CTAs per SM
+        assert b * hkv * n <= TPA.SPLIT_CTAS_PER_SM * sms or \
+            sps == TPA.SPLIT_MIN_TOKENS or sps == TDA.MAX_SPLIT_SLOTS
+    assert 1 <= sps <= min(s, TDA.MAX_SPLIT_SLOTS)
+    assert n * sps >= s and (n - 1) * sps < s
+    if b * hkv * groups >= sms and s <= TDA.MAX_SPLIT_SLOTS:
+        assert n == 1
     if n > 1 and s <= TDA.MAX_SPLIT_SLOTS:
         assert sps >= TPA.SPLIT_MIN_TOKENS
 

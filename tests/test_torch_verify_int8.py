@@ -165,6 +165,22 @@ def test_verify_row_groups_follow_the_kernel():
     assert TQK.verify_row_groups(2, 1, torch.float32) == 1
 
 
+def test_slab_row_groups_follow_the_kernel():
+    """CTAs per (row, kv-head) of kernel 3's slab entry: recurrentgemma-2b's
+    G 10 at Dh 256 is one CTA with a bf16 q (the 16-row tensor-core
+    engine) and two (8 + 2 rows) with an fp32 q; Dh 64 and 128 keep kernel
+    1's decode grouping (8 rows) in both dtypes."""
+    assert TQK.slab_row_groups(10, 256, torch.bfloat16) == 1
+    assert TQK.slab_row_groups(10, 256, torch.float32) == 2
+    assert TQK.slab_row_groups(16, 256, torch.bfloat16) == 1
+    assert TQK.slab_row_groups(17, 256, torch.bfloat16) == 2
+    for dh in (64, 128):
+        for g in (1, 2, 4, 8, 10, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                assert TQK.slab_row_groups(g, dh, dtype) == \
+                    TPA.row_groups(1, g)
+
+
 def test_verify_int8_wrapper_counts_cpu_and_refuses_other_devices():
     args = [_t(a) for a in _case(np.random.default_rng(6), t=2, g=1,
                                  page=4)]
