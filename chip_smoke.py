@@ -3,20 +3,25 @@
 
     python3 chip_smoke.py                    # every phase, as a user would run it
     python3 chip_smoke.py --phases kernel    # only some phases
-    python3 chip_smoke.py --phases kernel --v1-source OLD.cu
-                         # adds the compare phase: a first-version
+    python3 chip_smoke.py --phases kernel --parent-source OLD.cu
+                         # adds the compare phase: a parent's
                          # csrc/paged_attention.cu against this tree's
-    python3 chip_smoke.py --phases kernel --v1-dense-source OLD.cu
-                         # adds compare_dense: a first-version
+    python3 chip_smoke.py --phases kernel --parent-dense-source OLD.cu
+                         # adds compare_dense: a parent's
                          # csrc/decode_attention.cu against this tree's
 
 Phases (any failure exits nonzero):
 
   kernel      builds the port's CUDA sources (src/repro_torch/csrc, into
               the gitignored build/ directory; no bf16-q instantiation at
-              Dh 128 or 256 nor any multi-token one may spill, and kernel
-              3's 16-row engine must fit 3 CTAs per SM: each
-              instantiation's registers and CTAs per SM printed), holds every
+              Dh 128 or 256 nor any multi-token one nor any of the
+              tensor-core engine for bf16 K/V (kernels 1 and 2) may spill,
+              and kernel 3's 16-row engine and the bf16 K/V engine must fit
+              3 CTAs per SM: each instantiation's registers and CTAs per SM
+              printed), holds kernels 1 and 2 in bf16 (kernel 2 from G 2)
+              also against the plain model of their engine's order of
+              operations (within 1e-5 + 2^-8 relative, each repeated
+              bitwise), holds every
               kernel (paged flash-decode; dense flash-decode in bf16/fp32
               and with int8 K/V, the latter also through its paged
               entry and its multi-token paged entry, the int8 verify,
@@ -54,11 +59,17 @@ Phases (any failure exits nonzero):
               kernel 3's paged entry also at the vision heads; times
               the one-call paged-int8 op against the gather + kernel 3
               chain it replaced.
-  compare     (only with --v1-source) the first version of kernels 1 and
-              4 against this tree's, timed in turns v1, v2, v2, v1 at both
-              shapes with SDPA between, and a sweep of split plans.
-  compare_dense (only with --v1-dense-source) the same for kernels 2 and
-              3: an older csrc/decode_attention.cu against this tree's.
+  compare     (only with --parent-source) a parent's kernels 1 and 4 (a
+              csrc/paged_attention.cu of this C ABI, e.g. from a git
+              archive of the parent commit) against this tree's, timed in
+              turns parent, tree, SDPA, tree, parent: kernel 1 at the main
+              and bandwidth shapes and at the MoE and evaluation models'
+              heads; kernel 4 at T 4 and every fp32 case bitwise the
+              parent's; and a sweep of split plans.
+  compare_dense (only with --parent-dense-source) the same for kernels 2
+              and 3: kernel 2 at the serve shapes, the cross shapes
+              (vision's G 8, whisper's G 1) and the rows after a move;
+              kernel 3's entries and every fp32 case bitwise the parent's.
   serve       Qwen3-8B at full width cut to 12 of its 36 layers
               (QWEN_LAYERS; every serve_* phase below serves it), random
               weights from a seeded generator, served greedily through
@@ -341,6 +352,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import re
@@ -435,6 +447,21 @@ def gpu_name_and_limit() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def host_cpu() -> dict:
+    """The host's CPU and torch's vector path on it: the kernel phase's
+    inputs are drawn, and its models run, on the host."""
+    import platform
+    import torch
+    info = Path("/proc/cpuinfo")
+    lines = info.read_text().splitlines() if info.exists() else []
+    cpu = next((x.split(":", 1)[1].strip() for key in ("model name",
+                                                      "vendor_id")
+                for x in lines if x.startswith(key)), platform.machine())
+    return {"cpu": cpu, "cpu_capability":
+            torch.backends.cpu.get_cpu_capability(),
+            "torch": torch.__version__, "threads": torch.get_num_threads()}
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of one call, from CUDA events around ``iters``
     calls (after ``warmup`` calls)."""
@@ -521,7 +548,10 @@ def kernel_checks(dev) -> dict:
     """Kernel 1 against its plain version: G 1, 4, 7 and 8, page 4 and 16, bf16
     and fp32, ragged rows, a -1 hole, a shared page and an all-unmapped
     row (exactly 0); window + sink and softcap cases; and the long
-    multi-split cases of ``long_cases``, each repeated bitwise."""
+    multi-split cases of ``long_cases``, each repeated bitwise.  Every
+    bf16 case (tc_decode.cuh's tensor-core engine) is also held to its
+    order of operations (``ref.bf16_mma_paged_ref`` at the call's split
+    plan, ``MODEL_TOL``) and repeated bitwise."""
     import torch
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
@@ -575,7 +605,14 @@ def kernel_checks(dev) -> dict:
         un = c["kw"].get("unmapped_row")
         if un is not None:
             ok = ok and bool((out[un] == 0).all())
-        if c.get("long"):
+        bf16 = c["dtype"] == torch.bfloat16
+        if bf16:
+            rec.update(_model_check(
+                c["name"], out, ref.bf16_mma_paged_ref(
+                    q, pk, pv, tables, lens,
+                    pages_per_split=rec["split_plan"][0], **c["attn"]),
+                "kernel 1's tensor-core engine (ref.bf16_mma_paged_ref)"))
+        if c.get("long") or bf16:
             again = PA.paged_decode_attention(q, pk, pv, tables, lens,
                                               **c["attn"])
             torch.cuda.synchronize()
@@ -586,8 +623,8 @@ def kernel_checks(dev) -> dict:
         if not ok:
             raise AssertionError(f"kernel case {c['name']} failed: err {err} "
                                  f"(atol, rtol) {TOL[dtype_name]} (unmapped "
-                                 f"row must be exactly 0; a long case must "
-                                 f"repeat bitwise; an fp64 case: "
+                                 f"row must be exactly 0; a long or bf16 "
+                                 f"case must repeat bitwise; an fp64 case: "
                                  f"tol_vs_fp64): {rec}")
         if not c.get("fp64"):
             worst = max(worst, err)
@@ -1050,9 +1087,12 @@ def slab_checks(dev) -> dict:
     softcap, S = 300, and one row with no valid slot (exactly 0); then
     long slabs (S = 4096, ``LONG_SLAB_ROWS``) over many splits, with
     window + sink (the middle splits of a ring empty), softcap and Dh 64,
-    each repeated bitwise.  For kernel 3 with a bf16 q the plain version
-    runs on q.float(), so the dequantized K/V stay fp32 there as in the
-    kernel."""
+    each repeated bitwise; G 7 and 8 at Dh 128 too.  For kernel 3 with a
+    bf16 q the plain version runs on q.float(), so the dequantized K/V stay
+    fp32 there as in the kernel.  Kernel 2 with a bf16 q is repeated
+    bitwise in every case and, on tc_decode.cuh's tensor-core engine (G 2
+    and up), also held to its order of operations (``ref.bf16_mma_slab_ref``
+    at the call's split plan, ``MODEL_TOL``)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import quant_kv as QK
@@ -1077,7 +1117,8 @@ def slab_checks(dev) -> dict:
             else:
                 cases = [(g, dh, {}) for g in (1, 4) for dh in (64, 128)]
                 cases += [(4, 128, dict(window=64, sink=4)),
-                          (1, 64, dict(softcap=5.0))]
+                          (1, 64, dict(softcap=5.0)), (7, 128, {}),
+                          (8, 128, {})]
             for g, dh, attn in cases:
                 hkv = 2
                 q = torch.randn((b, hkv * g, dh), generator=gen).to(dev)
@@ -1096,11 +1137,21 @@ def slab_checks(dev) -> dict:
                 def k3():
                     return QK.decode_attention_int8(q, kq, ks, vq, vs, pos,
                                                     lens, **attn)
-                out["decode_attention"].append(_check_case(
-                    "decode_attention", name, dtype_name, k2(),
+                bf16 = dtype == torch.bfloat16
+                got = k2()
+                rec = _check_case(
+                    "decode_attention", name, dtype_name, got,
                     ref.decode_attention_ref(q, k, v, pos, lens, **attn),
-                    empty_row=empty, again=k2() if long else None,
-                    plan=plan))
+                    empty_row=empty, again=k2() if long or bf16 else None,
+                    plan=plan)
+                if _k2_on_tensor_cores(q, k, plan):
+                    rec.update(_model_check(
+                        name, got, ref.bf16_mma_slab_ref(
+                            q, k, v, pos, lens, slots_per_split=plan[0],
+                            **attn),
+                        "kernel 2's tensor-core engine "
+                        "(ref.bf16_mma_slab_ref)"))
+                out["decode_attention"].append(rec)
                 out["decode_attention_int8"].append(_check_case(
                     "decode_attention_int8", name, dtype_name, k3(),
                     ref.decode_attention_int8_ref(q.float(), kq, ks, vq, vs,
@@ -1157,12 +1208,51 @@ def _slab_fp64(q, k, v, pos, lengths, window):
     return torch.einsum("bhgs,bshd->bhgd", p, v.to(f64)).reshape(b, hq, dh)
 
 
-# kernel 3's 16-row engine (bf16 q) against ``ref.int8_mma16_attention_ref``,
-# a plain model of its order of operations in fp32 (run on the CPU): the two
-# differ by fp32 summation order and the kernel's bf16 store (half a bf16
-# ulp, 2^-9 of the value), so the bound is one bf16 ulp plus 1e-5, tighter
-# than the bf16 tolerance against the plain version (TOL)
-MMA16_MODEL_TOL = (1e-5, 2.0 ** -8)
+# a tensor-core engine (bf16 q) against a plain model of its order of
+# operations in fp32, run on the CPU (``ref.int8_mma16_attention_ref`` for
+# kernel 3's 16-row engine; ``ref.bf16_mma_paged_ref`` and
+# ``ref.bf16_mma_slab_ref`` for kernels 1 and 2 on tc_decode.cuh's engine,
+# whose sums and exponentials are fp64 rounded to fp32, the same on every
+# host): the two differ by fp32 summation order and the kernel's bf16
+# store (at most half a bf16 ulp, 2^-8 of the value), so the bound is
+# 2^-8 of the value plus 1e-5, tighter than the bf16 tolerance against the
+# plain version (TOL)
+MODEL_TOL = (1e-5, 2.0 ** -8)
+
+
+def _k2_on_tensor_cores(q, k, plan) -> bool:
+    """Whether this kernel-2 call runs on tc_decode.cuh's tensor-core
+    engine (the C side's choice: 8 rows per CTA with a bf16 q, G 2 and up;
+    G 1 and an fp32 q run on the CUDA cores)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    if q.dtype != torch.bfloat16:
+        return False
+    rows, _ = DA.occupancy(kv_int8=False, paged=False, t=1, hq=q.shape[1],
+                           hkv=k.shape[2], dh=q.shape[2], dtype=q.dtype,
+                           per_split=plan[0])
+    return rows == 8
+
+
+def _model_check(name, got, model, engine) -> dict:
+    """``got`` (a kernel's bf16 output) against ``model`` (fp32 on the
+    CPU, the same shape) within ``MODEL_TOL``."""
+    import torch
+    atol, rtol = MODEL_TOL
+    g = got.float().cpu()
+    d = (g - model).abs()
+    over = d - (atol + rtol * model.abs())
+    rec = {"model_max_abs_err": float(d.max()), "model_atol_rtol": MODEL_TOL}
+    if bool((over > 0).any()):
+        i = int(torch.argmax(over))
+        rec["worst"] = {
+            "index": [int(x) for x in torch.unravel_index(torch.tensor(i),
+                                                          d.shape)],
+            "got": float(g.flatten()[i]), "model": float(model.flatten()[i]),
+            "elements_over": int((over > 0).sum())}
+        raise AssertionError(f"{name}: {engine} departs from its order of "
+                             f"operations: {rec}")
+    return rec
 
 
 def _mma16_model_check(name, got, q, kq, ks, vq, vs, kpos, qpos, *,
@@ -1170,20 +1260,13 @@ def _mma16_model_check(name, got, q, kq, ks, vq, vs, kpos, qpos, *,
     """One 16-row engine output (``got`` [B,T,Hq,Dh] bf16) against the
     model on the same inputs (q [B,T,Hq,Dh]; the slab, or a page pool
     gathered by ``ref.paged_gather``; kpos [B,S]; qpos [B,T]) at the
-    call's split size, within ``MMA16_MODEL_TOL``."""
+    call's split size, within ``MODEL_TOL``."""
     from repro_torch.kernels import ref
     model = ref.int8_mma16_attention_ref(
         *(x.cpu() for x in (q, kq, ks, vq, vs, kpos, qpos)),
         slots_per_split=slots_per_split, **attn)
-    atol, rtol = MMA16_MODEL_TOL
-    d = (got.float().cpu() - model).abs()
-    rec = {"model_max_abs_err": float(d.max()),
-           "model_atol_rtol": MMA16_MODEL_TOL}
-    if not bool((d <= atol + rtol * model.abs()).all()):
-        raise AssertionError(f"{name}: the 16-row engine departs from its "
-                             f"order of operations (ref.int8_mma16_"
-                             f"attention_ref): {rec}")
-    return rec
+    return _model_check(name, got, model, "the 16-row engine "
+                        "(ref.int8_mma16_attention_ref)")
 
 
 def dh256_checks(dev) -> dict:
@@ -1286,9 +1369,11 @@ def cross_checks(dev) -> dict:
     """Kernel 2 as the cross-attention R-Part (``decompose.
     r_cross_attention``: every slot at position 0, window and softcap 0)
     at ``CROSS_HEADS``, 2 rows (one R-worker call of the static runs) and
-    64, against its plain version: bf16 q within one rounding step, fp32
-    q within 1e-5 and against fp64 (it passes when |kernel - fp64| <=
-    atol + |plain - fp64|), each repeated bitwise."""
+    64, against its plain version: bf16 q within one rounding step and, on
+    the tensor-core engine (vision's G 8; whisper's G 1 runs on the CUDA
+    cores), against its order of operations (``ref.bf16_mma_slab_ref``,
+    ``MODEL_TOL``), fp32 q within 1e-5 and against fp64 (it passes when
+    |kernel - fp64| <= atol + |plain - fp64|), each repeated bitwise."""
     import torch
     from repro_torch.core import decompose as D
     from repro_torch.kernels import decode_attention as DA
@@ -1315,6 +1400,13 @@ def cross_checks(dev) -> dict:
                     again=DA.decode_attention(q, k, v, pos, lens),
                     plan=DA.kernel_plan(q, k))
                 rec.update(B=b, S=s, Hq=hq, Hkv=hkv, Dh=dh)
+                if _k2_on_tensor_cores(q, k, rec["split_plan"]):
+                    rec.update(_model_check(
+                        rec["case"], got, ref.bf16_mma_slab_ref(
+                            q, k, v, pos, lens,
+                            slots_per_split=rec["split_plan"][0]),
+                        "kernel 2's tensor-core engine "
+                        "(ref.bf16_mma_slab_ref)"))
                 if dtype_name == "float32":
                     want = _slab_fp64(q, k, v, pos, lens, 0)
                     d_plain = float((plain.double() - want).abs().max())
@@ -1864,12 +1956,15 @@ def ptxas_summary(text: str) -> list:
                         cur["kv_dtype"] = {"a": "int8", "f": "float32"}.get(
                             kv, "bfloat16")
                     if gt:
+                        # a bf16 q: tensor cores (kernel 2 on tc_decode.cuh's
+                        # engine, kernel 3 on MmaEngine or, 16 rows,
+                        # Mma16Engine); an fp32 q: CUDA cores
                         cur.update(rows_per_cta=int(gt),
                                    entry="paged-multi-token" if flag2 == "1"
                                    else "paged" if flag1 == "1" else "slab",
                                    engine=("CUDA cores"
-                                           if cur.get("kv_dtype") != "int8"
-                                           or dtype != "bfloat16"
+                                           if dtype != "bfloat16"
+                                           or gt not in ("8", "16")
                                            else "tensor cores, 16 rows"
                                            if gt == "16" else "tensor cores"))
                 elif gt:
@@ -1906,7 +2001,8 @@ OCCUPANCY_CASES = [
     ("verify_int8", True, 4, 32, 8, 128, "bfloat16", 4),
     ("verify_int8", True, 4, 16, 4, 64, "bfloat16", 4),
     ("decode_attention", False, 1, 64, 8, 128, "bfloat16", 95),
-    ("decode_attention", False, 1, 16, 16, 64, "bfloat16", 167)]
+    ("decode_attention", False, 1, 16, 16, 64, "bfloat16", 167),
+    ("decode_attention", False, 1, 32, 8, 128, "bfloat16", 64)]
 # the rows one worker holds after fleet_xattn's move (3 + 1) and restore (4)
 MOVED_ROWS = (3, 1, 4)
 
@@ -1915,8 +2011,8 @@ def dense_occupancy(ptxas_rows) -> list:
     """Each ``OCCUPANCY_CASES`` instantiation of csrc/decode_attention.cu:
     its rows per CTA and CTAs per SM (the C side's choice and the CUDA
     occupancy calculator) beside its registers and spills (ptxas); the
-    16-row tensor-core engine's (Dh 256 and the multi-token entry) must
-    fit 3 CTAs per SM."""
+    16-row tensor-core engine's (Dh 256 and the multi-token entry) and
+    kernel 2's (tc_decode.cuh's engine) must fit 3 CTAs per SM."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     out = []
@@ -1946,6 +2042,56 @@ def dense_occupancy(ptxas_rows) -> list:
                 and per_sm < 3:
             raise AssertionError(f"the 16-row engine fits fewer than 3 CTAs "
                                  f"per SM: {rec}")
+        if kernel == "decode_attention" and per_sm < 3:
+            raise AssertionError(f"kernel 2's tensor-core engine fits fewer "
+                                 f"than 3 CTAs per SM: {rec}")
+        out.append(rec)
+    return out
+
+
+def _bf16_engine_row(r) -> bool:
+    """A ptxas row of the tensor-core engine for bf16 K/V
+    (csrc/tc_decode.cuh): kernel 1's bf16 decode, kernel 2 with a bf16 q."""
+    return (r["dtype"] == "bfloat16" and r.get("engine") == "tensor cores"
+            and ((r["kernel"] == "paged_attn_kernel"
+                  and r.get("entry") == "decode")
+                 or (r["kernel"] == "dense_attn_kernel"
+                     and r.get("kv_dtype") == "bfloat16")))
+
+
+# kernel 1's bf16 decode instantiations on the paths (Hq, Hkv, Dh, pages
+# per split at that path's main shape): the serve's call (Qwen3-8B's heads,
+# G 4), llama4-scout's (G 5), grok-1's (G 6), llama-13b's (G 1) and the
+# serve at Dh 64 (whisper's head dim, G 4)
+PAGED_OCCUPANCY_CASES = [(32, 8, 128, 4), (40, 8, 128, 4), (48, 8, 128, 4),
+                         (40, 40, 128, 4), (32, 8, 64, 4)]
+
+
+def paged_occupancy(ptxas_rows) -> list:
+    """Each ``PAGED_OCCUPANCY_CASES`` instantiation of kernel 1 in bf16:
+    its CTAs per SM (the CUDA occupancy calculator) beside its registers
+    and spills (ptxas); the tensor-core engine must fit 3 CTAs per SM."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    out = []
+    for hq, hkv, dh, pps in PAGED_OCCUPANCY_CASES:
+        per_sm = PA.ctas_per_sm(1, hq, hkv, dh, torch.bfloat16, pps)
+        reg = [r for r in ptxas_rows if r["kernel"] == "paged_attn_kernel"
+               and r["dtype"] == "bfloat16" and r["Dh"] == dh
+               and r.get("entry") == "decode"
+               and r.get("rows_per_cta") == PA.MAX_ROWS_DECODE]
+        rec = {"kernel": "paged_decode_attention", "Hq": hq, "Hkv": hkv,
+               "Dh": dh, "q_dtype": "bfloat16", "pages_per_split": pps,
+               "rows_per_cta": PA.MAX_ROWS_DECODE, "ctas_per_sm": per_sm,
+               "engine": reg[0].get("engine") if reg else None,
+               "registers": reg[0].get("registers") if reg else None,
+               "spill_bytes": (reg[0].get("spill_stores", 0)
+                               + reg[0].get("spill_loads", 0)) if reg
+               else None}
+        print(f"occupancy: {rec}", flush=True)
+        if per_sm < 3:
+            raise AssertionError(f"kernel 1's bf16 decode fits fewer than "
+                                 f"3 CTAs per SM: {rec}")
         out.append(rec)
     return out
 
@@ -1961,16 +2107,21 @@ def phase_kernel(dev) -> dict:
     ptxas = {stem: ptxas_summary(report[stem])
              for stem in ("paged_attention", "decode_attention")}
     # no bf16-q instantiation at Dh 128 or 256 may spill (decode_attention's:
-    # bf16 and int8 K/V), nor any multi-token one (Dh 64 included)
+    # bf16 and int8 K/V), nor any multi-token one (Dh 64 included), nor any
+    # of the tensor-core engine for bf16 K/V (kernel 1's decode, kernel 2;
+    # Dh 64 included)
     spills = [r for rows in ptxas.values() for r in rows
               if r["dtype"] == "bfloat16"
               and (r["Dh"] in (128, 256)
-                   or r.get("entry") == "paged-multi-token")
+                   or r.get("entry") == "paged-multi-token"
+                   or _bf16_engine_row(r))
               and r.get("spill_stores", 0) + r.get("spill_loads", 0)]
     if spills or not all(ptxas.values()):
-        raise AssertionError(f"bf16 Dh 128 / 256 or multi-token "
-                             f"instantiations spill (or no report): {spills}")
+        raise AssertionError(f"bf16 Dh 128 / 256, multi-token or bf16-K/V "
+                             f"tensor-core instantiations spill (or no "
+                             f"report): {spills}")
     occupancy = dense_occupancy(ptxas["decode_attention"])
+    occupancy_paged = paged_occupancy(ptxas["paged_attention"])
     checks = kernel_checks(dev)
     # main path: one R-worker call = 2 rows of a micro-batch (batch 8, two
     # micro-batches, two workers) over ~512 tokens, pool sized for
@@ -2052,6 +2203,7 @@ def phase_kernel(dev) -> dict:
                                copies=1, iters=20)
     kernels = {"paged_decode_attention": {
         "checks": checks["cases"], "timing": [main, bw],
+        "occupancy": occupancy_paged,
         "timing_eval_models": evals,
         "timing_moe_models": [r[0] for r in moe.values()],
         "max_abs_err": max([checks["max_abs_err"], main["max_abs_err"],
@@ -2070,6 +2222,8 @@ def phase_kernel(dev) -> dict:
         r for r in ptxas["decode_attention"]
         if r["kernel"] == "dense_attn_kernel"
         and r.get("kv_dtype") != "int8" and r["Dh"] in (64, 128)]
+    kernels["decode_attention"]["occupancy"] = [
+        r for r in occupancy if r["kernel"] == "decode_attention"]
     kernels["decode_attention"]["max_abs_err"] = max(
         [kernels["decode_attention"]["max_abs_err"], xchecks["max_abs_err"]]
         + [x["max_abs_err"] for x in xtiming + xmoved])
@@ -2102,176 +2256,302 @@ def phase_kernel(dev) -> dict:
                       if r["entry"] == "paged-multi-token"],
         "max_abs_err": max(v8checks["max_abs_err"], v8_main["max_abs_err"],
                            v8_bw["max_abs_err"])}
-    return {"phase": "kernel", "ok": True, "build_s": build_s,
-            "ptxas": ptxas, "occupancy": occupancy, "kernels": kernels,
+    return {"phase": "kernel", "ok": True, "host": host_cpu(),
+            "build_s": build_s,
+            "ptxas": ptxas, "occupancy": occupancy,
+            "occupancy_paged": occupancy_paged, "kernels": kernels,
             "paged_int8_op": gather_timing(dev)}
 
 
-def _v1_fns(v1_source: Path, entries: dict) -> dict:
-    """Build an older csrc source (its own C ABI: no split plan, no
-    scratch) with the port's nvcc flags into build/v1/ and declare its
-    entry points, ``entries`` = {name: (pointers, ints)}: each takes the
-    pointers, the ints, softcap, scale, the dtype and the stream."""
+def _parent_fns(source: Path, module) -> dict:
+    """Build a parent's csrc source (this tree's C ABI: the same entry
+    points and arguments; its headers read from its own directory) with
+    the port's nvcc flags into build/parent_build/ and declare its entry
+    points as ``module`` (kernels/decode_attention.py or
+    kernels/paged_attention.py) declares this tree's."""
     import ctypes
     from repro_torch.kernels import build
-    out = ROOT / "build" / "v1"
+    out = ROOT / "build" / "parent_build"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / f"lib{v1_source.stem}_v1.so"
+    lib = out / f"lib{source.stem}.so"
     res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                          str(v1_source)], capture_output=True, text=True)
+                          str(source)], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {v1_source}:\n{res.stdout}"
+        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}"
                            f"{res.stderr}")
     cdll = ctypes.CDLL(str(lib))
-    fns = {}
-    for name, (n_ptrs, n_int) in entries.items():
-        fn = getattr(cdll, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    names = (list(module._ENTRIES) + [module._OCCUPANCY]
+             if hasattr(module, "_ENTRIES") else list(module.ENTRIES))
+    return {n: module.declare(cdll, n) for n in names}
 
 
-def _in_turns(fns, iters):
-    """Host-loop ms and CUDA-graph device ms of each (name, fn) in
-    ``fns``, timed in that order (an ABBA order puts each version on
-    both sides of the others)."""
-    turns = [(ver, cuda_time_ms(fn, iters)) for ver, fn in fns]
-    dev_turns = [(ver, graph_time_ms(fn, 16, strict=ver != "sdpa"))
-                 for ver, fn in fns]
-    return turns, dev_turns
+@contextlib.contextmanager
+def _library(module, fns):
+    """Inside: ``module``'s wrappers launch ``fns`` (a parent's library)
+    in place of this tree's, with this tree's split plans."""
+    saved = dict(module._fns)
+    module._fns.clear()
+    module._fns.update(fns)
+    try:
+        yield
+    finally:
+        module._fns.clear()
+        module._fns.update(saved)
 
 
-def phase_compare_dense(dev, v1_source: Path) -> dict:
-    """The first version of kernels 2 and 3 (``v1_source``, PR 14's
-    csrc/decode_attention.cu, built here) against this tree's (v2) in one
-    process on one card, timed in turns v1, v2, SDPA, v2, v1 at the
-    dense-int8 serve's per-worker shape and at 64 x 4096, host loop and
-    device time; both versions are held to the plain version first."""
-    import math
+def _compare_row(kernel, shape, fn, want, parent, *, iters, calls,
+                 lib=None, bitwise=False) -> dict:
+    """One shape of a compare phase: ``fn(i)`` launched through the
+    parent's library (the ``parent`` context) and this tree's, outputs
+    bitwise equal (``bitwise``: a kernel this tree leaves as it was) or
+    each within the bf16 tolerance of ``want``; then host-loop ms and
+    CUDA-graph device ms in turns parent, tree, [library,] tree, parent,
+    each version's device ms the mean of its two turns."""
     import torch
-    v1 = _v1_fns(v1_source, {"repro_decode_attention": (6, 7),
-                             "repro_decode_attention_int8": (8, 7)})
-    shapes = [("main-path", dict(b=2, s=1024, n_valid=512, copies=16), 200),
-              ("bandwidth", dict(b=64, s=4096, n_valid=4096, copies=1), 20)]
+    outs = {}
+    with parent():
+        outs["parent"] = fn(0)
+    outs["tree"] = fn(0)
+    torch.cuda.synchronize()
+    rec = {"kernel": kernel, "shape": shape}
+    if bitwise:
+        rec["bitwise_equal_to_parent"] = bool(torch.equal(outs["parent"],
+                                                          outs["tree"]))
+        if not rec["bitwise_equal_to_parent"]:
+            raise AssertionError(f"{kernel} at {shape}: this tree's output "
+                                 f"is not the parent's bit for bit")
+    else:
+        rec["max_abs_err"] = {}
+        for ver, out in outs.items():
+            rec["max_abs_err"][ver], ok = tol_check(out, want, "bfloat16")
+            if not ok:
+                raise AssertionError(f"{ver} {kernel} at {shape}: max err "
+                                     f"{rec['max_abs_err'][ver]}")
+    same = contextlib.nullcontext
+    order = [("parent", fn, parent), ("tree", fn, same)]
+    order += [("sdpa", lib, same)] if lib else []
+    order += [("tree", fn, same), ("parent", fn, parent)]
+    turns, dev_turns = [], []
+    for ver, f, ctx in order:
+        with ctx():
+            turns.append((ver, cuda_time_ms(f, iters)))
+    for ver, f, ctx in order:
+        with ctx():
+            dev_turns.append((ver, graph_time_ms(f, calls,
+                                                 strict=ver != "sdpa")))
+    mean = {ver: sum(t for v, t in dev_turns if v == ver)
+            / sum(v == ver for v, _ in dev_turns)
+            for ver in ("parent", "tree")}
+    rec.update(turns_ms=turns, device_turns_ms=dev_turns,
+               device_ms_parent=mean["parent"], device_ms_tree=mean["tree"],
+               tree_over_parent=mean["tree"] / mean["parent"])
+    print(f"compare: {kernel} {shape} device ms parent "
+          f"{mean['parent']:.5f} tree {mean['tree']:.5f} "
+          f"({rec['tree_over_parent']:.3f}x)", flush=True)
+    return rec
+
+
+def _bitwise_rows(kernel, cases, parent) -> list:
+    """``cases`` = [(name, fn)] launched through the parent's library and
+    this tree's: each output bitwise equal (untimed)."""
+    import torch
     rows = []
-    for shape, kw, iters in shapes:
-        bufs, pos, lens = _slab_inputs(dev, hq=32, hkv=8, dh=128, **kw)
-        copies = kw["copies"]
+    for name, fn in cases:
+        with parent():
+            want = fn()
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kernel} {name}: this tree's output is "
+                                 f"not the parent's bit for bit")
+        rows.append({"kernel": kernel, "case": name,
+                     "bitwise_equal_to_parent": True})
+    return rows
+
+
+def phase_compare_dense(dev, parent_source: Path) -> dict:
+    """A parent's csrc/decode_attention.cu (``parent_source``, this tree's
+    C ABI, built here) against this tree's in one process on one card,
+    with this tree's split plans.  Kernel 2 with a bf16 q (tc_decode.cuh's
+    engine here) at the dense serve's call (2 rows, 1024 slots, 512 valid)
+    and 64 x 4096, as the cross-attention R-Part at vision's G 8 and
+    whisper's G 1 (2 rows and 64) and on the 3, 1 and 4 rows a worker holds
+    after fleet_xattn's move and restore: both versions held to the plain
+    version, then timed in turns parent, tree, SDPA, tree, parent (host
+    loop and device time).  Kernel 3's entries (the slab decode at the
+    serve shape and 64 x 4096, at Dh 256 / G 10, with bf16 and fp32 q; the
+    paged decode and the multi-token verify T 4 at 2 x 512 and 64 x 4096)
+    and kernel 2 with an fp32 q: this tree's outputs bitwise the
+    parent's, kernel 3's bf16 rows timed in the same turns."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import quant_kv as QK
+    fns = _parent_fns(parent_source, DA)
+    parent = functools.partial(_library, DA, fns)
+    rows, bitwise = [], []
+    k2_shapes = [("main-path", dict(b=2, s=1024, n_valid=512, hq=32, hkv=8,
+                                    dh=128), 16, False),
+                 ("bandwidth", dict(b=64, s=4096, n_valid=4096, hq=32,
+                                    hkv=8, dh=128), 1, False)]
+    for shape, h in CROSS_HEADS.items():
+        k2_shapes += [(f"{run}-{shape}", dict(b=b, s=h["s"], n_valid=h["s"],
+                                              hq=h["hq"], hkv=h["hkv"],
+                                              dh=h["dh"]), c, True)
+                      for run, b, c in (("main", 2, 16), ("bw", 64, 1))
+                      + tuple((f"moved-{n}rows", n, 16)
+                              for n in MOVED_ROWS)]
+    for shape, kw, copies, cross in k2_shapes:
+        bufs, pos, lens = _slab_inputs(dev, copies=copies, cross=cross, **kw)
         runs = _slab_runs(pos, lens)
-        for kernel, r in runs.items():
-            int8 = kernel == "decode_attention_int8"
-
-            def run_v1(i, int8=int8):
-                t = bufs[i % copies]
-                out = torch.empty_like(t["q"])
-                ptrs = ((t["q"], t["kq"], t["ks"], t["vq"], t["vs"]) if int8
-                        else (t["q"], t["k"], t["v"]))
-                err = v1["repro_decode_attention_int8" if int8 else
-                         "repro_decode_attention"](
-                    *(x.data_ptr() for x in ptrs), pos.data_ptr(),
-                    lens.data_ptr(), out.data_ptr(), t["q"].shape[0],
-                    pos.shape[1], 32, 8, 128, 0, 0, 0.0,
-                    1.0 / math.sqrt(128), 1,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"v1 launch failed ({err})")
-                return out
-
-            run_v2 = (lambda i, r=r: r["kern"](bufs[i % copies]))
-            run_lib = (lambda i, r=r: r["lib"](bufs[i % copies]))
-            want = r["check"](bufs[0])
-            errs = {}
-            for ver, fn in (("v1", run_v1), ("v2", run_v2)):
-                errs[ver], ok = tol_check(fn(0), want, "bfloat16")
-                if not ok:
-                    raise AssertionError(f"{ver} {kernel} at {shape}: max "
-                                         f"err {errs[ver]}")
-            turns, dev_turns = _in_turns(
-                (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
-                 ("v2", run_v2), ("v1", run_v1)), iters)
-            rows.append({"kernel": kernel, "shape": shape,
-                         "turns_ms": turns, "device_turns_ms": dev_turns,
-                         "max_abs_err": errs})
-        del bufs
+        iters = 200 if copies > 1 else 20
+        calls = copies * max(1, 16 // copies)
+        kernels = (("decode_attention", "decode_attention_int8")
+                   if shape in ("main-path", "bandwidth")
+                   else ("decode_attention",))
+        for kernel in kernels:
+            r = runs[kernel]
+            rows.append(_compare_row(
+                kernel, shape, lambda i, r=r: r["kern"](bufs[i % copies]),
+                r["check"](bufs[0]), parent, iters=iters, calls=calls,
+                lib=(lambda i, r=r: r["lib"](bufs[i % copies])),
+                bitwise=kernel == "decode_attention_int8"))
+        # fp32 q (kernel 2 over fp32 K/V, kernel 3 over int8): untimed
+        t0 = {n: (x.float() if n in ("q", "k", "v") else x)
+              for n, x in bufs[0].items()}
+        cases = [(f"float32-{shape}", lambda t=t0: DA.decode_attention(
+            t["q"], t["k"], t["v"], pos, lens))]
+        if not cross:
+            cases.append((f"float32-q-{shape}", lambda t=t0:
+                          QK.decode_attention_int8(t["q"], t["kq"], t["ks"],
+                                                   t["vq"], t["vs"], pos,
+                                                   lens)))
+        bitwise += _bitwise_rows("dense", cases, parent)
+        del bufs, t0
         torch.cuda.empty_cache()
+    # kernel 3's Dh 256 slab entry (recurrentgemma-2b's heads)
+    for shape, kw, copies in (("main-path-recurrentgemma",
+                               dict(b=2, s=1024, n_valid=512), 16),
+                              ("bandwidth-recurrentgemma",
+                               dict(b=64, s=HYBRID_WINDOW,
+                                    n_valid=HYBRID_WINDOW), 1)):
+        bufs, pos, lens = _slab_inputs(dev, hq=10, hkv=1, dh=256,
+                                       copies=copies, **kw)
+        r = _slab_runs(pos, lens)["decode_attention_int8"]
+        rows.append(_compare_row(
+            "decode_attention_int8_dh256", shape,
+            lambda i, r=r: r["kern"](bufs[i % copies]), None, parent,
+            iters=200 if copies > 1 else 20,
+            calls=copies * max(1, 16 // copies), bitwise=True))
+        t = bufs[0]
+        bitwise += _bitwise_rows("decode_attention_int8_dh256", [(
+            f"float32-q-{shape}", lambda: QK.decode_attention_int8(
+                t["q"].float(), t["kq"], t["ks"], t["vq"], t["vs"], pos,
+                lens))], parent)
+        del bufs, t
+        torch.cuda.empty_cache()
+    # kernel 3's paged entry and its multi-token entry (T 4)
+    for shape, b, n_tok, copies in (("main-path", 2, 512, 16),
+                                    ("bandwidth", 64, 4096, 1)):
+        for t in (1, 4):
+            bufs, lens = _verify_int8_inputs(
+                dev, b=b, n_tok=n_tok, t=t, hq=32, hkv=8, dh=128, page=16,
+                cache_len=1024 if b == 2 else None, copies=copies,
+                deq=False)
+            if t == 1:
+                bufs = [(x[0][:, 0].contiguous(), *x[1:]) for x in bufs]
+                fn = (lambda i, bb=bufs:
+                      QK.paged_decode_attention_int8(*bb[i % len(bb)], lens))
+            else:
+                fn = (lambda i, bb=bufs:
+                      QK.paged_verify_attention_int8(*bb[i % len(bb)], lens))
+            rows.append(_compare_row(
+                "decode_attention_int8" if t == 1 else "verify_int8",
+                f"paged-{shape}", fn, None, parent,
+                iters=200 if copies > 1 else 20,
+                calls=copies * max(1, 16 // copies), bitwise=True))
+            del bufs
+            torch.cuda.empty_cache()
     return {"phase": "compare_dense", "ok": True,
-            "v1_source": str(v1_source), "rows": rows}
+            "parent_source": str(parent_source), "rows": rows,
+            "bitwise": bitwise}
 
 
-def phase_compare(dev, v1_source: Path) -> dict:
-    """The first version of kernels 1 and 4 (``v1_source``, built here)
-    against this tree's (v2) in one process on one card, timed in turns
-    v1, v2, v2, v1 at the main path's shape and the bandwidth shape, with
-    the SDPA yardstick timed between them; both versions are held to the
-    plain version first.  Then v2 at the main shape under other split
-    plans (pages per split), the data for the plan's rule."""
-    import math
+def phase_compare(dev, parent_source: Path) -> dict:
+    """A parent's csrc/paged_attention.cu (``parent_source``, this tree's C
+    ABI, built here) against this tree's in one process on one card, with
+    this tree's split plans.  Kernel 1 in bf16 (tc_decode.cuh's engine
+    here) at the main path's shape and the bandwidth shape and at the main
+    shape with llama4-scout's (G 5), grok-1's (G 6, softcap 30),
+    llama-13b's and opt-175b's (G 1) heads: both versions held to the plain
+    version, then timed in turns parent, tree, SDPA (none with softcap),
+    tree, parent.  Kernel 4 at T 4 (main and bandwidth, grok-1's and
+    llama4-scout's heads) and every fp32 case of kernels 1 and 4: this
+    tree's outputs bitwise the parent's, kernel 4's bf16 rows timed in the
+    same turns.  Then this tree at the main shape under other split plans
+    (pages per split), the data for the plan's rule."""
     import torch
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
-    v1 = _v1_fns(v1_source, {"repro_paged_decode_attention": (6, 9),
-                             "repro_paged_verify_attention": (6, 10)})
-    shapes = [("main-path", dict(b=2, n_tok=512, cache_len=1024, copies=16),
-               200),
-              ("bandwidth", dict(b=64, n_tok=4096, cache_len=None, copies=1),
-               20)]
+    fns = _parent_fns(parent_source, PA)
+    parent = functools.partial(_library, PA, fns)
     rows = []
-    for kernel, t in (("paged_decode_attention", None),
-                      ("paged_verify_attention", 4)):
-        for shape, kw, iters in shapes:
-            bufs, mask, _ = _timing_case(dev, hq=32, hkv=8, dh=128,
+    main = dict(b=2, n_tok=512, cache_len=1024, copies=16)
+    shapes = [("main-path", main, 32, 8, 0.0),
+              ("bandwidth", dict(b=64, n_tok=4096, cache_len=None,
+                                 copies=1), 32, 8, 0.0)]
+    shapes += [(f"main-path-{name}", main, hq, hkv, cap)
+               for name, (hq, hkv, cap) in MOE_HEADS.items()]
+    shapes += [(f"main-path-{name}", main, h, h, 0.0)
+               for name, h in (("llama-13b", 40), ("opt-175b", 96))]
+    for shape, kw, hq, hkv, cap in shapes:
+        for t in ((None, 4) if hq != hkv else (None,)):
+            bufs, mask, _ = _timing_case(dev, hq=hq, hkv=hkv, dh=128,
                                          page=16, t=t, **kw)
+            if cap:
+                bufs = [((x[0] * SOFTCAP_Q_SCALE["bfloat16"]).to(x[0].dtype),)
+                        + tuple(x[1:]) for x in bufs]
+            attn = dict(softcap=cap) if cap else {}
             copies = kw["copies"]
-
-            def run_v1(i):
-                q, pk, pv, tables, lens = bufs[i % copies][:5]
-                out = torch.empty_like(q)
-                shape_args = [q.shape[0], t] if t else [q.shape[0]]
-                err = v1["repro_paged_verify_attention" if t else
-                         "repro_paged_decode_attention"](
-                    q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                    tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    *shape_args, 32, 8, 128, 16, tables.shape[1],
-                    pk.shape[0], 0, 0, 0.0, 1.0 / math.sqrt(128), 1,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"v1 launch failed ({err})")
-                return out
-
-            def run_v2(i):
-                q, pk, pv, tables, lens = bufs[i % copies][:5]
-                if t:
-                    return PA.paged_verify_attention(q, pk, pv, tables, lens)
-                return PA.paged_decode_attention(q, pk, pv, tables, lens)
-
-            def run_lib(i):
-                q, kg, vg = (bufs[i % copies][j] for j in (0, 5, 6))
-                return _sdpa(q, kg, vg, mask, t)
-
-            q, pk, pv, tables, lens = bufs[0][:5]
+            run = (PA.paged_verify_attention if t
+                   else PA.paged_decode_attention)
             want = (ref.paged_verify_attention_ref if t else
-                    ref.paged_decode_attention_ref)(q, pk, pv, tables, lens)
-            errs = {}
-            for ver, fn in (("v1", run_v1), ("v2", run_v2)):
-                got = fn(0)
-                torch.cuda.synchronize()
-                errs[ver], ok = tol_check(got, want, "bfloat16")
-                if not ok:
-                    raise AssertionError(f"{ver} {kernel} at {shape}: max "
-                                         f"err {errs[ver]}")
-            turns, dev_turns = _in_turns(
-                (("v1", run_v1), ("v2", run_v2), ("sdpa", run_lib),
-                 ("v2", run_v2), ("v1", run_v1)), iters)
-            rows.append({"kernel": kernel, "shape": shape, "T": t or 1,
-                         "turns_ms": turns, "device_turns_ms": dev_turns,
-                         "max_abs_err": errs,
-                         "split_plan": PA.kernel_plan(q, pk, tables,
-                                                      t or 1)})
+                    ref.paged_decode_attention_ref)(*bufs[0][:5], **attn)
+            rows.append(_compare_row(
+                "paged_verify_attention" if t else "paged_decode_attention",
+                shape, lambda i, bb=bufs, f=run, a=attn:
+                f(*bb[i % len(bb)][:5], **a), want, parent,
+                iters=200 if copies > 1 else 20,
+                calls=copies * max(1, 16 // copies),
+                lib=None if cap else (lambda i, bb=bufs, m=mask, tt=t:
+                                      _sdpa(*(bb[i % len(bb)][j]
+                                              for j in (0, 5, 6)), m, tt)),
+                bitwise=t is not None))
+            if t is None:
+                rows[-1]["split_plan"] = PA.kernel_plan(*bufs[0][:2],
+                                                        bufs[0][3])
             del bufs
             torch.cuda.empty_cache()
+    # every fp32 case of kernel_checks and verify_checks (T 2 and 4): bitwise
+    gen = torch.Generator().manual_seed(11)
+    cases = []
+    for c in _fp32_paged_cases():
+        for t in (1, 2, 4):
+            kw = dict(c["kw"])
+            kw["lengths"] = [n + t - 1 for n in kw["lengths"]]
+            _, pk, pv, tables, lens = _paged_case(gen, dtype=torch.float32,
+                                                  dev=dev, **kw)
+            base = (lens - (t - 1)).contiguous()
+            q = (torch.randn((kw["b"], t, kw["hq"], kw["dh"]), generator=gen)
+                 * c.get("q_scale", 1.0)).to(dev)
+            if t == 1:
+                cases.append((f"{c['name']}-T1", lambda q=q, a=(
+                    pk, pv, tables, base), at=c["attn"]:
+                    PA.paged_decode_attention(q[:, 0].contiguous(), *a,
+                                              **at)))
+            cases.append((f"{c['name']}-T{t}-verify", lambda q=q, a=(
+                pk, pv, tables, base), at=c["attn"]:
+                PA.paged_verify_attention(q, *a, **at)))
+    bitwise = _bitwise_rows("paged (float32)", cases, parent)
     sweep = []
     for kernel, t in (("paged_decode_attention", None),
                       ("paged_verify_attention", 4)):
@@ -2297,8 +2577,28 @@ def phase_compare(dev, v1_source: Path) -> dict:
         finally:
             PA.kernel_plan = own
         del bufs
-    return {"phase": "compare", "ok": True, "v1_source": str(v1_source),
-            "rows": rows, "split_sweep_main_path": sweep}
+    return {"phase": "compare", "ok": True,
+            "parent_source": str(parent_source), "rows": rows,
+            "bitwise": bitwise, "split_sweep_main_path": sweep}
+
+
+def _fp32_paged_cases() -> list:
+    """The fp32 cases of kernel_checks and verify_checks: G 1, 4, 7 and 8
+    (page 4 and 16), window + sink, softcap at Dh 64, the MoE heads and
+    the long rows (their pages hold a T = 4 verify's last candidate)."""
+    cases = [dict(name=f"float32-G{g}-page{page}", attn={},
+                  kw=dict(b=5, hq=hkv * g, hkv=hkv, dh=128, page=page,
+                          mp=-(-84 // page), lengths=[37, 5, 0, 63, 20],
+                          unmapped_row=2, hole=(3, 1), share=(0, 4)))
+             for g, hkv in G_HKV.items() for page in (4, 16)]
+    cases.append(dict(name="float32-window-sink",
+                      attn=dict(window=24, sink=4),
+                      kw=dict(b=3, hq=8, hkv=2, dh=128, page=16, mp=8,
+                              lengths=[100, 17, 64])))
+    cases.append(dict(name="float32-softcap-dh64", attn=dict(softcap=5.0),
+                      kw=dict(b=3, hq=12, hkv=4, dh=64, page=4, mp=18,
+                              lengths=[50, 3, 61])))
+    return cases + moe_cases("float32", t=1) + long_cases("float32", t=4)
 
 
 # ---------------------------------------------------------------------------
@@ -7614,13 +7914,16 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-out", type=Path, default=None,
                     help="directory for serve_plan's exported Chrome traces "
                          "of the pipeline spans (default: --out)")
-    ap.add_argument("--v1-dense-source", type=Path, default=None,
-                    help="a first-version csrc/decode_attention.cu: adds the "
-                         "compare_dense phase (v1 kernels 2 and 3 against "
-                         "this tree, in turns)")
-    ap.add_argument("--v1-source", type=Path, default=None,
-                    help="a first-version csrc/paged_attention.cu: adds the "
-                         "compare phase (v1 against this tree, in turns)")
+    ap.add_argument("--parent-dense-source", type=Path, default=None,
+                    help="a parent's csrc/decode_attention.cu of this C ABI "
+                         "(its headers beside it): adds the compare_dense "
+                         "phase (kernels 2 and 3 against this tree's, in "
+                         "turns; kernel 3 bitwise)")
+    ap.add_argument("--parent-source", type=Path, default=None,
+                    help="a parent's csrc/paged_attention.cu of this C ABI "
+                         "(its headers beside it): adds the compare phase "
+                         "(kernels 1 and 4 against this tree's, in turns; "
+                         "kernel 4 at T >= 2 and fp32 bitwise)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -7640,10 +7943,10 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         results["kernel"] = phase_kernel(dev)
         log(results["kernel"])
-    if args.v1_source is not None:
-        log(phase_compare(dev, args.v1_source.resolve()))
-    if args.v1_dense_source is not None:
-        log(phase_compare_dense(dev, args.v1_dense_source.resolve()))
+    if args.parent_source is not None:
+        log(phase_compare(dev, args.parent_source.resolve()))
+    if args.parent_dense_source is not None:
+        log(phase_compare_dense(dev, args.parent_dense_source.resolve()))
     if {"serve", "serve_int8", "serve_spec", "serve_chunked",
             "serve_spec_int8", "serve_sampled", "serve_prefix",
             "serve_tier", "serve_plan", "serve_fleet",

@@ -71,20 +71,27 @@
 //   between sink and window of a ring).  A paged CTA stages its split's table
 //   entries and walks only the sink part and the window part of its split
 //   up to lengths[b]; unmapped (-1) and out-of-pool entries are never read.
-// * A cp.async ring of K/V tiles in shared memory (3 stages of 32 rows in
-//   bf16 and for int8 with an fp32 q, 2 in fp32; 3 stages of 64 rows on the
-//   tensor-core path, 4 CTAs per SM; 2 stages on the 16-row one at Dh
-//   256): 16-byte
-//   copies of the valid rows only, zero-fill (src-size 0) for the others,
-//   rows padded by 16 B (or, on the tensor-core paths at Dh 128 and 256,
-//   chunks XOR-swizzled by row) so the
-//   8 rows a quarter warp reads fall on distinct banks; the int8 scales
-//   come with their tile as 4-byte copies (they are not 16-byte aligned),
-//   and each row's validity flag is written beside them.
+// * A cp.async ring of K/V tiles in shared memory (tc_decode.cuh's Ring:
+//   3 stages of 32 rows on the CUDA cores, 2 in fp32; 3 stages of 64 rows
+//   on kernel 3's 8-row tensor-core path, 4 CTAs per SM; 2 stages on the
+//   16-row one at Dh 256; kernel 2 with a bf16 q 64 rows, 2 stages at Dh
+//   128 and 3 at Dh 64): 16-byte copies of the valid rows only, zero-fill
+//   (src-size 0) for the others, rows padded by 16 B (or, on the
+//   tensor-core paths at Dh 128 and 256 and kernel 2's, chunks
+//   XOR-swizzled by row) so the 8 rows a quarter warp reads fall on
+//   distinct banks; the int8 scales come with their tile as 4-byte copies
+//   (they are not 16-byte aligned), and each row's validity flag is
+//   written beside them.
 // * Scores per tile, each warp owning its token rows with its own online
 //   softmax, the 4 warps merged through shared memory at the end.
-//   - Kernel 2 and every fp32-q instantiation: CUDA cores (FmaEngine, as
-//     kernel 1's): 32-row tiles, 8 rows per warp, 4 lanes per row.
+//   - Kernel 2 with a bf16 q at G 2 and up: tensor cores (tc_decode.cuh's
+//     Bf16MmaEngine, shared with kernel 1): 64-row tiles, 16 rows per
+//     warp, the token rows as the M of mma.sync.m16n8k16 and the query
+//     heads as its N, K by ldmatrix and V by ldmatrix.trans, P^T as bf16
+//     hi + lo (that header has the layout).
+//   - Kernel 2 at G 1 and every fp32-q instantiation: CUDA cores
+//     (FmaEngine, as kernel 1's in fp32): 32-row tiles, 8 rows per warp,
+//     4 lanes per row.
 //   - Kernel 3 with bf16 q: tensor cores (MmaEngine), 64-row tiles, 16 rows
 //     per warp.  int8 values convert exactly to bf16 (|x| <= 127), so QK^T
 //     on mma.sync m16n8k16 (bf16 in, fp32 accumulate) with k_s applied in
@@ -146,10 +153,22 @@
 //   SM); the loader copies whole 64- or 128-byte pieces of rows per warp
 //   instruction.  P' reuses the K half of the tile's stage.
 //
+// Fourth version (kernel 2 with a bf16 q, on the tensor cores): on the
+// CUDA cores its instructions per byte grew with G, so it was bound by
+// issue, not bytes: 0.343 ms at vision's cross shape (G 8, 64 rows x 1600
+// slots) against a bytes bound of 0.126 and SDPA's 0.139, 0.435 at the
+// serve's G 4 and 64 x 4096 against 0.321.  It now runs kernel 1's
+// tensor-core engine (tc_decode.cuh) from G 2 up; at G 1 (whisper's
+// cross-attention, MHA) FmaEngine stays: there the engine took 4.5-6.5%
+// longer at 1 and 2 rows, though 14% less at 64 rows (tools/
+// k12_variants.py on an H100, PERF.md section 6).
+//
 // Left for later: TMA bulk copies with mbarriers in place of cp.async,
 // persistent CTAs walking several (row, kv-head, split) items, a
-// single-launch merge, wgmma (needs 64 rows on one side: a decode has <= 16
-// query rows per kv-head), tensor cores for kernel 2, the fp16 conversions
+// single-launch merge, wgmma (m64n8k16 would fit kernel 2's 64-row tile
+// by G <= 8 heads; untried), a ring depth chosen per launch for kernel 2
+// (3 stages at Dh 128 took 4-6% off 64-row grids and cost split grids a
+// second wave), the fp16 conversions
 // for the 8-row decode instances at Dh 64 / 128 (they stay on MmaEngine:
 // on the 16-row engine the paged decode at 64 x 4096 took 7.7% longer,
 // tools/k3_variants.py on an H100), fewer barriers per tile in the 16-row
@@ -164,13 +183,13 @@
 #include <mutex>
 #include <type_traits>
 
+#include "tc_decode.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using namespace tcd;
+
 constexpr int kMaxSplitIdx = 8192;      // pos / table entries a CTA stages
-constexpr float kNegInf = -1e30f;       // NEG_INF of the reference
-constexpr float kEmpty = kNegInf * 0.5f;   // m at or below: no valid key
 
 struct Params {
   const void* q;
@@ -193,78 +212,9 @@ struct Params {
   float softcap, scale;
 };
 
-// chunk c of a row r of 16-byte chunks, XOR-swizzled within each group of
-// 8 chunks: 8 rows read at one chunk index fall on distinct banks
-__host__ __device__ constexpr int swz(int c, int r) {
-  return (c & ~7) | ((c ^ r) & 7);
-}
-
-// ---------------------------------------------------------------------------
-// the ring: [stage][K,V][TILE rows][Dh*elt + 16 B], then (int8) the tiles'
-// scales [stage][K,V][TILE] and every tile row's validity [stage][TILE].
-// SWZ (rows of 8 or 16 16-byte chunks) drops the 16-byte padding and
-// stores chunk c of row r at chunk swz(c, r) instead: the same distinct
-// banks for the tensor-core engines' reads, in less shared memory.
-// ---------------------------------------------------------------------------
-template <typename TKV, int DH, int TILE, int STAGES, bool SWZ = false>
-struct Ring {
-  static constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
-  static constexpr int kRowBytes = DH * (int)sizeof(TKV);
-  static constexpr int kStride = SWZ ? kRowBytes : kRowBytes + 16;
-  static constexpr int kChunks = kRowBytes / 16;
-  static_assert(!SWZ || kChunks % 8 == 0, "the swizzle spans 8 chunks");
-  static constexpr int kStages = STAGES;
-  static constexpr int kTile = TILE;
-  static constexpr int kRowsBytes = kStages * 2 * TILE * kStride;
-  static constexpr int kScaleBytes = kInt8 ? kStages * 2 * TILE * 4 : 0;
-  static constexpr int kBytes = kRowsBytes + kScaleBytes + kStages * TILE * 4;
-  __device__ static unsigned char* row(unsigned char* base, int stage,
-                                       int kv, int r) {
-    return base + ((stage * 2 + kv) * TILE + r) * kStride;
-  }
-  // byte ``byte`` of row r (contiguous within each 16-byte chunk)
-  __device__ static unsigned char* at(unsigned char* base, int stage, int kv,
-                                      int r, int byte) {
-    const int off = SWZ ? ((swz(byte >> 4, r) << 4) | (byte & 15)) : byte;
-    return row(base, stage, kv, r) + off;
-  }
-  __device__ static float* scales(unsigned char* base, int stage, int kv) {
-    return reinterpret_cast<float*>(base + kRowsBytes)
-        + (stage * 2 + kv) * TILE;
-  }
-  __device__ static int* ok(unsigned char* base, int stage) {
-    return reinterpret_cast<int*>(base + kRowsBytes + kScaleBytes)
-        + stage * TILE;
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(pred ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
 }
 
 // byte i of w (an int8) as an exact float: 2^23 + (x + 128) - (2^23 + 128)
@@ -352,64 +302,14 @@ template <> struct Vec<int8_t, 2> {
   }
 };
 
-// output row of query row r of kv-head h: token r / g, head h*g + r % g of
-// row b (a decode has r < g)
-__device__ __forceinline__ int out_row(const Params& p, int b, int h,
-                                       int r) {
-  return (b * p.t_count + r / p.g) * p.hq + h * p.g + r % p.g;
-}
-
 // whether a query at qpos sees the key at pos (-1: empty or unmapped)
 __device__ __forceinline__ bool sees(const Params& p, int pos, int qpos) {
   return pos >= 0 && pos <= qpos
       && (p.window <= 0 || pos > qpos - p.window || pos < p.sink);
 }
 
-// one query row's result: the output (one split) or the split's partial
-template <typename TQ>
-__device__ __forceinline__ void emit(const Params& p, int split, int orow,
-                                     int d, int dh, float m, float l,
-                                     float acc) {
-  if (p.num_splits == 1) {
-    store1(static_cast<TQ*>(p.out) + (size_t)orow * dh + d,
-           m > kEmpty ? acc / fmaxf(l, 1e-30f) : 0.f);
-    return;
-  }
-  const size_t s_rows = (size_t)p.num_splits * p.rows_total;
-  const size_t i = (size_t)split * p.rows_total + orow;
-  if (m > kEmpty) p.part[2 * s_rows + i * dh + d] = acc;   // else unread
-  if (d == 0) {
-    p.part[i] = m;
-    p.part[s_rows + i] = l;
-  }
-}
-
-// the 4 warps' states (m, l [kWarps][GT], acc [kWarps][GT][DH] in shared
-// memory) merged into one query row's result
-template <typename TQ, int DH, int GT>
-__device__ void merge_warps(const Params& p, const float (*sm)[GT],
-                            const float (*sl)[GT], const float* s_acc,
-                            int split, int b, int h, int r0, int nr) {
-  for (int idx = threadIdx.x; idx < nr * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx % DH;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][j]);
-    float ls = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (sm[w][j] > kEmpty) {
-        const float cw = expf(sm[w][j] - mx);
-        ls += sl[w][j] * cw;
-        o += s_acc[(w * GT + j) * DH + d] * cw;
-      }
-    }
-    emit<TQ>(p, split, out_row(p, b, h, r0 + j), d, DH, mx, ls, o);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// CUDA-core engine: kernel 2 and every fp32-q instantiation (kernel 1's
+// CUDA-core engine: every fp32-q instantiation (kernel 1's
 // FmaEngine on a validity flag per row and, for int8, the tile's scales).
 // Warp w owns token rows 8w..8w+7 of every 32-row tile; lane 8c + t scores
 // row t against the 16-byte chunks c, c+4, ... for every query row (q
@@ -427,6 +327,7 @@ struct FmaEngine {
   static constexpr int CPL = DH / 32;                // PV columns per lane
   static constexpr int kMinBlocks = sizeof(TKV) == 4 || DH > 128 ? 2 : 3;
   static constexpr int kLoadTPR = kThreads / 32;   // a pass: the tile
+  static constexpr bool kMaxShared = false;
   struct Shared {
     float q[GT][DH];              // pre-scaled q rows
     float pw[kWarps][8][GT];      // each warp's p (x v_s) of this tile
@@ -590,25 +491,6 @@ struct FmaEngine {
 //   2ti+8, 2ti+9.  B = P'^T comes from the score fragment by movmatrix.trans
 //   of its two 8x8 halves (tokens 0-7 and 8-15), in bf16 hi and lo terms.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(y) : "r"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int DH, bool MULTI>
 struct MmaEngine {
   using R = Ring<int8_t, DH, 64, 3, DH == 128>;
@@ -620,6 +502,7 @@ struct MmaEngine {
   static constexpr int VB = DH / 8;       // V bytes per lane and token
   static constexpr int kMinBlocks = 4;
   static constexpr int kLoadTPR = kThreads / 64;   // a pass: the tile
+  static constexpr bool kMaxShared = false;
   struct Shared {
     float m[kWarps][GT], l[kWarps][GT];
   };
@@ -884,12 +767,6 @@ struct MmaEngine {
 // 1); P' = hi + lo in fp16 keeps 22 bits of it, and acc / 2^T is the
 // output's numerator.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
 __device__ __forceinline__ void mma_16816_f16(float* c, const uint32_t* a,
                                               uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -930,6 +807,8 @@ struct Mma16Engine {
   // of a warp reads a 128-byte line of each of 4 rows), 4 below (64 bytes
   // of each of 8 rows); the fastest of 2, 4, 8 and 16 on an H100
   static constexpr int kLoadTPR = DH == 256 ? 8 : 4;
+  // its 3 or 4 CTAs per SM need the largest shared-memory carveout
+  static constexpr bool kMaxShared = true;
   static_assert(KB % 16 == 0 && 2 * PHALF <= 64 * R::kStride, "layout");
   struct Shared {
     __align__(16) unsigned char q[GT * QROW];   // fp16, scaled per row
@@ -1241,12 +1120,18 @@ struct Mma16Engine {
   }
 };
 
-// the engine of an instantiation: tensor cores for int8 K/V with a bf16 q
-// (8 query rows per CTA on MmaEngine; 16 on Mma16Engine: the multi-token
-// entry at T*G > 8, the slab entry at Dh 256), CUDA cores else
+// the engine of an instantiation: tensor cores for a bf16 q with bf16 K/V
+// (kernel 2: tc_decode.cuh's Bf16MmaEngine, 8 query rows per CTA) or int8
+// K/V (8 query rows per CTA on MmaEngine; 16 on Mma16Engine: the
+// multi-token entry at T*G > 8, the slab entry at Dh 256), CUDA cores for
+// an fp32 q
 template <typename TQ, typename TKV, int DH, int GT, bool MULTI>
 struct EngineOf {
   using type = FmaEngine<TQ, TKV, DH, GT, MULTI>;
+};
+template <int DH>
+struct EngineOf<__nv_bfloat16, __nv_bfloat16, DH, 8, false> {
+  using type = Bf16MmaEngine<DH>;
 };
 template <int DH, bool MULTI>
 struct EngineOf<__nv_bfloat16, int8_t, DH, 8, MULTI> {
@@ -1486,32 +1371,39 @@ dense_merge(const float* __restrict__ part, TQ* __restrict__ out,
 // ---------------------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
-// an instantiation, its query rows per CTA and its ring (dynamic shared
-// memory before the staged index)
+// an instantiation, its query rows per CTA, its ring (dynamic shared
+// memory before the staged index) and whether it wants the largest
+// shared-memory carveout
 struct Choice {
   KernelFn fn;
   int gt;
   int ring_bytes;
+  bool max_shared;
 };
 
 template <typename TQ, typename TKV, int DH, int GT, bool PAGED, bool MULTI>
 Choice pick() {
+  using E = typename EngineOf<TQ, TKV, DH, GT, MULTI>::type;
   return {&dense_attn_kernel<TQ, TKV, DH, GT, PAGED, MULTI>, GT,
-          EngineOf<TQ, TKV, DH, GT, MULTI>::type::R::kBytes};
+          E::R::kBytes, E::kMaxShared};
 }
 
 // the instantiation for t_count query tokens and g query heads per
-// kv-head.  A decode (t_count = 1): the smallest width in {1,2,4,8} that
-// holds the g heads (FmaEngine), or 8 (MmaEngine) or, at Dh 256 (the slab
-// entry), 16 (Mma16Engine); grid.z covers the rest in groups of that
-// width, as the wrappers' row_groups(1, g) and, for kernel 3's slab entry,
-// quant_kv.slab_row_groups.  The multi-token entry (paged only): the
+// kv-head.  A decode (t_count = 1): 8 (Bf16MmaEngine for kernel 2 with a
+// bf16 q at G 2 and up; MmaEngine for kernel 3 with a bf16 q) or, at Dh
+// 256 (the slab entry), 16 (Mma16Engine); kernel 2 at G 1 and every fp32
+// q the smallest width in {1,2,4,8} that holds the g heads (FmaEngine: at
+// G 1 whisper's cross-attention call, 2 rows, took 5.5% less than on the
+// tensor cores, PERF.md section 6); grid.z covers the rest in groups of
+// that width, as the wrappers' row_groups(1, g) and, for kernel 3's slab
+// entry, quant_kv.slab_row_groups.  The multi-token entry (paged only): the
 // t_count*g rows in CTAs of 8 (MmaEngine) or 16 (Mma16Engine), or of 2, 4
 // or 8 (FmaEngine), as the wrapper's verify_row_groups.
 template <typename TQ, typename TKV, int DH, bool PAGED>
 Choice choose(int t_count, int g) {
-  constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value
-                        && std::is_same<TKV, int8_t>::value;
+  constexpr bool kBf16Q = std::is_same<TQ, __nv_bfloat16>::value;
+  constexpr bool kMma = kBf16Q && std::is_same<TKV, int8_t>::value;
+  constexpr bool kBf16 = kBf16Q && std::is_same<TKV, __nv_bfloat16>::value;
   if constexpr (PAGED) {
     if (t_count > 1) {
       const int rows = t_count * g;
@@ -1528,6 +1420,9 @@ Choice choose(int t_count, int g) {
   if constexpr (kMma) {
     if constexpr (DH == 256) return pick<TQ, TKV, DH, 16, PAGED, false>();
     else return pick<TQ, TKV, DH, 8, PAGED, false>();
+  } else if constexpr (kBf16) {
+    if (g == 1) return pick<TQ, TKV, DH, 1, PAGED, false>();
+    return pick<TQ, TKV, DH, 8, PAGED, false>();
   } else {
     if (g > 4) return pick<TQ, TKV, DH, 8, PAGED, false>();
     if (g > 2) return pick<TQ, TKV, DH, 4, PAGED, false>();
@@ -1538,8 +1433,8 @@ Choice choose(int t_count, int g) {
 
 // every instantiation may take its ring + the largest staged index as
 // dynamic shared memory (above the default 48 KB), once per device; the
-// 16-row engine's also asks for the largest shared-memory carveout (its 3
-// or 4 CTAs per SM need it)
+// 16-row engine's and Bf16MmaEngine's also ask for the largest
+// shared-memory carveout (their 3 or 4 CTAs per SM need it)
 template <typename TQ, typename TKV, int DH, bool PAGED>
 cudaError_t allow_smem_one() {
   // t_count 2 reaches every multi-token instantiation: rows 2, 4, 8, 16
@@ -1551,9 +1446,7 @@ cudaError_t allow_smem_one() {
       cudaError_t e = cudaFuncSetAttribute(
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
           c.ring_bytes + kMaxSplitIdx * 4);
-      if (e == cudaSuccess && c.gt == 16
-          && std::is_same<TKV, int8_t>::value
-          && std::is_same<TQ, __nv_bfloat16>::value)
+      if (e == cudaSuccess && c.max_shared)
         e = cudaFuncSetAttribute(
             fn, cudaFuncAttributePreferredSharedMemoryCarveout,
             cudaSharedmemCarveoutMaxShared);

@@ -46,53 +46,84 @@
 //   reproducible; a partial with m <= -5e29 weighs 0 and its acc is not
 //   read, and a query whose every partial is empty writes 0.
 // * An asynchronous page ring.  The CTA stages its split's table entries
-//   in shared memory once, then walks its positions in tiles of 32 token
-//   rows: cp.async (16 B per thread) copies the tile's K and V rows of its
-//   kv-head (Dh*elt bytes each, at a stride of Hkv*Dh*elt in the pool) into
-//   a ring of 3 (bf16) or 2 (fp32) stages, so two tiles (16 KB in bf16 at
-//   Dh 128) are in flight while one is computed.  Rows are padded by 16 B
-//   so the 8 rows a quarter warp (or an ldmatrix phase) reads fall on
-//   distinct banks.  An unmapped (-1) or out-of-pool table entry, a
-//   position past the split or past the last query, is never loaded: the
-//   copy zero-fills the row (src-size 0) and the score is masked.
-// * Scores per tile, not per position.  Each warp owns 8 of the tile's
-//   token rows and keeps its own online softmax over them, so a tile needs
-//   no block barrier beyond the ring's; each row's max and sum are reduced
+//   in shared memory once, then walks its positions in tiles: cp.async
+//   (16 B per thread) copies the tile's K and V rows of its kv-head
+//   (Dh*elt bytes each, at a stride of Hkv*Dh*elt in the pool) into a ring
+//   in shared memory while earlier tiles are computed.  The fp32 and
+//   kernel 4 engines take tiles of 32 rows, padded by 16 B, in 3 (bf16) or
+//   2 (fp32) stages, 4 loader threads per row; kernel 1 in bf16 takes
+//   tc_decode.cuh's ring: 64-row tiles with XOR-swizzled 16-byte chunks, 2
+//   stages at Dh 128 (64 KB, 3 CTAs per SM) and 3 at Dh 64 (48 KB, 4), 8
+//   loader threads per row (each copy instruction of a warp reads a
+//   128-byte piece of 4 rows).  Either way the loader writes each row's
+//   flag beside the ring (whether it loaded it; for a verify its position,
+//   or -1), and the engines read nothing else of the addressing; the 8
+//   rows a quarter warp (or an ldmatrix phase) reads fall on distinct
+//   banks.  An unmapped (-1) or out-of-pool table
+//   entry, a position past the split or past the last query, is never
+//   loaded: the copy zero-fills the row (src-size 0) and the score is
+//   masked.
+// * Scores per tile, not per position.  Each warp owns its token rows of
+//   a tile and keeps its own online softmax over them, so a tile needs no
+//   block barrier beyond the ring's; each row's max and sum are reduced
 //   once per tile; the 4 warps' states merge through shared memory at the
-//   end.  Decode (kernel 1), and every fp32 instantiation, run on the CUDA
-//   cores (FmaEngine): the 4 lanes of a token row score a quarter of Dh
-//   each against every query row (q pre-scaled in fp32 in shared memory)
-//   and sum with 2 shuffles; max and sum over the warp's 8 rows take 3 + 3
-//   shuffles per query row and tile; in the PV product each lane owns
-//   Dh/32 columns of every query row.  The bf16 verify (kernel 4) runs on
-//   the tensor cores (MmaEngine): the T*G <= 16 query rows are the M of
-//   mma.sync.m16n8k16; each warp computes its 16 x 8 scores from unscaled
-//   bf16 q (A fragments in registers) and K (ldmatrix), scales them in
-//   fp32, masks each query row's causal limit as a select on the
-//   accumulator fragment; P (fp32) is split into bf16 hi + lo and
-//   multiplied with V (ldmatrix.trans) by two m16n8k8 products, so PV
-//   keeps ~16 bits of p.  fp32 pools never go through TF32.  Both skip
-//   the accumulator rescale of a tile where no row's max moved.
+//   end.  Three engines:
+//   - kernel 1 in bf16: tc_decode.cuh's Bf16MmaEngine (shared with kernel
+//     2), the token rows as the M of mma.sync.m16n8k16 and the G <= 8
+//     query heads as its N, q unscaled in registers, K by ldmatrix and V
+//     by ldmatrix.trans from the ring, the scale, the softcap and the mask
+//     in fp32 on the score fragment, P^T by movmatrix as bf16 hi + lo, two
+//     products per 16 output dims (that header has the layout);
+//   - every fp32 instantiation: CUDA cores (FmaEngine): the 4 lanes of a
+//     token row score a quarter of Dh each against every query row (q
+//     pre-scaled in fp32 in shared memory) and sum with 2 shuffles; max
+//     and sum over the warp's 8 rows take 3 + 3 shuffles per query row and
+//     tile; in the PV product each lane owns Dh/32 columns of every query
+//     row;
+//   - the bf16 verify (kernel 4): tensor cores (MmaEngine): the T*G <= 16
+//     query rows are the M of mma.sync.m16n8k16; each warp computes its 16
+//     x 8 scores from unscaled bf16 q (A fragments in registers) and K
+//     (ldmatrix), scales them in fp32, masks each query row's causal limit
+//     as a select on the accumulator fragment; P (fp32) is split into bf16
+//     hi + lo and multiplied with V (ldmatrix.trans) by two m16n8k8
+//     products, so PV keeps ~16 bits of p.
+//   fp32 pools never go through TF32.  Every engine skips the accumulator
+//   rescale of a tile where no row's max moved.
 // * Kernel 4 at T = 1 launches exactly kernel 1's instantiation with the
 //   same plan, so it is bitwise kernel 1.
 //
+// Third version (kernel 1 in bf16, on the tensor cores): the CUDA-core
+// engine cost 2 shuffles per score, 3 + 3 per query row and tile and Dh/32
+// FMAs per query row and token in PV, so its instructions per byte grew
+// with G and it was bound by issue, not bytes: at Qwen3-8B's G 4 it took
+// 0.436 ms at 64 x 4096 against a bytes bound of 0.321, and lost to SDPA
+// by 1.56x at the serve's call and 1.89x at llama4-scout's G 5.  On the
+// tensor cores the instructions per token no longer grow with G.  Measured
+// on an H100 (tools/k12_variants.py, PERF.md section 6), and left: one
+// more ring stage at Dh 128 (3, 2 CTAs per SM) took 7% off 64 x 4096 but
+// cost kernel 2's split grids a second wave (26% at vision's cross call);
+// an L2::256B prefetch hint on the copies gained 2-4% with 4 loader
+// threads per row and nothing on top of 8; G 1 (llama-13b, opt-175b)
+// stays on the tensor cores, 4-16% faster than FmaEngine there.
+//
 // Left for later: TMA bulk copies with mbarriers in place of cp.async,
-// wgmma (needs 64 query rows; a verify has 16), persistent CTAs that walk
-// several (row, kv-head, split) items, and a single-launch merge.
+// wgmma (m64n8k16 would fit a 64-row tile by G <= 8 heads; untried),
+// a ring depth chosen per launch (3 stages where the grid has one split),
+// persistent CTAs that walk several (row, kv-head, split) items, and a
+// single-launch merge.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <mutex>
 
+#include "tc_decode.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;            // token rows per ring stage
+using namespace tcd;
+
 constexpr int kMaxSplitPages = 2048; // table entries a CTA stages
-constexpr float kNegInf = -1e30f;    // NEG_INF of the reference
-constexpr float kEmpty = kNegInf * 0.5f;   // m at or below: no valid key
 
 struct Params {
   const void* q;
@@ -108,99 +139,31 @@ struct Params {
   float softcap, scale;
 };
 
-// the ring of K/V tiles in dynamic shared memory, then the split's table
+// the CUDA-core engine's and kernel 4's ring: 32-row K/V tiles (rows
+// padded by 16 B), 3 stages in bf16 and 2 in fp32, each row's flag beside
+// them; the split's table follows the ring in dynamic shared memory
 template <typename T, int DH>
-struct Ring {
-  static constexpr int kRowBytes = DH * (int)sizeof(T);
-  static constexpr int kStride = kRowBytes + 16;
-  static constexpr int kChunks = kRowBytes / 16;
-  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;
-  static constexpr int kBytes = kStages * 2 * kTile * kStride;
-  static constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;
-  __device__ static unsigned char* row(unsigned char* base, int stage,
-                                       int kv, int r) {
-    return base + ((stage * 2 + kv) * kTile + r) * kStride;
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using PadRing = Ring<T, DH, 32, sizeof(T) == 2 ? 3 : 2>;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// output row of CTA row j: token (r0 + j) / g of head h*g + (r0 + j) % g
-__device__ __forceinline__ int out_row(const Params& p, int b, int h,
-                                       int r) {
-  return (b * p.t_count + r / p.g) * p.hq + h * p.g + r % p.g;
-}
-
-// one query row's result: the output (one split) or the split's partial
-template <typename T>
-__device__ __forceinline__ void emit(const Params& p, int split, int orow,
-                                     int d, int dh, float m, float l,
-                                     float acc) {
-  if (p.num_splits == 1) {
-    store1(static_cast<T*>(p.out) + (size_t)orow * dh + d,
-           m > kEmpty ? acc / fmaxf(l, 1e-30f) : 0.f);
-    return;
-  }
-  const size_t s_rows = (size_t)p.num_splits * p.rows_total;
-  const size_t i = (size_t)split * p.rows_total + orow;
-  if (m > kEmpty) p.part[2 * s_rows + i * dh + d] = acc;   // else unread
-  if (d == 0) {
-    p.part[i] = m;
-    p.part[s_rows + i] = l;
-  }
-}
-
 // The positions a CTA reads: [a1, e1) (the part of its split inside the
 // sink) then [a2, e2) (the part inside the loosest query's window, up to
-// the last query), each cut into kTile-row tiles from its start.
+// the last query), each cut into tiles of ``rows`` from its start.
 struct Span {
-  int a1, e1, a2, e2, n1, n;
+  int a1, e1, a2, e2, n1, n, rows;
   __device__ void tile(int k, int& start, int& end) const {
     if (k < n1) {
-      start = a1 + k * kTile;
+      start = a1 + k * rows;
       end = e1;
     } else {
-      start = a2 + (k - n1) * kTile;
+      start = a2 + (k - n1) * rows;
       end = e2;
     }
   }
 };
 
 __device__ __forceinline__ Span make_span(const Params& p, int split,
-                                          int base, int last) {
+                                          int base, int last, int rows) {
   const int lo = split * p.pps * p.page;
   const int hi = min(min((split + 1) * p.pps, p.mp) * p.page, last + 1);
   Span s;
@@ -213,8 +176,9 @@ __device__ __forceinline__ Span make_span(const Params& p, int split,
     s.a2 = max(max(lo, base - p.window + 1), s.e1);
     s.e2 = max(hi, s.a2);
   }
-  s.n1 = (s.e1 - s.a1 + kTile - 1) / kTile;
-  s.n = s.n1 + (s.e2 - s.a2 + kTile - 1) / kTile;
+  s.rows = rows;
+  s.n1 = (s.e1 - s.a1 + rows - 1) / rows;
+  s.n = s.n1 + (s.e2 - s.a2 + rows - 1) / rows;
   return s;
 }
 
@@ -232,54 +196,8 @@ __device__ __forceinline__ int slot_of(const Params& p, int pos) {
   return p.page_shift >= 0 ? pos & (p.page - 1) : pos % p.page;
 }
 
-// table entry of pos is mapped to a page of the pool
-__device__ __forceinline__ bool mapped(const Params& p, const int* s_tbl,
-                                       int first, int pos) {
-  const int pid = s_tbl[page_of(p, pos) - first];
-  return pid >= 0 && pid < p.num_pages;
-}
-
-// ---------------------------------------------------------------------------
-// both engines: each warp keeps its own online softmax over 8 token rows of
-// every tile; at the end the 4 warps' states (m, l [kWarps][GT] and acc
-// [kWarps][GT][DH] in shared memory) merge into one query row's result
-// ---------------------------------------------------------------------------
-template <typename T, int DH, int GT>
-__device__ void merge_warps(const Params& p, const float (*sm)[GT],
-                            const float (*sl)[GT], const float* s_acc,
-                            int split, int b, int h, int r0, int nr) {
-  for (int idx = threadIdx.x; idx < nr * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx % DH;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][j]);
-    float ls = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (sm[w][j] > kEmpty) {
-        const float cw = expf(sm[w][j] - mx);
-        ls += sl[w][j] * cw;
-        o += s_acc[(w * GT + j) * DH + d] * cw;
-      }
-    }
-    emit<T>(p, split, out_row(p, b, h, r0 + j), d, DH, mx, ls, o);
-  }
-}
-
-// N consecutive elements of T as floats (4, 8 or 16 bytes)
+// N consecutive fp32 elements (FmaEngine runs the fp32 pools only)
 template <typename T, int N> struct Vec;
-template <> struct Vec<__nv_bfloat16, 8> {
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
 template <> struct Vec<float, 4> {
   __device__ static void load(const float* p, float* o) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -292,27 +210,10 @@ template <> struct Vec<float, 2> {
     o[0] = v.x; o[1] = v.y;
   }
 };
-template <> struct Vec<__nv_bfloat16, 4> {
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 c = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
-  }
-};
-template <> struct Vec<__nv_bfloat16, 2> {
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p));
-    o[0] = a.x; o[1] = a.y;
-  }
-};
 
 // ---------------------------------------------------------------------------
-// CUDA-core engine: kernel 1 and every fp32 instantiation.  Warp w owns
-// token rows 8w..8w+7 of every tile.  Lane 8c + t scores token row t
+// CUDA-core engine: every fp32 instantiation (kernels 1 and 4).  Warp w
+// owns token rows 8w..8w+7 of every tile.  Lane 8c + t scores token row t
 // against the 16-byte Dh chunks c, c+4, c+8, ... for every query row (q
 // pre-scaled in fp32 in shared memory; each quarter warp reads one q
 // address and 8 K rows on distinct banks); the 4 lanes of a token sum
@@ -323,7 +224,10 @@ template <> struct Vec<__nv_bfloat16, 2> {
 // ---------------------------------------------------------------------------
 template <typename T, int DH, int GT, bool MULTI>
 struct FmaEngine {
-  using R = Ring<T, DH>;
+  using R = PadRing<T, DH>;
+  static constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;
+  static constexpr int kLoadTPR = 4;
+  static constexpr bool kMaxShared = false;
   static constexpr int EPC = 16 / (int)sizeof(T);   // elements per chunk
   static constexpr int CPQ = R::kChunks / 4;    // chunks per lane
   static constexpr int CPL = DH / 32;           // PV columns per lane
@@ -365,11 +269,12 @@ struct FmaEngine {
     for (int j = 0; j < GT; ++j) qp[j] = j < nr ? base + (r0 + j) / p.g : -1;
   }
 
-  __device__ void tile(const Params& p, unsigned char* ring, int stage,
-                       const int* s_tbl, int first, int start, int end) {
+  __device__ void tile(const Params& p, unsigned char* ring, int stage) {
     const int tok = 8 * warp + t;
-    const int pos = start + tok;
-    const bool ok = pos < end && mapped(p, s_tbl, first, pos);
+    // the loader's flag: the row's position (-1: not loaded) for a verify,
+    // else whether it was loaded
+    const int pos = R::ok(ring, stage)[tok];
+    const bool ok = MULTI ? pos >= 0 : pos != 0;
     const unsigned char* krow = R::row(ring, stage, 0, tok);
     float s[GT];
 #pragma unroll
@@ -472,27 +377,6 @@ struct FmaEngine {
 // ---------------------------------------------------------------------------
 // tensor-core engine: the bf16 verify (kernel 4), 16 query rows
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // c += a (16x8, row) * b (8x8, col)
 __device__ __forceinline__ void mma_1688(float* c, const uint32_t* a,
                                          uint32_t b) {
@@ -509,7 +393,10 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
 template <int DH>
 struct MmaEngine {
   using T = __nv_bfloat16;
-  using R = Ring<T, DH>;
+  using R = PadRing<T, DH>;
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kLoadTPR = 4;
+  static constexpr bool kMaxShared = false;
   static constexpr int KS = DH / 16;     // k-steps of Q K^T
   static constexpr int NB = DH / 8;      // n-blocks of P V
   static constexpr int GT = 16;
@@ -556,8 +443,7 @@ struct MmaEngine {
     }
   }
 
-  __device__ void tile(const Params& p, unsigned char* ring, int stage,
-                       const int* s_tbl, int first, int start, int end) {
+  __device__ void tile(const Params& p, unsigned char* ring, int stage) {
     const int tok0 = warp * 8;             // this warp's 8 token rows
     const unsigned char* kst = R::row(ring, stage, 0, tok0 + lane % 8);
     const unsigned char* vst = R::row(ring, stage, 1, tok0 + lane % 8);
@@ -569,12 +455,10 @@ struct MmaEngine {
       mma_16816(c, qa[kk], bk[0], bk[1]);
       mma_16816(c, qa[kk + 1], bk[2], bk[3]);
     }
-    // c[2hh + e]: query row lane/4 + 8hh, token row tok0 + 2(lane%4) + e
-    const int pos0 = start + tok0 + 2 * (lane % 4);
-    bool ok[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      ok[e] = pos0 + e < end && mapped(p, s_tbl, first, pos0 + e);
+    // c[2hh + e]: query row lane/4 + 8hh, token row tok0 + 2(lane%4) + e,
+    // whose position the loader flagged (-1: not loaded)
+    const int* flag = R::ok(ring, stage) + tok0 + 2 * (lane % 4);
+    const int pos[2] = {flag[0], flag[1]};
     float pr[4], corr[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -584,7 +468,7 @@ struct MmaEngine {
       for (int e = 0; e < 2; ++e) {
         float sc = c[2 * hh + e] * p.scale;
         if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
-        v[e] = ok[e] && row_sees(p, pos0 + e, qp[hh]);
+        v[e] = pos[e] >= 0 && row_sees(p, pos[e], qp[hh]);
         s[e] = v[e] ? sc : kNegInf;
       }
       float mt = fmaxf(s[0], s[1]);
@@ -659,9 +543,15 @@ struct MmaEngine {
 // ---------------------------------------------------------------------------
 // the kernel: split range, table staging, the ring, an engine
 // ---------------------------------------------------------------------------
+// kernel 1 with bf16: tc_decode.cuh's Bf16MmaEngine (8 query rows, 64-row
+// tiles); kernel 4 with bf16: MmaEngine (16 query rows); fp32: FmaEngine
 template <typename T, int DH, int GT, bool MULTI, bool MMA>
 struct EngineOf {
   using type = FmaEngine<T, DH, GT, MULTI>;
+};
+template <int DH>
+struct EngineOf<__nv_bfloat16, DH, 8, false, true> {
+  using type = Bf16MmaEngine<DH>;
 };
 template <int DH>
 struct EngineOf<__nv_bfloat16, DH, 16, true, true> {
@@ -669,10 +559,12 @@ struct EngineOf<__nv_bfloat16, DH, 16, true, true> {
 };
 
 template <typename T, int DH, int GT, bool MULTI, bool MMA>
-__global__ void __launch_bounds__(kThreads, Ring<T, DH>::kMinBlocks)
+__global__ void __launch_bounds__(
+    kThreads, EngineOf<T, DH, GT, MULTI, MMA>::type::kMinBlocks)
 paged_attn_kernel(const Params p) {
-  using R = Ring<T, DH>;
   using E = typename EngineOf<T, DH, GT, MULTI, MMA>::type;
+  using R = typename E::R;
+  constexpr int TILE = R::kTile;
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ __align__(16) typename E::Shared sh;
   int* s_tbl = reinterpret_cast<int*>(ring + R::kBytes);
@@ -694,7 +586,7 @@ paged_attn_kernel(const Params p) {
   // positions past the last query or past the table are never valid
   const int last = min(MULTI ? base + p.t_count - 1 : base,
                        p.mp * p.page - 1);
-  const Span span = make_span(p, split, base, last);
+  const Span span = make_span(p, split, base, last, TILE);
   if (span.n == 0) {          // nothing of this split is visible
     for (int idx = threadIdx.x; idx < nr * DH; idx += kThreads)
       emit<T>(p, split, out_row(p, b, h, r0 + idx / DH), idx % DH, DH,
@@ -707,36 +599,44 @@ paged_attn_kernel(const Params p) {
   const T* pk = static_cast<const T*>(p.pages_k);
   const T* pv = static_cast<const T*>(p.pages_v);
   const size_t tok_stride = (size_t)p.hkv * DH;    // elements
-  // 4 threads per token row: one table lookup each, then 16-byte copies
-  // of chunks lane%4, lane%4 + 4, ... (each copy instruction of a warp
-  // reads 64 contiguous bytes of 8 rows)
-  static_assert(kThreads == 4 * kTile && R::kChunks % 4 == 0, "loader");
+  // TPR threads per token row: one table lookup each, then 16-byte copies
+  // of chunks part, part + TPR, ... (each copy instruction of a warp reads
+  // TPR*16 contiguous bytes of 32/TPR rows); a pass covers RPP rows
+  constexpr int TPR = E::kLoadTPR, RPP = kThreads / TPR;
+  static_assert(TILE % RPP == 0 && R::kChunks % TPR == 0, "loader");
   auto load_tile = [&](int k) {
     int start, end;
     span.tile(k, start, end);
     const int stage = k % R::kStages;
-    const int r = threadIdx.x / 4, pos = start + r;
-    size_t off = 0;
-    bool ok = pos < end;
-    if (ok) {
-      const int pid = s_tbl[page_of(p, pos) - first];
-      // unmapped (-1) entries are never loaded; an id outside the pool
-      // would be a caller bug and is masked too, not read
-      ok = pid >= 0 && pid < p.num_pages;
-      off = ((size_t)pid * p.page + slot_of(p, pos)) * tok_stride
-            + (size_t)h * DH;
-    }
-    const unsigned char* ksrc =
-        reinterpret_cast<const unsigned char*>(ok ? pk + off : pk);
-    const unsigned char* vsrc =
-        reinterpret_cast<const unsigned char*>(ok ? pv + off : pv);
-    unsigned char* kdst = R::row(ring, stage, 0, r);
-    unsigned char* vdst = R::row(ring, stage, 1, r);
+    const int part = threadIdx.x % TPR;
 #pragma unroll
-    for (int j = 0; j < R::kChunks / 4; ++j) {
-      const int byte = (threadIdx.x % 4 + 4 * j) * 16;
-      cp_async16(kdst + byte, ksrc + (ok ? byte : 0), ok);
-      cp_async16(vdst + byte, vsrc + (ok ? byte : 0), ok);
+    for (int r = threadIdx.x / TPR; r < TILE; r += RPP) {
+      const int pos = start + r;
+      size_t off = 0;
+      bool ok = pos < end;
+      if (ok) {
+        const int pid = s_tbl[page_of(p, pos) - first];
+        // unmapped (-1) entries are never loaded; an id outside the pool
+        // would be a caller bug and is masked too, not read
+        ok = pid >= 0 && pid < p.num_pages;
+        off = ((size_t)pid * p.page + slot_of(p, pos)) * tok_stride
+              + (size_t)h * DH;
+      }
+      const unsigned char* ksrc =
+          reinterpret_cast<const unsigned char*>(ok ? pk + off : pk);
+      const unsigned char* vsrc =
+          reinterpret_cast<const unsigned char*>(ok ? pv + off : pv);
+#pragma unroll
+      for (int j = 0; j < R::kChunks / TPR; ++j) {
+        const int byte = (part + TPR * j) * 16;
+        cp_async16(R::at(ring, stage, 0, r, byte), ksrc + (ok ? byte : 0),
+                   ok);
+        cp_async16(R::at(ring, stage, 1, r, byte), vsrc + (ok ? byte : 0),
+                   ok);
+      }
+      // every engine reads the row's flag beside it: its position (-1: not
+      // loaded) for a verify's per-query limits, else whether it loaded
+      if (part == 0) R::ok(ring, stage)[r] = MULTI ? (ok ? pos : -1) : ok;
     }
   };
 
@@ -750,9 +650,7 @@ paged_attn_kernel(const Params p) {
     __syncthreads();          // tile k landed; tile k-1's stage is free
     if (k + R::kStages - 1 < span.n) load_tile(k + R::kStages - 1);
     cp_async_commit();
-    int start, end;
-    span.tile(k, start, end);
-    eng.tile(p, ring, k % R::kStages, s_tbl, first, start, end);
+    eng.tile(p, ring, k % R::kStages);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -794,45 +692,68 @@ merge_splits(const float* __restrict__ part, T* __restrict__ out,
 // ---------------------------------------------------------------------------
 using KernelFn = void (*)(Params);
 
+// an instantiation, its query rows per CTA, its ring (dynamic shared
+// memory before the table) and whether it wants the largest carveout
 struct Choice {
   KernelFn fn;
   int gt;
   int ring_bytes;
+  bool max_shared;
 };
 
-// rows = T*G query rows per (row, kv-head); a decode (t_count = 1) takes
-// the smallest width in {1,2,4,8} that holds them, a verify {2,4,8,16}
-// (fp32) or 16 (bf16, the tensor-core M); grid.z covers the rest, at most
-// 8 (decode) or 16 (verify) rows per CTA, as the wrapper's row_groups.
+template <typename T, int DH, int GT, bool MULTI, bool MMA>
+Choice pick() {
+  using E = typename EngineOf<T, DH, GT, MULTI, MMA>::type;
+  return {&paged_attn_kernel<T, DH, GT, MULTI, MMA>, GT, E::R::kBytes,
+          E::kMaxShared};
+}
+
+// rows = T*G query rows per (row, kv-head).  A decode (t_count = 1): 8
+// (bf16, Bf16MmaEngine, at every G, G 1 included, PERF.md section 6) or
+// the smallest width in {1,2,4,8} that holds them (fp32); a verify
+// {2,4,8,16} (fp32) or 16 (bf16, the tensor-core M); grid.z covers the
+// rest, at most 8 (decode) or 16 (verify) rows per CTA, as the wrapper's
+// row_groups.
 template <typename T, int DH>
 Choice choose(int t_count, int rows) {
-  const int ring = Ring<T, DH>::kBytes;
+  constexpr bool kBf16 = sizeof(T) == 2;
   if (t_count == 1) {
-    if (rows <= 1) return {&paged_attn_kernel<T, DH, 1, false, false>, 1, ring};
-    if (rows <= 2) return {&paged_attn_kernel<T, DH, 2, false, false>, 2, ring};
-    if (rows <= 4) return {&paged_attn_kernel<T, DH, 4, false, false>, 4, ring};
-    return {&paged_attn_kernel<T, DH, 8, false, false>, 8, ring};
+    if constexpr (kBf16) {
+      return pick<T, DH, 8, false, true>();
+    } else {
+      if (rows <= 1) return pick<T, DH, 1, false, false>();
+      if (rows <= 2) return pick<T, DH, 2, false, false>();
+      if (rows <= 4) return pick<T, DH, 4, false, false>();
+      return pick<T, DH, 8, false, false>();
+    }
   }
-  if constexpr (sizeof(T) == 2) {
-    return {&paged_attn_kernel<T, DH, 16, true, true>, 16, ring};
+  if constexpr (kBf16) {
+    return pick<T, DH, 16, true, true>();
   } else {
-    if (rows <= 2) return {&paged_attn_kernel<T, DH, 2, true, false>, 2, ring};
-    if (rows <= 4) return {&paged_attn_kernel<T, DH, 4, true, false>, 4, ring};
-    if (rows <= 8) return {&paged_attn_kernel<T, DH, 8, true, false>, 8, ring};
-    return {&paged_attn_kernel<T, DH, 16, true, false>, 16, ring};
+    if (rows <= 2) return pick<T, DH, 2, true, false>();
+    if (rows <= 4) return pick<T, DH, 4, true, false>();
+    if (rows <= 8) return pick<T, DH, 8, true, false>();
+    return pick<T, DH, 16, true, false>();
   }
 }
 
-// every instantiation may take ring + the largest table as dynamic shared
-// memory (above the default 48 KB), once per device
+// every instantiation may take its ring + the largest table as dynamic
+// shared memory (above the default 48 KB), once per device; Bf16MmaEngine's
+// also asks for the largest shared-memory carveout (its 3 or 4 CTAs per SM
+// need it)
 template <typename T, int DH>
 cudaError_t allow_smem_one() {
-  const int bytes = Ring<T, DH>::kBytes + kMaxSplitPages * 4;
   for (int t : {1, 2}) {
     for (int rows : {1, 2, 4, 8, 16}) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(choose<T, DH>(t, rows).fn),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      const Choice c = choose<T, DH>(t, rows);
+      const void* fn = reinterpret_cast<const void*>(c.fn);
+      cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          c.ring_bytes + kMaxSplitPages * 4);
+      if (e == cudaSuccess && c.max_shared)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
       if (e != cudaSuccess) return e;
     }
   }

@@ -8,9 +8,11 @@ dense KV slab whose slots carry absolute positions (``pos``, -1 empty,
 ring order for windowed caches).  The same CUDA source carries the int8
 variant over a slab and over a page pool.  All are bound by HBM bytes:
 split-K over the slots (``slab_plan`` chooses the split from shapes
-alone, so no host sync), a cp.async ring of K/V tiles, scores per tile,
-and, with more than one split, a merge kernel launched by the same C
-call.  The source's header has the design.
+alone, so no host sync), a cp.async ring of K/V tiles, scores per tile
+(a bf16 q on the tensor cores: ``csrc/tc_decode.cuh``'s engine for bf16
+K/V, kernel 1's too; an fp32 q on the CUDA cores), and, with more than
+one split, a merge kernel launched by the same C call.  The source's
+header has the design.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
@@ -52,22 +54,30 @@ _OCCUPANCY = "repro_decode_attention_occupancy"
 _fns = {}   # C entry point name -> the declared ctypes function
 
 
+def declare(lib, name: str):
+    """The C entry point ``name`` of a library built from
+    csrc/decode_attention.cu (this tree's or another of the same C ABI),
+    its argument and result types declared: the entries of ``_ENTRIES``,
+    and ``repro_decode_attention_occupancy``, which takes (kv_int8, paged,
+    T, hq, hkv, dh, dtype, per_split, int* rows_per_cta, int*
+    ctas_per_sm)."""
+    fn = getattr(lib, name)
+    if name == _OCCUPANCY:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    else:
+        n_ptrs, n_int = _ENTRIES[name]
+        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
+                       + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel_fn(name: str):
-    """A C entry point of csrc/decode_attention.cu, built on first use;
-    ``repro_decode_attention_occupancy`` takes (kv_int8, paged, T, hq,
-    hkv, dh, dtype, per_split, int* rows_per_cta, int* ctas_per_sm)."""
+    """A C entry point of csrc/decode_attention.cu, built on first use."""
     if name not in _fns:
         from repro_torch.kernels import build
-        fn = getattr(build.load("decode_attention"), name)
-        if name == _OCCUPANCY:
-            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-        else:
-            n_ptrs, n_int = _ENTRIES[name]
-            fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
-                           + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[name] = declare(build.load("decode_attention"), name)
     return _fns[name]
 
 
@@ -76,7 +86,10 @@ def occupancy(*, kv_int8: bool, paged: bool, t: int, hq: int, hkv: int,
     """(query rows per CTA, CTAs per SM) of the instantiation such a call
     launches (kernel 2, or kernel 3's slab, paged or multi-token entry),
     from the C side's own choice and the CUDA occupancy calculator on the
-    built kernel at that staged index."""
+    built kernel at that staged index.  Kernel 2 with a bf16 q at G 2 and
+    up: 8 rows on the tensor-core engine (3 CTAs per SM at Dh 128, its ring
+    2 stages of 64 rows, 64 KB; 4 at Dh 64); at G 1 and with an fp32 q the
+    smallest of 1, 2, 4 and 8 that holds G (the CUDA cores)."""
     rows, ctas = ctypes.c_int(0), ctypes.c_int(0)
     err = _kernel_fn(_OCCUPANCY)(int(kv_int8), int(paged), t, hq, hkv, dh,
                                  _DTYPES[dtype], per_split,
@@ -93,8 +106,10 @@ def occupancy(*, kv_int8: bool, paged: bool, t: int, hq: int, hkv: int,
 def slab_plan(b: int, hkv: int, g: int, s_len: int, sm_count: int):
     """(slots_per_split, num_splits) of a kernel-2 call: one split when the
     b*hkv*row_groups CTAs (up to 8 query heads each, as kernel 1's
-    decode) fill the SMs, else splits of >= 64 slots for about 2 CTAs per
-    SM (``paged_attention.capped_split_plan`` over pages of one slot), at
+    decode) fill the SMs, else splits of >= 64 slots (one tile of the
+    tensor-core engine with a bf16 q, two of the CUDA-core engine's 32
+    rows with an fp32 q) for about 2 CTAs per SM
+    (``paged_attention.capped_split_plan`` over pages of one slot), at
     most ``MAX_SPLIT_SLOTS`` slots each.  Kernel 3's slab entry groups its
     rows by ``quant_kv.slab_row_groups`` (``quant_kv.slab_plan``)."""
     return _pa.capped_split_plan(b, hkv, _pa.row_groups(1, g), s_len, 1,

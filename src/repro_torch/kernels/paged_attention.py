@@ -12,10 +12,10 @@ Replace the Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
 Both run one CUDA template, bound by HBM bytes (the K/V pages they read):
 split-K over the page list (``split_plan`` chooses the split from shapes
 alone, so no host sync), a cp.async ring of K/V tiles in shared memory,
-scores per tile (CUDA cores for kernel 1 and fp32, tensor cores for the
-bf16 verify), and, with more than one split, a merge kernel launched by
-the same C call.  The source note of ``csrc/paged_attention.cu`` has the
-design.
+scores per tile (tensor cores in bf16: kernel 1 on ``csrc/tc_decode.cuh``'s
+engine, shared with kernel 2, kernel 4 on its own; CUDA cores in fp32),
+and, with more than one split, a merge kernel launched by the same C call.
+The source note of ``csrc/paged_attention.cu`` has the design.
 
 A tensor on the CPU goes to the plain version (``kernels/ref.py``); a
 CUDA tensor goes to the kernel or the call raises — there is no
@@ -92,13 +92,16 @@ merge_launches = LaunchCounter()  # merge kernels launched by those calls
 MAX_ROWS_DECODE = 8       # query rows per CTA, as csrc/paged_attention.cu
 MAX_ROWS_VERIFY = 16
 SPLIT_CTAS_PER_SM = 2     # aim: this many CTAs of a split grid per SM
-SPLIT_MIN_TOKENS = 64     # a split reads at least two 32-row ring tiles
+# a split reads at least one 64-row tile of the bf16 decode's tensor-core
+# engine (two 32-row tiles of kernel 4's and of the fp32 CUDA-core engine)
+SPLIT_MIN_TOKENS = 64
 MAX_SPLIT_PAGES = 2048    # table entries one CTA stages (kMaxSplitPages)
 
 
 def row_groups(t: int, g: int) -> int:
     """CTAs per (row, kv-head) along the query rows: T*G rows, at most 8
-    per CTA for a decode (T = 1) and 16 for a verify."""
+    per CTA for a decode (T = 1: the bf16 tensor-core engine's one n8
+    tile at every G; fp32 in CTAs of 1, 2, 4 or 8) and 16 for a verify."""
     cap = MAX_ROWS_DECODE if t == 1 else MAX_ROWS_VERIFY
     return -(-t * g // cap)
 
@@ -153,35 +156,44 @@ def kernel_plan(q, pages_k, tables, t: int = 1):
                       page, sm_count(q.device))
 
 
-_fn = {}    # C entry point name -> the declared function
+ENTRIES = ("repro_paged_decode_attention", "repro_paged_verify_attention",
+           "repro_paged_attention_ctas_per_sm")
+_fns = {}   # C entry point name -> the declared function
+
+
+def declare(lib, name: str):
+    """The C entry point ``name`` of a library built from
+    csrc/paged_attention.cu (this tree's or another of the same C ABI),
+    its argument and result types declared: the decode entry takes
+    (pointers x6, b, hq, hkv, dh, page, mp, num_pages, window, sink,
+    softcap, scale, dtype, pages_per_split, num_splits, scratch, stream);
+    the verify entry takes T after b; ``repro_paged_attention_ctas_per_sm``
+    takes (T, hq, hkv, dh, dtype, pages_per_split, int* out)."""
+    fn = getattr(lib, name)
+    if name == "repro_paged_attention_ctas_per_sm":
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    else:
+        n_int = 10 if name == "repro_paged_verify_attention" else 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _kernel_fn(name: str = "repro_paged_decode_attention"):
-    """A C entry point of csrc/paged_attention.cu (built on first use):
-    the decode entry takes (pointers x6, b, hq, hkv, dh, page, mp,
-    num_pages, window, sink, softcap, scale, dtype, pages_per_split,
-    num_splits, scratch, stream); the verify entry takes T after b;
-    ``repro_paged_attention_ctas_per_sm`` takes (T, hq, hkv, dh, dtype,
-    pages_per_split, int* out)."""
-    if name not in _fn:
+    """A C entry point of csrc/paged_attention.cu, built on first use."""
+    if name not in _fns:
         from repro_torch.kernels import build
-        fn = getattr(build.load("paged_attention"), name)
-        if name == "repro_paged_attention_ctas_per_sm":
-            fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        else:
-            n_int = 10 if name == "repro_paged_verify_attention" else 9
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
-                           + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _fn[name] = fn
-    return _fn[name]
+        _fns[name] = declare(build.load("paged_attention"), name)
+    return _fns[name]
 
 
 def ctas_per_sm(t: int, hq: int, hkv: int, dh: int, dtype,
                 pages_per_split: int) -> int:
     """CTAs of the instantiation such a call launches that fit on one SM
-    (the CUDA occupancy calculator on the built kernel)."""
+    (the CUDA occupancy calculator on the built kernel): the bf16 decode's
+    tensor-core engine 3 at Dh 128 (a 64 KB ring) and 4 at Dh 64."""
     out = ctypes.c_int(0)
     err = _kernel_fn("repro_paged_attention_ctas_per_sm")(
         t, hq, hkv, dh, _DTYPES[dtype], pages_per_split, ctypes.addressof(out))

@@ -361,3 +361,182 @@ def int8_mma16_attention_ref(q, k_q, k_s, v_q, v_s, kpos, qpos, *,
         parts.append((m.reshape(b, t, hq), l.reshape(b, t, hq),
                       acc.reshape(b, t, hq, dh)))
     return merge_split_partials_ref(*(torch.stack(x) for x in zip(*parts)))
+
+
+# ---------------------------------------------------------------------------
+# the order of operations of the tokens-as-M tensor-core engine for bf16
+# K/V (csrc/tc_decode.cuh ``Bf16MmaEngine``: kernel 1's decode and kernel 2
+# with a bf16 q).  Each split walks its slots in 64-row tiles cut from the
+# start of each run of slots it reads (a slab split's [lo, hi); a paged
+# split's part inside the sink, then its part inside the window, up to the
+# query, as csrc/paged_attention.cu's ``make_span``); warp w of a tile owns
+# its rows 16w..16w+15 and keeps its own online softmax: scores q . k in
+# fp32 from bf16 q and K (unscaled), times 1/sqrt(Dh), then the softcap and
+# the mask, the max over the warp's 16 rows, p = exp(s - m) split into bf16
+# hi + lo, acc += V^T hi + V^T lo; the 4 warps' states merge at the end of
+# the split, then the split merge.  Tests hold it against the JAX package;
+# no serving path runs it.
+# ---------------------------------------------------------------------------
+BF16_MMA_TILE = 64
+BF16_MMA_WARP_ROWS = 16
+
+
+def _round32(x):
+    """A sum, a product or a transcendental of the bf16 engine's model,
+    taken in fp64 and rounded once to fp32: the correctly rounded fp32
+    value on any host, whatever order its BLAS or vector unit would sum
+    fp32 in."""
+    return x.to(torch.float32)
+
+
+def _bf16_mma_split(qg, k, v, kpos, qpos, idx, *, window, sink, softcap):
+    """One split's partial.  qg [B,Hkv,G,Dh] fp32 (bf16 values); k, v
+    [B,S,Hkv,Dh]; kpos [B,S] (-1 = empty or unmapped); qpos [B]; idx [B,n]
+    the slot each tile row holds (-1: none), n a multiple of the tile ->
+    m, l [B,Hq] and acc [B,Hq,Dh] fp32.  Every dot product, sum and
+    exponential is taken in fp64 and rounded to fp32 where the kernel
+    holds an fp32 value (``_round32``), so the model is the same on every
+    host."""
+    f32, f64 = torch.float32, torch.float64
+    b, hkv, g, dh = qg.shape
+    nw = BF16_MMA_TILE // BF16_MMA_WARP_ROWS
+    scale = 1.0 / math.sqrt(dh)
+    m = torch.full((b, hkv, g, nw), L.NEG_INF, dtype=f32)
+    l = torch.zeros((b, hkv, g, nw), dtype=f32)
+    acc = torch.zeros((b, hkv, g, nw, dh), dtype=f32)
+    rows = torch.arange(b)[:, None]
+    neg = torch.tensor(L.NEG_INF, dtype=f32)
+    q64 = qg.to(f64)
+    for t0 in range(0, idx.shape[1], BF16_MMA_TILE):
+        ti = idx[:, t0:t0 + BF16_MMA_TILE]                       # [B,64]
+        sl = ti.clamp(min=0).long()
+        kp = torch.where(ti >= 0, kpos[rows, sl], torch.full_like(ti, -1))
+        seen = L._mask(qpos[:, None], kp, causal=True, window=window,
+                       sink=sink)[:, 0]                          # [B,64]
+        # rows the kernel does not load are zero-filled, never read
+        shape = (b, nw, BF16_MMA_WARP_ROWS, hkv, dh)
+        zero = torch.zeros((), dtype=f64)
+        kt = torch.where(seen[..., None, None], k[rows, sl].to(f64),
+                         zero).reshape(shape)
+        vt = torch.where(seen[..., None, None], v[rows, sl].to(f64),
+                         zero).reshape(shape)
+        msk = seen.reshape(b, 1, 1, nw, -1)
+        s = _round32(torch.einsum("bhgd,bwrhd->bhgwr", q64, kt)) * scale
+        if softcap > 0.0:
+            s = softcap * _round32(torch.tanh((s / softcap).to(f64)))
+        s = torch.where(msk, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(msk,
+                        _round32(torch.exp((s - m_new[..., None]).to(f64))),
+                        torch.zeros((), dtype=f32))
+        corr = _round32(torch.exp((m - m_new).to(f64)))
+        l = l * corr + _round32(p.to(f64).sum(dim=-1))
+        hi = p.to(torch.bfloat16).to(f64)
+        lo = (p - hi.to(f32)).to(torch.bfloat16).to(f64)
+        acc = (acc * corr[..., None]
+               + _round32(torch.einsum("bhgwr,bwrhd->bhgwd", hi, vt))
+               + _round32(torch.einsum("bhgwr,bwrhd->bhgwd", lo, vt)))
+        m = m_new
+    mx = m.amax(dim=-1)
+    live = m > L.NEG_INF / 2
+    w = torch.where(live, _round32(torch.exp((m - mx[..., None]).to(f64))),
+                    torch.zeros((), dtype=f32))
+    ls = _round32((l * w).to(f64).sum(dim=-1))
+    o = _round32(torch.where(live[..., None], acc * w[..., None],
+                         torch.zeros((), dtype=f32)).to(f64).sum(dim=-2))
+    hq = hkv * g
+    return mx.reshape(b, hq), ls.reshape(b, hq), o.reshape(b, hq, dh)
+
+
+def _tile_rows(runs, b):
+    """[B, n] slot indices (-1: none) of the tiles cut from the start of
+    each run [a, e) of every row (``runs`` [B] lists of (a, e))."""
+    per_row = []
+    for row in runs:
+        idx = []
+        for a, e in row:
+            n = -(-(e - a) // BF16_MMA_TILE) * BF16_MMA_TILE
+            idx += [a + r if a + r < e else -1 for r in range(n)]
+        per_row.append(idx)
+    width = max(BF16_MMA_TILE, max(len(x) for x in per_row))
+    width = -(-width // BF16_MMA_TILE) * BF16_MMA_TILE
+    return torch.tensor([x + [-1] * (width - len(x)) for x in per_row],
+                        dtype=torch.int64).reshape(b, width)
+
+
+def _bf16_mma(q, k, v, kpos, lengths, runs_of_split, n_splits, *, window,
+              sink, softcap):
+    b, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.to(torch.bfloat16).to(torch.float32).reshape(b, hkv, hq // hkv,
+                                                        dh)
+    qpos = lengths.to(torch.int32)
+    parts = [_bf16_mma_split(qg, k, v, kpos, qpos,
+                             _tile_rows(runs_of_split(s), b), window=window,
+                             sink=sink, softcap=softcap)
+             for s in range(n_splits)]
+    # the split merge (merge_splits), its sums in fp64 as above
+    f32, f64 = torch.float32, torch.float64
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    mx = m.amax(dim=0)
+    live = m > L.NEG_INF / 2
+    w = torch.where(live, _round32(torch.exp((m - mx).to(f64))),
+                    torch.zeros((), dtype=f32))
+    lsum = _round32((w * l).to(f64).sum(dim=0))
+    o = _round32(torch.where(live[..., None], w[..., None] * acc,
+                             torch.zeros((), dtype=f32)).to(f64).sum(dim=0))
+    return torch.where((mx > L.NEG_INF / 2)[..., None],
+                       o / torch.clamp(lsum, min=1e-30)[..., None],
+                       torch.zeros((), dtype=f32))
+
+
+def bf16_mma_slab_ref(q, k, v, pos, lengths, *, slots_per_split: int,
+                      window: int = 0, sink: int = 0, softcap: float = 0.0):
+    """Kernel 2's order on the tensor-core engine: q [B,Hq,Dh] (read as
+    bf16); k, v bf16 [B,S,Hkv,Dh]; pos [B,S] (-1 = empty; validity from
+    pos, never from the slot index); lengths [B] -> [B,Hq,Dh] fp32.  Split
+    s reads slots [s*sps, (s+1)*sps) in tiles cut from its first slot."""
+    b, s_len = pos.shape
+    n_splits = -(-s_len // slots_per_split)
+
+    def runs(s):
+        lo = s * slots_per_split
+        return [[(lo, min(lo + slots_per_split, s_len))]] * b
+    return _bf16_mma(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), lengths.cpu(),
+                     runs, n_splits, window=window, sink=sink,
+                     softcap=softcap)
+
+
+def bf16_mma_paged_ref(q, pages_k, pages_v, tables, lengths, *,
+                       pages_per_split: int, window: int = 0, sink: int = 0,
+                       softcap: float = 0.0):
+    """Kernel 1's order on the tensor-core engine: q [B,Hq,Dh] (read as
+    bf16); pages_k/v bf16 [P,page,Hkv,Dh]; tables [B,MP] (-1 = unmapped);
+    lengths [B] -> [B,Hq,Dh] fp32.  Split s owns table pages [s*pps,
+    (s+1)*pps) and reads, of the positions up to the query, its part inside
+    the sink and then its part inside the window, each in tiles cut from
+    its start (``make_span``)."""
+    tables, lengths = tables.cpu(), lengths.cpu()
+    k, kpos = paged_gather(pages_k.cpu(), tables)
+    v, _ = paged_gather(pages_v.cpu(), tables)
+    b, mp = tables.shape
+    page = pages_k.shape[1]
+    pps = pages_per_split
+    n_splits = -(-mp // pps)
+
+    def runs(s):
+        out = []
+        for r in range(b):
+            base = int(lengths[r])
+            last = min(base, mp * page - 1)
+            lo = s * pps * page
+            hi = min(min((s + 1) * pps, mp) * page, last + 1)
+            if window <= 0:
+                out.append([(lo, max(hi, lo))])
+                continue
+            e1 = max(lo, min(hi, sink))
+            a2 = max(lo, base - window + 1, e1)
+            out.append([(lo, e1), (a2, max(hi, a2))])
+        return out
+    return _bf16_mma(q.cpu(), k, v, kpos, lengths, runs, n_splits,
+                     window=window, sink=sink, softcap=softcap)

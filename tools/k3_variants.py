@@ -2,13 +2,13 @@
 """Variants of kernel 3 (csrc/decode_attention.cu) timed in turns on one
 NVIDIA GPU.
 
-    python3 tools/k3_variants.py [--parent OLD.cu] [--out FILE.json]
+    python3 tools/k3_variants.py [--out FILE.json]
 
-Each variant is this tree's source with a few lines replaced
-(``VARIANTS``), written to build/k3_variants/<name>/ and built there with
-the port's nvcc flags, one nvcc each, all at once; ``--parent`` adds an
-older csrc/decode_attention.cu of the same C ABI, launched with the slab
-plan it was written for (kernel 2's).  The variants:
+Each variant is this tree's csrc with a few lines replaced (``VARIANTS``),
+written to build/k3_variants/<name>/ and built there with the port's nvcc
+flags, one nvcc each, all at once (``tools/variants.py``).  A parent's
+csrc is timed against this tree's, and kernel 3's outputs held bitwise to
+the parent's, by ``chip_smoke.py``'s compare_dense phase.  The variants:
 
   decode16        the 8-row decode instances (bf16 q, int8 K/V, Dh 64 and
                   128: the slab and paged entries) on the 16-row engine
@@ -23,42 +23,41 @@ The cases: kernel 3's Dh 128 slab decode (Hq 32 / Hkv 8) and paged
 decode at the int8 serve's per-worker call (2 x 512 tokens) and at 64 x
 4096, its Dh 256 slab entry at recurrentgemma-2b's heads (Hq 10 / Hkv 1;
 2 x 1024 slots, 512 valid, and 64 x 2048) and its multi-token entry (T 4,
-Hq 32 / Hkv 8; 2 x 512 and 64 x 4096).  Every variant but the ablations
-is held to the plain version (chip_smoke.py's bf16 tolerance) first; the
-8-row decode cases of this tree must equal the parent's bit for bit, and
-l2pf256 (a cache hint) this tree's everywhere.  Device ms come from CUDA
-graph replay (chip_smoke.py's ``graph_time_ms``), each variant timed in
-one order and then in the reverse order.  Registers from ptxas and CTAs
-per SM from the CUDA occupancy calculator (the source's
-``repro_decode_attention_occupancy``) are printed for each build.  One
-JSON object a case on stdout, all of them in ``--out``.
+Hq 32 / Hkv 8; 2 x 512 and 64 x 4096). Every variant but the ablations is
+held to the plain version (chip_smoke.py's bf16 tolerance) first, and
+l2pf256 (a cache hint) must equal this tree's bit for bit everywhere.
+Device ms come from CUDA graph replay (chip_smoke.py's
+``graph_time_ms``), each variant timed in one order and then in the
+reverse order. Registers from ptxas and CTAs per SM from the CUDA
+occupancy calculator (the source's ``repro_decode_attention_occupancy``)
+are printed for each build. One JSON object a case on stdout, all of them
+in ``--out``.
 """
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "src" / "repro_torch" / "csrc" / "decode_attention.cu"
+DA_CU = "decode_attention.cu"
 
-# name -> [(a line of the tree's source, its replacement)]
+# name -> [(file, a line of the tree's source, its replacement)]
 VARIANTS = {
     "decode16": [
-        ("    else return pick<TQ, TKV, DH, 8, PAGED, false>();",
+        (DA_CU, "    else return pick<TQ, TKV, DH, 8, PAGED, false>();",
          "    else return pick<TQ, TKV, DH, 16, PAGED, false>();")],
     "l2pf256": [
-        ('  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"',
+        ("tc_decode.cuh",
+         '  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"',
          '  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, '
          '%2;\\n"')],
     "no-kv-copies": [
-        ("      for (int j = 0; j < R::kChunks / TPR; ++j) {",
+        (DA_CU, "      for (int j = 0; j < R::kChunks / TPR; ++j) {",
          "      for (int j = 0; j < R::kChunks / TPR\n"
          "           && !std::is_same<E, Mma16Engine<DH, MULTI>>::value;"
          " ++j) {")],
     "no-tile-compute": [
-        ("    const int tok0 = 16 * warp;\n"
+        (DA_CU, "    const int tok0 = 16 * warp;\n"
          "    // ---- S^T = K q^T on the tensor cores, q's fragments from "
          "shared; two\n",
          "    return;\n"
@@ -66,64 +65,21 @@ VARIANTS = {
          "    // ---- S^T = K q^T on the tensor cores, q's fragments from "
          "shared; two\n")]}
 ABLATIONS = ("no-kv-copies", "no-tile-compute")
-# the 8-row decode cases (MmaEngine in this tree)
-DECODE8 = ("dh128-slab-main", "dh128-slab-bw", "dh128-paged-main",
-           "dh128-paged-bw")
 
 
-def build_variants(parent):
+def build_variants():
     """{name: (declared entry points, ptxas rows)} of every variant, the
     tree's own source included as "tree"; a build that fails is reported
     and left out."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention as DA
     import chip_smoke as C
-    tree = SRC.read_text()
-    sources = {"tree": tree}
-    for name, subs in VARIANTS.items():
-        text = tree
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise SystemExit(f"variant {name}: {old!r} is not one line "
-                                 f"of {SRC}")
-            text = text.replace(old, new)
-        sources[name] = text
-    if parent is not None:
-        sources["parent"] = Path(parent).read_text()
-    procs = {}
-    for name, text in sources.items():
-        out = ROOT / "build" / "k3_variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "decode_attention.cu").write_text(text)
-        lib = out / "libdecode_attention.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-             str(out / "decode_attention.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(f"{name}: nvcc failed\n{log[-4000:]}", flush=True)
-            continue
-        cdll = ctypes.CDLL(str(lib))
-        fns = {}
-        for entry, (n_ptrs, n_int) in DA._ENTRIES.items():
-            fn = getattr(cdll, entry)
-            fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
-                           + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-            fn.restype = ctypes.c_int
-            fns[entry] = fn
-        if hasattr(cdll, DA._OCCUPANCY):
-            fn = getattr(cdll, DA._OCCUPANCY)
-            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-            fn.restype = ctypes.c_int
-            fns[DA._OCCUPANCY] = fn
-        rows = [r for r in C.ptxas_summary(log)
-                if r.get("engine", "").startswith("tensor cores")]
-        built[name] = (fns, rows)
-    return built
+    import variants as V
+    builds = V.build(ROOT / "build" / "k3_variants", VARIANTS,
+                     ("decode_attention",))
+    return {name: (b["decode_attention"][0],
+                   [r for r in C.ptxas_summary(b["decode_attention"][1])
+                    if r.get("engine", "").startswith("tensor cores")
+                    and r.get("kv_dtype") == "int8"])
+            for name, b in builds.items()}
 
 
 def cases(dev):
@@ -170,28 +126,23 @@ def cases(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="an older csrc/decode_attention.cu of this C ABI")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "k3_variants" / "report.json")
     args = ap.parse_args(argv)
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
     import torch
     if not torch.cuda.is_available():
         print("k3_variants.py: CUDA is not available", file=sys.stderr)
         return 1
     import chip_smoke as C
     from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import quant_kv as QK
     dev = torch.device("cuda", 0)
     print(C.gpu_name_and_limit(), flush=True)
-    built = build_variants(args.parent)
-    own_plan = QK.slab_plan
+    built = build_variants()
 
     def use(name):
         DA._fns.clear()
         DA._fns.update(built[name][0])
-        QK.slab_plan = DA.kernel_plan if name == "parent" else own_plan
 
     report = {"gpu": C.gpu_name_and_limit(), "builds": {}, "cases": []}
     for name, (fns, rows) in built.items():
@@ -230,9 +181,6 @@ def main(argv=None) -> int:
             if "l2pf256" in outs:
                 same["l2pf256"] = bool(torch.equal(outs["tree"],
                                                    outs["l2pf256"]))
-            if "parent" in outs and label in DECODE8:
-                same["parent"] = bool(torch.equal(outs["tree"],
-                                                  outs["parent"]))
             if not all(same.values()):
                 raise AssertionError(f"{label}: not bitwise this tree's: "
                                      f"{same}")
