@@ -21,7 +21,11 @@ the eager path.
 
 Kernel counters (``kernels.paged_attention.LaunchCounter``) stay true:
 a capture tallies the launches it records without applying them, and
-every replay applies that tally.
+every replay applies that tally.  With a span tracer on the pool
+(``GraphPool.tracer``, set by ``attach_tracer``) every call counts
+``graph.<side>.calls`` and every capture ``graph.<side>.captures`` on it
+(``side`` "s" for the S-worker's pool, "r" for an R-worker's): on the
+card the calls less the captures are the replays.
 
 Python's cyclic garbage collector is held off while any thread captures
 (:func:`_no_gc`): a collection runs in whatever thread allocates, and
@@ -128,10 +132,16 @@ class GraphPool:
     """The memory pool and capture stream shared by graphs that replay on
     one stream.  ``stream`` None makes a capture stream of its own (the
     S-worker replays on the legacy default stream, on which nothing can
-    be captured); an R-worker passes its own stream."""
+    be captured); an R-worker passes its own stream.  ``side`` names the
+    pool's counters; ``tracer`` (an ``obs.SpanTracer`` or None) receives
+    them."""
 
-    def __init__(self, device, stream: Optional["torch.cuda.Stream"] = None):
+    def __init__(self, device, stream: Optional["torch.cuda.Stream"] = None,
+                 side: str = "s"):
         self.device = torch.device(device)
+        self.tracer = None
+        self.calls_key = f"graph.{side}.calls"
+        self.captures_key = f"graph.{side}.captures"
         self.handle = None
         self.stream = None
         if self.device.type == "cuda":
@@ -190,9 +200,14 @@ class StepGraph:
         return self.outputs
 
     def __call__(self) -> Tensors:
+        tracer = self.pool.tracer
+        if tracer is not None:
+            tracer.count(self.pool.calls_key)
         if self.pool.device.type != "cuda" or _eager_depth:
             return self._run()
         if self._graph is None:
+            if tracer is not None:
+                tracer.count(self.pool.captures_key)
             self._capture()
         else:
             self._graph.replay()

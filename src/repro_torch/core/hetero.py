@@ -69,11 +69,20 @@ addresses).
 
 Observability (``attach_tracer``): with a ``SpanTracer`` attached, the
 S-worker records one span per (step, micro-batch, layer, phase) R-Part
-round trip (dispatch -> last worker's completion) and one per step, and
-each R-worker its busy windows.  Spans are host times around dispatches,
-replays and the sink's waits, recorded outside every captured graph body;
-they add no device synchronisation, and with no tracer attached the cost
-is one attribute read per step.
+round trip (``r-rtt``: dispatch -> last worker's completion) and one per
+step (``step N``, a child of the caller's ``span_parent``), and inside
+the step ``pipe.start``, ``pipe.dispatch`` (the round trip's id),
+``pipe.sink_wait``, ``pipe.gather`` and ``pipe.advance``, from the same
+stamps as ``step_stats``; each R-worker its busy windows and, for an item
+that carries its round trip (``_run_one``), ``r.queue``, ``r.prep``,
+``r.launch``, ``r.sync`` and ``r.post`` with that round trip as parent.
+Counters: graph calls and captures (``graphs.GraphPool.tracer``), the
+D2H and gather bytes (``r.d2h_bytes``, ``s.h2d_bytes``) and kernel 1's
+work per R-Part call (``k1.calls``, ``k1.rows``, ``k1.tokens``,
+``k1.pages``).  Spans are host times around dispatches, replays and the
+sink's waits, recorded outside every captured graph body; they add no
+device synchronisation, and with no tracer attached each site costs one
+``is None`` test.
 
 Fleet management and fault supervision (``fleet=``, ``chaos=``): each
 R-worker keeps a heartbeat and a ``processing`` flag; the collect loop
@@ -323,6 +332,12 @@ class CompletionSink:
                 into[k] = v.to(self.device, non_blocking=True, copy=True)
         return into
 
+    def nbytes(self, tag) -> int:
+        """Bytes ``gather`` copies for ``tag``."""
+        _, parity, mb, li, phase = tag
+        return sum(v.numel() * v.element_size()
+                   for v in self._bufs[(parity, mb, li, phase)].values())
+
     def fence(self) -> None:
         """Invalidate all in-flight work: bump the epoch and drain the
         already-posted completions."""
@@ -410,7 +425,7 @@ class RWorker(threading.Thread):
         # ("c", layer, C[, table width]) for a prefill chunk and ("v",
         # layer, C[, table width]) for a verify (the width on paged
         # storage), in one pool on the worker's stream
-        self._pool = graphs.GraphPool(self.device, self.stream)
+        self._pool = graphs.GraphPool(self.device, self.stream, side="r")
         self._graphs: Dict[Tuple, graphs.StepGraph] = {}
         # (rows, S) -> the all-zero key positions of a cross-attention
         # slab (``D.cross_pos``): made once outside any capture, read by
@@ -440,8 +455,11 @@ class RWorker(threading.Thread):
         self.sim_row_cost = max(0.0, float(sim_row_cost))  # s/row/call
         self.sim_deliver_jitter = max(0.0, float(sim_deliver_jitter))
         self._jitter_rng = np.random.default_rng(0xD15C0 + wid)
-        # set via HeteroPipelineEngine.attach_tracer, never constructed here
+        # set via attach_tracer (the engine's), never constructed here
         self.tracer = None
+        # (mb) -> kernel 1's (tokens, pages) of this step's decode rows,
+        # counted once per R-Part call while a tracer is attached
+        self._k1_work: Dict[int, Tuple[int, int]] = {}
         self.chaos = chaos
         self._killed = False
         self.heartbeat = time.monotonic()
@@ -651,8 +669,15 @@ class RWorker(threading.Thread):
         self._step_clones.clear()
         self._cross_pos.clear()
         self.release_graphs()
-        self._pool = graphs.GraphPool(self.device, self.stream)
+        self._pool = graphs.GraphPool(self.device, self.stream, side="r")
+        self._pool.tracer = self.tracer
         self._released = True
+
+    def attach_tracer(self, tracer) -> None:
+        """Record this worker's spans and counters (its R-Part graphs'
+        too) on ``tracer``; None detaches."""
+        self.tracer = tracer
+        self._pool.tracer = tracer
 
     def release_graphs(self) -> None:
         """Free this worker's R-Part graphs and staging buffers, on the
@@ -696,14 +721,29 @@ class RWorker(threading.Thread):
         this worker's stream) only after a host mutation."""
         mb = layer // self.cfg.num_layers
         alloc = self.allocators[mb]
+        tracer = self.tracer
         if layer == self._first_paged_key(mb):
             act = r_in.get("active")
+            mask = None if act is None else act.cpu().numpy()
             alloc.ensure_lengths(r_in["lengths"].cpu().numpy() + 1,
-                                 mask=None if act is None
-                                 else act.cpu().numpy())
+                                 mask=mask)
             self._step_clones[(mb, "d")] = alloc.take_clones()
+            if tracer is not None:
+                # the rows kernel 1 attends for: the decoding ones, over
+                # their lengths after this step's append
+                rows = alloc.active if mask is None \
+                    else alloc.active & mask.astype(bool)
+                lens = alloc.lengths[rows]
+                self._k1_work[mb] = (int(lens.sum()),
+                                     int((-(-lens // alloc.page)).sum()))
         self._apply_clones(layer, mb, "d")
         alloc.tables_device()
+        if tracer is not None and not self.quantized:
+            tokens, pages = self._k1_work.get(mb, (0, 0))
+            tracer.count("k1.calls")
+            tracer.count("k1.rows", alloc.rows)
+            tracer.count("k1.tokens", tokens)
+            tracer.count("k1.pages", pages)
 
     def _grow_paged_chunk(self, layer: int, r_in, mode: str) -> int:
         """Host side of a chunk work on paged storage, a prefill chunk
@@ -886,14 +926,22 @@ class RWorker(threading.Thread):
         return out, done
 
     def _run_one(self, item) -> None:
-        tag, layer, kind, phase, r_in, sink, ready = item
+        """One R-Part item: ``(tag, layer key, kind, phase, payload, sink,
+        ready event)``, and while the S-worker traces, an eighth element
+        ``(round trip id, dispatch stamp, step)``: the spans of this item
+        (``r.queue`` .. ``r.post`` and the busy window) name that round
+        trip as their parent."""
+        tag, layer, kind, phase, r_in, sink, ready = item[:7]
+        trip = item[7] if len(item) > 7 else None
         fault = ""
         if self.chaos is not None:
             fault = self._chaos_r_step(tag, layer, kind, phase, sink)
             if fault is None:
                 return
+        tracer = self.tracer
+        pc = time.perf_counter
         try:
-            t0 = time.perf_counter()
+            t0 = pc()
             ctx = (torch.cuda.stream(self.stream) if self.stream is not None
                    else nullcontext())
             with ctx:
@@ -914,6 +962,7 @@ class RWorker(threading.Thread):
                     key = ("d", layer) + ((phase,) if phase else ())
                     if layer in self.paged_keys:
                         self._grow_paged(layer, r_in)
+                t_prep = pc() if tracer is not None else 0.0
                 if sink is None:
                     out, done = self._run_legacy(key, kind, phase, r_in)
                 elif key not in self._graphs:
@@ -930,11 +979,13 @@ class RWorker(threading.Thread):
                     g = self._graphs[key]
                     g.feed(r_in)
                     out = g()
+                t_launch = pc() if tracer is not None else 0.0
                 if self.profile_timing and self.stream is not None:
                     # outside any capture: the graph call has returned
                     self.stream.synchronize()
                 host = None if sink is None else self._to_host(out)
-            dt = time.perf_counter() - t0
+            t_sync = pc()
+            dt = t_sync - t0
             if self.slowdown > 1.0:
                 # a worker with 1/slowdown the bandwidth takes slowdown x
                 # as long for the same rows
@@ -947,13 +998,33 @@ class RWorker(threading.Thread):
                 time.sleep(extra)
                 dt += extra
             self.busy_time += dt
-            tracer = self.tracer
             if tracer is not None:
                 # busy window on this worker's own track (the straggler's
-                # sleep included, so it renders as a longer span)
-                tracer.add(f"L{layer}.p{phase}", "r-worker",
-                           f"r{self.wid}", t0, t0 + dt,
-                           {"layer": layer, "phase": phase, "kind": kind})
+                # sleep included, so it renders as a longer span) and, for
+                # a traced round trip, its parts; one lock for all
+                rid, t_disp, step = trip or (None, None, None)
+                track = f"r{self.wid}"
+                spans = [(f"L{layer}.p{phase}", "r-worker", track, t0,
+                          t0 + dt,
+                          {"layer": layer, "phase": phase, "kind": kind},
+                          None, rid, step)]
+                if trip is not None:
+                    # the wait overlaps the worker's earlier items: a
+                    # track of its own
+                    spans += [
+                        ("r.queue", "r-part", track + ".queue", t_disp, t0,
+                         None, None, rid, step),
+                        ("r.prep", "r-part", track, t0, t_prep, None, None,
+                         rid, step),
+                        ("r.launch", "r-part", track, t_prep, t_launch,
+                         None, None, rid, step),
+                        ("r.sync", "r-part", track, t_launch, t_sync, None,
+                         None, rid, step)]
+                tracer.add_spans(spans)
+                if host is not None:
+                    tracer.count("r.d2h_bytes", sum(
+                        v.numel() * v.element_size() for v in host.values()))
+            t_post = pc() if tracer is not None else 0.0
             if sink is None:
                 self.outq.put((tag, out, done))
             elif fault == "drop":
@@ -979,6 +1050,9 @@ class RWorker(threading.Thread):
                 t.start()
             else:
                 sink.post(self.wid, tag, host, self.lo, self.hi)
+            if tracer is not None and trip is not None:
+                tracer.add("r.post", "r-part", f"r{self.wid}", t_post, pc(),
+                           parent=trip[0], step=trip[2])
         except Exception as e:  # surface to the S-worker, don't deadlock
             if self.stream is not None:
                 # what this item enqueued finishes before the supervisor
@@ -1170,14 +1244,18 @@ class HeteroPipelineEngine:
         # optional obs.SpanTracer (attach_tracer); None costs one attribute
         # read per step
         self.tracer = None
+        # the caller's span that this step's ``step N`` span nests in (the
+        # serving engine's ``engine.step``), set by the caller per step
+        self.span_parent: Optional[int] = None
         self._step_no = 0
 
     def attach_tracer(self, tracer) -> None:
         """Wire (or detach, with ``None``) a span tracer into the
-        dispatch/collect path and every worker thread."""
+        dispatch/collect path, the S-side graphs and every worker thread."""
         self.tracer = tracer
+        self._s_pool.tracer = tracer
         for w in self.workers:
-            w.tracer = tracer
+            w.attach_tracer(tracer)
 
     def _lkey(self, mb: int, layer: int) -> int:
         return mb * self.num_layers + layer
@@ -1620,9 +1698,24 @@ class HeteroPipelineEngine:
         tracer = self.tracer
         step_no = self._step_no
         self._step_no += 1
-        # dispatch times for the spans (tracer only): a span is dispatch ->
+        # (tracer only) the step span's id, the parent of every ``pipe.*``
+        # span on the S-worker's track, and per dispatched tag its
+        # (dispatch stamp, round trip id): an ``r-rtt`` span is dispatch ->
         # the last worker's completion of that tag
-        disp_t: Dict[Tuple[int, int, int], float] = {}
+        step_id = tracer.next_id() if tracer is not None else None
+        disp_t: Dict[Tuple[int, int, int], Tuple[float, int]] = {}
+
+        def span(name: str, ta: float, tb: float, sid=None) -> None:
+            tracer.add(name, "pipe", "s-worker", ta, tb, id=sid,
+                       parent=step_id, step=step_no)
+
+        def spans(t0: float, t1: float, t2: float) -> None:
+            # an advance: the gather, then the fused transition
+            tracer.add_spans((
+                ("pipe.gather", "pipe", "s-worker", t0, t1, None, None,
+                 step_id, step_no),
+                ("pipe.advance", "pipe", "s-worker", t1, t2, None, None,
+                 step_id, step_no)))
         sink = self._sink
         self._parity ^= 1
         parity, epoch = self._parity, sink.epoch
@@ -1668,11 +1761,17 @@ class HeteroPipelineEngine:
                 shards = tuple(dict(sh, verify=True) for sh in shards)
             kind = self.layers[li][0]
             lkey = self._lkey(real_mb, li)
-            for w, shard in zip(self.workers, shards):
-                w.inq.put((tag, lkey, kind, phase, shard, sink, ev))
-            stats["dispatch_s"] += pc() - t0
+            trip = ()
             if tracer is not None:
-                disp_t[(mb, li, phase)] = t0
+                rid = tracer.next_id()
+                disp_t[(mb, li, phase)] = (t0, rid)
+                trip = ((rid, t0, step_no),)
+            for w, shard in zip(self.workers, shards):
+                w.inq.put((tag, lkey, kind, phase, shard, sink, ev) + trip)
+            t1 = pc()
+            stats["dispatch_s"] += t1 - t0
+            if tracer is not None:
+                span("pipe.dispatch", t0, t1, rid)
 
         def advance(mb: int, li: int, phase: int) -> None:
             nonlocal active
@@ -1680,13 +1779,17 @@ class HeteroPipelineEngine:
             if any(issue_seq[t] < me for t in pending):
                 stats["ooo_advances"] += 1.0
             t0 = pc()
-            sink.gather((epoch, parity, mb, li, phase),
-                        self._advance_graph(mb, li, phase,
-                                            carries[mb]).inputs)
+            tag = (epoch, parity, mb, li, phase)
+            sink.gather(tag, self._advance_graph(mb, li, phase,
+                                                 carries[mb]).inputs)
             t1 = pc()
             stats["collect_s"] += t1 - t0
             carry, out = self._advance(mb, li, phase, carries[mb])
-            stats["s_dispatch_s"] += pc() - t1
+            t2 = pc()
+            stats["s_dispatch_s"] += t2 - t1
+            if tracer is not None:
+                spans(t0, t1, t2)
+                tracer.count("s.h2d_bytes", sink.nbytes(tag))
             if carry is None:
                 logits_out[mb] = out
                 emit_at[mb] = pc() - t_step0
@@ -1707,16 +1810,20 @@ class HeteroPipelineEngine:
             free_ride = (sink.q.empty()
                          or all(lg is not None for lg in logits_out))
             t0 = pc()
-            sink.gather((epoch, parity, vmb, li, phase),
-                        self._chunk_advance_graph(wk, li, phase,
-                                                  chunk_carries[vmb]).inputs)
+            tag = (epoch, parity, vmb, li, phase)
+            sink.gather(tag, self._chunk_advance_graph(
+                wk, li, phase, chunk_carries[vmb]).inputs)
             t1 = pc()
             stats["collect_s"] += t1 - t0
             carry, out = self._chunk_advance(wk, li, phase,
                                              chunk_carries[vmb])
-            stats["s_dispatch_s"] += pc() - t1
+            t2 = pc()
+            stats["s_dispatch_s"] += t2 - t1
+            if tracer is not None:
+                spans(t0, t1, t2)
+                tracer.count("s.h2d_bytes", sink.nbytes(tag))
             if free_ride:
-                stats["prefill_s"] += pc() - t0
+                stats["prefill_s"] += t2 - t0
             if carry is None:
                 wk.logits = out
                 active -= 1
@@ -1727,13 +1834,19 @@ class HeteroPipelineEngine:
         for mb in range(self.num_mb if run_decode else 0):
             t0 = pc()
             carries[mb], shards = self._start(mb, tokens_per_mb[mb])
-            stats["s_dispatch_s"] += pc() - t0
+            t1 = pc()
+            stats["s_dispatch_s"] += t1 - t0
+            if tracer is not None:
+                span("pipe.start", t0, t1)
             dispatch(mb, 0, 0, shards)
         for wk in works:
             t0 = pc()
             chunk_carries[wk.vmb], shards = self._chunk_start(wk)
-            stats["s_dispatch_s"] += pc() - t0
-            stats["prefill_s"] += pc() - t0
+            t1 = pc()
+            stats["s_dispatch_s"] += t1 - t0
+            stats["prefill_s"] += t1 - t0
+            if tracer is not None:
+                span("pipe.start", t0, t1)
             dispatch(wk.vmb, 0, 0, shards)
 
         # poll the sink in short slices (not one fatal blocking get) and
@@ -1751,12 +1864,17 @@ class HeteroPipelineEngine:
                 try:
                     wid, tag, err = sink.q.get(timeout=poll_s)
                 except queue.Empty:
-                    stats["r_wait_s"] += pc() - t0
+                    t1 = pc()
+                    stats["r_wait_s"] += t1 - t0
+                    if tracer is not None:
+                        span("pipe.sink_wait", t0, t1)
                     self._check_stall(pending, works, strikes,
                                       pc() - last_progress, step_no)
                     continue
                 last_progress = pc()
                 wait = last_progress - t0
+                if tracer is not None:
+                    span("pipe.sink_wait", t0, last_progress)
                 stats["r_wait_s"] += wait
                 if works and all(lg is not None for lg in logits_out):
                     # every decode micro-batch has emitted: this wait
@@ -1794,10 +1912,11 @@ class HeteroPipelineEngine:
                 if tracer is not None:
                     track = (f"mb{mb}" if mb < self.num_mb
                              else f"prefill-vmb{mb - self.num_mb}")
-                    tracer.add(f"L{li}.p{phase}", "r-rtt", track,
-                               disp_t.pop((mb, li, phase), t0), pc(),
-                               {"step": step_no, "mb": mb, "layer": li,
-                                "phase": phase})
+                    t_disp, rid = disp_t.pop((mb, li, phase), (t0, None))
+                    tracer.add(f"L{li}.p{phase}", "r-rtt", track, t_disp,
+                               pc(), {"step": step_no, "mb": mb, "layer": li,
+                                      "phase": phase}, id=rid,
+                               parent=step_id)
                 if mb >= self.num_mb:
                     advance_chunk(mb, li, phase)
                 elif self.schedule == "fifo":
@@ -1834,7 +1953,8 @@ class HeteroPipelineEngine:
             # inside it
             tracer.add(f"step {step_no}", "step", "s-worker", t_step0,
                        t_step0 + stats["step_s"],
-                       {"step": step_no, "prefill_chunks": len(works)})
+                       {"step": step_no, "prefill_chunks": len(works)},
+                       id=step_id, parent=self.span_parent)
         self.last_step_stats = stats
         for k, v in stats.items():
             self.step_stats[k] = self.step_stats.get(k, 0.0) + v
@@ -2262,7 +2382,7 @@ class HeteroPipelineEngine:
         self.workers = workers
         self.slices = new_slices
         for w in workers:            # keep span capture across topology
-            w.tracer = self.tracer   # changes (the worker list is new)
+            w.attach_tracer(self.tracer)   # changes (the list is new)
         self.topology_changes += 1
         self.last_migration = {
             "moved_rows_count": moved * self.num_mb,

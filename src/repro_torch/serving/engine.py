@@ -443,6 +443,12 @@ class ServingEngine:
         self._topo_seen = (tuple(self.engine.slices)
                            if backend == "hetero" else None)
 
+        # the span tracer (attach_tracer, or observability's): None costs
+        # one test per span site
+        self.tracer = None
+        # (tracer only) the ids of this step's engine.step and engine.admit
+        self._step_span: Optional[int] = None
+        self._admit_span: Optional[int] = None
         # observability: off by default, and then every hook is one
         # ``self.obs is None`` test.  True enables the defaults; an ObsConfig
         # tunes the span ring and the drift calibration
@@ -475,8 +481,30 @@ class ServingEngine:
                     "pass observability=True|ObsConfig() to enable")
             return
         self.obs = self._obs_obj if on else None
+        self.attach_tracer(self._obs_obj.tracer if on else None)
+
+    def attach_tracer(self, tracer) -> None:
+        """Record spans and counters on ``tracer`` (an
+        ``obs.SpanTracer``), or stop with None: the engine's own spans
+        (``engine.step`` and its children ``engine.admit``,
+        ``engine.prefill``, ``engine.upload``, ``engine.sample``,
+        ``engine.emit``, ``engine.fleet``), the pipeline's (``step N``,
+        ``pipe.*``, ``r-rtt``) and the R-workers' (busy windows,
+        ``r.*``), and the counters of graphs, protocol bytes and kernel
+        1's work.  It wires no metrics registry, timeline or drift
+        monitor (``set_observability`` does, with its own tracer)."""
+        self.tracer = tracer
         if self.backend == "hetero":
-            self.engine.attach_tracer(self._obs_obj.tracer if on else None)
+            self.engine.attach_tracer(tracer)
+
+    def _span(self, name: str, t_start: float, t_end: float,
+              sid: Optional[int] = None, parent: Optional[int] = None
+              ) -> None:
+        """An ``engine.*`` span of the current step (tracer attached), a
+        child of its ``engine.step`` unless ``parent`` says otherwise."""
+        self.tracer.add(name, "engine", "s-worker", t_start, t_end, id=sid,
+                        parent=self._step_span if parent is None else parent,
+                        step=self.step_idx)
 
     def _hetero_init_empty(self, mb: int) -> None:
         self.engine.load_mb_state(mb, M.init_decode_state(
@@ -890,6 +918,7 @@ class ServingEngine:
 
     def _place_monolithic(self, reqs: List[Request],
                           rows: List[int]) -> None:
+        t_pre = time.perf_counter() if self.tracer is not None else 0.0
         if self.obs is not None:
             self._obs_admit(reqs)
         max_p = max(r.feed_len for r in reqs)
@@ -940,6 +969,9 @@ class ServingEngine:
             for row, r in zip(rows, reqs):
                 if self.slots[row] is not None:
                     self.engine.register_prefix(row, r.feed_tokens)
+        if self.tracer is not None:
+            self._span("engine.prefill", t_pre, time.perf_counter(),
+                       parent=self._admit_span)
 
     # ------------------------------------------------------------------ #
     # chunked prefill: an admitted prompt is PREFILLING and streams in
@@ -1572,12 +1604,23 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def step(self) -> StepRecord:
         pc = time.perf_counter
+        tracer = self.tracer
+        t_step = pc()
+        if tracer is not None:
+            # the id every span of this step names as its (grand)parent
+            self._step_span = tracer.next_id()
+            self._admit_span = tracer.next_id()
+            if self.backend == "hetero":
+                self.engine.span_parent = self._step_span
         fleet_wall = 0.0
         if self.fleet is not None:
             t0 = pc()
             self.fleet.pre_step(reprefill=self._replay_rows,
                                 on_topology=self._recost_admission)
-            fleet_wall += pc() - t0
+            t1 = pc()
+            fleet_wall += t1 - t0
+            if tracer is not None:
+                self._span("engine.fleet", t0, t1)
         if self.backend == "hetero":
             topo = tuple(self.engine.slices)
             if topo != self._topo_seen:
@@ -1591,7 +1634,7 @@ class ServingEngine:
                         if r is not None:
                             r.mark("migrated", self.step_idx)
                             self.obs.migrated.inc()
-        t0 = pc()
+        t_admit = pc()
         n = self._admit_count()
         if self.preempt_after and self.paged_kv:
             # admission pressure: queued work, free slots, but the page
@@ -1610,9 +1653,12 @@ class ServingEngine:
             self._place(reqs)
         if self._uses_chunks:
             self._queue_prefill_chunks()
-        prefill_wall = pc() - t0
+        # one stamp ends the admission and starts the decode
+        t_up = pc()
+        prefill_wall = t_up - t_admit
+        if tracer is not None:
+            self._span("engine.admit", t_admit, t_up, sid=self._admit_span)
 
-        t0 = pc()
         if self.spec is not None:
             # speculative decoding replaces decode + sample wholesale:
             # draft on the S-resident drafter, score the candidates in one
@@ -1621,21 +1667,27 @@ class ServingEngine:
             # accepted prefix
             emitted = self._spec_step()
             self.last_logits = None
-            decode_wall = pc() - t0
+            decode_wall = pc() - t_up
             prefill_wall += self._land_prefill_chunks()
             return self._record(n, prefill_wall, decode_wall, emitted,
-                                fleet_wall)
+                                fleet_wall, t_step)
         toks = torch.from_numpy(self._last_tok[:, None].copy()).to(
             self.device)
+        if tracer is not None:
+            self._span("engine.upload", t_up, pc())
         if self.backend == "hetero":
             logits = self._decode_supervised(toks)
         else:
             logits = self.engine.decode_step(toks)
         self.last_logits = logits
+        t_sample = pc() if tracer is not None else 0.0
         new_tok = self._sample_tokens(
             logits, [r if r is not None and r.status is Status.RUNNING
                      else None for r in self.slots])
-        decode_wall = pc() - t0
+        t_emit = pc()
+        decode_wall = t_emit - t_up
+        if tracer is not None:
+            self._span("engine.sample", t_sample, t_emit)
         if self.backend == "hetero":
             # chunk work inside the pipelined step (S-side chunk time that
             # held no decode micro-batch back, and waits that served only
@@ -1644,7 +1696,7 @@ class ServingEngine:
             decode_wall -= min(chunk_s, decode_wall)
             prefill_wall += chunk_s
 
-        t_now = pc() if self.obs is not None else 0.0
+        t_now = t_emit
         emitted = 0
         for i, r in enumerate(self.slots):
             if r is None or r.status is not Status.RUNNING:
@@ -1659,8 +1711,10 @@ class ServingEngine:
             if reason is not None:
                 self._finish_row(i, r, reason)
         prefill_wall += self._land_prefill_chunks()
+        if tracer is not None:
+            self._span("engine.emit", t_emit, pc())
         return self._record(n, prefill_wall, decode_wall, emitted,
-                            fleet_wall)
+                            fleet_wall, t_step)
 
     def _land_prefill_chunks(self) -> float:
         """After the token loop (a sequence whose last chunk landed this
@@ -1674,11 +1728,15 @@ class ServingEngine:
 
     def _record(self, admitted: int, prefill_wall: float,
                 decode_wall: float, emitted: int,
-                fleet_wall: float) -> StepRecord:
+                fleet_wall: float, t_step: float) -> StepRecord:
+        tracer = self.tracer
         if self.fleet is not None:
             t0 = time.perf_counter()
             self.fleet.post_step(self.step_idx)
-            fleet_wall += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            fleet_wall += t1 - t0
+            if tracer is not None:
+                self._span("engine.fleet", t0, t1)
         obs = self.obs
         if obs is not None and obs.drift is not None:
             obs.drift.observe_step(
@@ -1689,6 +1747,10 @@ class ServingEngine:
                          fleet_wall, sum(r is not None for r in self.slots),
                          self.resident_len(), admitted)
         self.records.append(rec)
+        if tracer is not None:
+            tracer.add("engine.step", "engine", "s-worker", t_step,
+                       time.perf_counter(), id=self._step_span,
+                       step=self.step_idx)
         self.step_idx += 1
         return rec
 

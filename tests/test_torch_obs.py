@@ -10,10 +10,16 @@ against repro.obs and the JAX engine on the same inputs:
   same ``request_timeline`` event names and steps;
 - the drift twins: a straggler made with ``sim_row_cost`` after
   calibration is flagged, a healthy fleet stays quiet;
-- observability on and off give identical tokens and logits."""
+- observability on and off give identical tokens and logits, and so does
+  a bare tracer (``attach_tracer``);
+- the port's own spans (``engine.*``, ``pipe.*``, ``r.*``) form one tree
+  per step, timed from the stamps of the step's walls, and its clock
+  anchors place spans on a ``torch.profiler`` timeline."""
 import dataclasses
 import json
+import statistics
 import threading
+import time
 
 import jax
 import numpy as np
@@ -172,15 +178,19 @@ def _prompts(cfg, n, seed=0, lo=3, hi=8):
 
 
 def _serve(port, model, prompts, *, max_new=4, arrive=None, preempt=None,
-           logits=None, **kw):
+           logits=None, spans=None, tracer=None, **kw):
     """Serve ``prompts`` on the port's engine (``port``) or the JAX one;
     ``arrive`` {rid: step}, ``preempt`` {step: rid} preempts before a
-    step; ``logits`` (a list, port only) receives each step's logits.
+    step; ``logits`` (a list, port only) receives each step's logits,
+    ``spans`` (a list, port only) the engine's tracer's spans, and
+    ``tracer`` (port only) is attached with ``attach_tracer``.
     Returns (engine metrics, {rid: timeline (event, step)}, {rid:
     tokens})."""
     jc, tc, jp, tp = model
     if port:
         eng = ServingEngine(tp, tc, device="cpu", **kw)
+        if tracer is not None:
+            eng.attach_tracer(tracer)
         R = Request
     else:
         eng = JServingEngine(jp, jc, **kw)
@@ -200,7 +210,12 @@ def _serve(port, model, prompts, *, max_new=4, arrive=None, preempt=None,
                 logits.append(None if eng.last_logits is None
                               else eng.last_logits.clone())
             assert eng.step_idx < 200
+        if port and eng.backend == "hetero":
+            # an R-worker records its last span after its last post
+            eng._quiesce_workers()
         m = eng.metrics()
+        if spans is not None and port:
+            spans.extend(eng.tracer.spans())
         tl = {r.rid: [e[:2] for e in eng.request_timeline(r.rid)]
               for r in eng.finished}
         toks = {r.rid: [int(t) for t in r.generated] for r in eng.finished}
@@ -211,9 +226,10 @@ def _serve(port, model, prompts, *, max_new=4, arrive=None, preempt=None,
 
 
 # counts fixed by the trace (host-clock values and scheduling-dependent
-# counters such as ooo advances are left out)
+# counters such as ooo advances are left out; the span count is compared
+# on the spans repro records, as the port records more)
 def _counts(m):
-    host = ("hotpath_ooo_advances_count",)
+    host = ("hotpath_ooo_advances_count", "trace_spans_count")
     return {k: v for k, v in m.items()
             if k.endswith(("_count", "_tokens", "_pages"))
             and not k.startswith("drift_") and k not in host}
@@ -263,12 +279,18 @@ def test_metrics_and_timelines_match_jax_engine(model, name):
         from repro.serving.engine import SpecConfig as JSpecConfig
         tkw["spec_decode"], jkw["spec_decode"] = SpecConfig(k=2), \
             JSpecConfig(k=2)
+    spans = []
     mt, tlt, tt = _serve(True, model, prompts, observability=True,
-                         **run_kw, **tkw)
+                         spans=spans, **run_kw, **tkw)
     mj, tlj, tj = _serve(False, model, prompts, observability=True,
                          **run_kw, **jkw)
     TO.assert_conforms(mt)
     assert tt == tj
+    # the spans repro records (steps, round trips, R-worker busy windows),
+    # one for one; the port's own (engine.*, pipe.*, r.*) besides
+    assert mt["trace_spans_count"] == len(spans)
+    assert sum(s["cat"] in ("step", "r-rtt", "r-worker") for s in spans) \
+        == mj["trace_spans_count"]
     # the port's tier also reports the seconds its real page copies took
     port_only = {"tier_swap_out_copy_s", "tier_restore_copy_s"} \
         if "tier" in name else set()
@@ -301,18 +323,26 @@ def test_observability_on_equals_off(model, name):
     if kw.get("spec_decode") == "k2":
         kw["spec_decode"] = SpecConfig(k=2)
     prompts, run_kw = _trace(name, jc)
-    lg_on, lg_off = [], []
+    lg_on, lg_off, lg_tr = [], [], []
     m_on, _, on = _serve(True, model, prompts, observability=True,
                          logits=lg_on, **run_kw, **kw)
     m_off, tl_off, off = _serve(True, model, prompts, logits=lg_off,
                                 **run_kw, **kw)
-    assert on == off
-    assert len(lg_on) == len(lg_off)
-    for a, b in zip(lg_on, lg_off):
-        assert (a is None) == (b is None)
+    tracer = TO.SpanTracer()
+    m_tr, tl_tr, traced = _serve(True, model, prompts, logits=lg_tr,
+                                 tracer=tracer, **run_kw, **kw)
+    assert on == off == traced
+    assert len(lg_on) == len(lg_off) == len(lg_tr)
+    for a, b, c in zip(lg_on, lg_off, lg_tr):
+        assert (a is None) == (b is None) == (c is None)
         if a is not None:
-            assert torch.equal(a, b)
+            assert torch.equal(a, b) and torch.equal(c, b)
     assert "ttft_s_p50" in m_on and "ttft_s_p50" not in m_off
+    # the bare tracer recorded spans and counters, and wired no registry
+    # or timeline
+    assert tracer.added > 0 and tracer.counters()["graph.s.calls"] > 0
+    assert "ttft_s_p50" not in m_tr and "trace_spans_count" not in m_tr
+    assert all(events == [] for events in tl_tr.values())
     assert all(events == [] for events in tl_off.values())
 
 
@@ -325,6 +355,7 @@ def test_trace_export_nests_and_toggles(model, tmp_path):
         for i, p in enumerate(_prompts(jc, 6)):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=4))
         eng.run(max_steps=100)
+        eng._quiesce_workers()
         doc = json.load(open(eng.export_trace(str(tmp_path / "t.json"))))
         xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
         steps = {e["args"]["step"]: e for e in xs if e["cat"] == "step"}
@@ -343,24 +374,178 @@ def test_trace_export_nests_and_toggles(model, tmp_path):
             chain.sort(key=lambda e: e["ts"])
             lp = [(e["args"]["layer"], e["args"]["phase"]) for e in chain]
             assert lp == sorted(lp)
-        # one r-rtt span per (step, micro-batch, layer), a step span per
-        # step and a busy window per worker and dispatch
+        # per step: a step span and the engine's five (engine.step, admit,
+        # upload, sample, emit) and one engine.prefill where it admitted;
+        # per micro-batch a pipe.start; per (micro-batch, layer) a
+        # dispatch, an r-rtt, a gather and an advance, and for each of
+        # the 2 workers a busy window and its five r.* spans; a
+        # pipe.sink_wait per completion taken and per empty poll
         n_steps = eng.step_idx
+        n_prefill = sum(1 for r in eng.records if r.admitted)
+        n_wait = sum(e["name"] == "pipe.sink_wait" for e in xs)
+        n_trips = n_steps * 2 * tc.num_layers
         assert len(steps) == n_steps
-        assert len(rtts) == n_steps * 2 * tc.num_layers
+        assert len(rtts) == n_trips
+        assert n_wait >= 2 * n_trips
         assert eng.metrics()["trace_spans_count"] == len(xs) == \
-            n_steps * (1 + 2 * tc.num_layers * (1 + 2))
+            n_steps * (1 + 5 + 2) + n_prefill + n_trips * (4 + 2 * 6) \
+            + n_wait
         # toggled off: the tracer is detached, nothing more is recorded
         eng.set_observability(False)
         eng.submit(Request(rid=9, prompt=_prompts(jc, 1)[0],
                            max_new_tokens=2))
         eng.run(max_steps=10)
         assert eng._obs_obj.tracer.added == len(xs)
-        assert eng.engine.tracer is None
+        assert eng.engine.tracer is None and eng.tracer is None
         assert all(w.tracer is None for w in eng.engine.workers)
         assert eng.request_timeline(9) == []
     finally:
         eng.close()
+
+
+def test_span_tree_of_a_traced_serve(model):
+    """A paged hetero serve (2 micro-batches, 2 R-workers) under a bare
+    tracer: every S-worker span nests, by parent and in time, in its
+    ``engine.step``; every R-worker span names a ``pipe.dispatch`` of the
+    same pipeline step as its parent, whose id is its ``r-rtt`` span's;
+    the step's walls are its spans' stamps; detached, nothing more is
+    recorded."""
+    jc, tc, _, tp = model
+    eng = ServingEngine(tp, tc, batch=4, cache_len=48, backend="hetero",
+                        num_microbatches=2, num_r_workers=2, paged_kv=True,
+                        page_size=4, device="cpu")
+    tr = TO.SpanTracer()
+    eng.attach_tracer(tr)
+    try:
+        for i, p in enumerate(_prompts(jc, 6)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+        eng.run(max_steps=100)
+        eng._quiesce_workers()
+        spans = tr.spans()
+        assert tr.dropped == 0 and eng.obs is None
+        for sp in spans:
+            sp["te"] = sp["ts_s"] + sp["dur_s"]
+        # a round trip's r-rtt span shares its pipe.dispatch's id; every
+        # other id names one span
+        owners = [sp for sp in spans
+                  if "id" in sp["args"] and sp["cat"] != "r-rtt"]
+        by_id = {sp["args"]["id"]: sp for sp in owners}
+        assert len(by_id) == len(owners)
+        steps = [sp for sp in spans if sp["name"] == "engine.step"]
+        assert len(steps) == eng.step_idx
+        eps = 1e-9
+
+        def inside(sp, outer):
+            return (outer["ts_s"] - eps <= sp["ts_s"]
+                    and sp["te"] <= outer["te"] + eps)
+
+        def root(sp):
+            while sp["name"] != "engine.step":
+                sp = by_id[sp["args"]["parent"]]
+            return sp
+
+        s_side = [sp for sp in spans if sp["track"] == "s-worker"]
+        for sp in s_side:
+            top = root(sp)
+            assert inside(sp, top), sp["name"]
+            kind = sp["name"].split(".")[0].split(" ")[0]
+            parent = by_id.get(sp["args"].get("parent"))
+            if sp["name"] == "engine.prefill":
+                # the monolithic prefill, inside the admission
+                assert parent["name"] == "engine.admit"
+                assert inside(sp, parent)
+            elif kind == "engine" and sp is not top:
+                assert parent is top and sp["args"]["step"] == \
+                    top["args"]["step"]
+            elif kind == "step":
+                assert parent is top
+            elif kind == "pipe":
+                assert parent["cat"] == "step" and inside(sp, parent)
+                assert sp["args"]["step"] == parent["args"]["step"]
+        # each engine step's children do not overlap and stay inside its
+        # wall; its record's walls are the same stamps
+        for top, rec in zip(steps, eng.records):
+            kids = sorted((sp for sp in s_side if sp["args"].get("parent")
+                           == top["args"]["id"]), key=lambda x: x["ts_s"])
+            assert {k["name"] for k in kids} >= {
+                "engine.admit", "engine.upload", "engine.sample",
+                "engine.emit"}
+            for a, b in zip(kids, kids[1:]):
+                assert a["te"] <= b["ts_s"] + eps
+            admit = next(k for k in kids if k["name"] == "engine.admit")
+            assert admit["dur_s"] == rec.prefill_wall
+            up = next(k for k in kids if k["name"] == "engine.upload")
+            smp = next(k for k in kids if k["name"] == "engine.sample")
+            assert up["ts_s"] == admit["te"] or \
+                abs(up["ts_s"] - admit["te"]) < eps
+            assert abs(smp["te"] - up["ts_s"] - rec.decode_wall) < eps
+            pre = [sp for sp in s_side if sp["name"] == "engine.prefill"
+                   and sp["args"]["parent"] == admit["args"]["id"]]
+            assert len(pre) == (1 if rec.admitted else 0)
+        # the R side: every r.* span and busy window hangs off a dispatch
+        # of its own pipeline step, which is its round trip
+        dispatches = {sp["args"]["id"]: sp for sp in s_side
+                      if sp["name"] == "pipe.dispatch"}
+        r_side = [sp for sp in spans if sp["cat"] in ("r-part", "r-worker")]
+        assert {sp["name"] for sp in r_side if sp["cat"] == "r-part"} == {
+            "r.queue", "r.prep", "r.launch", "r.sync", "r.post"}
+        for sp in r_side:
+            d = dispatches[sp["args"]["parent"]]
+            assert sp["args"]["step"] == d["args"]["step"]
+            assert d["ts_s"] - eps <= sp["ts_s"]
+        rtts = [sp for sp in spans if sp["cat"] == "r-rtt"]
+        assert {sp["args"]["id"] for sp in rtts} == set(dispatches)
+        n_items = len(rtts) * 2
+        assert sum(sp["cat"] == "r-worker" for sp in r_side) == n_items
+        c = tr.counters()
+        assert c["graph.r.calls"] == n_items
+        assert c["k1.calls"] == n_items
+        assert c["r.d2h_bytes"] == c["s.h2d_bytes"] > 0
+        assert c.get("graph.s.captures", 0) == 0
+        # detached: nothing more is recorded anywhere
+        eng.attach_tracer(None)
+        assert eng.engine._s_pool.tracer is None
+        assert all(w.tracer is None and w._pool.tracer is None
+                   for w in eng.engine.workers)
+        added, counts = tr.added, tr.counters()
+        eng.submit(Request(rid=9, prompt=_prompts(jc, 1)[0],
+                           max_new_tokens=3))
+        eng.run(max_steps=10)
+        eng._quiesce_workers()
+        assert tr.added == added and tr.counters() == counts
+    finally:
+        eng.close()
+
+
+def test_clock_anchors_place_spans_on_the_profiler_timeline():
+    """Under a CPU ``torch.profiler``, two ``mark_clock`` anchors map a
+    span taken around a ``record_function``-wrapped sleep onto that
+    profiler event, within 0.1 ms at each end (the median of five)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.obs.spans import CLOCK_EVENT, clock_map
+    tr = TO.SpanTracer()
+    stamps = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.mark_clock()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with record_function("work"):
+                time.sleep(0.005)
+            stamps.append((t0, time.perf_counter()))
+        tr.mark_clock()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    ends = [e.time_range.end for e in events if e.name == CLOCK_EVENT]
+    work = [e.time_range for e in events if e.name == "work"]
+    assert len(ends) == len(tr.clock) == 2 and len(work) == 5
+    to_us = clock_map(tr.clock, ends)
+    lead = statistics.median(w.start - to_us(a)
+                             for (a, _), w in zip(stamps, work))
+    lag = statistics.median(to_us(b) - w.end
+                            for (_, b), w in zip(stamps, work))
+    assert abs(lead) <= 100.0 and abs(lag) <= 100.0, (lead, lag)
+    with pytest.raises(ValueError):
+        clock_map(tr.clock, ends[:1])
 
 
 def test_observability_off_surfaces(model):
